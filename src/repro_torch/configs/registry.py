@@ -1,0 +1,23 @@
+"""Config registry: ``--arch <id>`` resolution for the port's launchers.
+
+Only the archs the port can serve are registered; the others arrive with
+the slices that port their model families (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import ArchConfig
+
+_MODULES = {
+    "yi-9b": "yi_9b",
+}
+
+
+def get_config(name: str, smoke: bool = False, **overrides) -> ArchConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch '{name}'; the port knows "
+                       f"{sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    cfg = mod.SMOKE if smoke else mod.CONFIG
+    return cfg.replace(**overrides) if overrides else cfg

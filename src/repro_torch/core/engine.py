@@ -1,0 +1,161 @@
+"""The AttentionEngine: one spec, one state, one serving lifecycle.
+
+Port of ``repro.core.engine`` for ``lln`` and ``lln_diag``:
+:class:`AttentionState` holds one layer's LLN decode state (``s``/``z``/
+``c_k``), the §4.2 diag tails at the G kv heads, the per-row position and
+calibration; :class:`AttentionEngine` binds an
+:class:`~repro_torch.kernels.registry.AttnSpec` to a layer's head geometry
+and runs ``init_state -> prefill -> decode*``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.registry import AttnSpec
+from . import moment_matching as mm
+from .attention import LLNDecodeState, batch_alpha_beta, decode_lln_chunk
+from .lln import LLNState
+
+LLN_FIELDS = ("s", "z", "c_k", "tail_k", "tail_v", "pos", "alpha", "beta",
+              "log_scale")
+
+
+@dataclasses.dataclass
+class AttentionState:
+    """Per-layer LLN(+diag) decode state.
+
+    s (B,H,D,Dv) fp32, z (B,H,D) fp32, c_k (B,1,H,1) fp32, tail_k/tail_v
+    (B,BLK,G,D[v]) in the compute dtype, pos (B,) int32, alpha/beta (B,H)
+    fp32 (beta repeated from the G groups), log_scale (B,H) fp32.
+    """
+    s: torch.Tensor
+    z: torch.Tensor
+    c_k: torch.Tensor
+    tail_k: torch.Tensor
+    tail_v: torch.Tensor
+    pos: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    log_scale: torch.Tensor
+
+    def replace(self, **kw) -> "AttentionState":
+        return dataclasses.replace(self, **kw)
+
+
+def _tail_of(t: torch.Tensor, n: int, blk: int) -> torch.Tensor:
+    """Contents of the (partially filled) last ``blk``-sized block."""
+    nb = -(-n // blk)
+    pad = nb * blk - n
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))[:, (nb - 1) * blk:]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionEngine:
+    """One attention configuration bound to one layer's head geometry."""
+    spec: AttnSpec
+    heads: int
+    kv_heads: int
+    head_dim: int
+    v_dim: int
+
+    @property
+    def state_dtype(self) -> torch.dtype:
+        return torch_dtype(self.spec.precision)
+
+    @classmethod
+    def from_cfg(cls, cfg) -> "AttentionEngine":
+        h, g, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        return cls(spec=AttnSpec.from_cfg(cfg, r=h // g), heads=h,
+                   kv_heads=g, head_dim=d, v_dim=d)
+
+    def init_state(self, batch: int, device) -> AttentionState:
+        """Zeroed decode state for ``batch`` rows (per-row pos and
+        calibration)."""
+        h, g, d, dv = self.heads, self.kv_heads, self.head_dim, self.v_dim
+        blk = self.spec.diag_block
+        f32 = dict(dtype=torch.float32, device=device)
+        return AttentionState(
+            s=torch.zeros(batch, h, d, dv, **f32),
+            z=torch.zeros(batch, h, d, **f32),
+            c_k=torch.zeros(batch, 1, h, 1, **f32),
+            tail_k=torch.zeros(batch, blk, g, d, dtype=self.state_dtype,
+                               device=device),
+            tail_v=torch.zeros(batch, blk, g, dv, dtype=self.state_dtype,
+                               device=device),
+            pos=torch.zeros(batch, dtype=torch.int32, device=device),
+            alpha=torch.ones(batch, h, **f32),
+            beta=torch.ones(batch, h, **f32),
+            log_scale=torch.zeros(batch, h, **f32))
+
+    def calibrate(self, q, k, n: Optional[int] = None):
+        """Batch-pooled moment-matched (alpha (H,), beta (G,))."""
+        return batch_alpha_beta(q, k, self.spec, n=n)
+
+    def _length_gain(self, n):
+        """beta(n) schedule gain at depth ``n``; None when it is off."""
+        if self.spec.beta_n <= 0.0:
+            return None
+        return mm.length_gain(n, self.spec.beta_n, self.spec.calib_len)
+
+    def prefill(self, q, k, v, *, alpha=None, beta=None):
+        """Causal forward over the prompt; returns ``(out, state)``.
+        q: (B,N,H,D); k/v: (B,N,G,D[v]).  The LLN outputs and the O(d^2)
+        state come from one pass; ``lln_diag`` averages in the block-diag
+        softmax.  ``alpha``/``beta`` override the calibration."""
+        b, n, h, _ = q.shape
+        g = k.shape[2]
+        spec = self.spec
+        if alpha is None or beta is None:
+            alpha, beta = self.calibrate(q, k, n=n)
+        # The prefill runs at the prompt-length temperature; the state keeps
+        # the base calibration and decode re-derives the gain from pos.
+        gain = self._length_gain(n)
+        use_alpha, use_beta = alpha, beta
+        if gain is not None:
+            use_alpha = torch.as_tensor(alpha, dtype=torch.float32) * gain
+            use_beta = torch.as_tensor(beta, dtype=torch.float32) * gain
+        lln_out, s, z, c_k = kreg.prefill(spec, q, k, v, use_alpha, use_beta)
+        if spec.impl == "lln_diag":
+            diag_out = kreg.diag_fwd(spec, q, k, v)
+            out = (0.5 * (lln_out.float() + diag_out.float())).to(v.dtype)
+        else:
+            out = lln_out
+        blk = spec.diag_block
+        f32 = dict(dtype=torch.float32, device=q.device)
+        beta_h = torch.as_tensor(beta, **f32)
+        if beta_h.shape[-1] == g and g != h:
+            beta_h = torch.repeat_interleave(beta_h, h // g, dim=-1)
+        state = AttentionState(
+            s=s, z=z, c_k=c_k,
+            tail_k=_tail_of(k, n, blk).to(self.state_dtype),
+            tail_v=_tail_of(v, n, blk).to(self.state_dtype),
+            pos=torch.full((b,), n, dtype=torch.int32, device=q.device),
+            alpha=torch.as_tensor(alpha, **f32).expand(b, h).clone(),
+            beta=beta_h.expand(b, h).clone(),
+            log_scale=torch.zeros(b, h, **f32))
+        return out, state
+
+    def decode(self, state: AttentionState, q, k, v):
+        """Advance ``state`` over T >= 1 new tokens; returns
+        ``(out (B,T,H,Dv), new state)``."""
+        alpha_d, beta_d = state.alpha, state.beta
+        gain = self._length_gain(state.pos)
+        if gain is not None:
+            gain = gain.to(state.alpha.device)[..., None]
+            alpha_d, beta_d = state.alpha * gain, state.beta * gain
+        st = LLNDecodeState(
+            lln=LLNState(s=state.s, z=state.z, c_k=state.c_k,
+                         log_scale=state.log_scale),
+            tail_k=state.tail_k, tail_v=state.tail_v, pos=state.pos)
+        out, st2 = decode_lln_chunk(st, q, k, v, alpha_d, beta_d,
+                                    impl=self.spec.impl,
+                                    backend=self.spec.backend)
+        return out, state.replace(
+            s=st2.lln.s, z=st2.lln.z, c_k=st2.lln.c_k,
+            log_scale=st2.lln.log_scale, tail_k=st2.tail_k,
+            tail_v=st2.tail_v, pos=st2.pos)

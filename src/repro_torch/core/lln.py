@@ -1,0 +1,132 @@
+"""Linear Log-Normal (LLN) attention — the paper's core contribution (eq. 8-9).
+
+Port of ``repro.core.lln``: the plain PyTorch reference of the causal LLN
+forward, the state-emitting prefill and the chunked decode.  These are the
+oracles the kernels' plain versions and the ``ref`` backend are held to.
+
+Feature maps Phi_Q(q) = exp(alpha*q - c_q), Phi_K(k) = exp(beta*k - c_k)
+with per-(batch, head) stop-gradient maxima c_q, c_k: the normalized form is
+exactly invariant to them, so they only keep ``exp`` in range.  Decode
+carries the key constant ``c_k`` with the state and rescales the state when
+a new key raises it.
+
+Layout: (batch, seq, heads, head_dim) for q/k, (batch, seq, heads, v_dim)
+for v; k/v here carry the full H heads (the caller repeats GQA kv heads).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+EPS = 1e-6
+
+
+def _stab_const(x: torch.Tensor) -> torch.Tensor:
+    """Per-(batch, head) max over seq and feature, (B, 1, H, 1); 0 where
+    the input is empty or non-finite."""
+    c = torch.amax(x, dim=(1, 3), keepdim=True).detach()
+    return torch.where(torch.isfinite(c), c, torch.zeros_like(c))
+
+
+def _bcast(p, like: torch.Tensor) -> torch.Tensor:
+    """Broadcast a scalar, per-head (H,) or per-row (B, H) parameter over
+    (B, N, H, D)."""
+    p = torch.as_tensor(p, dtype=like.dtype, device=like.device)
+    if p.ndim == 0:
+        return p
+    if p.ndim == 2:
+        return p[:, None, :, None]
+    return p.reshape(1, 1, -1, 1)
+
+
+@dataclasses.dataclass
+class LLNState:
+    """Running LLN decode state for one layer.
+
+    s: (B, H, D, Dv) fp32 accumulated Phi(k)^T v; z: (B, H, D) fp32
+    accumulated Phi(k); c_k: (B, 1, H, 1) fp32 reference constant the state
+    was built with; log_scale: (B, H) accumulated drift-renorm shift.
+    """
+    s: torch.Tensor
+    z: torch.Tensor
+    c_k: torch.Tensor
+    log_scale: Optional[torch.Tensor] = None
+
+
+def lln_causal_scan(q, k, v, alpha, beta, *, chunk: int = 128):
+    """Causal LLN via a chunked scan, returning ``(out, LLNState)``.
+
+    Per chunk: the masked intra-chunk quadratic term plus the carried
+    ``(s, z)``.  Ragged lengths pad the feature-mapped keys with zeros so
+    padded positions never reach the carry.
+    """
+    b, n, h, d = q.shape
+    dv = v.shape[-1]
+    aq = q * _bcast(alpha, q)
+    bk = k * _bcast(beta, k)
+    c_k = _stab_const(bk)
+    fq = torch.exp(aq - _stab_const(aq)).to(q.dtype).float()
+    fk = torch.exp(bk - c_k).to(k.dtype).float()
+    vf = v.float()
+    pad = (-n) % chunk
+    if pad:
+        fq = torch.nn.functional.pad(fq, (0, 0, 0, 0, 0, pad))
+        fk = torch.nn.functional.pad(fk, (0, 0, 0, 0, 0, pad))
+        vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))
+    nc = fq.shape[1] // chunk
+    causal = torch.tril(torch.ones(chunk, chunk, device=q.device))
+    s = torch.zeros(b, h, d, dv, device=q.device)
+    z = torch.zeros(b, h, d, device=q.device)
+    outs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        cq, ck, cv = fq[:, sl], fk[:, sl], vf[:, sl]
+        scores = torch.einsum("bihd,bjhd->bhij", cq, ck) * causal
+        intra = torch.einsum("bhij,bjhv->bihv", scores, cv)
+        intra_z = scores.sum(-1).transpose(1, 2)               # (B, C, H)
+        inter = torch.einsum("bihd,bhdv->bihv", cq, s)
+        inter_z = torch.einsum("bihd,bhd->bih", cq, z)
+        outs.append((intra + inter) / (intra_z + inter_z + EPS)[..., None])
+        s = s + torch.einsum("bjhd,bjhv->bhdv", ck, cv)
+        z = z + ck.sum(1)
+    out = torch.cat(outs, 1)[:, :n].to(v.dtype)
+    return out, LLNState(s=s, z=z, c_k=c_k.float())
+
+
+def prefill(q, k, v, alpha, beta, *, chunk: int = 128):
+    """Causal forward over a prompt, returning outputs and the decode state
+    (the scan's final carry)."""
+    return lln_causal_scan(q, k, v, alpha, beta, chunk=chunk)
+
+
+def decode_chunk(state: LLNState, q, k, v, alpha, beta):
+    """Advance the state over T new tokens at once.  q/k/v: (B, T, H, D[v]).
+
+    One max-rescale of the carried state against the chunk's keys, an
+    intra-chunk causal quadratic for the new tokens and a per-row
+    normalizer — equal to T sequential single-token steps.
+    """
+    t = q.shape[1]
+    bk = k * _bcast(beta, k)
+    c_new = torch.maximum(state.c_k,
+                          torch.amax(bk, dim=(1, 3), keepdim=True).detach())
+    r_out = torch.exp(state.c_k - c_new)[:, 0, :, 0]           # (B, H) <= 1
+    fk = torch.exp(bk - c_new).float()
+    vf = v.float()
+    aq = q * _bcast(alpha, q)
+    fq = torch.exp(aq - _stab_const(aq)).float()
+    s0 = state.s * r_out[..., None, None]
+    z0 = state.z * r_out[..., None]
+    causal = torch.tril(torch.ones(t, t, device=q.device))
+    scores = torch.einsum("bihd,bjhd->bhij", fq, fk) * causal
+    intra = torch.einsum("bhij,bjhv->bihv", scores, vf)
+    intra_z = scores.sum(-1).transpose(1, 2)
+    inter = torch.einsum("bihd,bhdv->bihv", fq, s0)
+    inter_z = torch.einsum("bihd,bhd->bih", fq, z0)
+    out = (intra + inter) / (intra_z + inter_z + EPS)[..., None]
+    s = s0 + torch.einsum("bjhd,bjhv->bhdv", fk, vf)
+    z = z0 + fk.sum(1)
+    return out.to(v.dtype), LLNState(s=s, z=z, c_k=c_new,
+                                     log_scale=state.log_scale)

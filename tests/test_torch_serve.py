@@ -1,0 +1,158 @@
+"""The whole slice: yi-9b SMOKE served by the port against the JAX reference.
+
+The reference's params are converted through numpy; both packages then run
+their own ``make_serve_setup`` on the CPU in fp32 (``compute_dtype=
+"float32"``) over the same prompt.  Held: the prefill logits, every layer's
+decode state, and 8 teacher-forced decode steps of logits with equal greedy
+tokens.  Tolerances: 2e-4 absolute on logits (fp32 sums taken in another
+order through 2 layers), 2e-4 relative to the largest entry on the (s, z)
+state, which grows with the prompt.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs.base import ShapeSpec as JShape
+from repro.launch.mesh import compat_mesh
+from repro.launch.steps import make_serve_setup as j_make_serve_setup
+from repro.models import build_model as j_build_model
+from repro.models import synthetic_batch as j_synthetic_batch
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.convert import params_from_numpy, state_from_numpy
+from repro_torch.launch import serve
+from repro_torch.launch.steps import make_serve_setup
+
+ATOL = 2e-4
+STEPS = 8
+STATE_FIELDS = ("s", "z", "c_k", "tail_k", "tail_v", "pos", "alpha", "beta")
+
+
+def _close(got, want, scale=False):
+    want = np.asarray(want, np.float32)
+    atol = ATOL * max(1.0, float(np.abs(want).max())) if scale else ATOL
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, atol=atol,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("impl,prompt", [("lln", 32), ("lln_diag", 40)])
+def test_port_serves_like_the_reference(impl, prompt):
+    batch = 2
+    over = dict(attn_impl=impl, compute_dtype="float32")
+    jcfg = j_get_config("yi-9b", smoke=True, **over)
+    tcfg = get_config("yi-9b", smoke=True, **over)
+    max_len = prompt + STEPS + 1
+    jmodel = j_build_model(jcfg)
+    mesh = compat_mesh((1, 1), ("data", "model"))
+    with mesh:
+        jsetup = j_make_serve_setup(jcfg, JShape("t", max_len, batch,
+                                                 "decode"), mesh,
+                                    multi_pod=False)
+        jparams = jmodel.init(jax.random.PRNGKey(0))
+        jbatch = j_synthetic_batch(jcfg, batch, max_len, text_seq=prompt)
+        jlogits, jcaches = jsetup.prefill_fn(jparams, jbatch)
+
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               tcfg, "cpu")
+    setup = make_serve_setup(tcfg, ShapeSpec("t", max_len, batch, "decode"),
+                             device="cpu")
+    tokens = torch.from_numpy(np.asarray(jbatch["inputs"]).astype(np.int64))
+    logits, caches = setup.prefill_fn(params, {"inputs": tokens})
+    _close(logits, jlogits)
+
+    for i, layer in enumerate(caches["layers"]):
+        jl = jax.tree_util.tree_map(lambda a, i=i: np.asarray(a)[i],
+                                    jcaches["layers"])
+        for name in STATE_FIELDS:
+            _close(getattr(layer, name).float(), np.asarray(jl[name]),
+                   scale=name in ("s", "z"))
+
+    tok_j = jnp.argmax(jlogits[:, -1], -1).astype(jnp.int32)
+    tok_t = torch.argmax(logits[:, -1], -1)
+    with mesh:
+        for step in range(STEPS):
+            np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+            pos = prompt + step
+            jlogits, jcaches = jsetup.decode_fn(jparams, jcaches, tok_j,
+                                                jnp.asarray(pos, jnp.int32))
+            logits, caches = setup.decode_fn(params, caches, tok_t, pos)
+            _close(logits, jlogits)
+            tok_j = jnp.argmax(jlogits, -1).astype(jnp.int32)
+            tok_t = torch.argmax(logits, -1)
+    np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+
+
+def test_state_round_trip_is_exact():
+    rng = np.random.default_rng(0)
+    tree = {name: rng.normal(size=(2, 3)).astype(np.float32)
+            for name in STATE_FIELDS + ("log_scale",)}
+    tree["pos"] = np.array([5, 5], np.int32)
+    st = state_from_numpy(tree, "cpu")
+    for name, arr in tree.items():
+        np.testing.assert_array_equal(getattr(st, name).numpy(), arr)
+
+
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+@pytest.mark.parametrize("backend", ["auto", "plain", "ref"])
+def test_serve_cli_on_cpu(impl, backend, capsys):
+    toks = serve.main(["--arch", "yi-9b", "--smoke", "--attn-impl", impl,
+                       "--attn-backend", backend, "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "20", "--gen", "5"])
+    assert toks.shape == (2, 5)
+    assert int(toks.min()) >= 0 and int(toks.max()) < 512
+    out = capsys.readouterr().out
+    assert out.startswith("prefill: 2x20 in ")
+    assert "sample tokens:" in out
+
+
+def test_cache_init_matches_reference_layout():
+    from repro.models.transformer import lm_cache_init as j_cache_init
+    from repro_torch.models import build_model
+
+    over = dict(attn_impl="lln_diag", compute_dtype="float32")
+    jcfg = j_get_config("yi-9b", smoke=True, **over)
+    tcfg = get_config("yi-9b", smoke=True, **over)
+    jcaches = j_cache_init(None, jcfg, 3, 24)["layers"]
+    model = build_model(tcfg, "cpu")
+    caches = model.cache_init(model.init(0), 3)["layers"]
+    assert len(caches) == tcfg.n_layers
+    for name in STATE_FIELDS + ("log_scale",):
+        want = np.asarray(jcaches[name])[0]
+        got = getattr(caches[0], name)
+        assert tuple(got.shape) == want.shape, name
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_engine_length_gain_matches_reference(impl):
+    """The beta(n) schedule (off in the shipped configs): prefill at the
+    prompt-length gain, decode at each row's own depth."""
+    from repro.core.engine import AttentionEngine as JEngine
+    from repro.kernels.registry import AttnSpec as JSpec
+    from repro_torch.core.engine import AttentionEngine
+    from repro_torch.kernels.registry import AttnSpec
+
+    rng = np.random.default_rng(1)
+    b, n, g, r, d, t = 2, 40, 2, 2, 16, 3
+    h = g * r
+    kw = dict(impl=impl, r=r, lln_chunk=16, diag_block=16, beta_n=0.5,
+              calib_len=16)
+    jeng = JEngine(spec=JSpec(**kw), heads=h, kv_heads=g, head_dim=d,
+                   v_dim=d)
+    teng = AttentionEngine(spec=AttnSpec(**kw), heads=h, kv_heads=g,
+                           head_dim=d, v_dim=d)
+    arrays = [rng.normal(size=(b, nn, hh, d)).astype(np.float32)
+              for nn in (n, t) for hh in (h, g, g)]
+    jout, jst = jeng.prefill(*(jnp.asarray(a) for a in arrays[:3]),
+                             max_len=n + t)
+    tout, tst = teng.prefill(*(torch.from_numpy(a) for a in arrays[:3]))
+    _close(tout, jout)
+    jout, jst = jeng.decode(jst, *(jnp.asarray(a) for a in arrays[3:]))
+    tout, tst = teng.decode(tst, *(torch.from_numpy(a) for a in arrays[3:]))
+    _close(tout, jout)
+    for name in ("s", "z", "c_k", "tail_k", "pos"):
+        _close(getattr(tst, name).float(), np.asarray(jst[name]),
+               scale=name in ("s", "z"))
