@@ -1,12 +1,15 @@
-"""Carry the reference's weights and decode state across as numpy arrays.
+"""Carry the reference's weights, train state and decode state across as
+numpy arrays.
 
 The reference's parameter pytree (``repro.models.transformer.lm_init``)
 stacks the per-layer subtrees along a leading layer axis under
-``"layers"``.  :func:`params_from_numpy` takes that tree with numpy leaves
-(the caller maps ``np.asarray`` over it, so this module never sees JAX),
-splits the layer axis into per-layer modules and copies every array.  The
-weight layout stays (d_in, d_out): the port computes ``x @ w``.  bf16
-leaves travel through fp32, which is exact.
+``"layers"``.  :func:`leaves_from_numpy` names its leaves as the port's
+parameters (``layers.3.attn.q_w``), splitting the layer axis; the caller
+maps ``np.asarray`` over the tree, so this module never sees JAX.
+:func:`params_from_numpy` copies them into a :class:`DenseLM`,
+:func:`train_state_from_numpy` also the AdamW moments and step.  The weight
+layout stays (d_in, d_out): the port computes ``x @ w``.  bf16 leaves
+travel through fp32, which is exact.
 """
 from __future__ import annotations
 
@@ -34,30 +37,48 @@ def _copy(param: torch.Tensor, a) -> None:
     param.data.copy_(arr)
 
 
-def _copy_module(mod: torch.nn.Module, tree: dict, layer=None) -> None:
-    """Copy ``tree``'s leaves (at ``layer`` along the stacked axis) into the
-    module's parameters of the same names."""
-    names = dict(mod.named_parameters(recurse=False))
-    if set(names) != set(tree):
-        raise ValueError(f"parameter names differ: {sorted(names)} vs "
-                         f"{sorted(tree)}")
-    for name, a in tree.items():
-        _copy(names[name], a if layer is None else np.asarray(a)[layer])
+def leaves_from_numpy(tree: dict, cfg: ArchConfig) -> dict:
+    """``{port parameter name: numpy array}`` from a reference-shaped tree
+    (the params, or one AdamW moment tree)."""
+    out = {"embed_table": np.asarray(tree["embed"]["table"])}
+    for k, a in tree["final_norm"].items():
+        out[f"final_norm.{k}"] = np.asarray(a)
+    if "lm_head" in tree:
+        out["lm_head"] = np.asarray(tree["lm_head"])
+    for i in range(cfg.n_layers):
+        for sub in ("ln1", "ln2", "attn", "mlp"):
+            for k, a in tree["layers"][sub].items():
+                out[f"layers.{i}.{sub}.{k}"] = np.asarray(a)[i]
+    return out
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> DenseLM:
     """A :class:`DenseLM` on ``device`` holding the reference's weights."""
     gen = torch.Generator(device=device)
     model = DenseLM(cfg, device, gen)         # shapes and names; overwritten
-    _copy(model.embed_table, tree["embed"]["table"])
-    _copy_module(model.final_norm, tree["final_norm"])
-    if "lm_head" in tree:
-        _copy(model.lm_head, tree["lm_head"])
-    layers = tree["layers"]
-    for i, block in enumerate(model.layers):
-        for name in ("ln1", "ln2", "attn", "mlp"):
-            _copy_module(getattr(block, name), layers[name], layer=i)
+    named = dict(model.named_parameters())
+    leaves = leaves_from_numpy(tree, cfg)
+    if set(named) != set(leaves):
+        raise ValueError(f"parameter names differ: "
+                         f"{sorted(set(named) ^ set(leaves))}")
+    with torch.no_grad():
+        for name, a in leaves.items():
+            _copy(named[name], a)
     return model
+
+
+def train_state_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
+    """The port's train state ``{"params": DenseLM, "opt": {"m", "v",
+    "step"}}`` from the reference's ``{"params", "opt": {"m", "v",
+    "step"}}`` with numpy leaves (fp32 moments, int32 step)."""
+    params = params_from_numpy(tree["params"], cfg, device)
+    opt = {"step": torch.tensor(int(np.asarray(tree["opt"]["step"])),
+                                dtype=torch.int32, device=device)}
+    for moment in ("m", "v"):
+        opt[moment] = {name: _tensor(a, torch.float32, device)
+                       for name, a in leaves_from_numpy(
+                           tree["opt"][moment], cfg).items()}
+    return {"params": params, "opt": opt}
 
 
 def state_from_numpy(tree, device) -> AttentionState:

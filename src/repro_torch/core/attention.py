@@ -1,10 +1,12 @@
-"""LLN calibration and chunked LLN(+Diag) decode.
+"""Attention front-end: calibration, full-sequence attention and chunked
+LLN(+Diag) decode.
 
-Port of the serving half of ``repro.core.attention``:
-:func:`batch_alpha_beta` (eq. 10 on the current batch's statistics),
-:class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part
-is one masked softmax over [tail block ∪ chunk keys] in plain PyTorch (it
-has no kernel in the reference either).
+Port of ``repro.core.attention`` for the causal ``lln`` and ``lln_diag``
+impls: :func:`batch_alpha_beta` (eq. 10 on the current batch's
+statistics), :class:`AttnConfig` and :func:`multi_head_attention` (the
+training forward), :class:`LLNDecodeState` and :func:`decode_lln_chunk`,
+whose §4.2 diag part is one masked softmax over [tail block ∪ chunk keys]
+in plain PyTorch (it has no kernel in the reference either).
 
 GQA: k/v carry G kv heads with G | H; all inputs are (batch, seq, heads,
 head_dim).
@@ -13,14 +15,43 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from . import lln as lln_mod
-from .lln import LLNState
+from .diag import block_diag_attn
+from .lln import LLNState, lln_causal_scan
 from .moment_matching import constants_for_dim, solve_alpha_beta
 
 NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    """The reference's ``AttnConfig``.  ``use_kernel`` routes through
+    ``kernels/registry.py:attention`` (the CUDA kernels' autograd
+    Functions); without it the core scan runs on repeated KV.  ``backend``:
+    an explicit registry backend (None -> ``auto``).  The reference's
+    ``softmax_chunk``, ``mm_a``/``mm_b``, ``num_scales`` and ``scale_decay``
+    come with the slices that port the code that reads them."""
+    impl: str = "softmax"
+    causal: bool = True
+    diag_block: int = 256
+    lln_chunk: int = 128
+    use_kernel: bool = False
+    backend: Optional[str] = None
+    fixed_ab: float = 0.0
+
+
+# What each unported branch of multi_head_attention waits for.
+_NOT_PORTED = {
+    "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
+               "first slice', item 1)",
+    "log_linear": "the log_linear impl (ROADMAP.md queue 1, item 10)",
+    "bidir": "bidirectional attention (ROADMAP.md queue 1, 'Next: the "
+             "encoder')",
+}
 
 
 def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -34,12 +65,14 @@ def batch_alpha_beta(q, k, cfg, n: int | None = None):
 
     Statistics are pooled over the batch and per kv group (the r query heads
     sharing one kv head): alpha (H,), beta (G,).  ``cfg`` is any object with
-    ``fixed_ab`` and
-    ``beta_n`` attributes (an ``AttnSpec``); (a, b) are the shipped
-    constants for the head dim (length-aware when ``beta_n > 0``).
+    a ``fixed_ab`` attribute and optionally ``beta_n`` (an ``AttnSpec`` or
+    ``AttnConfig``); (a, b) are the shipped constants for the head dim
+    (length-aware when ``beta_n > 0``).  As in the reference, only
+    ``solve_alpha_beta`` stops its inputs' gradient: alpha keeps its graph
+    to q and k through the per-head statistics.
     """
     h, g = q.shape[2], k.shape[2]
-    length_aware = cfg.beta_n > 0.0 and n is not None
+    length_aware = getattr(cfg, "beta_n", 0.0) > 0.0 and n is not None
     if cfg.fixed_ab:
         return (torch.full((h,), cfg.fixed_ab, device=q.device),
                 torch.full((g,), cfg.fixed_ab, device=q.device))
@@ -57,6 +90,49 @@ def batch_alpha_beta(q, k, cfg, n: int | None = None):
     alpha = torch.repeat_interleave(st, r, dim=-1) / (
         math.sqrt(2.0) * torch.clamp(sq, min=1e-4))
     return alpha, beta_g
+
+
+def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
+                         beta=None) -> torch.Tensor:
+    """Full-sequence causal attention (training / prefill), ``lln`` or
+    ``lln_diag``.  q: (B,N,H,D); k/v: (B,N,G,D[v]).  alpha/beta default to
+    :func:`batch_alpha_beta` of this batch; a per-head (H,) beta is pooled
+    to the G groups."""
+    if cfg.impl not in ("lln", "lln_diag"):
+        raise NotImplementedError(f"attn impl {cfg.impl!r} is not ported "
+                                  f"yet: {_NOT_PORTED.get(cfg.impl, '')}")
+    if not cfg.causal:
+        raise NotImplementedError(_NOT_PORTED["bidir"])
+    h, g = q.shape[2], k.shape[2]
+    if alpha is None or beta is None:
+        alpha, beta = batch_alpha_beta(q, k, cfg)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=q.device)
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=q.device)
+    if alpha.ndim == 0:
+        alpha = alpha.expand(h)
+    if beta.ndim == 0:
+        beta = beta.expand(g)
+    if beta.shape[-1] == h and g != h:
+        beta = beta.reshape(beta.shape[:-1] + (g, h // g)).mean(dim=-1)
+
+    if cfg.use_kernel:
+        from repro_torch.kernels import registry as kreg
+        spec = kreg.AttnSpec(impl=cfg.impl, causal=cfg.causal, r=h // g,
+                             backend=cfg.backend or "auto",
+                             lln_chunk=cfg.lln_chunk,
+                             diag_block=cfg.diag_block,
+                             fixed_ab=cfg.fixed_ab)
+        return kreg.attention(spec, q, k, v, alpha, beta)
+
+    kv_k, kv_v = _repeat_kv(k, h), _repeat_kv(v, h)
+    beta_h = torch.repeat_interleave(beta, h // g, dim=-1) if g != h else beta
+    lln_out, _ = lln_causal_scan(q, kv_k, kv_v, alpha, beta_h,
+                                 chunk=cfg.lln_chunk)
+    if cfg.impl == "lln":
+        return lln_out
+    diag_out = block_diag_attn(q, kv_k, kv_v, block=cfg.diag_block,
+                               causal=True)
+    return (0.5 * (lln_out.float() + diag_out.float())).to(v.dtype)
 
 
 @dataclasses.dataclass

@@ -1,10 +1,12 @@
-// Causal LLN prefill with the final decode state (paper eq. 8).
+// Causal LLN forward (paper eq. 8) with its optional extra outputs.
 //
 // Replaces src/repro/kernels/lln_attention.py:lln_causal_pallas
-// (return_state=True).  Inputs qs (BH,N,D) and ks (BG,N,D) are fp32,
-// pre-scaled and stabilized (<= 0); v (BG,N,Dv) is fp32 or bf16; query row h
-// reads kv row h / r.  Outputs: out (BH,N,Dv) in v's type, s (BH,D,Dv) and
-// z (BH,1,D) fp32, the state after the last token.
+// (return_res and return_state).  Inputs qs (BH,N,D) and ks (BG,N,D) are
+// fp32, pre-scaled and stabilized (<= 0); v (BG,N,Dv) is fp32 or bf16; query
+// row h reads kv row h / r.  Outputs: out (BH,N,Dv) in v's type; optional
+// (a null pointer deselects it) den (BH,N) fp32, the row normalizer the
+// training backward reads, and s (BH,D,Dv) / z (BH,1,D) fp32, the state
+// after the last token.
 //
 // Design: the TPU kernel walked the sequence on the grid's ordered minor
 // axis with (S, z) in VMEM.  GPU blocks run in no order, so one CTA per
@@ -12,7 +14,8 @@
 // and keeps its columns of S (D x COLS) and all of z in shared memory.  Per
 // tile:  scores = tril(Phi(q) Phi(k)^T);  den = rowsum(scores) + Phi(q).z
 // + EPS;  out = (scores V + Phi(q) S) / den;  then S += Phi(k)^T V and
-// z += colsum Phi(k).  The ragged last tile loads pad keys as Phi(k) = 0
+// z += colsum Phi(k).  Every column group computes the same den; the first
+// one writes it.  The ragged last tile loads pad keys as Phi(k) = 0
 // and writes no pad rows.  All products are fp32 on the CUDA cores.
 //
 // Bound on the H100: fp32 operations at the serve shapes (see
@@ -27,6 +30,7 @@ __global__ void lln_causal_kernel(const float* __restrict__ qs,
                                   const float* __restrict__ ks,
                                   const VT* __restrict__ v,
                                   VT* __restrict__ out,
+                                  float* __restrict__ den_out,
                                   float* __restrict__ s_out,
                                   float* __restrict__ z_out,
                                   int n, int d, int dv, int r, int tile,
@@ -94,7 +98,11 @@ __global__ void lln_causal_kernel(const float* __restrict__ qs,
       for (int b = lane; b <= a; b += 32) acc += sc[a * tp + b];
       for (int e = lane; e < d; e += 32) acc = fmaf(fq[a * dp + e], z[e], acc);
       acc = lln::warp_sum(acc);
-      if (lane == 0) den[a] = acc + lln::kEps;
+      if (lane == 0) {
+        den[a] = acc + lln::kEps;
+        if (den_out != nullptr && blockIdx.y == 0)
+          den_out[static_cast<size_t>(h) * n + t0 + a] = den[a];
+      }
     }
     __syncthreads();
 
@@ -126,17 +134,18 @@ __global__ void lln_causal_kernel(const float* __restrict__ qs,
     __syncthreads();
   }
 
-  for (int i = tid; i < d * cols; i += nt) {
-    const int e = i / cols, c = i - e * cols;
-    if (c < cw) s_out[(static_cast<size_t>(h) * d + e) * dv + c0 + c] = S[i];
-  }
-  if (blockIdx.y == 0)
+  if (s_out != nullptr)
+    for (int i = tid; i < d * cols; i += nt) {
+      const int e = i / cols, c = i - e * cols;
+      if (c < cw) s_out[(static_cast<size_t>(h) * d + e) * dv + c0 + c] = S[i];
+    }
+  if (z_out != nullptr && blockIdx.y == 0)
     for (int e = tid; e < d; e += nt) z_out[static_cast<size_t>(h) * d + e] = z[e];
 }
 
 template <typename VT>
 int launch(const float* qs, const float* ks, const void* v, void* out,
-           float* s, float* z, int bh, int bg, int n, int d, int dv, int tile,
+           float* den, float* s, float* z, int bh, int bg, int n, int d, int dv, int tile,
            int cols, cudaStream_t stream) {
   const size_t floats = static_cast<size_t>(tile) * (d + 1) * 2 +
                         static_cast<size_t>(tile) * cols +
@@ -147,27 +156,31 @@ int launch(const float* qs, const float* ks, const void* v, void* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (dv + cols - 1) / cols);
   lln_causal_kernel<VT><<<grid, 256, bytes, stream>>>(
-      qs, ks, static_cast<const VT*>(v), static_cast<VT*>(out), s, z, n, d,
+      qs, ks, static_cast<const VT*>(v), static_cast<VT*>(out), den, s, z, n, d,
       dv, bh / bg, tile, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// v_dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// v_dtype: 0 = float32, 1 = bfloat16; den, s and z may be null.  Returns
+// cudaGetLastError().
 extern "C" int lln_causal_launch(const void* qs, const void* ks, const void* v,
-                                 void* out, void* s, void* z, int bh, int bg,
+                                 void* out, void* den, void* s, void* z,
+                                 int bh, int bg,
                                  int n, int d, int dv, int v_dtype, int tile,
                                  int cols, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const float*>(qs);
   auto k = static_cast<const float*>(ks);
+  auto dp = static_cast<float*>(den);
   auto sp = static_cast<float*>(s);
   auto zp = static_cast<float*>(z);
   if (v_dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, sp, zp, bh, bg, n, d, dv, tile,
-                                 cols, st);
+    return launch<__nv_bfloat16>(q, k, v, out, dp, sp, zp, bh, bg, n, d, dv,
+                                 tile, cols, st);
   if (v_dtype == 0)
-    return launch<float>(q, k, v, out, sp, zp, bh, bg, n, d, dv, tile, cols, st);
+    return launch<float>(q, k, v, out, dp, sp, zp, bh, bg, n, d, dv, tile, cols,
+                         st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

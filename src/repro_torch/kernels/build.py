@@ -28,11 +28,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# Every entry point: (argument kinds) with "p" a pointer, "i" an int.
+# Every entry point: (argument kinds) with "p" a pointer, "i" an int, "f" a
+# float.
 SIGNATURES = {
-    "lln_causal": {"lln_causal_launch": "pppppp" + "iiiiiiii" + "p"},
+    "lln_causal": {"lln_causal_launch": "ppppppp" + "iiiiiiii" + "p"},
     "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p"},
     "lln_decode": {"lln_decode_launch": "pppppppp" + "iiiiii" + "p"},
+    "lln_diag_fused": {"lln_diag_fused_launch":
+                       "ppppppp" + "iiiiiiii" + "f" + "p"},
+    "lln_causal_bwd": {"lln_causal_bwd_launch": "p" * 10 + "i" * 9 + "p"},
+    "lln_diag_fused_bwd": {"lln_diag_fused_bwd_launch":
+                           "p" * 14 + "i" * 9 + "f" + "p"},
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Causal LLN prefill and chunked LLN decode: CUDA kernels and plain versions.
+"""Causal LLN forward, the fused LLN + diag forward and chunked LLN decode:
+CUDA kernels and plain versions.
 
 Kernel layout: ``qs`` (BH, N, D) and ``ks`` (BG, N, D) fp32, pre-scaled
 and stabilized by ``kernels/ops.py`` (qs = alpha*q - c_q <= 0, likewise
@@ -11,18 +12,30 @@ its CUDA kernel for a CUDA tensor; it counts its launches in
 ``<wrapper>.launches``.
 
 ``lln_causal`` (``csrc/lln_causal.cu``) replaces
-``src/repro/kernels/lln_attention.py:lln_causal_pallas`` (prefill with
-``return_state=True``).  On the TPU the grid's minor axis ran in order and
-kept ``(S, z)`` in VMEM; here one CTA per (query head, 32 value columns)
-walks the sequence in 64-row tiles and keeps its slice of ``S`` and all of
-``z`` in shared memory, so the scan order is a loop inside the CTA.  Any N
-is taken: the ragged last tile's pad keys get Phi(k) = 0 and its pad rows
-are not written.  Bound on the H100: at the serve shapes (B=4, H=32, G=4,
-N=512, D=Dv=128) the fp32 work (Phi(q)S per query, Phi(k)v^T per key,
-about 4.3 GFLOP) outweighs the 65 MB it moves, so it is bound by fp32
-operations (67 TFLOP/s, no tensor cores in this first version).  The
-column split gives 4x more CTAs than heads (512 at the serve shapes) at
-the cost of recomputing the tile's scores once per column group.
+``src/repro/kernels/lln_attention.py:lln_causal_pallas``: the prefill with
+the final state (``return_state``) and the training forward with the row
+normalizer ``den`` (``return_res``).  On the TPU the grid's minor axis ran
+in order and kept ``(S, z)`` in VMEM; here one CTA per (query head, 32
+value columns) walks the sequence in 64-row tiles and keeps its slice of
+``S`` and all of ``z`` in shared memory, so the scan order is a loop inside
+the CTA.  Any N is taken: the ragged last tile's pad keys get Phi(k) = 0
+and its pad rows are not written.  Bound on the H100: at the serve shapes
+(B=4, H=32, G=4, N=512, D=Dv=128) the fp32 work (Phi(q)S per query,
+Phi(k)v^T per key, about 4.3 GFLOP) outweighs the 65 MB it moves, so it is
+bound by fp32 operations (67 TFLOP/s, no tensor cores in this first
+version); the training shapes (N=1024) double both.  The column split
+gives 4x more CTAs than heads (512 at the serve shapes) at the cost of
+recomputing the tile's scores once per column group.
+
+``lln_diag_fused`` (``csrc/lln_diag_fused.cu``) replaces
+``src/repro/kernels/lln_attention.py:lln_diag_fused_pallas`` (causal,
+``return_res``): the §4.2 hybrid ``0.5 * (lln + diag)`` in one pass, with
+``blk`` both the LLN chunk of the reference and the diag block, N % blk ==
+0.  The CTA of ``lln_causal`` also computes, per 64-row tile, the block
+softmax of its rows against the block's keys up to them and writes the
+average once, rounded once.  Bound: fp32 operations (the LLN work plus
+about 4 D FLOPs per visible (query, key) pair of the diag part, 8.6 GFLOP
+at B=4, H=32, N=1024, blk=256, D=128).
 
 ``lln_decode`` (``csrc/lln_decode.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_decode_pallas``.  One CTA per
@@ -42,6 +55,7 @@ import torch.nn.functional as F
 from . import build
 
 EPS = 1e-6
+NEG_INF = -1e30
 # CUDA tile shapes: prefill rows per tile, value columns per CTA (both
 # kernels), and the most chunk tokens one decode launch takes.
 PREFILL_TILE = 64
@@ -71,14 +85,34 @@ def _check_lln_inputs(qs, ks, v, r):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_same(device, **tensors):
+    """Raise unless every tensor is a contiguous tensor on ``device``."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_raw_qk(qs, ks, q, k, v):
+    """The fused kernels' raw q/k: beside qs/ks, in v's dtype."""
+    _check_same(qs.device, q=q, k=k)
+    if q.dtype != v.dtype or k.dtype != v.dtype:
+        raise TypeError(f"q, k and v must share a dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape != qs.shape or k.shape != ks.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} vs qs "
+                         f"{tuple(qs.shape)}, k {tuple(k.shape)} vs ks "
+                         f"{tuple(ks.shape)}")
+
+
 # ---------------------------------------------------------------------------
-# Causal LLN prefill: outputs plus the final (s, z) in one pass.
+# Causal LLN forward: outputs plus the optional den and final (s, z).
 # ---------------------------------------------------------------------------
 
-def lln_causal_plain(qs, ks, v, *, r: int = 1, blk: int = 256):
-    """Plain PyTorch causal LLN (chunked scan, GQA via a (BG, R) head
-    split).  Returns ``(out (BH,N,Dv) in v.dtype, s (BH,D,Dv), z (BH,1,D))``
-    with the final state repeated to each query-head row."""
+def _lln_causal_f32(qs, ks, v, r: int, blk: int):
+    """The chunked causal LLN scan in fp32: ``(out (BH,N,Dv), den (BH,N),
+    s (BG,D,Dv), z (BG,D))`` with the final state per kv group."""
     bh, n, d = qs.shape
     bg, dv = ks.shape[0], v.shape[-1]
     pad = (-n) % blk
@@ -92,7 +126,7 @@ def lln_causal_plain(qs, ks, v, *, r: int = 1, blk: int = 256):
     causal = torch.tril(torch.ones(blk, blk, device=qs.device))
     s = torch.zeros(bg, d, dv, device=qs.device)
     z = torch.zeros(bg, d, device=qs.device)
-    outs = []
+    outs, dens = [], []
     for c in range(nc):
         cq, ck, cv = fq[:, :, c], fk[:, c], vf[:, c]
         scores = torch.einsum("grid,gjd->grij", cq, ck) * causal
@@ -100,40 +134,139 @@ def lln_causal_plain(qs, ks, v, *, r: int = 1, blk: int = 256):
         intra_z = scores.sum(-1)
         inter = torch.einsum("grid,gdv->griv", cq, s)
         inter_z = torch.einsum("grid,gd->gri", cq, z)
-        outs.append((intra + inter) / (intra_z + inter_z + EPS)[..., None])
+        den = intra_z + inter_z + EPS
+        outs.append((intra + inter) / den[..., None])
+        dens.append(den)
         s = s + torch.einsum("gjd,gjv->gdv", ck, cv)
         z = z + ck.sum(1)
-    out = torch.stack(outs, 2).reshape(bh, nc * blk, dv)[:, :n].to(v.dtype)
+    out = torch.stack(outs, 2).reshape(bh, nc * blk, dv)[:, :n]
+    den = torch.stack(dens, 2).reshape(bh, nc * blk)[:, :n]
+    return out, den, s, z
+
+
+def _lln_outputs(out, den, s, z, return_res, return_state):
+    res = (out,)
+    if return_res:
+        res += (den,)
+    if return_state:
+        res += (s, z)
+    return res if len(res) > 1 else out
+
+
+def lln_causal_plain(qs, ks, v, *, r: int = 1, blk: int = 256,
+                     return_res: bool = False, return_state: bool = True):
+    """Plain PyTorch causal LLN (chunked scan, GQA via a (BG, R) head
+    split).  Returns ``out`` (BH,N,Dv) in v.dtype, then ``den`` (BH,N) fp32
+    with ``return_res``, then ``s`` (BH,D,Dv) and ``z`` (BH,1,D) with
+    ``return_state``, the final state repeated to each query-head row."""
+    out, den, s, z = _lln_causal_f32(qs, ks, v, r, blk)
     s = torch.repeat_interleave(s, r, dim=0)
     z = torch.repeat_interleave(z, r, dim=0)[:, None, :]
-    return out, s, z
+    return _lln_outputs(out.to(v.dtype), den, s, z, return_res,
+                        return_state)
 
 
-def lln_causal(qs, ks, v, *, r: int = 1, blk: int = 256):
-    """Causal LLN prefill with the final state; see the module docstring.
+def lln_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
+               return_res: bool = False, return_state: bool = True):
+    """Causal LLN forward with its optional outputs (order and meaning as
+    :func:`lln_causal_plain`); see the module docstring.
 
     ``blk`` is the plain version's chunk; the CUDA kernel tiles by
     :data:`PREFILL_TILE` (the split does not change the math)."""
     if qs.device.type == "cpu":
-        return lln_causal_plain(qs, ks, v, r=r, blk=blk)
+        return lln_causal_plain(qs, ks, v, r=r, blk=blk, return_res=return_res,
+                                return_state=return_state)
     _check_lln_inputs(qs, ks, v, r)
     bh, n, d = qs.shape
     bg, dv = ks.shape[0], v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qs.device)
     out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
-    s = torch.empty(bh, d, dv, dtype=torch.float32, device=qs.device)
-    z = torch.empty(bh, 1, d, dtype=torch.float32, device=qs.device)
+    den = torch.empty(bh, n, **f32) if return_res else None
+    s = torch.empty(bh, d, dv, **f32) if return_state else None
+    z = torch.empty(bh, 1, d, **f32) if return_state else None
     lib = build.library("lln_causal")
     with torch.cuda.device(qs.device):
         err = lib.lln_causal_launch(
             qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
-            s.data_ptr(), z.data_ptr(), bh, bg, n, d, dv, _VCODES[v.dtype],
-            PREFILL_TILE, COLS, torch.cuda.current_stream().cuda_stream)
+            *(t.data_ptr() if t is not None else None for t in (den, s, z)),
+            bh, bg, n, d, dv, _VCODES[v.dtype], PREFILL_TILE, COLS,
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, "lln_causal")
     lln_causal.launches += 1
-    return out, s, z
+    return _lln_outputs(out, den, s, z, return_res, return_state)
 
 
 lln_causal.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused causal LLN + block-diagonal softmax (the §4.2 hybrid).
+# ---------------------------------------------------------------------------
+
+def _diag_probs(q, k, r: int, blk: int, scale: float):
+    """Causal block softmax probabilities, (BG, R, nb, blk, blk) fp32."""
+    bh, n, d = q.shape
+    bg, nb = k.shape[0], n // blk
+    qq = q.float().reshape(bg, r, nb, blk, d) * scale
+    kk = k.float().reshape(bg, nb, blk, d)
+    s = torch.einsum("grcid,gcjd->grcij", qq, kk)
+    tril = torch.tril(torch.ones(blk, blk, dtype=torch.bool, device=q.device))
+    return torch.softmax(torch.where(tril, s, NEG_INF), dim=-1)
+
+
+def _check_blocks(n: int, blk: int):
+    if blk < 1 or n % blk:
+        raise ValueError(f"the sequence length ({n}) must be a multiple of "
+                         f"blk ({blk})")
+
+
+def lln_diag_fused_plain(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
+                         scale: float | None = None,
+                         return_res: bool = False):
+    """Plain PyTorch fused hybrid: ``0.5 * (lln + diag)`` in v.dtype, with
+    the LLN scan chunked by ``blk`` and the diag softmax causal within
+    each ``blk`` block (N % blk == 0); with ``return_res`` also the LLN
+    ``den`` (BH,N) fp32."""
+    bh, n, d = qs.shape
+    _check_blocks(n, blk)
+    scale = d ** -0.5 if scale is None else scale
+    lln, den, _, _ = _lln_causal_f32(qs, ks, v, r, blk)
+    p = _diag_probs(q, k, r, blk, scale)
+    vf = v.float().reshape(ks.shape[0], n // blk, blk, v.shape[-1])
+    diag = torch.einsum("grcij,gcje->grcie", p, vf).reshape(lln.shape)
+    out = (0.5 * (lln + diag)).to(v.dtype)
+    return (out, den) if return_res else out
+
+
+def lln_diag_fused(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
+                   scale: float | None = None, return_res: bool = False):
+    """Fused causal LLN + block-diag softmax; see the module docstring."""
+    if qs.device.type == "cpu":
+        return lln_diag_fused_plain(qs, ks, q, k, v, r=r, blk=blk,
+                                    scale=scale, return_res=return_res)
+    _check_lln_inputs(qs, ks, v, r)
+    _check_raw_qk(qs, ks, q, k, v)
+    bh, n, d = qs.shape
+    _check_blocks(n, blk)
+    bg, dv = ks.shape[0], v.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
+    den = torch.empty(bh, n, dtype=torch.float32, device=qs.device) \
+        if return_res else None
+    lib = build.library("lln_diag_fused")
+    with torch.cuda.device(qs.device):
+        err = lib.lln_diag_fused_launch(
+            qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
+            den.data_ptr() if den is not None else None, bh, bg, n, d, dv,
+            blk, _VCODES[v.dtype], COLS, scale,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "lln_diag_fused")
+    lln_diag_fused.launches += 1
+    return (out, den) if return_res else out
+
+
+lln_diag_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------

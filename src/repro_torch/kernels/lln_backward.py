@@ -1,0 +1,220 @@
+"""Backward of the causal LLN and fused LLN + diag forwards: CUDA kernels
+and plain versions.
+
+Port of ``repro.kernels.lln_backward``.  With the cotangent ``g``, the
+saved output ``o`` and normalizer ``den``, ``u = g / den`` and
+``w = (g . o) / den``, the input gradients factor through the forward's
+running state ``(S, z)`` and a reverse state ``dS = sum Phi(q) u^T``,
+``dz = sum w Phi(q)`` (see that module's docstring).  All gradients are
+fp32; ``kernels/ops.py`` applies the alpha/beta chain rule.  dk and dv are
+summed over the ``r`` query heads that share a kv head.
+
+Each wrapper runs its plain PyTorch version for a CPU tensor and launches
+its CUDA kernel for a CUDA tensor; it counts its launches (one per call of
+its C entry, which runs two kernels) in ``<wrapper>.launches``.
+
+``lln_causal_bwd`` (``csrc/lln_causal_bwd.cu``) replaces
+``src/repro/kernels/lln_backward.py:lln_causal_bwd_pallas``.  A dq kernel
+rebuilds ``(S, z)`` in forward order with one CTA per (query head, 32 rows
+of D) -- its products contract over Dv, so the forward's column split does
+not serve -- and a dk/dv kernel runs the reverse scan with dk CTAs over
+rows and dv CTAs over columns of ``dS``, each keeping the sum of ``(dS,
+dz)`` over the r heads (the per-head state of the Pallas kernel, r x D x Dv
+fp32, exceeds a block's shared memory) and looping over the heads in order
+for the intra-tile terms: no atomics, so gradients are the same bit for
+bit from run to run.  Bound on the H100: fp32 operations, about twice the
+forward's (the training shapes B=4, H=32, G=4, N=1024, D=Dv=128).
+
+``lln_diag_fused_bwd`` (``csrc/lln_diag_fused_bwd.cu``) replaces
+``src/repro/kernels/lln_backward.py:lln_diag_fused_bwd_pallas``: the LLN
+gradient on ``g / 2`` with the LLN output rebuilt from the saved ``o`` as
+``2 o - diag``, plus the block softmax gradient, recomputed in the kernels
+(the dq kernel saves each row's softmax max, sum and delta for the dk/dv
+kernel instead of the probabilities).  Bound: fp32 operations.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .lln_attention import (_VCODES, _check_blocks, _check_lln_inputs,
+                            _check_raw_qk, _check_same, _diag_probs)
+
+# D rows of a dq/dk CTA, Dv columns of a dv CTA.
+ROWS = 32
+COLS = 32
+
+
+def _check_grad_inputs(qs, ks, v, g, o, den, r):
+    _check_lln_inputs(qs, ks, v, r)
+    _check_same(qs.device, g=g, o=o, den=den)
+    if g.dtype != v.dtype or o.dtype != v.dtype:
+        raise TypeError(f"g and o must have v's dtype {v.dtype}, got "
+                        f"{g.dtype}/{o.dtype}")
+    if den.dtype != torch.float32:
+        raise TypeError(f"den must be float32, got {den.dtype}")
+    bh, n, _ = qs.shape
+    shape = (bh, n, v.shape[-1])
+    if g.shape != shape or o.shape != shape or den.shape != (bh, n):
+        raise ValueError(f"shape mismatch: g {tuple(g.shape)}, o "
+                         f"{tuple(o.shape)}, den {tuple(den.shape)} for qs "
+                         f"{tuple(qs.shape)}")
+
+
+def _uw(g, o, den):
+    gf = g.float()
+    return gf / den[..., None], (gf * o.float()).sum(-1) / den
+
+
+# ---------------------------------------------------------------------------
+# Causal LLN backward.
+# ---------------------------------------------------------------------------
+
+def lln_causal_bwd_plain(qs, ks, v, g, o, den, *, r: int = 1, blk: int = 256):
+    """Plain PyTorch twin of ``lln_causal_bwd_scan``: a forward-order chunk
+    scan for dqs and a reverse one for dks/dv, GQA by a (BG, R) head split.
+    Returns fp32 ``(dqs (BH,N,D), dks (BG,N,D), dv (BG,N,Dv))``."""
+    bh, n, d = qs.shape
+    _check_blocks(n, blk)
+    bg, dv = ks.shape[0], v.shape[-1]
+    nc = n // blk
+    dev = qs.device
+    fq = torch.exp(qs.float()).reshape(bg, r, nc, blk, d)
+    fk = torch.exp(ks.float()).reshape(bg, nc, blk, d)
+    vf = v.float().reshape(bg, nc, blk, dv)
+    u, w = _uw(g, o, den)
+    u = u.reshape(bg, r, nc, blk, dv)
+    w = w.reshape(bg, r, nc, blk)
+    mask = torch.tril(torch.ones(blk, blk, device=dev))
+
+    def gmat(c):
+        return (torch.einsum("brie,bje->brij", u[:, :, c], vf[:, c])
+                - w[:, :, c, :, None]) * mask
+
+    s = torch.zeros(bg, d, dv, device=dev)
+    z = torch.zeros(bg, d, device=dev)
+    dqs = []
+    for c in range(nc):
+        dfq = torch.einsum("brij,bjd->brid", gmat(c), fk[:, c])
+        dfq = dfq + torch.einsum("brie,bde->brid", u[:, :, c], s)
+        dfq = dfq - w[:, :, c, :, None] * z[:, None, None, :]
+        dqs.append(fq[:, :, c] * dfq)
+        s = s + torch.einsum("bjd,bje->bde", fk[:, c], vf[:, c])
+        z = z + fk[:, c].sum(1)
+
+    ds = torch.zeros(bg, d, dv, device=dev)
+    dz = torch.zeros(bg, d, device=dev)
+    dks, dvs = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        fq_c, fk_c, v_c, u_c = fq[:, :, c], fk[:, c], vf[:, c], u[:, :, c]
+        scores = torch.einsum("brid,bjd->brij", fq_c, fk_c) * mask
+        dv_c = torch.einsum("brij,brie->bje", scores, u_c)
+        dv_c = dv_c + torch.einsum("bjd,bde->bje", fk_c, ds)
+        dfk = torch.einsum("brij,brid->bjd", gmat(c), fq_c)
+        dfk = dfk + torch.einsum("bje,bde->bjd", v_c, ds) - dz[:, None, :]
+        ds = ds + torch.einsum("brid,brie->bde", fq_c, u_c)
+        dz = dz + (fq_c * w[:, :, c, :, None]).sum((1, 2))
+        dks[c], dvs[c] = fk_c * dfk, dv_c
+    return (torch.stack(dqs, 2).reshape(bh, n, d),
+            torch.stack(dks, 1).reshape(bg, n, d),
+            torch.stack(dvs, 1).reshape(bg, n, dv))
+
+
+def lln_causal_bwd(qs, ks, v, g, o, den, *, r: int = 1, blk: int = 256):
+    """Backward of the causal LLN forward from its residuals; see the
+    module docstring.  qs/g/o/den are query-side (BH, ...), ks/v kv-side
+    (BG, ...); g and o in v's dtype, den fp32; N % blk == 0."""
+    if qs.device.type == "cpu":
+        return lln_causal_bwd_plain(qs, ks, v, g, o, den, r=r, blk=blk)
+    _check_grad_inputs(qs, ks, v, g, o, den, r)
+    bh, n, d = qs.shape
+    _check_blocks(n, blk)
+    bg, dv = ks.shape[0], v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    dqs = torch.empty(bh, n, d, **f32)
+    dks = torch.empty(bg, n, d, **f32)
+    dvo = torch.empty(bg, n, dv, **f32)
+    w = torch.empty(bh, n, **f32)
+    lib = build.library("lln_causal_bwd")
+    with torch.cuda.device(qs.device):
+        err = lib.lln_causal_bwd_launch(
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
+            o.data_ptr(), den.data_ptr(), dqs.data_ptr(), dks.data_ptr(),
+            dvo.data_ptr(), w.data_ptr(), bh, bg, n, d, dv, blk,
+            _VCODES[v.dtype], ROWS, COLS,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "lln_causal_bwd")
+    lln_causal_bwd.launches += 1
+    return dqs, dks, dvo
+
+
+lln_causal_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused LLN + block-diagonal softmax backward.
+# ---------------------------------------------------------------------------
+
+def lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, *, r: int = 1,
+                             blk: int = 256, scale: float | None = None):
+    """Plain PyTorch twin of ``lln_diag_fused_bwd_scan``: the LLN scan
+    backward on g/2 with the LLN output rebuilt as ``2 o - diag``, plus the
+    block softmax backward.  Returns fp32 ``(dqs, dqd, dks, dkd, dv)``."""
+    bh, n, d = qs.shape
+    _check_blocks(n, blk)
+    bg, dv = ks.shape[0], v.shape[-1]
+    nb = n // blk
+    scale = d ** -0.5 if scale is None else scale
+    p = _diag_probs(q, k, r, blk, scale)
+    qq = q.float().reshape(bg, r, nb, blk, d) * scale
+    kk = k.float().reshape(bg, nb, blk, d)
+    vf = v.float().reshape(bg, nb, blk, dv)
+    diag = torch.einsum("brcij,bcje->brcie", p, vf).reshape(bh, n, dv)
+    gh = 0.5 * g.float()
+    lln = 2.0 * o.float() - diag
+    dqs, dks, dv_lln = lln_causal_bwd_plain(qs, ks, v, gh, lln, den, r=r,
+                                            blk=blk)
+    ghb = gh.reshape(bg, r, nb, blk, dv)
+    dp = torch.einsum("brcie,bcje->brcij", ghb, vf)
+    dsm = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dqd = (torch.einsum("brcij,bcjd->brcid", dsm, kk) * scale).reshape(bh, n, d)
+    dkd = torch.einsum("brcij,brcid->bcjd", dsm, qq).reshape(bg, n, d)
+    dv_diag = torch.einsum("brcij,brcie->bcje", p, ghb).reshape(bg, n, dv)
+    return dqs, dqd, dks, dkd, dv_lln + dv_diag
+
+
+def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
+                       blk: int = 256, scale: float | None = None):
+    """Backward of the fused hybrid; see the module docstring.  q/k/v/g/o
+    share one dtype; qs/ks/den fp32; N % blk == 0."""
+    if qs.device.type == "cpu":
+        return lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, r=r,
+                                        blk=blk, scale=scale)
+    _check_grad_inputs(qs, ks, v, g, o, den, r)
+    _check_raw_qk(qs, ks, q, k, v)
+    bh, n, d = qs.shape
+    _check_blocks(n, blk)
+    bg, dv = ks.shape[0], v.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    dqs = torch.empty(bh, n, d, **f32)
+    dqd = torch.empty(bh, n, d, **f32)
+    dks = torch.empty(bg, n, d, **f32)
+    dkd = torch.empty(bg, n, d, **f32)
+    dvo = torch.empty(bg, n, dv, **f32)
+    stats = torch.empty(4, bh, n, **f32)
+    lib = build.library("lln_diag_fused_bwd")
+    with torch.cuda.device(qs.device):
+        err = lib.lln_diag_fused_bwd_launch(
+            qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), g.data_ptr(), o.data_ptr(), den.data_ptr(),
+            dqs.data_ptr(), dqd.data_ptr(), dks.data_ptr(), dkd.data_ptr(),
+            dvo.data_ptr(), stats.data_ptr(), bh, bg, n, d, dv, blk,
+            _VCODES[v.dtype], ROWS, COLS, scale,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "lln_diag_fused_bwd")
+    lln_diag_fused_bwd.launches += 1
+    return dqs, dqd, dks, dkd, dvo
+
+
+lln_diag_fused_bwd.launches = 0

@@ -1,5 +1,6 @@
-"""Serving ops around the kernels (port of the serving half of
-``repro.kernels.ops``).
+"""Ops around the kernels (port of ``repro.kernels.ops``): the training
+entries ``lln_attention`` / ``lln_diag_attention`` (causal) and the serving
+entries ``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``.
 
 Responsibilities:
 * layout: (B, N, H, D) model convention <-> (B*H, N, D) kernel convention,
@@ -8,7 +9,16 @@ Responsibilities:
 * LLN pre-scaling and stabilization: qs = alpha*q - c_q, ks = beta*k - c_k
   in fp32, with per-(batch, head) constants that cancel exactly;
 * backend dispatch (``kernels/registry.py:resolve``): the CUDA kernel, its
-  plain version, or the core reference.
+  plain version, or the core reference;
+* the training gradient: a ``torch.autograd.Function`` per op (the
+  reference's ``custom_vjp``) whose forward saves the pre-scaled (qs, ks),
+  the kernel-layout v (and q, k for the fused op), the output and the LLN
+  normalizer ``den``, and whose backward runs the backward kernel (or its
+  plain version) and applies the chain rule through qs = alpha*q - c_q.
+  alpha, beta, c_q and c_k get no gradient, as in the reference.  A
+  sequence whose length is not a multiple of the block is padded with
+  zeros at its end inside the Function (:func:`_pad_seq`), so the kernels
+  run for any N.
 """
 from __future__ import annotations
 
@@ -19,7 +29,13 @@ from repro_torch.core import lln as core_lln
 from . import registry
 from .block_diag import block_diag, block_diag_plain
 from .lln_attention import (lln_causal, lln_causal_plain, lln_decode,
-                            lln_decode_plain)
+                            lln_decode_plain, lln_diag_fused,
+                            lln_diag_fused_plain)
+from .lln_backward import (lln_causal_bwd, lln_causal_bwd_plain,
+                           lln_diag_fused_bwd, lln_diag_fused_bwd_plain)
+
+_ENCODER = ("bidirectional attention is not ported yet: it comes with the "
+            "encoder slice (ROADMAP.md queue 1, 'Next: the encoder')")
 
 
 def _to_kernel(t: torch.Tensor) -> torch.Tensor:
@@ -57,10 +73,164 @@ def _scaled_stabilized(q, k, alpha, beta):
     return _to_kernel(aq - c_q), _to_kernel(bk - c_k), c_k
 
 
+def _pad_seq(t: torch.Tensor, n_to: int) -> torch.Tensor:
+    """Zero-pad a (rows, N, D) kernel-layout tensor to N = ``n_to``.
+
+    Under the causal mask a pad key (position >= N) is seen only by pad
+    queries, so every real row of the forward is unchanged; a pad query's
+    cotangent is zero, so it adds nothing to any gradient.
+    """
+    pad = n_to - t.shape[1]
+    return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
+
+
+def _round_up(n: int, blk: int) -> int:
+    return -(-n // blk) * blk
+
+
 def _repeat_heads(t: torch.Tensor, h: int, dim: int = 2) -> torch.Tensor:
     g = t.shape[dim]
     return t if g == h else torch.repeat_interleave(t, h // g, dim=dim)
 
+
+# ---------------------------------------------------------------------------
+# Training: causal LLN and the fused LLN + diag hybrid with their gradients.
+# ---------------------------------------------------------------------------
+
+def _lln_ref(q, k, v, alpha, beta, chunk):
+    """Autograd through the core chunked scan on repeated KV (the
+    reference's ``_lln_ref``); alpha and beta get no gradient."""
+    h, g = q.shape[2], k.shape[2]
+    alpha, beta = (torch.as_tensor(p, dtype=torch.float32,
+                                   device=q.device).detach()
+                   for p in (alpha, beta))
+    if beta.ndim and beta.shape[-1] == g:
+        beta = _repeat_heads(beta, h, dim=-1)
+    out, _ = core_lln.lln_causal_scan(
+        q, _repeat_heads(k, h), _repeat_heads(v, h), alpha, beta,
+        chunk=chunk)
+    return out.to(v.dtype)
+
+
+def _lln_diag_ref(q, k, v, alpha, beta, block):
+    h = q.shape[2]
+    lln = _lln_ref(q, k, v, alpha, beta, block)
+    diag = core_diag.block_diag_attn(q, _repeat_heads(k, h),
+                                     _repeat_heads(v, h), block=block,
+                                     causal=True).to(v.dtype)
+    return (0.5 * (lln.float() + diag.float())).to(v.dtype)
+
+
+class _LLNAttention(torch.autograd.Function):
+    """Causal LLN: the forward kernel with ``den``, the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, alpha, beta, chunk, kind):
+        b, n, h, _ = q.shape
+        g = k.shape[2]
+        np_ = _round_up(n, chunk)
+        alpha_b = _bcast_heads(alpha, h, q.device)
+        beta_b = _bcast_heads(beta, g, q.device)
+        qs, ks, _ = _scaled_stabilized(q, k, alpha_b, beta_b)
+        qs, ks, vk = (_pad_seq(t, np_) for t in (qs, ks, _to_kernel(v)))
+        fn = lln_causal if kind == "kernel" else lln_causal_plain
+        out_k, den = fn(qs, ks, vk, r=h // g, blk=chunk, return_res=True,
+                        return_state=False)
+        ctx.save_for_backward(qs, ks, vk, out_k, den, alpha_b, beta_b)
+        ctx.meta = (chunk, kind, b, n, h // g, q.dtype, k.dtype, v.dtype)
+        return _from_kernel(out_k[:, :n], b)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        qs, ks, vk, out_k, den, alpha_b, beta_b = ctx.saved_tensors
+        chunk, kind, b, n, r, tq, tk, tv = ctx.meta
+        fn = lln_causal_bwd if kind == "kernel" else lln_causal_bwd_plain
+        gk = _pad_seq(_to_kernel(g_out.to(tv)), qs.shape[1])
+        dqs, dks, dvk = fn(qs, ks, vk, gk, out_k, den, r=r, blk=chunk)
+        dq = (_from_kernel(dqs[:, :n], b) * _row_head_bcast(alpha_b)).to(tq)
+        dk = (_from_kernel(dks[:, :n], b) * _row_head_bcast(beta_b)).to(tk)
+        dv = _from_kernel(dvk[:, :n], b).to(tv)
+        return dq, dk, dv, None, None, None, None
+
+
+class _LLNDiagAttention(torch.autograd.Function):
+    """Causal §4.2 hybrid: the fused forward kernel with ``den``, the fused
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, alpha, beta, block, kind):
+        b, n, h, _ = q.shape
+        g = k.shape[2]
+        np_ = _round_up(n, block)
+        alpha_b = _bcast_heads(alpha, h, q.device)
+        beta_b = _bcast_heads(beta, g, q.device)
+        qs, ks, _ = _scaled_stabilized(q, k, alpha_b, beta_b)
+        qs, ks, qk, kk, vk = (_pad_seq(t, np_) for t in (
+            qs, ks, _to_kernel(q), _to_kernel(k), _to_kernel(v)))
+        fn = lln_diag_fused if kind == "kernel" else lln_diag_fused_plain
+        out_k, den = fn(qs, ks, qk, kk, vk, r=h // g, blk=block,
+                        return_res=True)
+        ctx.save_for_backward(qs, ks, qk, kk, vk, out_k, den, alpha_b,
+                              beta_b)
+        ctx.meta = (block, kind, b, n, h // g, q.dtype, k.dtype, v.dtype)
+        return _from_kernel(out_k[:, :n], b)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        qs, ks, qk, kk, vk, out_k, den, alpha_b, beta_b = ctx.saved_tensors
+        block, kind, b, n, r, tq, tk, tv = ctx.meta
+        fn = lln_diag_fused_bwd if kind == "kernel" \
+            else lln_diag_fused_bwd_plain
+        gk = _pad_seq(_to_kernel(g_out.to(tv)), qs.shape[1])
+        dqs, dqd, dks, dkd, dvk = fn(qs, ks, qk, kk, vk, gk, out_k, den,
+                                     r=r, blk=block)
+        dq = (_from_kernel(dqs[:, :n], b) * _row_head_bcast(alpha_b)
+              + _from_kernel(dqd[:, :n], b)).to(tq)
+        dk = (_from_kernel(dks[:, :n], b) * _row_head_bcast(beta_b)
+              + _from_kernel(dkd[:, :n], b)).to(tk)
+        dv = _from_kernel(dvk[:, :n], b).to(tv)
+        return dq, dk, dv, None, None, None, None
+
+
+def lln_attention(q, k, v, alpha, beta, causal: bool = True,
+                  chunk: int = 256, backend: str = "auto"):
+    """LLN attention (paper eq. 8), the training entry point.
+
+    q: (B,N,H,D); k/v: (B,N,G,D[v]) with G | H (GQA without repeated KV);
+    output in v.dtype.  alpha/beta: scalar, (H,)/(G,) or (B, H)/(B, G);
+    they get no gradient.  ``backend`` as ``kernels/registry.py``:
+    ``kernel`` (or ``auto`` on a CUDA tensor) runs the CUDA forward and
+    backward kernels, ``plain`` their plain versions inside the same
+    autograd Function, ``ref`` autograd through the core chunked scan.  Any
+    N: where ``N % chunk != 0`` the Function zero-pads the sequence to a
+    whole number of chunks (:func:`_pad_seq`) and the kernels run; the
+    reference sends such an N to its jnp autograd instead, which computes
+    the same function.
+    """
+    if not causal:
+        raise NotImplementedError(_ENCODER)
+    kind = registry.resolve(backend, q.device)
+    if kind == "ref":
+        return _lln_ref(q, k, v, alpha, beta, chunk)
+    return _LLNAttention.apply(q, k, v, alpha, beta, chunk, kind)
+
+
+def lln_diag_attention(q, k, v, alpha, beta, causal: bool = True,
+                       block: int = 256, backend: str = "auto"):
+    """The paper's §4.2 hybrid, 0.5 * (LLN + block-diag softmax), the
+    training entry point; ``block`` is both the LLN chunk and the diag
+    block.  Shapes, dtypes, backends and any N as :func:`lln_attention`."""
+    if not causal:
+        raise NotImplementedError(_ENCODER)
+    kind = registry.resolve(backend, q.device)
+    if kind == "ref":
+        return _lln_diag_ref(q, k, v, alpha, beta, block)
+    return _LLNDiagAttention.apply(q, k, v, alpha, beta, block, kind)
+
+
+# ---------------------------------------------------------------------------
+# Serving.
+# ---------------------------------------------------------------------------
 
 def lln_prefill(q, k, v, alpha, beta, chunk: int = 256, backend: str = "auto"):
     """Causal LLN prefill emitting outputs and the decode state in one pass.
@@ -83,7 +253,7 @@ def lln_prefill(q, k, v, alpha, beta, chunk: int = 256, backend: str = "auto"):
     qs, ks, c_k = _scaled_stabilized(q, k, alpha, beta)
     vk = _to_kernel(v)
     fn = lln_causal if kind == "kernel" else lln_causal_plain
-    out_k, s, z = fn(qs, ks, vk, r=h // g, blk=chunk)
+    out_k, s, z = fn(qs, ks, vk, r=h // g, blk=chunk, return_state=True)
     return (_from_kernel(out_k, b), s.reshape(b, h, *s.shape[1:]),
             z.reshape(b, h, z.shape[-1]), _repeat_heads(c_k, h))
 

@@ -1,6 +1,7 @@
 """Attention backend registry: one declarative spec, one dispatch rule.
 
-Port of ``repro.kernels.registry`` for the serving path.  The backends:
+Port of ``repro.kernels.registry`` for the serving and training paths.
+The backends:
 
 ``auto``
     The hand-written CUDA kernel for a CUDA tensor, its plain PyTorch
@@ -15,9 +16,11 @@ Port of ``repro.kernels.registry`` for the serving path.  The backends:
     repeated KV).
 
 This module owns the policy (spec validation, :func:`resolve`) and the
-spec-level entry points the engine's prefill calls (:func:`prefill`,
-:func:`diag_fwd`); the ops live in ``kernels/ops.py``, and decode reaches
-``ops.lln_decode_chunk`` through ``core/attention.py:decode_lln_chunk``.
+spec-level entry points: :func:`attention` (training, from
+``core/attention.py:multi_head_attention``) and the engine's prefill
+(:func:`prefill`, :func:`diag_fwd`); the ops live in ``kernels/ops.py``,
+and decode reaches ``ops.lln_decode_chunk`` through
+``core/attention.py:decode_lln_chunk``.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ PRECISIONS = ("float32", "bfloat16", "float16")
 class AttnSpec:
     """Declarative description of one attention configuration.
 
-    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid); r: GQA ratio H // G;
+    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid); causal: only True is
+    ported (the bidirectional encoder comes later); r: GQA ratio H // G;
     backend: see the module docstring; precision: dtype name of the diag
     tails; lln_chunk: chunk of the plain causal scan (the math does not
     depend on it); diag_block: block size of the §4.2 diag part (it fixes
@@ -43,6 +47,7 @@ class AttnSpec:
     calibration (``core/moment_matching.py``).
     """
     impl: str = "lln"
+    causal: bool = True
     r: int = 1
     backend: str = "auto"
     precision: str = "float32"
@@ -103,6 +108,17 @@ def resolve(backend: str, device: torch.device) -> str:
         raise RuntimeError(f"backend='kernel' needs CUDA tensors, got a "
                            f"tensor on {device}")
     return backend
+
+
+def attention(spec: AttnSpec, q, k, v, alpha, beta):
+    """Full-sequence LLN / LLN+Diag attention under ``spec.backend`` (the
+    training forward; gradients through ``ops``' autograd Functions)."""
+    from . import ops
+    if spec.impl == "lln":
+        return ops.lln_attention(q, k, v, alpha, beta, spec.causal,
+                                 spec.lln_chunk, backend=spec.backend)
+    return ops.lln_diag_attention(q, k, v, alpha, beta, spec.causal,
+                                  spec.diag_block, backend=spec.backend)
 
 
 def prefill(spec: AttnSpec, q, k, v, alpha, beta):

@@ -1,14 +1,16 @@
-"""Attention sub-block: projections + RoPE + the serving engine.
+"""Attention sub-block: projections + RoPE + unified attention.
 
-Port of the serving half of ``repro.models.attention_block``:
-``serve_state_init`` / ``serve_prefill`` / ``serve_decode`` over
-:class:`repro_torch.core.engine.AttentionEngine`.
+Port of ``repro.models.attention_block`` for self-attention: the training
+forward ``attn_apply`` through ``core/attention.py:multi_head_attention``,
+and the serving lifecycle ``serve_state_init`` / ``serve_prefill`` /
+``serve_decode`` over :class:`repro_torch.core.engine.AttentionEngine`.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.core.attention import AttnConfig, multi_head_attention
 from repro_torch.core.engine import AttentionEngine
 from .layers import _dense_param, dense, rope
 
@@ -25,6 +27,16 @@ class Attention(nn.Module):
         self.o_w = _dense_param(h * hd, cfg.d_model, dtype, device, generator)
 
 
+def attn_cfg_of(cfg, causal: bool = True) -> AttnConfig:
+    """The training ``AttnConfig`` an ``ArchConfig`` implies (with its
+    ``attn_backend``, which selects kernel / plain / ref under
+    ``use_kernel``)."""
+    return AttnConfig(impl=cfg.attn_impl, causal=causal,
+                      diag_block=cfg.diag_block, lln_chunk=cfg.lln_chunk,
+                      use_kernel=cfg.use_kernel, backend=cfg.attn_backend,
+                      fixed_ab=cfg.lln_fixed_ab)
+
+
 def attn_engine(cfg) -> AttentionEngine:
     """The serving engine an ``ArchConfig`` attention layer implies."""
     return AttentionEngine.from_cfg(cfg)
@@ -39,6 +51,14 @@ def _project_qkv(p: Attention, x, cfg, positions):
     q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
     return q, k, v
+
+
+def attn_apply(p: Attention, x, cfg, positions, *, causal: bool = True):
+    """Full-sequence self-attention (training forward); x: (B, N, d)."""
+    b, n, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = multi_head_attention(q, k, v, attn_cfg_of(cfg, causal))
+    return dense(p.o_w, out.reshape(b, n, cfg.n_heads * cfg.hd), cfg.cdtype)
 
 
 def serve_state_init(cfg, batch: int, device):

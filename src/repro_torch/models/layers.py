@@ -2,7 +2,8 @@
 
 Weights keep the reference's (d_in, d_out) layout and are applied as
 ``x @ w``, so converting a JAX pytree is a copy.  Parameters are stored in
-``cfg.param_dtype`` and cast to ``cfg.compute_dtype`` at use.
+``cfg.param_dtype`` (trainable; serving runs under ``torch.inference_mode``)
+and cast to ``cfg.compute_dtype`` at use.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def trunc_normal(shape, std: float, dtype, device, generator) -> torch.Tensor:
@@ -31,12 +33,10 @@ class Norm(nn.Module):
     def __init__(self, d: int, kind: str, dtype, device):
         super().__init__()
         self.kind = kind
-        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                                  requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
         if kind != "rmsnorm":
             self.bias = nn.Parameter(
-                torch.zeros(d, dtype=dtype, device=device),
-                requires_grad=False)
+                torch.zeros(d, dtype=dtype, device=device))
 
 
 def apply_norm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -90,8 +90,7 @@ class MLP(nn.Module):
 
 def _dense_param(d_in, d_out, dtype, device, generator) -> nn.Parameter:
     return nn.Parameter(trunc_normal((d_in, d_out), 1.0 / math.sqrt(d_in),
-                                     dtype, device, generator),
-                        requires_grad=False)
+                                     dtype, device, generator))
 
 
 def _gelu(x):
@@ -121,3 +120,40 @@ def logits_from_hidden(lm_head: torch.Tensor, h: torch.Tensor, dtype,
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def chunked_xent(h: torch.Tensor, lm_head: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, *, vocab: int, chunk: int = 1024,
+                 dtype=torch.bfloat16, softcap: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy over valid positions, computed in sequence chunks.
+
+    h: (B, N, D); lm_head: (D, Vpad); labels/mask: (B, N).  Only one
+    chunk's (B, C, Vpad) fp32 logits are live at a time: each chunk runs
+    under ``torch.utils.checkpoint``, so the backward recomputes them.
+    Pad-vocab columns are excluded by masking their logits to -1e30.
+    """
+    b, n, _ = h.shape
+    c = min(chunk, n)
+    pad = (-n) % c
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    vocab_ok = torch.arange(lm_head.shape[1], device=h.device) < vocab
+    mask = mask.float()
+
+    def nll_sum(hh, ll, mm):
+        logits = logits_from_hidden(lm_head, hh, dtype, softcap)
+        logits = torch.where(vocab_ok, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ll[..., None])[..., 0]
+        return torch.sum((lse - gold) * mm)
+
+    loss_sum = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for c0 in range(0, h.shape[1], c):
+        sl = slice(c0, c0 + c)
+        loss_sum = loss_sum + checkpoint(nll_sum, h[:, sl], labels[:, sl],
+                                         mask[:, sl], use_reentrant=False)
+        cnt = cnt + torch.sum(mask[:, sl])
+    return loss_sum / torch.clamp(cnt, min=1.0)

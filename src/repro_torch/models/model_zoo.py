@@ -1,8 +1,12 @@
-"""build_model(cfg) -> Model: the port's uniform serving interface.
+"""build_model(cfg) -> Model: the port's uniform interface per family.
 
 Only the dense family is ported (yi-9b); other families raise.  Batch
 convention: ``{"inputs" (B,N), "targets" (B,N), "mask" (B,N)}`` int64
 tokens in [0, vocab).
+
+``loss``: params, batch -> scalar (chunked xent + router aux);
+``hidden``: params, batch -> (final hidden (B,N,D), aux);
+``prefill`` / ``decode`` / ``cache_init``: the serving path.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from . import transformer as tr
+from .layers import chunked_xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,10 +27,18 @@ class Model:
     cfg: ArchConfig
     device: torch.device
     init: Callable            # seed -> params (a DenseLM on ``device``)
+    loss: Callable            # params, batch -> scalar loss
+    hidden: Callable          # params, batch -> (hidden, aux)
     prefill: Callable         # params, batch -> (last logits, caches)
     decode: Callable          # params, caches, token, position -> (logits, caches)
     cache_init: Callable      # params, batch size -> caches
     param_count: Callable
+
+
+def _xent_loss(cfg, h, head, batch):
+    return chunked_xent(h, head, batch["targets"], batch["mask"],
+                        vocab=cfg.vocab, dtype=cfg.cdtype,
+                        softcap=cfg.logit_softcap)
 
 
 def _count(params) -> int:
@@ -40,9 +53,17 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         raise NotImplementedError(
             f"family {cfg.family!r} (qk_norm={cfg.qk_norm}) is not ported "
             "yet; see ROADMAP.md queue 1")
+    def loss(params, batch):
+        h, aux = tr.lm_hidden(params, batch["inputs"], cfg)
+        return (_xent_loss(cfg, h, tr.lm_head_of(params), batch)
+                + cfg.router_aux_coef * aux)
+
     return Model(
         cfg=cfg, device=dev,
         init=lambda seed=0: tr.lm_init(cfg, dev, seed),
+        loss=loss,
+        hidden=lambda params, batch: tr.lm_hidden(params, batch["inputs"],
+                                                  cfg),
         prefill=lambda params, batch: tr.lm_prefill(params, batch["inputs"],
                                                     cfg),
         decode=lambda params, caches, token, pos: tr.lm_decode(

@@ -1,19 +1,21 @@
-"""Decoder-only transformer LM, dense family (port of the serving half of
-``repro.models.transformer``).
+"""Decoder-only transformer LM, dense family (port of
+``repro.models.transformer``: the training forward and the serving path).
 
 The reference stacks layers along a leading axis and runs them with
-``lax.scan``; here the layers are a ``ModuleList`` and a Python loop.
-Parameter names match the reference pytree (``embed.table``,
-``final_norm``, ``layers[i].{ln1, ln2, attn, mlp}``, ``lm_head``) so
-``convert.py`` is a copy.
+``lax.scan`` under ``jax.checkpoint``; here the layers are a ``ModuleList``
+and a Python loop, each block under ``torch.utils.checkpoint`` when
+``cfg.remat == "full"``.  Parameter names match the reference pytree
+(``embed.table``, ``final_norm``, ``layers[i].{ln1, ln2, attn, mlp}``,
+``lm_head``) so ``convert.py`` is a copy.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .attention_block import (Attention, serve_decode, serve_prefill,
-                              serve_state_init)
+from .attention_block import (Attention, attn_apply, serve_decode,
+                              serve_prefill, serve_state_init)
 from .layers import (MLP, Norm, apply_mlp, apply_norm, embed_lookup,
                      logits_from_hidden, trunc_normal)
 
@@ -36,15 +38,14 @@ class DenseLM(nn.Module):
         dtype = cfg.pdtype
         self.embed_table = nn.Parameter(
             trunc_normal((cfg.padded_vocab, cfg.d_model), cfg.d_model ** -0.5,
-                         dtype, device, generator), requires_grad=False)
+                         dtype, device, generator))
         self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
         self.layers = nn.ModuleList(
             Block(cfg, dtype, device, generator) for _ in range(cfg.n_layers))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 trunc_normal((cfg.d_model, cfg.padded_vocab),
-                             cfg.d_model ** -0.5, dtype, device, generator),
-                requires_grad=False)
+                             cfg.d_model ** -0.5, dtype, device, generator))
 
     @property
     def head(self) -> torch.Tensor:
@@ -58,6 +59,46 @@ def lm_init(cfg, device, seed: int = 0) -> DenseLM:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return DenseLM(cfg, device, gen)
+
+
+def block_apply(p: Block, x, cfg, positions, *, causal: bool = True):
+    """One block of the training forward: x + attn(ln1 x), then + mlp."""
+    h = apply_norm(p.ln1, x)
+    x = x + attn_apply(p.attn, h, cfg, positions, causal=causal).to(x.dtype)
+    h = apply_norm(p.ln2, x)
+    return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype)
+
+
+def _remat(fn, cfg):
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported yet; see "
+            "ROADMAP.md queue 1, item 7")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def lm_head_of(p: DenseLM) -> torch.Tensor:
+    return p.head
+
+
+def lm_hidden(p: DenseLM, tokens, cfg):
+    """Token ids (B, N) -> final hidden states (B, N, D) and the MoE aux
+    loss (0 for the dense family)."""
+    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    positions = torch.arange(x.shape[1], device=x.device)
+    block = _remat(block_apply, cfg)
+    for lp in p.layers:
+        x = block(lp, x, cfg, positions)
+    x = apply_norm(p.final_norm, x)
+    return x, torch.zeros((), device=x.device)
+
+
+def lm_logits(p: DenseLM, tokens, cfg):
+    h, aux = lm_hidden(p, tokens, cfg)
+    return logits_from_hidden(lm_head_of(p), h, cfg.cdtype,
+                              cfg.logit_softcap), aux
 
 
 def block_prefill(p: Block, x, cfg, positions):
