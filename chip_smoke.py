@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one CUDA card
-and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths (the yi-9b
+decoder) and its encoder pre-training path (roberta-lln, MLM) on one CUDA
+card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device        - require CUDA, print the card's name and power limit,
                      TF32 off;
-  2. build         - compile the six CUDA kernels from src/repro_torch/csrc,
+  2. build         - compile the nine CUDA kernels from src/repro_torch/csrc,
                      one nvcc per source, all started together;
   3. kernels       - each serving kernel against its plain PyTorch version at
                      full-width shapes (B=4, H=32, G=4, D=Dv=128, bf16 q/k/v);
@@ -29,8 +30,25 @@ Phases (any failure raises and the script exits non-zero):
                      step's loss and grad norm on the kernels against the
                      plain versions, then one untimed and 3 timed steps with
                      launch counts read around them;
-  9. timings       - each kernel, its plain version and its bound at the
-                     serve or training shapes; serve and train times.
+  9. kernels_encoder - each encoder kernel (lln_bidir, lln_bidir_bwd,
+                     block_diag_bwd, and block_diag with causal=False)
+                     against its plain version at the encoder shapes (B=32,
+                     N=512 and a ragged 300, H=12, G=12 and 3, D=Dv=64,
+                     blk 256, bf16 q/k/v/g);
+ 10. small_encoder - roberta-lln SMOKE in fp32 with use_kernel=True: 3 MLM
+                     steps on the kernels against 3 through the core
+                     reference, then the train CLI --arch roberta-lln;
+ 11. encoder_train - roberta-lln at full width and depth (12 layers, fp32
+                     master params, bf16 compute, remat full,
+                     use_kernel=True), batch 32 x seq 512 from mlm_batches,
+                     lln then lln_diag: the first step on the kernels against
+                     the plain versions, then one untimed and 3 timed steps
+                     with launch counts;
+ 12. encoder_forward - Model.hidden plus logits on bf16 weights under
+                     no_grad at the same batch, with launch counts;
+ 13. timings       - each kernel, its plain version and its bound at the
+                     serve, training or encoder shapes; serve, train and
+                     encoder times.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -51,9 +69,12 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate (data sheet)
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM bf16 on the tensor cores (dense)
 B, H, G, D = 4, 32, 4, 128    # yi-9b attention at the serve batch
 N, BLK, GEN = 512, 256, 32    # prompt, diag block, generated tokens
 TN, TL, TSTEPS = 1024, 8, 3   # training: sequence, layers, timed steps
+EB, EH, ED = 32, 12, 64       # roberta-lln attention at the encoder batch
+EN, ENR = 512, 300            # encoder sequence (two diag blocks), ragged N
 SEED = 0
 
 
@@ -112,9 +133,14 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0):
+    """The least time for the work: bytes over the memory rate, or the
+    operations over their peak, whichever is larger.  ``flops`` are fp32
+    (CUDA cores); ``bf16_flops`` are products of two bf16 operands with
+    fp32 accumulation, exact on the tensor cores, which run beside the
+    CUDA cores, so the operations take the larger of the two times."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOP_PER_S, bf16_flops / BF16_FLOP_PER_S) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -168,16 +194,16 @@ def phase_build():
     return secs
 
 
-def _inputs(n, gen):
-    """Post-RoPE-like bf16 q/k/v (B, n, H|G, D) and moment-matched
-    alpha/beta from the port's calibration."""
+def _inputs(n, gen, b=B, h=H, g=G, d=D):
+    """Post-RoPE-like bf16 q/k/v (b, n, h|g, d) and moment-matched
+    alpha/beta from the port's calibration (yi-9b's heads by default)."""
     from repro_torch.core.attention import batch_alpha_beta
     from repro_torch.kernels.registry import AttnSpec
     dev = "cuda"
-    q = torch.randn(B, n, H, D, generator=gen, device=dev).bfloat16()
-    k = torch.randn(B, n, G, D, generator=gen, device=dev).bfloat16()
-    v = torch.randn(B, n, G, D, generator=gen, device=dev).bfloat16()
-    alpha, beta = batch_alpha_beta(q, k, AttnSpec(impl="lln", r=H // G))
+    q = torch.randn(b, n, h, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, n, g, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, n, g, d, generator=gen, device=dev).bfloat16()
+    alpha, beta = batch_alpha_beta(q, k, AttnSpec(impl="lln", r=h // g))
     return q, k, v, alpha, beta
 
 
@@ -260,15 +286,15 @@ def phase_small():
         raise AssertionError(f"serve CLI returned tokens of shape {toks.shape}")
 
 
-def _train_inputs(n, gen):
+def _train_inputs(n, gen, b=B, h=H, g=G, d=D):
     """Kernel-layout training inputs: fp32 qs/ks from the port's
     calibration, bf16 q/k/v and a bf16 cotangent g."""
     from repro_torch.kernels import ops
-    q, k, v, alpha, beta = _inputs(n, gen)
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d)
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
-    g = torch.randn(B * H, n, D, generator=gen, device="cuda").bfloat16()
+    cot = torch.randn(b * h, n, d, generator=gen, device="cuda").bfloat16()
     return (qs, ks, ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v),
-            g)
+            cot)
 
 
 def phase_kernels_train(results):
@@ -325,59 +351,71 @@ def phase_kernels_train(results):
             keep("lln_diag_fused_bwd", check(name, gt, wt, fp32_tol(wt)))
 
 
-def phase_small_train():
-    """yi-9b SMOKE training in fp32 on the card with use_kernel=True: 3
-    steps on the kernels (backend auto) against 3 through the core scan
-    (backend ref), from the same seeded init and batches; losses and grad
-    norms within 1e-4 relative.  Then the train CLI (SMOKE, default
-    device)."""
+def _small_vs_core(arch, batches_fn, label):
+    """``arch`` SMOKE training in fp32 on the card with use_kernel=True: 3
+    steps on the kernels (backend auto) against 3 through the core
+    reference (backend ref), from the same seeded init and batches of
+    ``batches_fn``; losses and grad norms within 1e-4 relative."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import torch_placer
-    from repro_torch.data.synthetic import lm_batches
-    from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_setup
     for impl in ("lln", "lln_diag"):
         runs = {}
         for backend in ("auto", "ref"):
-            cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+            cfg = get_config(arch, smoke=True, attn_impl=impl,
                              compute_dtype="float32", use_kernel=True,
                              attn_backend=backend)
             setup = make_train_setup(cfg, ShapeSpec("small", 64, 2, "train"),
                                      peak_lr=1e-3, total_steps=3)
             state = setup.init_state(SEED)
-            batches = lm_batches(cfg.vocab, 2, 64, seed=SEED)
+            batches = batches_fn(cfg.vocab, 2, 64, seed=SEED)
             place = torch_placer("cuda")
             runs[backend] = []
             for _ in range(3):
                 state, m = setup.step_fn(state, place(next(batches)))
                 runs[backend].append((float(m["loss"]),
                                       float(m["grad_norm"])))
-        log(f"small_train {impl} (SMOKE fp32, kernels vs core ref): "
+        log(f"{label} {impl} (SMOKE fp32, kernels vs core ref): "
             f"{runs['auto']} vs {runs['ref']}")
         for (la, ga), (lr_, gr) in zip(runs["auto"], runs["ref"]):
             if not (abs(la - lr_) <= 1e-4 * abs(lr_)
                     and abs(ga - gr) <= 1e-4 * abs(gr)):
-                raise AssertionError(f"small_train {impl}: kernels {la}, {ga}"
+                raise AssertionError(f"{label} {impl}: kernels {la}, {ga}"
                                      f" vs core ref {lr_}, {gr}")
-    log("train CLI (SMOKE, default device):")
-    hist = train.main(["--arch", "yi-9b", "--smoke", "--attn-impl",
-                       "lln_diag", "--steps", "3", "--seq", "64", "--batch",
-                       "2", "--log-every", "1"])
+
+
+def _train_cli(argv):
+    """The train CLI on the default device for 3 steps; finite losses."""
+    from repro_torch.launch import train
+    log(f"train CLI {' '.join(argv)} (default device):")
+    hist = train.main(argv + ["--steps", "3", "--seq", "64", "--batch", "2",
+                              "--log-every", "1"])
     if len(hist) != 3 or not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"train CLI history {hist}")
 
 
+def phase_small_train():
+    """yi-9b SMOKE training on the kernels against the core reference,
+    then the train CLI (SMOKE, lln_diag)."""
+    from repro_torch.data.synthetic import lm_batches
+    _small_vs_core("yi-9b", lm_batches, "small_train")
+    _train_cli(["--arch", "yi-9b", "--smoke", "--attn-impl", "lln_diag"])
+
+
 def _counts():
-    from repro_torch.kernels.block_diag import block_diag
-    from repro_torch.kernels.lln_attention import (lln_causal, lln_decode,
-                                                   lln_diag_fused)
-    from repro_torch.kernels.lln_backward import (lln_causal_bwd,
+    from repro_torch.kernels.block_diag import block_diag, block_diag_bwd
+    from repro_torch.kernels.lln_attention import (lln_bidir, lln_causal,
+                                                   lln_decode, lln_diag_fused)
+    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+                                                  lln_causal_bwd,
                                                   lln_diag_fused_bwd)
     return {"lln_causal": lln_causal, "block_diag": block_diag,
             "lln_decode": lln_decode, "lln_diag_fused": lln_diag_fused,
             "lln_causal_bwd": lln_causal_bwd,
-            "lln_diag_fused_bwd": lln_diag_fused_bwd}
+            "lln_diag_fused_bwd": lln_diag_fused_bwd,
+            "lln_bidir": lln_bidir, "lln_bidir_bwd": lln_bidir_bwd,
+            "block_diag_bwd": block_diag_bwd}
 
 
 def _reset():
@@ -490,122 +528,143 @@ def phase_serve(launches, serve_times):
         del setup, caches, plain
 
 
+def _train_cell(cfg, batch_size, seq, batches_fn, want, label):
+    """Train ``cfg`` (use_kernel=True) at ``batch_size`` x ``seq`` on
+    batches of ``batches_fn``: the first step's loss, grad norm and q/k/v
+    weight grad norm on the kernels against the plain versions, then one
+    untimed and TSTEPS timed steps.  ``want(steps)`` is the exact launch
+    count of that many steps.  Returns (times, launches of the timed
+    steps)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import torch_placer
+    from repro_torch.launch.steps import make_train_setup
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+    impl = cfg.attn_impl
+    setup = make_train_setup(cfg, ShapeSpec("chip", seq, batch_size, "train"),
+                             peak_lr=3e-4, total_steps=1000)
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    state = setup.init_state(SEED)
+    torch.cuda.synchronize()
+    params = dict(state["params"].named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    log(f"{label} {impl}: {cfg.name} {cfg.n_layers}L d_model {cfg.d_model}, "
+        f"{n_params / 1e6:.1f}M params fp32 + fp32 AdamW moments (init "
+        f"{time.time() - t0:.1f}s), bf16 compute, remat {cfg.remat}, "
+        f"batch {batch_size} x seq {seq}")
+    place = torch_placer("cuda")
+    batches = batches_fn(cfg.vocab, batch_size, seq, seed=SEED)
+    batch = place(next(batches))
+
+    # First step's loss and grad norm: kernels against plain versions.
+    first = {}
+    for backend in ("kernel", "plain"):
+        model = build_model(cfg.replace(attn_backend=backend))
+        _reset()
+        loss = model.loss(state["params"], batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        gnorm = float(global_norm(grads))
+        # The q/k/v projection weights' gradients go straight through the
+        # attention backward kernels' dq, dk and dv.
+        qkv = float(global_norm({n_: g_ for n_, g_ in grads.items()
+                                 if n_.endswith(("q_w", "k_w", "v_w"))}))
+        torch.cuda.synchronize()
+        counted = _read()
+        if counted != (want(1) if backend == "kernel" else want(0)):
+            raise AssertionError(f"{label} {impl}: the {backend} backend's "
+                                 f"first step launched {counted}")
+        first[backend] = (float(loss.detach()), gnorm, qkv)
+        del grads
+    (lk, gk, qk), (lp, gp, qp) = first["kernel"], first["plain"]
+    log(f"  first step: loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / "
+        f"{gp:.6f}, q/k/v weight grad norm {qk:.6f} / {qp:.6f} "
+        f"(kernels / plain)")
+    # bf16 activations through the layers: a one-step rounding difference
+    # in one layer's attention output propagates.  The decoder's runs before
+    # this check showed relative gaps of 2e-5 in the loss and 2.6e-5 in the
+    # grad norm; hold the loss to 1e-4 and both grad norms to 1e-3.
+    if not (all(math.isfinite(x) for x in (lk, gk, qk))
+            and abs(lk - lp) <= 1e-4 * abs(lp)
+            and abs(gk - gp) <= 1e-3 * abs(gp)
+            and abs(qk - qp) <= 1e-3 * abs(qp)):
+        raise AssertionError(f"{label} {impl}: kernels {lk}, {gk}, {qk} vs "
+                             f"plain {lp}, {gp}, {qp}")
+
+    state, m = setup.step_fn(state, batch)            # untimed warm-up step
+    torch.cuda.synchronize()
+    losses, times = [], []
+    _reset()
+    for _ in range(TSTEPS):
+        batch = place(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = setup.step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    counted = _read()
+    log(f"  launches over {TSTEPS} steps: {counted}")
+    if counted != want(TSTEPS):
+        raise AssertionError(f"{label} {impl}: launch counts {counted}, "
+                             f"expected {want(TSTEPS)}")
+    if not all(math.isfinite(x) for pair in losses for x in pair):
+        raise AssertionError(f"{label} {impl}: non-finite {losses}")
+    step_ms = statistics.median(times) * 1e3
+    dev_ms, top = device_profile(lambda: setup.step_fn(
+        state, place(next(batches))))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = batch_size * seq
+    times_out = {
+        "step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "device_ms_per_step": dev_ms, "busy": dev_ms / step_ms,
+        "peak_gib": peak, "loss_grad_norm": losses}
+    log(f"{label} {impl}: step {step_ms:.1f} ms (median of {TSTEPS}: "
+        f"{[round(t * 1e3, 1) for t in times]}), "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s, device "
+        f"{dev_ms:.1f} ms/step (busy {dev_ms / step_ms:.0%}), peak "
+        f"{peak:.2f} GiB; (loss, grad norm) per step {losses}")
+    for name, ms, calls in top:
+        log(f"  top step: {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
+    del setup, state, params, batch, m
+    torch.cuda.empty_cache()
+    return times_out, counted
+
+
 def phase_train(launches, train_times):
     """yi-9b at full width, TL layers, use_kernel=True, batch 4 x TN from
     lm_batches; lln then lln_diag."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.data import torch_placer
     from repro_torch.data.synthetic import lm_batches
-    from repro_torch.launch.steps import make_train_setup
-    from repro_torch.models import build_model
-    from repro_torch.optim import global_norm
     fwd = {"lln": "lln_causal", "lln_diag": "lln_diag_fused"}
     bwd = {"lln": "lln_causal_bwd", "lln_diag": "lln_diag_fused_bwd"}
     for impl in ("lln", "lln_diag"):
         cfg = get_config("yi-9b", attn_impl=impl, n_layers=TL,
                          use_kernel=True)
-        setup = make_train_setup(cfg, ShapeSpec("chip", TN, B, "train"),
-                                 peak_lr=3e-4, total_steps=1000)
-        t0 = time.time()
-        torch.cuda.reset_peak_memory_stats()
-        state = setup.init_state(SEED)
-        torch.cuda.synchronize()
-        params = dict(state["params"].named_parameters())
-        n_params = sum(p.numel() for p in params.values())
-        log(f"train {impl}: yi-9b {cfg.n_layers}L d_model {cfg.d_model}, "
-            f"{n_params / 1e9:.3f}B params fp32 + fp32 AdamW moments (init "
-            f"{time.time() - t0:.1f}s), bf16 compute, remat {cfg.remat}, "
-            f"batch {B} x seq {TN}")
-        place = torch_placer("cuda")
-        batches = lm_batches(cfg.vocab, B, TN, seed=SEED)
-        batch = place(next(batches))
 
-        # First step's loss and grad norm: kernels against plain versions.
-        first = {}
-        for backend in ("kernel", "plain"):
-            model = build_model(cfg.replace(attn_backend=backend))
-            _reset()
-            loss = model.loss(state["params"], batch)
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
-            gnorm = float(global_norm(grads))
-            # The q/k/v projection weights' gradients go straight through
-            # the attention backward kernel's dq, dk and dv.
-            qkv = float(global_norm({n_: g_ for n_, g_ in grads.items()
-                                     if n_.endswith(("q_w", "k_w", "v_w"))}))
-            torch.cuda.synchronize()
-            counted = _read()
-            if backend == "plain" and any(counted.values()):
-                raise AssertionError(f"the plain backend launched {counted}")
-            first[backend] = (float(loss.detach()), gnorm, qkv)
-            del grads
-        (lk, gk, qk), (lp, gp, qp) = first["kernel"], first["plain"]
-        log(f"  first step: loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / "
-            f"{gp:.6f}, q/k/v weight grad norm {qk:.6f} / {qp:.6f} "
-            f"(kernels / plain)")
-        # bf16 activations through TL layers: a one-step rounding difference
-        # in one layer's attention output propagates.  The runs before this
-        # check showed relative gaps of 2e-5 in the loss and 2.6e-5 in the
-        # grad norm; hold the loss to 1e-4 and both grad norms to 1e-3.
-        if not (all(math.isfinite(x) for x in (lk, gk, qk))
-                and abs(lk - lp) <= 1e-4 * abs(lp)
-                and abs(gk - gp) <= 1e-3 * abs(gp)
-                and abs(qk - qp) <= 1e-3 * abs(qp)):
-            raise AssertionError(f"train {impl}: kernels {lk}, {gk}, {qk} "
-                                 f"vs plain {lp}, {gp}, {qp}")
+        def want(steps):
+            out = {name: 0 for name in _counts()}
+            out[fwd[impl]] = 2 * cfg.n_layers * steps
+            out[bwd[impl]] = cfg.n_layers * steps
+            return out
 
-        state, m = setup.step_fn(state, batch)        # untimed warm-up step
-        torch.cuda.synchronize()
-        losses, times = [], []
-        _reset()
-        for _ in range(TSTEPS):
-            batch = place(next(batches))
-            torch.cuda.synchronize()
-            t0 = time.time()
-            state, m = setup.step_fn(state, batch)
-            torch.cuda.synchronize()
-            times.append(time.time() - t0)
-            losses.append((float(m["loss"]), float(m["grad_norm"])))
-        counted = _read()
-        want = {name: 0 for name in counted}
-        want[fwd[impl]] = 2 * cfg.n_layers * TSTEPS
-        want[bwd[impl]] = cfg.n_layers * TSTEPS
-        log(f"  launches over {TSTEPS} steps: {counted}")
-        if counted != want:
-            raise AssertionError(f"train {impl}: launch counts {counted}, "
-                                 f"expected {want}")
-        if not all(math.isfinite(x) for pair in losses for x in pair):
-            raise AssertionError(f"train {impl}: non-finite {losses}")
+        train_times[impl], counted = _train_cell(cfg, B, TN, lm_batches,
+                                                 want, "train")
         key = "lln_causal (res)" if impl == "lln" else fwd[impl]
         launches[key] += counted[fwd[impl]]
         launches[bwd[impl]] += counted[bwd[impl]]
-        step_ms = statistics.median(times) * 1e3
-        dev_ms, top = device_profile(lambda: setup.step_fn(
-            state, place(next(batches))))
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        train_times[impl] = {
-            "step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
-            "tokens_per_s": B * TN / (step_ms / 1e3),
-            "device_ms_per_step": dev_ms, "busy": dev_ms / step_ms,
-            "peak_gib": peak, "loss_grad_norm": losses}
-        log(f"{impl}: step {step_ms:.1f} ms (median of {TSTEPS}: "
-            f"{[round(t * 1e3, 1) for t in times]}), "
-            f"{B * TN / (step_ms / 1e3):.0f} tokens/s, device "
-            f"{dev_ms:.1f} ms/step (busy {dev_ms / step_ms:.0%}), peak "
-            f"{peak:.2f} GiB; (loss, grad norm) per step {losses}")
-        for name, ms, calls in top:
-            log(f"  top step: {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
-        del setup, state, params, batch, m
-        torch.cuda.empty_cache()
 
 
 def phase_timings_train(errs, launches):
     """The four training kernels, their plain versions and their bounds at
     the training shapes.  Bounds count each input read once and each output
     written once, and the fp32 operations of the linear form: Phi(q) S and
-    the state update per token, 4 D per visible (query, key) pair of the
-    diag softmax forward and 6 D + 4 Dv in its backward."""
+    the state update per token; per visible (query, key) pair of the diag
+    softmax, 2 D + 1 fp32 forward and 4 D + 2 Dv + 6 backward, beside the
+    bf16 products q k^T (2 D) and, backward, g v^T (2 Dv) at the tensor
+    cores' rate."""
     from repro_torch.kernels.lln_attention import (lln_causal,
                                                    lln_causal_plain,
                                                    lln_diag_fused,
@@ -630,6 +689,7 @@ def phase_timings_train(errs, launches):
         + bg * n * (6 * D * dv + 2 * D) + (bh + bg) * n * D
     f32, b16 = 4, 2
     qsks = bh * n * D * f32 + bg * n * D * f32
+    tc_fwd, tc_bwd = pairs * 2 * D, pairs * (2 * D + 2 * dv)
     specs = [
         ("lln_causal (res)", "lln_causal.cu", "lln_attention.py:94",
          lambda: lln_causal(qs, ks, vk, r=r, blk=BLK, return_res=True,
@@ -637,7 +697,7 @@ def phase_timings_train(errs, launches):
          lambda: lln_causal_plain(qs, ks, vk, r=r, blk=BLK, return_res=True,
                                   return_state=False),
          qsks + bg * n * dv * b16 + bh * n * dv * b16 + bh * n * f32,
-         lln_fwd),
+         lln_fwd, 0),
         ("lln_diag_fused", "lln_diag_fused.cu", "lln_attention.py:274",
          lambda: lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                 return_res=True),
@@ -645,13 +705,13 @@ def phase_timings_train(errs, launches):
                                       return_res=True),
          qsks + (bh + bg) * n * D * b16 + bg * n * dv * b16
          + bh * n * dv * b16 + bh * n * f32,
-         lln_fwd + pairs * (4 * D + 1) + bh * n * dv * 2),
+         lln_fwd + pairs * (2 * D + 1) + bh * n * dv * 2, tc_fwd),
         ("lln_causal_bwd", "lln_causal_bwd.cu", "lln_backward.py:160",
          lambda: lln_causal_bwd(qs, ks, vk, g, o, den, r=r, blk=BLK),
          lambda: lln_causal_bwd_plain(qs, ks, vk, g, o, den, r=r, blk=BLK),
          qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 + bh * n * f32
          + (bh + bg) * n * D * f32 + bg * n * dv * f32,
-         lln_bwd),
+         lln_bwd, 0),
         ("lln_diag_fused_bwd", "lln_diag_fused_bwd.cu",
          "lln_backward.py:441",
          lambda: lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, fo, fden, r=r,
@@ -661,11 +721,11 @@ def phase_timings_train(errs, launches):
          qsks + (bh + bg) * n * D * b16 + bg * n * dv * b16
          + 2 * bh * n * dv * b16 + bh * n * f32
          + 2 * (bh + bg) * n * D * f32 + bg * n * dv * f32,
-         lln_bwd + pairs * (6 * D + 4 * dv + 6)),
+         lln_bwd + pairs * (4 * D + 2 * dv + 6), tc_bwd),
     ]
     rows = []
-    for name, src, ref, kernel, plain, nbytes, flops in specs:
-        bnd, by = bound_ms(nbytes, flops)
+    for name, src, ref, kernel, plain, nbytes, flops, tc in specs:
+        bnd, by = bound_ms(nbytes, flops, tc)
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
             replaces=f"src/repro/kernels/{ref}", launches=launches[name],
@@ -683,7 +743,8 @@ def phase_timings_train(errs, launches):
 def phase_timings(errs, launches):
     """Each kernel, its plain version and (block_diag) one library call at
     the serve shapes; the bound counts each input read once, each output
-    written once, and the fp32 operations the function needs."""
+    written once, and the operations the function needs: fp32, and
+    (block_diag) the bf16 products q k^T at the tensor cores' rate."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_diag import block_diag, block_diag_plain
@@ -716,8 +777,7 @@ def phase_timings(errs, launches):
     nb = N // BLK
     pairs = nb * BLK * (BLK + 1) // 2
     nbytes = 2 * (bh * N * D + bg * N * D + bg * N * D + bh * N * D)
-    flops = bh * pairs * (2 * D + 2 * D + 1)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, bh * pairs * (2 * D + 1), bh * pairs * 2 * D)
 
     def blocks(t):
         return t.reshape(B, nb, BLK, t.shape[2], D).permute(0, 1, 3, 2, 4) \
@@ -774,23 +834,295 @@ def phase_timings(errs, launches):
     return rows, rescale_ms
 
 
+# ---------------------------------------------------------------------------
+# The encoder (roberta-lln, MLM pre-training).
+# ---------------------------------------------------------------------------
+
+def phase_kernels_encoder(results):
+    """The encoder's kernels against their plain versions: lln_bidir,
+    lln_bidir_bwd, block_diag_bwd and block_diag with causal=False, at
+    N = 512 and a ragged 300, r = 1 and 4 (the r = 4 cases take the
+    cotangent 0.5 g, as the hybrid passes it).  Outputs in bf16 within one
+    bf16 step; s, z, den and every fp32 gradient within 1e-5 of the largest
+    plain entry."""
+    from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
+                                                block_diag_bwd_plain,
+                                                block_diag_plain)
+    from repro_torch.kernels.lln_attention import lln_bidir, lln_bidir_plain
+    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+                                                  lln_bidir_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+
+    def keep(name, err):
+        results[name] = max(results.get(name, 0.0), err)
+
+    for g in (EH, 3):
+        r = EH // g
+        for n in (EN, ENR):
+            qs, ks, qk, kk, vk, gk = _train_inputs(n, gen, EB, EH, g, ED)
+            if r > 1:
+                gk = 0.5 * gk
+            log(f"lln_bidir N={n} r={r}:")
+            got = lln_bidir(qs, ks, vk, r=r, return_res=True)
+            want = lln_bidir_plain(qs, ks, vk, r=r, return_res=True)
+            torch.cuda.synchronize()
+            keep("lln_bidir", check("out", got[0], want[0],
+                                    bf16_tol(want[0])))
+            for name, gt, wt in zip(("s", "z", "den"), got[1:], want[1:]):
+                keep("lln_bidir", check(name, gt, wt, fp32_tol(wt)))
+            o, s_, z_, den = want
+            log(f"lln_bidir_bwd N={n} r={r}:")
+            got = lln_bidir_bwd(qs, ks, vk, gk, o, den, s_, z_, r=r)
+            want = lln_bidir_bwd_plain(qs, ks, vk, gk, o, den, s_, z_, r=r)
+            torch.cuda.synchronize()
+            for name, gt, wt in zip(("dqs", "dks", "dv"), got, want):
+                keep("lln_bidir_bwd", check(name, gt, wt, fp32_tol(wt)))
+            log(f"block_diag (causal=False) N={n} r={r} blk={BLK}:")
+            got = block_diag(qk, kk, vk, r=r, blk=BLK, causal=False)
+            want = block_diag_plain(qk, kk, vk, r=r, blk=BLK, causal=False)
+            torch.cuda.synchronize()
+            keep("block_diag (causal=False)",
+                 check("out", got, want, bf16_tol(want)))
+            log(f"block_diag_bwd (causal=False) N={n} r={r} blk={BLK}:")
+            got = block_diag_bwd(qk, kk, vk, gk, r=r, blk=BLK, causal=False)
+            want = block_diag_bwd_plain(qk, kk, vk, gk, r=r, blk=BLK,
+                                        causal=False)
+            torch.cuda.synchronize()
+            for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+                keep("block_diag_bwd", check(name, gt, wt, fp32_tol(wt)))
+
+
+def phase_small_encoder():
+    """roberta-lln SMOKE MLM training on the kernels against the core
+    bidirectional form, then the train CLI --arch roberta-lln (SMOKE)."""
+    from repro_torch.data.synthetic import mlm_batches
+    _small_vs_core("roberta-lln", mlm_batches, "small_encoder")
+    _train_cli(["--arch", "roberta-lln", "--smoke"])
+
+
+def _enc_want(impl, n_layers, fwd_per_layer, bwd_per_layer):
+    want = {name: 0 for name in _counts()}
+    want["lln_bidir"] = fwd_per_layer * n_layers
+    want["lln_bidir_bwd"] = bwd_per_layer * n_layers
+    if impl == "lln_diag":
+        want["block_diag"] = fwd_per_layer * n_layers
+        want["block_diag_bwd"] = bwd_per_layer * n_layers
+    return want
+
+
+def _add_encoder_launches(launches, counted):
+    """The encoder's launches; its non-causal block_diag apart from the
+    serve path's (the kernels line times block_diag at the serve shapes)."""
+    for name in ("lln_bidir", "lln_bidir_bwd", "block_diag_bwd"):
+        launches[name] += counted[name]
+    launches["block_diag (causal=False)"] += counted["block_diag"]
+
+
+def phase_encoder_train(launches, enc_times):
+    """roberta-lln at full width and depth, use_kernel=True, batch EB x EN
+    from mlm_batches; lln then lln_diag.  Per step each layer runs the
+    forward kernels twice (remat) and the backward kernels once."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import mlm_batches
+    for impl in ("lln", "lln_diag"):
+        cfg = get_config("roberta-lln", attn_impl=impl, use_kernel=True)
+        enc_times[f"train {impl}"], counted = _train_cell(
+            cfg, EB, EN, mlm_batches,
+            lambda steps: _enc_want(impl, cfg.n_layers, 2 * steps, steps),
+            "encoder_train")
+        _add_encoder_launches(launches, counted)
+
+
+def phase_encoder_forward(launches, enc_times):
+    """Model.hidden plus the MLM logits of roberta-lln on bf16 weights
+    under no_grad, batch EB x EN; kernels against the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import torch_placer
+    from repro_torch.data.synthetic import mlm_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import logits_from_hidden
+    for impl in ("lln", "lln_diag"):
+        cfg = get_config("roberta-lln", attn_impl=impl, use_kernel=True,
+                         param_dtype="bfloat16")
+        model = build_model(cfg)
+        params = model.init(SEED)
+        batch = torch_placer("cuda")(next(mlm_batches(cfg.vocab, EB, EN,
+                                                      seed=SEED + 1)))
+
+        def forward(m=model):
+            h, _ = m.hidden(params, batch)
+            return logits_from_hidden(params.lm_head, h, cfg.cdtype)
+
+        with torch.no_grad():
+            forward()                               # warm-up (not counted)
+            torch.cuda.synchronize()
+            times = []
+            for i in range(3):
+                _reset()
+                t0 = time.time()
+                logits = forward()
+                torch.cuda.synchronize()
+                times.append(time.time() - t0)
+                counted = _read()
+                if counted != _enc_want(impl, cfg.n_layers, 1, 0):
+                    raise AssertionError(f"encoder_forward {impl}: launches "
+                                         f"{counted}")
+            _add_encoder_launches(launches, counted)
+            plain = build_model(cfg.replace(attn_backend="plain"))
+            _reset()
+            plain_logits = forward(plain)
+            torch.cuda.synchronize()
+            if any(_read().values()):
+                raise AssertionError("the plain backend launched a kernel")
+            dev_ms, top = device_profile(forward)
+        if logits.shape != (EB, EN, cfg.padded_vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"encoder_forward {impl}: logits "
+                                 f"{tuple(logits.shape)}, non-finite?")
+        # bf16 through 12 layers, as the serve check: 0.1 of the largest.
+        tol = 0.1 * max(1.0, float(plain_logits.abs().max()))
+        check(f"encoder_forward {impl} logits vs plain", logits,
+              plain_logits, tol)
+        ms = statistics.median(times) * 1e3
+        enc_times[f"forward {impl}"] = {
+            "ms": ms, "ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": EB * EN / (ms / 1e3), "device_ms": dev_ms,
+            "busy": dev_ms / ms}
+        log(f"encoder_forward {impl}: {ms:.2f} ms (median of 3), "
+            f"{EB * EN / (ms / 1e3):.0f} tokens/s, device {dev_ms:.2f} ms "
+            f"(busy {dev_ms / ms:.0%}); launches {counted}")
+        for name, t, calls in top:
+            log(f"  top forward: {t:9.3f} ms  {calls:6d} calls  {name[:90]}")
+        del model, params, plain, logits, plain_logits
+        torch.cuda.empty_cache()
+
+
+def phase_timings_encoder(errs, launches):
+    """The encoder's kernels, their plain versions and their bounds at the
+    encoder shapes (B=32, H=G=12, N=512, D=Dv=64, blk 256, bf16).  Bounds
+    count each input read once and each output written once, and the fp32
+    operations of the linear form (as phase_timings_train) or of the
+    block softmax: 2 D + 1 per (query, key) pair forward, 4 D + 2 Dv + 6
+    backward, beside the bf16 products q k^T (2 D) and, backward, g v^T
+    (2 Dv) at the tensor cores' rate.  Returns the three new kernels' rows
+    and block_diag's non-causal time, which is logged on a line of its own
+    with the encoder's launches of it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
+                                                block_diag_bwd_plain,
+                                                block_diag_plain)
+    from repro_torch.kernels.lln_attention import lln_bidir, lln_bidir_plain
+    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+                                                  lln_bidir_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    n, r = EN, 1
+    bh = bg = EB * EH
+    d = dv = ED
+    qs, ks, qk, kk, vk, g = _train_inputs(n, gen, EB, EH, EH, ED)
+    o, s_, z_, den = lln_bidir_plain(qs, ks, vk, r=r, return_res=True)
+    f32, b16 = 4, 2
+    qsks = (bh + bg) * n * d * f32
+    lln_fwd = bh * n * (2 * d * dv + 2 * d) + bg * n * (2 * d * dv + d) \
+        + (bh + bg) * n * d
+    lln_bwd = bh * n * (4 * d * dv + 3 * dv + 4 * d) \
+        + bg * n * (4 * d * dv + 2 * d) + (bh + bg) * n * d
+    pairs = bh * (n // BLK) * BLK * BLK
+    qkvg = (bh + bg) * n * d * b16 + bg * n * dv * b16 + bh * n * dv * b16
+
+    def blocks(t):
+        nb = n // BLK
+        return t.reshape(EB, EH, nb, BLK, t.shape[-1]).permute(0, 2, 1, 3, 4) \
+            .reshape(EB * nb, EH, BLK, t.shape[-1])
+    # SDPA yardsticks on (B*nb, H, blk, D) blocks (H = G: no repeat).
+    qb, kb, vb, gb = (blocks(t) for t in (qk, kk, vk, g))
+    qb, kb, vb = (t.detach().requires_grad_() for t in (qb, kb, vb))
+    sdpa_out = F.scaled_dot_product_attention(qb, kb, vb)
+
+    specs = [
+        ("lln_bidir", "lln_bidir.cu", "lln_attention.py:166",
+         lambda: lln_bidir(qs, ks, vk, r=r, return_res=True),
+         lambda: lln_bidir_plain(qs, ks, vk, r=r, return_res=True),
+         qsks + bg * n * dv * b16 + bh * n * dv * b16 + bh * n * f32
+         + bg * (d * dv + d) * f32, lln_fwd, 0, None),
+        ("lln_bidir_bwd", "lln_bidir_bwd.cu", "lln_backward.py:261",
+         lambda: lln_bidir_bwd(qs, ks, vk, g, o, den, s_, z_, r=r),
+         lambda: lln_bidir_bwd_plain(qs, ks, vk, g, o, den, s_, z_, r=r),
+         qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 + bh * n * f32
+         + bg * (d * dv + d) * f32 + (bh + bg) * n * d * f32
+         + bg * n * dv * f32, lln_bwd, 0, None),
+        ("block_diag_bwd", "block_diag_bwd.cu", "block_diag.py:69",
+         lambda: block_diag_bwd(qk, kk, vk, g, r=r, blk=BLK, causal=False),
+         lambda: block_diag_bwd_plain(qk, kk, vk, g, r=r, blk=BLK,
+                                      causal=False),
+         qkvg + (bh + bg) * n * d * f32 + bg * n * dv * f32,
+         pairs * (4 * d + 2 * dv + 6), pairs * (2 * d + 2 * dv),
+         lambda: torch.autograd.grad(sdpa_out, (qb, kb, vb), gb,
+                                     retain_graph=True)),
+    ]
+    rows = []
+    for name, src, ref, kernel, plain, nbytes, flops, tc, library in specs:
+        bnd, by = bound_ms(nbytes, flops, tc)
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{ref}", launches=launches[name],
+            max_abs_err=errs[name], ms=cuda_ms(kernel, reps=10),
+            plain_ms=cuda_ms(plain, reps=10), bound_ms=bnd, bound_by=by,
+            library_ms=cuda_ms(library, reps=10) if library else None))
+        row = rows[-1]
+        log(f"timing {name}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), library {row['library_ms']}")
+    # q, k, v in; out
+    bnd, by = bound_ms(qkvg, pairs * (2 * d + 1), pairs * 2 * d)
+    nc = dict(
+        launches=launches["block_diag (causal=False)"],
+        max_abs_err=errs["block_diag (causal=False)"],
+        ms=cuda_ms(lambda: block_diag(qk, kk, vk, r=r, blk=BLK,
+                                      causal=False), reps=10),
+        plain_ms=cuda_ms(lambda: block_diag_plain(qk, kk, vk, r=r, blk=BLK,
+                                                  causal=False), reps=10),
+        bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb), reps=10))
+    log(f"timing block_diag (causal=False, encoder shapes B={EB} H={EH} "
+        f"N={n} D={d} blk={BLK}): kernel {nc['ms']:.4f} ms, plain "
+        f"{nc['plain_ms']:.4f} ms, bound {nc['bound_ms']:.4f} ms "
+        f"({nc['bound_by']}), library {nc['library_ms']:.4f} ms (SDPA), "
+        f"encoder launches {nc['launches']}")
+    return rows, nc
+
+
 def main():
     smi = phase_device()
     phase_build()
     errs, serve_times, train_times = {}, {}, {}
+    enc_times = {}
     launches = {name: 0 for name in (
         "lln_causal (state)", "block_diag", "lln_decode", "lln_causal (res)",
-        "lln_diag_fused", "lln_causal_bwd", "lln_diag_fused_bwd")}
+        "lln_diag_fused", "lln_causal_bwd", "lln_diag_fused_bwd",
+        "lln_bidir", "lln_bidir_bwd", "block_diag_bwd",
+        "block_diag (causal=False)")}
     phase_kernels(errs)
     phase_kernels_train(errs)
+    phase_kernels_encoder(errs)
     phase_small()
     phase_small_train()
+    phase_small_encoder()
     phase_serve(launches, serve_times)
     phase_train(launches, train_times)
+    phase_encoder_train(launches, enc_times)
+    phase_encoder_forward(launches, enc_times)
     rows, rescale_ms = phase_timings(errs, launches)
     rows += phase_timings_train(errs, launches)
+    enc_rows, block_diag_bidir = phase_timings_encoder(errs, launches)
+    rows += enc_rows
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
+    log("encoder times: " + json.dumps(enc_times))
+    log("block_diag (causal=False, encoder shapes): "
+        + json.dumps(block_diag_bidir))
     log(f"decode_rescale_ms: {rescale_ms}")
     print(smi)
     print(json.dumps({"kernels": rows}))

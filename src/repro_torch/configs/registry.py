@@ -1,7 +1,8 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers.
 
-Only the archs the port can serve are registered; the others arrive with
-the slices that port their model families (ROADMAP.md, queue 1).
+Only the archs whose model family the port runs are registered (the dense
+decoder yi-9b, the bidirectional encoder roberta-lln); the others arrive
+with the slices that port their families (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from .base import ArchConfig
 
 _MODULES = {
     "yi-9b": "yi_9b",
+    "roberta-lln": "roberta_lln",
 }
 
 

@@ -1,12 +1,13 @@
 """Carry the reference's weights, train state and decode state across as
 numpy arrays.
 
-The reference's parameter pytree (``repro.models.transformer.lm_init``)
-stacks the per-layer subtrees along a leading layer axis under
-``"layers"``.  :func:`leaves_from_numpy` names its leaves as the port's
-parameters (``layers.3.attn.q_w``), splitting the layer axis; the caller
-maps ``np.asarray`` over the tree, so this module never sees JAX.
-:func:`params_from_numpy` copies them into a :class:`DenseLM`,
+The reference's parameter pytrees (``repro.models.transformer.lm_init``
+and ``repro.models.encoder.encoder_init``) stack the per-layer subtrees
+along a leading layer axis under ``"layers"``.  :func:`leaves_from_numpy`
+names their leaves as the port's parameters (``layers.3.attn.q_w``),
+splitting the layer axis; the caller maps ``np.asarray`` over the tree, so
+this module never sees JAX.  :func:`params_from_numpy` copies them into a
+:class:`DenseLM` or, for the encoder family, an :class:`Encoder`,
 :func:`train_state_from_numpy` also the AdamW moments and step.  The weight
 layout stays (d_in, d_out): the port computes ``x @ w``.  bf16 leaves
 travel through fp32, which is exact.
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import LLN_FIELDS, AttentionState
+from repro_torch.models.encoder import Encoder
 from repro_torch.models.transformer import DenseLM
 
 
@@ -53,9 +55,11 @@ def leaves_from_numpy(tree: dict, cfg: ArchConfig) -> dict:
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> DenseLM:
-    """A :class:`DenseLM` on ``device`` holding the reference's weights."""
+    """A :class:`DenseLM` (an :class:`Encoder` for the encoder family) on
+    ``device`` holding the reference's weights."""
     gen = torch.Generator(device=device)
-    model = DenseLM(cfg, device, gen)         # shapes and names; overwritten
+    cls = Encoder if cfg.family == "encoder" else DenseLM
+    model = cls(cfg, device, gen)             # shapes and names; overwritten
     named = dict(model.named_parameters())
     leaves = leaves_from_numpy(tree, cfg)
     if set(named) != set(leaves):
@@ -68,7 +72,7 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> DenseLM:
 
 
 def train_state_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
-    """The port's train state ``{"params": DenseLM, "opt": {"m", "v",
+    """The port's train state ``{"params": module, "opt": {"m", "v",
     "step"}}`` from the reference's ``{"params", "opt": {"m", "v",
     "step"}}`` with numpy leaves (fp32 moments, int32 step)."""
     params = params_from_numpy(tree["params"], cfg, device)

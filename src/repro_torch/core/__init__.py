@@ -3,7 +3,7 @@ from .attention import (AttnConfig, LLNDecodeState, batch_alpha_beta,
                         decode_lln_chunk, multi_head_attention)
 from .diag import block_diag_attn
 from .engine import AttentionEngine, AttentionState
-from .lln import LLNState, lln_causal_scan
+from .lln import LLNState, lln_bidir, lln_causal_scan
 from .moment_matching import (DEFAULT_A, DEFAULT_B, constants_for_dim,
                               length_gain, solve_alpha_beta)
 
@@ -11,6 +11,6 @@ __all__ = [
     "AttentionEngine", "AttentionState", "AttnConfig", "LLNDecodeState",
     "LLNState", "batch_alpha_beta", "decode_lln_chunk",
     "multi_head_attention", "block_diag_attn",
-    "lln_causal_scan", "DEFAULT_A", "DEFAULT_B",
+    "lln_bidir", "lln_causal_scan", "DEFAULT_A", "DEFAULT_B",
     "constants_for_dim", "length_gain", "solve_alpha_beta",
 ]

@@ -1,11 +1,11 @@
 """Attention front-end: calibration, full-sequence attention and chunked
 LLN(+Diag) decode.
 
-Port of ``repro.core.attention`` for the causal ``lln`` and ``lln_diag``
-impls: :func:`batch_alpha_beta` (eq. 10 on the current batch's
-statistics), :class:`AttnConfig` and :func:`multi_head_attention` (the
-training forward), :class:`LLNDecodeState` and :func:`decode_lln_chunk`,
-whose §4.2 diag part is one masked softmax over [tail block ∪ chunk keys]
+Port of ``repro.core.attention`` for the ``lln`` and ``lln_diag`` impls:
+:func:`batch_alpha_beta` (eq. 10 on the current batch's statistics),
+:class:`AttnConfig` and :func:`multi_head_attention` (the training forward,
+causal for the decoder and bidirectional for the encoder),
+:class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part is one masked softmax over [tail block ∪ chunk keys]
 in plain PyTorch (it has no kernel in the reference either).
 
 GQA: k/v carry G kv heads with G | H; all inputs are (batch, seq, heads,
@@ -21,7 +21,7 @@ import torch
 
 from . import lln as lln_mod
 from .diag import block_diag_attn
-from .lln import LLNState, lln_causal_scan
+from .lln import LLNState, lln_bidir, lln_causal_scan
 from .moment_matching import constants_for_dim, solve_alpha_beta
 
 NEG_INF = -1e30
@@ -49,8 +49,6 @@ _NOT_PORTED = {
     "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
                "first slice', item 1)",
     "log_linear": "the log_linear impl (ROADMAP.md queue 1, item 10)",
-    "bidir": "bidirectional attention (ROADMAP.md queue 1, 'Next: the "
-             "encoder')",
 }
 
 
@@ -94,15 +92,13 @@ def batch_alpha_beta(q, k, cfg, n: int | None = None):
 
 def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
                          beta=None) -> torch.Tensor:
-    """Full-sequence causal attention (training / prefill), ``lln`` or
-    ``lln_diag``.  q: (B,N,H,D); k/v: (B,N,G,D[v]).  alpha/beta default to
-    :func:`batch_alpha_beta` of this batch; a per-head (H,) beta is pooled
-    to the G groups."""
+    """Full-sequence attention (training / prefill), ``lln`` or
+    ``lln_diag``, causal or bidirectional (``cfg.causal``).  q: (B,N,H,D);
+    k/v: (B,N,G,D[v]).  alpha/beta default to :func:`batch_alpha_beta` of
+    this batch; a per-head (H,) beta is pooled to the G groups."""
     if cfg.impl not in ("lln", "lln_diag"):
         raise NotImplementedError(f"attn impl {cfg.impl!r} is not ported "
                                   f"yet: {_NOT_PORTED.get(cfg.impl, '')}")
-    if not cfg.causal:
-        raise NotImplementedError(_NOT_PORTED["bidir"])
     h, g = q.shape[2], k.shape[2]
     if alpha is None or beta is None:
         alpha, beta = batch_alpha_beta(q, k, cfg)
@@ -126,12 +122,15 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
 
     kv_k, kv_v = _repeat_kv(k, h), _repeat_kv(v, h)
     beta_h = torch.repeat_interleave(beta, h // g, dim=-1) if g != h else beta
-    lln_out, _ = lln_causal_scan(q, kv_k, kv_v, alpha, beta_h,
-                                 chunk=cfg.lln_chunk)
+    if cfg.causal:
+        lln_out, _ = lln_causal_scan(q, kv_k, kv_v, alpha, beta_h,
+                                     chunk=cfg.lln_chunk)
+    else:
+        lln_out = lln_bidir(q, kv_k, kv_v, alpha, beta_h)
     if cfg.impl == "lln":
         return lln_out
     diag_out = block_diag_attn(q, kv_k, kv_v, block=cfg.diag_block,
-                               causal=True)
+                               causal=cfg.causal)
     return (0.5 * (lln_out.float() + diag_out.float())).to(v.dtype)
 
 

@@ -1,7 +1,8 @@
 """Linear Log-Normal (LLN) attention — the paper's core contribution (eq. 8-9).
 
-Port of ``repro.core.lln``: the plain PyTorch reference of the causal LLN
-forward, the state-emitting prefill and the chunked decode.  These are the
+Port of ``repro.core.lln``: the plain PyTorch reference of the
+bidirectional (encoder) LLN forward, the causal LLN forward, the
+state-emitting prefill and the chunked decode.  These are the
 oracles the kernels' plain versions and the ``ref`` backend are held to.
 
 Feature maps Phi_Q(q) = exp(alpha*q - c_q), Phi_K(k) = exp(beta*k - c_k)
@@ -53,6 +54,25 @@ class LLNState:
     z: torch.Tensor
     c_k: torch.Tensor
     log_scale: Optional[torch.Tensor] = None
+
+
+def lln_bidir(q, k, v, alpha, beta) -> torch.Tensor:
+    """Non-causal LLN attention, O(N d^2) time, O(d^2) state.
+
+    out_i = Phi(q_i) S / (Phi(q_i) . z + EPS) with S = sum_j Phi(k_j) v_j^T
+    and z = sum_j Phi(k_j) over the whole sequence.  As in the reference,
+    the feature maps are rounded to q's / k's dtype and the summaries to
+    Phi(q)'s dtype before the fp32 products.
+    """
+    aq = q * _bcast(alpha, q)
+    bk = k * _bcast(beta, k)
+    fq = torch.exp(aq - _stab_const(aq)).to(q.dtype)
+    fk = torch.exp(bk - _stab_const(bk)).to(k.dtype).float()
+    s = torch.einsum("bnhd,bnhv->bhdv", fk, v.float())
+    z = fk.sum(1)
+    num = torch.einsum("bnhd,bhdv->bnhv", fq.float(), s.to(fq.dtype).float())
+    den = torch.einsum("bnhd,bhd->bnh", fq.float(), z.to(fq.dtype).float())
+    return (num / (den[..., None] + EPS)).to(v.dtype)
 
 
 def lln_causal_scan(q, k, v, alpha, beta, *, chunk: int = 128):

@@ -13,8 +13,26 @@ its fp32 output rows in shared memory; keys and values stream through in
 64-row tiles.  The softmax is the reference's exact form: subtract the row
 max, exponentiate, divide by the row sum, then multiply by V.  Bound on the
 H100 at the serve shapes (B=4, H=32, G=4, N=512, blk=256, D=Dv=128): the
-causal blocks need about 4.3 GFLOP of fp32 work against 21 MB of traffic,
-so fp32 operations bound it (67 TFLOP/s without tensor cores).
+causal blocks need about 2.2 GFLOP of fp32 work (the products with the fp32
+p) and 2.2 GFLOP of bf16 q k^T products (989 TFLOP/s on the tensor cores)
+against 21 MB of traffic, so fp32 operations bound it (67 TFLOP/s without
+tensor cores).  The
+encoder runs it with ``causal=False`` at D = Dv = 64.
+
+``block_diag_bwd`` (``csrc/block_diag_bwd.cu``) replaces
+``src/repro/kernels/block_diag.py:block_diag_bwd_pallas``: fp32 dq per
+query head and dk/dv summed over the r query heads of a kv head, with the
+block softmax recomputed and no saved probabilities.  A blk x blk fp32
+block of p (256 KB at blk 256) does not fit in shared memory, so the design
+is that of ``csrc/lln_diag_fused_bwd.cu``: a dq kernel per (query head,
+block, 32-row tile) holds its rows' scores against the block's keys, writes
+dq and saves each row's softmax max, sum and delta = sum_j p_j (g.v_j); a
+dk/dv kernel per (kv head, block, 32-key tile) recomputes p pair by pair
+from them, looping over the r heads and the block's query tiles in a fixed
+order (no atomics).  Any N; causal optional.  Bound: fp32
+operations (about 20 GFLOP at the encoder shapes B=32, H=G=12, N=512,
+blk 256, D=Dv=64, beside 13 GFLOP of bf16 products q k^T and g v^T that
+the tensor cores could take).
 """
 from __future__ import annotations
 
@@ -28,34 +46,7 @@ QUERY_TILE = 32
 _DCODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def block_diag_plain(q, k, v, *, r: int = 1, blk: int = 256,
-                     causal: bool = False):
-    """Plain PyTorch block-diagonal softmax, any N (GQA via a (BG, R) head
-    split; keys past N in the ragged last block are masked)."""
-    bh, n, d = q.shape
-    bg, dv = k.shape[0], v.shape[-1]
-    scale = d ** -0.5
-    nb = -(-n // blk)
-    pad = nb * blk - n
-    qf = F.pad(q.float(), (0, 0, 0, pad)).reshape(bg, r, nb, blk, d) * scale
-    kf = F.pad(k.float(), (0, 0, 0, pad)).reshape(bg, nb, blk, d)
-    vf = F.pad(v.float(), (0, 0, 0, pad)).reshape(bg, nb, blk, dv)
-    s = torch.einsum("grnid,gnjd->grnij", qf, kf)
-    allowed = (torch.arange(nb * blk, device=q.device) < n).reshape(nb, 1, blk)
-    if causal:
-        allowed = allowed & torch.tril(torch.ones(blk, blk, dtype=torch.bool,
-                                                  device=q.device))
-    s = torch.where(allowed, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("grnij,gnjv->grniv", p, vf)
-    return out.reshape(bh, nb * blk, dv)[:, :n].to(v.dtype)
-
-
-def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
-    """Block-diagonal softmax (scores scaled by D^-1/2); see the module
-    docstring."""
-    if q.device.type == "cpu":
-        return block_diag_plain(q, k, v, r=r, blk=blk, causal=causal)
+def _check_qkv(q, k, v, r, blk):
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on the same CUDA device")
     if q.dtype not in _DCODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -64,7 +55,7 @@ def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
     if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
         raise ValueError("q, k and v must be 3-D (rows, seq, dim)")
     bh, n, d = q.shape
-    bg, dv = k.shape[0], v.shape[-1]
+    bg = k.shape[0]
     if bg * r != bh or k.shape[1:] != (n, d) or v.shape[:2] != (bg, n):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, r={r}")
@@ -73,6 +64,49 @@ def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _blocks(q, k, v, r: int, blk: int, causal: bool, g=None):
+    """fp32 block views (zero-padded to whole blocks) and the block softmax
+    probabilities: ``(qq = q D^-1/2 (BG,R,nb,blk,D), kk, vv, p
+    (BG,R,nb,blk,blk), gg or None)``; keys past N are masked."""
+    bh, n, d = q.shape
+    bg, dv = k.shape[0], v.shape[-1]
+    nb = -(-n // blk)
+    pad = nb * blk - n
+    qq = F.pad(q.float(), (0, 0, 0, pad)).reshape(bg, r, nb, blk, d) \
+        * d ** -0.5
+    kk = F.pad(k.float(), (0, 0, 0, pad)).reshape(bg, nb, blk, d)
+    vv = F.pad(v.float(), (0, 0, 0, pad)).reshape(bg, nb, blk, dv)
+    gg = None if g is None else \
+        F.pad(g.float(), (0, 0, 0, pad)).reshape(bg, r, nb, blk, dv)
+    s = torch.einsum("grnid,gnjd->grnij", qq, kk)
+    allowed = (torch.arange(nb * blk, device=q.device) < n).reshape(nb, 1, blk)
+    if causal:
+        allowed = allowed & torch.tril(torch.ones(blk, blk, dtype=torch.bool,
+                                                  device=q.device))
+    p = torch.softmax(torch.where(allowed, s, NEG_INF), dim=-1)
+    return qq, kk, vv, p, gg
+
+
+def block_diag_plain(q, k, v, *, r: int = 1, blk: int = 256,
+                     causal: bool = False):
+    """Plain PyTorch block-diagonal softmax, any N (GQA via a (BG, R) head
+    split; keys past N in the ragged last block are masked)."""
+    bh, n, _ = q.shape
+    _, _, vv, p, _ = _blocks(q, k, v, r, blk, causal)
+    out = torch.einsum("grnij,gnjv->grniv", p, vv)
+    return out.reshape(bh, -1, v.shape[-1])[:, :n].to(v.dtype)
+
+
+def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
+    """Block-diagonal softmax (scores scaled by D^-1/2); see the module
+    docstring."""
+    if q.device.type == "cpu":
+        return block_diag_plain(q, k, v, r=r, blk=blk, causal=causal)
+    _check_qkv(q, k, v, r, blk)
+    bh, n, d = q.shape
+    bg, dv = k.shape[0], v.shape[-1]
     out = torch.empty(bh, n, dv, dtype=v.dtype, device=q.device)
     lib = build.library("block_diag")
     with torch.cuda.device(q.device):
@@ -86,3 +120,54 @@ def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
 
 
 block_diag.launches = 0
+
+
+def block_diag_bwd_plain(q, k, v, g, *, r: int = 1, blk: int = 256,
+                         causal: bool = False):
+    """Plain PyTorch twin of ``block_diag_bwd_scan``, any N (the ragged
+    last block's pad keys are masked and its pad rows get a zero
+    cotangent).  Returns fp32 ``(dq (BH,N,D), dk (BG,N,D), dv
+    (BG,N,Dv))``, dk/dv summed over the r query heads of a kv head."""
+    bh, n, d = q.shape
+    bg, dv = k.shape[0], v.shape[-1]
+    qq, kk, vv, p, gg = _blocks(q, k, v, r, blk, causal, g)
+    dp = torch.einsum("grnie,gnje->grnij", gg, vv)
+    dsm = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.einsum("grnij,gnjd->grnid", dsm, kk) * d ** -0.5
+    dk = torch.einsum("grnij,grnid->gnjd", dsm, qq)
+    dvv = torch.einsum("grnij,grnie->gnje", p, gg)
+    return (dq.reshape(bh, -1, d)[:, :n], dk.reshape(bg, -1, d)[:, :n],
+            dvv.reshape(bg, -1, dv)[:, :n])
+
+
+def block_diag_bwd(q, k, v, g, *, r: int = 1, blk: int = 256,
+                   causal: bool = False):
+    """Backward of :func:`block_diag` from its inputs and the cotangent
+    ``g`` (BH,N,Dv) in their dtype; see the module docstring."""
+    if q.device.type == "cpu":
+        return block_diag_bwd_plain(q, k, v, g, r=r, blk=blk, causal=causal)
+    _check_qkv(q, k, v, r, blk)
+    bh, n, d = q.shape
+    bg, dv = k.shape[0], v.shape[-1]
+    if g.dtype != v.dtype or g.shape != (bh, n, dv) \
+            or g.device != q.device or not g.is_contiguous():
+        raise ValueError(f"g must be a contiguous {v.dtype} {(bh, n, dv)} "
+                         f"tensor on {q.device}")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty(bh, n, d, **f32)
+    dk = torch.empty(bg, n, d, **f32)
+    dvo = torch.empty(bg, n, dv, **f32)
+    stats = torch.empty(3, bh, n, **f32)
+    lib = build.library("block_diag_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.block_diag_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dvo.data_ptr(), stats.data_ptr(),
+            bh, bg, n, d, dv, blk, int(causal), _DCODES[q.dtype], d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "block_diag_bwd")
+    block_diag_bwd.launches += 1
+    return dq, dk, dvo
+
+
+block_diag_bwd.launches = 0

@@ -39,6 +39,10 @@ SIGNATURES = {
     "lln_causal_bwd": {"lln_causal_bwd_launch": "p" * 10 + "i" * 9 + "p"},
     "lln_diag_fused_bwd": {"lln_diag_fused_bwd_launch":
                            "p" * 14 + "i" * 9 + "f" + "p"},
+    "lln_bidir": {"lln_bidir_launch": "ppppppp" + "iiiiii" + "p"},
+    "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p"},
+    "block_diag_bwd": {"block_diag_bwd_launch":
+                       "p" * 8 + "i" * 8 + "f" + "p"},
 }
 
 _lock = threading.Lock()

@@ -34,8 +34,9 @@ recomputing the tile's scores once per column group.
 0.  The CTA of ``lln_causal`` also computes, per 64-row tile, the block
 softmax of its rows against the block's keys up to them and writes the
 average once, rounded once.  Bound: fp32 operations (the LLN work plus
-about 4 D FLOPs per visible (query, key) pair of the diag part, 8.6 GFLOP
-at B=4, H=32, N=1024, blk=256, D=128).
+about 2 D fp32 FLOPs per visible (query, key) pair of the diag part, 4.3
+GFLOP at B=4, H=32, N=1024, blk=256, D=128; its bf16 q k^T products, as
+many again, count at the tensor cores' rate).
 
 ``lln_decode`` (``csrc/lln_decode.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_decode_pallas``.  One CTA per
@@ -46,6 +47,18 @@ padding.  Bound: the state's bytes (read s0, write s1: 16.8 MB per layer
 at B=4, H=32, D=Dv=128, about 5 us at 3.35 TB/s).  The rescale of the
 carried state before the launch is a third pass over it, still in PyTorch
 (``ops.lln_decode_chunk``).
+
+``lln_bidir`` (``csrc/lln_bidir.cu``) replaces
+``src/repro/kernels/lln_attention.py:lln_bidir_pallas``: the encoder's
+bidirectional LLN, ``Phi(q) S / (Phi(q) . z + EPS)`` with the whole
+sequence's ``S = sum Phi(k) v^T`` and ``z = sum Phi(k)`` per kv head.  Two
+kernels, as the reference's reduce and apply: the reduce gives each CTA a
+(kv head, 32 value columns) slice of ``S`` and loops over the sequence in
+order inside the CTA (the TPU's ordered grid axis), so the sums have a
+fixed order and no atomics; the apply gives each CTA a (query head,
+64-row tile) and the whole of its kv head's ``S`` and ``z`` in shared
+memory.  Any N.  Bound on the H100 at the encoder shapes (B=32, H=G=12,
+N=512, D=Dv=64): fp32 operations (about 3.3 GFLOP against 150 MB).
 """
 from __future__ import annotations
 
@@ -323,3 +336,54 @@ def lln_decode(qs, ks, v, s0, z0, *, r: int = 1):
 
 
 lln_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional LLN (the encoder): reduce (S, z), then apply.
+# ---------------------------------------------------------------------------
+
+def lln_bidir_plain(qs, ks, v, *, r: int = 1, return_res: bool = False):
+    """Plain PyTorch bidirectional LLN (the reference's reduce and apply,
+    GQA via a (BG, R) head split), any N.  Returns ``out`` (BH,N,Dv) in
+    v.dtype; with ``return_res`` ``(out, s (BG,D,Dv), z (BG,1,D), den
+    (BH,N))``, the fp32 summaries and normalizer the backward reads."""
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    fk = torch.exp(ks.float())
+    s = torch.einsum("gnd,gnv->gdv", fk, v.float())
+    z = fk.sum(1)
+    fq = torch.exp(qs.float()).reshape(bg, r, n, d)
+    num = torch.einsum("grnd,gdv->grnv", fq, s)
+    den = torch.einsum("grnd,gd->grn", fq, z) + EPS
+    out = (num / den[..., None]).reshape(bh, n, dv).to(v.dtype)
+    if return_res:
+        return out, s, z[:, None, :], den.reshape(bh, n)
+    return out
+
+
+def lln_bidir(qs, ks, v, *, r: int = 1, return_res: bool = False):
+    """Bidirectional LLN forward, outputs as :func:`lln_bidir_plain`; see
+    the module docstring."""
+    if qs.device.type == "cpu":
+        return lln_bidir_plain(qs, ks, v, r=r, return_res=return_res)
+    _check_lln_inputs(qs, ks, v, r)
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
+    s = torch.empty(bg, d, dv, **f32)
+    z = torch.empty(bg, 1, d, **f32)
+    den = torch.empty(bh, n, **f32) if return_res else None
+    lib = build.library("lln_bidir")
+    with torch.cuda.device(qs.device):
+        err = lib.lln_bidir_launch(
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
+            den.data_ptr() if den is not None else None, s.data_ptr(),
+            z.data_ptr(), bh, bg, n, d, dv, _VCODES[v.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "lln_bidir")
+    lln_bidir.launches += 1
+    return (out, s, z, den) if return_res else out
+
+
+lln_bidir.launches = 0

@@ -31,6 +31,18 @@ gradient on ``g / 2`` with the LLN output rebuilt from the saved ``o`` as
 ``2 o - diag``, plus the block softmax gradient, recomputed in the kernels
 (the dq kernel saves each row's softmax max, sum and delta for the dk/dv
 kernel instead of the probabilities).  Bound: fp32 operations.
+
+``lln_bidir_bwd`` (``csrc/lln_bidir_bwd.cu``) replaces
+``src/repro/kernels/lln_backward.py:lln_bidir_bwd_pallas``: the encoder's
+backward from the saved ``(S, z, den, o)``.  Three kernels, as the
+reference's: dq applies ``(S, z)`` per (query head, 64-row tile) and
+writes each row's ``w`` for the next; the reduce sums the whole sequence's
+``(dS, dz)`` over N and over the r query heads of a kv head, in that fixed
+order inside one CTA per (kv head, 32 columns) -- the TPU revisited one
+output block in grid order, GPU programs run concurrently, and atomics
+would make the sums' order vary; dk/dv apply ``(dS, dz)`` per (kv head,
+64-row tile).  Any N.  Bound: fp32 operations (about 6.4 GFLOP
+at B=32, H=G=12, N=512, D=Dv=64).
 """
 from __future__ import annotations
 
@@ -218,3 +230,71 @@ def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
 
 
 lln_diag_fused_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Bidirectional LLN backward.
+# ---------------------------------------------------------------------------
+
+def _check_state(s, z, bg, d, dv, device):
+    for name, t, shape in (("s", s, (bg, d, dv)), ("z", z, (bg, 1, d))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {shape} "
+                             f"tensor on {device}")
+
+
+def lln_bidir_bwd_plain(qs, ks, v, g, o, den, s, z, *, r: int = 1):
+    """Plain PyTorch twin of ``lln_bidir_bwd_scan`` (full-sequence
+    einsums, GQA by a (BG, R) head split), any N: u = g / den,
+    w = (g . o) / den against the forward's ``s`` (BG,D,Dv) and
+    ``z`` (BG,1,D).  Returns fp32 ``(dqs (BH,N,D), dks (BG,N,D),
+    dv (BG,N,Dv))``."""
+    bh, n, d = qs.shape
+    bg = ks.shape[0]
+    fq = torch.exp(qs.float()).reshape(bg, r, n, d)
+    fk = torch.exp(ks.float())
+    u, w = _uw(g, o, den)
+    u = u.reshape(bg, r, n, -1)
+    w = w.reshape(bg, r, n)
+    dfq = torch.einsum("brne,bde->brnd", u, s) \
+        - w[..., None] * z[:, 0][:, None, None, :]
+    dqs = (fq * dfq).reshape(bh, n, d)
+    ds = torch.einsum("brnd,brne->bde", fq, u)
+    dz = (fq * w[..., None]).sum((1, 2))
+    dvv = torch.einsum("bnd,bde->bne", fk, ds)
+    dks = fk * (torch.einsum("bne,bde->bnd", v.float(), ds) - dz[:, None, :])
+    return dqs, dks, dvv
+
+
+def lln_bidir_bwd(qs, ks, v, g, o, den, s, z, *, r: int = 1):
+    """Backward of the bidirectional LLN forward from its residuals; see
+    the module docstring.  qs/g/o/den are query-side (BH, ...), ks/v and
+    the saved s/z kv-side (BG, ...); g and o in v's dtype; any N."""
+    if qs.device.type == "cpu":
+        return lln_bidir_bwd_plain(qs, ks, v, g, o, den, s, z, r=r)
+    _check_grad_inputs(qs, ks, v, g, o, den, r)
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    _check_state(s, z, bg, d, dv, qs.device)
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    dqs = torch.empty(bh, n, d, **f32)
+    dks = torch.empty(bg, n, d, **f32)
+    dvo = torch.empty(bg, n, dv, **f32)
+    w = torch.empty(bh, n, **f32)
+    ds = torch.empty(bg, d, dv, **f32)
+    dz = torch.empty(bg, d, **f32)
+    lib = build.library("lln_bidir_bwd")
+    with torch.cuda.device(qs.device):
+        err = lib.lln_bidir_bwd_launch(
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
+            o.data_ptr(), den.data_ptr(), s.data_ptr(), z.data_ptr(),
+            dqs.data_ptr(), dks.data_ptr(), dvo.data_ptr(), w.data_ptr(),
+            ds.data_ptr(), dz.data_ptr(), bh, bg, n, d, dv, _VCODES[v.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "lln_bidir_bwd")
+    lln_bidir_bwd.launches += 1
+    return dqs, dks, dvo
+
+
+lln_bidir_bwd.launches = 0

@@ -1,6 +1,7 @@
 """Ops around the kernels (port of ``repro.kernels.ops``): the training
-entries ``lln_attention`` / ``lln_diag_attention`` (causal) and the serving
-entries ``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``.
+entries ``lln_attention`` / ``lln_diag_attention`` (causal and
+bidirectional) and ``block_diag_attention``, and the serving entries
+``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``.
 
 Responsibilities:
 * layout: (B, N, H, D) model convention <-> (B*H, N, D) kernel convention,
@@ -15,10 +16,13 @@ Responsibilities:
   the kernel-layout v (and q, k for the fused op), the output and the LLN
   normalizer ``den``, and whose backward runs the backward kernel (or its
   plain version) and applies the chain rule through qs = alpha*q - c_q.
-  alpha, beta, c_q and c_k get no gradient, as in the reference.  A
-  sequence whose length is not a multiple of the block is padded with
-  zeros at its end inside the Function (:func:`_pad_seq`), so the kernels
-  run for any N.
+  alpha, beta, c_q and c_k get no gradient, as in the reference.  The
+  bidirectional forward also saves the summaries ``(s, z)``, and the
+  bidirectional hybrid saves the LLN half of its output, as the
+  reference does.  Any N: a causal sequence whose length is not a multiple
+  of the block is padded with zeros at its end inside the Function
+  (:func:`_pad_seq`); the bidirectional kernels take the true N, since
+  every query sees every key and a pad key would enter the sums.
 """
 from __future__ import annotations
 
@@ -27,15 +31,14 @@ import torch
 from repro_torch.core import diag as core_diag
 from repro_torch.core import lln as core_lln
 from . import registry
-from .block_diag import block_diag, block_diag_plain
-from .lln_attention import (lln_causal, lln_causal_plain, lln_decode,
-                            lln_decode_plain, lln_diag_fused,
-                            lln_diag_fused_plain)
-from .lln_backward import (lln_causal_bwd, lln_causal_bwd_plain,
-                           lln_diag_fused_bwd, lln_diag_fused_bwd_plain)
-
-_ENCODER = ("bidirectional attention is not ported yet: it comes with the "
-            "encoder slice (ROADMAP.md queue 1, 'Next: the encoder')")
+from .block_diag import (block_diag, block_diag_bwd, block_diag_bwd_plain,
+                         block_diag_plain)
+from .lln_attention import (lln_bidir, lln_bidir_plain, lln_causal,
+                            lln_causal_plain, lln_decode, lln_decode_plain,
+                            lln_diag_fused, lln_diag_fused_plain)
+from .lln_backward import (lln_bidir_bwd, lln_bidir_bwd_plain, lln_causal_bwd,
+                           lln_causal_bwd_plain, lln_diag_fused_bwd,
+                           lln_diag_fused_bwd_plain)
 
 
 def _to_kernel(t: torch.Tensor) -> torch.Tensor:
@@ -78,7 +81,8 @@ def _pad_seq(t: torch.Tensor, n_to: int) -> torch.Tensor:
 
     Under the causal mask a pad key (position >= N) is seen only by pad
     queries, so every real row of the forward is unchanged; a pad query's
-    cotangent is zero, so it adds nothing to any gradient.
+    cotangent is zero, so it adds nothing to any gradient.  Not for the
+    bidirectional kernels: there a zero pad key has Phi(k) = exp(-c_k) != 0.
     """
     pad = n_to - t.shape[1]
     return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
@@ -94,125 +98,202 @@ def _repeat_heads(t: torch.Tensor, h: int, dim: int = 2) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Training: causal LLN and the fused LLN + diag hybrid with their gradients.
+# Training: LLN and the LLN + diag hybrid with their gradients.
 # ---------------------------------------------------------------------------
 
-def _lln_ref(q, k, v, alpha, beta, chunk):
-    """Autograd through the core chunked scan on repeated KV (the
-    reference's ``_lln_ref``); alpha and beta get no gradient."""
+def _lln_ref(q, k, v, alpha, beta, causal, chunk):
+    """Autograd through the core chunked scan (causal) or ``lln_bidir`` on
+    repeated KV (the reference's ``_lln_ref``); alpha and beta get no
+    gradient."""
     h, g = q.shape[2], k.shape[2]
     alpha, beta = (torch.as_tensor(p, dtype=torch.float32,
                                    device=q.device).detach()
                    for p in (alpha, beta))
     if beta.ndim and beta.shape[-1] == g:
         beta = _repeat_heads(beta, h, dim=-1)
-    out, _ = core_lln.lln_causal_scan(
-        q, _repeat_heads(k, h), _repeat_heads(v, h), alpha, beta,
-        chunk=chunk)
+    if causal:
+        out, _ = core_lln.lln_causal_scan(
+            q, _repeat_heads(k, h), _repeat_heads(v, h), alpha, beta,
+            chunk=chunk)
+    else:
+        out = core_lln.lln_bidir(q, _repeat_heads(k, h), _repeat_heads(v, h),
+                                 alpha, beta)
     return out.to(v.dtype)
 
 
-def _lln_diag_ref(q, k, v, alpha, beta, block):
+def _diag_ref(q, k, v, block, causal):
     h = q.shape[2]
-    lln = _lln_ref(q, k, v, alpha, beta, block)
-    diag = core_diag.block_diag_attn(q, _repeat_heads(k, h),
+    return core_diag.block_diag_attn(q, _repeat_heads(k, h),
                                      _repeat_heads(v, h), block=block,
-                                     causal=True).to(v.dtype)
+                                     causal=causal).to(v.dtype)
+
+
+def _lln_diag_ref(q, k, v, alpha, beta, causal, block):
+    lln = _lln_ref(q, k, v, alpha, beta, causal, block)
+    diag = _diag_ref(q, k, v, block, causal)
     return (0.5 * (lln.float() + diag.float())).to(v.dtype)
 
 
+def _calibrated(q, k, v, alpha, beta):
+    """``(alpha (H,|B,H), beta (G,|B,G), qs, ks, vk)``: the broadcast
+    calibration and the kernel-layout inputs of the LLN part."""
+    h, g = q.shape[2], k.shape[2]
+    alpha_b = _bcast_heads(alpha, h, q.device)
+    beta_b = _bcast_heads(beta, g, q.device)
+    qs, ks, _ = _scaled_stabilized(q, k, alpha_b, beta_b)
+    return alpha_b, beta_b, qs, ks, _to_kernel(v)
+
+
 class _LLNAttention(torch.autograd.Function):
-    """Causal LLN: the forward kernel with ``den``, the backward kernel."""
+    """LLN: causal, the forward kernel with ``den`` and the backward
+    kernel; bidirectional, ``lln_bidir`` with ``(s, z, den)`` and
+    ``lln_bidir_bwd``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, alpha, beta, chunk, kind):
+    def forward(ctx, q, k, v, alpha, beta, chunk, causal, kind):
         b, n, h, _ = q.shape
-        g = k.shape[2]
-        np_ = _round_up(n, chunk)
-        alpha_b = _bcast_heads(alpha, h, q.device)
-        beta_b = _bcast_heads(beta, g, q.device)
-        qs, ks, _ = _scaled_stabilized(q, k, alpha_b, beta_b)
-        qs, ks, vk = (_pad_seq(t, np_) for t in (qs, ks, _to_kernel(v)))
-        fn = lln_causal if kind == "kernel" else lln_causal_plain
-        out_k, den = fn(qs, ks, vk, r=h // g, blk=chunk, return_res=True,
-                        return_state=False)
-        ctx.save_for_backward(qs, ks, vk, out_k, den, alpha_b, beta_b)
-        ctx.meta = (chunk, kind, b, n, h // g, q.dtype, k.dtype, v.dtype)
+        r = h // k.shape[2]
+        alpha_b, beta_b, qs, ks, vk = _calibrated(q, k, v, alpha, beta)
+        if causal:
+            np_ = _round_up(n, chunk)
+            qs, ks, vk = (_pad_seq(t, np_) for t in (qs, ks, vk))
+            fn = lln_causal if kind == "kernel" else lln_causal_plain
+            out_k, den = fn(qs, ks, vk, r=r, blk=chunk, return_res=True,
+                            return_state=False)
+            s = z = None
+        else:
+            fn = lln_bidir if kind == "kernel" else lln_bidir_plain
+            out_k, s, z, den = fn(qs, ks, vk, r=r, return_res=True)
+        ctx.save_for_backward(qs, ks, vk, out_k, den, s, z, alpha_b, beta_b)
+        ctx.meta = (chunk, causal, kind, b, n, r, q.dtype, k.dtype, v.dtype)
         return _from_kernel(out_k[:, :n], b)
 
     @staticmethod
     def backward(ctx, g_out):
-        qs, ks, vk, out_k, den, alpha_b, beta_b = ctx.saved_tensors
-        chunk, kind, b, n, r, tq, tk, tv = ctx.meta
-        fn = lln_causal_bwd if kind == "kernel" else lln_causal_bwd_plain
-        gk = _pad_seq(_to_kernel(g_out.to(tv)), qs.shape[1])
-        dqs, dks, dvk = fn(qs, ks, vk, gk, out_k, den, r=r, blk=chunk)
+        qs, ks, vk, out_k, den, s, z, alpha_b, beta_b = ctx.saved_tensors
+        chunk, causal, kind, b, n, r, tq, tk, tv = ctx.meta
+        gk = _to_kernel(g_out.to(tv))
+        if causal:
+            fn = lln_causal_bwd if kind == "kernel" else lln_causal_bwd_plain
+            dqs, dks, dvk = fn(qs, ks, vk, _pad_seq(gk, qs.shape[1]), out_k,
+                               den, r=r, blk=chunk)
+        else:
+            fn = lln_bidir_bwd if kind == "kernel" else lln_bidir_bwd_plain
+            dqs, dks, dvk = fn(qs, ks, vk, gk, out_k, den, s, z, r=r)
         dq = (_from_kernel(dqs[:, :n], b) * _row_head_bcast(alpha_b)).to(tq)
         dk = (_from_kernel(dks[:, :n], b) * _row_head_bcast(beta_b)).to(tk)
         dv = _from_kernel(dvk[:, :n], b).to(tv)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 class _LLNDiagAttention(torch.autograd.Function):
-    """Causal §4.2 hybrid: the fused forward kernel with ``den``, the fused
-    backward kernel."""
+    """§4.2 hybrid.  Causal: the fused forward kernel with ``den``, the
+    fused backward kernel.  Bidirectional (the reference has no fused
+    kernel for it): ``lln_bidir`` and ``block_diag`` averaged in fp32, then
+    ``lln_bidir_bwd`` and ``block_diag_bwd`` on g / 2, dv summed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, alpha, beta, block, kind):
+    def forward(ctx, q, k, v, alpha, beta, block, causal, kind):
         b, n, h, _ = q.shape
-        g = k.shape[2]
-        np_ = _round_up(n, block)
-        alpha_b = _bcast_heads(alpha, h, q.device)
-        beta_b = _bcast_heads(beta, g, q.device)
-        qs, ks, _ = _scaled_stabilized(q, k, alpha_b, beta_b)
-        qs, ks, qk, kk, vk = (_pad_seq(t, np_) for t in (
-            qs, ks, _to_kernel(q), _to_kernel(k), _to_kernel(v)))
-        fn = lln_diag_fused if kind == "kernel" else lln_diag_fused_plain
-        out_k, den = fn(qs, ks, qk, kk, vk, r=h // g, blk=block,
-                        return_res=True)
-        ctx.save_for_backward(qs, ks, qk, kk, vk, out_k, den, alpha_b,
+        r = h // k.shape[2]
+        alpha_b, beta_b, qs, ks, vk = _calibrated(q, k, v, alpha, beta)
+        qk, kk = _to_kernel(q), _to_kernel(k)
+        if causal:
+            np_ = _round_up(n, block)
+            qs, ks, qk, kk, vk = (_pad_seq(t, np_)
+                                  for t in (qs, ks, qk, kk, vk))
+            fn = lln_diag_fused if kind == "kernel" else lln_diag_fused_plain
+            out_k, den = fn(qs, ks, qk, kk, vk, r=r, blk=block,
+                            return_res=True)
+            s = z = None
+            res_k = out_k
+        else:
+            fn = lln_bidir if kind == "kernel" else lln_bidir_plain
+            res_k, s, z, den = fn(qs, ks, vk, r=r, return_res=True)
+            fn = block_diag if kind == "kernel" else block_diag_plain
+            diag_k = fn(qk, kk, vk, r=r, blk=block, causal=False)
+            out_k = (0.5 * (res_k.float() + diag_k.float())).to(v.dtype)
+        # res_k: the saved output the backward reads (the LLN half when
+        # bidirectional, as in the reference).
+        ctx.save_for_backward(qs, ks, qk, kk, vk, res_k, den, s, z, alpha_b,
                               beta_b)
-        ctx.meta = (block, kind, b, n, h // g, q.dtype, k.dtype, v.dtype)
+        ctx.meta = (block, causal, kind, b, n, r, q.dtype, k.dtype, v.dtype)
         return _from_kernel(out_k[:, :n], b)
 
     @staticmethod
     def backward(ctx, g_out):
-        qs, ks, qk, kk, vk, out_k, den, alpha_b, beta_b = ctx.saved_tensors
-        block, kind, b, n, r, tq, tk, tv = ctx.meta
-        fn = lln_diag_fused_bwd if kind == "kernel" \
-            else lln_diag_fused_bwd_plain
-        gk = _pad_seq(_to_kernel(g_out.to(tv)), qs.shape[1])
-        dqs, dqd, dks, dkd, dvk = fn(qs, ks, qk, kk, vk, gk, out_k, den,
-                                     r=r, blk=block)
+        (qs, ks, qk, kk, vk, res_k, den, s, z, alpha_b,
+         beta_b) = ctx.saved_tensors
+        block, causal, kind, b, n, r, tq, tk, tv = ctx.meta
+        gk = _to_kernel(g_out.to(tv))
+        if causal:
+            fn = lln_diag_fused_bwd if kind == "kernel" \
+                else lln_diag_fused_bwd_plain
+            dqs, dqd, dks, dkd, dvk = fn(qs, ks, qk, kk, vk,
+                                         _pad_seq(gk, qs.shape[1]), res_k,
+                                         den, r=r, blk=block)
+        else:
+            gh = 0.5 * gk               # exact: halving keeps g's dtype
+            fn = lln_bidir_bwd if kind == "kernel" else lln_bidir_bwd_plain
+            dqs, dks, dvl = fn(qs, ks, vk, gh, res_k, den, s, z, r=r)
+            fn = block_diag_bwd if kind == "kernel" else block_diag_bwd_plain
+            dqd, dkd, dvd = fn(qk, kk, vk, gh, r=r, blk=block, causal=False)
+            dvk = dvl + dvd
         dq = (_from_kernel(dqs[:, :n], b) * _row_head_bcast(alpha_b)
               + _from_kernel(dqd[:, :n], b)).to(tq)
         dk = (_from_kernel(dks[:, :n], b) * _row_head_bcast(beta_b)
               + _from_kernel(dkd[:, :n], b)).to(tk)
         dv = _from_kernel(dvk[:, :n], b).to(tv)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
+
+
+class _BlockDiagAttention(torch.autograd.Function):
+    """Block-diagonal softmax: ``block_diag`` forward, ``block_diag_bwd``
+    (which recomputes the probabilities) backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block, causal, kind):
+        b, h = q.shape[0], q.shape[2]
+        r = h // k.shape[2]
+        qk, kk, vk = _to_kernel(q), _to_kernel(k), _to_kernel(v)
+        fn = block_diag if kind == "kernel" else block_diag_plain
+        out = fn(qk, kk, vk, r=r, blk=block, causal=causal)
+        ctx.save_for_backward(qk, kk, vk)
+        ctx.meta = (block, causal, kind, b, r, q.dtype, k.dtype, v.dtype)
+        return _from_kernel(out, b)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        qk, kk, vk = ctx.saved_tensors
+        block, causal, kind, b, r, tq, tk, tv = ctx.meta
+        fn = block_diag_bwd if kind == "kernel" else block_diag_bwd_plain
+        dq, dk, dv = fn(qk, kk, vk, _to_kernel(g_out.to(tv)), r=r, blk=block,
+                        causal=causal)
+        return (_from_kernel(dq, b).to(tq), _from_kernel(dk, b).to(tk),
+                _from_kernel(dv, b).to(tv), None, None, None)
 
 
 def lln_attention(q, k, v, alpha, beta, causal: bool = True,
                   chunk: int = 256, backend: str = "auto"):
-    """LLN attention (paper eq. 8), the training entry point.
+    """LLN attention (paper eq. 8), the training entry point; causal (the
+    decoder) or bidirectional (the encoder).
 
     q: (B,N,H,D); k/v: (B,N,G,D[v]) with G | H (GQA without repeated KV);
     output in v.dtype.  alpha/beta: scalar, (H,)/(G,) or (B, H)/(B, G);
     they get no gradient.  ``backend`` as ``kernels/registry.py``:
     ``kernel`` (or ``auto`` on a CUDA tensor) runs the CUDA forward and
     backward kernels, ``plain`` their plain versions inside the same
-    autograd Function, ``ref`` autograd through the core chunked scan.  Any
-    N: where ``N % chunk != 0`` the Function zero-pads the sequence to a
-    whole number of chunks (:func:`_pad_seq`) and the kernels run; the
+    autograd Function, ``ref`` autograd through ``core/lln.py``.  Any N:
+    causal, where ``N % chunk != 0`` the Function zero-pads the sequence
+    to a whole number of chunks (:func:`_pad_seq`); bidirectional, the
+    kernels run at the true N (``chunk`` does not enter the math).  The
     reference sends such an N to its jnp autograd instead, which computes
     the same function.
     """
-    if not causal:
-        raise NotImplementedError(_ENCODER)
     kind = registry.resolve(backend, q.device)
     if kind == "ref":
-        return _lln_ref(q, k, v, alpha, beta, chunk)
-    return _LLNAttention.apply(q, k, v, alpha, beta, chunk, kind)
+        return _lln_ref(q, k, v, alpha, beta, causal, chunk)
+    return _LLNAttention.apply(q, k, v, alpha, beta, chunk, causal, kind)
 
 
 def lln_diag_attention(q, k, v, alpha, beta, causal: bool = True,
@@ -220,12 +301,22 @@ def lln_diag_attention(q, k, v, alpha, beta, causal: bool = True,
     """The paper's §4.2 hybrid, 0.5 * (LLN + block-diag softmax), the
     training entry point; ``block`` is both the LLN chunk and the diag
     block.  Shapes, dtypes, backends and any N as :func:`lln_attention`."""
-    if not causal:
-        raise NotImplementedError(_ENCODER)
     kind = registry.resolve(backend, q.device)
     if kind == "ref":
-        return _lln_diag_ref(q, k, v, alpha, beta, block)
-    return _LLNDiagAttention.apply(q, k, v, alpha, beta, block, kind)
+        return _lln_diag_ref(q, k, v, alpha, beta, causal, block)
+    return _LLNDiagAttention.apply(q, k, v, alpha, beta, block, causal, kind)
+
+
+def block_diag_attention(q, k, v, block: int = 256, causal: bool = False,
+                         backend: str = "auto"):
+    """Block-diagonal softmax attention (the §4.2 diag part) as a training
+    op.  q: (B,N,H,D); k/v: (B,N,G,D[v]); output (B,N,H,Dv) in v.dtype;
+    any N.  Backends as :func:`lln_attention` (``ref``: autograd through
+    ``core/diag.py`` on repeated KV)."""
+    kind = registry.resolve(backend, q.device)
+    if kind == "ref":
+        return _diag_ref(q, k, v, block, causal)
+    return _BlockDiagAttention.apply(q, k, v, block, causal, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -266,9 +357,7 @@ def block_diag_fwd(q, k, v, block: int = 256, causal: bool = True,
     g = k.shape[2]
     kind = registry.resolve(backend, q.device)
     if kind == "ref":
-        return core_diag.block_diag_attn(q, _repeat_heads(k, h),
-                                         _repeat_heads(v, h), block=block,
-                                         causal=causal)
+        return _diag_ref(q, k, v, block, causal)
     fn = block_diag if kind == "kernel" else block_diag_plain
     out = fn(_to_kernel(q), _to_kernel(k), _to_kernel(v), r=h // g, blk=block,
              causal=causal)

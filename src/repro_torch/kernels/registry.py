@@ -38,8 +38,8 @@ PRECISIONS = ("float32", "bfloat16", "float16")
 class AttnSpec:
     """Declarative description of one attention configuration.
 
-    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid); causal: only True is
-    ported (the bidirectional encoder comes later); r: GQA ratio H // G;
+    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid); causal: the decoder
+    (True) or the bidirectional encoder (False); r: GQA ratio H // G;
     backend: see the module docstring; precision: dtype name of the diag
     tails; lln_chunk: chunk of the plain causal scan (the math does not
     depend on it); diag_block: block size of the §4.2 diag part (it fixes
@@ -111,8 +111,9 @@ def resolve(backend: str, device: torch.device) -> str:
 
 
 def attention(spec: AttnSpec, q, k, v, alpha, beta):
-    """Full-sequence LLN / LLN+Diag attention under ``spec.backend`` (the
-    training forward; gradients through ``ops``' autograd Functions)."""
+    """Full-sequence LLN / LLN+Diag attention under ``spec.backend``,
+    causal or bidirectional as ``spec.causal`` (the training forward;
+    gradients through ``ops``' autograd Functions)."""
     from . import ops
     if spec.impl == "lln":
         return ops.lln_attention(q, k, v, alpha, beta, spec.causal,

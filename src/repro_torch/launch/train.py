@@ -5,7 +5,9 @@
 
 Takes the reference CLI's flags (``python -m repro.launch.train``) plus
 ``--device`` (the CUDA card by default): a host-sharded, prefetched
-``lm_batches`` stream, the straggler watchdog and the same printed lines.
+``lm_batches`` stream (``mlm_batches`` for the encoder family, e.g.
+``--arch roberta-lln``), the straggler watchdog and the same printed
+lines.
 As in the reference, the attention kernels are reached only with
 ``use_kernel=True`` in the config (``get_config(..., use_kernel=True)``);
 the CLI leaves it at its default, so it trains through the core scan.
@@ -21,7 +23,7 @@ import time
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import HostShardedSource, Prefetcher, torch_placer
-from repro_torch.data.synthetic import lm_batches
+from repro_torch.data.synthetic import lm_batches, mlm_batches
 from repro_torch.distributed.straggler import StepWatchdog
 from repro_torch.launch.steps import make_train_setup
 
@@ -78,8 +80,9 @@ def main(argv=None):
                              peak_lr=args.lr, total_steps=args.steps)
     state = setup.init_state(args.seed)
 
+    batches = mlm_batches if cfg.family == "encoder" else lm_batches
     source = HostShardedSource(
-        lambda b, s: lm_batches(cfg.vocab, b, args.seq, seed=s), args.batch)
+        lambda b, s: batches(cfg.vocab, b, args.seq, seed=s), args.batch)
     pipe = Prefetcher(source, place=torch_placer(setup.device))
     watchdog = StepWatchdog(
         on_anomaly=lambda r: print(f"[straggler] step {r.step} took "

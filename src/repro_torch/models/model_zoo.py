@@ -1,12 +1,15 @@
 """build_model(cfg) -> Model: the port's uniform interface per family.
 
-Only the dense family is ported (yi-9b); other families raise.  Batch
-convention: ``{"inputs" (B,N), "targets" (B,N), "mask" (B,N)}`` int64
-tokens in [0, vocab).
+The dense decoder (yi-9b) and the bidirectional encoder (roberta-lln) are
+ported; other families raise.  Batch convention: ``{"inputs" (B,N),
+"targets" (B,N), "mask" (B,N)}`` int64 tokens in [0, vocab) (for the
+encoder's MLM batches the targets are the original tokens and the mask
+the masked positions).
 
 ``loss``: params, batch -> scalar (chunked xent + router aux);
 ``hidden``: params, batch -> (final hidden (B,N,D), aux);
-``prefill`` / ``decode`` / ``cache_init``: the serving path.
+``prefill`` / ``decode`` / ``cache_init``: the serving path (the encoder
+has none and raises).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from . import encoder as enc
 from . import transformer as tr
 from .layers import chunked_xent
 
@@ -26,7 +30,7 @@ from .layers import chunked_xent
 class Model:
     cfg: ArchConfig
     device: torch.device
-    init: Callable            # seed -> params (a DenseLM on ``device``)
+    init: Callable            # seed -> params (an nn.Module on ``device``)
     loss: Callable            # params, batch -> scalar loss
     hidden: Callable          # params, batch -> (hidden, aux)
     prefill: Callable         # params, batch -> (last logits, caches)
@@ -46,13 +50,31 @@ def _count(params) -> int:
 
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
-    """The serving interface of ``cfg`` on ``device`` (the CUDA card unless
-    the caller asks for another device)."""
+    """The interface of ``cfg`` on ``device`` (the CUDA card unless the
+    caller asks for another device)."""
     dev = resolve_device(device)
-    if cfg.family != "dense" or cfg.qk_norm:
+    if cfg.family not in ("dense", "encoder") or cfg.qk_norm:
         raise NotImplementedError(
             f"family {cfg.family!r} (qk_norm={cfg.qk_norm}) is not ported "
             "yet; see ROADMAP.md queue 1")
+    if cfg.family == "encoder":
+        def mlm_loss(params, batch):
+            h, _ = enc.encoder_hidden(params, batch["inputs"], cfg)
+            return _xent_loss(cfg, h, params.lm_head, batch)
+
+        def no_serve(*a, **k):
+            raise NotImplementedError("encoder-only models have no decode "
+                                      "step")
+
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda seed=0: enc.encoder_init(cfg, dev, seed),
+            loss=mlm_loss,
+            hidden=lambda params, batch: enc.encoder_hidden(
+                params, batch["inputs"], cfg),
+            prefill=no_serve, decode=no_serve, cache_init=no_serve,
+            param_count=_count)
+
     def loss(params, batch):
         h, aux = tr.lm_hidden(params, batch["inputs"], cfg)
         return (_xent_loss(cfg, h, tr.lm_head_of(params), batch)

@@ -11,19 +11,26 @@ largest entry (the CPU suite's fp32 tolerance); bf16 outputs one bf16
 rounding step, 2^-7 of the largest entry, since both sides compute in fp32
 and round once.  The training kernels' fp32 outputs (den and every
 gradient) are held to 1e-5 of the largest entry, as on the CPU against the
-reference; gradients through the autograd Functions to 1e-4.
+reference; gradients through the autograd Functions to 1e-4.  The
+encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
+are held the same way at D = 64, r in {1, 4}, whole and ragged N.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.block_diag import block_diag, block_diag_plain
-from repro_torch.kernels.lln_attention import (lln_causal, lln_causal_plain,
+from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
+                                            block_diag_bwd_plain,
+                                            block_diag_plain)
+from repro_torch.kernels.lln_attention import (lln_bidir, lln_bidir_plain,
+                                               lln_causal, lln_causal_plain,
                                                lln_decode, lln_decode_plain,
                                                lln_diag_fused,
                                                lln_diag_fused_plain)
-from repro_torch.kernels.lln_backward import (lln_causal_bwd,
+from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+                                              lln_bidir_bwd_plain,
+                                              lln_causal_bwd,
                                               lln_causal_bwd_plain,
                                               lln_diag_fused_bwd,
                                               lln_diag_fused_bwd_plain)
@@ -243,3 +250,107 @@ def test_cuda_gradients_are_bitwise_reproducible(cuda, impl):
     assert sum(after) - sum(before) == 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+BIDIR_CASES = [pytest.param(r, n, blk, dt, id=f"r{r}-n{n}-blk{blk}-{nm}")
+               for r in (1, 4) for n, blk in ((128, 64), (300, 256))
+               for dt, nm in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,blk,dtype", BIDIR_CASES)
+def test_cuda_bidir_kernels_match_plain(cuda, r, n, blk, dtype):
+    """lln_bidir (out, s, z, den), lln_bidir_bwd and block_diag_bwd (both
+    on the hybrid's cotangent 0.5 g when r = 4) against their plain
+    versions at D = Dv = 64; n = 300 is ragged for blk 256."""
+    qs, ks, q, k, v, g = _train_inputs(cuda, 3 * n + r, r, n, 64, dtype)
+    if r > 1:
+        g = 0.5 * g
+    out_tol = TRAIN if dtype == torch.float32 else BF16
+    got = lln_bidir(qs, ks, v, r=r, return_res=True)
+    want = lln_bidir_plain(qs, ks, v, r=r, return_res=True)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], out_tol)
+    for gt, wt in zip(got[1:], want[1:]):
+        assert gt.shape == wt.shape
+        _close(gt, wt, TRAIN)
+    o, s, z, den = want
+    got = lln_bidir_bwd(qs, ks, v, g, o, den, s, z, r=r)
+    want = lln_bidir_bwd_plain(qs, ks, v, g, o, den, s, z, r=r)
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        _close(gt, wt, TRAIN)
+    for causal in (False, True):
+        got = block_diag_bwd(q, k, v, g, r=r, blk=blk, causal=causal)
+        want = block_diag_bwd_plain(q, k, v, g, r=r, blk=blk, causal=causal)
+        torch.cuda.synchronize()
+        for gt, wt in zip(got, want):
+            _close(gt, wt, TRAIN)
+
+
+def _bidir_grads(fn, backend, q, k, v, alpha, beta, blk=16):
+    q, k, v = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v, alpha, beta, False, blk, backend=backend)
+    return torch.autograd.grad(torch.sum(torch.square(out.float())),
+                               (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 40], ids=["n64", "ragged-n40"])
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_cuda_bidir_autograd_runs_the_kernels(cuda, impl, n):
+    """causal=False with backend ``kernel``, whole and ragged N (blk 16):
+    the Function launches lln_bidir and lln_bidir_bwd (and block_diag and
+    block_diag_bwd for lln_diag) once each at the true N, and its gradients
+    match the plain versions and autograd through the core reference."""
+    fn = ops.lln_attention if impl == "lln" else ops.lln_diag_attention
+    kernels = [lln_bidir, lln_bidir_bwd]
+    if impl == "lln_diag":
+        kernels += [block_diag, block_diag_bwd]
+    args = _model_inputs(cuda, 6, n=n)
+    before = [f.launches for f in kernels]
+    got = _bidir_grads(fn, "kernel", *args)
+    assert [f.launches - b for f, b in zip(kernels, before)] == \
+        [1] * len(kernels)
+    for backend in ("plain", "ref"):
+        want = _bidir_grads(fn, backend, *args)
+        for gt, wt in zip(got, want):
+            _close(gt, wt, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_cuda_bidir_gradients_are_bitwise_reproducible(cuda, impl):
+    """No atomics in the bidirectional backward either: (dS, dz) are summed
+    over the sequence and the r heads, and block_diag_bwd's dk/dv over the
+    heads and query tiles, in a fixed order."""
+    fn = ops.lln_attention if impl == "lln" else ops.lln_diag_attention
+    args = _model_inputs(cuda, 7, n=128, r=4)
+    before = lln_bidir_bwd.launches
+    a = _bidir_grads(fn, "kernel", *args, blk=64)
+    b = _bidir_grads(fn, "kernel", *args, blk=64)
+    assert lln_bidir_bwd.launches - before == 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_block_diag_attention_matches_plain_and_core(cuda):
+    """The standalone training op: block_diag and block_diag_bwd through
+    its Function against the plain versions and autograd through
+    ``core/diag.py``, causal and not, at a ragged N."""
+    q, k, v, _, _ = _model_inputs(cuda, 8, n=40)
+    for causal in (False, True):
+        results = {}
+        for backend in ("kernel", "plain", "ref"):
+            qq, kk, vv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            out = ops.block_diag_attention(qq, kk, vv, 16, causal,
+                                           backend=backend)
+            results[backend] = (out, torch.autograd.grad(
+                torch.sum(torch.square(out.float())), (qq, kk, vv)))
+        out, grads = results["kernel"]
+        for backend in ("plain", "ref"):
+            _close(out.detach(), results[backend][0].detach(), ATOL)
+            for gt, wt in zip(grads, results[backend][1]):
+                _close(gt, wt, 1e-4)

@@ -100,8 +100,14 @@ def test_ragged_n_runs_the_function_and_matches_ref(impl):
 
 
 def test_bidirectional_raises_not_implemented():
+    """Bidirectional attention (``causal=False``) raised
+    NotImplementedError until the encoder slice ported it; it now runs the
+    autograd Functions and matches the core reference (backend ``ref``).
+    ``tests/test_torch_encoder_kernels.py`` holds it against the JAX
+    reference."""
     q, k, v, alpha, beta = (torch.from_numpy(a)
                             for a in _model_case(0, BLK, 1))
     for fn in (tops.lln_attention, tops.lln_diag_attention):
-        with pytest.raises(NotImplementedError, match="encoder"):
-            fn(q, k, v, alpha, beta, False, BLK)
+        out = fn(q, k, v, alpha, beta, False, BLK)
+        ref = fn(q, k, v, alpha, beta, False, BLK, backend="ref")
+        _close(out, ref.numpy(), FP32)
