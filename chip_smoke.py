@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths (the yi-9b
-decoder) and its encoder pre-training path (roberta-lln, MLM) on one CUDA
-card and check them.
+decoder, with lln, lln_diag and log_linear) and its encoder pre-training
+path (roberta-lln, MLM) on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device        - require CUDA, print the card's name and power limit,
                      TF32 off;
-  2. build         - compile the nine CUDA kernels from src/repro_torch/csrc,
+  2. build         - compile the ten CUDA kernels from src/repro_torch/csrc,
                      one nvcc per source, all started together;
   3. kernels       - each serving kernel against its plain PyTorch version at
                      full-width shapes (B=4, H=32, G=4, D=Dv=128, bf16 q/k/v);
@@ -46,7 +46,21 @@ Phases (any failure raises and the script exits non-zero):
                      with launch counts;
  12. encoder_forward - Model.hidden plus logits on bf16 weights under
                      no_grad at the same batch, with launch counts;
- 13. timings       - each kernel, its plain version and its bound at the
+ 13. kernels_loglin - loglin_causal against its plain version at the serve
+                     shapes (B=4, H=32, G=4, D=Dv=128, granule 256, 4
+                     levels, bf16 v), N = 2048 and a ragged 2040, with and
+                     without the state; the two-pass log-linear decode
+                     (kernel against plain) for T = 1 and T = 100;
+ 14. small_loglin  - yi-9b SMOKE in fp32 serving with log_linear (granule
+                     16), prompts 112 and 120 and 24 greedy steps (decode
+                     crosses position 127): kernels against the core
+                     reference;
+ 15. serve_loglin  - yi-9b at full width and depth with log_linear, batch 4,
+                     prompt 2040, 32 greedy tokens (decode crosses position
+                     2047: 7 -> 8 closed granules), launch counts, logits
+                     against the plain backend at prefill and at the step
+                     that crosses;
+ 16. timings       - each kernel, its plain version and its bound at the
                      serve, training or encoder shapes; serve, train and
                      encoder times.
 The line before the last is a JSON object with one entry per kernel; the
@@ -75,6 +89,8 @@ N, BLK, GEN = 512, 256, 32    # prompt, diag block, generated tokens
 TN, TL, TSTEPS = 1024, 8, 3   # training: sequence, layers, timed steps
 EB, EH, ED = 32, 12, 64       # roberta-lln attention at the encoder batch
 EN, ENR = 512, 300            # encoder sequence (two diag blocks), ragged N
+LN, LNR = 2048, 2040          # log_linear: 8 granules of 256, ragged prompt
+LEVELS, DECAY = 4, 0.5        # log_linear pyramid (the config's defaults)
 SEED = 0
 
 
@@ -410,12 +426,13 @@ def _counts():
     from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
                                                   lln_causal_bwd,
                                                   lln_diag_fused_bwd)
+    from repro_torch.kernels.loglinear import loglin_causal
     return {"lln_causal": lln_causal, "block_diag": block_diag,
             "lln_decode": lln_decode, "lln_diag_fused": lln_diag_fused,
             "lln_causal_bwd": lln_causal_bwd,
             "lln_diag_fused_bwd": lln_diag_fused_bwd,
             "lln_bidir": lln_bidir, "lln_bidir_bwd": lln_bidir_bwd,
-            "block_diag_bwd": block_diag_bwd}
+            "block_diag_bwd": block_diag_bwd, "loglin_causal": loglin_causal}
 
 
 def _reset():
@@ -1094,6 +1111,283 @@ def phase_timings_encoder(errs, launches):
     return rows, nc
 
 
+# ---------------------------------------------------------------------------
+# The log-linear serving path (yi-9b, attn_impl log_linear).
+# ---------------------------------------------------------------------------
+
+def phase_kernels_loglin(results):
+    """loglin_causal against its plain version at the serve shapes, N =
+    LN (8 granules: the top level fills) and a ragged LNR, with and without
+    the state: out within one bf16 step, the pyramid and the open bucket
+    within 1e-5 of the largest plain entry.  Then the two-pass decode
+    (ops.loglin_decode_chunk) on the kernels against the plain versions
+    from the ragged prefill's state: T = 1, and T = 100, which crosses the
+    granule boundary and runs each pass as two chained launches."""
+    from repro_torch.core.loglinear import LogLinState
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lln_attention import MAX_DECODE_T, lln_decode
+    from repro_torch.kernels.loglinear import (loglin_causal,
+                                               loglin_causal_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    r = H // G
+    kw = dict(r=r, blk=BLK, num_scales=LEVELS, scale_decay=DECAY)
+    for n in (LN, LNR):
+        q, k, v, alpha, beta = _inputs(n, gen)
+        qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
+        vk = ops._to_kernel(v)
+        for state in (True, False):
+            log(f"loglin_causal N={n} return_state={state}:")
+            got = loglin_causal(qs, ks, vk, return_state=state, **kw)
+            want = loglin_causal_plain(qs, ks, vk, return_state=state, **kw)
+            torch.cuda.synchronize()
+            if not state:
+                got, want = (got,), (want,)
+            results["loglin_causal"] = max(
+                results.get("loglin_causal", 0.0),
+                check("out", got[0], want[0], bf16_tol(want[0])))
+            for name, gt, wt in zip(("sl", "zl", "s", "z"), got[1:],
+                                    want[1:]):
+                check(name, gt, wt, fp32_tol(wt))
+    pre = ops.loglin_prefill(q, k, v, alpha, beta, chunk=BLK,
+                             num_scales=LEVELS, scale_decay=DECAY,
+                             backend="plain")
+    st = LogLinState(*pre[1:], log_scale=torch.zeros(B, H, device="cuda"))
+    pos = torch.full((B,), LNR, dtype=torch.int32, device="cuda")
+    for t in (1, 100):
+        q1, k1, v1, a1, b1 = _inputs(t, gen)
+        runs = {}
+        before = lln_decode.launches
+        for kind in ("kernel", "plain"):
+            runs[kind] = ops.loglin_decode_chunk(
+                st, q1, k1, v1, alpha, beta, pos=pos, granule=BLK,
+                num_scales=LEVELS, scale_decay=DECAY, backend=kind)
+        torch.cuda.synchronize()
+        n_launch = lln_decode.launches - before
+        log(f"loglin decode T={t} from pos {LNR} (kernel vs plain, "
+            f"{n_launch} lln_decode launches):")
+        # Two passes per granule-sized sub-chunk, each in launches of at
+        # most MAX_DECODE_T tokens: 2 for T = 1, 4 for T = 100.
+        want = 2 * sum(-(-min(BLK, t - i) // MAX_DECODE_T)
+                       for i in range(0, t, BLK))
+        if n_launch != want:
+            raise AssertionError(f"loglin decode T={t}: {n_launch} "
+                                 f"launches, expected {want}")
+        (go, gs), (wo, ws) = runs["kernel"], runs["plain"]
+        check("out", go, wo, bf16_tol(wo))
+        for name in ("s", "z", "c_k", "sl", "zl", "cl"):
+            check(name, getattr(gs, name), getattr(ws, name),
+                  fp32_tol(getattr(ws, name)))
+
+
+def _serve_logits(setup, params, batch, toks, pos0, steps):
+    """Prefill, then ``steps`` decode steps teacher-forced with ``toks``
+    from position ``pos0``; returns (prefill logits, [step logits])."""
+    logits, caches = setup.prefill_fn(params, batch)
+    out = []
+    for i in range(steps):
+        step, caches = setup.decode_fn(params, caches, toks[:, i], pos0 + i)
+        out.append(step)
+    return logits, out
+
+
+def phase_small_loglin():
+    """yi-9b SMOKE in fp32 with log_linear (granule 16, 4 levels) on the
+    card: the kernels (auto) against the core reference (ref), prompts 112
+    (aligned) and 120 (ragged) and 24 greedy steps, so decode crosses
+    position 127 (7 -> 8 closed granules: a carry through every level into
+    the top).  The ref run is teacher-forced with the kernels' tokens;
+    logits within 1e-4 and equal greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    steps = 24
+    for prompt in (112, 120):
+        runs = {}
+        for backend in ("auto", "ref"):
+            cfg = get_config("yi-9b", smoke=True, attn_impl="log_linear",
+                             compute_dtype="float32", attn_backend=backend)
+            setup = make_serve_setup(cfg, ShapeSpec("small", prompt + steps,
+                                                    2, "decode"))
+            params = setup.model.init(SEED)
+            batch = synthetic_batch(cfg, 2, prompt + steps, text_seq=prompt,
+                                    device="cuda")
+            if backend == "auto":
+                logits, caches = setup.prefill_fn(params, batch)
+                tok = torch.argmax(logits[:, -1], -1)
+                rest, _ = setup.make_generate(steps - 1)(params, caches, tok,
+                                                         prompt)
+                toks = torch.cat([tok[:, None], rest], 1)
+            runs[backend] = _serve_logits(setup, params, batch, toks, prompt,
+                                          steps)
+        log(f"small_loglin prompt {prompt} (SMOKE fp32, kernels vs core "
+            f"ref, {steps} steps to position {prompt + steps - 1}):")
+        check("prefill logits", runs["auto"][0], runs["ref"][0], 1e-4)
+        err = max(max_err(a, b) for a, b in zip(runs["auto"][1],
+                                                 runs["ref"][1]))
+        check("decode logits (all steps)", torch.tensor(err),
+              torch.tensor(0.0), 1e-4)
+        ref_toks = torch.stack([torch.argmax(x, -1) for x in runs["ref"][1]],
+                               1)
+        if not torch.equal(ref_toks[:, :-1], toks[:, 1:]):
+            raise AssertionError(f"small_loglin {prompt}: greedy tokens "
+                                 f"differ")
+        log(f"  greedy tokens equal: {toks[0].tolist()}")
+
+
+def phase_serve_loglin(launches, serve_times):
+    """yi-9b at full width and depth with log_linear (bf16 weights from the
+    seed), batch B, prompt LNR (7 closed granules and 248 open keys), GEN
+    greedy tokens: decode crosses position 2047 (7 -> 8 closed granules).
+    Exact launch counts: one loglin_causal per layer per prefill, two
+    lln_decode per layer per decode step, nothing else.  Prefill logits,
+    and the logits of the step that crosses (teacher-forced with the same
+    tokens), against the plain backend within 0.1 of the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    cfg = get_config("yi-9b", attn_impl="log_linear", param_dtype="bfloat16")
+    setup = make_serve_setup(cfg, ShapeSpec("chip", LNR + GEN, B, "decode"))
+    params = setup.model.init(SEED)
+    log(f"serve_loglin: yi-9b {cfg.n_layers}L, log_linear (granule "
+        f"{cfg.lln_chunk}, {cfg.lln_num_scales} levels, decay "
+        f"{cfg.lln_scale_decay}), batch {B}, prompt {LNR}, {GEN} greedy "
+        f"tokens")
+    batch = synthetic_batch(cfg, B, LNR + GEN, seed=SEED, text_seq=LNR,
+                            device="cuda")
+    setup.prefill_fn(params, batch)                 # warm-up (not counted)
+    torch.cuda.synchronize()
+
+    _reset()
+    t0 = time.time()
+    logits, caches = setup.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.time() - t0
+    pre = _read()
+    _reset()
+    tok = torch.argmax(logits[:, -1], -1)
+    toks = [tok]
+    logits1, caches = setup.decode_fn(params, caches, tok, LNR)
+    tok = torch.argmax(logits1, -1)
+    toks.append(tok)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rest, caches = setup.make_generate(GEN - 2)(params, caches, tok, LNR + 1)
+    torch.cuda.synchronize()
+    t_steady = time.time() - t0
+    dec = _read()
+    toks = torch.cat([torch.stack(toks, 1), rest], 1)
+
+    idle = {name: 0 for name in _counts()}
+    want_pre = {**idle, "loglin_causal": cfg.n_layers}
+    want_dec = {**idle, "lln_decode": 2 * cfg.n_layers * (GEN - 1)}
+    log(f"log_linear: prefill launches {pre}, decode launches {dec}")
+    if pre != want_pre or dec != want_dec:
+        raise AssertionError(f"log_linear: launch counts {pre} / {dec}, "
+                             f"expected {want_pre} / {want_dec}")
+    launches["loglin_causal"] += pre["loglin_causal"]
+    launches["lln_decode (log_linear)"] += dec["lln_decode"]
+    if toks.shape != (B, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"log_linear: tokens out of range: {toks}")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(logits1).all())):
+        raise AssertionError("log_linear: non-finite logits")
+
+    # Teacher-forced with the kernels' tokens to the step at position 2047,
+    # on the kernels and on the plain versions.
+    cross = LN - 1 - LNR + 1                   # steps up to position 2047
+    plain = make_serve_setup(cfg.replace(attn_backend="plain"),
+                             ShapeSpec("chip", LNR + GEN, B, "decode"))
+    k_pre, k_steps = _serve_logits(setup, params, batch, toks, LNR, cross)
+    _reset()
+    p_pre, p_steps = _serve_logits(plain, params, batch, toks, LNR, cross)
+    torch.cuda.synchronize()
+    if any(_read().values()):
+        raise AssertionError("the plain backend launched a kernel")
+    # bf16 through 48 layers, as the lln serve check: 0.1 of the largest.
+    tol = 0.1 * max(1.0, float(p_pre.abs().max()))
+    check("log_linear prefill logits vs plain", logits, p_pre, tol)
+    tol = 0.1 * max(1.0, float(p_steps[-1].abs().max()))
+    check(f"log_linear logits at position {LNR + cross - 1} (closes "
+          f"granule 7) vs plain", k_steps[-1], p_steps[-1], tol)
+    if not all(bool(torch.isfinite(x).all()) for x in k_steps):
+        raise AssertionError("log_linear: non-finite decode logits")
+    agree = float((torch.argmax(logits[:, -1], -1)
+                   == torch.argmax(p_pre[:, -1], -1)).float().mean())
+    log(f"  first-token agreement with plain: {agree:.2f}")
+    del plain, k_pre, k_steps, p_pre, p_steps
+
+    step_ms = t_steady / (GEN - 2) * 1e3
+    pre_dev, pre_top = device_profile(lambda: setup.prefill_fn(params, batch))
+    steps = 4
+    dec_dev, dec_top = device_profile(
+        lambda: setup.make_generate(steps)(params, caches, tok, LNR + GEN))
+    dec_dev /= steps
+    serve_times["log_linear"] = {
+        "prefill_ms": t_prefill * 1e3, "decode_ms_per_step": step_ms,
+        "decode_tok_s": B / (step_ms / 1e3),
+        "prefill_device_ms": pre_dev, "decode_device_ms_per_step": dec_dev,
+        "prefill_busy": pre_dev / (t_prefill * 1e3),
+        "decode_busy": dec_dev / step_ms}
+    log(f"log_linear: prefill {t_prefill * 1e3:.2f} ms (device "
+        f"{pre_dev:.2f} ms); decode {step_ms:.3f} ms/step "
+        f"({B / (step_ms / 1e3):.1f} tok/s, device {dec_dev:.3f} ms/step) "
+        f"over {GEN - 2} steps; tokens[0] {toks[0].tolist()}")
+    for label, top in (("prefill", pre_top), ("decode x4", dec_top)):
+        for name, ms, calls in top:
+            log(f"  top {label}: {ms:9.3f} ms  {calls:6d} calls  "
+                f"{name[:90]}")
+    del setup, caches, params
+    torch.cuda.empty_cache()
+
+
+def phase_timings_loglin(errs, launches):
+    """loglin_causal (with the state, as the prefill runs it) and its plain
+    version at the serve shapes, N = LN.  The bound counts each input read
+    once and each output written once (out, the pyramid and the open
+    bucket) and the fp32 operations of the linear form: Phi(q) times the
+    weighted state per query, the state update per key, the pyramid's
+    weighted sum once per granule, and the exps."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.loglinear import (loglin_causal,
+                                               loglin_causal_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    r = H // G
+    bh, bg, n, d = B * H, B * G, LN, D
+    q, k, v, alpha, beta = _inputs(n, gen)
+    qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
+    vk = ops._to_kernel(v)
+    kw = dict(r=r, blk=BLK, num_scales=LEVELS, scale_decay=DECAY,
+              return_state=True)
+    nbytes = (bh + bg) * n * d * 4 + bg * n * d * 2 + bh * n * d * 2 \
+        + bh * (LEVELS + 1) * (d * d + d) * 4
+    flops = bh * n * (2 * d * d + 2 * d) + bg * n * (2 * d * d + d) \
+        + bg * (n // BLK) * 2 * LEVELS * (d * d + d) + (bh + bg) * n * d
+    bnd, by = bound_ms(nbytes, flops)
+    row = dict(
+        name="loglin_causal", route="cuda",
+        source="src/repro_torch/csrc/loglin_causal.cu",
+        replaces="src/repro/kernels/loglinear.py:111",
+        launches=launches["loglin_causal"],
+        max_abs_err=errs["loglin_causal"],
+        ms=cuda_ms(lambda: loglin_causal(qs, ks, vk, **kw), reps=10),
+        plain_ms=cuda_ms(lambda: loglin_causal_plain(qs, ks, vk, **kw),
+                         reps=10),
+        bound_ms=bnd, bound_by=by, library_ms=None)
+    log(f"timing loglin_causal (N={n}, state): kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), library none (no PyTorch call computes "
+        f"log-linear attention)")
+    log(f"lln_decode launches on the log_linear serve path: "
+        f"{launches['lln_decode (log_linear)']} (2 per layer per decode "
+        f"step; the kernels line's lln_decode row counts the lln serve)")
+    return row
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1103,14 +1397,18 @@ def main():
         "lln_causal (state)", "block_diag", "lln_decode", "lln_causal (res)",
         "lln_diag_fused", "lln_causal_bwd", "lln_diag_fused_bwd",
         "lln_bidir", "lln_bidir_bwd", "block_diag_bwd",
-        "block_diag (causal=False)")}
+        "block_diag (causal=False)", "loglin_causal",
+        "lln_decode (log_linear)")}
     phase_kernels(errs)
     phase_kernels_train(errs)
     phase_kernels_encoder(errs)
+    phase_kernels_loglin(errs)
     phase_small()
     phase_small_train()
     phase_small_encoder()
+    phase_small_loglin()
     phase_serve(launches, serve_times)
+    phase_serve_loglin(launches, serve_times)
     phase_train(launches, train_times)
     phase_encoder_train(launches, enc_times)
     phase_encoder_forward(launches, enc_times)
@@ -1118,6 +1416,7 @@ def main():
     rows += phase_timings_train(errs, launches)
     enc_rows, block_diag_bidir = phase_timings_encoder(errs, launches)
     rows += enc_rows
+    rows.append(phase_timings_loglin(errs, launches))
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))

@@ -14,11 +14,13 @@ travel through fp32, which is exact.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.engine import LLN_FIELDS, AttentionState
+from repro_torch.core.engine import AttentionState
 from repro_torch.models.encoder import Encoder
 from repro_torch.models.transformer import DenseLM
 
@@ -85,14 +87,27 @@ def train_state_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
     return {"params": params, "opt": opt}
 
 
+def _field(tree, name):
+    """``tree[name]``, None where the state lacks the field."""
+    try:
+        return tree[name]
+    except KeyError:
+        return None
+
+
 def state_from_numpy(tree, device) -> AttentionState:
     """One layer's :class:`AttentionState` from the reference's state
     (anything indexable by field name: the reference's ``AttentionState``
-    with numpy leaves, or a dict)."""
+    with numpy leaves, or a dict).  The fields the state does not hold
+    (the diag tails of a ``log_linear`` state, its pyramid for ``lln``)
+    stay None."""
     out = {}
-    for name in LLN_FIELDS:
-        arr = np.asarray(tree[name])
+    for f in dataclasses.fields(AttentionState):
+        a = _field(tree, f.name)
+        if a is None:
+            continue
+        arr = np.asarray(a)
         dtype = torch.int32 if arr.dtype.kind in "iu" else (
             torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32)
-        out[name] = _tensor(arr, dtype, device)
+        out[f.name] = _tensor(arr, dtype, device)
     return AttentionState(**out)

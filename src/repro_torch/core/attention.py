@@ -1,12 +1,14 @@
 """Attention front-end: calibration, full-sequence attention and chunked
 LLN(+Diag) decode.
 
-Port of ``repro.core.attention`` for the ``lln`` and ``lln_diag`` impls:
-:func:`batch_alpha_beta` (eq. 10 on the current batch's statistics),
-:class:`AttnConfig` and :func:`multi_head_attention` (the training forward,
-causal for the decoder and bidirectional for the encoder),
-:class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part is one masked softmax over [tail block ∪ chunk keys]
-in plain PyTorch (it has no kernel in the reference either).
+Port of ``repro.core.attention`` for the ``lln``, ``lln_diag`` and
+``log_linear`` impls: :func:`batch_alpha_beta` (eq. 10 on the current
+batch's statistics), :class:`AttnConfig` and :func:`multi_head_attention`
+(the training forward, causal for the decoder and bidirectional for the
+encoder; ``log_linear`` is causal and, through the kernel, forward only),
+:class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part
+is one masked softmax over [tail block ∪ chunk keys] in plain PyTorch (it
+has no kernel in the reference either).
 
 GQA: k/v carry G kv heads with G | H; all inputs are (batch, seq, heads,
 head_dim).
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from . import lln as lln_mod
+from . import loglinear as loglin_mod
 from .diag import block_diag_attn
 from .lln import LLNState, lln_bidir, lln_causal_scan
 from .moment_matching import constants_for_dim, solve_alpha_beta
@@ -32,9 +35,10 @@ class AttnConfig:
     """The reference's ``AttnConfig``.  ``use_kernel`` routes through
     ``kernels/registry.py:attention`` (the CUDA kernels' autograd
     Functions); without it the core scan runs on repeated KV.  ``backend``:
-    an explicit registry backend (None -> ``auto``).  The reference's
-    ``softmax_chunk``, ``mm_a``/``mm_b``, ``num_scales`` and ``scale_decay``
-    come with the slices that port the code that reads them."""
+    an explicit registry backend (None -> ``auto``).  ``num_scales`` /
+    ``scale_decay``: the ``log_linear`` pyramid.  The reference's
+    ``softmax_chunk`` and ``mm_a``/``mm_b`` come with the slices that port
+    the code that reads them."""
     impl: str = "softmax"
     causal: bool = True
     diag_block: int = 256
@@ -42,13 +46,14 @@ class AttnConfig:
     use_kernel: bool = False
     backend: Optional[str] = None
     fixed_ab: float = 0.0
+    num_scales: int = 4
+    scale_decay: float = 0.5
 
 
 # What each unported branch of multi_head_attention waits for.
 _NOT_PORTED = {
     "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
                "first slice', item 1)",
-    "log_linear": "the log_linear impl (ROADMAP.md queue 1, item 10)",
 }
 
 
@@ -92,11 +97,15 @@ def batch_alpha_beta(q, k, cfg, n: int | None = None):
 
 def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
                          beta=None) -> torch.Tensor:
-    """Full-sequence attention (training / prefill), ``lln`` or
-    ``lln_diag``, causal or bidirectional (``cfg.causal``).  q: (B,N,H,D);
-    k/v: (B,N,G,D[v]).  alpha/beta default to :func:`batch_alpha_beta` of
-    this batch; a per-head (H,) beta is pooled to the G groups."""
-    if cfg.impl not in ("lln", "lln_diag"):
+    """Full-sequence attention (training / prefill), ``lln``, ``lln_diag``
+    or ``log_linear``, causal or bidirectional (``cfg.causal``; log-linear
+    is causal only).  q: (B,N,H,D); k/v: (B,N,G,D[v]).  alpha/beta default
+    to :func:`batch_alpha_beta` of this batch; a per-head (H,) beta is
+    pooled to the G groups.  ``log_linear`` under ``use_kernel`` has no
+    gradient (the reference has no backward kernel for it) and raises when
+    one would be needed; without ``use_kernel`` it runs the core scan, which
+    autograd differentiates."""
+    if cfg.impl not in ("lln", "lln_diag", "log_linear"):
         raise NotImplementedError(f"attn impl {cfg.impl!r} is not ported "
                                   f"yet: {_NOT_PORTED.get(cfg.impl, '')}")
     h, g = q.shape[2], k.shape[2]
@@ -111,17 +120,33 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
     if beta.shape[-1] == h and g != h:
         beta = beta.reshape(beta.shape[:-1] + (g, h // g)).mean(dim=-1)
 
+    if cfg.impl == "log_linear" and not cfg.causal:
+        raise ValueError("log_linear attention is causal-only")
     if cfg.use_kernel:
+        if cfg.impl == "log_linear" and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "log_linear with use_kernel=True is forward only (the "
+                "reference has no backward kernel for it): run it under "
+                "torch.no_grad(), or with use_kernel=False for a gradient")
         from repro_torch.kernels import registry as kreg
         spec = kreg.AttnSpec(impl=cfg.impl, causal=cfg.causal, r=h // g,
                              backend=cfg.backend or "auto",
                              lln_chunk=cfg.lln_chunk,
                              diag_block=cfg.diag_block,
-                             fixed_ab=cfg.fixed_ab)
+                             fixed_ab=cfg.fixed_ab,
+                             num_scales=cfg.num_scales,
+                             scale_decay=cfg.scale_decay)
         return kreg.attention(spec, q, k, v, alpha, beta)
 
     kv_k, kv_v = _repeat_kv(k, h), _repeat_kv(v, h)
     beta_h = torch.repeat_interleave(beta, h // g, dim=-1) if g != h else beta
+    if cfg.impl == "log_linear":
+        out, _ = loglin_mod.prefill(q, kv_k, kv_v, alpha, beta_h,
+                                    granule=cfg.lln_chunk,
+                                    num_scales=cfg.num_scales,
+                                    scale_decay=cfg.scale_decay)
+        return out
     if cfg.causal:
         lln_out, _ = lln_causal_scan(q, kv_k, kv_v, alpha, beta_h,
                                      chunk=cfg.lln_chunk)

@@ -1,9 +1,10 @@
 """The AttentionEngine: one spec, one state, one serving lifecycle.
 
-Port of ``repro.core.engine`` for ``lln`` and ``lln_diag``:
-:class:`AttentionState` holds one layer's LLN decode state (``s``/``z``/
-``c_k``), the §4.2 diag tails at the G kv heads, the per-row position and
-calibration; :class:`AttentionEngine` binds an
+Port of ``repro.core.engine`` for ``lln``, ``lln_diag`` and
+``log_linear``: :class:`AttentionState` holds one layer's LLN decode state
+(``s``/``z``/``c_k``), the §4.2 diag tails at the G kv heads or the
+log-linear bucket pyramid, the per-row position and calibration;
+:class:`AttentionEngine` binds an
 :class:`~repro_torch.kernels.registry.AttnSpec` to a layer's head geometry
 and runs ``init_state -> prefill -> decode*``.
 """
@@ -20,28 +21,33 @@ from repro_torch.kernels.registry import AttnSpec
 from . import moment_matching as mm
 from .attention import LLNDecodeState, batch_alpha_beta, decode_lln_chunk
 from .lln import LLNState
-
-LLN_FIELDS = ("s", "z", "c_k", "tail_k", "tail_v", "pos", "alpha", "beta",
-              "log_scale")
+from .loglinear import LogLinState
 
 
 @dataclasses.dataclass
 class AttentionState:
-    """Per-layer LLN(+diag) decode state.
+    """Per-layer decode state; the fields an impl does not use are None.
 
-    s (B,H,D,Dv) fp32, z (B,H,D) fp32, c_k (B,1,H,1) fp32, tail_k/tail_v
-    (B,BLK,G,D[v]) in the compute dtype, pos (B,) int32, alpha/beta (B,H)
-    fp32 (beta repeated from the G groups), log_scale (B,H) fp32.
+    Every impl: s (B,H,D,Dv) fp32, z (B,H,D) fp32, c_k (B,1,H,1) fp32, pos
+    (B,) int32, alpha/beta (B,H) fp32 (beta repeated from the G groups),
+    log_scale (B,H) fp32.  ``lln``/``lln_diag``: tail_k/tail_v
+    (B,BLK,G,D[v]) in the compute dtype.  ``log_linear``: (s, z, c_k) is
+    the open bucket and sl (B,L,H,D,Dv), zl (B,L,H,D), cl (B,L,H) fp32 the
+    Fenwick pyramid; occupancy comes from ``pos``
+    (``core/loglinear.py:occupancy``).
     """
     s: torch.Tensor
     z: torch.Tensor
     c_k: torch.Tensor
-    tail_k: torch.Tensor
-    tail_v: torch.Tensor
     pos: torch.Tensor
     alpha: torch.Tensor
     beta: torch.Tensor
     log_scale: torch.Tensor
+    tail_k: Optional[torch.Tensor] = None
+    tail_v: Optional[torch.Tensor] = None
+    sl: Optional[torch.Tensor] = None
+    zl: Optional[torch.Tensor] = None
+    cl: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "AttentionState":
         return dataclasses.replace(self, **kw)
@@ -77,20 +83,28 @@ class AttentionEngine:
         """Zeroed decode state for ``batch`` rows (per-row pos and
         calibration)."""
         h, g, d, dv = self.heads, self.kv_heads, self.head_dim, self.v_dim
-        blk = self.spec.diag_block
         f32 = dict(dtype=torch.float32, device=device)
-        return AttentionState(
+        common = dict(
             s=torch.zeros(batch, h, d, dv, **f32),
             z=torch.zeros(batch, h, d, **f32),
             c_k=torch.zeros(batch, 1, h, 1, **f32),
-            tail_k=torch.zeros(batch, blk, g, d, dtype=self.state_dtype,
-                               device=device),
-            tail_v=torch.zeros(batch, blk, g, dv, dtype=self.state_dtype,
-                               device=device),
             pos=torch.zeros(batch, dtype=torch.int32, device=device),
             alpha=torch.ones(batch, h, **f32),
             beta=torch.ones(batch, h, **f32),
             log_scale=torch.zeros(batch, h, **f32))
+        if self.spec.impl == "log_linear":
+            ls = self.spec.num_scales
+            return AttentionState(
+                **common, sl=torch.zeros(batch, ls, h, d, dv, **f32),
+                zl=torch.zeros(batch, ls, h, d, **f32),
+                cl=torch.zeros(batch, ls, h, **f32))
+        blk = self.spec.diag_block
+        return AttentionState(
+            **common,
+            tail_k=torch.zeros(batch, blk, g, d, dtype=self.state_dtype,
+                               device=device),
+            tail_v=torch.zeros(batch, blk, g, dv, dtype=self.state_dtype,
+                               device=device))
 
     def calibrate(self, q, k, n: Optional[int] = None):
         """Batch-pooled moment-matched (alpha (H,), beta (G,))."""
@@ -105,8 +119,9 @@ class AttentionEngine:
     def prefill(self, q, k, v, *, alpha=None, beta=None):
         """Causal forward over the prompt; returns ``(out, state)``.
         q: (B,N,H,D); k/v: (B,N,G,D[v]).  The LLN outputs and the O(d^2)
-        state come from one pass; ``lln_diag`` averages in the block-diag
-        softmax.  ``alpha``/``beta`` override the calibration."""
+        state come from one pass (``log_linear``: the open bucket and the
+        bucket pyramid); ``lln_diag`` averages in the block-diag softmax.
+        ``alpha``/``beta`` override the calibration."""
         b, n, h, _ = q.shape
         g = k.shape[2]
         spec = self.spec
@@ -119,6 +134,20 @@ class AttentionEngine:
         if gain is not None:
             use_alpha = torch.as_tensor(alpha, dtype=torch.float32) * gain
             use_beta = torch.as_tensor(beta, dtype=torch.float32) * gain
+        f32 = dict(dtype=torch.float32, device=q.device)
+        beta_h = torch.as_tensor(beta, **f32)
+        if beta_h.shape[-1] == g and g != h:
+            beta_h = torch.repeat_interleave(beta_h, h // g, dim=-1)
+        common = dict(
+            pos=torch.full((b,), n, dtype=torch.int32, device=q.device),
+            alpha=torch.as_tensor(alpha, **f32).expand(b, h).clone(),
+            beta=beta_h.expand(b, h).clone(),
+            log_scale=torch.zeros(b, h, **f32))
+        if spec.impl == "log_linear":
+            out, s, z, c_k, sl, zl, cl = kreg.loglin_prefill(
+                spec, q, k, v, use_alpha, use_beta)
+            return out, AttentionState(s=s, z=z, c_k=c_k, sl=sl, zl=zl,
+                                       cl=cl, **common)
         lln_out, s, z, c_k = kreg.prefill(spec, q, k, v, use_alpha, use_beta)
         if spec.impl == "lln_diag":
             diag_out = kreg.diag_fwd(spec, q, k, v)
@@ -126,18 +155,10 @@ class AttentionEngine:
         else:
             out = lln_out
         blk = spec.diag_block
-        f32 = dict(dtype=torch.float32, device=q.device)
-        beta_h = torch.as_tensor(beta, **f32)
-        if beta_h.shape[-1] == g and g != h:
-            beta_h = torch.repeat_interleave(beta_h, h // g, dim=-1)
         state = AttentionState(
             s=s, z=z, c_k=c_k,
             tail_k=_tail_of(k, n, blk).to(self.state_dtype),
-            tail_v=_tail_of(v, n, blk).to(self.state_dtype),
-            pos=torch.full((b,), n, dtype=torch.int32, device=q.device),
-            alpha=torch.as_tensor(alpha, **f32).expand(b, h).clone(),
-            beta=beta_h.expand(b, h).clone(),
-            log_scale=torch.zeros(b, h, **f32))
+            tail_v=_tail_of(v, n, blk).to(self.state_dtype), **common)
         return out, state
 
     def decode(self, state: AttentionState, q, k, v):
@@ -148,6 +169,16 @@ class AttentionEngine:
         if gain is not None:
             gain = gain.to(state.alpha.device)[..., None]
             alpha_d, beta_d = state.alpha * gain, state.beta * gain
+        if self.spec.impl == "log_linear":
+            st = LogLinState(s=state.s, z=state.z, c_k=state.c_k,
+                             sl=state.sl, zl=state.zl, cl=state.cl,
+                             log_scale=state.log_scale)
+            out, st2 = kreg.decode_chunk(self.spec, st, q, k, v, alpha_d,
+                                         beta_d, pos=state.pos)
+            return out, state.replace(
+                s=st2.s, z=st2.z, c_k=st2.c_k, sl=st2.sl, zl=st2.zl,
+                cl=st2.cl, log_scale=st2.log_scale,
+                pos=state.pos + q.shape[1])
         st = LLNDecodeState(
             lln=LLNState(s=state.s, z=state.z, c_k=state.c_k,
                          log_scale=state.log_scale),

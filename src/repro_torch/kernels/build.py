@@ -6,8 +6,8 @@ into its own shared library with a plain C interface, at first use, into
 sources and flags, so an edited kernel is rebuilt and a stale library is
 never loaded.  :func:`build_all` starts one ``nvcc`` per source at once.
 Libraries are loaded with ``ctypes``: pointers and the stream travel as
-``c_void_p``, ints as ``c_int``, and every entry returns its
-``cudaGetLastError()``.
+``c_void_p``, ints as ``c_int``, floats as ``c_float`` or ``c_double``,
+and every entry returns its ``cudaGetLastError()``.
 
 Nothing here runs at import time: the CPU tests import this module on
 machines without ``nvcc``.
@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # Every entry point: (argument kinds) with "p" a pointer, "i" an int, "f" a
-# float.
+# float, "d" a double.
 SIGNATURES = {
     "lln_causal": {"lln_causal_launch": "ppppppp" + "iiiiiiii" + "p"},
     "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p"},
@@ -43,6 +43,7 @@ SIGNATURES = {
     "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p"},
     "block_diag_bwd": {"block_diag_bwd_launch":
                        "p" * 8 + "i" * 8 + "f" + "p"},
+    "loglin_causal": {"loglin_causal_launch": "p" * 8 + "i" * 10 + "d" + "p"},
 }
 
 _lock = threading.Lock()
@@ -121,7 +122,7 @@ def library(name: str) -> ctypes.CDLL:
             _finish(name, _start(name))
             lib = ctypes.CDLL(str(_library_path(name)))
             kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-                     "f": ctypes.c_float}
+                     "f": ctypes.c_float, "d": ctypes.c_double}
             for fn_name, sig in SIGNATURES[name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = [kinds[c] for c in sig]

@@ -1,0 +1,133 @@
+"""Log-linear (Fenwick multi-scale) causal LLN forward: the CUDA kernel and
+its plain version.
+
+``loglin_causal`` (``csrc/loglin_causal.cu``) replaces
+``src/repro/kernels/loglinear.py:loglin_causal_pallas``: the ``log_linear``
+prefill (``return_state``) and full-sequence forward.  Kernel layout as
+``kernels/lln_attention.py``: ``qs`` (BH, N, D) and ``ks`` (BG, N, D) fp32,
+pre-scaled and stabilized with one constant per (batch, kv group), ``v``
+(BG, N, Dv) fp32 or bf16; query row ``bh`` reads kv row ``bh // r``.
+
+Per ``blk``-sized granule j, a query mixes a causal intra-granule term at
+weight 1 with the pyramid of j closed granules, level l at weight
+``scale_decay**l``; when the granule closes it enters the pyramid by a
+binary increment (pure adds, since every bucket shares the one reference;
+merged levels are zeroed; the top level saturates).  Any N: the keys after
+the last closed granule are the open bucket, returned as ``(s, z)`` with
+the state (zeros for N % blk == 0); that is what
+``core/loglinear.py:prefill`` returns for a ragged prompt.
+
+On the TPU the grid's ordered minor axis walked the granules with the
+pyramid in VMEM; here one CTA per (query head, 32 value columns) walks the
+sequence in 64-row tiles and keeps its columns of every level, of the open
+granule and of the weighted read ``sum_l w_l S_l + S_open`` in shared
+memory (L*D*32 + 2*D*32 fp32: 96 KB at L = 4, D = 128).  The weighted read
+is rebuilt once per granule and grows by each tile's Phi(k)^T v, so a query
+costs one D-long product per column, as in ``lln_causal``.  Bound on the
+H100 at the serve shapes (B=4, H=32, G=4, N=2048, D=Dv=128): fp32
+operations, about 9.8 GFLOP against 270 MB.  Each query head recomputes
+its group's pyramid (r times the state update), as the TPU kernel did.
+
+Each wrapper runs its plain version for a CPU tensor and launches its CUDA
+kernel for a CUDA tensor; ``loglin_causal.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.loglinear import _cascade_same_ref
+from . import build
+from .lln_attention import (_VCODES, COLS, EPS, PREFILL_TILE,
+                            _check_lln_inputs)
+
+
+def _check_scales(blk: int, num_scales: int, scale_decay: float):
+    if blk < 1 or num_scales < 1 or not scale_decay > 0:
+        raise ValueError(f"need blk >= 1, num_scales >= 1 and scale_decay > "
+                         f"0, got {blk}, {num_scales}, {scale_decay}")
+
+
+def loglin_causal_plain(qs, ks, v, *, r: int = 1, blk: int = 256,
+                        num_scales: int = 4, scale_decay: float = 0.5,
+                        return_state: bool = False):
+    """Plain PyTorch log-linear causal LLN (a scan over granules, GQA via a
+    (BG, R) head split, no repeated KV).  Returns ``out`` (BH,N,Dv) in
+    v.dtype; with ``return_state`` ``(out, sl (BH,L,D,Dv), zl (BH,L,1,D),
+    s (BH,D,Dv), z (BH,1,D))``, fp32, the group state repeated to each
+    query-head row: the pyramid and the open bucket."""
+    _check_scales(blk, num_scales, scale_decay)
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    ls = num_scales
+    nf = n // blk                                   # closed granules
+    pad = (-n) % blk
+    nc = (n + pad) // blk
+    wv = torch.tensor([float(scale_decay) ** l for l in range(ls)],
+                      dtype=torch.float32, device=qs.device)
+    fq = F.pad(torch.exp(qs.float()), (0, 0, 0, pad)).reshape(bg, r, nc, blk,
+                                                              d)
+    fk = F.pad(torch.exp(ks.float()), (0, 0, 0, pad)).reshape(bg, nc, blk, d)
+    vf = F.pad(v.float(), (0, 0, 0, pad)).reshape(bg, nc, blk, dv)
+    causal = torch.tril(torch.ones(blk, blk, device=qs.device))
+    sl = torch.zeros(bg, ls, d, dv, device=qs.device)
+    zl = torch.zeros(bg, ls, d, device=qs.device)
+    s = torch.zeros(bg, d, dv, device=qs.device)
+    z = torch.zeros(bg, d, device=qs.device)
+    outs = []
+    for i in range(nc):
+        cq, ck, cv = fq[:, :, i], fk[:, i], vf[:, i]
+        s_eff = torch.einsum("l,gldv->gdv", wv, sl)
+        z_eff = torch.einsum("l,gld->gd", wv, zl)
+        scores = torch.einsum("grid,gjd->grij", cq, ck) * causal
+        intra = torch.einsum("grij,gjv->griv", scores, cv)
+        inter = torch.einsum("grid,gdv->griv", cq, s_eff)
+        den = scores.sum(-1) + torch.einsum("grid,gd->gri", cq, z_eff) + EPS
+        outs.append((intra + inter) / den[..., None])
+        c_s = torch.einsum("gjd,gjv->gdv", ck, cv)
+        if i < nf:
+            sl, zl = _cascade_same_ref(sl, zl, c_s, ck.sum(1), i, ls)
+        else:                                       # the open bucket
+            s, z = c_s, ck.sum(1)
+    out = torch.stack(outs, 2).reshape(bh, nc * blk, dv)[:, :n].to(v.dtype)
+    if not return_state:
+        return out
+    rep = lambda t: torch.repeat_interleave(t, r, dim=0)  # noqa: E731
+    return (out, rep(sl), rep(zl)[:, :, None, :], rep(s),
+            rep(z)[:, None, :])
+
+
+def loglin_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
+                  num_scales: int = 4, scale_decay: float = 0.5,
+                  return_state: bool = False):
+    """Log-linear causal LLN forward, outputs as
+    :func:`loglin_causal_plain`; see the module docstring."""
+    if qs.device.type == "cpu":
+        return loglin_causal_plain(qs, ks, v, r=r, blk=blk,
+                                   num_scales=num_scales,
+                                   scale_decay=scale_decay,
+                                   return_state=return_state)
+    _check_lln_inputs(qs, ks, v, r)
+    _check_scales(blk, num_scales, scale_decay)
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    ls = num_scales
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
+    state = (torch.empty(bh, ls, d, dv, **f32),
+             torch.empty(bh, ls, 1, d, **f32),
+             torch.empty(bh, d, dv, **f32),
+             torch.empty(bh, 1, d, **f32)) if return_state else ()
+    ptrs = [t.data_ptr() for t in state] or [None] * 4
+    lib = build.library("loglin_causal")
+    with torch.cuda.device(qs.device):
+        err = lib.loglin_causal_launch(
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
+            bh, bg, n, d, dv, _VCODES[v.dtype], blk, ls, PREFILL_TILE, COLS,
+            float(scale_decay), torch.cuda.current_stream().cuda_stream)
+    build.check(err, "loglin_causal")
+    loglin_causal.launches += 1
+    return (out,) + state if return_state else out
+
+
+loglin_causal.launches = 0

@@ -1,7 +1,9 @@
 """Ops around the kernels (port of ``repro.kernels.ops``): the training
 entries ``lln_attention`` / ``lln_diag_attention`` (causal and
-bidirectional) and ``block_diag_attention``, and the serving entries
-``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``.
+bidirectional) and ``block_diag_attention``, the serving entries
+``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``, and the
+log-linear (Fenwick multi-scale) entries ``loglin_attention`` /
+``loglin_prefill`` / ``loglin_decode_chunk`` (inference only).
 
 Responsibilities:
 * layout: (B, N, H, D) model convention <-> (B*H, N, D) kernel convention,
@@ -30,15 +32,18 @@ import torch
 
 from repro_torch.core import diag as core_diag
 from repro_torch.core import lln as core_lln
+from repro_torch.core import loglinear as core_loglin
 from . import registry
 from .block_diag import (block_diag, block_diag_bwd, block_diag_bwd_plain,
                          block_diag_plain)
-from .lln_attention import (lln_bidir, lln_bidir_plain, lln_causal,
-                            lln_causal_plain, lln_decode, lln_decode_plain,
-                            lln_diag_fused, lln_diag_fused_plain)
+from .lln_attention import (MAX_DECODE_T, NEG_INF, lln_bidir,
+                            lln_bidir_plain, lln_causal, lln_causal_plain,
+                            lln_decode, lln_decode_plain, lln_diag_fused,
+                            lln_diag_fused_plain)
 from .lln_backward import (lln_bidir_bwd, lln_bidir_bwd_plain, lln_causal_bwd,
                            lln_causal_bwd_plain, lln_diag_fused_bwd,
                            lln_diag_fused_bwd_plain)
+from .loglinear import loglin_causal, loglin_causal_plain
 
 
 def _to_kernel(t: torch.Tensor) -> torch.Tensor:
@@ -408,3 +413,179 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
     new = core_lln.LLNState(s=s1.reshape(b, h, d, -1), z=z1.reshape(b, h, d),
                             c_k=c_new_h, log_scale=state.log_scale)
     return _from_kernel(out_k, b), new
+
+
+# ---------------------------------------------------------------------------
+# Log-linear (Fenwick multi-scale) LLN: full-sequence forward, the
+# state-emitting prefill and the chunked decode.  Inference only: the
+# reference has no backward kernel for it.
+# ---------------------------------------------------------------------------
+
+def _loglin_repeat(q, k, v, beta):
+    """The ``ref`` kind's inputs: repeated KV and a per-head (H,) or
+    (B, H) beta."""
+    h, g = q.shape[2], k.shape[2]
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=q.device)
+    if beta.ndim and beta.shape[-1] == g:
+        beta = _repeat_heads(beta, h, dim=-1)
+    return _repeat_heads(k, h), _repeat_heads(v, h), beta
+
+
+def loglin_attention(q, k, v, alpha, beta, causal: bool = True,
+                     chunk: int = 256, num_scales: int = 4,
+                     scale_decay: float = 0.5, backend: str = "auto"):
+    """Full-sequence log-linear LLN attention (causal only): each query
+    mixes a causal intra-granule term with the Fenwick pyramid of its
+    prefix, the granule of key j at level l weighing ``scale_decay**l``
+    (``core/loglinear.py``).  q: (B,N,H,D); k/v: (B,N,G,D[v]); any N.
+    ``kernel``/``plain`` run :func:`loglin_causal` (or its plain version),
+    ``ref`` the quadratic oracle on repeated KV."""
+    if not causal:
+        raise ValueError("log_linear attention is causal-only")
+    b, n, h, _ = q.shape
+    kind = registry.resolve(backend, q.device)
+    if kind == "ref":
+        kf, vf, beta_h = _loglin_repeat(q, k, v, beta)
+        return core_loglin.loglin_attention_ref(
+            q, kf, vf, alpha, beta_h, granule=chunk, num_scales=num_scales,
+            scale_decay=scale_decay)
+    qs, ks, _ = _scaled_stabilized(q, k, alpha, beta)
+    fn = loglin_causal if kind == "kernel" else loglin_causal_plain
+    out = fn(qs, ks, _to_kernel(v), r=h // k.shape[2], blk=chunk,
+             num_scales=num_scales, scale_decay=scale_decay)
+    return _from_kernel(out, b)
+
+
+def loglin_prefill(q, k, v, alpha, beta, chunk: int = 256,
+                   num_scales: int = 4, scale_decay: float = 0.5,
+                   backend: str = "auto"):
+    """Causal log-linear prefill emitting the outputs and the multi-scale
+    decode state in one pass.
+
+    Returns ``(out, s, z, c_k, sl, zl, cl)`` in the ``LogLinState``
+    layout: the open bucket ``s`` (B,H,D,Dv), ``z`` (B,H,D), ``c_k``
+    (B,1,H,1) (the keys after the last closed granule; empty for N %
+    chunk == 0) and the pyramid ``sl`` (B,L,H,D,Dv), ``zl`` (B,L,H,D),
+    ``cl`` (B,L,H), fp32.  On the kernel and plain kinds every bucket
+    shares the group's key constant, so ``cl`` is ``c_k`` broadcast; the
+    ``ref`` kind (``core/loglinear.py:prefill`` on repeated KV) takes one
+    constant per query head.  Outputs and decode do not depend on that
+    choice; the raw states do.
+    """
+    b, n, h, d = q.shape
+    g, dv = k.shape[2], v.shape[-1]
+    ls = num_scales
+    kind = registry.resolve(backend, q.device)
+    if kind == "ref":
+        kf, vf, beta_h = _loglin_repeat(q, k, v, beta)
+        out, st = core_loglin.prefill(q, kf, vf, alpha, beta_h,
+                                      granule=chunk, num_scales=ls,
+                                      scale_decay=scale_decay)
+        return out, st.s, st.z, st.c_k, st.sl, st.zl, st.cl
+    qs, ks, c_k = _scaled_stabilized(q, k, alpha, beta)
+    fn = loglin_causal if kind == "kernel" else loglin_causal_plain
+    out_k, sl, zl, s, z = fn(qs, ks, _to_kernel(v), r=h // g, blk=chunk,
+                             num_scales=ls, scale_decay=scale_decay,
+                             return_state=True)
+    c_kh = _repeat_heads(c_k, h)
+    return (_from_kernel(out_k, b), s.reshape(b, h, d, dv),
+            z.reshape(b, h, d), c_kh,
+            sl.reshape(b, h, ls, d, dv).transpose(1, 2),
+            zl.reshape(b, h, ls, d).transpose(1, 2),
+            c_kh[:, 0, :, 0][:, None, :].expand(b, ls, h).contiguous())
+
+
+def _decode_chained(qs, ks, vk, s0, z0, r: int, kind: str):
+    """:func:`lln_decode` (or its plain version) over T tokens in launches
+    of at most ``MAX_DECODE_T``, each carrying the last one's ``(s1,
+    z1)``; exact, since each launch's keys enter the next one's state."""
+    fn = lln_decode if kind == "kernel" else lln_decode_plain
+    outs = []
+    for i0 in range(0, qs.shape[1], MAX_DECODE_T):
+        cut = slice(i0, i0 + MAX_DECODE_T)
+        o, s0, z0 = fn(qs[:, cut].contiguous(), ks[:, cut].contiguous(),
+                       vk[:, cut].contiguous(), s0, z0, r=r)
+        outs.append(o)
+    return torch.cat(outs, 1)
+
+
+def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
+                        num_scales: int, scale_decay: float,
+                        backend: str = "auto", row_mask=None,
+                        commit_len=None, renorm=None):
+    """Advance a ``core.loglinear.LogLinState`` over T new tokens.
+
+    q: (B,T,H,D); k/v: (B,T,G,D[v]); ``pos`` (B,) int32: the tokens each
+    row has folded, which fixes its bucket layout.  alpha: scalar, (H,) or
+    (B, H); beta: scalar, (G,), (B, G), or an (H,)/(B, H) repeat that is
+    group-mean pooled to G.  Returns ``(out (B,T,H,Dv) in v.dtype, new
+    LogLinState)``.  ``row_mask``, ``commit_len`` and ``renorm`` are taken
+    only as None (ROADMAP.md queue 1, item 2).
+
+    ``ref`` runs ``core/loglinear.py:decode_chunk`` on repeated KV.
+    ``kernel``/``plain``: the new state is the core ``_advance`` at H heads
+    (bitwise the core path's); the outputs come from two passes of
+    :func:`lln_decode` (or its plain version) at one group-level reference:
+    pass A masks the keys at or past each row's granule boundary to
+    ``-1e30`` (Phi(k) = 0) and carries pyramid(n) + the open bucket as its
+    ``s0``, pass B masks the keys before the boundary and carries the
+    cascaded pyramid(n+1); each position takes the pass of its side.
+    Each pass runs in launches of at most ``MAX_DECODE_T`` tokens.  T >
+    granule runs in granule-sized sub-chunks.
+    """
+    core_loglin.check_contract(row_mask, commit_len, renorm)
+    b, t, h, d = q.shape
+    g = k.shape[2]
+    r = h // g
+    kind = registry.resolve(backend, q.device)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    beta_b = torch.as_tensor(beta, dtype=torch.float32, device=q.device)
+    if beta_b.ndim and beta_b.shape[-1] == h and g != h:
+        beta_b = beta_b.reshape(beta_b.shape[:-1] + (g, r)).mean(dim=-1)
+    beta_b = _bcast_heads(beta_b, g, q.device)
+    beta_h = _repeat_heads(beta_b, h, dim=-1)
+    kf, vf = _repeat_heads(k, h), _repeat_heads(v, h)
+    if kind == "ref":
+        return core_loglin.decode_chunk(
+            state, q, kf, vf, alpha, beta_h, pos=pos, granule=granule,
+            num_scales=num_scales, scale_decay=scale_decay)
+    if t > granule:
+        outs = []
+        for i0 in range(0, t, granule):
+            cut = slice(i0, min(i0 + granule, t))
+            o, state = loglin_decode_chunk(
+                state, q[:, cut], k[:, cut], v[:, cut], alpha, beta_b,
+                pos=pos + i0, granule=granule, num_scales=num_scales,
+                scale_decay=scale_decay, backend=backend)
+            outs.append(o)
+        return torch.cat(outs, 1), state
+    bk_h = kf.float() * _row_head_bcast(beta_h)
+    new_state, aux = core_loglin._advance(
+        state, bk_h, vf.float(), pos=pos, granule=granule,
+        num_scales=num_scales, t=t)
+    split = aux[0]
+    # One group-level reference covering every bucket and chunk key (the
+    # normalized form does not depend on it; pooling changes rounding).
+    c_h = core_loglin.state_reference(state, aux, bk_h)
+    c_g = torch.amax(c_h.reshape(b, 1, g, r, 1), dim=3)          # (B,1,G,1)
+    w = core_loglin.level_weights(num_scales, scale_decay, q.device)
+    (s_a, z_a), (s_b, z_b) = core_loglin.inter_views(
+        state, aux, w, _repeat_heads(c_g, h))
+    alpha_b = _bcast_heads(alpha, h, q.device)
+    aq = q.float() * _row_head_bcast(alpha_b)
+    qs = _to_kernel(aq - torch.amax(aq, dim=(1, 3), keepdim=True))
+    ks = k.float() * _row_head_bcast(beta_b) - c_g               # (B,T,G,D)
+    pre_key = (torch.arange(t, device=q.device)[None, :]
+               < split[:, None])[:, :, None, None]               # (B,T,1,1)
+    vk = _to_kernel(v)
+    dv = v.shape[-1]
+    out_a = _decode_chained(
+        qs, _to_kernel(torch.where(pre_key, ks, NEG_INF)), vk,
+        s_a.reshape(b * h, d, dv).contiguous(),
+        z_a.reshape(b * h, 1, d).contiguous(), r, kind)
+    out_b = _decode_chained(
+        qs, _to_kernel(torch.where(pre_key, NEG_INF, ks)), vk,
+        s_b.reshape(b * h, d, dv).contiguous(),
+        z_b.reshape(b * h, 1, d).contiguous(), r, kind)
+    out = torch.where(pre_key, _from_kernel(out_a, b), _from_kernel(out_b, b))
+    return out, new_state

@@ -12,15 +12,17 @@ The backends:
     The kernel's plain PyTorch version (kernel layout, GQA without
     repeated KV) on any device.
 ``ref``
-    The core reference (``core/lln.py`` / ``core/diag.py``: model layout,
-    repeated KV).
+    The core reference (``core/lln.py`` / ``core/diag.py`` /
+    ``core/loglinear.py``: model layout, repeated KV).
 
 This module owns the policy (spec validation, :func:`resolve`) and the
 spec-level entry points: :func:`attention` (training, from
-``core/attention.py:multi_head_attention``) and the engine's prefill
-(:func:`prefill`, :func:`diag_fwd`); the ops live in ``kernels/ops.py``,
-and decode reaches ``ops.lln_decode_chunk`` through
-``core/attention.py:decode_lln_chunk``.
+``core/attention.py:multi_head_attention``), the engine's prefill
+(:func:`prefill`, :func:`diag_fwd`, :func:`loglin_prefill`) and the
+``log_linear`` decode (:func:`decode_chunk`); the ops live in
+``kernels/ops.py``.  The engine's ``lln``/``lln_diag`` decode reaches
+``ops.lln_decode_chunk`` through ``core/attention.py:decode_lln_chunk``,
+which adds the diag tail.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Optional
 
 import torch
 
-IMPLS = ("lln", "lln_diag")
+IMPLS = ("lln", "lln_diag", "log_linear")
 BACKENDS = ("auto", "kernel", "plain", "ref")
 PRECISIONS = ("float32", "bfloat16", "float16")
 
@@ -38,13 +40,16 @@ PRECISIONS = ("float32", "bfloat16", "float16")
 class AttnSpec:
     """Declarative description of one attention configuration.
 
-    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid); causal: the decoder
+    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid) | ``log_linear``
+    (the Fenwick multi-scale state, causal only); causal: the decoder
     (True) or the bidirectional encoder (False); r: GQA ratio H // G;
     backend: see the module docstring; precision: dtype name of the diag
     tails; lln_chunk: chunk of the plain causal scan (the math does not
-    depend on it); diag_block: block size of the §4.2 diag part (it fixes
-    which keys are visible); fixed_ab / beta_n / calib_len: moment-matching
-    calibration (``core/moment_matching.py``).
+    depend on it), and the bucket granule of ``log_linear`` (it does);
+    diag_block: block size of the §4.2 diag part (it fixes which keys are
+    visible); fixed_ab / beta_n / calib_len: moment-matching calibration
+    (``core/moment_matching.py``); num_scales / scale_decay: the
+    ``log_linear`` pyramid's levels and per-level weight decay.
     """
     impl: str = "lln"
     causal: bool = True
@@ -56,6 +61,8 @@ class AttnSpec:
     fixed_ab: float = 0.0
     beta_n: float = 0.0
     calib_len: int = 1024
+    num_scales: int = 4
+    scale_decay: float = 0.5
 
     def __post_init__(self):
         if self.impl not in IMPLS:
@@ -76,6 +83,13 @@ class AttnSpec:
         if self.fixed_ab < 0 or self.beta_n < 0 or self.calib_len < 1:
             raise ValueError("AttnSpec: fixed_ab and beta_n must be >= 0, "
                              "calib_len positive")
+        if self.num_scales < 1 or not self.scale_decay > 0:
+            raise ValueError("AttnSpec: num_scales must be >= 1 and "
+                             "scale_decay > 0")
+        if self.impl == "log_linear" and not self.causal:
+            raise ValueError("log_linear attention is causal-only (the "
+                             "Fenwick bucket pyramid is a running prefix "
+                             "summary)")
 
     @classmethod
     def from_cfg(cls, cfg, r: Optional[int] = None) -> "AttnSpec":
@@ -93,7 +107,8 @@ class AttnSpec:
                    backend=backend, precision=str(cfg.compute_dtype),
                    lln_chunk=cfg.lln_chunk, diag_block=cfg.diag_block,
                    fixed_ab=cfg.lln_fixed_ab, beta_n=cfg.lln_beta_n,
-                   calib_len=cfg.lln_calib_len)
+                   calib_len=cfg.lln_calib_len, num_scales=cfg.lln_num_scales,
+                   scale_decay=cfg.lln_scale_decay)
 
 
 def resolve(backend: str, device: torch.device) -> str:
@@ -111,10 +126,17 @@ def resolve(backend: str, device: torch.device) -> str:
 
 
 def attention(spec: AttnSpec, q, k, v, alpha, beta):
-    """Full-sequence LLN / LLN+Diag attention under ``spec.backend``,
-    causal or bidirectional as ``spec.causal`` (the training forward;
-    gradients through ``ops``' autograd Functions)."""
+    """Full-sequence LLN / LLN+Diag / log-linear attention under
+    ``spec.backend``, causal or bidirectional as ``spec.causal`` (the
+    training forward; gradients through ``ops``' autograd Functions, none
+    for ``log_linear``)."""
     from . import ops
+    if spec.impl == "log_linear":
+        return ops.loglin_attention(q, k, v, alpha, beta, spec.causal,
+                                    spec.lln_chunk,
+                                    num_scales=spec.num_scales,
+                                    scale_decay=spec.scale_decay,
+                                    backend=spec.backend)
     if spec.impl == "lln":
         return ops.lln_attention(q, k, v, alpha, beta, spec.causal,
                                  spec.lln_chunk, backend=spec.backend)
@@ -134,3 +156,32 @@ def diag_fwd(spec: AttnSpec, q, k, v):
     from . import ops
     return ops.block_diag_fwd(q, k, v, spec.diag_block, causal=True,
                               backend=spec.backend)
+
+
+def loglin_prefill(spec: AttnSpec, q, k, v, alpha, beta):
+    """State-emitting causal log-linear prefill; returns ``(out, s, z, c_k,
+    sl, zl, cl)``: the open bucket and the Fenwick pyramid
+    (``core/loglinear.py`` layout)."""
+    from . import ops
+    return ops.loglin_prefill(q, k, v, alpha, beta, chunk=spec.lln_chunk,
+                              num_scales=spec.num_scales,
+                              scale_decay=spec.scale_decay,
+                              backend=spec.backend)
+
+
+def decode_chunk(spec: AttnSpec, state, q, k, v, alpha, beta, *, pos):
+    """Advance a ``log_linear`` ``LogLinState`` over T tokens under
+    ``spec.backend``; ``pos`` (B,) is the per-row depth that fixes each
+    row's bucket layout (:func:`ops.loglin_decode_chunk`).  The
+    ``lln``/``lln_diag`` decode runs through
+    ``core/attention.py:decode_lln_chunk``, which adds the diag tail."""
+    from . import ops
+    if spec.impl != "log_linear":
+        raise ValueError(f"registry.decode_chunk serves log_linear, not "
+                         f"{spec.impl!r}: see core/attention.py:"
+                         f"decode_lln_chunk")
+    return ops.loglin_decode_chunk(state, q, k, v, alpha, beta, pos=pos,
+                                   granule=spec.lln_chunk,
+                                   num_scales=spec.num_scales,
+                                   scale_decay=spec.scale_decay,
+                                   backend=spec.backend)

@@ -6,9 +6,10 @@
 Takes the reference driver's flags (``python -m repro.launch.serve``) plus
 ``--device`` (the CUDA card by default).  Every row advances in lockstep;
 the first decode step is timed on its own and the rest give the steady
-tok/s.  Continuous batching, speculative decoding, the ``softmax`` and
-``log_linear`` impls and meshes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+tok/s.  ``--attn-impl`` takes ``lln``, ``lln_diag`` and ``log_linear``.
+Continuous batching, speculative decoding, the ``softmax`` impl and meshes
+are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -70,7 +71,6 @@ _NOT_PORTED = {
     "speculative": "speculative decoding (ROADMAP.md queue 1, item 9)",
     "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
                "first slice')",
-    "log_linear": "the log_linear impl (ROADMAP.md queue 1, item 10)",
     "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
 }
 

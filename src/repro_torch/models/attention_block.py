@@ -34,7 +34,9 @@ def attn_cfg_of(cfg, causal: bool = True) -> AttnConfig:
     return AttnConfig(impl=cfg.attn_impl, causal=causal,
                       diag_block=cfg.diag_block, lln_chunk=cfg.lln_chunk,
                       use_kernel=cfg.use_kernel, backend=cfg.attn_backend,
-                      fixed_ab=cfg.lln_fixed_ab)
+                      fixed_ab=cfg.lln_fixed_ab,
+                      num_scales=cfg.lln_num_scales,
+                      scale_decay=cfg.lln_scale_decay)
 
 
 def attn_engine(cfg) -> AttentionEngine:

@@ -121,7 +121,8 @@ def test_entry_points_raise_without_a_device(monkeypatch):
                                    "--segment", "4", "--gen-lens", "3,17"],
                                   ["--speculative", "--spec-k", "3"],
                                   ["--attn-impl", "softmax"],
-                                  ["--attn-impl", "log_linear"],
+                                  ["--attn-impl", "log_linear",
+                                   "--speculative", "--spec-k", "3"],
                                   ["--mesh", "2,1"]])
 def test_serve_unported_modes_raise(argv):
     from repro_torch.launch import serve

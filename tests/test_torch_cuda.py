@@ -13,12 +13,17 @@ and round once.  The training kernels' fp32 outputs (den and every
 gradient) are held to 1e-5 of the largest entry, as on the CPU against the
 reference; gradients through the autograd Functions to 1e-4.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
-are held the same way at D = 64, r in {1, 4}, whole and ragged N.
+are held the same way at D = 64, r in {1, 4}, whole and ragged N.  The
+log-linear kernel (``loglin_causal``) is held the same way at r in {1, 8},
+whole and ragged N, with and without the state (the pyramid and the open
+bucket, fp32, 2e-4 of the largest entry); its two-pass decode
+(``ops.loglin_decode_chunk``) on the kernels against the plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.loglinear import LogLinState
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
                                             block_diag_bwd_plain,
@@ -34,6 +39,7 @@ from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
                                               lln_causal_bwd_plain,
                                               lln_diag_fused_bwd,
                                               lln_diag_fused_bwd_plain)
+from repro_torch.kernels.loglinear import loglin_causal, loglin_causal_plain
 
 ATOL = 2e-4
 TRAIN = 1e-5
@@ -354,3 +360,102 @@ def test_cuda_block_diag_attention_matches_plain_and_core(cuda):
             _close(out.detach(), results[backend][0].detach(), ATOL)
             for gt, wt in zip(grads, results[backend][1]):
                 _close(gt, wt, 1e-4)
+
+
+LOGLIN_CASES = [pytest.param(r, n, st, id=f"r{r}-n{n}-{nm}")
+                for r in (1, 8) for n in (128, 200)
+                for st, nm in ((True, "state"), (False, "out"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,return_state", LOGLIN_CASES)
+def test_cuda_loglin_causal_matches_plain(cuda, r, n, return_state):
+    """Granule 32 (whole tiles of 32 rows inside a 64-row tile walk), four
+    levels: N = 128 closes four granules, N = 200 six and leaves an open
+    bucket of 8 keys; fp32 v, then bf16 v."""
+    qs, ks, v = _kernel_inputs(n + r, 2 * r, 2, n, 64, 64)
+    qs, ks = _on(cuda, qs, ks)
+    for vdtype, tol in ((torch.float32, ATOL), (torch.bfloat16, BF16)):
+        (vv,) = _on(cuda, v, dtype=vdtype)
+        kw = dict(r=r, blk=32, num_scales=4, scale_decay=0.5,
+                  return_state=return_state)
+        got = loglin_causal(qs, ks, vv, **kw)
+        want = loglin_causal_plain(qs, ks, vv, **kw)
+        torch.cuda.synchronize()
+        if not return_state:
+            got, want = (got,), (want,)
+        _close(got[0], want[0], tol)
+        for gt, wt in zip(got[1:], want[1:]):
+            _close(gt, wt, ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_loglin_causal_is_bitwise_reproducible(cuda):
+    """No atomics: two runs give the same outputs and state bit for bit."""
+    qs, ks, v = _on(cuda, *_kernel_inputs(9, 16, 2, 300, 64, 64))
+    kw = dict(r=8, blk=64, num_scales=3, scale_decay=0.5, return_state=True)
+    before = loglin_causal.launches
+    a = loglin_causal(qs, ks, v, **kw)
+    b = loglin_causal(qs, ks, v, **kw)
+    assert loglin_causal.launches == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_takes_masked_keys(cuda):
+    """Keys masked to -1e30 (the log-linear decode's passes) give Phi(k) =
+    0 in the decode kernel: finite outputs equal to the plain version, and
+    a state that the masked keys leave unchanged."""
+    qs, ks, v = _kernel_inputs(12, 8, 2, 20, 64, 64)
+    ks[:, 3:11] = -1e30
+    rng = np.random.default_rng(12)
+    s0 = rng.normal(size=(8, 64, 64)).astype(np.float32)
+    z0 = rng.uniform(0.5, 3.0, (8, 1, 64)).astype(np.float32)
+    args = _on(cuda, qs, ks, v, s0, z0)
+    got = lln_decode(*args, r=4)
+    want = lln_decode_plain(*args, r=4)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, ATOL)
+    kept = lln_decode(*[a[:, :3].contiguous() if i < 3 else a
+                        for i, a in enumerate(args)], r=4)
+    _close(got[1], kept[1] + torch.repeat_interleave(
+        torch.einsum("gjd,gjv->gdv", torch.exp(args[1][:, 11:]),
+                     args[2][:, 11:]), 4, 0), ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 100])
+def test_cuda_loglin_decode_matches_plain(cuda, t):
+    """``ops.loglin_decode_chunk`` on the kernels against the plain
+    versions, from a prefill state 10 tokens short of a granule boundary:
+    T = 100 crosses it and runs each pass as two chained launches; T = 1
+    runs one launch per pass."""
+    rng = np.random.default_rng(t)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    b, g, r, d, blk = 2, 2, 4, 64, 128
+    h = g * r
+    n = 3 * blk - 10
+    alpha, beta = torch.full((h,), 1.3, device=cuda), torch.full(
+        (g,), 1.1, device=cuda)
+    kw = dict(chunk=blk, num_scales=3, scale_decay=0.5)
+    pre = ops.loglin_prefill(f(b, n, h, d), f(b, n, g, d), f(b, n, g, d),
+                             alpha, beta, backend="plain", **kw)
+    state = LogLinState(*pre[1:], log_scale=torch.zeros(b, h, device=cuda))
+    q, k, v = f(b, t, h, d), f(b, t, g, d), f(b, t, g, d)
+    pos = torch.full((b,), n, dtype=torch.int32, device=cuda)
+    before = lln_decode.launches
+    got, gst = ops.loglin_decode_chunk(
+        state, q, k, v, alpha, beta, pos=pos, granule=blk, num_scales=3,
+        scale_decay=0.5, backend="kernel")
+    assert lln_decode.launches == before + (2 if t == 1 else 4)
+    want, wst = ops.loglin_decode_chunk(
+        state, q, k, v, alpha, beta, pos=pos, granule=blk, num_scales=3,
+        scale_decay=0.5, backend="plain")
+    torch.cuda.synchronize()
+    _close(got, want, ATOL)
+    for name in ("s", "z", "c_k", "sl", "zl", "cl"):
+        assert torch.equal(getattr(gst, name), getattr(wst, name)), name

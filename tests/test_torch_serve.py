@@ -3,10 +3,13 @@
 The reference's params are converted through numpy; both packages then run
 their own ``make_serve_setup`` on the CPU in fp32 (``compute_dtype=
 "float32"``) over the same prompt.  Held: the prefill logits, every layer's
-decode state, and 8 teacher-forced decode steps of logits with equal greedy
-tokens.  Tolerances: 2e-4 absolute on logits (fp32 sums taken in another
-order through 2 layers), 2e-4 relative to the largest entry on the (s, z)
-state, which grows with the prompt.
+decode state, and teacher-forced decode steps of logits with equal greedy
+tokens (8 for ``lln``/``lln_diag``; 20 for ``log_linear``, whose granule
+is 16 in SMOKE, so that decode crosses position 127: 7 -> 8 closed
+granules, a carry through every level into the saturated top).
+Tolerances: 2e-4 absolute on logits (fp32 sums taken in another order
+through 2 layers), 2e-4 relative to the largest entry on the summed
+states, which grow with the prompt.
 """
 import jax
 import jax.numpy as jnp
@@ -27,8 +30,13 @@ from repro_torch.launch import serve
 from repro_torch.launch.steps import make_serve_setup
 
 ATOL = 2e-4
-STEPS = 8
+STEPS = {"lln": 8, "lln_diag": 8, "log_linear": 20}
 STATE_FIELDS = ("s", "z", "c_k", "tail_k", "tail_v", "pos", "alpha", "beta")
+# Per impl: the fields a layer's decode state holds.
+IMPL_FIELDS = {"lln": STATE_FIELDS, "lln_diag": STATE_FIELDS,
+               "log_linear": ("s", "z", "c_k", "sl", "zl", "cl", "pos",
+                              "alpha", "beta")}
+SUMMED = ("s", "z", "sl", "zl")
 
 
 def _close(got, want, scale=False):
@@ -38,13 +46,38 @@ def _close(got, want, scale=False):
                                rtol=0)
 
 
-@pytest.mark.parametrize("impl,prompt", [("lln", 32), ("lln_diag", 40)])
+def _states_close(layer, jl, fields, ragged=False):
+    """One layer's state against the reference's, raw where both took the
+    same path.  A ragged ``log_linear`` prompt runs the reference's core
+    path, which stabilizes per query head, and the port's kernel path,
+    which stabilizes per kv group: outputs and decode do not depend on that
+    choice, the raw states do, so those are compared at the reference's
+    constants (``x * exp(c_port - c_ref)``)."""
+    shift = {}
+    if ragged:
+        jc_k, jcl = (torch.tensor(np.asarray(jl[n])) for n in ("c_k", "cl"))
+        shift = {"s": torch.exp(layer.c_k - jc_k)[:, 0, :, 0, None, None],
+                 "z": torch.exp(layer.c_k - jc_k)[:, 0, :, 0, None],
+                 "sl": torch.exp(layer.cl - jcl)[..., None, None],
+                 "zl": torch.exp(layer.cl - jcl)[..., None]}
+    for name in fields:
+        if name in ("c_k", "cl") and shift:
+            continue                  # folded into the shifted fields
+        got = getattr(layer, name).float()
+        _close(got * shift[name] if name in shift else got,
+               np.asarray(jl[name]), scale=name in SUMMED)
+
+
+@pytest.mark.parametrize("impl,prompt", [("lln", 32), ("lln_diag", 40),
+                                         ("log_linear", 112),
+                                         ("log_linear", 120)])
 def test_port_serves_like_the_reference(impl, prompt):
     batch = 2
+    steps = STEPS[impl]
     over = dict(attn_impl=impl, compute_dtype="float32")
     jcfg = j_get_config("yi-9b", smoke=True, **over)
     tcfg = get_config("yi-9b", smoke=True, **over)
-    max_len = prompt + STEPS + 1
+    max_len = prompt + steps + 1
     jmodel = j_build_model(jcfg)
     mesh = compat_mesh((1, 1), ("data", "model"))
     with mesh:
@@ -66,14 +99,13 @@ def test_port_serves_like_the_reference(impl, prompt):
     for i, layer in enumerate(caches["layers"]):
         jl = jax.tree_util.tree_map(lambda a, i=i: np.asarray(a)[i],
                                     jcaches["layers"])
-        for name in STATE_FIELDS:
-            _close(getattr(layer, name).float(), np.asarray(jl[name]),
-                   scale=name in ("s", "z"))
+        _states_close(layer, jl, IMPL_FIELDS[impl], ragged=(
+            impl == "log_linear" and prompt % tcfg.lln_chunk != 0))
 
     tok_j = jnp.argmax(jlogits[:, -1], -1).astype(jnp.int32)
     tok_t = torch.argmax(logits[:, -1], -1)
     with mesh:
-        for step in range(STEPS):
+        for step in range(steps):
             np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
             pos = prompt + step
             jlogits, jcaches = jsetup.decode_fn(jparams, jcaches, tok_j,
@@ -83,6 +115,28 @@ def test_port_serves_like_the_reference(impl, prompt):
             tok_j = jnp.argmax(jlogits, -1).astype(jnp.int32)
             tok_t = torch.argmax(logits, -1)
     np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+
+
+def test_log_linear_state_converts_from_the_reference():
+    """A reference ``log_linear`` layer state (a prefill's, pyramid and open
+    bucket) converts field for field; it has no diag tails."""
+    from repro.core.engine import AttentionEngine as JEngine
+    from repro.kernels.registry import AttnSpec as JSpec
+
+    rng = np.random.default_rng(2)
+    spec = JSpec(impl="log_linear", r=2, lln_chunk=8, num_scales=3)
+    jeng = JEngine(spec=spec, heads=4, kv_heads=2, head_dim=8, v_dim=8)
+    q = rng.normal(size=(2, 29, 4, 8)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 29, 2, 8)).astype(np.float32)
+            for _ in range(2))
+    _, jst = jeng.prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          max_len=40)
+    st = state_from_numpy(jst, "cpu")
+    assert st.tail_k is None and st.tail_v is None
+    for name in IMPL_FIELDS["log_linear"] + ("log_scale",):
+        np.testing.assert_array_equal(getattr(st, name).numpy(),
+                                      np.asarray(jst[name]))
+    assert st.sl.shape == (2, 3, 4, 8, 8) and st.cl.shape == (2, 3, 4)
 
 
 def test_state_round_trip_is_exact():
@@ -95,7 +149,7 @@ def test_state_round_trip_is_exact():
         np.testing.assert_array_equal(getattr(st, name).numpy(), arr)
 
 
-@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+@pytest.mark.parametrize("impl", ["lln", "lln_diag", "log_linear"])
 @pytest.mark.parametrize("backend", ["auto", "plain", "ref"])
 def test_serve_cli_on_cpu(impl, backend, capsys):
     toks = serve.main(["--arch", "yi-9b", "--smoke", "--attn-impl", impl,
@@ -108,22 +162,32 @@ def test_serve_cli_on_cpu(impl, backend, capsys):
     assert "sample tokens:" in out
 
 
-def test_cache_init_matches_reference_layout():
+def _cache_layout_matches(impl):
     from repro.models.transformer import lm_cache_init as j_cache_init
     from repro_torch.models import build_model
 
-    over = dict(attn_impl="lln_diag", compute_dtype="float32")
+    over = dict(attn_impl=impl, compute_dtype="float32")
     jcfg = j_get_config("yi-9b", smoke=True, **over)
     tcfg = get_config("yi-9b", smoke=True, **over)
     jcaches = j_cache_init(None, jcfg, 3, 24)["layers"]
     model = build_model(tcfg, "cpu")
     caches = model.cache_init(model.init(0), 3)["layers"]
     assert len(caches) == tcfg.n_layers
-    for name in STATE_FIELDS + ("log_scale",):
+    for name in IMPL_FIELDS[impl] + ("log_scale",):
         want = np.asarray(jcaches[name])[0]
         got = getattr(caches[0], name)
         assert tuple(got.shape) == want.shape, name
         np.testing.assert_array_equal(got.float().numpy(), want)
+    return caches[0]
+
+
+def test_cache_init_matches_reference_layout():
+    _cache_layout_matches("lln_diag")
+
+
+def test_log_linear_cache_init_matches_reference_layout():
+    st = _cache_layout_matches("log_linear")
+    assert st.tail_k is None and st.tail_v is None
 
 
 @pytest.mark.parametrize("impl", ["lln", "lln_diag"])
