@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths (the yi-9b
-decoder, with lln, lln_diag and log_linear) and its encoder pre-training
-path (roberta-lln, MLM) on one CUDA card and check them.
+decoder, with lln, lln_diag and log_linear), its encoder pre-training path
+(roberta-lln, MLM) and its SSM training path (mamba2-130m, and the
+zamba2-7b hybrid with lln_diag) on one CUDA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device        - require CUDA, print the card's name and power limit,
                      TF32 off;
-  2. build         - compile the ten CUDA kernels from src/repro_torch/csrc,
+  2. build         - compile the eleven CUDA kernels from src/repro_torch/csrc,
                      one nvcc per source, all started together;
   3. kernels       - each serving kernel against its plain PyTorch version at
                      full-width shapes (B=4, H=32, G=4, D=Dv=128, bf16 q/k/v);
@@ -60,8 +61,30 @@ Phases (any failure raises and the script exits non-zero):
                      2047: 7 -> 8 closed granules), launch counts, logits
                      against the plain backend at prefill and at the step
                      that crosses;
- 16. timings       - each kernel, its plain version and its bound at the
-                     serve, training or encoder shapes; serve, train and
+ 16. kernels_ssd   - ssd against its plain version at the mamba2-130m train
+                     shape (B=8, H=24, N=2048, P=64, S=128, blk 256, bf16
+                     B/C), the zamba2-7b one (B=4, H=112, S=64) and G=4 at
+                     a small H, two runs bitwise equal; ops.ssd_scan's output
+                     and gradients on the kernel route against the plain one;
+ 17. kernels_hybrid_attn - lln_diag_fused and lln_diag_fused_bwd against their
+                     plain versions at zamba2-7b's shared attention (B=4,
+                     H=G=32, D=Dv=112, N=2048, blk 256, bf16);
+ 18. small_ssm     - mamba2-130m SMOKE, and zamba2-7b SMOKE with lln_diag, in
+                     fp32 with use_kernel=True: 3 steps on the kernels against
+                     3 through the core reference (use_kernel=False for
+                     mamba2, backend ref for zamba2), then the train CLI
+                     --arch mamba2-130m --smoke;
+ 19. ssm_train     - mamba2-130m at full size (24 layers, fp32 master params,
+                     bf16 compute, remat full, use_kernel=True), batch 8 x
+                     2048 from lm_batches: the first step on the kernels
+                     against the plain versions, then one untimed and 3 timed
+                     steps with launch counts (48 ssd per step);
+ 20. hybrid_train  - zamba2-7b at full width with 15 layers (two groups of six,
+                     the shared block after each, a 3-layer tail), lln_diag,
+                     batch 4 x 2048, the same checks (per step 30 ssd, 4
+                     lln_diag_fused, 2 lln_diag_fused_bwd);
+ 21. timings       - each kernel, its plain version and its bound at the
+                     serve, training, encoder or SSD shapes; serve, train and
                      encoder times.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -91,6 +114,9 @@ EB, EH, ED = 32, 12, 64       # roberta-lln attention at the encoder batch
 EN, ENR = 512, 300            # encoder sequence (two diag blocks), ragged N
 LN, LNR = 2048, 2040          # log_linear: 8 granules of 256, ragged prompt
 LEVELS, DECAY = 4, 0.5        # log_linear pyramid (the config's defaults)
+SB, SH, SN, SP, SS = 8, 24, 2048, 64, 128  # mamba2-130m SSD, train batch
+ZB, ZH, ZS, ZD = 4, 112, 64, 112  # zamba2-7b: SSD heads, state, attention dim
+HL = 15                       # zamba2-7b layers: 2 groups of 6, a tail of 3
 SEED = 0
 
 
@@ -367,21 +393,28 @@ def phase_kernels_train(results):
             keep("lln_diag_fused_bwd", check(name, gt, wt, fp32_tol(wt)))
 
 
-def _small_vs_core(arch, batches_fn, label):
+def _small_vs_core(arch, batches_fn, label, impls=("lln", "lln_diag"),
+                   core=None):
     """``arch`` SMOKE training in fp32 on the card with use_kernel=True: 3
     steps on the kernels (backend auto) against 3 through the core
-    reference (backend ref), from the same seeded init and batches of
-    ``batches_fn``; losses and grad norms within 1e-4 relative."""
+    reference (backend ref, or the config overrides ``core``), from the
+    same seeded init and batches of ``batches_fn``, for each attn_impl of
+    ``impls`` (None: the config's own); losses and grad norms within 1e-4
+    relative."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import torch_placer
     from repro_torch.launch.steps import make_train_setup
-    for impl in ("lln", "lln_diag"):
+    for impl in impls:
         runs = {}
         for backend in ("auto", "ref"):
-            cfg = get_config(arch, smoke=True, attn_impl=impl,
-                             compute_dtype="float32", use_kernel=True,
-                             attn_backend=backend)
+            over = dict(compute_dtype="float32", use_kernel=True,
+                        attn_backend=backend)
+            if impl:
+                over["attn_impl"] = impl
+            if backend == "ref" and core:
+                over.update(core)
+            cfg = get_config(arch, smoke=True, **over)
             setup = make_train_setup(cfg, ShapeSpec("small", 64, 2, "train"),
                                      peak_lr=1e-3, total_steps=3)
             state = setup.init_state(SEED)
@@ -427,12 +460,14 @@ def _counts():
                                                   lln_causal_bwd,
                                                   lln_diag_fused_bwd)
     from repro_torch.kernels.loglinear import loglin_causal
+    from repro_torch.kernels.ssd import ssd
     return {"lln_causal": lln_causal, "block_diag": block_diag,
             "lln_decode": lln_decode, "lln_diag_fused": lln_diag_fused,
             "lln_causal_bwd": lln_causal_bwd,
             "lln_diag_fused_bwd": lln_diag_fused_bwd,
             "lln_bidir": lln_bidir, "lln_bidir_bwd": lln_bidir_bwd,
-            "block_diag_bwd": block_diag_bwd, "loglin_causal": loglin_causal}
+            "block_diag_bwd": block_diag_bwd, "loglin_causal": loglin_causal,
+            "ssd": ssd}
 
 
 def _reset():
@@ -545,19 +580,23 @@ def phase_serve(launches, serve_times):
         del setup, caches, plain
 
 
-def _train_cell(cfg, batch_size, seq, batches_fn, want, label):
+QKV = ("q_w", "k_w", "v_w")
+SSM_IN = ("w_x", "w_B", "w_C", "w_dt")
+
+
+def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV):
     """Train ``cfg`` (use_kernel=True) at ``batch_size`` x ``seq`` on
-    batches of ``batches_fn``: the first step's loss, grad norm and q/k/v
-    weight grad norm on the kernels against the plain versions, then one
-    untimed and TSTEPS timed steps.  ``want(steps)`` is the exact launch
-    count of that many steps.  Returns (times, launches of the timed
-    steps)."""
+    batches of ``batches_fn``: the first step's loss, grad norm and the grad
+    norm of the weights named ``probe`` (by suffix) on the kernels against
+    the plain versions, then one untimed and TSTEPS timed steps.
+    ``want(steps)`` is the exact launch count of that many steps.  Returns
+    (times, launches of the timed steps)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import torch_placer
     from repro_torch.launch.steps import make_train_setup
     from repro_torch.models import build_model
     from repro_torch.optim import global_norm
-    impl = cfg.attn_impl
+    impl = cfg.attn_impl if cfg.family != "ssm" else "(no attention)"
     setup = make_train_setup(cfg, ShapeSpec("chip", seq, batch_size, "train"),
                              peak_lr=3e-4, total_steps=1000)
     t0 = time.time()
@@ -583,10 +622,12 @@ def _train_cell(cfg, batch_size, seq, batches_fn, want, label):
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
         gnorm = float(global_norm(grads))
-        # The q/k/v projection weights' gradients go straight through the
-        # attention backward kernels' dq, dk and dv.
+        # The probed weights' gradients go straight through the backward of
+        # the kernels' ops: the attention kernels' dq, dk and dv (q/k/v
+        # projections), the SSD scan's dxbar, dB, dC and dlog_a (the SSM
+        # input projections).
         qkv = float(global_norm({n_: g_ for n_, g_ in grads.items()
-                                 if n_.endswith(("q_w", "k_w", "v_w"))}))
+                                 if n_.endswith(probe)}))
         torch.cuda.synchronize()
         counted = _read()
         if counted != (want(1) if backend == "kernel" else want(0)):
@@ -596,7 +637,7 @@ def _train_cell(cfg, batch_size, seq, batches_fn, want, label):
         del grads
     (lk, gk, qk), (lp, gp, qp) = first["kernel"], first["plain"]
     log(f"  first step: loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / "
-        f"{gp:.6f}, q/k/v weight grad norm {qk:.6f} / {qp:.6f} "
+        f"{gp:.6f}, {'/'.join(probe)} grad norm {qk:.6f} / {qp:.6f} "
         f"(kernels / plain)")
     # bf16 activations through the layers: a one-step rounding difference
     # in one layer's attention output propagates.  The decoder's runs before
@@ -1388,6 +1429,223 @@ def phase_timings_loglin(errs, launches):
     return row
 
 
+# ---------------------------------------------------------------------------
+# The SSM training path (mamba2-130m, and zamba2-7b with lln_diag).
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(gen, b, h, g, n, p, s, dtype):
+    """Kernel-layout SSD inputs as ssm_apply makes them: dt = softplus(.),
+    log a = dt * a with a = -exp(a_log) over the config's linspace(1, 16)
+    (the fastest head decays by e^-16 per step at dt = 1), xbar = x dt, B/C
+    in ``dtype``."""
+    dev = "cuda"
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, h, n, generator=gen, device=dev) * 0.5 - 0.5)
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    log_a = (dt * a[None, :, None]).reshape(b * h, n).contiguous()
+    xbar = (torch.randn(b * h, n, p, generator=gen, device=dev)
+            * dt.reshape(b * h, n, 1)).contiguous()
+    b_in = torch.randn(b * g, n, s, generator=gen, device=dev).to(dtype)
+    c_in = torch.randn(b * g, n, s, generator=gen, device=dev).to(dtype)
+    return log_a, xbar, b_in, c_in
+
+
+def _model_layout(args, b, h, g):
+    """Kernel-layout SSD inputs -> ops.ssd_scan's (xbar, b_in, c_in, log_a)
+    in model layout: (B, L, H, P), (B, L, G, S) twice, (B, L, H)."""
+    log_a, xbar, b_in, c_in = args
+    n, p, s = xbar.shape[1], xbar.shape[2], b_in.shape[2]
+    return [xbar.reshape(b, h, n, p).transpose(1, 2),
+            b_in.reshape(b, g, n, s).transpose(1, 2),
+            c_in.reshape(b, g, n, s).transpose(1, 2),
+            log_a.reshape(b, h, n).transpose(1, 2)]
+
+
+def _ssd_tol(want) -> float:
+    """fp32 sums over up to N steps in another order, and a cumulative sum
+    of log a taken in another order (lcum reaches -2e3 in a chunk of the
+    fastest head, so its differences carry a few 1e-4 absolute): 1e-4 of
+    the largest entry."""
+    return 1e-4 * max(1.0, float(want.detach().abs().max()))
+
+
+def phase_kernels_ssd(results):
+    """ssd against ssd_plain at the mamba2-130m and zamba2-7b train shapes
+    (bf16 B/C) and at G=4 groups of a small H (fp32 B/C), two runs bitwise
+    equal; then ops.ssd_scan on the kernel route against the plain route
+    (both differentiate the core scan): y within _ssd_tol, the gradients of
+    all four inputs within 1e-5 of the largest entry."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    cases = (("mamba2-130m", SB, SH, 1, SN, SP, SS, torch.bfloat16),
+             ("zamba2-7b", ZB, ZH, 1, SN, SP, ZS, torch.bfloat16),
+             ("G=4", 2, 8, 4, 1024, SP, ZS, torch.float32))
+    for label, b, h, g, n, p, s, dtype in cases:
+        args = _ssd_inputs(gen, b, h, g, n, p, s, dtype)
+        log(f"ssd {label} (B={b} H={h} G={g} N={n} P={p} S={s} {dtype}):")
+        got = ssd(*args, r=h // g, blk=BLK)
+        again = ssd(*args, r=h // g, blk=BLK)
+        want = ssd_plain(*args, r=h // g, blk=BLK)
+        torch.cuda.synchronize()
+        results["ssd"] = max(results.get("ssd", 0.0),
+                             check("y", got, want, _ssd_tol(want)))
+        if not torch.equal(got, again):
+            raise AssertionError(f"ssd {label}: two runs differ")
+        log("  two runs bitwise equal")
+    b, l, h, g, p, s = 2, 1024, 8, 2, SP, ZS
+    inputs = _model_layout(
+        _ssd_inputs(gen, b, h, g, l, p, s, torch.float32), b, h, g)
+    cot = torch.randn(b, l, h, p, generator=gen, device="cuda")
+    runs = {}
+    for kind in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        y = ops.ssd_scan(*leaves, BLK, backend=kind)
+        runs[kind] = (y.detach(), torch.autograd.grad(y, leaves, cot))
+    torch.cuda.synchronize()
+    log(f"ops.ssd_scan kernel vs plain route (B={b} L={l} H={h} G={g}):")
+    (yk, gk), (yp, gp) = runs["kernel"], runs["plain"]
+    check("y", yk, yp, _ssd_tol(yp))
+    for name, a, w in zip(("dxbar", "db", "dc", "dlog_a"), gk, gp):
+        check(name, a, w, fp32_tol(w))
+
+
+def phase_kernels_hybrid_attn(results):
+    """lln_diag_fused and lln_diag_fused_bwd against their plain versions at
+    zamba2-7b's shared attention: D = Dv = 112, not a multiple of the
+    kernels' 32-column tile.  Out within one bf16 step, den and the
+    gradients within 1e-5 of the largest plain entry."""
+    from repro_torch.kernels.lln_attention import (lln_diag_fused,
+                                                   lln_diag_fused_plain)
+    from repro_torch.kernels.lln_backward import (lln_diag_fused_bwd,
+                                                  lln_diag_fused_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    qs, ks, qk, kk, vk, g = _train_inputs(SN, gen, ZB, H, H, ZD)
+    name = "lln_diag_fused (D=112)"
+    log(f"lln_diag_fused B={ZB} H=G={H} D={ZD} N={SN} blk={BLK}:")
+    got = lln_diag_fused(qs, ks, qk, kk, vk, r=1, blk=BLK, return_res=True)
+    o, den = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=1, blk=BLK,
+                                  return_res=True)
+    torch.cuda.synchronize()
+    results[name] = max(check("out", got[0], o, bf16_tol(o)),
+                        check("den", got[1], den, fp32_tol(den)))
+    log(f"lln_diag_fused_bwd B={ZB} H=G={H} D={ZD} N={SN} blk={BLK}:")
+    got = lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, o, den, r=1, blk=BLK)
+    want = lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, g, o, den, r=1,
+                                    blk=BLK)
+    torch.cuda.synchronize()
+    results["lln_diag_fused_bwd (D=112)"] = max(
+        check(n_, gt, wt, fp32_tol(wt))
+        for n_, gt, wt in zip(("dqs", "dqd", "dks", "dkd", "dv"), got, want))
+
+
+def phase_small_ssm():
+    """mamba2-130m SMOKE trained on the kernels against the core reference
+    (use_kernel=False: the core SSD scan), and zamba2-7b SMOKE with
+    lln_diag against backend ref (the core SSD scan and the core attention
+    with alpha and beta held constant, as the kernels' ops hold them; with
+    use_kernel=False the reference also differentiates through the
+    calibration statistics, a gradient the kernel path leaves out by
+    design), then the train CLI --arch mamba2-130m --smoke."""
+    from repro_torch.data.synthetic import lm_batches
+    _small_vs_core("mamba2-130m", lm_batches, "small_ssm", (None,),
+                   {"use_kernel": False})
+    _small_vs_core("zamba2-7b", lm_batches, "small_ssm", ("lln_diag",))
+    _train_cli(["--arch", "mamba2-130m", "--smoke"])
+
+
+def phase_ssm_train(launches, train_times):
+    """mamba2-130m at full size, use_kernel=True, batch SB x SN from
+    lm_batches.  Per step each layer runs ssd twice (forward and remat);
+    the backward differentiates the core scan."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    cfg = get_config("mamba2-130m", use_kernel=True)
+
+    def want(steps):
+        return {**{name: 0 for name in _counts()},
+                "ssd": 2 * cfg.n_layers * steps}
+
+    train_times["mamba2-130m"], counted = _train_cell(
+        cfg, SB, SN, lm_batches, want, "ssm_train", probe=SSM_IN)
+    launches["ssd"] += counted["ssd"]
+
+
+def phase_hybrid_train(launches, train_times):
+    """zamba2-7b at full width with HL layers, lln_diag, use_kernel=True,
+    batch ZB x SN from lm_batches.  Per step: ssd twice per layer, the
+    fused forward twice and its backward once per shared application."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    cfg = get_config("zamba2-7b", attn_impl="lln_diag", n_layers=HL,
+                     use_kernel=True)
+    shared = cfg.n_layers // cfg.shared_attn_period
+
+    def want(steps):
+        return {**{name: 0 for name in _counts()},
+                "ssd": 2 * cfg.n_layers * steps,
+                "lln_diag_fused": 2 * shared * steps,
+                "lln_diag_fused_bwd": shared * steps}
+
+    train_times["zamba2-7b lln_diag"], counted = _train_cell(
+        cfg, ZB, SN, lm_batches, want, "hybrid_train", probe=QKV + SSM_IN)
+    launches["ssd"] += counted["ssd"]
+    for name in ("lln_diag_fused", "lln_diag_fused_bwd"):
+        launches[f"{name} (hybrid)"] += counted[name]
+
+
+def phase_timings_ssd(errs, launches):
+    """ssd and its plain version at the mamba2-130m shape (the kernels
+    line's row) and at the zamba2-7b shape (a line of its own).  The bound
+    counts the recurrent form's fp32 work, 4 S P FLOPs per head and step
+    (C.state and the state update) plus one exp, as phase_timings counts
+    lln_causal, against each input read once and y written once.  Also one
+    layer's ops.ssd_scan, forward (the kernel) and forward plus backward
+    (the backward differentiates the core scan), at both shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    out, layer = {}, {}
+    for label, b, h, s in (("mamba2-130m", SB, SH, SS),
+                           ("zamba2-7b", ZB, ZH, ZS)):
+        bh, n, p = b * h, SN, SP
+        args = _ssd_inputs(gen, b, h, 1, n, p, s, torch.bfloat16)
+        nbytes = bh * n * 4 + 2 * bh * n * p * 4 + 2 * b * n * s * 2
+        bnd, by = bound_ms(nbytes, bh * n * (4 * s * p + 1))
+        out[label] = dict(
+            name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+            replaces="src/repro/kernels/ssd.py:61", launches=launches["ssd"],
+            max_abs_err=errs["ssd"],
+            ms=cuda_ms(lambda: ssd(*args, r=h, blk=BLK), reps=10),
+            plain_ms=cuda_ms(lambda: ssd_plain(*args, r=h, blk=BLK), reps=10),
+            bound_ms=bnd, bound_by=by, library_ms=None)
+        row = out[label]
+        log(f"timing ssd ({label} shape B={b} H={h} N={n} P={p} S={s}, bf16 "
+            f"B/C): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"none (no single PyTorch call computes the SSD scan)")
+        leaves = [t.requires_grad_() for t in _model_layout(args, b, h, 1)]
+        cot = torch.randn(b, n, h, p, generator=gen, device="cuda")
+        fwd = cuda_ms(lambda: ops.ssd_scan(*leaves, BLK, backend="kernel"),
+                      reps=5)
+        both = cuda_ms(lambda: torch.autograd.grad(
+            ops.ssd_scan(*leaves, BLK, backend="kernel"), leaves, cot),
+            reps=5)
+        layer[label] = {"layer_fwd_ms": fwd, "layer_fwd_bwd_ms": both}
+        log(f"timing ops.ssd_scan ({label} layer): forward {fwd:.4f} ms, "
+            f"forward + backward {both:.4f} ms (backward through the core "
+            f"scan {both - fwd:.4f} ms)")
+    log(f"lln_diag_fused / lln_diag_fused_bwd launches on the hybrid train "
+        f"path (D=112): {launches['lln_diag_fused (hybrid)']} / "
+        f"{launches['lln_diag_fused_bwd (hybrid)']}; max abs err at D=112 "
+        f"{errs['lln_diag_fused (D=112)']:.3e} / "
+        f"{errs['lln_diag_fused_bwd (D=112)']:.3e}")
+    return out["mamba2-130m"], out["zamba2-7b"], layer
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1398,31 +1656,41 @@ def main():
         "lln_diag_fused", "lln_causal_bwd", "lln_diag_fused_bwd",
         "lln_bidir", "lln_bidir_bwd", "block_diag_bwd",
         "block_diag (causal=False)", "loglin_causal",
-        "lln_decode (log_linear)")}
+        "lln_decode (log_linear)", "ssd", "lln_diag_fused (hybrid)",
+        "lln_diag_fused_bwd (hybrid)")}
     phase_kernels(errs)
     phase_kernels_train(errs)
     phase_kernels_encoder(errs)
     phase_kernels_loglin(errs)
+    phase_kernels_ssd(errs)
+    phase_kernels_hybrid_attn(errs)
     phase_small()
     phase_small_train()
     phase_small_encoder()
     phase_small_loglin()
+    phase_small_ssm()
     phase_serve(launches, serve_times)
     phase_serve_loglin(launches, serve_times)
     phase_train(launches, train_times)
     phase_encoder_train(launches, enc_times)
     phase_encoder_forward(launches, enc_times)
+    phase_ssm_train(launches, train_times)
+    phase_hybrid_train(launches, train_times)
     rows, rescale_ms = phase_timings(errs, launches)
     rows += phase_timings_train(errs, launches)
     enc_rows, block_diag_bidir = phase_timings_encoder(errs, launches)
     rows += enc_rows
     rows.append(phase_timings_loglin(errs, launches))
+    ssd_row, ssd_zamba2, ssd_layer = phase_timings_ssd(errs, launches)
+    rows.append(ssd_row)
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))
     log("block_diag (causal=False, encoder shapes): "
         + json.dumps(block_diag_bidir))
     log(f"decode_rescale_ms: {rescale_ms}")
+    log("ssd (zamba2-7b shape): " + json.dumps(ssd_zamba2))
+    log("ops.ssd_scan per layer: " + json.dumps(ssd_layer))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

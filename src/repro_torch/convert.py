@@ -1,13 +1,16 @@
 """Carry the reference's weights, train state and decode state across as
 numpy arrays.
 
-The reference's parameter pytrees (``repro.models.transformer.lm_init``
-and ``repro.models.encoder.encoder_init``) stack the per-layer subtrees
-along a leading layer axis under ``"layers"``.  :func:`leaves_from_numpy`
-names their leaves as the port's parameters (``layers.3.attn.q_w``),
-splitting the layer axis; the caller maps ``np.asarray`` over the tree, so
-this module never sees JAX.  :func:`params_from_numpy` copies them into a
-:class:`DenseLM` or, for the encoder family, an :class:`Encoder`,
+The reference's parameter pytrees (``repro.models.transformer.lm_init``,
+``repro.models.encoder.encoder_init`` and ``repro.models.hybrid.
+hybrid_init``) stack the per-layer subtrees along a leading layer axis
+under ``"layers"``.  :func:`leaves_from_numpy` names their leaves as the
+port's parameters (``layers.3.attn.q_w``, ``layers.3.ssm.norm.scale``),
+splitting the layer axis; every other subtree (the hybrid's one
+``shared`` block) is named as it stands.  The caller maps ``np.asarray``
+over the tree, so this module never sees JAX.  :func:`params_from_numpy`
+copies them into a :class:`DenseLM`, an :class:`Encoder` (encoder family)
+or a :class:`HybridLM` (ssm and hybrid families),
 :func:`train_state_from_numpy` also the AdamW moments and step.  The weight
 layout stays (d_in, d_out): the port computes ``x @ w``.  bf16 leaves
 travel through fp32, which is exact.
@@ -22,6 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import AttentionState
 from repro_torch.models.encoder import Encoder
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DenseLM
 
 
@@ -41,26 +45,36 @@ def _copy(param: torch.Tensor, a) -> None:
     param.data.copy_(arr)
 
 
+def _flatten(tree: dict, prefix: str = ""):
+    """(dotted name, leaf) pairs of a nested dict."""
+    for k, a in tree.items():
+        if isinstance(a, dict):
+            yield from _flatten(a, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", a
+
+
 def leaves_from_numpy(tree: dict, cfg: ArchConfig) -> dict:
     """``{port parameter name: numpy array}`` from a reference-shaped tree
     (the params, or one AdamW moment tree)."""
     out = {"embed_table": np.asarray(tree["embed"]["table"])}
-    for k, a in tree["final_norm"].items():
-        out[f"final_norm.{k}"] = np.asarray(a)
-    if "lm_head" in tree:
-        out["lm_head"] = np.asarray(tree["lm_head"])
-    for i in range(cfg.n_layers):
-        for sub in ("ln1", "ln2", "attn", "mlp"):
-            for k, a in tree["layers"][sub].items():
-                out[f"layers.{i}.{sub}.{k}"] = np.asarray(a)[i]
+    rest = {k: a for k, a in tree.items() if k not in ("embed", "layers")}
+    for name, a in _flatten(rest):
+        out[name] = np.asarray(a)
+    for name, a in _flatten(tree["layers"]):
+        a = np.asarray(a)
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{name}"] = a[i]
     return out
 
 
-def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> DenseLM:
-    """A :class:`DenseLM` (an :class:`Encoder` for the encoder family) on
-    ``device`` holding the reference's weights."""
+def params_from_numpy(tree: dict, cfg: ArchConfig, device):
+    """A :class:`DenseLM` (an :class:`Encoder` for the encoder family, a
+    :class:`HybridLM` for the ssm and hybrid families) on ``device``
+    holding the reference's weights."""
     gen = torch.Generator(device=device)
-    cls = Encoder if cfg.family == "encoder" else DenseLM
+    cls = {"encoder": Encoder, "ssm": HybridLM,
+           "hybrid": HybridLM}.get(cfg.family, DenseLM)
     model = cls(cfg, device, gen)             # shapes and names; overwritten
     named = dict(model.named_parameters())
     leaves = leaves_from_numpy(tree, cfg)

@@ -44,6 +44,7 @@ SIGNATURES = {
     "block_diag_bwd": {"block_diag_bwd_launch":
                        "p" * 8 + "i" * 8 + "f" + "p"},
     "loglin_causal": {"loglin_causal_launch": "p" * 8 + "i" * 10 + "d" + "p"},
+    "ssd": {"ssd_launch": "p" * 5 + "i" * 7 + "p"},
 }
 
 _lock = threading.Lock()

@@ -3,7 +3,8 @@ entries ``lln_attention`` / ``lln_diag_attention`` (causal and
 bidirectional) and ``block_diag_attention``, the serving entries
 ``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``, and the
 log-linear (Fenwick multi-scale) entries ``loglin_attention`` /
-``loglin_prefill`` / ``loglin_decode_chunk`` (inference only).
+``loglin_prefill`` / ``loglin_decode_chunk`` (inference only), and the
+Mamba2 SSD scan ``ssd_scan`` (training).
 
 Responsibilities:
 * layout: (B, N, H, D) model convention <-> (B*H, N, D) kernel convention,
@@ -44,6 +45,7 @@ from .lln_backward import (lln_bidir_bwd, lln_bidir_bwd_plain, lln_causal_bwd,
                            lln_causal_bwd_plain, lln_diag_fused_bwd,
                            lln_diag_fused_bwd_plain)
 from .loglinear import loglin_causal, loglin_causal_plain
+from .ssd import ssd, ssd_plain
 
 
 def _to_kernel(t: torch.Tensor) -> torch.Tensor:
@@ -589,3 +591,60 @@ def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
         z_b.reshape(b * h, 1, d).contiguous(), r, kind)
     out = torch.where(pre_key, _from_kernel(out_a, b), _from_kernel(out_b, b))
     return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunked scan (training).
+# ---------------------------------------------------------------------------
+
+def _ssd_ref(xbar, b_in, c_in, log_a, chunk):
+    """The core scan ``models/ssm.py:ssd_chunked`` on B/C repeated over the
+    r heads of each group; y in xbar.dtype."""
+    from repro_torch.models.ssm import ssd_chunked
+    h = xbar.shape[2]
+    y, _ = ssd_chunked(xbar, _repeat_heads(b_in, h), _repeat_heads(c_in, h),
+                       log_a, chunk=chunk)
+    return y.to(xbar.dtype)
+
+
+class _SSDScan(torch.autograd.Function):
+    """Forward: :func:`ssd` (or its plain version) on the kernel layout,
+    group row ``bh // r`` with ``r = H // G``.  Backward: autograd of the
+    core scan :func:`_ssd_ref`, recomputed from the saved inputs, as the
+    reference's ``jax.vjp`` of ``_ssd_ref`` (it has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, xbar, b_in, c_in, log_a, chunk, kind):
+        b, l, h, _ = xbar.shape
+        fn = ssd if kind == "kernel" else ssd_plain
+        out = fn(log_a.transpose(1, 2).reshape(b * h, l).contiguous(),
+                 _to_kernel(xbar), _to_kernel(b_in), _to_kernel(c_in),
+                 r=h // b_in.shape[2], blk=chunk)
+        ctx.save_for_backward(xbar, b_in, c_in, log_a)
+        ctx.chunk = chunk
+        return _from_kernel(out, b)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = _ssd_ref(*inputs, ctx.chunk)
+        grads = torch.autograd.grad(y.float(), inputs, g_out.float())
+        return (*grads, None, None)
+
+
+def ssd_scan(xbar, b_in, c_in, log_a, chunk: int = 256,
+             backend: str = "auto"):
+    """Mamba2 SSD scan, the training entry point.  xbar: (B,L,H,P) fp32;
+    b_in/c_in: (B,L,G,S) with G | H (no repeat); log_a: (B,L,H).  Returns
+    y (B,L,H,P) in xbar.dtype (no final state: the prefill runs the core
+    ``ssd_chunked``, which returns it).  ``backend`` as
+    ``kernels/registry.py``: ``kernel`` (or ``auto`` on a CUDA tensor) runs
+    the CUDA kernel forward, ``plain`` its plain version, both inside one
+    autograd Function whose backward differentiates the core scan; ``ref``
+    autograd through the core scan.  As in the reference, an L that is not
+    a multiple of ``chunk`` runs the core scan."""
+    kind = registry.resolve(backend, xbar.device)
+    if kind == "ref" or xbar.shape[1] % chunk:
+        return _ssd_ref(xbar, b_in, c_in, log_a, chunk)
+    return _SSDScan.apply(xbar, b_in, c_in, log_a, chunk, kind)

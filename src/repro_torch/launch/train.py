@@ -6,11 +6,12 @@
 Takes the reference CLI's flags (``python -m repro.launch.train``) plus
 ``--device`` (the CUDA card by default): a host-sharded, prefetched
 ``lm_batches`` stream (``mlm_batches`` for the encoder family, e.g.
-``--arch roberta-lln``), the straggler watchdog and the same printed
+``--arch roberta-lln``; ``lm_batches`` for ``--arch mamba2-130m`` and
+``--arch zamba2-7b``), the straggler watchdog and the same printed
 lines.
-As in the reference, the attention kernels are reached only with
+As in the reference, the attention and SSD kernels are reached only with
 ``use_kernel=True`` in the config (``get_config(..., use_kernel=True)``);
-the CLI leaves it at its default, so it trains through the core scan.
+the CLI leaves it at its default, so it trains through the core scans.
 Meshes, checkpointing and the ``softmax`` impl are not ported yet and
 raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -71,7 +72,7 @@ def main(argv=None):
     if args.attn_impl:
         overrides["attn_impl"] = args.attn_impl
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
-    if cfg.attn_impl == "softmax":
+    if cfg.attn_impl == "softmax" and cfg.family != "ssm":
         raise NotImplementedError(f"attn_impl 'softmax' is not ported yet: "
                                   f"{_NOT_PORTED['softmax']}")
 

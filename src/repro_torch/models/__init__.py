@@ -1,4 +1,5 @@
-"""Model zoo of the port (the dense decoder and encoder families)."""
+"""Model zoo of the port (the dense decoder, encoder, ssm and hybrid
+families)."""
 from .model_zoo import Model, build_model, synthetic_batch
 
 __all__ = ["Model", "build_model", "synthetic_batch"]

@@ -1,0 +1,137 @@
+"""SSM language models: pure Mamba2 (mamba2-130m) and the Zamba2-style
+hybrid (port of ``repro.models.hybrid``: the training forward).
+
+Zamba2 (arXiv:2411.15242): a Mamba2 backbone with a single *shared*
+transformer block (attention + MLP, one set of weights) applied every
+``shared_attn_period`` layers; its input is the concatenation of the
+residual stream with the initial embeddings, projected back to d_model.
+``shared_attn_period = 0`` disables the shared block (the pure Mamba2 LM).
+The paper's LLN attention applies to the shared block only.
+
+The reference stacks the Mamba2 layers along a leading axis and scans
+them; here they are a ``ModuleList`` and Python loops, each Mamba2 layer
+and each application of the shared block under ``torch.utils.checkpoint``
+when ``cfg.remat == "full"`` (per layer and per application, not per
+group, as the reference).  Parameter names match the reference pytree
+(``embed.table`` as ``embed_table``, ``final_norm``, ``layers[i].{ln,
+ssm}``, ``shared.{in_proj, ln1, attn, ln2, mlp}``, ``lm_head`` unless the
+embeddings are tied).  Serving (``hybrid_prefill``, ``hybrid_decode``,
+``hybrid_cache_init``) is not ported yet (ROADMAP.md queue 1, item 11).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .attention_block import Attention, attn_apply
+from .layers import (MLP, Norm, _dense_param, apply_mlp, apply_norm, dense,
+                     embed_lookup, logits_from_hidden, trunc_normal)
+from .ssm import SSMBlock, ssm_apply
+from .transformer import _remat
+
+
+def _groups(cfg):
+    """(groups, layers per group, tail layers): the shared block follows
+    each group."""
+    per = cfg.shared_attn_period
+    if per <= 0:
+        return 0, 0, cfg.n_layers
+    g = cfg.n_layers // per
+    return g, per, cfg.n_layers - g * per
+
+
+class MambaLayer(nn.Module):
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        self.ln = Norm(cfg.d_model, "rmsnorm", dtype, device)
+        self.ssm = SSMBlock(cfg, dtype, device, generator)
+
+
+class SharedBlock(nn.Module):
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        d = cfg.d_model
+        self.in_proj = _dense_param(2 * d, d, dtype, device, generator)
+        self.ln1 = Norm(d, "rmsnorm", dtype, device)
+        self.attn = Attention(cfg, dtype, device, generator)
+        self.ln2 = Norm(d, "rmsnorm", dtype, device)
+        self.mlp = MLP(d, cfg.d_ff, cfg.act, dtype, device, generator)
+
+
+class HybridLM(nn.Module):
+    """Parameters of a Mamba2 / hybrid LM (random init from
+    ``generator``)."""
+
+    def __init__(self, cfg, device, generator=None):
+        super().__init__()
+        dtype = cfg.pdtype
+        self.embed_table = nn.Parameter(
+            trunc_normal((cfg.padded_vocab, cfg.d_model), cfg.d_model ** -0.5,
+                         dtype, device, generator))
+        self.final_norm = Norm(cfg.d_model, "rmsnorm", dtype, device)
+        self.layers = nn.ModuleList(
+            MambaLayer(cfg, dtype, device, generator)
+            for _ in range(cfg.n_layers))
+        if _groups(cfg)[0]:
+            self.shared = SharedBlock(cfg, dtype, device, generator)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(
+                trunc_normal((cfg.d_model, cfg.padded_vocab),
+                             cfg.d_model ** -0.5, dtype, device, generator))
+
+    @property
+    def head(self) -> torch.Tensor:
+        return self.lm_head if hasattr(self, "lm_head") else self.embed_table.T
+
+
+def hybrid_init(cfg, device, seed: int = 0) -> HybridLM:
+    """Random parameters with the reference's shapes and names, drawn from
+    a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return HybridLM(cfg, device, gen)
+
+
+def _split_layers(p: HybridLM, cfg):
+    """([the layers of each group], the tail layers)."""
+    g, per, _ = _groups(cfg)
+    layers = list(p.layers)
+    return ([layers[i * per:(i + 1) * per] for i in range(g)],
+            layers[g * per:])
+
+
+def _mamba_block(lp: MambaLayer, x, cfg):
+    return x + ssm_apply(lp.ssm, apply_norm(lp.ln, x), cfg).to(x.dtype)
+
+
+def _shared_block(sp: SharedBlock, x, x0, cfg, positions):
+    h = dense(sp.in_proj, torch.cat([x, x0], -1), cfg.cdtype)
+    a = attn_apply(sp.attn, apply_norm(sp.ln1, h), cfg, positions,
+                   causal=True)
+    h = h + a.to(h.dtype)
+    m = apply_mlp(sp.mlp, apply_norm(sp.ln2, h), cfg.cdtype)
+    return x + (h + m.to(h.dtype)).to(x.dtype)
+
+
+def hybrid_hidden(p: HybridLM, tokens, cfg):
+    """Token ids (B, N) -> final hidden states (B, N, D) and a zero aux
+    loss."""
+    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    x0 = x
+    positions = torch.arange(x.shape[1], device=x.device)
+    groups, tail = _split_layers(p, cfg)
+    mamba = _remat(_mamba_block, cfg)
+    shared = _remat(_shared_block, cfg)
+    for layers in groups:
+        for lp in layers:
+            x = mamba(lp, x, cfg)
+        x = shared(p.shared, x, x0, cfg, positions)
+    for lp in tail:
+        x = mamba(lp, x, cfg)
+    x = apply_norm(p.final_norm, x)
+    return x, torch.zeros((), device=x.device)
+
+
+def hybrid_logits(p: HybridLM, tokens, cfg):
+    h, aux = hybrid_hidden(p, tokens, cfg)
+    return logits_from_hidden(p.head, h, cfg.cdtype, cfg.logit_softcap), aux

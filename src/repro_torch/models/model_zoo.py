@@ -1,7 +1,8 @@
 """build_model(cfg) -> Model: the port's uniform interface per family.
 
-The dense decoder (yi-9b) and the bidirectional encoder (roberta-lln) are
-ported; other families raise.  Batch convention: ``{"inputs" (B,N),
+The dense decoder (yi-9b), the bidirectional encoder (roberta-lln) and
+the SSM / hybrid LMs (mamba2-130m, zamba2-7b) are ported; other families
+raise.  Batch convention: ``{"inputs" (B,N),
 "targets" (B,N), "mask" (B,N)}`` int64 tokens in [0, vocab) (for the
 encoder's MLM batches the targets are the original tokens and the mask
 the masked positions).
@@ -9,7 +10,7 @@ the masked positions).
 ``loss``: params, batch -> scalar (chunked xent + router aux);
 ``hidden``: params, batch -> (final hidden (B,N,D), aux);
 ``prefill`` / ``decode`` / ``cache_init``: the serving path (the encoder
-has none and raises).
+has none and raises; the SSM / hybrid one is not ported yet and raises).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from . import encoder as enc
+from . import hybrid as hy
 from . import transformer as tr
 from .layers import chunked_xent
 
@@ -53,7 +55,8 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     """The interface of ``cfg`` on ``device`` (the CUDA card unless the
     caller asks for another device)."""
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "encoder") or cfg.qk_norm:
+    if cfg.family not in ("dense", "encoder", "ssm", "hybrid") \
+            or cfg.qk_norm:
         raise NotImplementedError(
             f"family {cfg.family!r} (qk_norm={cfg.qk_norm}) is not ported "
             "yet; see ROADMAP.md queue 1")
@@ -74,6 +77,24 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
                 params, batch["inputs"], cfg),
             prefill=no_serve, decode=no_serve, cache_init=no_serve,
             param_count=_count)
+
+    if cfg.family in ("ssm", "hybrid"):
+        def hidden(params, batch):
+            return hy.hybrid_hidden(params, batch["inputs"], cfg)
+
+        def not_ported(*a, **k):
+            raise NotImplementedError(
+                "serving the ssm/hybrid family (ssm_cache_init, ssm_decode, "
+                "ssm_decode_chunk, hybrid_prefill/hybrid_decode) is not "
+                "ported yet; see ROADMAP.md queue 1, item 11")
+
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda seed=0: hy.hybrid_init(cfg, dev, seed),
+            loss=lambda params, batch: _xent_loss(
+                cfg, hidden(params, batch)[0], params.head, batch),
+            hidden=hidden, prefill=not_ported, decode=not_ported,
+            cache_init=not_ported, param_count=_count)
 
     def loss(params, batch):
         h, aux = tr.lm_hidden(params, batch["inputs"], cfg)

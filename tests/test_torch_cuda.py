@@ -18,6 +18,14 @@ log-linear kernel (``loglin_causal``) is held the same way at r in {1, 8},
 whole and ragged N, with and without the state (the pyramid and the open
 bucket, fp32, 2e-4 of the largest entry); its two-pass decode
 (``ops.loglin_decode_chunk``) on the kernels against the plain versions.
+The SSD kernel (``ssd``) is held against its plain version at the
+mamba2-130m and zamba2-7b training shapes and at small ones (G = 4, blk
+not a multiple of the 64-row tile, P not a multiple of the 64 columns),
+fp32 y within 1e-4 of the largest entry (sums and the cumulative sum of
+log a taken in another order); ``ops.ssd_scan``'s gradients on the kernel
+route against the plain route within 1e-5 (both differentiate the core
+scan).  The fused LLN + diag kernels are held at zamba2-7b's head dim
+D = 112; one mamba2-130m SMOKE train step counts its launches.
 """
 import numpy as np
 import pytest
@@ -40,6 +48,7 @@ from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
                                               lln_diag_fused_bwd,
                                               lln_diag_fused_bwd_plain)
 from repro_torch.kernels.loglinear import loglin_causal, loglin_causal_plain
+from repro_torch.kernels.ssd import ssd, ssd_plain
 
 ATOL = 2e-4
 TRAIN = 1e-5
@@ -459,3 +468,151 @@ def test_cuda_loglin_decode_matches_plain(cuda, t):
     _close(got, want, ATOL)
     for name in ("s", "z", "c_k", "sl", "zl", "cl"):
         assert torch.equal(getattr(gst, name), getattr(wst, name)), name
+
+
+def _ssd_inputs(dev, seed, bh, bg, n, p, s, dtype, h=None):
+    """Kernel-layout SSD inputs: log a = dt * a with dt = softplus(.) and
+    a = -linspace(1, 16) over the ``h`` heads (mamba2's decays), xbar =
+    x dt, B/C in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    h = h or bh
+    dt = np.logaddexp(rng.normal(size=(bh, n)) * 0.5 - 0.5, 0.0)
+    a = -np.tile(np.linspace(1.0, 16.0, h), bh // h)[:, None]
+    f = lambda *sh: rng.normal(size=sh).astype(np.float32)  # noqa: E731
+    log_a = (dt * a).astype(np.float32)
+    xbar = (f(bh, n, p) * dt[..., None]).astype(np.float32)
+    out = _on(dev, log_a, xbar, f(bg, n, s), f(bg, n, s))
+    return out[0], out[1], out[2].to(dtype), out[3].to(dtype)
+
+
+def _ssd_close(got, want):
+    want = want.float().cpu()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s", [(8, 24, 128), (4, 112, 64)],
+                         ids=["mamba2-130m", "zamba2-7b"])
+def test_cuda_ssd_matches_plain_at_the_train_shapes(cuda, b, h, s):
+    """N = 2048, P = 64, blk 256, bf16 B/C, one group; two runs bitwise
+    equal (no atomics)."""
+    args = _ssd_inputs(cuda, h, b * h, b, 2048, 64, s, torch.bfloat16, h=h)
+    before = ssd.launches
+    got = ssd(*args, r=h, blk=256)
+    again = ssd(*args, r=h, blk=256)
+    want = ssd_plain(*args, r=h, blk=256)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 2
+    _ssd_close(got, want)
+    assert torch.equal(got, again)
+
+
+SSD_CASES = [pytest.param(g, n, blk, p, dt, id=f"g{g}-n{n}-blk{blk}-p{p}-{nm}")
+             for g, n, blk, p in ((4, 256, 256, 64), (1, 192, 96, 70),
+                                  (2, 64, 16, 32))
+             for dt, nm in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,n,blk,p,dtype", SSD_CASES)
+def test_cuda_ssd_matches_plain(cuda, g, n, blk, p, dtype):
+    """Two batch rows of eight heads in g groups (r = 8 / g); blk 96 leaves
+    a 32-row second tile, P = 70 a second CTA of 6 columns, blk 16 one
+    short tile; S = 48."""
+    args = _ssd_inputs(cuda, n + g, 16, 2 * g, n, p, 48, dtype, h=8)
+    got = ssd(*args, r=8 // g, blk=blk)
+    want = ssd_plain(*args, r=8 // g, blk=blk)
+    torch.cuda.synchronize()
+    _ssd_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_refuses_bad_inputs(cuda):
+    la, xb, bb, cc = _ssd_inputs(cuda, 0, 4, 2, 64, 32, 16, torch.float32)
+    before = ssd.launches
+    with pytest.raises(TypeError, match="float32"):
+        ssd(la, xb.bfloat16(), bb, cc, r=2, blk=16)
+    with pytest.raises(TypeError, match="share"):
+        ssd(la, xb, bb, cc.bfloat16(), r=2, blk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd(la, xb.transpose(0, 1).contiguous().transpose(0, 1), bb, cc, r=2,
+            blk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd(la, xb, bb, cc, r=2, blk=24)
+    big = torch.zeros(2, 64, 160, device=cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        ssd(la, xb, big, big, r=2, blk=16)
+    assert ssd.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_kernel_route_matches_plain(cuda):
+    """``ops.ssd_scan``: y within 1e-4 of the largest entry, and the
+    gradients of all four inputs within 1e-5 (the same backward, the core
+    scan, on both routes)."""
+    b, l, h, g, p, s = 2, 512, 8, 2, 64, 32
+    la, xb, bb, cc = _ssd_inputs(cuda, 5, b * h, b * g, l, p, s,
+                                 torch.float32, h=h)
+    inputs = [xb.reshape(b, h, l, p).transpose(1, 2),
+              bb.reshape(b, g, l, s).transpose(1, 2),
+              cc.reshape(b, g, l, s).transpose(1, 2),
+              la.reshape(b, h, l).transpose(1, 2)]
+    cot = torch.randn(b, l, h, p, device=cuda)
+    runs = {}
+    for kind in ("kernel", "plain"):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        before = ssd.launches
+        y = ops.ssd_scan(*leaves, 256, backend=kind)
+        assert ssd.launches == before + (kind == "kernel")
+        runs[kind] = (y.detach(), torch.autograd.grad(y, leaves, cot))
+    _ssd_close(runs["kernel"][0], runs["plain"][0])
+    for gt, wt in zip(runs["kernel"][1], runs["plain"][1]):
+        _close(gt, wt, TRAIN)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernels_match_plain_at_head_dim_112(cuda):
+    """zamba2-7b's shared attention head dim, D = Dv = 112: 3.5 of the
+    kernels' 32-column groups."""
+    qs, ks, q, k, v, g = _train_inputs(cuda, 112, 1, 512, 112,
+                                       torch.bfloat16)
+    got = lln_diag_fused(qs, ks, q, k, v, r=1, blk=256, return_res=True)
+    o, den = lln_diag_fused_plain(qs, ks, q, k, v, r=1, blk=256,
+                                  return_res=True)
+    torch.cuda.synchronize()
+    _close(got[0], o, BF16)
+    _close(got[1], den, TRAIN)
+    got = lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, r=1, blk=256)
+    want = lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, r=1,
+                                    blk=256)
+    torch.cuda.synchronize()
+    for gt, wt in zip(got, want):
+        _close(gt, wt, TRAIN)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_smoke_train_step_counts_launches(cuda):
+    """One mamba2-130m SMOKE step (2 layers, use_kernel, remat full, seq
+    64 = four chunks of 16): two ssd launches per layer (forward and the
+    remat recompute) and no other kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import torch_placer
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.steps import make_train_setup
+    cfg = get_config("mamba2-130m", smoke=True, use_kernel=True,
+                     remat="full")
+    setup = make_train_setup(cfg, ShapeSpec("t", 64, 2, "train"),
+                             device=cuda, total_steps=3)
+    state = setup.init_state(0)
+    batch = torch_placer(cuda)(next(lm_batches(cfg.vocab, 2, 64)))
+    counted = (ssd, lln_causal, lln_diag_fused, lln_diag_fused_bwd,
+               lln_causal_bwd)
+    before = [f.launches for f in counted]
+    state, m = setup.step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counted, before)] == [
+        2 * cfg.n_layers, 0, 0, 0, 0]
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
