@@ -35,7 +35,8 @@ Phases (any failure raises and the script exits non-zero):
                      block_diag_bwd, and block_diag with causal=False)
                      against its plain version at the encoder shapes (B=32,
                      N=512 and a ragged 300, H=12, G=12 and 3, D=Dv=64,
-                     blk 256, bf16 q/k/v/g);
+                     blk 256, bf16 q/k/v/g), block_diag_bwd's two runs
+                     bitwise equal;
  10. small_encoder - roberta-lln SMOKE in fp32 with use_kernel=True: 3 MLM
                      steps on the kernels against 3 through the core
                      reference, then the train CLI --arch roberta-lln;
@@ -118,6 +119,10 @@ SB, SH, SN, SP, SS = 8, 24, 2048, 64, 128  # mamba2-130m SSD, train batch
 ZB, ZH, ZS, ZD = 4, 112, 64, 112  # zamba2-7b: SSD heads, state, attention dim
 HL = 15                       # zamba2-7b layers: 2 groups of 6, a tail of 3
 SEED = 0
+# fp32 elementwise steps of the block softmax per (query, key) pair: scale,
+# max, subtract, exp and sum forward; the backward's recomputed p (scale,
+# subtract, exp, divide), delta's product and dsm = p (dp - delta).
+SOFTMAX_FWD_OPS, SOFTMAX_BWD_OPS = 5, 7
 
 
 def log(*a):
@@ -802,7 +807,9 @@ def phase_timings(errs, launches):
     """Each kernel, its plain version and (block_diag) one library call at
     the serve shapes; the bound counts each input read once, each output
     written once, and the operations the function needs: fp32, and
-    (block_diag) the bf16 products q k^T at the tensor cores' rate."""
+    (block_diag) its products at the tensor cores' bf16 rate, q k^T once
+    and p v twice (p goes in as hi + lo bf16), with the softmax's
+    elementwise steps as fp32 work."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_diag import block_diag, block_diag_plain
@@ -835,7 +842,8 @@ def phase_timings(errs, launches):
     nb = N // BLK
     pairs = nb * BLK * (BLK + 1) // 2
     nbytes = 2 * (bh * N * D + bg * N * D + bg * N * D + bh * N * D)
-    bnd, by = bound_ms(nbytes, bh * pairs * (2 * D + 1), bh * pairs * 2 * D)
+    bnd, by = bound_ms(nbytes, bh * pairs * SOFTMAX_FWD_OPS,
+                       bh * pairs * (2 * D + 2 * 2 * D))
 
     def blocks(t):
         return t.reshape(B, nb, BLK, t.shape[2], D).permute(0, 1, 3, 2, 4) \
@@ -902,7 +910,7 @@ def phase_kernels_encoder(results):
     N = 512 and a ragged 300, r = 1 and 4 (the r = 4 cases take the
     cotangent 0.5 g, as the hybrid passes it).  Outputs in bf16 within one
     bf16 step; s, z, den and every fp32 gradient within 1e-5 of the largest
-    plain entry."""
+    plain entry; two runs of block_diag_bwd bitwise equal."""
     from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
                                                 block_diag_bwd_plain,
                                                 block_diag_plain)
@@ -949,6 +957,11 @@ def phase_kernels_encoder(results):
             torch.cuda.synchronize()
             for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
                 keep("block_diag_bwd", check(name, gt, wt, fp32_tol(wt)))
+            again = block_diag_bwd(qk, kk, vk, gk, r=r, blk=BLK, causal=False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("block_diag_bwd: two runs differ")
+            log("  two runs bitwise equal")
 
 
 def phase_small_encoder():
@@ -1061,9 +1074,11 @@ def phase_timings_encoder(errs, launches):
     encoder shapes (B=32, H=G=12, N=512, D=Dv=64, blk 256, bf16).  Bounds
     count each input read once and each output written once, and the fp32
     operations of the linear form (as phase_timings_train) or of the
-    block softmax: 2 D + 1 per (query, key) pair forward, 4 D + 2 Dv + 6
-    backward, beside the bf16 products q k^T (2 D) and, backward, g v^T
-    (2 Dv) at the tensor cores' rate.  Returns the three new kernels' rows
+    block softmax: per (query, key) pair its products at the tensor cores'
+    bf16 rate, an fp32 left operand (p or dsm) counted twice since it goes
+    in as hi + lo bf16 (forward q k^T and p v, 2 D + 4 Dv; backward q k^T,
+    g v^T, dsm k, dsm^T q and p^T g, 10 D + 6 Dv), and the softmax's
+    elementwise steps as fp32 work (SOFTMAX_FWD_OPS, SOFTMAX_BWD_OPS).  Returns the three new kernels' rows
     and block_diag's non-causal time, which is logged on a line of its own
     with the encoder's launches of it."""
     import torch.nn.functional as F
@@ -1115,7 +1130,7 @@ def phase_timings_encoder(errs, launches):
          lambda: block_diag_bwd_plain(qk, kk, vk, g, r=r, blk=BLK,
                                       causal=False),
          qkvg + (bh + bg) * n * d * f32 + bg * n * dv * f32,
-         pairs * (4 * d + 2 * dv + 6), pairs * (2 * d + 2 * dv),
+         pairs * SOFTMAX_BWD_OPS, pairs * (10 * d + 6 * dv),
          lambda: torch.autograd.grad(sdpa_out, (qb, kb, vb), gb,
                                      retain_graph=True)),
     ]
@@ -1133,7 +1148,7 @@ def phase_timings_encoder(errs, launches):
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), library {row['library_ms']}")
     # q, k, v in; out
-    bnd, by = bound_ms(qkvg, pairs * (2 * d + 1), pairs * 2 * d)
+    bnd, by = bound_ms(qkvg, pairs * SOFTMAX_FWD_OPS, pairs * (2 * d + 4 * dv))
     nc = dict(
         launches=launches["block_diag (causal=False)"],
         max_abs_err=errs["block_diag (causal=False)"],

@@ -1,3 +1,3 @@
 """Architecture configs of the port (same schema as ``repro.configs``)."""
-from .base import ArchConfig, ShapeSpec, torch_dtype
-from .registry import get_config
+from .base import ArchConfig, ShapeSpec, SHAPES, SHAPES_BY_NAME, torch_dtype
+from .registry import ASSIGNED_ARCHS, get_config, list_archs

@@ -7,7 +7,7 @@ only difference is ``pdtype``/``cdtype``: they return ``torch`` dtypes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -140,3 +140,13 @@ class ShapeSpec:
     global_batch: int
     kind: str                        # train | prefill | decode
 
+
+# The four assigned LM shapes (identical for all archs).
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}

@@ -18,6 +18,8 @@ _MODULES = {
     "zamba2-7b": "zamba2_7b",
 }
 
+ASSIGNED_ARCHS = tuple(k for k in _MODULES if k != "roberta-lln")
+
 
 def get_config(name: str, smoke: bool = False, **overrides) -> ArchConfig:
     if name not in _MODULES:
@@ -26,3 +28,7 @@ def get_config(name: str, smoke: bool = False, **overrides) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     cfg = mod.SMOKE if smoke else mod.CONFIG
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def list_archs() -> tuple[str, ...]:
+    return tuple(_MODULES)

@@ -244,3 +244,19 @@ def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
     diag_out = torch.einsum("bhij,bjhv->bihv", p, vf)
     out = 0.5 * (lln_out.float() + diag_out)
     return out.to(v_new.dtype), new_state
+
+
+def decode_lln(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
+               *, impl: str = "lln_diag"):
+    """One-token LLN(+Diag) decode (T=1 :func:`decode_lln_chunk` on the
+    core reference).
+
+    .. deprecated:: use :meth:`repro_torch.core.engine.AttentionEngine.decode`
+       (or :func:`decode_lln_chunk` directly): chunked decode subsumes the
+       single-token case.
+    """
+    from repro_torch.kernels.registry import warn_deprecated
+    warn_deprecated("repro_torch.core.attention.decode_lln",
+                    "AttentionEngine.decode / decode_lln_chunk")
+    return decode_lln_chunk(state, q, k_new, v_new, alpha, beta, impl=impl,
+                            backend="ref")

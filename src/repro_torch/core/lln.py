@@ -1,9 +1,10 @@
 """Linear Log-Normal (LLN) attention — the paper's core contribution (eq. 8-9).
 
-Port of ``repro.core.lln``: the plain PyTorch reference of the
-bidirectional (encoder) LLN forward, the causal LLN forward, the
-state-emitting prefill and the chunked decode.  These are the
-oracles the kernels' plain versions and the ``ref`` backend are held to.
+Port of ``repro.core.lln``: the plain PyTorch reference of the feature
+maps, the bidirectional (encoder) LLN forward, the causal LLN forward, the
+state-emitting prefill, the analytic gradient and the one-token and
+chunked decode.  These are the oracles the kernels' plain versions and the
+``ref`` backend are held to.
 
 Feature maps Phi_Q(q) = exp(alpha*q - c_q), Phi_K(k) = exp(beta*k - c_k)
 with per-(batch, head) stop-gradient maxima c_q, c_k: the normalized form is
@@ -29,6 +30,20 @@ def _stab_const(x: torch.Tensor) -> torch.Tensor:
     the input is empty or non-finite."""
     c = torch.amax(x, dim=(1, 3), keepdim=True).detach()
     return torch.where(torch.isfinite(c), c, torch.zeros_like(c))
+
+
+def feature_map_q(q, alpha) -> torch.Tensor:
+    """Phi_Q(q) = exp(alpha*q - c_q);  q: (B, N, H, D), alpha scalar,
+    (H,) or (B, H)."""
+    aq = q * _bcast(alpha, q)
+    return torch.exp(aq - _stab_const(aq))
+
+
+def feature_map_k(k, beta) -> torch.Tensor:
+    """Phi_K(k) = exp(beta*k - c_k);  k: (B, N, H, D), beta scalar, (H,)
+    or (B, H)."""
+    bk = k * _bcast(beta, k)
+    return torch.exp(bk - _stab_const(bk))
 
 
 def _bcast(p, like: torch.Tensor) -> torch.Tensor:
@@ -75,6 +90,12 @@ def lln_bidir(q, k, v, alpha, beta) -> torch.Tensor:
     return (num / (den[..., None] + EPS)).to(v.dtype)
 
 
+def lln_causal(q, k, v, alpha, beta, *, chunk: int = 128) -> torch.Tensor:
+    """Causal LLN via the chunked scan: intra-chunk masked quadratic plus
+    the inter-chunk state pass.  O(N * (chunk*d + d^2)) compute."""
+    return lln_causal_scan(q, k, v, alpha, beta, chunk=chunk)[0]
+
+
 def lln_causal_scan(q, k, v, alpha, beta, *, chunk: int = 128):
     """Causal LLN via a chunked scan, returning ``(out, LLNState)``.
 
@@ -115,10 +136,72 @@ def lln_causal_scan(q, k, v, alpha, beta, *, chunk: int = 128):
     return out, LLNState(s=s, z=z, c_k=c_k.float())
 
 
+def lln_grads(q, k, v, alpha, beta, g, *, causal: bool = True):
+    """Analytic ``(dq, dk, dv)`` of LLN attention for the cotangent ``g``.
+
+    The quotient rule through out = num/den, den = Phi(q).z + EPS: with
+    u_i = g_i/den_i and w_i = (g_i . out_i)/den_i,
+
+        dPhi(q)_i = sum_j M_ij (u_i . v_j - w_i) Phi(k)_j
+        dPhi(k)_j = sum_i M_ij (u_i . v_j - w_i) Phi(q)_i
+        dv_j      = sum_i M_ij (Phi(q)_i . Phi(k)_j) u_i
+
+    (M the causal mask), then dq = alpha * Phi(q) * dPhi(q) elementwise
+    (the stop-gradient constants drop out), and likewise for k.  O(N^2)
+    memory: a test oracle, not a training path.  All heads are full
+    (repeat KV before calling for GQA).
+    """
+    fq = feature_map_q(q.float(), alpha)
+    fk = feature_map_k(k.float(), beta)
+    vf, gf = v.float(), g.float()
+    scores = torch.einsum("bihd,bjhd->bhij", fq, fk)
+    n = q.shape[1]
+    tril = torch.tril(torch.ones(n, n, device=q.device))
+    if causal:
+        scores = scores * tril
+    den = scores.sum(-1) + EPS                                 # (B, H, N)
+    den_t = den.transpose(1, 2)[..., None]                     # (B, N, H, 1)
+    out = torch.einsum("bhij,bjhv->bihv", scores, vf) / den_t
+    u = gf / den_t
+    w = (gf * out).sum(-1) / den_t[..., 0]                     # (B, N, H)
+    gmat = torch.einsum("bihv,bjhv->bhij", u, vf) \
+        - w.transpose(1, 2)[..., None]
+    if causal:
+        gmat = gmat * tril
+    dq = _bcast(torch.as_tensor(alpha, dtype=torch.float32), fq) * fq \
+        * torch.einsum("bhij,bjhd->bihd", gmat, fk)
+    dk = _bcast(torch.as_tensor(beta, dtype=torch.float32), fk) * fk \
+        * torch.einsum("bhij,bihd->bjhd", gmat, fq)
+    dv = torch.einsum("bhij,bihv->bjhv", scores, u)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def prefill(q, k, v, alpha, beta, *, chunk: int = 128):
     """Causal forward over a prompt, returning outputs and the decode state
     (the scan's final carry)."""
     return lln_causal_scan(q, k, v, alpha, beta, chunk=chunk)
+
+
+def decode_step(state: LLNState, q, k, v, alpha, beta):
+    """One decode step.  q/k/v: (B, 1, H, D[v]).  Returns (out, new_state).
+
+    If the new key raises the stabilization constant, the state is rescaled
+    by exp(c_old - c_new) so history and update share one constant.
+    """
+    bk = k * _bcast(beta, k)
+    c_new = torch.maximum(state.c_k,
+                          torch.amax(bk, dim=(1, 3), keepdim=True).detach())
+    r = torch.exp(state.c_k - c_new)[:, 0, :, 0][..., None]     # (B, H, 1)
+    fk = torch.exp(bk - c_new).float()[:, 0]                   # (B, H, D)
+    vt = v.float().transpose(1, 2)[:, :, 0]                    # (B, H, Dv)
+    s = state.s * r[..., None] + fk[..., None] * vt[:, :, None, :]
+    z = state.z * r + fk
+    aq = q * _bcast(alpha, q)
+    fq = torch.exp(aq - _stab_const(aq)).float()[:, 0]         # (B, H, D)
+    num = torch.einsum("bhd,bhdv->bhv", fq, s)
+    den = torch.einsum("bhd,bhd->bh", fq, z)
+    out = (num / (den[..., None] + EPS)).to(v.dtype)[:, None]  # (B,1,H,Dv)
+    return out, LLNState(s=s, z=z, c_k=c_new, log_scale=state.log_scale)
 
 
 def decode_chunk(state: LLNState, q, k, v, alpha, beta):

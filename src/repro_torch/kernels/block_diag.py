@@ -6,33 +6,26 @@ within itself (causal optional); the ragged last block holds ``N - (nb-1) *
 blk`` keys and masks the rest.  fp32 math, output in ``v.dtype``.
 
 ``block_diag`` (``csrc/block_diag.cu``) replaces
-``src/repro/kernels/block_diag.py:block_diag_pallas``.  One CTA per (query
-head, block, 32-row query tile) stages the scaled query tile, the row
-scores against the block's keys (only the keys a causal tile can see) and
-its fp32 output rows in shared memory; keys and values stream through in
-64-row tiles.  The softmax is the reference's exact form: subtract the row
-max, exponentiate, divide by the row sum, then multiply by V.  Bound on the
-H100 at the serve shapes (B=4, H=32, G=4, N=512, blk=256, D=Dv=128): the
-causal blocks need about 2.2 GFLOP of fp32 work (the products with the fp32
-p) and 2.2 GFLOP of bf16 q k^T products (989 TFLOP/s on the tensor cores)
-against 21 MB of traffic, so fp32 operations bound it (67 TFLOP/s without
-tensor cores).  The
-encoder runs it with ``causal=False`` at D = Dv = 64.
+``src/repro/kernels/block_diag.py:block_diag_pallas``; ``block_diag_bwd``
+(``csrc/block_diag_bwd.cu``) replaces ``block_diag_bwd_pallas``: fp32 dq
+per query head and dk/dv summed over the r query heads of a kv head, with
+the block softmax recomputed (no saved probabilities) and no atomics, so
+two runs are bitwise equal.  The causal form serves the decoder, the
+non-causal one the encoder.
 
-``block_diag_bwd`` (``csrc/block_diag_bwd.cu``) replaces
-``src/repro/kernels/block_diag.py:block_diag_bwd_pallas``: fp32 dq per
-query head and dk/dv summed over the r query heads of a kv head, with the
-block softmax recomputed and no saved probabilities.  A blk x blk fp32
-block of p (256 KB at blk 256) does not fit in shared memory, so the design
-is that of ``csrc/lln_diag_fused_bwd.cu``: a dq kernel per (query head,
-block, 32-row tile) holds its rows' scores against the block's keys, writes
-dq and saves each row's softmax max, sum and delta = sum_j p_j (g.v_j); a
-dk/dv kernel per (kv head, block, 32-key tile) recomputes p pair by pair
-from them, looping over the r heads and the block's query tiles in a fixed
-order (no atomics).  Any N; causal optional.  Bound: fp32
-operations (about 20 GFLOP at the encoder shapes B=32, H=G=12, N=512,
-blk 256, D=Dv=64, beside 13 GFLOP of bf16 products q k^T and g v^T that
-the tensor cores could take).
+The input type picks the kernel.  bf16, which every model path on the card
+runs (D, Dv <= 128): the tensor cores (``mma.sync`` on bf16 fragments from
+``ldmatrix``, tiles staged by ``cp.async``; helpers in ``csrc/mma.cuh``).
+q k^T and g v^T take the raw bf16 operands; the fp32 p and dsm enter their
+products as hi + lo bf16, about 2^-17 relative, so the results keep the
+fp32 softmax of the reference.  The forward gives each CTA a 64-row query
+tile and streams the block's key/value tiles with an online softmax; the
+backward's dq kernel (per 64-row query tile: max, sum and delta in one
+pass, then dsm k) saves each row's (m, l, delta) for the dk/dv kernel (per 64-key
+tile, over the r heads and the query tiles in a fixed order).  Bound on
+the H100: bytes (the products at the tensor cores' rate take less).
+fp32: IEEE fp32 on the CUDA cores, the reference's exact softmax form
+(max, exponentiate, divide, then multiply by V), in 32-row tiles.
 """
 from __future__ import annotations
 
@@ -61,6 +54,9 @@ def _check_qkv(q, k, v, r, blk):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, r={r}")
     if n < 1 or blk < 1:
         raise ValueError("empty sequence or block")
+    if q.dtype == torch.bfloat16 and max(d, v.shape[-1]) > 128:
+        raise ValueError(f"the bf16 kernels take D, Dv <= 128, got D={d}, "
+                         f"Dv={v.shape[-1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

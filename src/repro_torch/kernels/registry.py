@@ -27,6 +27,7 @@ which adds the diag tail.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -109,6 +110,23 @@ class AttnSpec:
                    fixed_ab=cfg.lln_fixed_ab, beta_n=cfg.lln_beta_n,
                    calib_len=cfg.lln_calib_len, num_scales=cfg.lln_num_scales,
                    scale_decay=cfg.lln_scale_decay)
+
+
+_WARNED: set[str] = set()
+
+
+def reset_deprecations() -> None:
+    """Forget which deprecated entry points already warned."""
+    _WARNED.clear()
+
+
+def warn_deprecated(name: str, replacement: str) -> None:
+    """Emit one DeprecationWarning per process for ``name``."""
+    if name in _WARNED:
+        return
+    _WARNED.add(name)
+    warnings.warn(f"{name} is deprecated; use {replacement} instead",
+                  DeprecationWarning, stacklevel=3)
 
 
 def resolve(backend: str, device: torch.device) -> str:

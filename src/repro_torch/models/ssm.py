@@ -23,11 +23,13 @@ Parameter names match the reference's ``ssm_init`` pytree (``w_z``,
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.numerics import einsum_f32
 from .layers import Norm, _dense_param, apply_norm, dense, trunc_normal
@@ -82,6 +84,26 @@ def _clip_exp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(x, -60.0, 0.0))
 
 
+def _chunk_step(state, xb, bb, cb, la, tri):
+    """One chunk of :func:`ssd_chunked`: (new state, y of the chunk)."""
+    lcum = torch.cumsum(la, 1)                                # (B,C,H)
+    # intra-chunk: score_ij = (C_i . B_j) exp(lcum_i - lcum_j), j <= i
+    dot = einsum_f32("bihs,bjhs->bhij", cb, bb)
+    dec = _clip_exp(lcum[:, :, None] - lcum[:, None, :]).permute(
+        0, 3, 1, 2)                                           # (B,H,i,j)
+    scores = dot * dec * tri
+    y_intra = einsum_f32("bhij,bjhp->bihp", scores.to(xb.dtype), xb)
+    # inter-chunk: y_i += exp(lcum_i) C_i . state
+    y_inter = einsum_f32("bihs,bhsp->bihp", cb, state.to(cb.dtype)) \
+        * _clip_exp(lcum)[..., None]
+    # state pass: exp(l_last) state + sum_j exp(l_last - l_j) B_j xbar_j
+    l_last = lcum[:, -1]                                      # (B,H)
+    carry = _clip_exp(l_last[:, None] - lcum)
+    state = state * _clip_exp(l_last)[:, :, None, None] + torch.einsum(
+        "bjhs,bjh,bjhp->bhsp", bb.float(), carry, xb.float())
+    return state, y_intra + y_inter
+
+
 def ssd_chunked(xbar, b_in, c_in, log_a, *, chunk: int,
                 state0: Optional[torch.Tensor] = None):
     """Chunked SSD scan.
@@ -92,8 +114,10 @@ def ssd_chunked(xbar, b_in, c_in, log_a, *, chunk: int,
     (B, H, S, P) fp32).  Any L: a ragged tail is zero-padded (log_a = 0
     there, so the pad neither decays nor feeds the state).  As in the
     reference, the inter-chunk term reads the state cast to the B/C dtype
-    (the kernel keeps it fp32).  Unlike the reference, which remats each
-    chunk step, autograd keeps every chunk's scores.
+    (the kernel keeps it fp32).  With grad enabled each chunk step runs
+    under ``torch.utils.checkpoint``, as the reference wraps its step in
+    ``jax.checkpoint``: autograd keeps each chunk's inputs and carried
+    state, and the backward recomputes the chunk's (c x c) scores.
     """
     bsz, l, h, p = xbar.shape
     s = b_in.shape[-1]
@@ -111,25 +135,14 @@ def ssd_chunked(xbar, b_in, c_in, log_a, *, chunk: int,
     tri = torch.tril(torch.ones(c, c, device=xbar.device))
     state = torch.zeros(bsz, h, s, p, device=xbar.device) \
         if state0 is None else state0
+    step = _chunk_step
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, _chunk_step, use_reentrant=False)
     ys = []
     for xb, bb, cb, la in zip(chunks(xbar), chunks(b_in), chunks(c_in),
                               chunks(log_a.float())):
-        lcum = torch.cumsum(la, 1)                            # (B,C,H)
-        # intra-chunk: score_ij = (C_i . B_j) exp(lcum_i - lcum_j), j <= i
-        dot = einsum_f32("bihs,bjhs->bhij", cb, bb)
-        dec = _clip_exp(lcum[:, :, None] - lcum[:, None, :]).permute(
-            0, 3, 1, 2)                                       # (B,H,i,j)
-        scores = dot * dec * tri
-        y_intra = einsum_f32("bhij,bjhp->bihp", scores.to(xb.dtype), xb)
-        # inter-chunk: y_i += exp(lcum_i) C_i . state
-        y_inter = einsum_f32("bihs,bhsp->bihp", cb, state.to(cb.dtype)) \
-            * _clip_exp(lcum)[..., None]
-        # state pass: exp(l_last) state + sum_j exp(l_last - l_j) B_j xbar_j
-        l_last = lcum[:, -1]                                  # (B,H)
-        carry = _clip_exp(l_last[:, None] - lcum)
-        state = state * _clip_exp(l_last)[:, :, None, None] + torch.einsum(
-            "bjhs,bjh,bjhp->bhsp", bb.float(), carry, xb.float())
-        ys.append(y_intra + y_inter)
+        state, y = step(state, xb, bb, cb, la, tri)
+        ys.append(y)
     y = torch.cat(ys, 1)
     return y[:, :l], state
 

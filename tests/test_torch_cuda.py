@@ -11,7 +11,11 @@ largest entry (the CPU suite's fp32 tolerance); bf16 outputs one bf16
 rounding step, 2^-7 of the largest entry, since both sides compute in fp32
 and round once.  The training kernels' fp32 outputs (den and every
 gradient) are held to 1e-5 of the largest entry, as on the CPU against the
-reference; gradients through the autograd Functions to 1e-4.  The
+reference; gradients through the autograd Functions to 1e-4.
+``block_diag`` and ``block_diag_bwd`` (bf16 on the tensor cores, with the
+fp32 p and dsm as hi + lo bf16; fp32 on the CUDA cores) are held at blk 16,
+64 and 256, N 64, 300 and 512, D = Dv = 64 and 128 and one D != Dv, r in
+{1, 4, 8}, causal and not, their backward's two runs bitwise equal.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
 are held the same way at D = 64, r in {1, 4}, whole and ragged N.  The
 log-linear kernel (``loglin_causal``) is held the same way at r in {1, 8},
@@ -99,20 +103,45 @@ def test_cuda_lln_causal_matches_plain(cuda, n, vdtype):
     _close(got[2], want[2], ATOL)
 
 
+# (n, blk, d, dv, r): blk 16 and 64 (below and at the tensor-core kernels'
+# 64-row tile) and 256, whole and ragged N, D = Dv = 64 and 128, one
+# D != Dv, r in {1, 4, 8} (the serve shape has r = 8).
+BLOCK_DIAG_CASES = [
+    pytest.param(*c, id="n{}-blk{}-d{}-dv{}-r{}".format(*c))
+    for c in ((64, 16, 64, 64, 4), (300, 256, 64, 64, 4),
+              (512, 256, 128, 128, 8), (300, 64, 128, 128, 1),
+              (512, 64, 64, 64, 1), (64, 64, 128, 128, 8),
+              (300, 16, 64, 64, 8), (300, 256, 64, 128, 4),
+              (512, 16, 128, 128, 4))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,blk,dtype", [(64, 16, torch.float32),
-                                         (300, 256, torch.bfloat16)])
+@pytest.mark.parametrize("n,blk,d,dv,r", BLOCK_DIAG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_block_diag_matches_plain(cuda, n, blk, dtype, causal):
-    rng = np.random.default_rng(n)
-    q = rng.normal(size=(8, n, 64)).astype(np.float32)
-    k = rng.normal(size=(2, n, 64)).astype(np.float32)
-    v = rng.normal(size=(2, n, 64)).astype(np.float32)
-    q, k, v = _on(cuda, q, k, v, dtype=dtype)
-    got = block_diag(q, k, v, r=4, blk=blk, causal=causal)
-    want = block_diag_plain(q, k, v, r=4, blk=blk, causal=causal)
+def test_cuda_block_diag_matches_plain(cuda, n, blk, d, dv, r, dtype, causal):
+    """block_diag (bf16: the tensor-core kernel; fp32: the CUDA-core one)
+    within one bf16 step (fp32: ATOL) of its plain version, and
+    block_diag_bwd's fp32 dq/dk/dv within 1e-5 of the largest plain entry,
+    two runs bitwise equal."""
+    rng = np.random.default_rng(n + blk + d + dv + r)
+    q = rng.normal(size=(2 * r, n, d)).astype(np.float32)
+    k = rng.normal(size=(2, n, d)).astype(np.float32)
+    v = rng.normal(size=(2, n, dv)).astype(np.float32)
+    g = rng.normal(size=(2 * r, n, dv)).astype(np.float32)
+    q, k, v, g = _on(cuda, q, k, v, g, dtype=dtype)
+    got = block_diag(q, k, v, r=r, blk=blk, causal=causal)
+    want = block_diag_plain(q, k, v, r=r, blk=blk, causal=causal)
     torch.cuda.synchronize()
-    _close(got, want, ATOL if dtype == torch.float32 else 2.0 ** -7)
+    _close(got, want, ATOL if dtype == torch.float32 else BF16)
+    got = block_diag_bwd(q, k, v, g, r=r, blk=blk, causal=causal)
+    want = block_diag_bwd_plain(q, k, v, g, r=r, blk=blk, causal=causal)
+    again = block_diag_bwd(q, k, v, g, r=r, blk=blk, causal=causal)
+    torch.cuda.synchronize()
+    for gt, wt, ag in zip(got, want, again):
+        _close(gt, wt, TRAIN)
+        assert torch.equal(gt, ag)
 
 
 @pytest.mark.cuda
@@ -143,6 +172,9 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         lln_causal(qs.half(), ks, v, r=2)
     with pytest.raises(ValueError, match="shape"):
         block_diag(qs, ks, v, r=1, blk=16)
+    wide = torch.zeros(2, 32, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="128"):
+        block_diag(wide, wide, wide, r=1, blk=16)
     assert lln_causal.launches == before + 1
 
 
