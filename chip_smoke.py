@@ -94,6 +94,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -192,9 +193,9 @@ def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0):
 
 
 def device_profile(fn):
-    """Run ``fn`` under ``torch.profiler``; return (device ms, the five
-    kernels with the most device time as (name, ms, calls)).  Device ms is
-    0.0 where the profiler sees no device activity."""
+    """Run ``fn`` under ``torch.profiler``; return (device ms, every kernel
+    as (name, ms, calls), the most device time first).  Device ms is 0.0
+    where the profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -212,7 +213,7 @@ def device_profile(fn):
         if us > 0:
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda x: -x[1])
-    return sum(r[1] for r in rows), rows[:5]
+    return sum(r[1] for r in rows), rows
 
 
 def phase_device():
@@ -348,7 +349,7 @@ def phase_kernels_train(results):
     """The four training kernels against their plain versions.  Outputs in
     bf16 within one bf16 step; den and every fp32 gradient within 1e-5 of
     the largest plain entry (fp32 sums of up to r*N terms in another
-    order)."""
+    order); lln_diag_fused_bwd's two runs bitwise equal."""
     from repro_torch.kernels.lln_attention import (lln_causal,
                                                    lln_causal_plain,
                                                    lln_diag_fused,
@@ -390,12 +391,17 @@ def phase_kernels_train(results):
         keep("lln_diag_fused", check("den", got[1], den, fp32_tol(den)))
         log(f"lln_diag_fused_bwd N={n} blk={BLK}:")
         got = lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, o, den, r=r, blk=BLK)
+        again = lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, o, den, r=r,
+                                   blk=BLK)
         want = lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, g, o, den, r=r,
                                         blk=BLK)
         torch.cuda.synchronize()
         for name, gt, wt in zip(("dqs", "dqd", "dks", "dkd", "dv"), got,
                                 want):
             keep("lln_diag_fused_bwd", check(name, gt, wt, fp32_tol(wt)))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"lln_diag_fused_bwd N={n}: two runs differ")
+        log("  two runs bitwise equal")
 
 
 def _small_vs_core(arch, batches_fn, label, impls=("lln", "lln_diag"),
@@ -579,7 +585,7 @@ def phase_serve(launches, serve_times):
             f"({B / (step_ms / 1e3):.1f} tok/s, device {dec_dev:.3f} ms/step) "
             f"over {GEN - 2} steps; tokens[0] {toks[0].tolist()}")
         for label, top in (("prefill", pre_top), ("decode x4", dec_top)):
-            for name, ms, calls in top:
+            for name, ms, calls in top[:5]:
                 log(f"  top {label}: {ms:9.3f} ms  {calls:6d} calls  "
                     f"{name[:90]}")
         del setup, caches, plain
@@ -689,8 +695,16 @@ def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV):
         f"{tokens / (step_ms / 1e3):.0f} tokens/s, device "
         f"{dev_ms:.1f} ms/step (busy {dev_ms / step_ms:.0%}), peak "
         f"{peak:.2f} GiB; (loss, grad norm) per step {losses}")
-    for name, ms, calls in top:
+    for name, ms, calls in top[:5]:
         log(f"  top step: {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
+    # The port's own kernels (the __global__ functions of csrc/), each
+    # launch of a wrapper apart, e.g. the fused pair's Phi split, block
+    # states and main kernels.
+    ours = _port_kernels()
+    log("  port kernels per step: " + "; ".join(
+        f"{_kernel_name(name)} {ms:.3f} ms x{calls}"
+        for name, ms, calls in top
+        if _kernel_name(name).split("<")[0].split("::")[-1] in ours))
     del setup, state, params, batch, m
     torch.cuda.empty_cache()
     return times_out, counted
@@ -720,14 +734,80 @@ def phase_train(launches, train_times):
         launches[bwd[impl]] += counted[bwd[impl]]
 
 
+def _fused_counts(bh, bg, n, d, dv, blk):
+    """Bytes and operations of lln_diag_fused and lln_diag_fused_bwd at one
+    shape: {name: (bytes, fp32 FLOPs, bf16 tensor-core FLOPs)} under the
+    convention of the block-softmax rows (products at the tensor cores'
+    rate, an fp32 operand counted once per bf16 MMA it takes: fp32 x bf16
+    twice, fp32 x fp32 three times; softmax steps and exps as fp32 work),
+    and under the CUDA-core count (every product with an fp32 operand as
+    fp32 work at the CUDA cores' rate) with the key "... (CUDA cores)".  Bytes: each input read once, each output written once.
+    The block states are counted where this run's data needs them: Phi(q)
+    S_c for the rows past the first block, the state updates for the keys
+    (forward) and rows (reverse) before the last."""
+    f32, b16 = 4, 2
+    pairs = bh * (n // blk) * blk * (blk + 1) // 2
+    late_rows, early_keys = bh * (n - blk), bg * (n - blk)
+    exps = (bh + bg) * n * d
+    qsks = bh * n * d * f32 + bg * n * d * f32
+    fwd_bytes = qsks + (bh + bg) * n * d * b16 + bg * n * dv * b16 \
+        + bh * n * dv * b16 + bh * n * f32
+    bwd_bytes = qsks + (bh + bg) * n * d * b16 + bg * n * dv * b16 \
+        + 2 * bh * n * dv * b16 + bh * n * f32 \
+        + 2 * (bh + bg) * n * d * f32 + bg * n * dv * f32
+    state = 2 * d * dv
+    fwd_tc = pairs * (2 * d + 2 * 2 * dv + 3 * 2 * d + 2 * 2 * dv) \
+        + late_rows * 3 * state + early_keys * 2 * state
+    fwd_f32 = pairs * (SOFTMAX_FWD_OPS + 1) + exps + bh * n * (2 * d + 3 * dv)
+    # Backward: the softmax part's 10 D + 6 Dv (block_diag_bwd's count),
+    # the LLN scores Phi(q) Phi(k)^T, gmat Phi(k) and gmat^T Phi(q) (fp32 x
+    # fp32), scores^T u (u = g / 2 den against bf16 g); the states u S^T,
+    # Phi(q)^T u and V dS^T (fp32 x bf16) and Phi(k) dS (fp32 x fp32), and
+    # the forward state Phi(k)^T V recomputed.
+    bwd_tc = pairs * (10 * d + 6 * dv + 3 * 3 * 2 * d + 2 * 2 * dv) \
+        + late_rows * 2 * 2 * state + early_keys * (2 + 2 + 3) * state \
+        + early_keys * 2 * state
+    bwd_f32 = pairs * (SOFTMAX_BWD_OPS + 2) + exps + bh * n * (2 * dv + 2 * d)
+    lln_fwd = bh * n * (2 * d * dv + 2 * d) + bg * n * (2 * d * dv + d) \
+        + (bh + bg) * n * d
+    lln_bwd = bh * n * (4 * d * dv + 3 * dv + 4 * d) \
+        + bg * n * (6 * d * dv + 2 * d) + (bh + bg) * n * d
+    return {
+        "lln_diag_fused": (fwd_bytes, fwd_f32, fwd_tc),
+        "lln_diag_fused_bwd": (bwd_bytes, bwd_f32, bwd_tc),
+        "lln_diag_fused (CUDA cores)": (
+            fwd_bytes, lln_fwd + pairs * (2 * d + 1) + bh * n * dv * 2,
+            pairs * 2 * d),
+        "lln_diag_fused_bwd (CUDA cores)": (
+            bwd_bytes, lln_bwd + pairs * (4 * d + 2 * dv + 6),
+            pairs * (2 * d + 2 * dv)),
+    }
+
+
+def _port_kernels():
+    """The names of the __global__ functions in the port's CUDA sources."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"(\w+)")
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    return {m for f in csrc.glob("*.cu*") for m in pat.findall(f.read_text())}
+
+
+def _kernel_name(key):
+    """A profiler kernel key without its return type, anonymous namespace
+    and argument list."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("(")[0]
+
+
 def phase_timings_train(errs, launches):
     """The four training kernels, their plain versions and their bounds at
     the training shapes.  Bounds count each input read once and each output
-    written once, and the fp32 operations of the linear form: Phi(q) S and
-    the state update per token; per visible (query, key) pair of the diag
-    softmax, 2 D + 1 fp32 forward and 4 D + 2 Dv + 6 backward, beside the
-    bf16 products q k^T (2 D) and, backward, g v^T (2 Dv) at the tensor
-    cores' rate."""
+    written once.  lln_causal and lln_causal_bwd: the fp32 operations of
+    the linear form (Phi(q) S and the state update per token).  The fused
+    pair: _fused_counts (their products at the tensor cores' rate; the
+    CUDA-core count, with every fp32-operand product as fp32 work, is
+    logged beside it).  The fused pair is also timed at zamba2-7b's shape (B=4,
+    H=G=32, D=Dv=112, N=2048), returned apart."""
     from repro_torch.kernels.lln_attention import (lln_causal,
                                                    lln_causal_plain,
                                                    lln_diag_fused,
@@ -745,49 +825,42 @@ def phase_timings_train(errs, launches):
                               return_state=False)
     fo, fden = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                     return_res=True)
-    pairs = bh * (n // BLK) * BLK * (BLK + 1) // 2
     lln_fwd = bh * n * (2 * D * dv + 2 * D) + bg * n * (2 * D * dv + D) \
         + (bh + bg) * n * D
     lln_bwd = bh * n * (4 * D * dv + 3 * dv + 4 * D) \
         + bg * n * (6 * D * dv + 2 * D) + (bh + bg) * n * D
     f32, b16 = 4, 2
     qsks = bh * n * D * f32 + bg * n * D * f32
-    tc_fwd, tc_bwd = pairs * 2 * D, pairs * (2 * D + 2 * dv)
+    fused = _fused_counts(bh, bg, n, D, dv, BLK)
     specs = [
         ("lln_causal (res)", "lln_causal.cu", "lln_attention.py:94",
          lambda: lln_causal(qs, ks, vk, r=r, blk=BLK, return_res=True,
                             return_state=False),
          lambda: lln_causal_plain(qs, ks, vk, r=r, blk=BLK, return_res=True,
                                   return_state=False),
-         qsks + bg * n * dv * b16 + bh * n * dv * b16 + bh * n * f32,
-         lln_fwd, 0),
+         (qsks + bg * n * dv * b16 + bh * n * dv * b16 + bh * n * f32,
+          lln_fwd, 0)),
         ("lln_diag_fused", "lln_diag_fused.cu", "lln_attention.py:274",
          lambda: lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                 return_res=True),
          lambda: lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                       return_res=True),
-         qsks + (bh + bg) * n * D * b16 + bg * n * dv * b16
-         + bh * n * dv * b16 + bh * n * f32,
-         lln_fwd + pairs * (2 * D + 1) + bh * n * dv * 2, tc_fwd),
+         fused["lln_diag_fused"]),
         ("lln_causal_bwd", "lln_causal_bwd.cu", "lln_backward.py:160",
          lambda: lln_causal_bwd(qs, ks, vk, g, o, den, r=r, blk=BLK),
          lambda: lln_causal_bwd_plain(qs, ks, vk, g, o, den, r=r, blk=BLK),
-         qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 + bh * n * f32
-         + (bh + bg) * n * D * f32 + bg * n * dv * f32,
-         lln_bwd, 0),
+         (qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 + bh * n * f32
+          + (bh + bg) * n * D * f32 + bg * n * dv * f32, lln_bwd, 0)),
         ("lln_diag_fused_bwd", "lln_diag_fused_bwd.cu",
          "lln_backward.py:441",
          lambda: lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, fo, fden, r=r,
                                     blk=BLK),
          lambda: lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, g, fo, fden,
                                           r=r, blk=BLK),
-         qsks + (bh + bg) * n * D * b16 + bg * n * dv * b16
-         + 2 * bh * n * dv * b16 + bh * n * f32
-         + 2 * (bh + bg) * n * D * f32 + bg * n * dv * f32,
-         lln_bwd + pairs * (4 * D + 2 * dv + 6), tc_bwd),
+         fused["lln_diag_fused_bwd"]),
     ]
     rows = []
-    for name, src, ref, kernel, plain, nbytes, flops, tc in specs:
+    for name, src, ref, kernel, plain, (nbytes, flops, tc) in specs:
         bnd, by = bound_ms(nbytes, flops, tc)
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
@@ -796,11 +869,45 @@ def phase_timings_train(errs, launches):
             plain_ms=cuda_ms(plain, reps=10), bound_ms=bnd, bound_by=by,
             library_ms=None))
         row = rows[-1]
+        old = ""
+        if f"{name} (CUDA cores)" in fused:
+            ob, oby = bound_ms(*fused[f"{name} (CUDA cores)"])
+            old = f" [CUDA-core count: {ob:.4f} ms ({oby})]"
         log(f"timing {name}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), library none (no single PyTorch call "
+            f"({row['bound_by']}){old}, library none (no single PyTorch call "
             f"computes LLN attention or its gradient)")
-    return rows
+
+    # The fused pair at zamba2-7b's shared attention (r = 1, D = Dv = 112).
+    del qs, ks, qk, kk, vk, g, o, den, fo, fden
+    zb, zh = ZB, H
+    qs, ks, qk, kk, vk, g = _train_inputs(SN, gen, zb, zh, zh, ZD)
+    fo, fden = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=1, blk=BLK,
+                                    return_res=True)
+    fused = _fused_counts(zb * zh, zb * zh, SN, ZD, ZD, BLK)
+    zamba2 = {}
+    for name, kernel, plain in (
+            ("lln_diag_fused",
+             lambda: lln_diag_fused(qs, ks, qk, kk, vk, r=1, blk=BLK,
+                                    return_res=True),
+             lambda: lln_diag_fused_plain(qs, ks, qk, kk, vk, r=1, blk=BLK,
+                                          return_res=True)),
+            ("lln_diag_fused_bwd",
+             lambda: lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, fo, fden,
+                                        r=1, blk=BLK),
+             lambda: lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, g, fo,
+                                              fden, r=1, blk=BLK))):
+        bnd, by = bound_ms(*fused[name])
+        ob, oby = bound_ms(*fused[f"{name} (CUDA cores)"])
+        zamba2[name] = dict(ms=cuda_ms(kernel, reps=10),
+                            plain_ms=cuda_ms(plain, reps=10), bound_ms=bnd,
+                            bound_by=by, cuda_core_bound_ms=ob)
+        row = zamba2[name]
+        log(f"timing {name} (zamba2-7b shape B={zb} H=G={zh} D={ZD} "
+            f"N={SN}): kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}) "
+            f"[CUDA-core count: {ob:.4f} ms ({oby})]")
+    return rows, zamba2
 
 
 def phase_timings(errs, launches):
@@ -1063,7 +1170,7 @@ def phase_encoder_forward(launches, enc_times):
         log(f"encoder_forward {impl}: {ms:.2f} ms (median of 3), "
             f"{EB * EN / (ms / 1e3):.0f} tokens/s, device {dev_ms:.2f} ms "
             f"(busy {dev_ms / ms:.0%}); launches {counted}")
-        for name, t, calls in top:
+        for name, t, calls in top[:5]:
             log(f"  top forward: {t:9.3f} ms  {calls:6d} calls  {name[:90]}")
         del model, params, plain, logits, plain_logits
         torch.cuda.empty_cache()
@@ -1393,7 +1500,7 @@ def phase_serve_loglin(launches, serve_times):
         f"({B / (step_ms / 1e3):.1f} tok/s, device {dec_dev:.3f} ms/step) "
         f"over {GEN - 2} steps; tokens[0] {toks[0].tolist()}")
     for label, top in (("prefill", pre_top), ("decode x4", dec_top)):
-        for name, ms, calls in top:
+        for name, ms, calls in top[:5]:
             log(f"  top {label}: {ms:9.3f} ms  {calls:6d} calls  "
                 f"{name[:90]}")
     del setup, caches, params
@@ -1692,7 +1799,8 @@ def main():
     phase_ssm_train(launches, train_times)
     phase_hybrid_train(launches, train_times)
     rows, rescale_ms = phase_timings(errs, launches)
-    rows += phase_timings_train(errs, launches)
+    train_rows, fused_zamba2 = phase_timings_train(errs, launches)
+    rows += train_rows
     enc_rows, block_diag_bidir = phase_timings_encoder(errs, launches)
     rows += enc_rows
     rows.append(phase_timings_loglin(errs, launches))
@@ -1705,6 +1813,8 @@ def main():
         + json.dumps(block_diag_bidir))
     log(f"decode_rescale_ms: {rescale_ms}")
     log("ssd (zamba2-7b shape): " + json.dumps(ssd_zamba2))
+    log("lln_diag_fused / lln_diag_fused_bwd (zamba2-7b shape): "
+        + json.dumps(fused_zamba2))
     log("ops.ssd_scan per layer: " + json.dumps(ssd_layer))
     print(smi)
     print(json.dumps({"kernels": rows}))

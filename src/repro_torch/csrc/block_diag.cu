@@ -248,8 +248,8 @@ block_diag_tc_kernel(const __nv_bfloat16* __restrict__ q,
     float s[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_abt<NS, DP / 16>(s, sq + warp * 16 * LD, LD,
-                         sk + st * TC_KEYS * LD, LD, ks, lane);
+    mma_abt_p<NS, DP / 16, 1, 1>(s, sq + warp * 16 * LD, 0, LD,
+                                 sk + st * TC_KEYS * LD, 0, LD, ks, lane);
 
     // Scale and mask (only tiles that reach past the block's end or past
     // the tile's first query need it); the row max, then the online rescale.
@@ -291,7 +291,8 @@ block_diag_tc_kernel(const __nv_bfloat16* __restrict__ q,
         l[e >> 1] += p;
       }
     }
-    mma_pb<NO, NS / 2>(o, s, sv + st * TC_KEYS * LD, LD, no, lane);
+    mma_pb_p<NO, NS / 2, 2, 1>(o, s, sv + st * TC_KEYS * LD, 0, LD, no,
+                               lane);
     __syncthreads();                 // this stage is free for the prefetch
   }
 

@@ -325,7 +325,7 @@ __device__ __forceinline__ void tile_scores(float (&s)[8][4],
   constexpr int LD = DP + 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-  mma_abt<8, DP / 16>(s, a, LD, b, LD, ks, lane);
+  mma_abt_p<8, DP / 16, 1, 1>(s, a, 0, LD, b, 0, LD, ks, lane);
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -422,7 +422,8 @@ block_diag_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     t == ntiles - 1, sl2, lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    mma_abt<8, DP / 16>(dp, ag, LD, sv + sb * TS, LD, kvs, lane);   // g v^T
+    mma_abt_p<8, DP / 16, 1, 1>(dp, ag, 0, LD, sv + sb * TS, 0, LD, kvs,
+                                lane);                            // g v^T
     if (pass == 0) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -468,7 +469,8 @@ block_diag_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
           s[j][e] = fast_exp2(s[j][e] - lse[hh]) * (dp[j][e] - dl[hh]);
         }
       }
-      mma_pb<NO, 4>(acc, s, sk + sb * TS, LD, no, lane);   // dq += dsm k
+      mma_pb_p<NO, 4, 2, 1>(acc, s, sk + sb * TS, 0, LD, no,
+                            lane);                       // dq += dsm k
     }
     __syncthreads();                 // this stage is free for the prefetch
   }
@@ -589,8 +591,10 @@ block_diag_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
         pt[j][0] = pt[j][1] = pt[j][2] = pt[j][3] = 0.f;
         dt[j][0] = dt[j][1] = dt[j][2] = dt[j][3] = 0.f;
       }
-      mma_abt<4, DP / 16>(pt, ak_s, LD, tq + qa * LD, LD, ks, lane);  // k q^T
-      mma_abt<4, DP / 16>(dt, av_s, LD, tg + qa * LD, LD, kvs, lane); // v g^T
+      mma_abt_p<4, DP / 16, 1, 1>(pt, ak_s, 0, LD, tq + qa * LD, 0, LD, ks,
+                                  lane);                          // k q^T
+      mma_abt_p<4, DP / 16, 1, 1>(dt, av_s, 0, LD, tg + qa * LD, 0, LD, kvs,
+                                  lane);                          // v g^T
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c0 = qa + j * 8 + 2 * t4;             // query in the tile
@@ -607,8 +611,10 @@ block_diag_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
           dt[j][e] = p * (dt[j][e] - ((e & 1) ? dl.y : dl.x));
         }
       }
-      mma_pb<NO, 2>(av, pt, tg + qa * LD, LD, nov, lane);   // dv += p^T g
-      mma_pb<NO, 2>(ak, dt, tq + qa * LD, LD, nok, lane);   // dk += dsm^T q
+      mma_pb_p<NO, 2, 2, 1>(av, pt, tg + qa * LD, 0, LD, nov,
+                            lane);                      // dv += p^T g
+      mma_pb_p<NO, 2, 2, 1>(ak, dt, tq + qa * LD, 0, LD, nok,
+                            lane);                      // dk += dsm^T q
     }
     __syncthreads();                 // this stage is free for the prefetch
   }

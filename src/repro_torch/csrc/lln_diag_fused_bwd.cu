@@ -6,9 +6,9 @@
 // (BH,N,Dv) and the saved output o (BH,N,Dv) in one type (fp32 or bf16);
 // den (BH,N) fp32, the LLN normalizer.  Outputs, fp32: dqs, dqd (BH,N,D),
 // dks, dkd (BG,N,D), dv (BG,N,Dv); dks, dkd and dv summed over the r query
-// heads of a kv head.  stats (4,BH,N) is scratch: the first kernel writes
-// each query row's softmax max m and sum l, delta = sum_j p_j (gh.v_j) and
-// the LLN cotangent w; the second reads them.
+// heads of a kv head.  stats (4,BH,N) is scratch: the dq kernel writes each
+// query row's softmax max m and sum l, delta = sum_j p_j (gh.v_j) and the
+// LLN cotangent w; the dk/dv kernel reads them.
 //
 // Math (the reference's): gh = g/2; the diag part is recomputed, p =
 // softmax(tril(q k^T D^-1/2)) within each blk block; the LLN output is
@@ -17,18 +17,60 @@
 // csrc/lln_causal_bwd.cu; the softmax part is dqd = dsm k D^-1/2, dkd =
 // dsm^T q D^-1/2 with dsm = p (gh.v - delta), and dv gains p^T gh.
 //
-// Design: as csrc/lln_causal_bwd.cu (dq CTAs over rows of D with the
-// forward state; dk CTAs over rows and dv CTAs over columns of the reverse
-// state summed over the r heads; heads in a fixed order, no atomics), plus
-// the softmax part.  A 256x256 fp32 block of p does not fit in shared
-// memory, so p is never whole: a dq CTA holds its TILE query rows' scores
-// against the block's keys up to them (TILE x blk), which gives m, l and
-// delta; a dk/dv CTA walks its key tile against the query chunks of the
-// same block from its own rows to the block's end and recomputes each p
-// from the saved m and l.  All products are fp32 on the CUDA cores.
+// Two paths, chosen by the caller (kernels/lln_backward.py) by type and
+// width, each with its own entry point:
 //
-// Bound on the H100: fp32 operations at the training shapes (see
-// kernels/lln_backward.py).
+// bf16 with D, Dv <= 128 (every model path on the card):
+// lln_diag_fused_bwd_tc_launch, on the tensor cores, chunk-parallel over
+// the blk blocks.  Six launches:
+//   1. phi_split (csrc/fused_state.cuh), twice: Phi(q), Phi(k) as three
+//      bf16 planes each.
+//   2. state_kernel, forward: the exclusive block states (S_c, z_c) of
+//      each kv group, recomputed as the forward made them, so the autograd
+//      Function saves nothing more.
+//   3. dq_tc_kernel, one CTA per (query head, block, 64-row tile): one
+//      online pass over the block's keys up to the diagonal gives the
+//      softmax max, sum and delta (as block_diag_bwd.cu's), then w = (g.o -
+//      delta)/den, all written to stats; a second pass recomputes p and
+//      gh.v per key tile and accumulates dqd += dsm k and the LLN part
+//      gmat Phi(k) with gmat = gh.v/den - w; then u S_c^T and w z_c, and
+//      dqs = Phi(q) (gmat Phi(k) + u S_c^T - w z_c).
+//   4. state_kernel, reverse: the exclusive suffix (dS_c, dz_c), the sums
+//      over the later blocks and the r heads of Phi(q)^T u and Phi(q) w,
+//      heads then blocks in a fixed order.
+//   5. dkv_tc_kernel, three CTAs per (kv group, block, 64-key tile): dkd =
+//      dsm^T q; dks = Phi(k) (gmat^T Phi(q) + V dS_c^T - dz_c); dv = (p/2
+//      + scores/(2 den))^T g + Phi(k) dS_c = p^T gh + scores^T u + Phi(k)
+//      dS_c.  Each walks the r heads and its block's query tiles from its
+//      own rows to the block's end in a fixed order and recomputes p from
+//      the saved max and sum: no atomics, so two runs are equal bit for
+//      bit.  Each query tile's products go into a fresh accumulator that is
+//      added to the total in fp32, as the tensor cores' own accumulation
+//      does not round to nearest.  At yi-9b's shape that is 3 x 256 CTAs
+//      of bounded work.
+//   Products: q k^T and g v^T one exact bf16 MMA; every fp32 operand as
+//   three bf16 planes (2^-24 relative): against a bf16 operand three MMAs,
+//   against another fp32 operand (Phi(q) Phi(k)^T, gmat Phi(k), gmat^T
+//   Phi(q), Phi(k) dS) six.  (Two planes, as in the forward, left dks and
+//   dqs outside the 1e-5 tolerance at r = 4 and 8.)  Phi(q) and Phi(k)
+//   that multiply a result elementwise are the exact exp(qs) and exp(ks).
+//   Bound on the H100: the products at the bf16 tensor-core rate, an fp32
+//   operand counted once per MMA the two-plane split takes (twice, three
+//   times for fp32 x fp32), with the softmax steps and the exps as fp32
+//   work (chip_smoke.py:_fused_counts); at the training shape the bytes
+//   bound it.
+//
+// fp32, or a width above 128: lln_diag_fused_bwd_launch, the CUDA-core
+// kernels below, IEEE fp32.  As csrc/lln_causal_bwd.cu (dq CTAs over rows
+// of D with the forward state; dk CTAs over rows and dv CTAs over columns
+// of the reverse state summed over the r heads; heads in a fixed order, no
+// atomics), plus the softmax part.  A 256x256 fp32 block of p does not fit
+// in shared memory, so p is never whole: a dq CTA holds its TILE query
+// rows' scores against the block's keys up to them (TILE x blk), which
+// gives m, l and delta; a dk/dv CTA walks its key tile against the query
+// chunks of the same block from its own rows to the block's end and
+// recomputes each p from the saved m and l.
+#include "fused_state.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -484,6 +526,623 @@ int launch(const float* qs, const float* ks, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using namespace lln;
+
+constexpr int TC_ROWS = 64;   // query rows (dq) or keys (dk/dv) per CTA
+// bf16 planes of every fp32 operand: three keep it to 2^-24 relative, so
+// the fp32 gradients stay within 1e-5 of the largest entry (two, as in the
+// forward, left dks and dqs outside it at r = 4 and 8).
+constexpr int NP = 3;
+
+// Rows of a staged key tile (dq) or query tile (dk/dv).
+template <int DP>
+__host__ __device__ constexpr int step_rows() { return DP > 64 ? 16 : 32; }
+
+template <int DP>
+constexpr size_t dq_smem_bytes() {
+  return (2 * TC_ROWS + 2 * (2 + NP) * step_rows<DP>()) * (DP + 8) *
+             sizeof(__nv_bfloat16) +
+         TC_ROWS * sizeof(float);
+}
+
+template <int DP>
+constexpr size_t dkv_smem_bytes() {
+  return ((1 + NP) * TC_ROWS + 2 * (2 + NP) * step_rows<DP>()) *
+             (DP + 8) * sizeof(__nv_bfloat16) +
+         2 * 4 * step_rows<DP>() * sizeof(float);
+}
+
+// Stage rows [d0, d0 + 32) of a D x Dv state (plane p at sp + p scount)
+// into stg (plane p at rows 32 p .. 32 p + 31).
+template <int DP>
+__device__ __forceinline__ void stage_state(__nv_bfloat16* stg,
+                                            const __nv_bfloat16* sp,
+                                            size_t scount, int d0, int d,
+                                            int dv, bool vz) {
+  constexpr int LD = DP + 8;
+  const int dr = min(32, d - d0);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    stage_tile<DP>(stg + p * 32 * LD, LD,
+                   sp + p * scount + static_cast<size_t>(d0) * dv, dv, dr, 32,
+                   vz);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// acc (16 x 8 NO) += a S^T over kvs 16-column steps for the 32 rows of the
+// state S staged at stg: output tiles 4 CH .. 4 CH + 3 (rows below w).
+template <int DP, int CH>
+__device__ __forceinline__ void mma_state_t(float (&acc)[DP / 8][4],
+                                            const __nv_bfloat16* a,
+                                            const __nv_bfloat16* stg, int kvs,
+                                            int w, int lane) {
+  constexpr int LD = DP + 8;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    if (kk >= kvs) break;
+    uint32_t af[1][4];
+    frag_a(af[0], a + kk * 16, LD, lane);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      if (CH * 32 + j * 8 >= w) break;
+      uint32_t b0[NP][2], b1[NP][2];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        uint32_t r[4];
+        frag_b(r, stg + (p * 32 + j * 8) * LD + kk * 16, LD, lane);
+        b0[p][0] = r[0]; b0[p][1] = r[1]; b1[p][0] = r[2]; b1[p][1] = r[3];
+      }
+      mma_planes<1, NP>(acc[CH * 4 + j], af, b0);
+      mma_planes<1, NP>(acc[CH * 4 + j + 1], af, b1);
+    }
+  }
+}
+
+// acc += a S^T for the whole state (D rows at sp), 32 rows at a time
+// through stg: the product u S^T (with a = g) or V dS^T (a = V).
+template <int DP, int CH = 0>
+__device__ __forceinline__ void state_t_all(float (&acc)[DP / 8][4],
+                                            const __nv_bfloat16* a,
+                                            __nv_bfloat16* stg,
+                                            const __nv_bfloat16* sp,
+                                            size_t scount, int d, int dv,
+                                            int kvs, bool vz, int lane) {
+  if constexpr (CH * 32 < DP) {
+    if (CH * 32 < d) {
+      __syncthreads();
+      stage_state<DP>(stg, sp, scount, CH * 32, d, dv, vz);
+      mma_state_t<DP, CH>(acc, a, stg, kvs, d, lane);
+      state_t_all<DP, CH + 1>(acc, a, stg, sp, scount, d, dv, kvs, vz, lane);
+    }
+  }
+}
+
+// phk (NP,BG,N,D): Phi(k) planes kcount apart; sst (NP,BG,nb,D,Dv) and zst
+// (BG,nb,D): the forward's exclusive block states.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v,
+             const __nv_bfloat16* __restrict__ g,
+             const __nv_bfloat16* __restrict__ o,
+             const float* __restrict__ den_in,
+             const __nv_bfloat16* __restrict__ phk,
+             const __nv_bfloat16* __restrict__ sst,
+             const float* __restrict__ zst, float* __restrict__ dqs,
+             float* __restrict__ dqd, float* __restrict__ stats, int n, int d,
+             int dv, int r, int blk, size_t kcount, size_t scount,
+             float scale, int vec) {
+  extern __shared__ float smem[];
+  constexpr int LD = DP + 8;
+  constexpr int KT = step_rows<DP>();
+  constexpr int NS = KT / 8;
+  constexpr int NO = DP / 8;
+  constexpr int TS = TC_ROWS * LD;
+  constexpr int KS = KT * LD;
+  constexpr int SS = (2 + NP) * KS;    // one stage: k, v, Phi(k) planes
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sg = sq + TS;
+  __nv_bfloat16* stg = sg + TS;        // 2 stages
+  float* sgo = reinterpret_cast<float*>(stg + 2 * SS);   // g . o per row
+
+  const int h = blockIdx.x;
+  const int kvh = h / r;
+  const int c = blockIdx.y;
+  const int nb = gridDim.y;
+  const int b0 = c * blk;
+  const int bend = b0 + blk;
+  const int r0 = b0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  if (r0 >= bend) return;
+  const int rows = min(TC_ROWS, bend - r0);
+  const int nk = r0 + rows - b0;
+  const int ntiles = (nk + KT - 1) / KT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
+  const int nod = min(NO, ks * 2);
+  const bool vz = vec != 0;
+  const size_t hq = static_cast<size_t>(h) * n;
+  const size_t bhn = static_cast<size_t>(gridDim.x) * n;
+  const size_t hk = static_cast<size_t>(kvh) * n + b0;
+  const __nv_bfloat16* kh = k + hk * d;
+  const __nv_bfloat16* vh = v + hk * dv;
+  const __nv_bfloat16* fkh = phk + hk * d;
+
+  // Step st < ntiles is pass 0 (k, v), later steps pass 1 (also Phi(k)).
+  const auto stage_keys = [&](int st, int sb) {
+    const int t = st < ntiles ? st : st - ntiles;
+    const int k0 = t * KT, kr = min(KT, nk - k0);
+    __nv_bfloat16* s = stg + sb * SS;
+    const size_t off = static_cast<size_t>(k0) * d;
+    stage_tile<DP>(s, LD, kh + off, d, kr, KT, vz);
+    stage_tile<DP>(s + KS, LD, vh + static_cast<size_t>(k0) * dv, dv, kr, KT,
+                   vz);
+    if (st >= ntiles) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        stage_tile<DP>(s + (2 + p) * KS, LD, fkh + p * kcount + off, d, kr,
+                       KT, vz);
+    }
+  };
+  stage_tile<DP>(sq, LD, q + (hq + r0) * d, d, rows, TC_ROWS, vz);
+  stage_tile<DP>(sg, LD, g + (hq + r0) * dv, dv, rows, TC_ROWS, vz);
+  stage_keys(0, 0);
+  cp_async_commit();
+
+  // g . o per row in fp32 (a warp per row).
+  for (int i = 0; i < 16; ++i) {
+    const int a = warp * 16 + i;
+    float s = 0.f;
+    if (a < rows) {
+      const size_t at = (hq + r0 + a) * dv;
+      for (int e = lane; e < dv; e += 32)
+        s = fmaf(__bfloat162float(g[at + e]), __bfloat162float(o[at + e]), s);
+    }
+    s = warp_sum(s);
+    if (lane == 0) sgo[a] = s;
+  }
+
+  float aq[NO][4], as[NO][4];        // dqd and the LLN part of dqs
+  zero_acc(aq);
+  zero_acc(as);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+  float lse[2] = {0.f, 0.f}, w[2] = {0.f, 0.f}, hd[2];
+  const int qw = r0 - b0 + warp * 16;
+  const int qrow = qw + gq;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int a = warp * 16 + gq + hh * 8;
+    hd[hh] = a < rows ? 0.5f / den_in[hq + r0 + a] : 0.f;   // 1 / (2 den)
+  }
+  const float sl2 = scale * kLog2e;
+  const __nv_bfloat16* wq = sq + warp * 16 * LD;
+  const __nv_bfloat16* wg = sg + warp * 16 * LD;
+
+  const int steps = 2 * ntiles;
+  for (int st = 0; st < steps; ++st) {
+    const int pass = st < ntiles ? 0 : 1;
+    const int t = st - pass * ntiles, sb = st & 1;
+    if (st + 1 < steps) stage_keys(st + 1, sb ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* s_k = stg + sb * SS;
+    const __nv_bfloat16* s_v = s_k + KS;
+
+    float s[NS][4], dp[NS][4];
+    zero_acc(s);
+    zero_acc(dp);
+    mma_abt_p<NS, DP / 16, 1, 1>(s, wq, 0, LD, s_k, 0, LD, ks, lane);  // q k^T
+    mma_abt_p<NS, DP / 16, 1, 1>(dp, wg, 0, LD, s_v, 0, LD, kvs,
+                                 lane);                             // g v^T
+    const int kb = t * KT;
+    const bool edge = kb + KT > qw + 1;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kb + j * 8 + 2 * t4 + (e & 1);
+        const int row = qrow + (e >> 1) * 8;
+        const bool masked = edge && col > row;
+        s[j][e] = masked ? kNegInf : s[j][e] * sl2;
+        dp[j][e] *= 0.5f;                                   // gh . v
+      }
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[hh], mx);
+        const float a = fast_exp2(m[hh] - mn);
+        float sum = l[hh] * a, dsum = dl[hh] * a;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+            const float pe = fast_exp2(s[j][e] - mn);
+            sum += pe;
+            dsum = fmaf(pe, dp[j][e], dsum);
+          }
+        }
+        m[hh] = mn;
+        l[hh] = sum;
+        dl[hh] = dsum;
+      }
+      if (t == ntiles - 1) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+          l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+          dl[hh] += __shfl_xor_sync(0xffffffffu, dl[hh], 1);
+          dl[hh] += __shfl_xor_sync(0xffffffffu, dl[hh], 2);
+          lse[hh] = m[hh] + log2f(l[hh]);
+          dl[hh] /= l[hh];
+          const int a = warp * 16 + gq + hh * 8;
+          w[hh] = (sgo[a] - dl[hh]) * (2.f * hd[hh]);
+          if (a < rows && t4 == 0) {
+            const size_t at = hq + r0 + a;
+            stats[at] = m[hh];
+            stats[bhn + at] = l[hh];
+            stats[2 * bhn + at] = dl[hh];
+            stats[3 * bhn + at] = w[hh];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          const int col = kb + j * 8 + 2 * t4 + (e & 1);
+          const bool masked = edge && col > qrow + hh * 8;
+          const float x = dp[j][e];
+          s[j][e] = fast_exp2(s[j][e] - lse[hh]) * (x - dl[hh]);  // dsm
+          dp[j][e] = masked ? 0.f : x * (2.f * hd[hh]) - w[hh];   // gmat
+        }
+      }
+      mma_pb_p<NO, NS / 2, NP, 1>(aq, s, s_k, 0, LD, nod, lane);  // dsm k
+      mma_pb_p<NO, NS / 2, NP, NP>(as, dp, s_k + 2 * KS, KS, LD, nod,
+                                   lane);                  // gmat Phi(k)
+    }
+    __syncthreads();                 // this stage is free for the prefetch
+  }
+  cp_async_wait<0>();
+
+  // u S_c^T = (g S_c^T) / (2 den): the accumulator is scaled by 2 den, g
+  // S_c^T added 32 rows of S at a time, and scaled back.
+  const float* zc = zst + (static_cast<size_t>(kvh) * nb + c) * d;
+  if (c > 0) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (hd[e >> 1] > 0.f) as[j][e] /= hd[e >> 1];
+    }
+    state_t_all<DP>(as, wg, stg,
+                    sst + (static_cast<size_t>(kvh) * nb + c) * d * dv,
+                    scount, d, dv, kvs, vz, lane);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) as[j][e] *= hd[e >> 1];
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int a = warp * 16 + gq + hh * 8;
+    if (a >= rows) continue;
+    const size_t at = (hq + r0 + a) * d;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int cc = j * 8 + 2 * t4;
+      if (cc >= d) break;
+      const float q0 = aq[j][2 * hh] * scale, q1 = aq[j][2 * hh + 1] * scale;
+      float s0 = as[j][2 * hh], s1 = as[j][2 * hh + 1];
+      if (c > 0) {
+        s0 -= w[hh] * zc[cc];
+        if (cc + 1 < d) s1 -= w[hh] * zc[cc + 1];
+      }
+      s0 *= expf(qs[at + cc]);
+      if (cc + 1 < d) s1 *= expf(qs[at + cc + 1]);
+      if (vz) {
+        *reinterpret_cast<float2*>(dqd + at + cc) = make_float2(q0, q1);
+        *reinterpret_cast<float2*>(dqs + at + cc) = make_float2(s0, s1);
+      } else {
+        dqd[at + cc] = q0;
+        dqs[at + cc] = s0;
+        if (cc + 1 < d) {
+          dqd[at + cc + 1] = q1;
+          dqs[at + cc + 1] = s1;
+        }
+      }
+    }
+  }
+}
+
+// Three CTAs per key tile z / 3, by z % 3: the dkd role (dsm^T q), the dks
+// role (gmat^T Phi(q), V dS^T, dz) and the dv role (p^T gh + scores^T u,
+// Phi(k) dS).  Each query tile's products go into a fresh accumulator that
+// is then added to the total in fp32: the tensor cores' own accumulation
+// does not round to nearest, and its error would grow with the r x blk
+// query rows summed.  phq (NP,BH,N,D), phk (NP,BG,N,D); dsst
+// (NP,BG,nb,D,Dv) and dzst (BG,nb,D): the reverse exclusive block states.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+dkv_tc_kernel(const float* __restrict__ ks_in,
+              const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ g,
+              const float* __restrict__ den_in,
+              const float* __restrict__ stats,
+              const __nv_bfloat16* __restrict__ phq,
+              const __nv_bfloat16* __restrict__ phk,
+              const __nv_bfloat16* __restrict__ dsst,
+              const float* __restrict__ dzst, float* __restrict__ dks,
+              float* __restrict__ dkd, float* __restrict__ dvo, int n, int d,
+              int dv, int r, int blk, size_t qcount, size_t kcount,
+              size_t scount, float scale, int vec) {
+  extern __shared__ float smem[];
+  constexpr int LD = DP + 8;
+  constexpr int QT = step_rows<DP>();
+  constexpr int NQ = QT / 8;           // score tiles of 8 queries per warp
+  constexpr int NO = DP / 8;
+  constexpr int TS = TC_ROWS * LD;
+  constexpr int QS = QT * LD;
+  constexpr int SS = (2 + NP) * QS;    // one stage: q, Phi(q) planes, g
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sx = sk + TS;         // V, or the Phi(k) planes TS apart
+  __nv_bfloat16* stg = sx + NP * TS;   // 2 stages
+  float* sst_ = reinterpret_cast<float*>(stg + 2 * SS);  // 2 x 4 x QT
+
+  const int kv = blockIdx.x;
+  const int c = blockIdx.y;
+  const int nb = gridDim.y;
+  const int role = blockIdx.z % 3;     // 0 dkd, 1 dks, 2 dv
+  const int b0 = c * blk;
+  const int bend = b0 + blk;
+  const int kb0 = b0 + static_cast<int>(blockIdx.z / 3) * TC_ROWS;
+  if (kb0 >= bend) return;
+  const int kr = min(TC_ROWS, bend - kb0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
+  const int nout = role == 2 ? min(NO, kvs * 2) : min(NO, ks * 2);
+  const bool vz = vec != 0;
+  const size_t hk = static_cast<size_t>(kv) * n;
+  const size_t bhn = static_cast<size_t>(gridDim.x) * r * n;
+  const int nqt = (bend - kb0 + QT - 1) / QT;
+  const int steps = r * nqt;
+  const int key = kb0 + warp * 16 + gq;   // this thread's first key
+  const float sl2 = scale * kLog2e;
+
+  // Each role stages what it reads: q (dkd, dv), Phi(q) (dks, dv), g (all).
+  const auto stage_q = [&](int step, int sb) {
+    const int hh = step / nqt, i0 = kb0 + (step - hh * nqt) * QT;
+    const int rows = min(QT, bend - i0);
+    const size_t hq = (static_cast<size_t>(kv) * r + hh) * n + i0;
+    __nv_bfloat16* s = stg + sb * SS;
+    if (role != 1) stage_tile<DP>(s, LD, q + hq * d, d, rows, QT, vz);
+    if (role != 0) {
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        stage_tile<DP>(s + (1 + p) * QS, LD, phq + p * qcount + hq * d, d,
+                       rows, QT, vz);
+    }
+    stage_tile<DP>(s + (1 + NP) * QS, LD, g + hq * dv, dv, rows, QT, vz);
+    float* ss = sst_ + sb * 4 * QT;
+    for (int i = threadIdx.x; i < QT; i += blockDim.x) {
+      const bool ok = i < rows;
+      ss[i] = ok ? stats[hq + i] + log2f(stats[bhn + hq + i]) : 0.f;  // lse
+      ss[QT + i] = ok ? stats[2 * bhn + hq + i] : 0.f;               // delta
+      ss[2 * QT + i] = ok ? stats[3 * bhn + hq + i] : 0.f;           // w
+      ss[3 * QT + i] = ok ? 0.5f / den_in[hq + i] : 0.f;   // 1 / (2 den)
+    }
+  };
+
+  if (role != 1) stage_tile<DP>(sk, LD, k + (hk + kb0) * d, d, kr, TC_ROWS, vz);
+  if (role != 2) {
+    stage_tile<DP>(sx, LD, v + (hk + kb0) * dv, dv, kr, TC_ROWS, vz);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      stage_tile<DP>(sx + p * TS, LD, phk + p * kcount + (hk + kb0) * d, d,
+                     kr, TC_ROWS, vz);
+  }
+  stage_q(0, 0);
+  cp_async_commit();
+
+  float acc[NO][4], part[NO][4];
+  zero_acc(acc);
+  const __nv_bfloat16* wk = sk + warp * 16 * LD;
+  const __nv_bfloat16* wx = sx + warp * 16 * LD;
+
+  for (int st = 0; st < steps; ++st) {
+    const int sb = st & 1;
+    if (st + 1 < steps) stage_q(st + 1, sb ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int i0 = kb0 + (st % nqt) * QT;
+    const int rows = min(QT, bend - i0);
+    const __nv_bfloat16* tq = stg + sb * SS;
+    const __nv_bfloat16* tf = tq + QS;
+    const __nv_bfloat16* tg = tq + (1 + NP) * QS;
+    const float* ss = sst_ + sb * 4 * QT;
+    // Masks where a query lies before one of the warp's keys or past the
+    // block's end.
+    const bool edge = i0 < kb0 + warp * 16 + 16 || rows < QT;
+    float pt[NQ][4], xt[NQ][4];
+    zero_acc(pt);
+    zero_acc(xt);
+    if (role != 1)
+      mma_abt_p<NQ, DP / 16, 1, 1>(pt, wk, 0, LD, tq, 0, LD, ks,
+                                   lane);                           // k q^T
+    if (role != 2)
+      mma_abt_p<NQ, DP / 16, 1, 1>(xt, wx, 0, LD, tg, 0, LD, kvs,
+                                   lane);                           // v g^T
+    else
+      mma_abt_p<NQ, DP / 16, NP, NP>(xt, wx, TS, LD, tf, QS, LD, ks,
+                                     lane);       // Phi(k) Phi(q)^T
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cq = j * 8 + 2 * t4 + (e & 1);     // query in the tile
+        const int kj = key + (e >> 1) * 8;
+        const bool ok = !edge || (cq < rows && i0 + cq >= kj);
+        const float p = fast_exp2(fmaf(pt[j][e], sl2, -ss[cq]));
+        const float hdq = ss[3 * QT + cq];
+        if (role == 0)        // dsm = p (gh . v - delta)
+          pt[j][e] = ok ? p * (0.5f * xt[j][e] - ss[QT + cq]) : 0.f;
+        else if (role == 1)   // gmat = gh . v / den - w
+          pt[j][e] = ok ? xt[j][e] * hdq - ss[2 * QT + cq] : 0.f;
+        else                  // p / 2 + scores / (2 den)
+          pt[j][e] = ok ? 0.5f * p + xt[j][e] * hdq : 0.f;
+      }
+    }
+    zero_acc(part);
+    if (role == 0)
+      mma_pb_p<NO, NQ / 2, NP, 1>(part, pt, tq, 0, LD, nout, lane);   // q
+    else if (role == 1)
+      mma_pb_p<NO, NQ / 2, NP, NP>(part, pt, tf, QS, LD, nout, lane); // Phi(q)
+    else
+      mma_pb_p<NO, NQ / 2, NP, 1>(part, pt, tg, 0, LD, nout, lane);   // g
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    __syncthreads();                 // this stage is free for the prefetch
+  }
+  cp_async_wait<0>();
+
+  // The later blocks' reverse state: V dS_c^T (dks) or Phi(k) dS_c (dv).
+  if (c < nb - 1 && role != 0) {
+    const __nv_bfloat16* sp =
+        dsst + (static_cast<size_t>(kv) * nb + c) * d * dv;
+    zero_acc(part);
+    if (role == 1) {
+      state_t_all<DP>(part, wx, stg, sp, scount, d, dv, kvs, vz, lane);
+    } else {
+      for (int d0 = 0; d0 < d; d0 += 32) {
+        __syncthreads();
+        stage_state<DP>(stg, sp, scount, d0, d, dv, vz);
+        mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg, 32 * LD, LD,
+                                (min(32, d - d0) + 15) / 16, nout, lane);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+
+  const float* dzc = dzst + (static_cast<size_t>(kv) * nb + c) * d;
+  const int w = role == 2 ? dv : d;
+  float* out = role == 0 ? dkd : role == 1 ? dks : dvo;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j0 = warp * 16 + gq + hh * 8;
+    if (j0 >= kr) continue;
+    const size_t row = hk + kb0 + j0;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int cc = j * 8 + 2 * t4;
+      if (cc >= w) break;
+      float x0 = acc[j][2 * hh], x1 = acc[j][2 * hh + 1];
+      if (role == 0) {
+        x0 *= scale;
+        x1 *= scale;
+      } else if (role == 1) {   // dks = Phi(k) (... - dz_c)
+        if (c < nb - 1) {
+          x0 -= dzc[cc];
+          if (cc + 1 < d) x1 -= dzc[cc + 1];
+        }
+        x0 *= expf(ks_in[row * d + cc]);
+        if (cc + 1 < d) x1 *= expf(ks_in[row * d + cc + 1]);
+      }
+      if (vz) {
+        *reinterpret_cast<float2*>(out + row * w + cc) = make_float2(x0, x1);
+      } else {
+        out[row * w + cc] = x0;
+        if (cc + 1 < w) out[row * w + cc + 1] = x1;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
+              const void* v, const void* g, const void* o, const float* den,
+              float* dqs, float* dqd, float* dks, float* dkd, float* dv_,
+              float* stats, void* phq, void* phk, void* sst, float* zst,
+              void* dsst, float* dzst, int bh, int bg, int n, int d, int dv,
+              int blk, float scale, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int r = bh / bg;
+  const int nb = n / blk;
+  const size_t qcount = static_cast<size_t>(bh) * n * d;
+  const size_t kcount = static_cast<size_t>(bg) * n * d;
+  const size_t scount = static_cast<size_t>(bg) * nb * d * dv;
+  const size_t bhn = static_cast<size_t>(bh) * n;
+  const auto qp = static_cast<const bf*>(q);
+  const auto kp = static_cast<const bf*>(k);
+  const auto vp = static_cast<const bf*>(v);
+  const auto gp = static_cast<const bf*>(g);
+  const auto fq = static_cast<bf*>(phq);
+  const auto fk = static_cast<bf*>(phk);
+  const auto sp = static_cast<bf*>(sst);
+  const auto dsp = static_cast<bf*>(dsst);
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = d % 8 == 0 && dv % 8 == 0 && al(q) && al(k) && al(v) &&
+                  al(g) && al(phq) && al(phk) && al(sst) && al(dsst) &&
+                  al(dqs) && al(dqd) && al(dks) && al(dkd) && al(dv_);
+  cudaError_t err = phi_split<NP>(qs, fq, qcount, stream);
+  if (err == cudaSuccess) err = phi_split<NP>(ks, fk, kcount, stream);
+  if (err == cudaSuccess)
+    err = block_states<false, NP>(ks, vp, nullptr, nullptr, sp, zst, bg, n,
+                                  d, dv, 1, blk, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t dq_bytes = dq_smem_bytes<DP>();
+  const size_t dkv_bytes = dkv_smem_bytes<DP>();
+  err = lln::allow_smem(dq_tc_kernel<DP>, dq_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = lln::allow_smem(dkv_tc_kernel<DP>, dkv_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (blk + TC_ROWS - 1) / TC_ROWS;
+  dq_tc_kernel<DP><<<dim3(bh, nb, nt), 128, dq_bytes, stream>>>(
+      qs, qp, kp, vp, gp, static_cast<const bf*>(o), den, fk, sp, zst, dqs,
+      dqd, stats, n, d, dv, r, blk, kcount, scount, scale, vec);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = block_states<true, NP>(qs, gp, den, stats + 3 * bhn, dsp, dzst, bg,
+                                 n, d, dv, r, blk, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkv_tc_kernel<DP><<<dim3(bg, nb, 3 * nt), 128, dkv_bytes, stream>>>(
+      ks, qp, kp, vp, gp, den, stats, fq, fk, dsp, dzst, dks, dkd, dv_, n, d,
+      dv, r, blk, qcount, kcount, scount, scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype (q, k, v, g, o): 0 = float32, 1 = bfloat16; stats is (4, BH, N)
@@ -508,5 +1167,35 @@ extern "C" int lln_diag_fused_bwd_launch(
     return launch<float>(qsp, ksp, q, k, v, g, o, dnp, f(dqs), f(dqd), f(dks),
                          f(dkd), f(dv), f(stats), bh, bg, n, d, dvd, blk, rows,
                          cols, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core path (q, k, v, g, o bf16; D, Dv <= 128).  phq
+// (3,BH,N,D), phk (3,BG,N,D), sst and dsst (3,BG,N/blk,D,Dv) are bf16
+// scratch (three planes each); zst and dzst (BG,N/blk,D) and stats
+// (4,BH,N) fp32 scratch.  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int lln_diag_fused_bwd_tc_launch(
+    const void* qs, const void* ks, const void* q, const void* k,
+    const void* v, const void* g, const void* o, const void* den, void* dqs,
+    void* dqd, void* dks, void* dkd, void* dv, void* stats, void* phq,
+    void* phk, void* sst, void* zst, void* dsst, void* dzst, int bh, int bg,
+    int n, int d, int dvd, int blk, float scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  auto qsp = static_cast<const float*>(qs);
+  auto ksp = static_cast<const float*>(ks);
+  auto dnp = static_cast<const float*>(den);
+  if (blk < 1 || n % blk != 0 || bh % bg != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 64 && dvd <= 64)
+    return launch_tc<64>(qsp, ksp, q, k, v, g, o, dnp, f(dqs), f(dqd), f(dks),
+                         f(dkd), f(dv), f(stats), phq, phk, sst, f(zst), dsst,
+                         f(dzst), bh, bg, n, d, dvd, blk, scale, st);
+  if (d <= 128 && dvd <= 128)
+    return launch_tc<128>(qsp, ksp, q, k, v, g, o, dnp, f(dqs), f(dqd),
+                          f(dks), f(dkd), f(dv), f(stats), phq, phk, sst,
+                          f(zst), dsst, f(dzst), bh, bg, n, d, dvd, blk,
+                          scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

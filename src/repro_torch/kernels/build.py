@@ -35,10 +35,14 @@ SIGNATURES = {
     "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p"},
     "lln_decode": {"lln_decode_launch": "pppppppp" + "iiiiii" + "p"},
     "lln_diag_fused": {"lln_diag_fused_launch":
-                       "ppppppp" + "iiiiiiii" + "f" + "p"},
+                       "ppppppp" + "iiiiiiii" + "f" + "p",
+                       "lln_diag_fused_tc_launch":
+                       "p" * 11 + "i" * 6 + "f" + "p"},
     "lln_causal_bwd": {"lln_causal_bwd_launch": "p" * 10 + "i" * 9 + "p"},
     "lln_diag_fused_bwd": {"lln_diag_fused_bwd_launch":
-                           "p" * 14 + "i" * 9 + "f" + "p"},
+                           "p" * 14 + "i" * 9 + "f" + "p",
+                           "lln_diag_fused_bwd_tc_launch":
+                           "p" * 20 + "i" * 6 + "f" + "p"},
     "lln_bidir": {"lln_bidir_launch": "ppppppp" + "iiiiii" + "p"},
     "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p"},
     "block_diag_bwd": {"block_diag_bwd_launch":

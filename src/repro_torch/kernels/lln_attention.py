@@ -31,12 +31,31 @@ recomputing the tile's scores once per column group.
 ``src/repro/kernels/lln_attention.py:lln_diag_fused_pallas`` (causal,
 ``return_res``): the §4.2 hybrid ``0.5 * (lln + diag)`` in one pass, with
 ``blk`` both the LLN chunk of the reference and the diag block, N % blk ==
-0.  The CTA of ``lln_causal`` also computes, per 64-row tile, the block
-softmax of its rows against the block's keys up to them and writes the
-average once, rounded once.  Bound: fp32 operations (the LLN work plus
-about 2 D fp32 FLOPs per visible (query, key) pair of the diag part, 4.3
-GFLOP at B=4, H=32, N=1024, blk=256, D=128; its bf16 q k^T products, as
-many again, count at the tensor cores' rate).
+0.  Two paths, chosen here by type and width (:func:`_tc_path`):
+
+- bf16 with D and Dv at most 128 (every model path on the card): the
+  tensor-core path, chunk-parallel over the ``blk`` blocks.  Phi(q) and
+  Phi(k) are split into bf16 hi + lo, a state kernel writes each kv
+  group's exclusive block states ``(S_c, z_c)`` once per group in a fixed
+  order, and one CTA per (query head, block, 64-row tile) walks the
+  block's keys up to its diagonal once, computing on the same shared tiles
+  the diag softmax (online, ``mma.sync``) and the LLN intra-block scores,
+  then ``Phi(q) S_c``, ``den`` and the average, rounded once.  Products:
+  bf16 x bf16 one MMA; an fp32 operand goes in as two bf16 planes (hi +
+  lo), two MMAs against bf16, three against another fp32 operand.  The
+  wrapper allocates the scratch (:func:`_fused_scratch`): Phi(q), Phi(k)
+  and the states, about the bytes of qs, ks and one fp32 state per block
+  and kv group.
+- fp32, or a wider head: the CUDA-core kernel, one CTA per (query head,
+  32 value columns) walking the sequence in 64-row tiles with the LLN
+  state in shared memory, IEEE fp32 throughout.
+
+Bound on the H100 (``chip_smoke.py:_fused_counts``): the products at the
+bf16 tensor-core rate, an fp32 operand counted once per MMA it takes (2 D
+per visible pair for q k^T, 2 Dv twice for p V and scores V, 2 D three
+times for Phi(q) Phi(k)^T, and the block states), with the softmax steps
+and the exps as fp32 work; at the training shape (B=4, H=32, G=4,
+N=1024, blk=256, D=128) the operations and the bytes are about equal.
 
 ``lln_decode`` (``csrc/lln_decode.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_decode_pallas``.  One CTA per
@@ -75,6 +94,8 @@ PREFILL_TILE = 64
 COLS = 32
 MAX_DECODE_T = 64
 _VCODES = {torch.float32: 0, torch.bfloat16: 1}
+# The widest head the fused pair's tensor-core path takes (D and Dv).
+TC_MAX_WIDTH = 128
 
 
 def _check_lln_inputs(qs, ks, v, r):
@@ -251,6 +272,24 @@ def lln_diag_fused_plain(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
     return (out, den) if return_res else out
 
 
+def _tc_path(v, d: int, dv: int) -> bool:
+    """Whether the fused pair runs its tensor-core path: bf16 inputs and
+    D, Dv <= :data:`TC_MAX_WIDTH`; otherwise its CUDA-core kernels."""
+    return v.dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_WIDTH
+
+
+def _fused_scratch(bh, bg, n, d, dv, blk, device, planes: int = 2):
+    """Scratch of the fused pair's tensor-core path: Phi(q) (P,BH,N,D) and
+    Phi(k) (P,BG,N,D) as ``planes`` bf16 planes, the exclusive block states
+    S (P,BG,N/blk,D,Dv) as bf16 planes and z (BG,N/blk,D) fp32."""
+    nb = n // blk
+    bf = dict(dtype=torch.bfloat16, device=device)
+    return (torch.empty(planes, bh, n, d, **bf),
+            torch.empty(planes, bg, n, d, **bf),
+            torch.empty(planes, bg, nb, d, dv, **bf),
+            torch.empty(bg, nb, d, dtype=torch.float32, device=device))
+
+
 def lln_diag_fused(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
                    scale: float | None = None, return_res: bool = False):
     """Fused causal LLN + block-diag softmax; see the module docstring."""
@@ -267,13 +306,20 @@ def lln_diag_fused(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
     den = torch.empty(bh, n, dtype=torch.float32, device=qs.device) \
         if return_res else None
     lib = build.library("lln_diag_fused")
-    with torch.cuda.device(qs.device):
-        err = lib.lln_diag_fused_launch(
-            qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
+    ptrs = (qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
-            den.data_ptr() if den is not None else None, bh, bg, n, d, dv,
-            blk, _VCODES[v.dtype], COLS, scale,
-            torch.cuda.current_stream().cuda_stream)
+            den.data_ptr() if den is not None else None)
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv):
+            scratch = _fused_scratch(bh, bg, n, d, dv, blk, qs.device)
+            err = lib.lln_diag_fused_tc_launch(
+                *ptrs, *(t.data_ptr() for t in scratch), bh, bg, n, d, dv,
+                blk, scale, stream)
+        else:
+            err = lib.lln_diag_fused_launch(
+                *ptrs, bh, bg, n, d, dv, blk, _VCODES[v.dtype], COLS, scale,
+                stream)
     build.check(err, "lln_diag_fused")
     lln_diag_fused.launches += 1
     return (out, den) if return_res else out

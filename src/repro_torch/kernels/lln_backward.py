@@ -29,8 +29,24 @@ forward's (the training shapes B=4, H=32, G=4, N=1024, D=Dv=128).
 ``src/repro/kernels/lln_backward.py:lln_diag_fused_bwd_pallas``: the LLN
 gradient on ``g / 2`` with the LLN output rebuilt from the saved ``o`` as
 ``2 o - diag``, plus the block softmax gradient, recomputed in the kernels
-(the dq kernel saves each row's softmax max, sum and delta for the dk/dv
-kernel instead of the probabilities).  Bound: fp32 operations.
+(the dq kernel saves each row's softmax max, sum and delta, and ``w``,
+for the dk/dv kernel instead of the probabilities).  Two paths, chosen as
+the forward's (``lln_attention._tc_path``: bf16 with D, Dv <= 128 on the
+tensor cores, else the CUDA-core kernels).  The tensor-core path
+is chunk-parallel over the ``blk`` blocks: the forward's block states
+recomputed once per kv group, a dq kernel per (query head, block, 64-row
+tile) with one online softmax pass and one gradient pass, the reverse
+block states ``(dS_c, dz_c)`` summed over the later blocks and the r heads
+in a fixed order, and three CTAs per (kv group, block, 64-key tile), one
+each for dkd, dks and dv, that walk the r heads and the block's query
+tiles in a fixed order: no atomics, two runs equal bit for bit.
+Every fp32 operand goes in as three bf16 planes (2^-24 relative; two
+planes left dks and dqs outside the 1e-5 tolerance), and each query
+tile's products are added to the dk/dv totals in fp32.  The scratch is
+:func:`lln_attention._fused_scratch` with three planes, twice the states.
+Bound (``chip_smoke.py:_fused_counts``): the products at the bf16
+tensor-core rate, an fp32 operand once per MMA the two-plane split takes;
+at the training shape the bytes bound it.
 
 ``lln_bidir_bwd`` (``csrc/lln_bidir_bwd.cu``) replaces
 ``src/repro/kernels/lln_backward.py:lln_bidir_bwd_pallas``: the encoder's
@@ -50,7 +66,8 @@ import torch
 
 from . import build
 from .lln_attention import (_VCODES, _check_blocks, _check_lln_inputs,
-                            _check_raw_qk, _check_same, _diag_probs)
+                            _check_raw_qk, _check_same, _diag_probs,
+                            _fused_scratch, _tc_path)
 
 # D rows of a dq/dk CTA, Dv columns of a dv CTA.
 ROWS = 32
@@ -216,14 +233,24 @@ def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
     dvo = torch.empty(bg, n, dv, **f32)
     stats = torch.empty(4, bh, n, **f32)
     lib = build.library("lln_diag_fused_bwd")
-    with torch.cuda.device(qs.device):
-        err = lib.lln_diag_fused_bwd_launch(
-            qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
+    ptrs = (qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), g.data_ptr(), o.data_ptr(), den.data_ptr(),
             dqs.data_ptr(), dqd.data_ptr(), dks.data_ptr(), dkd.data_ptr(),
-            dvo.data_ptr(), stats.data_ptr(), bh, bg, n, d, dv, blk,
-            _VCODES[v.dtype], ROWS, COLS, scale,
-            torch.cuda.current_stream().cuda_stream)
+            dvo.data_ptr(), stats.data_ptr())
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv):
+            phq, phk, sst, zst = _fused_scratch(bh, bg, n, d, dv, blk,
+                                                qs.device, planes=3)
+            dsst, dzst = torch.empty_like(sst), torch.empty_like(zst)
+            err = lib.lln_diag_fused_bwd_tc_launch(
+                *ptrs, *(t.data_ptr() for t in (phq, phk, sst, zst, dsst,
+                                                dzst)),
+                bh, bg, n, d, dv, blk, scale, stream)
+        else:
+            err = lib.lln_diag_fused_bwd_launch(
+                *ptrs, bh, bg, n, d, dv, blk, _VCODES[v.dtype], ROWS, COLS,
+                scale, stream)
     build.check(err, "lln_diag_fused_bwd")
     lln_diag_fused_bwd.launches += 1
     return dqs, dqd, dks, dkd, dvo

@@ -29,7 +29,13 @@ fp32 y within 1e-4 of the largest entry (sums and the cumulative sum of
 log a taken in another order); ``ops.ssd_scan``'s gradients on the kernel
 route against the plain route within 1e-5 (both differentiate the core
 scan).  The fused LLN + diag kernels are held at zamba2-7b's head dim
-D = 112; one mamba2-130m SMOKE train step counts its launches.
+D = 112; one mamba2-130m SMOKE train step counts its launches.  The fused
+pair's bf16 tensor-core path (its fp32 operands as two bf16 planes
+forward, three backward) is held at r in {1, 4, 8}, (N, blk) in {(64,
+16), (256, 64), (512, 256)} and (D, Dv) in {(64, 64), (112, 112), (128,
+128), (64, 128)}, out within one bf16 step, den and the five gradients
+within 1e-5 of the largest plain entry, two backward runs bitwise equal;
+the model-level gradients' bitwise check runs bf16 inputs too.
 """
 import numpy as np
 import pytest
@@ -284,12 +290,17 @@ def test_cuda_ragged_n_runs_the_kernels(cuda, impl):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
-def test_cuda_gradients_are_bitwise_reproducible(cuda, impl):
+@pytest.mark.parametrize("impl,dtype", [
+    pytest.param("lln", torch.float32, id="lln"),
+    pytest.param("lln_diag", torch.float32, id="lln_diag"),
+    pytest.param("lln_diag", torch.bfloat16, id="lln_diag-bf16")])
+def test_cuda_gradients_are_bitwise_reproducible(cuda, impl, dtype):
     """No atomics: dk and dv are summed over the r heads in a fixed order,
-    so the same inputs give the same gradients bit for bit."""
+    so the same inputs give the same gradients bit for bit (bf16: the
+    fused pair's tensor-core path)."""
     fn = ops.lln_attention if impl == "lln" else ops.lln_diag_attention
-    args = _model_inputs(cuda, 4, n=128, r=4)
+    q, k, v, alpha, beta = _model_inputs(cuda, 4, n=128, r=4)
+    args = (q.to(dtype), k.to(dtype), v.to(dtype), alpha, beta)
     before = (ops.lln_causal_bwd.launches, ops.lln_diag_fused_bwd.launches)
     a = _grads(fn, "kernel", *args, blk=64)
     b = _grads(fn, "kernel", *args, blk=64)
@@ -621,6 +632,41 @@ def test_cuda_fused_kernels_match_plain_at_head_dim_112(cuda):
     torch.cuda.synchronize()
     for gt, wt in zip(got, want):
         _close(gt, wt, TRAIN)
+
+
+FUSED_TC_CASES = [
+    pytest.param(r, n, blk, d, dv, id=f"r{r}-n{n}-blk{blk}-d{d}-dv{dv}")
+    for r in (1, 4, 8) for n, blk in ((64, 16), (256, 64), (512, 256))
+    for d, dv in ((64, 64), (112, 112), (128, 128), (64, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,blk,d,dv", FUSED_TC_CASES)
+def test_cuda_fused_tensor_core_path_matches_plain(cuda, r, n, blk, d, dv):
+    """lln_diag_fused and lln_diag_fused_bwd on bf16 inputs (the tensor-core
+    path: blk below, at and above the 64-row tile, zamba2-7b's D = 112, D
+    != Dv, r up to yi-9b's 8) against their plain twins: out within one
+    bf16 step, den and the five fp32 gradients within 1e-5 of the largest
+    plain entry, two backward runs bitwise equal."""
+    rng = np.random.default_rng(1000 * r + n + blk + d + dv)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    qs, ks = f(2 * r, n, d) - 0.5, f(2, n, d) - 0.5
+    q, k = f(2 * r, n, d).bfloat16(), f(2, n, d).bfloat16()
+    v, g = f(2, n, dv).bfloat16(), f(2 * r, n, dv).bfloat16()
+    got = lln_diag_fused(qs, ks, q, k, v, r=r, blk=blk, return_res=True)
+    o, den = lln_diag_fused_plain(qs, ks, q, k, v, r=r, blk=blk,
+                                  return_res=True)
+    torch.cuda.synchronize()
+    _close(got[0], o, BF16)
+    _close(got[1], den, TRAIN)
+    got = lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
+    again = lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
+    want = lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
+    torch.cuda.synchronize()
+    for gt, wt, ag in zip(got, want, again):
+        _close(gt, wt, TRAIN)
+        assert torch.equal(gt, ag)
 
 
 @pytest.mark.cuda
