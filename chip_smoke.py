@@ -51,7 +51,8 @@ Phases (any failure raises and the script exits non-zero):
  13. kernels_loglin - loglin_causal against its plain version at the serve
                      shapes (B=4, H=32, G=4, D=Dv=128, granule 256, 4
                      levels, bf16 v), N = 2048 and a ragged 2040, with and
-                     without the state; the two-pass log-linear decode
+                     without the state, two runs bitwise equal; the
+                     two-pass log-linear decode
                      (kernel against plain) for T = 1 and T = 100;
  14. small_loglin  - yi-9b SMOKE in fp32 serving with log_linear (granule
                      16), prompts 112 and 120 and 24 greedy steps (decode
@@ -1282,7 +1283,7 @@ def phase_kernels_loglin(results):
     """loglin_causal against its plain version at the serve shapes, N =
     LN (8 granules: the top level fills) and a ragged LNR, with and without
     the state: out within one bf16 step, the pyramid and the open bucket
-    within 1e-5 of the largest plain entry.  Then the two-pass decode
+    within 1e-5 of the largest plain entry, two runs bitwise equal.  Then the two-pass decode
     (ops.loglin_decode_chunk) on the kernels against the plain versions
     from the ragged prefill's state: T = 1, and T = 100, which crosses the
     granule boundary and runs each pass as two chained launches."""
@@ -1312,6 +1313,12 @@ def phase_kernels_loglin(results):
             for name, gt, wt in zip(("sl", "zl", "s", "z"), got[1:],
                                     want[1:]):
                 check(name, gt, wt, fp32_tol(wt))
+            again = loglin_causal(qs, ks, vk, return_state=state, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in
+                       zip(got, again if state else (again,))):
+                raise AssertionError(f"loglin_causal N={n}: two runs differ")
+            log("  two runs bitwise equal")
     pre = ops.loglin_prefill(q, k, v, alpha, beta, chunk=BLK,
                              num_scales=LEVELS, scale_decay=DECAY,
                              backend="plain")
@@ -1507,13 +1514,39 @@ def phase_serve_loglin(launches, serve_times):
     torch.cuda.empty_cache()
 
 
+def _loglin_counts(bh, bg, n, d, dv, blk, levels):
+    """Bytes and operations of loglin_causal with the state at one shape:
+    {route: (bytes, fp32 FLOPs, bf16 tensor-core FLOPs)}.  Bytes: each
+    input read once, out and the state (pyramid and open bucket, r copies)
+    written once.  "tensor cores" (the bf16-v path) counts the products at
+    the tensor cores' rate, an fp32 operand once per MMA its plane split
+    takes: Phi(q) Phi(k)^T three times (hi + lo against hi + lo) and scores
+    V twice per causal pair of a granule, Phi(q) A_j three times for the
+    rows past the first granule, Phi(k)^T V three times per key; the exps,
+    row sums, Phi(q) . zA_j, den and the pyramid's weighted sums as fp32.
+    "CUDA cores" is the earlier count, every product as fp32 work in the
+    linear form (Phi(q) times the weighted state per query, the state
+    update per key)."""
+    f32, b16 = 4, 2
+    nbytes = (bh + bg) * n * d * f32 + bg * n * dv * b16 + bh * n * dv * b16 \
+        + bh * (levels + 1) * (d * dv + d) * f32
+    sizes = [min(blk, n - g0) for g0 in range(0, n, blk)]
+    pairs = bh * sum(m * (m + 1) // 2 for m in sizes)
+    late = bh * (n - sizes[0])
+    nf = n // blk
+    tc = pairs * (3 * 2 * d + 2 * 2 * dv) + late * 3 * 2 * d * dv \
+        + bg * n * 3 * 2 * d * dv
+    fp = (bh + bg) * n * d + pairs + late * 2 * d + bh * n * (dv + 2) \
+        + bg * n * d + bg * nf * 2 * levels * (d * dv + d)
+    cores = bh * n * (2 * d * dv + 2 * d) + bg * n * (2 * d * dv + d) \
+        + bg * nf * 2 * levels * (d * dv + d) + (bh + bg) * n * d
+    return {"tensor cores": (nbytes, fp, tc), "CUDA cores": (nbytes, cores, 0)}
+
+
 def phase_timings_loglin(errs, launches):
     """loglin_causal (with the state, as the prefill runs it) and its plain
-    version at the serve shapes, N = LN.  The bound counts each input read
-    once and each output written once (out, the pyramid and the open
-    bucket) and the fp32 operations of the linear form: Phi(q) times the
-    weighted state per query, the state update per key, the pyramid's
-    weighted sum once per granule, and the exps."""
+    version at the serve shapes, N = LN; the bound from _loglin_counts (the
+    tensor-core count, the CUDA-core count logged beside it)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.loglinear import (loglin_causal,
                                                loglin_causal_plain)
@@ -1526,11 +1559,9 @@ def phase_timings_loglin(errs, launches):
     vk = ops._to_kernel(v)
     kw = dict(r=r, blk=BLK, num_scales=LEVELS, scale_decay=DECAY,
               return_state=True)
-    nbytes = (bh + bg) * n * d * 4 + bg * n * d * 2 + bh * n * d * 2 \
-        + bh * (LEVELS + 1) * (d * d + d) * 4
-    flops = bh * n * (2 * d * d + 2 * d) + bg * n * (2 * d * d + d) \
-        + bg * (n // BLK) * 2 * LEVELS * (d * d + d) + (bh + bg) * n * d
-    bnd, by = bound_ms(nbytes, flops)
+    counts = _loglin_counts(bh, bg, n, d, d, BLK, LEVELS)
+    bnd, by = bound_ms(*counts["tensor cores"])
+    ob, oby = bound_ms(*counts["CUDA cores"])
     row = dict(
         name="loglin_causal", route="cuda",
         source="src/repro_torch/csrc/loglin_causal.cu",
@@ -1543,8 +1574,8 @@ def phase_timings_loglin(errs, launches):
         bound_ms=bnd, bound_by=by, library_ms=None)
     log(f"timing loglin_causal (N={n}, state): kernel {row['ms']:.4f} ms, "
         f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}), library none (no PyTorch call computes "
-        f"log-linear attention)")
+        f"({row['bound_by']}) [CUDA-core count: {ob:.4f} ms ({oby})], "
+        f"library none (no PyTorch call computes log-linear attention)")
     log(f"lln_decode launches on the log_linear serve path: "
         f"{launches['lln_decode (log_linear)']} (2 per layer per decode "
         f"step; the kernels line's lln_decode row counts the lln serve)")
@@ -1718,14 +1749,37 @@ def phase_hybrid_train(launches, train_times):
         launches[f"{name} (hybrid)"] += counted[name]
 
 
+def _ssd_counts(bh, bg, n, p, s, blk):
+    """Bytes and operations of ssd at one shape: {route: (bytes, fp32
+    FLOPs, bf16 tensor-core FLOPs)}.  Bytes: each input read once, y written
+    once.  "tensor cores" (the bf16 B/C path) counts the products at the
+    tensor cores' rate, an fp32 operand once per MMA its plane split takes:
+    C B^T once (bf16 against bf16) and the decayed scores against xbar
+    three times (hi + lo against hi + lo) per causal pair of a chunk, C
+    state_c twice for the rows past the first chunk, B^T (e(.) xbar) three
+    times (bf16 B against three planes) per step before the last chunk;
+    the decay mask (subtract, exp, multiply per pair), the cumulative sum,
+    the row and step exps, e(.) xbar and the state recurrence as fp32.  "CUDA cores" is the
+    earlier count, the recurrent form's fp32 work: 4 S P FLOPs per head and
+    step (C.state and the state update) plus one exp."""
+    nbytes = bh * n * 4 + 2 * bh * n * p * 4 + 2 * bg * n * s * 2
+    nc = n // blk
+    pairs = bh * nc * blk * (blk + 1) // 2
+    late = bh * (n - blk)
+    tc = pairs * (2 * s + 3 * 2 * p) + late * 2 * 2 * s * p \
+        + late * 3 * 2 * s * p
+    fp = pairs * 3 + bh * n * (3 + p) + bh * (nc - 1) * 2 * s * p
+    return {"tensor cores": (nbytes, fp, tc),
+            "CUDA cores": (nbytes, bh * n * (4 * s * p + 1), 0)}
+
+
 def phase_timings_ssd(errs, launches):
     """ssd and its plain version at the mamba2-130m shape (the kernels
-    line's row) and at the zamba2-7b shape (a line of its own).  The bound
-    counts the recurrent form's fp32 work, 4 S P FLOPs per head and step
-    (C.state and the state update) plus one exp, as phase_timings counts
-    lln_causal, against each input read once and y written once.  Also one
-    layer's ops.ssd_scan, forward (the kernel) and forward plus backward
-    (the backward differentiates the core scan), at both shapes."""
+    line's row) and at the zamba2-7b shape (a line of its own), bf16 B/C;
+    the bound from _ssd_counts (the tensor-core count, the CUDA-core count
+    logged beside it).  Also one layer's ops.ssd_scan, forward (the kernel)
+    and forward plus backward (the backward differentiates the core scan),
+    at both shapes."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd import ssd, ssd_plain
     gen = torch.Generator(device="cuda")
@@ -1735,8 +1789,9 @@ def phase_timings_ssd(errs, launches):
                            ("zamba2-7b", ZB, ZH, ZS)):
         bh, n, p = b * h, SN, SP
         args = _ssd_inputs(gen, b, h, 1, n, p, s, torch.bfloat16)
-        nbytes = bh * n * 4 + 2 * bh * n * p * 4 + 2 * b * n * s * 2
-        bnd, by = bound_ms(nbytes, bh * n * (4 * s * p + 1))
+        counts = _ssd_counts(bh, b, n, p, s, BLK)
+        bnd, by = bound_ms(*counts["tensor cores"])
+        ob, oby = bound_ms(*counts["CUDA cores"])
         out[label] = dict(
             name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
             replaces="src/repro/kernels/ssd.py:61", launches=launches["ssd"],
@@ -1747,8 +1802,9 @@ def phase_timings_ssd(errs, launches):
         row = out[label]
         log(f"timing ssd ({label} shape B={b} H={h} N={n} P={p} S={s}, bf16 "
             f"B/C): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), library "
-            f"none (no single PyTorch call computes the SSD scan)")
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+            f"[CUDA-core count: {ob:.4f} ms ({oby})], library none (no "
+            f"single PyTorch call computes the SSD scan)")
         leaves = [t.requires_grad_() for t in _model_layout(args, b, h, 1)]
         cot = torch.randn(b, n, h, p, generator=gen, device="cuda")
         fwd = cuda_ms(lambda: ops.ssd_scan(*leaves, BLK, backend="kernel"),

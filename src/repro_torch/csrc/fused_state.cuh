@@ -99,18 +99,8 @@ state_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ y,
         const int row = d0 + wm * 16 + gq + hh * 8;
         const int col = e0 + wn * 32 + j * 8 + 2 * t4;
         if (row >= d) continue;
-        uint32_t pl[NP];
-        split_planes<NP>(tot[j][2 * hh], tot[j][2 * hh + 1], pl);
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          __nv_bfloat16* ph = so + p * s_count + (slot + row) * dv + col;
-          if (col + 1 < dv && (dv & 1) == 0) {
-            *reinterpret_cast<uint32_t*>(ph) = pl[p];
-          } else {
-            if (col < dv) ph[0] = __ushort_as_bfloat16(pl[p] & 0xffffu);
-            if (col + 1 < dv) ph[1] = __ushort_as_bfloat16(pl[p] >> 16);
-          }
-        }
+        store_planes<NP>(so + (slot + row) * dv + col, s_count,
+                         tot[j][2 * hh], tot[j][2 * hh + 1], col, dv);
       }
     }
     if (with_z) {

@@ -11,42 +11,67 @@
 // closed granule (zeros when N % blk == 0), all fp32.
 //
 // Math, per blk-sized granule j: out = (intra-granule causal Phi(q)Phi(k)^T
-// v + Phi(q) sum_l w_l S_l) / (the same with z + EPS), w_l = decay^l; once
-// the granule closes, its (S, z) enters the pyramid by a binary increment
-// j -> j+1: pure adds (every bucket shares the one reference), merged
-// levels zeroed, the top level saturating.  Unoccupied levels hold zeros,
-// so the static weights need no occupancy mask.
+// v + Phi(q) A_j) / (the same with z + EPS), with A_j = sum_l w_l S_l over
+// the pyramid of the j closed granules, w_l = decay^l; once a granule
+// closes, its (S, z) enters the pyramid by a binary increment j -> j+1:
+// pure adds (every bucket shares the one reference), merged levels zeroed,
+// the top level saturating.  Unoccupied levels hold zeros, so the static
+// weights need no occupancy mask.  A_j is a weighted sum of closed granule
+// states only, fixed by (i, j) alone, so granule j's queries need nothing
+// of the walk but A_j.
 //
-// Design: the TPU kernel walked the granules on the grid's ordered minor
-// axis with the pyramid in VMEM.  GPU blocks run in no order, so one CTA
-// per (query head, COLS value columns) loops over the sequence inside the
-// CTA, granule by granule in TILE-row tiles (the last tile of a granule may
-// be short, so any blk works), and keeps in shared memory its columns of
-// every pyramid level, of the open granule S_open and of the weighted read
-// A = sum_l w_l S_l + S_open (and all of z for each).  A is rebuilt once
-// per granule, after the carry, and grows by each tile's Phi(k)^T V, so a
-// query costs one D-long product per column.  The pad keys of a ragged
-// last tile load as Phi(k) = 0 and its pad rows are not written.  The final
-// state is a plain write after the loop (the TPU revisited an (h,0,0,0)
-// output block).  All products are fp32 on the CUDA cores.
+// Two paths, chosen by the caller (kernels/loglinear.py:_tc_path) by type,
+// width and depth, each with its own entry point:
 //
-// Bound on the H100: fp32 operations at the serve shapes (see
-// kernels/loglinear.py).  The pyramid takes L*D*COLS fp32 of shared memory
-// (64 KB at L = 4, D = 128), so one CTA fits per SM; the launcher halves
-// COLS if the pyramid would not fit.
-#include "common.cuh"
+// bf16 v with D, Dv <= 128 and at most kMaxLevels levels (the yi-9b serve):
+// loglin_causal_tc_launch, on the tensor cores, chunk-parallel over the
+// granules.  Three launches:
+//   1. phi_split (csrc/fused_state.cuh): Phi(k) as bf16 hi + lo.
+//   2. pyramid_kernel: one CTA per (kv group, 32 x 64 state slice) walks
+//      the granules in order, once per group (not per query head), in
+//      64-row steps, the next step's v and ks in flight during this one's
+//      products.  Each step's Phi(k)^T V (Phi(k) in three bf16 planes,
+//      exact against bf16 v) goes into a fresh accumulator added to the
+//      granule's fp32 sum; a closed granule is carried into the thread's entries of the
+//      pyramid (shared memory, carry_in), and the weighted read A_{j+1}
+//      and zA_{j+1} (z in fp32 on the CUDA cores) are written for the next
+//      launch, A as bf16 hi + lo.  At the end it writes the pyramid and the
+//      open bucket, r copies each.
+//   3. out_kernel: one CTA of 4 warps per (query head, granule, 64-row
+//      tile), the tiles that walk the most keys first.  Phi(q) = exp(qs) is
+//      split into hi + lo as it is loaded, 8 rows of loads in flight per
+//      warp (each query tile has one reader), and
+//      Phi(q) . zA_j taken in fp32.  The granule's keys up to the tile's
+//      last row come in 16- or 32-key tiles of v and Phi(k) hi / lo, staged
+//      by cp.async (double-buffered): Phi(q) Phi(k)^T (three MMAs), masked
+//      on the diagonal tiles, its row sums for den, scores V (two MMAs).
+//      Then Phi(q) A_j (three MMAs), den and out, rounded once.
+//   Bound on the H100: about as many bytes (qs, out and the state dominate)
+//   as tensor-core operations (chip_smoke.py:_loglin_counts).
+//
+// fp32 v, or a wider head or deeper pyramid: loglin_causal_launch, the
+// CUDA-core kernel below, IEEE fp32.  One CTA per (query head, COLS value
+// columns) walks the sequence granule by granule in TILE-row tiles (the
+// last tile of a granule may be short, so any blk works) and keeps in
+// shared memory its columns of every pyramid level, of the open granule
+// S_open and of the weighted read A = sum_l w_l S_l + S_open (and all of z
+// for each).  A is rebuilt once per granule, after the carry, and grows by
+// each tile's Phi(k)^T V.  The pad keys of a ragged last tile load as
+// Phi(k) = 0 and its pad rows are not written.  Each query head rebuilds
+// its group's pyramid.  The pyramid takes L*D*COLS fp32 of shared memory;
+// the launcher halves COLS if it would not fit.
+#include "fused_state.cuh"
 
 namespace {
 
-// Enter the closed granule j (open[i]) into the pyramid P (levels rows of
-// `stride` floats), empty the open granule and rebuild agg[i] =
-// sum_l w_l P_l[i].  The carry reaches level l iff bits 0..l-1 of j are
-// all set; there it takes an empty level (bit l clear) or merges with the
-// bucket there and moves up (bit l set); the top level saturates.
-__device__ __forceinline__ void carry_in(float* P, float* open, float* agg,
-                                         const float* w, int i, int stride,
-                                         int j, int levels) {
-  float carry = open[i];
+// Enter the closed granule j (carry) into the pyramid P (levels rows of
+// `stride` floats, entry i) and return the weighted read sum_l w_l P_l[i].
+// The carry reaches level l iff bits 0..l-1 of j are all set; there it
+// takes an empty level (bit l clear) or merges with the bucket there and
+// moves up (bit l set); the top level saturates.
+__device__ __forceinline__ float carry_in(float* P, float carry,
+                                          const float* w, int i, int stride,
+                                          int j, int levels) {
   const int top = levels - 1;
   bool reach = true;
   for (int l = 0; l < top; ++l) {
@@ -63,10 +88,9 @@ __device__ __forceinline__ void carry_in(float* P, float* open, float* agg,
     reach = reach && bit;
   }
   if (reach) P[top * stride + i] += carry;
-  open[i] = 0.f;
   float acc = 0.f;
   for (int l = 0; l < levels; ++l) acc = fmaf(w[l], P[l * stride + i], acc);
-  agg[i] = acc;
+  return acc;
 }
 
 template <typename VT>
@@ -190,8 +214,14 @@ __global__ void loglin_causal_kernel(const float* __restrict__ qs,
       __syncthreads();
     }
     if (gend - g0 == blk) {         // the granule closed: carry it in
-      for (int i = tid; i < dc; i += nt) carry_in(P, So, A, w, i, dc, j, levels);
-      for (int e = tid; e < d; e += nt) carry_in(Pz, zo, zA, w, e, d, j, levels);
+      for (int i = tid; i < dc; i += nt) {
+        A[i] = carry_in(P, So[i], w, i, dc, j, levels);
+        So[i] = 0.f;
+      }
+      for (int e = tid; e < d; e += nt) {
+        zA[e] = carry_in(Pz, zo[e], w, e, d, j, levels);
+        zo[e] = 0.f;
+      }
       __syncthreads();
     }
   }
@@ -239,6 +269,424 @@ int launch(const float* qs, const float* ks, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 v on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using namespace lln;
+
+constexpr int kMaxLevels = 8;   // pyramid levels of the tensor-core path
+constexpr int TC_ROWS = 64;     // query rows per output CTA (4 warps x 16)
+constexpr int kEntries = 16;    // state entries per thread of a 32 x 64 slice
+
+// aw (2,BG,nc,D,Dv): A_j as bf16 hi, then lo at + a_count; za (BG,nc,D):
+// zA_j.  Slot j = 0 is never written (granule 0 reads no state).  The
+// pyramid lives in dynamic shared memory, levels x kEntries x 128 fp32:
+// entry k of thread t of level l at (l kEntries + k) 128 + t, so each
+// thread carries its own entries and no barrier is needed for it.
+template <int NP>
+__global__ void __launch_bounds__(128)
+pyramid_kernel(const float* __restrict__ ks,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ aw, float* __restrict__ za,
+               float* __restrict__ sl_out, float* __restrict__ zl_out,
+               float* __restrict__ s_out, float* __restrict__ z_out,
+               size_t a_count, int n, int d, int dv, int r, int blk,
+               int levels, double decay, int vec) {
+  constexpr int LA = SD + 8, LB = SE + 8;
+  constexpr int PS = kEntries * 128;    // one level's stride
+  extern __shared__ float pyr[];
+  __shared__ __align__(16) __nv_bfloat16 sa[NP][SR * LA];
+  __shared__ __align__(16) __nv_bfloat16 sb[2][SR * LB];
+  __shared__ float zred[4][SD];
+  __shared__ float zpy[kMaxLevels * SD];   // the z pyramid, SD per level
+  __shared__ float w[kMaxLevels];
+
+  const int gi = blockIdx.x;
+  const int d0 = blockIdx.y * SD, e0 = blockIdx.z * SE;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;   // rows 16 wm, columns 32 wn
+  const int dd = tid & 31, rq = tid >> 5;    // staging slot
+  const int nc = (n + blk - 1) / blk;
+  const bool vz = vec != 0;
+  const bool with_z = blockIdx.z == 0;
+  const int ew = min(SE, dv - e0);
+
+  for (int i = tid; i < levels * PS; i += 128) pyr[i] = 0.f;
+  for (int i = tid; i < levels * SD; i += 128) zpy[i] = 0.f;
+  if (tid < levels)
+    w[tid] = static_cast<float>(pow(decay, static_cast<double>(tid)));
+  __syncthreads();
+
+  // The steps (SR rows of one granule) run as one software pipeline: the
+  // next step's v (cp.async, double-buffered) and ks (registers) are in
+  // flight while the tensor cores work on this one.
+  const int spg = (blk + SR - 1) / SR;   // steps per closed granule
+  const int nsteps = (nc - 1) * spg + (n - (nc - 1) * blk + SR - 1) / SR;
+  float xv[SR / 4];
+  const auto fetch = [&](int k) {
+    const int j = k / spg, off = (k - j * spg) * SR;
+    const int valid = min(SR, min(blk, n - j * blk) - off);
+    const size_t r0 = static_cast<size_t>(gi) * n + j * blk + off;
+    stage_rows<SE>(sb[k & 1], LB, v + r0 * dv + e0, dv, ew, valid, SR, vz);
+#pragma unroll
+    for (int u = 0; u < SR / 4; ++u) {
+      const int rr = rq + 4 * u;
+      xv[u] = rr < valid && d0 + dd < d ? ks[(r0 + rr) * d + d0 + dd] : 0.f;
+    }
+  };
+
+  float tot[4][4];   // the granule's Phi(k)^T V slice
+  zero_acc(tot);
+  float zp = 0.f;    // this thread's part of z: column dd, rows rq + 4 u
+  float zg = 0.f;    // (tid < SD) the granule's z at row d0 + tid
+  fetch(0);
+  cp_async_commit();
+  for (int k = 0; k < nsteps; ++k) {
+    const int j = k / spg, off = (k - j * spg) * SR;
+    const int rows = min(blk, n - j * blk);
+    const int valid = min(SR, rows - off);
+    __syncthreads();                 // the last step's tiles are read
+#pragma unroll
+    for (int u = 0; u < SR / 4; ++u) {
+      const int rr = rq + 4 * u;
+      float f = rr < valid && d0 + dd < d ? expf(xv[u]) : 0.f;
+      zp += f;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const __nv_bfloat16 hb = __float2bfloat16(f);
+        sa[p][rr * LA + dd] = hb;
+        f -= __bfloat162float(hb);
+      }
+    }
+    if (k + 1 < nsteps) fetch(k + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* sbk = sb[k & 1];
+    float part[4][4];
+    zero_acc(part);
+#pragma unroll
+    for (int kk = 0; kk < SR / 16; ++kk) {
+      uint32_t af[NP][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        frag_a_trans(af[p], sa[p] + kk * 16 * LA + wm * 16, LA, lane);
+#pragma unroll
+      for (int jj = 0; jj < 4; jj += 2) {
+        uint32_t b[4];
+        frag_b_trans(b, sbk + kk * 16 * LB + wn * 32 + jj * 8, LB, lane);
+        const uint32_t b0[1][2] = {{b[0], b[1]}}, b1[1][2] = {{b[2], b[3]}};
+        mma_planes<NP, 1>(part[jj], af, b0);
+        mma_planes<NP, 1>(part[jj + 1], af, b1);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[jj][e] += part[jj][e];
+    if (off + SR < rows) continue;   // not the granule's last step
+    zred[rq][dd] = zp;
+    __syncthreads();
+    if (tid < SD)
+      zg = ((zred[0][tid] + zred[1][tid]) + zred[2][tid]) + zred[3][tid];
+    if (rows < blk) break;           // the open bucket: the last granule
+    // Closed: carry it in; emit the read of granule j + 1.
+    const bool emit = j + 1 < nc;
+    const size_t slot = (static_cast<size_t>(gi) * nc + j + 1) * d;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int kq = jj * 4 + 2 * hh;
+        const float a0 = carry_in(pyr, tot[jj][2 * hh], w, kq * 128 + tid, PS,
+                                  j, levels);
+        const float a1 = carry_in(pyr, tot[jj][2 * hh + 1], w,
+                                  (kq + 1) * 128 + tid, PS, j, levels);
+        const int row = d0 + wm * 16 + gq + hh * 8;
+        const int col = e0 + wn * 32 + jj * 8 + 2 * t4;
+        if (emit && row < d)
+          store_planes<2>(aw + (slot + row) * dv + col, a_count, a0, a1, col,
+                          dv);
+      }
+    }
+    if (tid < SD) {
+      const float za_j = carry_in(zpy, zg, w, tid, SD, j, levels);
+      if (with_z && emit && d0 + tid < d) za[slot + d0 + tid] = za_j;
+    }
+    zero_acc(tot);
+    zp = 0.f;
+  }
+  cp_async_wait<0>();
+
+  if (sl_out == nullptr) return;
+  const bool open = n % blk != 0;      // tot and zg hold the open bucket
+  for (int hh2 = 0; hh2 < r; ++hh2) {
+    const size_t h = static_cast<size_t>(gi) * r + hh2;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = d0 + wm * 16 + gq + hh * 8;
+        const int col = e0 + wn * 32 + jj * 8 + 2 * t4;
+        if (row >= d || col >= dv) continue;
+        const int k = jj * 4 + 2 * hh;
+        for (int l = 0; l < levels; ++l)
+          store_pair(sl_out + ((h * levels + l) * d + row) * dv + col,
+                     pyr[(l * kEntries + k) * 128 + tid],
+                     pyr[(l * kEntries + k + 1) * 128 + tid], col, dv);
+        store_pair(s_out + (h * d + row) * dv + col,
+                   open ? tot[jj][2 * hh] : 0.f,
+                   open ? tot[jj][2 * hh + 1] : 0.f, col, dv);
+      }
+    }
+    if (with_z && tid < SD && d0 + tid < d) {
+      for (int l = 0; l < levels; ++l)
+        zl_out[(h * levels + l) * d + d0 + tid] = zpy[l * SD + tid];
+      z_out[h * d + d0 + tid] = open ? zg : 0.f;
+    }
+  }
+}
+
+// Key rows per staged tile: 16 at DP = 128 leaves room for three CTAs per
+// SM; the stage area also holds 64 rows of A_j hi and lo.
+template <int DP>
+__host__ __device__ constexpr int key_tile() { return DP > 64 ? 16 : 32; }
+
+template <int DP>
+__host__ __device__ constexpr int stage_rows_of() {
+  return 6 * key_tile<DP>() > 2 * TC_ROWS ? 6 * key_tile<DP>() : 2 * TC_ROWS;
+}
+
+template <int DP>
+constexpr size_t out_smem_bytes() {
+  return (2 * TC_ROWS + stage_rows_of<DP>()) * (DP + 8) *
+             sizeof(__nv_bfloat16) +
+         TC_ROWS * sizeof(float);
+}
+
+// phk (2,BG,N,D): Phi(k) hi, then lo at + kcount; aw and za as
+// pyramid_kernel writes them.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+out_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ v,
+           const __nv_bfloat16* __restrict__ phk,
+           const __nv_bfloat16* __restrict__ aw, const float* __restrict__ za,
+           __nv_bfloat16* __restrict__ out, int n, int d, int dv, int r,
+           int blk, size_t kcount, size_t a_count, int vec) {
+  extern __shared__ float smem[];
+  constexpr int LD = DP + 8;
+  constexpr int KT = key_tile<DP>();
+  constexpr int NS = KT / 8;           // score tiles of 8 keys per warp
+  constexpr int NO = DP / 8;           // output tiles of 8 columns per warp
+  constexpr int TS = TC_ROWS * LD;
+  constexpr int KS = KT * LD;
+  __nv_bfloat16* sfh = reinterpret_cast<__nv_bfloat16*>(smem);  // Phi(q) hi
+  __nv_bfloat16* sfl = sfh + TS;       // Phi(q) lo (planes TS apart)
+  __nv_bfloat16* stg = sfl + TS;       // 2 stages of v, Phi(k) hi, lo
+  float* pz = reinterpret_cast<float*>(stg + stage_rows_of<DP>() * LD);
+
+  const int h = blockIdx.x;
+  const int kvh = h / r;
+  const int j = blockIdx.y;
+  const int nc = gridDim.y;
+  const int g0 = j * blk;
+  const int gend = min(g0 + blk, n);
+  const int r0 = g0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  if (r0 >= gend) return;              // blk < 64 or a short last granule
+  const int rows = min(TC_ROWS, gend - r0);
+  const int nk = r0 + rows - g0;       // the granule's keys up to the last row
+  const int ntiles = (nk + KT - 1) / KT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int ks = (d + 15) / 16;
+  const int no = min(NO, ((dv + 15) / 16) * 2);
+  const bool vz = vec != 0;
+  const size_t hq = static_cast<size_t>(h) * n;
+  const size_t hk = static_cast<size_t>(kvh) * n + g0;
+  const __nv_bfloat16* vh = v + hk * dv;
+  const __nv_bfloat16* fkh = phk + hk * d;
+
+  const auto stage_keys = [&](int t, int sb) {
+    const int k0 = t * KT, kr = min(KT, nk - k0);
+    __nv_bfloat16* s = stg + sb * 3 * KS;
+    const size_t o = static_cast<size_t>(k0) * d;
+    stage_tile<DP>(s, LD, vh + static_cast<size_t>(k0) * dv, dv, kr, KT, vz);
+    stage_tile<DP>(s + KS, LD, fkh + o, d, kr, KT, vz);
+    stage_tile<DP>(s + 2 * KS, LD, fkh + kcount + o, d, kr, KT, vz);
+  };
+  stage_keys(0, 0);
+  cp_async_commit();
+
+  // Phi(q) = exp(qs) as hi + lo, split as it is loaded, and Phi(q) . zA_j
+  // in fp32 with the exact Phi(q): a warp per row, 8 rows of loads in
+  // flight at a time.
+  {
+    constexpr int RB = 8, NU = DP / 32;
+    const float* zj = za + (static_cast<size_t>(kvh) * nc + j) * d;
+    float zv[NU];
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      zv[u] = j > 0 && lane + 32 * u < d ? zj[lane + 32 * u] : 0.f;
+    for (int i0 = 0; i0 < 16; i0 += RB) {
+      float x[RB][NU];
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const int a = warp * 16 + i0 + i;
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          const int e = lane + 32 * u;
+          x[i][u] = a < rows && e < d ? qs[(hq + r0 + a) * d + e] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        const int a = warp * 16 + i0 + i;
+        float sum = 0.f;
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          const int e = lane + 32 * u;
+          const float f = a < rows && e < d ? expf(x[i][u]) : 0.f;
+          sum = fmaf(f, zv[u], sum);
+          const __nv_bfloat16 hb = __float2bfloat16(f);
+          sfh[a * LD + e] = hb;
+          sfl[a * LD + e] = __float2bfloat16(f - __bfloat162float(hb));
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) pz[a] = sum;
+      }
+    }
+  }
+
+  float ol[NO][4];
+  zero_acc(ol);
+  float rs[2] = {0.f, 0.f};          // this thread's part of the row sums
+  const int qw = r0 - g0 + warp * 16;        // the warp's first query
+  const int qrow = qw + gq;
+  const __nv_bfloat16* afh = sfh + warp * 16 * LD;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int sb = t & 1;
+    if (t + 1 < ntiles) stage_keys(t + 1, sb ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* s_v = stg + sb * 3 * KS;
+    float a[NS][4];
+    zero_acc(a);
+    mma_abt_p<NS, DP / 16, 2, 2>(a, afh, TS, LD, s_v + KS, KS, LD, ks, lane);
+    // Mask above the diagonal (only tiles reaching past the warp's first
+    // query need it; keys past the last row lie above every row's).
+    const int kb = t * KT;
+    const bool edge = kb + KT > qw + 1;
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kb + jj * 8 + 2 * t4 + (e & 1);
+        const int row = qrow + (e >> 1) * 8;
+        if (edge && col > row) a[jj][e] = 0.f;
+        rs[e >> 1] += a[jj][e];
+      }
+    }
+    mma_pb_p<NO, NS / 2, 2, 1>(ol, a, s_v, 0, LD, no, lane);
+    __syncthreads();                 // this stage is free for the prefetch
+  }
+  cp_async_wait<0>();
+
+  // Phi(q) A_j, 64 rows of A (hi, then lo) at a time through the stages.
+  if (j > 0) {
+    const __nv_bfloat16* ah =
+        aw + (static_cast<size_t>(kvh) * nc + j) * d * dv;
+    for (int d0 = 0; d0 < d; d0 += 64) {
+      const int dr = min(64, d - d0);
+      __syncthreads();
+      stage_tile<DP>(stg, LD, ah + static_cast<size_t>(d0) * dv, dv, dr, 64,
+                     vz);
+      stage_tile<DP>(stg + 64 * LD, LD,
+                     ah + a_count + static_cast<size_t>(d0) * dv, dv, dr, 64,
+                     vz);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_ab_p<NO, 4, 2, 2>(ol, afh + d0, TS, LD, stg, 64 * LD, LD,
+                            (dr + 15) / 16, no, lane);
+    }
+  }
+  __syncthreads();                   // pz
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+    rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int a = warp * 16 + gq + hh * 8;
+    if (a >= rows) continue;
+    const float dn = rs[hh] + pz[a] + kEps;
+    __nv_bfloat16* orow = out + (hq + r0 + a) * dv;
+#pragma unroll
+    for (int jj = 0; jj < NO; ++jj) {
+      const int cc = jj * 8 + 2 * t4;
+      const uint32_t x = pack_bf16(ol[jj][2 * hh] / dn, ol[jj][2 * hh + 1] / dn);
+      if (vz && cc + 1 < dv) {
+        *reinterpret_cast<uint32_t*>(orow + cc) = x;
+      } else {
+        if (cc < dv) orow[cc] = __ushort_as_bfloat16(x & 0xffffu);
+        if (cc + 1 < dv) orow[cc + 1] = __ushort_as_bfloat16(x >> 16);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_tc(const float* qs, const float* ks, const void* v, void* out,
+              float* sl, float* zl, float* s, float* z, void* phk, void* aw,
+              float* za, int bh, int bg, int n, int d, int dv, int blk,
+              int levels, double decay, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const size_t kcount = static_cast<size_t>(bg) * n * d;
+  const int nc = (n + blk - 1) / blk;
+  const size_t a_count = static_cast<size_t>(bg) * nc * d * dv;
+  const auto fk = static_cast<bf*>(phk);
+  const auto ap = static_cast<bf*>(aw);
+  const auto vb = static_cast<const bf*>(v);
+  cudaError_t err = phi_split<2>(ks, fk, kcount, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = d % 8 == 0 && dv % 8 == 0 && al(v) && al(out) && al(phk) &&
+                  al(aw);
+  const size_t pbytes =
+      static_cast<size_t>(levels) * kEntries * 128 * sizeof(float);
+  // Its static tiles (35 KB) leave less than 48 KB for the pyramid unless
+  // the kernel asks, so it always asks.
+  err = cudaFuncSetAttribute(pyramid_kernel<3>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(pbytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 pgrid(bg, (d + SD - 1) / SD, (dv + SE - 1) / SE);
+  pyramid_kernel<3><<<pgrid, 128, pbytes, stream>>>(
+      ks, vb, ap, za, sl, zl, s, z, a_count, n, d, dv, bh / bg, blk, levels,
+      decay, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = out_smem_bytes<DP>();
+  err = lln::allow_smem(out_kernel<DP>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, nc, (blk + TC_ROWS - 1) / TC_ROWS);
+  out_kernel<DP><<<grid, 128, bytes, stream>>>(
+      qs, vb, fk, ap, za, static_cast<bf*>(out), n, d, dv, bh / bg, blk,
+      kcount, a_count, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // v_dtype: 0 = float32, 1 = bfloat16; sl, zl, s and z are all set or all
@@ -264,5 +712,36 @@ extern "C" int loglin_causal_launch(const void* qs, const void* ks,
   if (v_dtype == 0)
     return launch<float>(q, k, v, out, a, b, c, e, bh, bg, n, d, dv, blk,
                          levels, tile, cols, decay, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core path (v and out bf16; D, Dv <= 128; 1 <= levels <=
+// kMaxLevels).  phk (2,BG,N,D) and aw (2,BG,nc,D,Dv) are bf16 scratch, za
+// (BG,nc,D) fp32 scratch, nc = ceil(N / blk); sl, zl, s and z are all set
+// or all null.  Returns cudaGetLastError() (cudaErrorInvalidValue for a
+// shape it does not take).
+extern "C" int loglin_causal_tc_launch(const void* qs, const void* ks,
+                                       const void* v, void* out, void* sl,
+                                       void* zl, void* s, void* z, void* phk,
+                                       void* aw, void* za, int bh, int bg,
+                                       int n, int d, int dv, int blk,
+                                       int levels, double decay,
+                                       void* stream) {
+  if (blk < 1 || levels < 1 || levels > kMaxLevels || bg < 1 || bh % bg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto q = static_cast<const float*>(qs);
+  auto k = static_cast<const float*>(ks);
+  auto a = static_cast<float*>(sl);
+  auto b = static_cast<float*>(zl);
+  auto c = static_cast<float*>(s);
+  auto e = static_cast<float*>(z);
+  auto zp = static_cast<float*>(za);
+  if (d <= 64 && dv <= 64)
+    return launch_tc<64>(q, k, v, out, a, b, c, e, phk, aw, zp, bh, bg, n, d,
+                         dv, blk, levels, decay, st);
+  if (d <= 128 && dv <= 128)
+    return launch_tc<128>(q, k, v, out, a, b, c, e, phk, aw, zp, bh, bg, n,
+                          d, dv, blk, levels, decay, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

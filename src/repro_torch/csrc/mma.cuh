@@ -180,6 +180,39 @@ __device__ __forceinline__ void split_planes(float x0, float x1,
   }
 }
 
+// Two neighbouring outputs, columns col and col + 1 of a row of width w at
+// p (the row's element col): one 8- or 4-byte store where both exist and
+// the pair is aligned (w even), else element by element.
+__device__ __forceinline__ void store_pair(float* p, float x0, float x1,
+                                           int col, int w) {
+  if (col + 1 < w && (w & 1) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+  } else {
+    if (col < w) p[0] = x0;
+    if (col + 1 < w) p[1] = x1;
+  }
+}
+
+// (x0, x1) split into NP bf16 planes (split_planes), stored as pairs at p
+// + i * plane for plane i.
+template <int NP>
+__device__ __forceinline__ void store_planes(__nv_bfloat16* p, size_t plane,
+                                             float x0, float x1, int col,
+                                             int w) {
+  uint32_t pl[NP];
+  split_planes<NP>(x0, x1, pl);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    __nv_bfloat16* ph = p + i * plane;
+    if (col + 1 < w && (w & 1) == 0) {
+      *reinterpret_cast<uint32_t*>(ph) = pl[i];
+    } else {
+      if (col < w) ph[0] = __ushort_as_bfloat16(pl[i] & 0xffffu);
+      if (col + 1 < w) ph[1] = __ushort_as_bfloat16(pl[i] >> 16);
+    }
+  }
+}
+
 // The NP-plane A fragments of the fp32 16 x 16 tile held as two
 // neighbouring C tiles (columns 0..7 in c0, 8..15 in c1).
 template <int NP>

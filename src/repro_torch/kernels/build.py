@@ -47,8 +47,11 @@ SIGNATURES = {
     "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p"},
     "block_diag_bwd": {"block_diag_bwd_launch":
                        "p" * 8 + "i" * 8 + "f" + "p"},
-    "loglin_causal": {"loglin_causal_launch": "p" * 8 + "i" * 10 + "d" + "p"},
-    "ssd": {"ssd_launch": "p" * 5 + "i" * 7 + "p"},
+    "loglin_causal": {"loglin_causal_launch": "p" * 8 + "i" * 10 + "d" + "p",
+                      "loglin_causal_tc_launch":
+                      "p" * 11 + "i" * 7 + "d" + "p"},
+    "ssd": {"ssd_launch": "p" * 5 + "i" * 7 + "p",
+            "ssd_tc_launch": "p" * 8 + "i" * 6 + "p"},
 }
 
 _lock = threading.Lock()

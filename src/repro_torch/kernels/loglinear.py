@@ -18,18 +18,33 @@ the state (zeros for N % blk == 0); that is what
 ``core/loglinear.py:prefill`` returns for a ragged prompt.
 
 On the TPU the grid's ordered minor axis walked the granules with the
-pyramid in VMEM; here one CTA per (query head, 32 value columns) walks the
-sequence in 64-row tiles and keeps its columns of every level, of the open
-granule and of the weighted read ``sum_l w_l S_l + S_open`` in shared
-memory (L*D*32 + 2*D*32 fp32: 96 KB at L = 4, D = 128).  The weighted read
-is rebuilt once per granule and grows by each tile's Phi(k)^T v, so a query
-costs one D-long product per column, as in ``lln_causal``.  Bound on the
-H100 at the serve shapes (B=4, H=32, G=4, N=2048, D=Dv=128): fp32
-operations, about 9.8 GFLOP against 270 MB.  Each query head recomputes
-its group's pyramid (r times the state update), as the TPU kernel did.
+pyramid in VMEM.  Here the walk splits in two, since granule j's queries
+read a weighted sum of closed granule states only, ``A_j = sum_{i<j}
+w(i, j) G_i`` with ``G_i = Phi(k_i)^T v_i`` and ``w(i, j) =
+scale_decay**level(i, j)`` fixed by (i, j) alone.  Two paths
+(:func:`_tc_path`):
 
-Each wrapper runs its plain version for a CPU tensor and launches its CUDA
-kernel for a CUDA tensor; ``loglin_causal.launches`` counts the launches.
+- bf16 ``v`` with D, Dv <= 128 and at most :data:`TC_MAX_LEVELS` levels
+  (the yi-9b serve): the tensor-core path, three launches.  Phi(k) is split
+  into bf16 hi + lo once; one CTA per (kv group, 32 x 64 state slice) walks
+  the granules in order, once per group, keeps its slice of the pyramid
+  (Phi(k)^T v with Phi(k) in three bf16 planes, each 64-row step added in
+  fp32) and writes ``A_j`` and ``zA_j`` for every granule, then the final
+  state r times; one CTA per (query head, granule, 64-row tile), 4096 at
+  the serve shape, adds the masked intra-granule term on the tensor cores
+  to ``Phi(q) A_j`` and divides by ``den``.  Scratch (:func:`_tc_scratch`):
+  Phi(k) and ``A_j`` as bf16 planes, ``zA_j`` fp32.  Bound on the H100 at
+  the serve shape (B=4, H=32, G=4, N=2048, D=Dv=128, state): about 269 MB
+  against about 69 GFLOP of tensor-core products, bytes by a little.
+- fp32 ``v``, a wider head or a deeper pyramid: the CUDA-core kernel, one
+  CTA per (query head, 32 value columns) that walks the sequence in 64-row
+  tiles with its columns of every level, of the open granule and of the
+  weighted read in shared memory; each query head rebuilds its group's
+  pyramid.  Bound: fp32 operations.
+
+The wrapper runs its plain version for a CPU tensor and launches its CUDA
+kernels for a CUDA tensor; ``loglin_causal.launches`` counts its launching
+calls (one call runs one path's kernels).
 """
 from __future__ import annotations
 
@@ -38,14 +53,36 @@ import torch.nn.functional as F
 
 from repro_torch.core.loglinear import _cascade_same_ref
 from . import build
-from .lln_attention import (_VCODES, COLS, EPS, PREFILL_TILE,
+from .lln_attention import (_VCODES, COLS, EPS, PREFILL_TILE, TC_MAX_WIDTH,
                             _check_lln_inputs)
+
+# The deepest pyramid the tensor-core path takes (csrc kMaxLevels).
+TC_MAX_LEVELS = 8
 
 
 def _check_scales(blk: int, num_scales: int, scale_decay: float):
     if blk < 1 or num_scales < 1 or not scale_decay > 0:
         raise ValueError(f"need blk >= 1, num_scales >= 1 and scale_decay > "
                          f"0, got {blk}, {num_scales}, {scale_decay}")
+
+
+def _tc_path(v, d: int, dv: int, num_scales: int) -> bool:
+    """Whether ``loglin_causal`` runs its tensor-core path: bf16 ``v``, D
+    and Dv <= :data:`TC_MAX_WIDTH`, at most :data:`TC_MAX_LEVELS` levels;
+    otherwise its CUDA-core kernel."""
+    return (v.dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_WIDTH
+            and num_scales <= TC_MAX_LEVELS)
+
+
+def _tc_scratch(bg, n, d, dv, blk, device):
+    """Scratch of the tensor-core path: Phi(k) (2,BG,N,D) and the granule
+    reads A_j (2,BG,nc,D,Dv) as bf16 hi + lo, zA_j (BG,nc,D) fp32, with
+    nc = ceil(N / blk) granules."""
+    nc = -(-n // blk)
+    bf = dict(dtype=torch.bfloat16, device=device)
+    return (torch.empty(2, bg, n, d, **bf),
+            torch.empty(2, bg, nc, d, dv, **bf),
+            torch.empty(bg, nc, d, dtype=torch.float32, device=device))
 
 
 def loglin_causal_plain(qs, ks, v, *, r: int = 1, blk: int = 256,
@@ -121,10 +158,18 @@ def loglin_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
     ptrs = [t.data_ptr() for t in state] or [None] * 4
     lib = build.library("loglin_causal")
     with torch.cuda.device(qs.device):
-        err = lib.loglin_causal_launch(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(), *ptrs,
-            bh, bg, n, d, dv, _VCODES[v.dtype], blk, ls, PREFILL_TILE, COLS,
-            float(scale_decay), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv, ls):
+            scratch = _tc_scratch(bg, n, d, dv, blk, qs.device)
+            err = lib.loglin_causal_tc_launch(
+                qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *ptrs, *(t.data_ptr() for t in scratch), bh, bg, n, d, dv,
+                blk, ls, float(scale_decay), stream)
+        else:
+            err = lib.loglin_causal_launch(
+                qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *ptrs, bh, bg, n, d, dv, _VCODES[v.dtype], blk, ls,
+                PREFILL_TILE, COLS, float(scale_decay), stream)
     build.check(err, "loglin_causal")
     loglin_causal.launches += 1
     return (out,) + state if return_state else out

@@ -17,19 +17,30 @@ with ``e(x) = exp(clip(x, -60, 0))`` and an fp32 (S, P) state carried from
 chunk to chunk.  Returns y (BH, N, P) in xbar's dtype.
 
 On the TPU the grid's ordered minor axis walked the chunks with the state
-in VMEM.  Here one CTA per (head, 64 columns of P) loops over the chunks
-and owns its columns of the state in shared memory.  A chunk is cut into
-64-row tiles: per query tile the inter-chunk term, then the intra-chunk
-term against each key tile up to it; after the last query tile the state
-update.  Each of the 256 threads holds a 4 x 4 block of every product in
-registers.  A CTA recomputes its group's C B^T for each of the r heads
-that share it, as the TPU kernel did: r = 24 (mamba2-130m) and 112
-(zamba2-7b).  Bound on the H100: fp32 operations (about 4 S P FLOPs per
-head and step of the recurrent form, against the 8 P bytes of xbar in and
-y out).
+in VMEM.  Here two paths (:func:`_tc_path`):
 
-``ssd.launches`` counts the kernel's launches.  The wrapper runs the plain
-version for a CPU tensor and launches the kernel for a CUDA tensor.
+- bf16 B/C with P at most 128 (mamba2-130m and zamba2-7b training):
+  Mamba2's own chunked algorithm on the tensor cores, four launches.
+  ``lcum`` of every (head, chunk) once, in one fixed order; each chunk's
+  own state sum ``G_c = B^T (e(l_last - lcum) xbar)`` by one CTA per (head,
+  chunk, 32 x 64 state slice), all in parallel (B exact, the decayed xbar
+  as three bf16 planes, every 64-row step added in fp32); the states
+  ``state_c`` by one fp32 pass over the chunks in order; the outputs by
+  one CTA per (head, chunk, 64-row tile), 6144 at mamba2's shape:
+  ``e(lcum_i) C_i state_c`` plus the masked decayed ``C B^T`` against
+  xbar, each head recomputing its group's ``C B^T`` on the tensor cores.
+  Scratch (:func:`_tc_scratch`): ``lcum`` and ``G_c`` fp32, ``state_c`` as
+  bf16 hi + lo.  Bound on the H100 at mamba2's shape (B=8, H=24, N=2048,
+  P=64, S=128): the 211 MB of xbar, y and B/C against about 61 GFLOP of
+  tensor-core products, bytes by a little.
+- fp32 B/C, or P above 128: one CTA per (head, 64 columns of P) loops
+  over the chunks and owns its columns of the state in shared memory, 4 x
+  4 register blocks of fp32 FMAs per thread; a CTA recomputes its group's
+  C B^T for each of the r heads.  Bound: fp32 operations.
+
+``ssd.launches`` counts the wrapper's launching calls (one call runs one
+path's kernels).  The wrapper runs the plain version for a CPU tensor and
+launches the kernels for a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -37,8 +48,10 @@ import torch
 
 from . import build
 
-# The most state rows the CUDA kernel holds (8 per row of 16 threads).
+# The most state rows the CUDA kernels hold (8 per row of 16 threads), and
+# the widest P the tensor-core path takes.
 MAX_STATE = 128
+TC_MAX_P = 128
 _BCODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,6 +70,24 @@ def _check_shapes(log_a, xbar, b_in, c_in, r: int, blk: int):
     if blk < 1 or n % blk:
         raise ValueError(f"the sequence length ({n}) must be a multiple of "
                          f"the chunk ({blk})")
+
+
+def _tc_path(b_in, p: int) -> bool:
+    """Whether ``ssd`` runs its tensor-core path: bf16 B/C and P <=
+    :data:`TC_MAX_P` (S <= :data:`MAX_STATE` holds for both paths)."""
+    return b_in.dtype == torch.bfloat16 and p <= TC_MAX_P
+
+
+def _tc_scratch(bh, n, p, s, blk, device):
+    """Scratch of the tensor-core path: ``lcum`` (BH, N) fp32, each chunk's
+    own state sum ``G_c`` (BH, N/blk - 1, S, P) fp32, and the chunk states
+    ``state_c`` (2, BH, N/blk, S, P) as bf16 hi + lo."""
+    nc = n // blk
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(bh, n, **f32),
+            torch.empty(bh, max(nc - 1, 1), s, p, **f32),
+            torch.empty(2, bh, nc, s, p, dtype=torch.bfloat16,
+                        device=device))
 
 
 def ssd_plain(log_a, xbar, b_in, c_in, *, r: int = 1, blk: int = 256):
@@ -116,11 +147,17 @@ def ssd(log_a, xbar, b_in, c_in, *, r: int = 1, blk: int = 256):
                          f"rows, got {s}")
     out = torch.empty_like(xbar)
     lib = build.library("ssd")
+    ptrs = (log_a.data_ptr(), xbar.data_ptr(), b_in.data_ptr(),
+            c_in.data_ptr(), out.data_ptr())
     with torch.cuda.device(xbar.device):
-        err = lib.ssd_launch(
-            log_a.data_ptr(), xbar.data_ptr(), b_in.data_ptr(),
-            c_in.data_ptr(), out.data_ptr(), bh, bg, n, p, s, blk,
-            _BCODES[b_in.dtype], torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(b_in, p):
+            scratch = _tc_scratch(bh, n, p, s, blk, xbar.device)
+            err = lib.ssd_tc_launch(*ptrs, *(t.data_ptr() for t in scratch),
+                                    bh, bg, n, p, s, blk, stream)
+        else:
+            err = lib.ssd_launch(*ptrs, bh, bg, n, p, s, blk,
+                                 _BCODES[b_in.dtype], stream)
     build.check(err, "ssd")
     ssd.launches += 1
     return out

@@ -35,7 +35,14 @@ forward, three backward) is held at r in {1, 4, 8}, (N, blk) in {(64,
 16), (256, 64), (512, 256)} and (D, Dv) in {(64, 64), (112, 112), (128,
 128), (64, 128)}, out within one bf16 step, den and the five gradients
 within 1e-5 of the largest plain entry, two backward runs bitwise equal;
-the model-level gradients' bitwise check runs bf16 inputs too.
+the model-level gradients' bitwise check runs bf16 inputs too.  The
+tensor-core paths of ``loglin_causal`` (bf16 v: Phi(k) in three bf16 planes
+for the state, two for the outputs) and ``ssd`` (bf16 B/C: three planes in
+the state, two for the scores and xbar) are held at r in {1, 4, 8}, N in
+{2048, 2040, 300}, blk in {16, 64, 256}, levels 1-5 and D != Dv, out within
+one bf16 step and the state within 1e-5 of the largest plain entry; and at
+r in {1, 24, 112}, S in {16, 64, 128}, P in {32, 64}, blk in {64, 256}, y
+within 1e-4; two runs of each bitwise equal.
 """
 import numpy as np
 import pytest
@@ -454,6 +461,43 @@ def test_cuda_loglin_causal_is_bitwise_reproducible(cuda):
         assert torch.equal(x, y)
 
 
+LOGLIN_TC_DIMS = ((128, 128), (64, 96), (96, 64))
+LOGLIN_TC_CASES = [
+    pytest.param(r, n, blk, 1 + i % 5, *LOGLIN_TC_DIMS[i % 3], st,
+                 id=f"r{r}-n{n}-blk{blk}-L{1 + i % 5}-d{LOGLIN_TC_DIMS[i % 3][0]}"
+                    f"-dv{LOGLIN_TC_DIMS[i % 3][1]}-{'state' if st else 'out'}")
+    for i, (r, n, blk, st) in enumerate(
+        (r, n, blk, st) for r in (1, 4, 8) for n in (2048, 2040, 300)
+        for blk in (16, 64, 256) for st in (True, False))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,blk,levels,d,dv,return_state", LOGLIN_TC_CASES)
+def test_cuda_loglin_tensor_core_path_matches_plain(cuda, r, n, blk, levels,
+                                                    d, dv, return_state):
+    """loglin_causal on bf16 v (the tensor-core path) against its plain
+    twin: out within one bf16 step, the pyramid and the open bucket within
+    1e-5 of the largest plain entry, two runs bitwise equal.  N = 2040 and
+    300 leave an open bucket at every blk; blk 16 with N = 2048 closes 128
+    granules, so every level fills and the top one saturates."""
+    qs, ks, v = _kernel_inputs(r * n + blk + levels, 2 * r, 2, n, d, dv)
+    qs, ks = _on(cuda, qs, ks)
+    (vb,) = _on(cuda, v, dtype=torch.bfloat16)
+    kw = dict(r=r, blk=blk, num_scales=levels, scale_decay=0.5,
+              return_state=return_state)
+    got = loglin_causal(qs, ks, vb, **kw)
+    again = loglin_causal(qs, ks, vb, **kw)
+    want = loglin_causal_plain(qs, ks, vb, **kw)
+    torch.cuda.synchronize()
+    if not return_state:
+        got, again, want = (got,), (again,), (want,)
+    _close(got[0], want[0], BF16)
+    for gt, wt in zip(got[1:], want[1:]):
+        _close(gt, wt, TRAIN)
+    for gt, ag in zip(got, again):
+        assert torch.equal(gt, ag)
+
+
 @pytest.mark.cuda
 def test_cuda_decode_takes_masked_keys(cuda):
     """Keys masked to -1e30 (the log-linear decode's passes) give Phi(k) =
@@ -568,6 +612,28 @@ def test_cuda_ssd_matches_plain(cuda, g, n, blk, p, dtype):
     want = ssd_plain(*args, r=8 // g, blk=blk)
     torch.cuda.synchronize()
     _ssd_close(got, want)
+
+
+SSD_TC_CASES = [pytest.param(r, s, p, blk, id=f"r{r}-s{s}-p{p}-blk{blk}")
+                for r in (1, 24, 112) for s in (16, 64, 128) for p in (32, 64)
+                for blk in (64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,s,p,blk", SSD_TC_CASES)
+def test_cuda_ssd_tensor_core_path_matches_plain(cuda, r, s, p, blk):
+    """ssd on bf16 B/C (the tensor-core path) against its plain twin: two
+    batch rows of r heads in one group each (mamba2-130m's r = 24,
+    zamba2-7b's 112), N = 512; y within 1e-4 of the largest entry, two runs
+    bitwise equal."""
+    args = _ssd_inputs(cuda, r + s + p + blk, 2 * r, 2, 512, p, s,
+                       torch.bfloat16, h=r)
+    got = ssd(*args, r=r, blk=blk)
+    again = ssd(*args, r=r, blk=blk)
+    want = ssd_plain(*args, r=r, blk=blk)
+    torch.cuda.synchronize()
+    _ssd_close(got, want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

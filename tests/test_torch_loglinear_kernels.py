@@ -10,20 +10,26 @@ tolerance of ``tests/test_kernels.py``), the fp32 pyramid 2e-4 of its
 largest entry (sums over up to N keys); bf16 outputs one bf16 step, 2^-7
 of the largest entry, since both sides compute in fp32 and round once.
 
-``tests/test_torch_cuda.py`` holds the CUDA kernel against the plain
-version on the card.
+``tests/test_torch_cuda.py`` holds the CUDA kernels against the plain
+version on the card.  Here, on the CPU: the fact the tensor-core path
+rests on (after j closed granules the weighted read is a sum of closed
+granule states with weights fixed by (i, j), against the reference's
+cascade, occupancy and level matrix), and the path's route and scratch.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import loglinear as jcore
 from repro.kernels import ops as jops
 from repro.kernels.loglinear import loglin_causal_pallas
+from repro_torch.core import loglinear as tcore
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.lln_attention import (MAX_DECODE_T, lln_causal,
                                                lln_decode_plain)
-from repro_torch.kernels.loglinear import loglin_causal, loglin_causal_plain
+from repro_torch.kernels.loglinear import (_tc_path, _tc_scratch,
+                                           loglin_causal, loglin_causal_plain)
 
 ATOL = 2e-4
 BF16 = 2.0 ** -7
@@ -161,3 +167,72 @@ def test_ops_prefill_ragged_matches_reference_core():
     lshift = torch.exp(cl - torch.tensor(jcl))                      # (B,L,H)
     _close(sl * lshift[..., None, None], jsl, rel=True)
     _close(zl * lshift[..., None], jzl, rel=True)
+
+
+GRANULES = 40
+
+
+@pytest.mark.parametrize("num_scales", [1, 2, 3, 4, 5])
+def test_granule_reads_weigh_closed_granules_by_level(num_scales):
+    """The tensor-core path reads granule j's pyramid as A_j = sum_{i<j}
+    decay^level(i, j) G_i.  With one-hot granule states G_i = e_i, the
+    cascade (the reference's and the port's) leaves, after each of 0 to 40
+    closed granules, every closed granule on exactly one level, the level
+    that the level matrix (granule 1: query j, key i) gives, only levels
+    that occupancy marks occupied, and the weighted read decay^level."""
+    ls, decay = num_scales, 0.5
+    count = GRANULES + 1
+    lev_j = np.asarray(jcore.level_matrix(count, granule=1, num_scales=ls))
+    lev_t = tcore.level_matrix(count, granule=1, num_scales=ls).numpy()
+    np.testing.assert_array_equal(lev_t, lev_j)
+    w = decay ** np.arange(ls)
+    sides = {
+        "reference": (jcore._cascade_same_ref, jnp.zeros, jnp.eye,
+                      jnp.ones, jcore.occupancy),
+        "port": (tcore._cascade_same_ref, torch.zeros, torch.eye,
+                 torch.ones, tcore.occupancy)}
+    for side, (cascade, zeros, eye, ones, occupancy) in sides.items():
+        sl, zl = zeros((1, ls, count)), zeros((1, ls))
+        basis = eye(count)
+        for j in range(count):
+            pyr = np.asarray(sl[0], np.float32)
+            closed = np.arange(count) < j
+            np.testing.assert_array_equal(pyr[:, ~closed], 0, err_msg=side)
+            np.testing.assert_array_equal(pyr[:, closed].sum(0), 1,
+                                          err_msg=side)
+            np.testing.assert_array_equal(
+                pyr[lev_j[j, closed], np.flatnonzero(closed)], 1,
+                err_msg=f"{side}: j={j}")
+            np.testing.assert_array_equal(
+                np.asarray(occupancy(j, ls), np.float32),
+                (pyr.sum(1) > 0).astype(np.float32), err_msg=side)
+            np.testing.assert_allclose(
+                w @ pyr, np.where(closed, decay ** lev_j[j], 0.0),
+                rtol=1e-6, err_msg=side)
+            np.testing.assert_allclose(np.asarray(zl[0]), pyr.sum(1),
+                                       err_msg=side)
+            sl, zl = cascade(sl, zl, basis[j][None], ones((1,)), j, ls)
+
+
+@pytest.mark.parametrize("dtype,d,dv,levels,want", [
+    (torch.bfloat16, 128, 128, 4, True),
+    (torch.bfloat16, 64, 96, 8, True),
+    (torch.float32, 128, 128, 4, False),
+    (torch.bfloat16, 160, 128, 4, False),
+    (torch.bfloat16, 128, 128, 9, False)],
+    ids=["serve", "narrow-deepest", "fp32-v", "wide-d", "too-deep"])
+def test_tensor_core_route(dtype, d, dv, levels, want):
+    """bf16 v with D, Dv <= 128 and at most 8 levels takes the tensor-core
+    kernels; anything else the CUDA-core kernel."""
+    assert _tc_path(torch.zeros(1, 1, dv, dtype=dtype), d, dv, levels) is want
+
+
+@pytest.mark.parametrize("n,blk,granules", [(2048, 256, 8), (2040, 256, 8),
+                                            (300, 64, 5), (16, 64, 1)])
+def test_tensor_core_scratch_covers_every_granule(n, blk, granules):
+    """Phi(k) as two bf16 planes, and one A_j (two planes) and zA_j per
+    granule, the open last one included."""
+    phk, aw, za = _tc_scratch(2, n, 64, 96, blk, "cpu")
+    assert phk.shape == (2, 2, n, 64) and phk.dtype == torch.bfloat16
+    assert aw.shape == (2, 2, granules, 64, 96) and aw.dtype == torch.bfloat16
+    assert za.shape == (2, granules, 64) and za.dtype == torch.float32

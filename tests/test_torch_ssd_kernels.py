@@ -11,8 +11,8 @@ with numpy from a seed and fed to both sides.  Tolerances: fp32 outputs
 (``tests/test_kernels.py::TestSSDKernel``); with bf16 B/C both sides read
 the same bf16 values and compute in fp32, so the same 3e-4 holds.
 
-``tests/test_torch_cuda.py`` holds the CUDA kernel against the plain
-version on the card.
+``tests/test_torch_cuda.py`` holds the CUDA kernels against the plain
+version on the card; here the tensor-core path's route and scratch.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +23,7 @@ import torch
 from repro.kernels import ssd_scan as j_ssd_scan
 from repro.kernels.ssd import ssd_pallas
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ssd import ssd, ssd_plain
+from repro_torch.kernels.ssd import _tc_path, _tc_scratch, ssd, ssd_plain
 
 FWD, GRAD = 3e-4, 3e-3
 BLK = 16
@@ -115,3 +115,24 @@ def test_ssd_scan_kernel_backend_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         tops.ssd_scan(*(torch.from_numpy(a) for a in inputs), BLK,
                       backend="kernel")
+
+
+@pytest.mark.parametrize("dtype,p,want", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.float32, 64, False), (torch.bfloat16, 160, False)],
+    ids=["mamba2", "p128", "fp32-bc", "wide-p"])
+def test_ssd_tensor_core_route(dtype, p, want):
+    """bf16 B/C with P <= 128 take the tensor-core kernels; fp32 B/C or a
+    wider P the CUDA-core kernel."""
+    assert _tc_path(torch.zeros(1, 1, 8, dtype=dtype), p) is want
+
+
+@pytest.mark.parametrize("n,blk", [(2048, 256), (256, 256)])
+def test_ssd_tensor_core_scratch(n, blk):
+    """lcum per step, G_c for every chunk but the last (at least one slot),
+    state_c for every chunk as two bf16 planes."""
+    lcum, gs, st = _tc_scratch(6, n, 64, 128, blk, "cpu")
+    nc = n // blk
+    assert lcum.shape == (6, n) and lcum.dtype == torch.float32
+    assert gs.shape == (6, max(nc - 1, 1), 128, 64)
+    assert st.shape == (2, 6, nc, 128, 64) and st.dtype == torch.bfloat16
