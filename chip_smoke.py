@@ -93,6 +93,7 @@ last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -129,6 +130,14 @@ SOFTMAX_FWD_OPS, SOFTMAX_BWD_OPS = 5, 7
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _lln_module():
+    """kernels/lln_attention.py, whose TC_BLOCK sets the block of
+    lln_causal's and lln_causal_bwd's tensor-core paths (the package
+    exports a function of the same name, so ``from repro_torch.kernels
+    import lln_attention`` would not give the module)."""
+    return importlib.import_module("repro_torch.kernels.lln_attention")
 
 
 def max_err(got, want) -> float:
@@ -350,7 +359,7 @@ def phase_kernels_train(results):
     """The four training kernels against their plain versions.  Outputs in
     bf16 within one bf16 step; den and every fp32 gradient within 1e-5 of
     the largest plain entry (fp32 sums of up to r*N terms in another
-    order); lln_diag_fused_bwd's two runs bitwise equal."""
+    order); the two backwards' two runs bitwise equal."""
     from repro_torch.kernels.lln_attention import (lln_causal,
                                                    lln_causal_plain,
                                                    lln_diag_fused,
@@ -378,10 +387,14 @@ def phase_kernels_train(results):
         keep("lln_causal (res)", check("den", got[1], den, fp32_tol(den)))
         log(f"lln_causal_bwd N={n}:")
         got = lln_causal_bwd(qs, ks, vk, g, o, den, r=r, blk=BLK)
+        again = lln_causal_bwd(qs, ks, vk, g, o, den, r=r, blk=BLK)
         want = lln_causal_bwd_plain(qs, ks, vk, g, o, den, r=r, blk=BLK)
         torch.cuda.synchronize()
         for name, gt, wt in zip(("dqs", "dks", "dv"), got, want):
             keep("lln_causal_bwd", check(name, gt, wt, fp32_tol(wt)))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"lln_causal_bwd N={n}: two runs differ")
+        log("  two runs bitwise equal")
         log(f"lln_diag_fused N={n} blk={BLK}:")
         got = lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
                              return_res=True)
@@ -735,6 +748,54 @@ def phase_train(launches, train_times):
         launches[bwd[impl]] += counted[bwd[impl]]
 
 
+def _lln_counts(bh, bg, n, d, dv, blk):
+    """Bytes and operations of lln_causal (with den, "res", or with the
+    final state, "state") and lln_causal_bwd at one shape, with ``blk`` the
+    kernels' own block (lln_attention.TC_BLOCK): {name: (bytes, fp32 FLOPs,
+    bf16 tensor-core FLOPs)}, and under the CUDA-core count (the linear
+    form's fp32 work: Phi(q) S per query, the state update per key) with
+    the key "... (CUDA cores)".  The products at the tensor cores' rate,
+    an fp32 operand counted once per MMA its plane split takes: forward
+    (two planes for the outputs, three for the states) Phi(q) Phi(k)^T
+    three times and scores V twice per causal pair of a block, Phi(q) S_c
+    three times per row past the first block, Phi(k)^T V three times per
+    key before the last block (every key with the state); backward (three
+    planes: fp32 x bf16 three MMAs, fp32 x fp32 six) per pair g v^T once,
+    the scores, gmat Phi(k) and gmat^T Phi(q) six times each, scores^T u
+    three times, per row past the first block u S_c^T and Phi(q)^T u
+    three times each, per key before the last block the forward state
+    three times, V dS_c^T three and Phi(k) dS_c six.  Exps, masks, sums,
+    dots with z and the divisions are fp32 work.  Bytes: each input read
+    once, each output written once."""
+    f32, b16 = 4, 2
+    sizes = [min(blk, n - b0) for b0 in range(0, n, blk)]
+    pairs = bh * sum(m * (m + 1) // 2 for m in sizes)
+    late, early = bh * (n - sizes[0]), bg * (n - sizes[-1])
+    state = 2 * d * dv
+    qsks = (bh + bg) * n * d * f32
+    fwd_bytes = qsks + bg * n * dv * b16 + bh * n * dv * b16
+    fwd_tc = pairs * (3 * 2 * d + 2 * 2 * dv) + late * 3 * state         + early * 3 * state
+    fwd_f32 = (bh + bg) * n * d + pairs + late * 2 * d + bh * n * (dv + 2)         + bg * n * d
+    bwd_bytes = qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16         + bh * n * f32 + qsks + bg * n * dv * f32
+    bwd_tc = pairs * (2 * dv + 3 * 6 * 2 * d + 3 * 2 * dv)         + late * 2 * 3 * state + early * (3 + 3 + 6) * state
+    bwd_f32 = (bh + bg) * n * d + 3 * pairs + bh * n * (2 * dv + 3 * d)         + bg * n * 2 * d
+    lln_fwd = bh * n * (2 * d * dv + 2 * d) + bg * n * (2 * d * dv + d) \
+        + (bh + bg) * n * d
+    lln_bwd = bh * n * (4 * d * dv + 3 * dv + 4 * d) \
+        + bg * n * (6 * d * dv + 2 * d) + (bh + bg) * n * d
+    res_bytes = fwd_bytes + bh * n * f32
+    st_bytes = fwd_bytes + bh * (d * dv + d) * f32
+    return {
+        "lln_causal (res)": (res_bytes, fwd_f32, fwd_tc),
+        "lln_causal (state)": (st_bytes, fwd_f32,
+                               fwd_tc + bg * sizes[-1] * 3 * state),
+        "lln_causal_bwd": (bwd_bytes, bwd_f32, bwd_tc),
+        "lln_causal (res) (CUDA cores)": (res_bytes, lln_fwd, 0),
+        "lln_causal (state) (CUDA cores)": (st_bytes, lln_fwd, 0),
+        "lln_causal_bwd (CUDA cores)": (bwd_bytes, lln_bwd, 0),
+    }
+
+
 def _fused_counts(bh, bg, n, d, dv, blk):
     """Bytes and operations of lln_diag_fused and lln_diag_fused_bwd at one
     shape: {name: (bytes, fp32 FLOPs, bf16 tensor-core FLOPs)} under the
@@ -803,12 +864,13 @@ def _kernel_name(key):
 def phase_timings_train(errs, launches):
     """The four training kernels, their plain versions and their bounds at
     the training shapes.  Bounds count each input read once and each output
-    written once.  lln_causal and lln_causal_bwd: the fp32 operations of
-    the linear form (Phi(q) S and the state update per token).  The fused
-    pair: _fused_counts (their products at the tensor cores' rate; the
-    CUDA-core count, with every fp32-operand product as fp32 work, is
-    logged beside it).  The fused pair is also timed at zamba2-7b's shape (B=4,
-    H=G=32, D=Dv=112, N=2048), returned apart."""
+    written once, and the products at the tensor cores' rate:
+    lln_causal and lln_causal_bwd by _lln_counts, the fused pair by
+    _fused_counts; the CUDA-core count, with every fp32-operand product as
+    fp32 work, is logged beside each.  lln_causal and lln_causal_bwd are
+    also timed at the other blocks their tensor-core path could take.  The
+    fused pair is also timed at zamba2-7b's shape (B=4, H=G=32,
+    D=Dv=112, N=2048), returned apart."""
     from repro_torch.kernels.lln_attention import (lln_causal,
                                                    lln_causal_plain,
                                                    lln_diag_fused,
@@ -826,39 +888,33 @@ def phase_timings_train(errs, launches):
                               return_state=False)
     fo, fden = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                     return_res=True)
-    lln_fwd = bh * n * (2 * D * dv + 2 * D) + bg * n * (2 * D * dv + D) \
-        + (bh + bg) * n * D
-    lln_bwd = bh * n * (4 * D * dv + 3 * dv + 4 * D) \
-        + bg * n * (6 * D * dv + 2 * D) + (bh + bg) * n * D
-    f32, b16 = 4, 2
-    qsks = bh * n * D * f32 + bg * n * D * f32
-    fused = _fused_counts(bh, bg, n, D, dv, BLK)
+    lln_attention = _lln_module()
+    counts = {**_fused_counts(bh, bg, n, D, dv, BLK),
+              **_lln_counts(bh, bg, n, D, dv, lln_attention.TC_BLOCK)}
     specs = [
         ("lln_causal (res)", "lln_causal.cu", "lln_attention.py:94",
          lambda: lln_causal(qs, ks, vk, r=r, blk=BLK, return_res=True,
                             return_state=False),
          lambda: lln_causal_plain(qs, ks, vk, r=r, blk=BLK, return_res=True,
                                   return_state=False),
-         (qsks + bg * n * dv * b16 + bh * n * dv * b16 + bh * n * f32,
-          lln_fwd, 0)),
+         counts["lln_causal (res)"]),
         ("lln_diag_fused", "lln_diag_fused.cu", "lln_attention.py:274",
          lambda: lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                 return_res=True),
          lambda: lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                       return_res=True),
-         fused["lln_diag_fused"]),
+         counts["lln_diag_fused"]),
         ("lln_causal_bwd", "lln_causal_bwd.cu", "lln_backward.py:160",
          lambda: lln_causal_bwd(qs, ks, vk, g, o, den, r=r, blk=BLK),
          lambda: lln_causal_bwd_plain(qs, ks, vk, g, o, den, r=r, blk=BLK),
-         (qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 + bh * n * f32
-          + (bh + bg) * n * D * f32 + bg * n * dv * f32, lln_bwd, 0)),
+         counts["lln_causal_bwd"]),
         ("lln_diag_fused_bwd", "lln_diag_fused_bwd.cu",
          "lln_backward.py:441",
          lambda: lln_diag_fused_bwd(qs, ks, qk, kk, vk, g, fo, fden, r=r,
                                     blk=BLK),
          lambda: lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, g, fo, fden,
                                           r=r, blk=BLK),
-         fused["lln_diag_fused_bwd"]),
+         counts["lln_diag_fused_bwd"]),
     ]
     rows = []
     for name, src, ref, kernel, plain, (nbytes, flops, tc) in specs:
@@ -870,14 +926,26 @@ def phase_timings_train(errs, launches):
             plain_ms=cuda_ms(plain, reps=10), bound_ms=bnd, bound_by=by,
             library_ms=None))
         row = rows[-1]
-        old = ""
-        if f"{name} (CUDA cores)" in fused:
-            ob, oby = bound_ms(*fused[f"{name} (CUDA cores)"])
-            old = f" [CUDA-core count: {ob:.4f} ms ({oby})]"
+        ob, oby = bound_ms(*counts[f"{name} (CUDA cores)"])
         log(f"timing {name}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}){old}, library none (no single PyTorch call "
-            f"computes LLN attention or its gradient)")
+            f"({row['bound_by']}) [CUDA-core count: {ob:.4f} ms ({oby})], "
+            f"library none (no single PyTorch call computes LLN attention "
+            f"or its gradient)")
+
+    # The block of lln_causal's and lln_causal_bwd's tensor-core paths is
+    # their own choice (lln_attention.TC_BLOCK): time the others beside it.
+    chosen = lln_attention.TC_BLOCK
+    try:
+        for blk in (64, 128, 256):
+            lln_attention.TC_BLOCK = blk
+            fwd_ms = cuda_ms(specs[0][3], reps=10)
+            bwd_ms = cuda_ms(specs[2][3], reps=10)
+            log(f"timing TC_BLOCK {blk}{' (chosen)' if blk == chosen else ''}"
+                f": lln_causal (res) {fwd_ms:.4f} ms, lln_causal_bwd "
+                f"{bwd_ms:.4f} ms")
+    finally:
+        lln_attention.TC_BLOCK = chosen
 
     # The fused pair at zamba2-7b's shared attention (r = 1, D = Dv = 112).
     del qs, ks, qk, kk, vk, g, o, den, fo, fden
@@ -914,10 +982,10 @@ def phase_timings_train(errs, launches):
 def phase_timings(errs, launches):
     """Each kernel, its plain version and (block_diag) one library call at
     the serve shapes; the bound counts each input read once, each output
-    written once, and the operations the function needs: fp32, and
-    (block_diag) its products at the tensor cores' bf16 rate, q k^T once
-    and p v twice (p goes in as hi + lo bf16), with the softmax's
-    elementwise steps as fp32 work."""
+    written once, and the operations the function needs: fp32, and the
+    products at the tensor cores' bf16 rate (lln_causal: _lln_counts;
+    block_diag: q k^T once and p v twice, p as hi + lo bf16), with the
+    softmax's elementwise steps as fp32 work."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_diag import block_diag, block_diag_plain
@@ -932,11 +1000,11 @@ def phase_timings(errs, launches):
     qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
     rows = []
 
-    nbytes = (bh * N * D * 4 + bg * N * D * 4 + bg * N * D * 2
-              + bh * N * D * 2 + bh * D * D * 4 + bh * D * 4)
-    flops = bh * N * (2 * D * D + 2 * D) + bg * N * (2 * D * D + D) \
-        + (bh + bg) * N * D
-    bnd, by = bound_ms(nbytes, flops)
+    counts = _lln_counts(bh, bg, N, D, D, _lln_module().TC_BLOCK)
+    bnd, by = bound_ms(*counts["lln_causal (state)"])
+    ob, oby = bound_ms(*counts["lln_causal (state) (CUDA cores)"])
+    log(f"lln_causal (state) bound: {bnd:.4f} ms ({by}) [CUDA-core count: "
+        f"{ob:.4f} ms ({oby})]")
     rows.append(dict(
         name="lln_causal (state)", route="cuda",
         source="src/repro_torch/csrc/lln_causal.cu",

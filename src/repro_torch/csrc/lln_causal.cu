@@ -8,20 +8,49 @@
 // training backward reads, and s (BH,D,Dv) / z (BH,1,D) fp32, the state
 // after the last token.
 //
-// Design: the TPU kernel walked the sequence on the grid's ordered minor
-// axis with (S, z) in VMEM.  GPU blocks run in no order, so one CTA per
-// (query head, COLS value columns) loops over the sequence in TILE-row tiles
-// and keeps its columns of S (D x COLS) and all of z in shared memory.  Per
-// tile:  scores = tril(Phi(q) Phi(k)^T);  den = rowsum(scores) + Phi(q).z
-// + EPS;  out = (scores V + Phi(q) S) / den;  then S += Phi(k)^T V and
-// z += colsum Phi(k).  Every column group computes the same den; the first
-// one writes it.  The ragged last tile loads pad keys as Phi(k) = 0
-// and writes no pad rows.  All products are fp32 on the CUDA cores.
+// Two paths, chosen by the caller (kernels/lln_attention.py:_tc_path) by
+// type and width, each with its own entry point:
 //
-// Bound on the H100: fp32 operations at the serve shapes (see
-// kernels/lln_attention.py); the column split multiplies the CTAs by Dv/COLS
-// and recomputes each tile's scores once per column group.
-#include "common.cuh"
+// bf16 v with D, Dv <= 128 (every model path on the card):
+// lln_causal_tc_launch, on the tensor cores, chunk-parallel over blocks of
+// blk rows (the kernels' own choice, lln_attention.TC_BLOCK = 64: of 64,
+// 128 and 256 the backward is fastest at 64 on the card and this forward
+// about flat; the caller's chunk does not enter the math).  Three launches:
+//   1. phi_split (csrc/fused_state.cuh): Phi(k) as bf16 hi + lo.
+//   2. state_kernel (fused_state.cuh): the exclusive block states (S_c,
+//      z_c) once per kv group, not once per query head (r = 8 times less
+//      state work than the CUDA-core kernel at yi-9b's shape), Phi(k) in
+//      three bf16 planes against bf16 v, each 64-row step added in fp32;
+//      S_c stored as bf16 hi + lo.  With the state it walks on through the
+//      last block and writes the inclusive final (s, z) in fp32 into the r
+//      query-head rows of the group.
+//   3. causal_out_kernel (csrc/causal_out.cuh, shared with
+//      loglin_causal.cu): one CTA per (query head, block, 64-row tile):
+//      Phi(q) Phi(k)^T masked on the diagonal tile, its row sums, scores V,
+//      Phi(q) S_c (fp32 operands as hi + lo), Phi(q) . z_c in fp32, den,
+//      and out rounded once; den written with return_res.
+//   Any N: the short last block's pad keys are staged as zero rows (Phi(k)
+//   = 0 in every state and in the final state) and its pad rows are not
+//   written; ks is never zero-padded (a zero ks is Phi(k) = 1).
+//   Bound on the H100 (chip_smoke.py:_lln_counts): the bytes (qs, out, ks,
+//   v) by about 2x over the products at the bf16 rate, at the serve and
+//   training shapes.  What holds it back: causal_out_kernel reloads its
+//   fragments per warp and keeps two CTAs per SM; the state walk is one
+//   CTA per 32 x 64 state slice (128 at the training shape).
+//
+// fp32 v, or a width above 128: lln_causal_launch, the CUDA-core kernel
+// below, IEEE fp32.  The TPU kernel walked the sequence on the grid's
+// ordered minor axis with (S, z) in VMEM; here one CTA per (query head,
+// COLS value columns) loops over the sequence in TILE-row tiles and keeps
+// its columns of S (D x COLS) and all of z in shared memory.  Per tile:
+// scores = tril(Phi(q) Phi(k)^T);  den = rowsum(scores) + Phi(q).z + EPS;
+// out = (scores V + Phi(q) S) / den;  then S += Phi(k)^T V and z +=
+// colsum Phi(k).  Every column group computes the same den; the first one
+// writes it.  The ragged last tile loads pad keys as Phi(k) = 0 and writes
+// no pad rows.  Bound: fp32 operations; each column group recomputes the
+// tile's scores and each query head its group's state.
+#include "causal_out.cuh"
+#include "fused_state.cuh"
 
 namespace {
 
@@ -161,6 +190,40 @@ int launch(const float* qs, const float* ks, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 v on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using namespace lln;
+
+template <int DP>
+int launch_tc(const float* qs, const float* ks, const void* v, void* out,
+              float* den, float* s, float* z, void* phk, void* sst,
+              float* zst, int bh, int bg, int n, int d, int dv, int blk,
+              cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const size_t kcount = static_cast<size_t>(bg) * n * d;
+  const int nb = (n + blk - 1) / blk;
+  const size_t scount = static_cast<size_t>(bg) * nb * d * dv;
+  const auto fk = static_cast<bf*>(phk);
+  const auto sp = static_cast<bf*>(sst);
+  const auto vb = static_cast<const bf*>(v);
+  cudaError_t err = phi_split<2>(ks, fk, kcount, stream);
+  if (err == cudaSuccess)
+    err = block_states<false, 3, 2>(ks, vb, nullptr, nullptr, 1.f, sp, zst, s,
+                                    z, bh / bg, bg, n, d, dv, 1, blk, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = d % 8 == 0 && dv % 8 == 0 && al(v) && al(out) && al(phk) &&
+                  al(sst);
+  return static_cast<int>(causal_out<DP>(qs, vb, fk, sp, zst,
+                                          static_cast<bf*>(out), den, bh, bg,
+                                          n, d, dv, blk, kcount, scount, vec,
+                                          stream));
+}
+
 }  // namespace
 
 // v_dtype: 0 = float32, 1 = bfloat16; den, s and z may be null.  Returns
@@ -182,5 +245,33 @@ extern "C" int lln_causal_launch(const void* qs, const void* ks, const void* v,
   if (v_dtype == 0)
     return launch<float>(q, k, v, out, dp, sp, zp, bh, bg, n, d, dv, tile, cols,
                          st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core path (v and out bf16; D, Dv <= 128), blocks of blk
+// rows (any N).  phk (2,BG,N,D) and sst (2,BG,nb,D,Dv) are bf16 scratch,
+// zst (BG,nb,D) fp32 scratch, nb = ceil(N / blk); den, s and z may be null
+// (s and z both or neither).  Returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int lln_causal_tc_launch(const void* qs, const void* ks,
+                                    const void* v, void* out, void* den,
+                                    void* s, void* z, void* phk, void* sst,
+                                    void* zst, int bh, int bg, int n, int d,
+                                    int dv, int blk, void* stream) {
+  if (blk < 1 || bg < 1 || bh % bg != 0 || (s == nullptr) != (z == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto q = static_cast<const float*>(qs);
+  auto k = static_cast<const float*>(ks);
+  auto dp = static_cast<float*>(den);
+  auto sp = static_cast<float*>(s);
+  auto zp = static_cast<float*>(z);
+  auto zs = static_cast<float*>(zst);
+  if (d <= 64 && dv <= 64)
+    return launch_tc<64>(q, k, v, out, dp, sp, zp, phk, sst, zs, bh, bg, n, d,
+                         dv, blk, st);
+  if (d <= 128 && dv <= 128)
+    return launch_tc<128>(q, k, v, out, dp, sp, zp, phk, sst, zs, bh, bg, n,
+                          d, dv, blk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,21 +17,54 @@
 // reverse state dS = sum Phi(q) u^T, dz = sum w Phi(q) (dk and dv, last tile
 // first).
 //
-// Design.  dq: the products u S^T and (u.v - w) contract over Dv, so a
-// column split of S (as in lln_causal.cu) would not serve; one CTA per
-// (query head, ROWS rows of D) keeps those rows of S and z and recomputes the
-// tile's (u.v - w) matrix.  dk/dv: dk's dS v contracts over Dv and dv's
-// Phi(k) dS over D, so one launch holds two kinds of CTA per kv head: dk
-// CTAs keep ROWS rows of dS (all columns), dv CTAs COLS columns (all rows).
-// Pallas kept (dS, dz) per repeated head, (r, D, Dv) fp32, more than a
-// block's shared memory at r=8, D=Dv=128; the inter-tile terms are linear in
-// (dS, dz), so each CTA keeps their sum over the r heads and loops over the
-// heads, in order, only for the intra-tile terms.  No atomics: the same
-// inputs give the same gradients bit for bit.  All products are fp32 on the
-// CUDA cores.
+// Two paths, chosen by the caller (kernels/lln_backward.py, by
+// lln_attention._tc_path) by type and width, each with its own entry point:
 //
-// Bound on the H100: fp32 operations at the training shapes (see
-// kernels/lln_backward.py).
+// bf16 with D, Dv <= 128 (every model path on the card):
+// lln_causal_bwd_tc_launch, on the tensor cores, chunk-parallel over blocks
+// of blk rows (lln_attention.TC_BLOCK = 64, the kernels' own choice; any
+// N, a short last block masked).  lln_diag_fused_bwd.cu's design without
+// its softmax half.  Six launches:
+//   1. phi_split (csrc/fused_state.cuh), twice: Phi(q), Phi(k) as three
+//      bf16 planes each.
+//   2. state_kernel, forward: the exclusive block states (S_c, z_c), once
+//      per kv group, recomputed as the forward made them.
+//   3. dq_tc_kernel, one CTA per (query head, block, 64-row tile): w =
+//      (g . o) / den per row (written for 4 and 5), then over the block's
+//      keys up to the diagonal gmat = tril(g v^T / den - w) (g v^T one
+//      exact bf16 MMA) and gmat Phi(k) (six MMAs); u S_c^T and w z_c; dqs
+//      = Phi(q) (gmat Phi(k) + u S_c^T - w z_c) with the exact exp(qs).
+//   4. state_kernel, reverse (cotangent factor 1): the exclusive suffix
+//      (dS_c, dz_c) = sums over the later blocks and the r heads of
+//      Phi(q)^T u and Phi(q) w, heads then blocks in a fixed order.
+//   5. dkv_tc_kernel, two CTAs per (kv group, block, 64-key tile): dks =
+//      Phi(k) (gmat^T Phi(q) over the r heads + V dS_c^T - dz_c); dv =
+//      scores^T u over the r heads + Phi(k) dS_c.  Each walks the r heads
+//      and its block's query tiles in a fixed order; each query tile's
+//      products go into a fresh accumulator added to the total in fp32.
+//   No atomics: two runs give the same gradients bit for bit.  Every fp32
+//   operand goes in as three bf16 planes (2^-24 relative; the gradients
+//   are held to 1e-5): against a bf16 operand three MMAs, against another
+//   fp32 operand six.
+//   Bound on the H100 (chip_smoke.py:_lln_counts): the bytes (qs, ks, the
+//   fp32 gradients) over the products at the bf16 rate with the three-plane
+//   count.  What holds it back: the reverse state walk (128 CTAs, r x N
+//   rows each, in order) and the fragment reloads of the dq and dk/dv
+//   kernels.
+//
+// fp32, or a width above 128: lln_causal_bwd_launch, the CUDA-core kernels
+// below, IEEE fp32.  dq: the products u S^T and (u.v - w) contract over
+// Dv, so a column split of S (as in lln_causal.cu) would not serve; one
+// CTA per (query head, ROWS rows of D) keeps those rows of S and z and
+// recomputes the tile's (u.v - w) matrix.  dk/dv: dk's dS v contracts over
+// Dv and dv's Phi(k) dS over D, so one launch holds two kinds of CTA per
+// kv head: dk CTAs keep ROWS rows of dS (all columns), dv CTAs COLS
+// columns (all rows).  Pallas kept (dS, dz) per repeated head, (r, D, Dv)
+// fp32, more than a block's shared memory at r=8, D=Dv=128; the inter-tile
+// terms are linear in (dS, dz), so each CTA keeps their sum over the r
+// heads and loops over the heads, in order, only for the intra-tile terms.
+// No atomics.  Bound: fp32 operations.
+#include "fused_state.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -311,6 +344,447 @@ int launch(const float* qs, const float* ks, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using namespace lln;
+
+constexpr int TC_ROWS = 64;   // query rows (dq) or keys (dk/dv) per CTA
+// bf16 planes of every fp32 operand: three keep it to 2^-24 relative, so
+// the fp32 gradients stay within 1e-5 of the largest entry.
+constexpr int NP = 3;
+
+// Rows of a staged key tile (dq) or query tile (dk/dv).
+template <int DP>
+__host__ __device__ constexpr int step_rows() { return DP > 64 ? 16 : 32; }
+
+template <int DP>
+constexpr size_t dq_smem_bytes() {
+  return (TC_ROWS + 2 * (1 + NP) * step_rows<DP>()) * (DP + 8) *
+         sizeof(__nv_bfloat16);
+}
+
+template <int DP>
+constexpr size_t dkv_smem_bytes() {
+  return (NP * TC_ROWS + 2 * (1 + NP) * step_rows<DP>()) * (DP + 8) *
+             sizeof(__nv_bfloat16) +
+         2 * 2 * step_rows<DP>() * sizeof(float);
+}
+
+// One CTA per (query head, block, 64-row tile), the tiles that walk the
+// most keys first: w = (g . o) / den per row (written to w_out), then
+// gmat = tril(g v^T / den - w) per key tile against v and the Phi(k)
+// planes (cp.async, double-buffered), dqs += gmat Phi(k); then u S_c^T,
+// - w z_c, and dqs = Phi(q) (...) with the exact Phi(q) = exp(qs).  phk
+// (NP,BG,N,D): Phi(k) planes kcount apart; sst (NP,BG,nb,D,Dv) and zst
+// (BG,nb,D): the forward's exclusive block states.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+dq_tc_kernel(const float* __restrict__ qs,
+             const __nv_bfloat16* __restrict__ v,
+             const __nv_bfloat16* __restrict__ g,
+             const __nv_bfloat16* __restrict__ o,
+             const float* __restrict__ den_in,
+             const __nv_bfloat16* __restrict__ phk,
+             const __nv_bfloat16* __restrict__ sst,
+             const float* __restrict__ zst, float* __restrict__ dqs,
+             float* __restrict__ w_out, int n, int d, int dv, int r, int blk,
+             size_t kcount, size_t scount, int vec) {
+  extern __shared__ float smem[];
+  constexpr int LD = DP + 8;
+  constexpr int KT = step_rows<DP>();
+  constexpr int NS = KT / 8;
+  constexpr int NO = DP / 8;
+  constexpr int KS = KT * LD;
+  constexpr int SS = (1 + NP) * KS;    // one stage: v, Phi(k) planes
+  __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* stg = sg + TC_ROWS * LD;   // 2 stages
+
+  const int h = blockIdx.x;
+  const int kvh = h / r;
+  const int c = blockIdx.y;
+  const int nb = gridDim.y;
+  const int b0 = c * blk;
+  const int bend = min(b0 + blk, n);
+  const int r0 = b0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  if (r0 >= bend) return;
+  const int rows = min(TC_ROWS, bend - r0);
+  const int nk = r0 + rows - b0;
+  const int ntiles = (nk + KT - 1) / KT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
+  const int nod = min(NO, ks * 2);
+  const bool vz = vec != 0;
+  const size_t hq = static_cast<size_t>(h) * n;
+  const size_t hk = static_cast<size_t>(kvh) * n + b0;
+  const __nv_bfloat16* vh = v + hk * dv;
+  const __nv_bfloat16* fkh = phk + hk * d;
+
+  const auto stage_keys = [&](int t, int sb) {
+    const int k0 = t * KT, kr = min(KT, nk - k0);
+    __nv_bfloat16* s = stg + sb * SS;
+    const size_t off = static_cast<size_t>(k0) * d;
+    stage_tile<DP>(s, LD, vh + static_cast<size_t>(k0) * dv, dv, kr, KT, vz);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      stage_tile<DP>(s + (1 + p) * KS, LD, fkh + p * kcount + off, d, kr, KT,
+                     vz);
+  };
+  stage_tile<DP>(sg, LD, g + (hq + r0) * dv, dv, rows, TC_ROWS, vz);
+  stage_keys(0, 0);
+  cp_async_commit();
+
+  // g . o per row in fp32 (a warp per row); every lane gets the sum, and
+  // the lanes that own rows gq and gq + 8 of the warp keep it.
+  float go[2] = {0.f, 0.f};
+  for (int i = 0; i < 16; ++i) {
+    const int a = warp * 16 + i;
+    float sum = 0.f;
+    if (a < rows) {
+      const size_t at = (hq + r0 + a) * dv;
+      for (int e = lane; e < dv; e += 32)
+        sum = fmaf(__bfloat162float(g[at + e]), __bfloat162float(o[at + e]),
+                   sum);
+    }
+    sum = warp_sum(sum);
+    if (i == gq) go[0] = sum;
+    if (i == gq + 8) go[1] = sum;
+  }
+  float w[2], hd[2];                 // w and 1 / den of rows gq, gq + 8
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int a = warp * 16 + gq + hh * 8;
+    const float dn = a < rows ? den_in[hq + r0 + a] : 1.f;
+    hd[hh] = a < rows ? 1.f / dn : 0.f;
+    w[hh] = a < rows ? go[hh] / dn : 0.f;
+    if (a < rows && t4 == 0) w_out[hq + r0 + a] = w[hh];
+  }
+
+  float as[NO][4];                   // gmat Phi(k), then + u S_c^T
+  zero_acc(as);
+  const int qw = r0 - b0 + warp * 16;
+  const int qrow = qw + gq;
+  const __nv_bfloat16* wg = sg + warp * 16 * LD;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int sb = t & 1;
+    if (t + 1 < ntiles) stage_keys(t + 1, sb ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* s_v = stg + sb * SS;
+    float dp[NS][4];
+    zero_acc(dp);
+    mma_abt_p<NS, DP / 16, 1, 1>(dp, wg, 0, LD, s_v, 0, LD, kvs,
+                                 lane);                             // g v^T
+    // Mask above the diagonal (keys past the last row lie above every
+    // row's, so a short last tile is masked too).
+    const int kb = t * KT;
+    const bool edge = kb + KT > qw + 1;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int col = kb + j * 8 + 2 * t4 + (e & 1);
+        dp[j][e] = edge && col > qrow + hh * 8 ? 0.f
+                                                : dp[j][e] * hd[hh] - w[hh];
+      }
+    }
+    mma_pb_p<NO, NS / 2, NP, NP>(as, dp, s_v + KS, KS, LD, nod,
+                                 lane);                    // gmat Phi(k)
+    __syncthreads();                 // this stage is free for the prefetch
+  }
+  cp_async_wait<0>();
+
+  // u S_c^T = (g S_c^T) / den: the accumulator is scaled by den, g S_c^T
+  // added 32 rows of S at a time, and scaled back.
+  const float* zc = zst + (static_cast<size_t>(kvh) * nb + c) * d;
+  if (c > 0) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (hd[e >> 1] > 0.f) as[j][e] /= hd[e >> 1];
+    }
+    state_t_all<DP, NP>(as, wg, stg,
+                        sst + (static_cast<size_t>(kvh) * nb + c) * d * dv,
+                        scount, d, dv, kvs, vz, lane);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) as[j][e] *= hd[e >> 1];
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int a = warp * 16 + gq + hh * 8;
+    if (a >= rows) continue;
+    const size_t at = (hq + r0 + a) * d;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int cc = j * 8 + 2 * t4;
+      if (cc >= d) break;
+      float s0 = as[j][2 * hh], s1 = as[j][2 * hh + 1];
+      if (c > 0) {
+        s0 -= w[hh] * zc[cc];
+        if (cc + 1 < d) s1 -= w[hh] * zc[cc + 1];
+      }
+      s0 *= expf(qs[at + cc]);
+      if (cc + 1 < d) s1 *= expf(qs[at + cc + 1]);
+      if (vz) {
+        *reinterpret_cast<float2*>(dqs + at + cc) = make_float2(s0, s1);
+      } else {
+        dqs[at + cc] = s0;
+        if (cc + 1 < d) dqs[at + cc + 1] = s1;
+      }
+    }
+  }
+}
+
+// Two CTAs per key tile z / 2, by z % 2: the dks role (gmat^T Phi(q) over
+// the r heads, V dS_c^T, - dz_c, times the exact Phi(k) = exp(ks)) and the
+// dv role ((scores / den)^T g over the r heads, Phi(k) dS_c).  Each walks
+// the r heads and its block's query tiles from its own rows to the block's
+// end in a fixed order; each query tile's products go into a fresh
+// accumulator that is then added to the total in fp32 (the tensor cores'
+// own accumulation does not round to nearest).  phq (NP,BH,N,D), phk
+// (NP,BG,N,D); w (BH,N) from dq_tc_kernel; dsst (NP,BG,nb,D,Dv) and dzst
+// (BG,nb,D): the reverse exclusive block states.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+dkv_tc_kernel(const float* __restrict__ ks_in,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ g,
+              const float* __restrict__ den_in,
+              const float* __restrict__ w_in,
+              const __nv_bfloat16* __restrict__ phq,
+              const __nv_bfloat16* __restrict__ phk,
+              const __nv_bfloat16* __restrict__ dsst,
+              const float* __restrict__ dzst, float* __restrict__ dks,
+              float* __restrict__ dvo, int n, int d, int dv, int r, int blk,
+              size_t qcount, size_t kcount, size_t scount, int vec) {
+  extern __shared__ float smem[];
+  constexpr int LD = DP + 8;
+  constexpr int QT = step_rows<DP>();
+  constexpr int NQ = QT / 8;           // score tiles of 8 queries per warp
+  constexpr int NO = DP / 8;
+  constexpr int TS = TC_ROWS * LD;
+  constexpr int QS = QT * LD;
+  constexpr int SS = (1 + NP) * QS;    // one stage: Phi(q) planes, g
+  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem);  // V or Phi(k)
+  __nv_bfloat16* stg = sx + NP * TS;   // 2 stages
+  float* sst_ = reinterpret_cast<float*>(stg + 2 * SS);  // 2 x 2 x QT
+
+  const int kv = blockIdx.x;
+  const int c = blockIdx.y;
+  const int nb = gridDim.y;
+  const int role = blockIdx.z & 1;     // 0 dks, 1 dv
+  const int b0 = c * blk;
+  const int bend = min(b0 + blk, n);
+  const int kb0 = b0 + static_cast<int>(blockIdx.z >> 1) * TC_ROWS;
+  if (kb0 >= bend) return;
+  const int kr = min(TC_ROWS, bend - kb0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
+  const int nout = role == 1 ? min(NO, kvs * 2) : min(NO, ks * 2);
+  const bool vz = vec != 0;
+  const size_t hk = static_cast<size_t>(kv) * n;
+  const int nqt = (bend - kb0 + QT - 1) / QT;
+  const int steps = r * nqt;
+  const int key = kb0 + warp * 16 + gq;   // this thread's first key
+
+  const auto stage_q = [&](int step, int sb) {
+    const int hh = step / nqt, i0 = kb0 + (step - hh * nqt) * QT;
+    const int rows = min(QT, bend - i0);
+    const size_t hq = (static_cast<size_t>(kv) * r + hh) * n + i0;
+    __nv_bfloat16* s = stg + sb * SS;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      stage_tile<DP>(s + p * QS, LD, phq + p * qcount + hq * d, d, rows, QT,
+                     vz);
+    stage_tile<DP>(s + NP * QS, LD, g + hq * dv, dv, rows, QT, vz);
+    float* ss = sst_ + sb * 2 * QT;
+    for (int i = threadIdx.x; i < QT; i += blockDim.x) {
+      const bool ok = i < rows;
+      ss[i] = ok ? w_in[hq + i] : 0.f;
+      ss[QT + i] = ok ? 1.f / den_in[hq + i] : 0.f;
+    }
+  };
+
+  if (role == 0) {
+    stage_tile<DP>(sx, LD, v + (hk + kb0) * dv, dv, kr, TC_ROWS, vz);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      stage_tile<DP>(sx + p * TS, LD, phk + p * kcount + (hk + kb0) * d, d,
+                     kr, TC_ROWS, vz);
+  }
+  stage_q(0, 0);
+  cp_async_commit();
+
+  float acc[NO][4], part[NO][4];
+  zero_acc(acc);
+  const __nv_bfloat16* wx = sx + warp * 16 * LD;
+
+  for (int st = 0; st < steps; ++st) {
+    const int sb = st & 1;
+    if (st + 1 < steps) stage_q(st + 1, sb ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int i0 = kb0 + (st % nqt) * QT;
+    const int rows = min(QT, bend - i0);
+    const __nv_bfloat16* tf = stg + sb * SS;
+    const __nv_bfloat16* tg = tf + NP * QS;
+    const float* ss = sst_ + sb * 2 * QT;
+    // Masks where a query lies before one of the warp's keys or past the
+    // block's end.
+    const bool edge = i0 < kb0 + warp * 16 + 16 || rows < QT;
+    float xt[NQ][4];
+    zero_acc(xt);
+    if (role == 0)
+      mma_abt_p<NQ, DP / 16, 1, 1>(xt, wx, 0, LD, tg, 0, LD, kvs,
+                                   lane);                          // v g^T
+    else
+      mma_abt_p<NQ, DP / 16, NP, NP>(xt, wx, TS, LD, tf, QS, LD, ks,
+                                     lane);       // Phi(k) Phi(q)^T
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cq = j * 8 + 2 * t4 + (e & 1);     // query in the tile
+        const int kj = key + (e >> 1) * 8;
+        const bool ok = !edge || (cq < rows && i0 + cq >= kj);
+        const float x = xt[j][e] * ss[QT + cq];
+        // gmat^T = v g^T / den - w (dks), scores / den (dv).
+        xt[j][e] = !ok ? 0.f : role == 0 ? x - ss[cq] : x;
+      }
+    }
+    zero_acc(part);
+    if (role == 0)
+      mma_pb_p<NO, NQ / 2, NP, NP>(part, xt, tf, QS, LD, nout, lane); // Phi(q)
+    else
+      mma_pb_p<NO, NQ / 2, NP, 1>(part, xt, tg, 0, LD, nout, lane);   // g
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    __syncthreads();                 // this stage is free for the prefetch
+  }
+  cp_async_wait<0>();
+
+  // The later blocks' reverse state: V dS_c^T (dks) or Phi(k) dS_c (dv).
+  if (c < nb - 1) {
+    const __nv_bfloat16* sp =
+        dsst + (static_cast<size_t>(kv) * nb + c) * d * dv;
+    zero_acc(part);
+    if (role == 0) {
+      state_t_all<DP, NP>(part, wx, stg, sp, scount, d, dv, kvs, vz, lane);
+    } else {
+      for (int d0 = 0; d0 < d; d0 += 32) {
+        __syncthreads();
+        stage_state<DP, NP>(stg, sp, scount, d0, d, dv, vz);
+        mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg, 32 * LD, LD,
+                                (min(32, d - d0) + 15) / 16, nout, lane);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+
+  const float* dzc = dzst + (static_cast<size_t>(kv) * nb + c) * d;
+  const int w = role == 1 ? dv : d;
+  float* out = role == 0 ? dks : dvo;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int j0 = warp * 16 + gq + hh * 8;
+    if (j0 >= kr) continue;
+    const size_t row = hk + kb0 + j0;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int cc = j * 8 + 2 * t4;
+      if (cc >= w) break;
+      float x0 = acc[j][2 * hh], x1 = acc[j][2 * hh + 1];
+      if (role == 0) {           // dks = Phi(k) (... - dz_c)
+        if (c < nb - 1) {
+          x0 -= dzc[cc];
+          if (cc + 1 < d) x1 -= dzc[cc + 1];
+        }
+        x0 *= expf(ks_in[row * d + cc]);
+        if (cc + 1 < d) x1 *= expf(ks_in[row * d + cc + 1]);
+      }
+      if (vz) {
+        *reinterpret_cast<float2*>(out + row * w + cc) = make_float2(x0, x1);
+      } else {
+        out[row * w + cc] = x0;
+        if (cc + 1 < w) out[row * w + cc + 1] = x1;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_tc(const float* qs, const float* ks, const void* v, const void* g,
+              const void* o, const float* den, float* dqs, float* dks,
+              float* dv_, float* w, void* phq, void* phk, void* sst,
+              float* zst, void* dsst, float* dzst, int bh, int bg, int n,
+              int d, int dv, int blk, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int r = bh / bg;
+  const int nb = (n + blk - 1) / blk;
+  const size_t qcount = static_cast<size_t>(bh) * n * d;
+  const size_t kcount = static_cast<size_t>(bg) * n * d;
+  const size_t scount = static_cast<size_t>(bg) * nb * d * dv;
+  const auto vp = static_cast<const bf*>(v);
+  const auto gp = static_cast<const bf*>(g);
+  const auto fq = static_cast<bf*>(phq);
+  const auto fk = static_cast<bf*>(phk);
+  const auto sp = static_cast<bf*>(sst);
+  const auto dsp = static_cast<bf*>(dsst);
+  const auto al = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int vec = d % 8 == 0 && dv % 8 == 0 && al(v) && al(g) && al(phq) &&
+                  al(phk) && al(sst) && al(dsst) && al(dqs) && al(dks) &&
+                  al(dv_);
+  cudaError_t err = phi_split<NP>(qs, fq, qcount, stream);
+  if (err == cudaSuccess) err = phi_split<NP>(ks, fk, kcount, stream);
+  if (err == cudaSuccess)
+    err = block_states<false, NP>(ks, vp, nullptr, nullptr, 1.f, sp, zst,
+                                  nullptr, nullptr, 0, bg, n, d, dv, 1, blk,
+                                  stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t dq_bytes = dq_smem_bytes<DP>();
+  const size_t dkv_bytes = dkv_smem_bytes<DP>();
+  err = lln::allow_smem(dq_tc_kernel<DP>, dq_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = lln::allow_smem(dkv_tc_kernel<DP>, dkv_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nt = (blk + TC_ROWS - 1) / TC_ROWS;
+  dq_tc_kernel<DP><<<dim3(bh, nb, nt), 128, dq_bytes, stream>>>(
+      qs, vp, gp, static_cast<const bf*>(o), den, fk, sp, zst, dqs, w, n, d,
+      dv, r, blk, kcount, scount, vec);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = block_states<true, NP>(qs, gp, den, w, 1.f, dsp, dzst, nullptr,
+                                 nullptr, 0, bg, n, d, dv, r, blk, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkv_tc_kernel<DP><<<dim3(bg, nb, 2 * nt), 128, dkv_bytes, stream>>>(
+      ks, vp, gp, den, w, fq, fk, dsp, dzst, dks, dv_, n, d, dv, r, blk,
+      qcount, kcount, scount, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype (v, g, o): 0 = float32, 1 = bfloat16; w is (BH, N) fp32 scratch.
@@ -336,5 +810,33 @@ extern "C" int lln_causal_bwd_launch(const void* qs, const void* ks,
   if (dtype == 0)
     return launch<float>(qsp, ksp, v, g, o, dnp, dqp, dkp, dvp, wp, bh, bg, n,
                          d, dvd, blk, rows, cols, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core path (v, g, o bf16; D, Dv <= 128), blocks of blk
+// rows (any N).  phq (3,BH,N,D), phk (3,BG,N,D), sst and dsst
+// (3,BG,nb,D,Dv) are bf16 scratch (three planes each), zst and dzst
+// (BG,nb,D) and w (BH,N) fp32 scratch, nb = ceil(N / blk).  Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int lln_causal_bwd_tc_launch(
+    const void* qs, const void* ks, const void* v, const void* g,
+    const void* o, const void* den, void* dqs, void* dks, void* dv, void* w,
+    void* phq, void* phk, void* sst, void* zst, void* dsst, void* dzst,
+    int bh, int bg, int n, int d, int dvd, int blk, void* stream) {
+  if (blk < 1 || bg < 1 || bh % bg != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  auto qsp = static_cast<const float*>(qs);
+  auto ksp = static_cast<const float*>(ks);
+  auto dnp = static_cast<const float*>(den);
+  if (d <= 64 && dvd <= 64)
+    return launch_tc<64>(qsp, ksp, v, g, o, dnp, f(dqs), f(dks), f(dv), f(w),
+                         phq, phk, sst, f(zst), dsst, f(dzst), bh, bg, n, d,
+                         dvd, blk, st);
+  if (d <= 128 && dvd <= 128)
+    return launch_tc<128>(qsp, ksp, v, g, o, dnp, f(dqs), f(dks), f(dv),
+                          f(w), phq, phk, sst, f(zst), dsst, f(dzst), bh, bg,
+                          n, d, dvd, blk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -468,8 +468,8 @@ int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
   if (err == cudaSuccess) err = phi_split<2>(ks, fk, kcount, stream);
   if (err == cudaSuccess)
     err = block_states<false, 2>(ks, static_cast<const bf*>(v), nullptr,
-                                 nullptr, sp, zst, bg, n, d, dv, 1, blk,
-                                 stream);
+                                 nullptr, 1.f, sp, zst, nullptr, nullptr, 0,
+                                 bg, n, d, dv, 1, blk, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t bytes = tc_smem_bytes<DP>();
   err = lln::allow_smem(fused_tc_kernel<DP>, bytes);

@@ -556,73 +556,6 @@ constexpr size_t dkv_smem_bytes() {
          2 * 4 * step_rows<DP>() * sizeof(float);
 }
 
-// Stage rows [d0, d0 + 32) of a D x Dv state (plane p at sp + p scount)
-// into stg (plane p at rows 32 p .. 32 p + 31).
-template <int DP>
-__device__ __forceinline__ void stage_state(__nv_bfloat16* stg,
-                                            const __nv_bfloat16* sp,
-                                            size_t scount, int d0, int d,
-                                            int dv, bool vz) {
-  constexpr int LD = DP + 8;
-  const int dr = min(32, d - d0);
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-    stage_tile<DP>(stg + p * 32 * LD, LD,
-                   sp + p * scount + static_cast<size_t>(d0) * dv, dv, dr, 32,
-                   vz);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// acc (16 x 8 NO) += a S^T over kvs 16-column steps for the 32 rows of the
-// state S staged at stg: output tiles 4 CH .. 4 CH + 3 (rows below w).
-template <int DP, int CH>
-__device__ __forceinline__ void mma_state_t(float (&acc)[DP / 8][4],
-                                            const __nv_bfloat16* a,
-                                            const __nv_bfloat16* stg, int kvs,
-                                            int w, int lane) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    if (kk >= kvs) break;
-    uint32_t af[1][4];
-    frag_a(af[0], a + kk * 16, LD, lane);
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      if (CH * 32 + j * 8 >= w) break;
-      uint32_t b0[NP][2], b1[NP][2];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        uint32_t r[4];
-        frag_b(r, stg + (p * 32 + j * 8) * LD + kk * 16, LD, lane);
-        b0[p][0] = r[0]; b0[p][1] = r[1]; b1[p][0] = r[2]; b1[p][1] = r[3];
-      }
-      mma_planes<1, NP>(acc[CH * 4 + j], af, b0);
-      mma_planes<1, NP>(acc[CH * 4 + j + 1], af, b1);
-    }
-  }
-}
-
-// acc += a S^T for the whole state (D rows at sp), 32 rows at a time
-// through stg: the product u S^T (with a = g) or V dS^T (a = V).
-template <int DP, int CH = 0>
-__device__ __forceinline__ void state_t_all(float (&acc)[DP / 8][4],
-                                            const __nv_bfloat16* a,
-                                            __nv_bfloat16* stg,
-                                            const __nv_bfloat16* sp,
-                                            size_t scount, int d, int dv,
-                                            int kvs, bool vz, int lane) {
-  if constexpr (CH * 32 < DP) {
-    if (CH * 32 < d) {
-      __syncthreads();
-      stage_state<DP>(stg, sp, scount, CH * 32, d, dv, vz);
-      mma_state_t<DP, CH>(acc, a, stg, kvs, d, lane);
-      state_t_all<DP, CH + 1>(acc, a, stg, sp, scount, d, dv, kvs, vz, lane);
-    }
-  }
-}
-
 // phk (NP,BG,N,D): Phi(k) planes kcount apart; sst (NP,BG,nb,D,Dv) and zst
 // (BG,nb,D): the forward's exclusive block states.
 template <int DP>
@@ -832,7 +765,7 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e)
         if (hd[e >> 1] > 0.f) as[j][e] /= hd[e >> 1];
     }
-    state_t_all<DP>(as, wg, stg,
+    state_t_all<DP, NP>(as, wg, stg,
                     sst + (static_cast<size_t>(kvh) * nb + c) * d * dv,
                     scount, d, dv, kvs, vz, lane);
 #pragma unroll
@@ -1039,11 +972,12 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
         dsst + (static_cast<size_t>(kv) * nb + c) * d * dv;
     zero_acc(part);
     if (role == 1) {
-      state_t_all<DP>(part, wx, stg, sp, scount, d, dv, kvs, vz, lane);
+      state_t_all<DP, NP>(part, wx, stg, sp, scount, d, dv, kvs, vz,
+                          lane);
     } else {
       for (int d0 = 0; d0 < d; d0 += 32) {
         __syncthreads();
-        stage_state<DP>(stg, sp, scount, d0, d, dv, vz);
+        stage_state<DP, NP>(stg, sp, scount, d0, d, dv, vz);
         mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg, 32 * LD, LD,
                                 (min(32, d - d0) + 15) / 16, nout, lane);
       }
@@ -1119,8 +1053,9 @@ int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
   cudaError_t err = phi_split<NP>(qs, fq, qcount, stream);
   if (err == cudaSuccess) err = phi_split<NP>(ks, fk, kcount, stream);
   if (err == cudaSuccess)
-    err = block_states<false, NP>(ks, vp, nullptr, nullptr, sp, zst, bg, n,
-                                  d, dv, 1, blk, stream);
+    err = block_states<false, NP>(ks, vp, nullptr, nullptr, 1.f, sp, zst,
+                                  nullptr, nullptr, 0, bg, n, d, dv, 1, blk,
+                                  stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t dq_bytes = dq_smem_bytes<DP>();
   const size_t dkv_bytes = dkv_smem_bytes<DP>();
@@ -1134,8 +1069,9 @@ int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
       dqd, stats, n, d, dv, r, blk, kcount, scount, scale, vec);
   err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = block_states<true, NP>(qs, gp, den, stats + 3 * bhn, dsp, dzst, bg,
-                                 n, d, dv, r, blk, stream);
+    err = block_states<true, NP>(qs, gp, den, stats + 3 * bhn, 0.5f, dsp,
+                                 dzst, nullptr, nullptr, 0, bg, n, d, dv, r,
+                                 blk, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   dkv_tc_kernel<DP><<<dim3(bg, nb, 3 * nt), 128, dkv_bytes, stream>>>(
       ks, qp, kp, vp, gp, den, stats, fq, fk, dsp, dzst, dks, dkd, dv_, n, d,

@@ -37,15 +37,15 @@
 //      and zA_{j+1} (z in fp32 on the CUDA cores) are written for the next
 //      launch, A as bf16 hi + lo.  At the end it writes the pyramid and the
 //      open bucket, r copies each.
-//   3. out_kernel: one CTA of 4 warps per (query head, granule, 64-row
-//      tile), the tiles that walk the most keys first.  Phi(q) = exp(qs) is
-//      split into hi + lo as it is loaded, 8 rows of loads in flight per
-//      warp (each query tile has one reader), and
-//      Phi(q) . zA_j taken in fp32.  The granule's keys up to the tile's
-//      last row come in 16- or 32-key tiles of v and Phi(k) hi / lo, staged
-//      by cp.async (double-buffered): Phi(q) Phi(k)^T (three MMAs), masked
-//      on the diagonal tiles, its row sums for den, scores V (two MMAs).
-//      Then Phi(q) A_j (three MMAs), den and out, rounded once.
+//   3. causal_out_kernel (csrc/causal_out.cuh, shared with lln_causal.cu):
+//      one CTA of 4 warps per (query head, granule, 64-row tile), the
+//      tiles that walk the most keys first.  Phi(q) = exp(qs) is split
+//      into hi + lo as it is loaded, and Phi(q) . zA_j taken in fp32.  The
+//      granule's keys up to the tile's last row come in 16- or 32-key
+//      tiles of v and Phi(k) hi / lo, staged by cp.async (double-buffered):
+//      Phi(q) Phi(k)^T (three MMAs), masked on the diagonal tiles, its row
+//      sums for den, scores V (two MMAs).  Then Phi(q) A_j (three MMAs),
+//      den and out, rounded once.
 //   Bound on the H100: about as many bytes (qs, out and the state dominate)
 //   as tensor-core operations (chip_smoke.py:_loglin_counts).
 //
@@ -60,6 +60,7 @@
 // Phi(k) = 0 and its pad rows are not written.  Each query head rebuilds
 // its group's pyramid.  The pyramid takes L*D*COLS fp32 of shared memory;
 // the launcher halves COLS if it would not fit.
+#include "causal_out.cuh"
 #include "fused_state.cuh"
 
 namespace {
@@ -277,7 +278,6 @@ int launch(const float* qs, const float* ks, const void* v, void* out,
 using namespace lln;
 
 constexpr int kMaxLevels = 8;   // pyramid levels of the tensor-core path
-constexpr int TC_ROWS = 64;     // query rows per output CTA (4 warps x 16)
 constexpr int kEntries = 16;    // state entries per thread of a 32 x 64 slice
 
 // aw (2,BG,nc,D,Dv): A_j as bf16 hi, then lo at + a_count; za (BG,nc,D):
@@ -451,199 +451,6 @@ pyramid_kernel(const float* __restrict__ ks,
   }
 }
 
-// Key rows per staged tile: 16 at DP = 128 leaves room for three CTAs per
-// SM; the stage area also holds 64 rows of A_j hi and lo.
-template <int DP>
-__host__ __device__ constexpr int key_tile() { return DP > 64 ? 16 : 32; }
-
-template <int DP>
-__host__ __device__ constexpr int stage_rows_of() {
-  return 6 * key_tile<DP>() > 2 * TC_ROWS ? 6 * key_tile<DP>() : 2 * TC_ROWS;
-}
-
-template <int DP>
-constexpr size_t out_smem_bytes() {
-  return (2 * TC_ROWS + stage_rows_of<DP>()) * (DP + 8) *
-             sizeof(__nv_bfloat16) +
-         TC_ROWS * sizeof(float);
-}
-
-// phk (2,BG,N,D): Phi(k) hi, then lo at + kcount; aw and za as
-// pyramid_kernel writes them.
-template <int DP>
-__global__ void __launch_bounds__(128, 2)
-out_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ v,
-           const __nv_bfloat16* __restrict__ phk,
-           const __nv_bfloat16* __restrict__ aw, const float* __restrict__ za,
-           __nv_bfloat16* __restrict__ out, int n, int d, int dv, int r,
-           int blk, size_t kcount, size_t a_count, int vec) {
-  extern __shared__ float smem[];
-  constexpr int LD = DP + 8;
-  constexpr int KT = key_tile<DP>();
-  constexpr int NS = KT / 8;           // score tiles of 8 keys per warp
-  constexpr int NO = DP / 8;           // output tiles of 8 columns per warp
-  constexpr int TS = TC_ROWS * LD;
-  constexpr int KS = KT * LD;
-  __nv_bfloat16* sfh = reinterpret_cast<__nv_bfloat16*>(smem);  // Phi(q) hi
-  __nv_bfloat16* sfl = sfh + TS;       // Phi(q) lo (planes TS apart)
-  __nv_bfloat16* stg = sfl + TS;       // 2 stages of v, Phi(k) hi, lo
-  float* pz = reinterpret_cast<float*>(stg + stage_rows_of<DP>() * LD);
-
-  const int h = blockIdx.x;
-  const int kvh = h / r;
-  const int j = blockIdx.y;
-  const int nc = gridDim.y;
-  const int g0 = j * blk;
-  const int gend = min(g0 + blk, n);
-  const int r0 = g0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
-  if (r0 >= gend) return;              // blk < 64 or a short last granule
-  const int rows = min(TC_ROWS, gend - r0);
-  const int nk = r0 + rows - g0;       // the granule's keys up to the last row
-  const int ntiles = (nk + KT - 1) / KT;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const int ks = (d + 15) / 16;
-  const int no = min(NO, ((dv + 15) / 16) * 2);
-  const bool vz = vec != 0;
-  const size_t hq = static_cast<size_t>(h) * n;
-  const size_t hk = static_cast<size_t>(kvh) * n + g0;
-  const __nv_bfloat16* vh = v + hk * dv;
-  const __nv_bfloat16* fkh = phk + hk * d;
-
-  const auto stage_keys = [&](int t, int sb) {
-    const int k0 = t * KT, kr = min(KT, nk - k0);
-    __nv_bfloat16* s = stg + sb * 3 * KS;
-    const size_t o = static_cast<size_t>(k0) * d;
-    stage_tile<DP>(s, LD, vh + static_cast<size_t>(k0) * dv, dv, kr, KT, vz);
-    stage_tile<DP>(s + KS, LD, fkh + o, d, kr, KT, vz);
-    stage_tile<DP>(s + 2 * KS, LD, fkh + kcount + o, d, kr, KT, vz);
-  };
-  stage_keys(0, 0);
-  cp_async_commit();
-
-  // Phi(q) = exp(qs) as hi + lo, split as it is loaded, and Phi(q) . zA_j
-  // in fp32 with the exact Phi(q): a warp per row, 8 rows of loads in
-  // flight at a time.
-  {
-    constexpr int RB = 8, NU = DP / 32;
-    const float* zj = za + (static_cast<size_t>(kvh) * nc + j) * d;
-    float zv[NU];
-#pragma unroll
-    for (int u = 0; u < NU; ++u)
-      zv[u] = j > 0 && lane + 32 * u < d ? zj[lane + 32 * u] : 0.f;
-    for (int i0 = 0; i0 < 16; i0 += RB) {
-      float x[RB][NU];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int a = warp * 16 + i0 + i;
-#pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          const int e = lane + 32 * u;
-          x[i][u] = a < rows && e < d ? qs[(hq + r0 + a) * d + e] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int a = warp * 16 + i0 + i;
-        float sum = 0.f;
-#pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          const int e = lane + 32 * u;
-          const float f = a < rows && e < d ? expf(x[i][u]) : 0.f;
-          sum = fmaf(f, zv[u], sum);
-          const __nv_bfloat16 hb = __float2bfloat16(f);
-          sfh[a * LD + e] = hb;
-          sfl[a * LD + e] = __float2bfloat16(f - __bfloat162float(hb));
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) pz[a] = sum;
-      }
-    }
-  }
-
-  float ol[NO][4];
-  zero_acc(ol);
-  float rs[2] = {0.f, 0.f};          // this thread's part of the row sums
-  const int qw = r0 - g0 + warp * 16;        // the warp's first query
-  const int qrow = qw + gq;
-  const __nv_bfloat16* afh = sfh + warp * 16 * LD;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int sb = t & 1;
-    if (t + 1 < ntiles) stage_keys(t + 1, sb ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* s_v = stg + sb * 3 * KS;
-    float a[NS][4];
-    zero_acc(a);
-    mma_abt_p<NS, DP / 16, 2, 2>(a, afh, TS, LD, s_v + KS, KS, LD, ks, lane);
-    // Mask above the diagonal (only tiles reaching past the warp's first
-    // query need it; keys past the last row lie above every row's).
-    const int kb = t * KT;
-    const bool edge = kb + KT > qw + 1;
-#pragma unroll
-    for (int jj = 0; jj < NS; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kb + jj * 8 + 2 * t4 + (e & 1);
-        const int row = qrow + (e >> 1) * 8;
-        if (edge && col > row) a[jj][e] = 0.f;
-        rs[e >> 1] += a[jj][e];
-      }
-    }
-    mma_pb_p<NO, NS / 2, 2, 1>(ol, a, s_v, 0, LD, no, lane);
-    __syncthreads();                 // this stage is free for the prefetch
-  }
-  cp_async_wait<0>();
-
-  // Phi(q) A_j, 64 rows of A (hi, then lo) at a time through the stages.
-  if (j > 0) {
-    const __nv_bfloat16* ah =
-        aw + (static_cast<size_t>(kvh) * nc + j) * d * dv;
-    for (int d0 = 0; d0 < d; d0 += 64) {
-      const int dr = min(64, d - d0);
-      __syncthreads();
-      stage_tile<DP>(stg, LD, ah + static_cast<size_t>(d0) * dv, dv, dr, 64,
-                     vz);
-      stage_tile<DP>(stg + 64 * LD, LD,
-                     ah + a_count + static_cast<size_t>(d0) * dv, dv, dr, 64,
-                     vz);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      mma_ab_p<NO, 4, 2, 2>(ol, afh + d0, TS, LD, stg, 64 * LD, LD,
-                            (dr + 15) / 16, no, lane);
-    }
-  }
-  __syncthreads();                   // pz
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
-    rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int a = warp * 16 + gq + hh * 8;
-    if (a >= rows) continue;
-    const float dn = rs[hh] + pz[a] + kEps;
-    __nv_bfloat16* orow = out + (hq + r0 + a) * dv;
-#pragma unroll
-    for (int jj = 0; jj < NO; ++jj) {
-      const int cc = jj * 8 + 2 * t4;
-      const uint32_t x = pack_bf16(ol[jj][2 * hh] / dn, ol[jj][2 * hh + 1] / dn);
-      if (vz && cc + 1 < dv) {
-        *reinterpret_cast<uint32_t*>(orow + cc) = x;
-      } else {
-        if (cc < dv) orow[cc] = __ushort_as_bfloat16(x & 0xffffu);
-        if (cc + 1 < dv) orow[cc + 1] = __ushort_as_bfloat16(x >> 16);
-      }
-    }
-  }
-}
-
 template <int DP>
 int launch_tc(const float* qs, const float* ks, const void* v, void* out,
               float* sl, float* zl, float* s, float* z, void* phk, void* aw,
@@ -677,14 +484,10 @@ int launch_tc(const float* qs, const float* ks, const void* v, void* out,
       decay, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = out_smem_bytes<DP>();
-  err = lln::allow_smem(out_kernel<DP>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, nc, (blk + TC_ROWS - 1) / TC_ROWS);
-  out_kernel<DP><<<grid, 128, bytes, stream>>>(
-      qs, vb, fk, ap, za, static_cast<bf*>(out), n, d, dv, bh / bg, blk,
-      kcount, a_count, vec);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(causal_out<DP>(qs, vb, fk, ap, za,
+                                          static_cast<bf*>(out), nullptr, bh,
+                                          bg, n, d, dv, blk, kcount, a_count,
+                                          vec, stream));
 }
 
 }  // namespace

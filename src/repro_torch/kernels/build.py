@@ -31,14 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Every entry point: (argument kinds) with "p" a pointer, "i" an int, "f" a
 # float, "d" a double.
 SIGNATURES = {
-    "lln_causal": {"lln_causal_launch": "ppppppp" + "iiiiiiii" + "p"},
+    "lln_causal": {"lln_causal_launch": "ppppppp" + "iiiiiiii" + "p",
+                   "lln_causal_tc_launch": "p" * 10 + "i" * 6 + "p"},
     "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p"},
     "lln_decode": {"lln_decode_launch": "pppppppp" + "iiiiii" + "p"},
     "lln_diag_fused": {"lln_diag_fused_launch":
                        "ppppppp" + "iiiiiiii" + "f" + "p",
                        "lln_diag_fused_tc_launch":
                        "p" * 11 + "i" * 6 + "f" + "p"},
-    "lln_causal_bwd": {"lln_causal_bwd_launch": "p" * 10 + "i" * 9 + "p"},
+    "lln_causal_bwd": {"lln_causal_bwd_launch": "p" * 10 + "i" * 9 + "p",
+                       "lln_causal_bwd_tc_launch": "p" * 16 + "i" * 6 + "p"},
     "lln_diag_fused_bwd": {"lln_diag_fused_bwd_launch":
                            "p" * 14 + "i" * 9 + "f" + "p",
                            "lln_diag_fused_bwd_tc_launch":

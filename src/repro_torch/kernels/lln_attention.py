@@ -15,17 +15,32 @@ its CUDA kernel for a CUDA tensor; it counts its launches in
 ``src/repro/kernels/lln_attention.py:lln_causal_pallas``: the prefill with
 the final state (``return_state``) and the training forward with the row
 normalizer ``den`` (``return_res``).  On the TPU the grid's minor axis ran
-in order and kept ``(S, z)`` in VMEM; here one CTA per (query head, 32
-value columns) walks the sequence in 64-row tiles and keeps its slice of
-``S`` and all of ``z`` in shared memory, so the scan order is a loop inside
-the CTA.  Any N is taken: the ragged last tile's pad keys get Phi(k) = 0
-and its pad rows are not written.  Bound on the H100: at the serve shapes
-(B=4, H=32, G=4, N=512, D=Dv=128) the fp32 work (Phi(q)S per query,
-Phi(k)v^T per key, about 4.3 GFLOP) outweighs the 65 MB it moves, so it is
-bound by fp32 operations (67 TFLOP/s, no tensor cores in this first
-version); the training shapes (N=1024) double both.  The column split
-gives 4x more CTAs than heads (512 at the serve shapes) at the cost of
-recomputing the tile's scores once per column group.
+in order and kept ``(S, z)`` in VMEM.  Two paths (:func:`_tc_path`):
+
+- bf16 v with D and Dv at most 128 (every model path on the card): the
+  tensor-core path, chunk-parallel over blocks of :data:`TC_BLOCK` rows
+  (the kernels' own block: of 64, 128 and 256, ``lln_causal_bwd`` is
+  fastest at 64 on the card and this forward about flat; ``blk`` is the
+  plain scan's chunk and does not enter the math).  Phi(k) is split into
+  bf16 hi + lo; a state kernel writes each kv group's exclusive block
+  states ``(S_c, z_c)`` once per group (not per query head) and, with
+  ``return_state``, the final state in fp32 (Phi(k) in three planes
+  there: it is held to 1e-5); one CTA per (query head, block, 64-row
+  tile) computes the masked intra-block scores, their row sums, scores V,
+  ``Phi(q) S_c`` and ``Phi(q) . z_c``, then ``den`` and the output,
+  rounded once (the output kernel of ``loglin_causal``,
+  ``csrc/causal_out.cuh``).  Any N: the short last block's pad keys are
+  staged as Phi(k) = 0 (the final state is not masked, so ``ks`` is never
+  zero-padded) and its pad rows are not written.  Scratch
+  (:func:`_tc_scratch`): Phi(k) and ``S_c`` as two bf16 planes, ``z_c``
+  fp32.  Bound on the H100 (``chip_smoke.py:_lln_counts``): the bytes
+  (qs, ks, v, out), about twice the products at the bf16 rate, at the
+  serve (B=4, H=32, G=4, N=512, D=Dv=128) and training (N=1024) shapes.
+- fp32 v, or a wider head: the CUDA-core kernel, one CTA per (query head,
+  32 value columns) walking the sequence in 64-row tiles with its slice of
+  ``S`` and all of ``z`` in shared memory, IEEE fp32 (any N, as above).
+  Bound: fp32 operations; each column group recomputes the tile's scores
+  and each query head its group's state.
 
 ``lln_diag_fused`` (``csrc/lln_diag_fused.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_diag_fused_pallas`` (causal,
@@ -43,7 +58,7 @@ recomputing the tile's scores once per column group.
   then ``Phi(q) S_c``, ``den`` and the average, rounded once.  Products:
   bf16 x bf16 one MMA; an fp32 operand goes in as two bf16 planes (hi +
   lo), two MMAs against bf16, three against another fp32 operand.  The
-  wrapper allocates the scratch (:func:`_fused_scratch`): Phi(q), Phi(k)
+  wrapper allocates the scratch (:func:`_tc_scratch`): Phi(q), Phi(k)
   and the states, about the bytes of qs, ks and one fp32 state per block
   and kv group.
 - fp32, or a wider head: the CUDA-core kernel, one CTA per (query head,
@@ -94,8 +109,12 @@ PREFILL_TILE = 64
 COLS = 32
 MAX_DECODE_T = 64
 _VCODES = {torch.float32: 0, torch.bfloat16: 1}
-# The widest head the fused pair's tensor-core path takes (D and Dv).
+# The widest head the tensor-core paths take (D and Dv).
 TC_MAX_WIDTH = 128
+# Rows per block of lln_causal's and lln_causal_bwd's tensor-core paths:
+# the kernels' own chunk, whatever the caller's ``blk`` (chip_smoke.py
+# times 128 and 256 beside it).
+TC_BLOCK = 64
 
 
 def _check_lln_inputs(qs, ks, v, r):
@@ -205,8 +224,10 @@ def lln_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
     """Causal LLN forward with its optional outputs (order and meaning as
     :func:`lln_causal_plain`); see the module docstring.
 
-    ``blk`` is the plain version's chunk; the CUDA kernel tiles by
-    :data:`PREFILL_TILE` (the split does not change the math)."""
+    ``blk`` is the plain version's chunk; it does not enter the math, and
+    the CUDA kernels take their own (:data:`TC_BLOCK` rows per block on
+    the tensor cores, :data:`PREFILL_TILE`-row tiles on the CUDA
+    cores)."""
     if qs.device.type == "cpu":
         return lln_causal_plain(qs, ks, v, r=r, blk=blk, return_res=return_res,
                                 return_state=return_state)
@@ -219,12 +240,20 @@ def lln_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
     s = torch.empty(bh, d, dv, **f32) if return_state else None
     z = torch.empty(bh, 1, d, **f32) if return_state else None
     lib = build.library("lln_causal")
+    ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in (den, s, z)))
     with torch.cuda.device(qs.device):
-        err = lib.lln_causal_launch(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in (den, s, z)),
-            bh, bg, n, d, dv, _VCODES[v.dtype], PREFILL_TILE, COLS,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv):
+            _, *scratch = _tc_scratch(bh, bg, n, d, dv, TC_BLOCK, qs.device,
+                                      phi_q=False)
+            err = lib.lln_causal_tc_launch(
+                *ptrs, *(t.data_ptr() for t in scratch), bh, bg, n, d, dv,
+                TC_BLOCK, stream)
+        else:
+            err = lib.lln_causal_launch(
+                *ptrs, bh, bg, n, d, dv, _VCODES[v.dtype], PREFILL_TILE, COLS,
+                stream)
     build.check(err, "lln_causal")
     lln_causal.launches += 1
     return _lln_outputs(out, den, s, z, return_res, return_state)
@@ -273,18 +302,22 @@ def lln_diag_fused_plain(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
 
 
 def _tc_path(v, d: int, dv: int) -> bool:
-    """Whether the fused pair runs its tensor-core path: bf16 inputs and
-    D, Dv <= :data:`TC_MAX_WIDTH`; otherwise its CUDA-core kernels."""
+    """Whether ``lln_causal``, the fused pair and their backwards run their
+    tensor-core paths: bf16 inputs and D, Dv <= :data:`TC_MAX_WIDTH`;
+    otherwise their CUDA-core kernels."""
     return v.dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_WIDTH
 
 
-def _fused_scratch(bh, bg, n, d, dv, blk, device, planes: int = 2):
-    """Scratch of the fused pair's tensor-core path: Phi(q) (P,BH,N,D) and
-    Phi(k) (P,BG,N,D) as ``planes`` bf16 planes, the exclusive block states
-    S (P,BG,N/blk,D,Dv) as bf16 planes and z (BG,N/blk,D) fp32."""
-    nb = n // blk
+def _tc_scratch(bh, bg, n, d, dv, blk, device, planes: int = 2,
+                phi_q: bool = True):
+    """Scratch of the LLN tensor-core paths: Phi(q) (P,BH,N,D) (None
+    without ``phi_q``) and Phi(k) (P,BG,N,D) as ``planes`` bf16 planes, the
+    exclusive block states S (P,BG,nb,D,Dv) as bf16 planes and z
+    (BG,nb,D) fp32, with nb = ceil(N / blk) blocks, a short last one
+    included."""
+    nb = -(-n // blk)
     bf = dict(dtype=torch.bfloat16, device=device)
-    return (torch.empty(planes, bh, n, d, **bf),
+    return (torch.empty(planes, bh, n, d, **bf) if phi_q else None,
             torch.empty(planes, bg, n, d, **bf),
             torch.empty(planes, bg, nb, d, dv, **bf),
             torch.empty(bg, nb, d, dtype=torch.float32, device=device))
@@ -312,7 +345,7 @@ def lln_diag_fused(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         if _tc_path(v, d, dv):
-            scratch = _fused_scratch(bh, bg, n, d, dv, blk, qs.device)
+            scratch = _tc_scratch(bh, bg, n, d, dv, blk, qs.device)
             err = lib.lln_diag_fused_tc_launch(
                 *ptrs, *(t.data_ptr() for t in scratch), bh, bg, n, d, dv,
                 blk, scale, stream)

@@ -10,20 +10,37 @@ fp32; ``kernels/ops.py`` applies the alpha/beta chain rule.  dk and dv are
 summed over the ``r`` query heads that share a kv head.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
-its CUDA kernel for a CUDA tensor; it counts its launches (one per call of
-its C entry, which runs two kernels) in ``<wrapper>.launches``.
+its CUDA kernels for a CUDA tensor; it counts its launches (one per call of
+its C entry, which runs several kernels) in ``<wrapper>.launches``.
 
 ``lln_causal_bwd`` (``csrc/lln_causal_bwd.cu``) replaces
-``src/repro/kernels/lln_backward.py:lln_causal_bwd_pallas``.  A dq kernel
-rebuilds ``(S, z)`` in forward order with one CTA per (query head, 32 rows
-of D) -- its products contract over Dv, so the forward's column split does
-not serve -- and a dk/dv kernel runs the reverse scan with dk CTAs over
-rows and dv CTAs over columns of ``dS``, each keeping the sum of ``(dS,
-dz)`` over the r heads (the per-head state of the Pallas kernel, r x D x Dv
-fp32, exceeds a block's shared memory) and looping over the heads in order
-for the intra-tile terms: no atomics, so gradients are the same bit for
-bit from run to run.  Bound on the H100: fp32 operations, about twice the
-forward's (the training shapes B=4, H=32, G=4, N=1024, D=Dv=128).
+``src/repro/kernels/lln_backward.py:lln_causal_bwd_pallas``.  Two paths,
+chosen as the forward's (``lln_attention._tc_path``):
+
+- bf16 with D, Dv <= 128 (every model path on the card): the tensor-core
+  path, ``lln_diag_fused_bwd``'s without the softmax, chunk-parallel over
+  blocks of ``lln_attention.TC_BLOCK`` rows (the kernels' own block; any
+  N).  The forward's block states recomputed once per kv group; a dq
+  kernel per (query head, block, 64-row tile) writes each row's ``w`` and
+  ``dqs = Phi(q) (gmat Phi(k) + u S_c^T - w z_c)`` with ``gmat = tril(u
+  v^T - w)``; the reverse block states ``(dS_c, dz_c)`` over the later
+  blocks and the r heads in a fixed order; two CTAs per (kv group, block,
+  64-key tile), one for ``dks`` and one for ``dv``, that walk the r heads
+  and the block's query tiles in a fixed order: no atomics, two runs equal
+  bit for bit.  Every fp32 operand as three bf16 planes (the gradients are
+  held to 1e-5), each query tile's products added to the totals in fp32.
+  Scratch: :func:`lln_attention._tc_scratch` with three planes, twice the
+  states.  Bound (``chip_smoke.py:_lln_counts``): the bytes, a little
+  above the products at the bf16 rate with the three-plane count, at the
+  training shapes (B=4, H=32, G=4, N=1024, D=Dv=128).
+- fp32, or a wider head: the CUDA-core kernels.  A dq kernel rebuilds
+  ``(S, z)`` in forward order with one CTA per (query head, 32 rows of D)
+  -- its products contract over Dv, so the forward's column split does
+  not serve -- and a dk/dv kernel runs the reverse scan with dk CTAs over
+  rows and dv CTAs over columns of ``dS``, each keeping the sum of ``(dS,
+  dz)`` over the r heads and looping over the heads in order for the
+  intra-tile terms: no atomics.  Bound: fp32 operations, about twice the
+  forward's.
 
 ``lln_diag_fused_bwd`` (``csrc/lln_diag_fused_bwd.cu``) replaces
 ``src/repro/kernels/lln_backward.py:lln_diag_fused_bwd_pallas``: the LLN
@@ -43,7 +60,7 @@ tiles in a fixed order: no atomics, two runs equal bit for bit.
 Every fp32 operand goes in as three bf16 planes (2^-24 relative; two
 planes left dks and dqs outside the 1e-5 tolerance), and each query
 tile's products are added to the dk/dv totals in fp32.  The scratch is
-:func:`lln_attention._fused_scratch` with three planes, twice the states.
+:func:`lln_attention._tc_scratch` with three planes, twice the states.
 Bound (``chip_smoke.py:_fused_counts``): the products at the bf16
 tensor-core rate, an fp32 operand once per MMA the two-plane split takes;
 at the training shape the bytes bound it.
@@ -64,10 +81,10 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, lln_attention
 from .lln_attention import (_VCODES, _check_blocks, _check_lln_inputs,
-                            _check_raw_qk, _check_same, _diag_probs,
-                            _fused_scratch, _tc_path)
+                            _check_raw_qk, _check_same, _diag_probs, _tc_path,
+                            _tc_scratch)
 
 # D rows of a dq/dk CTA, Dv columns of a dv CTA.
 ROWS = 32
@@ -165,13 +182,24 @@ def lln_causal_bwd(qs, ks, v, g, o, den, *, r: int = 1, blk: int = 256):
     dvo = torch.empty(bg, n, dv, **f32)
     w = torch.empty(bh, n, **f32)
     lib = build.library("lln_causal_bwd")
-    with torch.cuda.device(qs.device):
-        err = lib.lln_causal_bwd_launch(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
+    ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
             o.data_ptr(), den.data_ptr(), dqs.data_ptr(), dks.data_ptr(),
-            dvo.data_ptr(), w.data_ptr(), bh, bg, n, d, dv, blk,
-            _VCODES[v.dtype], ROWS, COLS,
-            torch.cuda.current_stream().cuda_stream)
+            dvo.data_ptr(), w.data_ptr())
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv):
+            tc_blk = lln_attention.TC_BLOCK
+            phq, phk, sst, zst = _tc_scratch(bh, bg, n, d, dv, tc_blk,
+                                             qs.device, planes=3)
+            dsst, dzst = torch.empty_like(sst), torch.empty_like(zst)
+            err = lib.lln_causal_bwd_tc_launch(
+                *ptrs, *(t.data_ptr() for t in (phq, phk, sst, zst, dsst,
+                                                dzst)),
+                bh, bg, n, d, dv, tc_blk, stream)
+        else:
+            err = lib.lln_causal_bwd_launch(
+                *ptrs, bh, bg, n, d, dv, blk, _VCODES[v.dtype], ROWS, COLS,
+                stream)
     build.check(err, "lln_causal_bwd")
     lln_causal_bwd.launches += 1
     return dqs, dks, dvo
@@ -240,8 +268,8 @@ def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         if _tc_path(v, d, dv):
-            phq, phk, sst, zst = _fused_scratch(bh, bg, n, d, dv, blk,
-                                                qs.device, planes=3)
+            phq, phk, sst, zst = _tc_scratch(bh, bg, n, d, dv, blk,
+                                             qs.device, planes=3)
             dsst, dzst = torch.empty_like(sst), torch.empty_like(zst)
             err = lib.lln_diag_fused_bwd_tc_launch(
                 *ptrs, *(t.data_ptr() for t in (phq, phk, sst, zst, dsst,

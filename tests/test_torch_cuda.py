@@ -42,8 +42,17 @@ the state, two for the scores and xbar) are held at r in {1, 4, 8}, N in
 {2048, 2040, 300}, blk in {16, 64, 256}, levels 1-5 and D != Dv, out within
 one bf16 step and the state within 1e-5 of the largest plain entry; and at
 r in {1, 24, 112}, S in {16, 64, 128}, P in {32, 64}, blk in {64, 256}, y
-within 1e-4; two runs of each bitwise equal.
+within 1e-4; two runs of each bitwise equal.  The tensor-core paths of
+``lln_causal`` and ``lln_causal_bwd`` (bf16 v: the states with Phi in three
+planes, the outputs two, the backward three throughout) are held at r in
+{1, 4, 8}, N in {64, 512, 300}, (D, Dv) in {(64, 64), (128, 128), (64,
+128)} and the kernels' blocks of 64, 128 and 256 rows: out within one bf16
+step, den, the final (s, z) and the gradients within 1e-5 of the largest
+plain entry, two backward runs bitwise equal; their fp32 cases hold the
+CUDA-core kernels.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -730,6 +739,53 @@ def test_cuda_fused_tensor_core_path_matches_plain(cuda, r, n, blk, d, dv):
     again = lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
     want = lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
     torch.cuda.synchronize()
+    for gt, wt, ag in zip(got, want, again):
+        _close(gt, wt, TRAIN)
+        assert torch.equal(gt, ag)
+
+
+LLN_TC_DIMS = ((64, 64), (128, 128), (64, 128))
+LLN_TC_CASES = [
+    pytest.param(r, n, *LLN_TC_DIMS[j], (64, 128, 256)[(i + j) % 3],
+                 id=f"r{r}-n{n}-d{LLN_TC_DIMS[j][0]}-dv{LLN_TC_DIMS[j][1]}"
+                    f"-blk{(64, 128, 256)[(i + j) % 3]}")
+    for r in (1, 4, 8) for i, n in enumerate((64, 512, 300))
+    for j in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,d,dv,tc_blk", LLN_TC_CASES)
+def test_cuda_lln_causal_tensor_core_path_matches_plain(cuda, monkeypatch, r,
+                                                         n, d, dv, tc_blk):
+    """lln_causal (both forms) and lln_causal_bwd on bf16 v (the
+    tensor-core paths) against their plain twins, at the kernels' blocks of
+    64, 128 and 256 rows: N of one block, of several and ragged (300, a
+    short last block in the forward, the state and the backward, whose
+    caller's chunk of 20 divides it), D != Dv, r up to yi-9b's 8.  out
+    within one bf16 step; den, s, z and the three fp32 gradients within
+    1e-5 of the largest plain entry; two backward runs bitwise equal."""
+    # The package exports a function of the module's name: take the module.
+    monkeypatch.setattr(
+        importlib.import_module("repro_torch.kernels.lln_attention"),
+        "TC_BLOCK", tc_blk)
+    qs, ks, v = _kernel_inputs(100 * r + n + d + dv, 2 * r, 2, n, d, dv)
+    g = np.random.default_rng(n + r).normal(size=(2 * r, n, dv))
+    qs, ks = _on(cuda, qs, ks)
+    vb, g = _on(cuda, v, g.astype(np.float32), dtype=torch.bfloat16)
+    blk = 20 if n % 16 else 16
+    got = lln_causal(qs, ks, vb, r=r, blk=blk, return_res=True)
+    want = lln_causal_plain(qs, ks, vb, r=r, blk=blk, return_res=True)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], BF16)
+    for gt, wt in zip(got[1:], want[1:]):
+        _close(gt, wt, TRAIN)
+    o, den = want[:2]
+    before = lln_causal_bwd.launches
+    got = lln_causal_bwd(qs, ks, vb, g, o, den, r=r, blk=blk)
+    again = lln_causal_bwd(qs, ks, vb, g, o, den, r=r, blk=blk)
+    want = lln_causal_bwd_plain(qs, ks, vb, g, o, den, r=r, blk=blk)
+    torch.cuda.synchronize()
+    assert lln_causal_bwd.launches == before + 2
     for gt, wt, ag in zip(got, want, again):
         _close(gt, wt, TRAIN)
         assert torch.equal(gt, ag)

@@ -26,8 +26,9 @@ from repro_torch.core.lln import LLNState
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.block_diag import block_diag
-from repro_torch.kernels.lln_attention import (lln_causal, lln_causal_plain,
-                                               lln_decode)
+from repro_torch.kernels.lln_attention import (TC_BLOCK, _tc_path,
+                                               _tc_scratch, lln_causal,
+                                               lln_causal_plain, lln_decode)
 
 ATOL = 2e-4
 
@@ -94,6 +95,55 @@ def test_lln_causal_plain_matches_quadratic_oracle_ragged():
     _close(out, o_ref.numpy())
     _state_close(s, s_ref.numpy())
     _state_close(z, z_ref.numpy())
+
+
+@pytest.mark.parametrize("n", [300, 512], ids=["ragged-n300", "n512"])
+@pytest.mark.parametrize("r", [1, 4])
+def test_lln_causal_plain_is_independent_of_its_chunk(r, n):
+    """The chunk only splits the causal sum: out, den and the final (s, z)
+    at blk 16, 64 and 256 agree within 1e-5 of the largest entry, a ragged
+    N included.  That is why the CUDA kernels take their own block
+    (TC_BLOCK rows on the tensor cores) whatever the caller's blk."""
+    qs, ks, v = _kernel_inputs(10 * r + n, 2 * r, 2, n, 32, 16)
+    args = [torch.from_numpy(a) for a in (qs, ks, v)]
+    runs = [lln_causal_plain(*args, r=r, blk=b, return_res=True)
+            for b in (16, 64, 256)]
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            _close(got, want.numpy(),
+                   atol=1e-5 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 128, 128, True),
+    (torch.bfloat16, 64, 112, True),
+    (torch.float32, 128, 128, False),
+    (torch.bfloat16, 160, 128, False),
+    (torch.bfloat16, 128, 256, False)],
+    ids=["serve", "narrow", "fp32-v", "wide-d", "wide-dv"])
+def test_lln_causal_tensor_core_route(dtype, d, dv, want):
+    """bf16 v with D, Dv <= 128 takes lln_causal's (and lln_causal_bwd's)
+    tensor-core kernels; fp32 v or a wider head the CUDA-core ones."""
+    assert _tc_path(torch.zeros(1, 1, dv, dtype=dtype), d, dv) is want
+
+
+@pytest.mark.parametrize("n,blk,blocks", [(1024, 64, 16), (300, 64, 5),
+                                          (512, 256, 2), (40, 64, 1)])
+def test_lln_causal_tensor_core_scratch_covers_every_block(n, blk, blocks):
+    """Phi(k) as bf16 planes (and Phi(q) for the backward), one exclusive
+    state S_c (bf16 planes) and z_c per block, the short last one
+    included: two planes and no Phi(q) forward, three backward."""
+    assert TC_BLOCK in (64, 128, 256)
+    for planes, phi_q in ((2, False), (3, True)):
+        phq, phk, sst, zst = _tc_scratch(8, 2, n, 64, 96, blk, "cpu",
+                                         planes=planes, phi_q=phi_q)
+        assert (phq is None) is not phi_q
+        if phi_q:
+            assert phq.shape == (planes, 8, n, 64)
+        assert phk.shape == (planes, 2, n, 64) and phk.dtype == torch.bfloat16
+        assert sst.shape == (planes, 2, blocks, 64, 96)
+        assert sst.dtype == torch.bfloat16
+        assert zst.shape == (2, blocks, 64) and zst.dtype == torch.float32
 
 
 @pytest.mark.parametrize("r", [1, 2])

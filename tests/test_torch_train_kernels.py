@@ -126,6 +126,21 @@ def test_lln_diag_fused_bwd_matches_pallas(r, n, dtype):
         _close(g_, w_, FP32)
 
 
+@pytest.mark.parametrize("r", [1, 4])
+def test_lln_causal_bwd_plain_is_independent_of_its_chunk(r):
+    """The gradients at blk 16, 64 and 256 agree within 1e-5 of the
+    largest entry: the chunk splits the sums, no more, so the CUDA kernels
+    take their own block whatever the caller's blk."""
+    _, tt = _case(6 + r, r, 256, "float32")
+    o, den = lln_causal_plain(tt["qs"], tt["ks"], tt["v"], r=r, blk=BLK,
+                              return_res=True, return_state=False)
+    runs = [lln_causal_bwd_plain(tt["qs"], tt["ks"], tt["v"], tt["g"], o,
+                                 den, r=r, blk=b) for b in (16, 64, 256)]
+    for run in runs[1:]:
+        for got, want in zip(run, runs[0]):
+            _close(got, want.numpy(), FP32)
+
+
 def test_wrappers_run_plain_on_cpu_and_check_blocks():
     """On a CPU tensor each wrapper is its plain version (no launch); the
     block contract N % blk == 0 is the reference's."""
