@@ -35,8 +35,8 @@ Phases (any failure raises and the script exits non-zero):
                      block_diag_bwd, and block_diag with causal=False)
                      against its plain version at the encoder shapes (B=32,
                      N=512 and a ragged 300, H=12, G=12 and 3, D=Dv=64,
-                     blk 256, bf16 q/k/v/g), block_diag_bwd's two runs
-                     bitwise equal;
+                     blk 256, bf16 q/k/v/g), two runs of lln_bidir,
+                     lln_bidir_bwd and block_diag_bwd bitwise equal;
  10. small_encoder - roberta-lln SMOKE in fp32 with use_kernel=True: 3 MLM
                      steps on the kernels against 3 through the core
                      reference, then the train CLI --arch roberta-lln;
@@ -846,6 +846,51 @@ def _fused_counts(bh, bg, n, d, dv, blk):
     }
 
 
+def _bidir_counts(bh, bg, n, d, dv):
+    """Bytes and operations of lln_bidir (with den) and lln_bidir_bwd at
+    one shape: {name: (bytes, fp32 FLOPs, bf16 tensor-core FLOPs)}, and
+    under the CUDA-core count (the linear form's fp32 work) with the key
+    "... (CUDA cores)".  The products at the tensor cores' rate, an fp32
+    operand counted once per MMA its plane split takes (two planes against
+    two: three MMAs; three planes against bf16: three; three against
+    three: six), 2 D Dv per row and MMA:
+    - forward: the state Phi(k)^T v (Phi(k) in three planes, v bf16) 3
+      per key; the apply Phi(q) s (both as hi + lo) 3 per query row;
+    - backward: g s^T (g bf16, s in three planes) 3 per query row; the
+      reverse state Phi(q)^T g (Phi(q) / den in three planes) 3 per query
+      row; Phi(k) dS (both in three planes) 6 per key; V dS^T (V bf16)
+      3 per key.
+    fp32 work: the exps, z (a sum per key and column), den (a dot per
+    row), out's division; w (a dot per row and a division), Phi(q) / den,
+    dz (2 per row and column), the dq epilogue (3 per entry) and the dks
+    epilogue (2 per entry).  Bytes: each input read once, each output
+    written once."""
+    f32, b16 = 4, 2
+    state = 2 * d * dv
+    qsks = (bh + bg) * n * d * f32
+    exps = (bh + bg) * n * d
+    fwd_bytes = qsks + bg * n * dv * b16 + bh * n * dv * b16 \
+        + bh * n * f32 + bg * (d * dv + d) * f32
+    bwd_bytes = qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 \
+        + bh * n * f32 + bg * (d * dv + d) * f32 + (bh + bg) * n * d * f32 \
+        + bg * n * dv * f32
+    fwd_tc = bg * n * 3 * state + bh * n * 3 * state
+    bwd_tc = bh * n * (3 + 3) * state + bg * n * (6 + 3) * state
+    fwd_f32 = exps + bg * n * d + bh * n * (2 * d + dv)
+    bwd_f32 = exps + bh * n * (2 * dv + 1) + bh * n * (d + 2 * d + 3 * d) \
+        + bg * n * 2 * d
+    lln_fwd = bh * n * (2 * d * dv + 2 * d) + bg * n * (2 * d * dv + d) \
+        + exps
+    lln_bwd = bh * n * (4 * d * dv + 3 * dv + 4 * d) \
+        + bg * n * (4 * d * dv + 2 * d) + exps
+    return {
+        "lln_bidir": (fwd_bytes, fwd_f32, fwd_tc),
+        "lln_bidir_bwd": (bwd_bytes, bwd_f32, bwd_tc),
+        "lln_bidir (CUDA cores)": (fwd_bytes, lln_fwd, 0),
+        "lln_bidir_bwd (CUDA cores)": (bwd_bytes, lln_bwd, 0),
+    }
+
+
 def _port_kernels():
     """The names of the __global__ functions in the port's CUDA sources."""
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
@@ -1086,7 +1131,8 @@ def phase_kernels_encoder(results):
     N = 512 and a ragged 300, r = 1 and 4 (the r = 4 cases take the
     cotangent 0.5 g, as the hybrid passes it).  Outputs in bf16 within one
     bf16 step; s, z, den and every fp32 gradient within 1e-5 of the largest
-    plain entry; two runs of block_diag_bwd bitwise equal."""
+    plain entry; two runs of lln_bidir, lln_bidir_bwd and block_diag_bwd
+    bitwise equal."""
     from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
                                                 block_diag_bwd_plain,
                                                 block_diag_plain)
@@ -1107,19 +1153,29 @@ def phase_kernels_encoder(results):
                 gk = 0.5 * gk
             log(f"lln_bidir N={n} r={r}:")
             got = lln_bidir(qs, ks, vk, r=r, return_res=True)
+            again = lln_bidir(qs, ks, vk, r=r, return_res=True)
             want = lln_bidir_plain(qs, ks, vk, r=r, return_res=True)
             torch.cuda.synchronize()
             keep("lln_bidir", check("out", got[0], want[0],
                                     bf16_tol(want[0])))
             for name, gt, wt in zip(("s", "z", "den"), got[1:], want[1:]):
                 keep("lln_bidir", check(name, gt, wt, fp32_tol(wt)))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"lln_bidir N={n} r={r}: two runs "
+                                     f"differ")
+            log("  two runs bitwise equal")
             o, s_, z_, den = want
             log(f"lln_bidir_bwd N={n} r={r}:")
             got = lln_bidir_bwd(qs, ks, vk, gk, o, den, s_, z_, r=r)
+            again = lln_bidir_bwd(qs, ks, vk, gk, o, den, s_, z_, r=r)
             want = lln_bidir_bwd_plain(qs, ks, vk, gk, o, den, s_, z_, r=r)
             torch.cuda.synchronize()
             for name, gt, wt in zip(("dqs", "dks", "dv"), got, want):
                 keep("lln_bidir_bwd", check(name, gt, wt, fp32_tol(wt)))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"lln_bidir_bwd N={n} r={r}: two runs "
+                                     f"differ")
+            log("  two runs bitwise equal")
             log(f"block_diag (causal=False) N={n} r={r} blk={BLK}:")
             got = block_diag(qk, kk, vk, r=r, blk=BLK, causal=False)
             want = block_diag_plain(qk, kk, vk, r=r, blk=BLK, causal=False)
@@ -1248,13 +1304,14 @@ def phase_encoder_forward(launches, enc_times):
 def phase_timings_encoder(errs, launches):
     """The encoder's kernels, their plain versions and their bounds at the
     encoder shapes (B=32, H=G=12, N=512, D=Dv=64, blk 256, bf16).  Bounds
-    count each input read once and each output written once, and the fp32
-    operations of the linear form (as phase_timings_train) or of the
-    block softmax: per (query, key) pair its products at the tensor cores'
-    bf16 rate, an fp32 left operand (p or dsm) counted twice since it goes
-    in as hi + lo bf16 (forward q k^T and p v, 2 D + 4 Dv; backward q k^T,
-    g v^T, dsm k, dsm^T q and p^T g, 10 D + 6 Dv), and the softmax's
-    elementwise steps as fp32 work (SOFTMAX_FWD_OPS, SOFTMAX_BWD_OPS).  Returns the three new kernels' rows
+    count each input read once and each output written once, and the
+    operations: lln_bidir and lln_bidir_bwd by _bidir_counts (the CUDA-core
+    count logged beside); the block softmax per (query, key) pair its
+    products at the tensor cores' bf16 rate, an fp32 left operand (p or
+    dsm) counted twice since it goes in as hi + lo bf16 (forward q k^T and
+    p v, 2 D + 4 Dv; backward q k^T, g v^T, dsm k, dsm^T q and p^T g,
+    10 D + 6 Dv), and the softmax's elementwise steps as fp32 work
+    (SOFTMAX_FWD_OPS, SOFTMAX_BWD_OPS).  Returns the three kernels' rows
     and block_diag's non-causal time, which is logged on a line of its own
     with the encoder's launches of it."""
     import torch.nn.functional as F
@@ -1272,11 +1329,7 @@ def phase_timings_encoder(errs, launches):
     qs, ks, qk, kk, vk, g = _train_inputs(n, gen, EB, EH, EH, ED)
     o, s_, z_, den = lln_bidir_plain(qs, ks, vk, r=r, return_res=True)
     f32, b16 = 4, 2
-    qsks = (bh + bg) * n * d * f32
-    lln_fwd = bh * n * (2 * d * dv + 2 * d) + bg * n * (2 * d * dv + d) \
-        + (bh + bg) * n * d
-    lln_bwd = bh * n * (4 * d * dv + 3 * dv + 4 * d) \
-        + bg * n * (4 * d * dv + 2 * d) + (bh + bg) * n * d
+    counts = _bidir_counts(bh, bg, n, d, dv)
     pairs = bh * (n // BLK) * BLK * BLK
     qkvg = (bh + bg) * n * d * b16 + bg * n * dv * b16 + bh * n * dv * b16
 
@@ -1293,14 +1346,11 @@ def phase_timings_encoder(errs, launches):
         ("lln_bidir", "lln_bidir.cu", "lln_attention.py:166",
          lambda: lln_bidir(qs, ks, vk, r=r, return_res=True),
          lambda: lln_bidir_plain(qs, ks, vk, r=r, return_res=True),
-         qsks + bg * n * dv * b16 + bh * n * dv * b16 + bh * n * f32
-         + bg * (d * dv + d) * f32, lln_fwd, 0, None),
+         *counts["lln_bidir"], None),
         ("lln_bidir_bwd", "lln_bidir_bwd.cu", "lln_backward.py:261",
          lambda: lln_bidir_bwd(qs, ks, vk, g, o, den, s_, z_, r=r),
          lambda: lln_bidir_bwd_plain(qs, ks, vk, g, o, den, s_, z_, r=r),
-         qsks + bg * n * dv * b16 + 2 * bh * n * dv * b16 + bh * n * f32
-         + bg * (d * dv + d) * f32 + (bh + bg) * n * d * f32
-         + bg * n * dv * f32, lln_bwd, 0, None),
+         *counts["lln_bidir_bwd"], None),
         ("block_diag_bwd", "block_diag_bwd.cu", "block_diag.py:69",
          lambda: block_diag_bwd(qk, kk, vk, g, r=r, blk=BLK, causal=False),
          lambda: block_diag_bwd_plain(qk, kk, vk, g, r=r, blk=BLK,
@@ -1320,9 +1370,12 @@ def phase_timings_encoder(errs, launches):
             plain_ms=cuda_ms(plain, reps=10), bound_ms=bnd, bound_by=by,
             library_ms=cuda_ms(library, reps=10) if library else None))
         row = rows[-1]
+        core = counts.get(f"{name} (CUDA cores)")
+        extra = " [CUDA-core count: {:.4f} ms ({})]".format(
+            *bound_ms(*core)) if core else ""
         log(f"timing {name}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), library {row['library_ms']}")
+            f"({row['bound_by']}){extra}, library {row['library_ms']}")
     # q, k, v in; out
     bnd, by = bound_ms(qkvg, pairs * SOFTMAX_FWD_OPS, pairs * (2 * d + 4 * dv))
     nc = dict(

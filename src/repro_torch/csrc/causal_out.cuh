@@ -18,6 +18,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "fused_state.cuh"
 #include "mma.cuh"
 
 namespace lln {
@@ -100,43 +101,15 @@ causal_out_kernel(const float* __restrict__ qs,
   cp_async_commit();
 
   // Phi(q) = exp(qs) as hi + lo, split as it is loaded, and Phi(q) . zA_j
-  // in fp32 with the exact Phi(q): a warp per row, 8 rows of loads in
-  // flight at a time.
+  // in fp32 with the exact Phi(q) (fused_state.cuh:phi_rows).
   {
-    constexpr int RB = 8, NU = DP / 32;
     const float* zj = za + (static_cast<size_t>(kvh) * nc + j) * d;
-    float zv[NU];
+    float zv[DP / 32];
 #pragma unroll
-    for (int u = 0; u < NU; ++u)
+    for (int u = 0; u < DP / 32; ++u)
       zv[u] = j > 0 && lane + 32 * u < d ? zj[lane + 32 * u] : 0.f;
-    for (int i0 = 0; i0 < 16; i0 += RB) {
-      float x[RB][NU];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int a = warp * 16 + i0 + i;
-#pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          const int e = lane + 32 * u;
-          x[i][u] = a < rows && e < d ? qs[(hq + r0 + a) * d + e] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int a = warp * 16 + i0 + i;
-        float sum = 0.f;
-#pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          const int e = lane + 32 * u;
-          const float f = a < rows && e < d ? expf(x[i][u]) : 0.f;
-          sum = fmaf(f, zv[u], sum);
-          const __nv_bfloat16 hb = __float2bfloat16(f);
-          sfh[a * LD + e] = hb;
-          sfl[a * LD + e] = __float2bfloat16(f - __bfloat162float(hb));
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) pz[a] = sum;
-      }
-    }
+    phi_rows<DP, 2, true>(sfh, TS, qs + (hq + r0) * d, rows, d, zv, pz, warp,
+                          lane);
   }
 
   float ol[NO][4];

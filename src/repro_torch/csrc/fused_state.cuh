@@ -1,7 +1,8 @@
 // Shared pieces of the LLN tensor-core kernels (lln_causal.cu,
-// lln_causal_bwd.cu, lln_diag_fused.cu, lln_diag_fused_bwd.cu): the
-// feature map split into bf16 planes, the per-block LLN states of a kv
-// group, and the products of a tile with a planed state.
+// lln_causal_bwd.cu, lln_diag_fused.cu, lln_diag_fused_bwd.cu,
+// lln_bidir.cu, lln_bidir_bwd.cu): the feature map split into bf16
+// planes, the per-block LLN states of a kv group, and the products of a
+// tile with a planed state.
 //
 // phi_split writes Phi(x) = exp(x) of an fp32 tensor as NP bf16 planes
 // (mma.cuh:split_planes; two keep Phi(x) to 2^-16 relative, three to
@@ -18,9 +19,13 @@
 //     query heads of the group, of (cot Phi(q) / den)^T g = Phi(q)^T u and
 //     Phi(q) w, rows x = qs, y = g (cot = 1/2 for the fused pair's halved
 //     cotangent, 1 for lln_causal_bwd).
-// With s_fin (forward only) it goes on past the last block and writes the
-// inclusive final state, S in fp32 and z, reps times each: the r query-head
-// rows of the group, the layout a decode state takes.
+// With s_fin it goes on past the last block (reverse: past the first) and
+// writes the inclusive total, S in fp32 and z, reps times each: forward,
+// the final state in the r query-head rows of the group (the layout a
+// decode state takes); reverse, (dS, dz) over every block and every head
+// of the group (the bidirectional backward, one block of N rows).  With
+// so null no block state is stored (the bidirectional kernels want only
+// the total).
 // One CTA owns a 32 x 64 slice of S (and, in its first column slice, 32
 // entries of z) and walks the blocks in order (forward) or backwards
 // (reverse), heads then rows inside a block: every sum has a fixed order
@@ -71,8 +76,9 @@ constexpr int SE = 64;   // state columns (of Dv) per CTA
 constexpr int SR = 64;   // sequence rows per step
 
 // so (NST, BG, nb, D, Dv): plane p at so + p s_count; z (BG, nb, D), nb =
-// ceil(N / blk).  den and w (BH, N) are read by the reverse state only;
-// s_fin (BG reps, D, Dv) and z_fin (BG reps, D), fp32, may be null.
+// ceil(N / blk); both null, or neither.  den and w (BH, N) are read by the
+// reverse state only; s_fin (BG reps, D, Dv) and z_fin (BG reps, D), fp32,
+// may be null.
 template <bool kRev, int NP, int NST>
 __global__ void __launch_bounds__(128)
 state_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ y,
@@ -103,6 +109,7 @@ state_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ y,
   float zp = 0.f;   // this thread's part of z: column dd, rows rq + 4 u
   // Write the exclusive state of the i-th block of the walk (tot, zp).
   const auto store_slot = [&](int i) {
+    if (so == nullptr) return;
     const int c = kRev ? nb - 1 - i : i;
     const size_t slot = (static_cast<size_t>(gi) * nb + c) * d;
 #pragma unroll
@@ -289,6 +296,66 @@ __device__ __forceinline__ void stage_state(__nv_bfloat16* stg,
   __syncthreads();
 }
 
+// Rows [d0, d0 + R) of an fp32 matrix of width dv at sp (row-major) as
+// NP bf16 planes (split_planes) at stg + p ps, row stride DP + 8, every
+// column up to DP; rows past d and columns past dv are zero.  For blocks
+// of 128 threads: each thread issues up to 8 loads of 16 bytes (dv % 4 ==
+// 0 and sp 16-byte aligned; else element by element) before it splits
+// and stores them, so that they are in flight together (no more than the
+// tile needs: each one costs registers).
+template <int DP, int NP, int R>
+__device__ __forceinline__ void stage_f32(__nv_bfloat16* stg, int ps,
+                                          const float* sp, int d0, int d,
+                                          int dv) {
+  constexpr int LD = DP + 8, QC = DP / 4, TOTAL = R * QC, NT = 128;
+  constexpr int B = TOTAL / NT < 8 ? TOTAL / NT : 8;
+  static_assert(TOTAL % (B * NT) == 0, "whole rounds of the block's threads");
+  const bool v4 = dv % 4 == 0 && (reinterpret_cast<uintptr_t>(sp) & 15) == 0;
+  for (int i0 = 0; i0 < TOTAL; i0 += B * NT) {
+    float4 x[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = i0 + u * NT + threadIdx.x;
+      const int row = i / QC, c = (i - row * QC) * 4;
+      const float* src = sp + static_cast<size_t>(d0 + row) * dv + c;
+      x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (d0 + row < d) {
+        if (v4 && c < dv) {
+          x[u] = *reinterpret_cast<const float4*>(src);
+        } else {
+          if (c < dv) x[u].x = src[0];
+          if (c + 1 < dv) x[u].y = src[1];
+          if (c + 2 < dv) x[u].z = src[2];
+          if (c + 3 < dv) x[u].w = src[3];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = i0 + u * NT + threadIdx.x;
+      const int row = i / QC, c = (i - row * QC) * 4;
+      uint32_t a[NP], b[NP];
+      split_planes<NP>(x[u].x, x[u].y, a);
+      split_planes<NP>(x[u].z, x[u].w, b);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        *reinterpret_cast<uint2*>(stg + p * ps + row * LD + c) =
+            make_uint2(a[p], b[p]);
+    }
+  }
+}
+
+// As above from an fp32 state at sp (D x Dv, row-major), split into NP
+// bf16 planes as it is staged (stage_f32).  The bidirectional kernels
+// read their fp32 residuals s and dS this way.
+template <int DP, int NP>
+__device__ __forceinline__ void stage_state(__nv_bfloat16* stg,
+                                            const float* sp, size_t,
+                                            int d0, int d, int dv, bool) {
+  stage_f32<DP, NP, 32>(stg, 32 * (DP + 8), sp, d0, d, dv);
+  __syncthreads();
+}
+
 // acc (16 x 8 NO) += a S^T over kvs 16-column steps for the 32 rows of the
 // state S staged at stg: output tiles 4 CH .. 4 CH + 3 (rows below w).
 template <int DP, int NP, int CH>
@@ -318,13 +385,13 @@ __device__ __forceinline__ void mma_state_t(float (&acc)[DP / 8][4],
   }
 }
 
-// acc += a S^T for the whole state (D rows at sp), 32 rows at a time
-// through stg: the product u S^T (with a = g) or V dS^T (a = V).
-template <int DP, int NP, int CH = 0>
+// acc += a S^T for the whole state (D rows at sp, NP bf16 planes scount
+// apart, or fp32 split as it is staged), 32 rows at a time through stg:
+// the product u S^T (with a = g) or V dS^T (a = V).
+template <int DP, int NP, int CH = 0, typename ST>
 __device__ __forceinline__ void state_t_all(float (&acc)[DP / 8][4],
                                             const __nv_bfloat16* a,
-                                            __nv_bfloat16* stg,
-                                            const __nv_bfloat16* sp,
+                                            __nv_bfloat16* stg, const ST* sp,
                                             size_t scount, int d, int dv,
                                             int kvs, bool vz, int lane) {
   if constexpr (CH * 32 < DP) {
@@ -334,6 +401,54 @@ __device__ __forceinline__ void state_t_all(float (&acc)[DP / 8][4],
       mma_state_t<DP, NP, CH>(acc, a, stg, kvs, d, lane);
       state_t_all<DP, NP, CH + 1>(acc, a, stg, sp, scount, d, dv, kvs, vz,
                                   lane);
+    }
+  }
+}
+
+// Phi(x) = exp(x) of a 64-row fp32 tile (row a at x + a d) as NP bf16
+// planes at dst + p ps (row stride DP + 8): warp w stages rows 16 w ..
+// 16 w + 15, a warp per row with 8 rows of loads in flight.  Rows at or
+// past `rows` and columns at or past d are zero Phi rows and columns (a
+// pad row never enters a sum; the tile itself is never zero-padded, since
+// exp(0) = 1).  With kDot, pz[a] = Phi(x_a) . z in fp32 with the exact
+// Phi, zv holding this lane's entries of z (columns lane + 32 u).
+template <int DP, int NP, bool kDot>
+__device__ __forceinline__ void phi_rows(__nv_bfloat16* dst, int ps,
+                                         const float* x, int rows, int d,
+                                         const float (&zv)[DP / 32],
+                                         float* pz, int warp, int lane) {
+  constexpr int LD = DP + 8, RB = 8, NU = DP / 32;
+  for (int i0 = 0; i0 < 16; i0 += RB) {
+    float xv[RB][NU];
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int a = warp * 16 + i0 + i;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int e = lane + 32 * u;
+        xv[i][u] = a < rows && e < d ? x[static_cast<size_t>(a) * d + e] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      const int a = warp * 16 + i0 + i;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int e = lane + 32 * u;
+        float f = a < rows && e < d ? expf(xv[i][u]) : 0.f;
+        if (kDot) sum = fmaf(f, zv[u], sum);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const __nv_bfloat16 h = __float2bfloat16(f);
+          dst[p * ps + a * LD + e] = h;
+          f -= __bfloat162float(h);
+        }
+      }
+      if (kDot) {
+        sum = warp_sum(sum);
+        if (lane == 0) pz[a] = sum;
+      }
     }
   }
 }

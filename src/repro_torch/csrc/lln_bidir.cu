@@ -8,20 +8,46 @@
 // Phi(q) s / (Phi(q).z + EPS); optional (null deselects it) den (BH,N) fp32,
 // the row normalizer the backward reads.
 //
-// Design: the reference's two kernels.  The TPU's reduce walked the
-// sequence on the grid's ordered minor axis and accumulated into a revisited
-// output block; GPU blocks run in no order, so here one CTA per (kv head,
-// COLS value columns) loops over the sequence in TILE-row tiles and owns its
-// slice of s (D x COLS) in shared memory, each entry summed by one thread in
-// sequence order: a fixed order, no atomics.  The column-0 CTA also sums z.
-// The apply gives each CTA one query head's TILE-row tile and the whole of
-// its kv head's s and z in shared memory; a warp reads one row of Phi(q)
-// (broadcast) against consecutive columns of s.  Any N: the ragged last
-// tile loads pad keys as Phi(k) = 0 and writes no pad rows.  All products
-// are fp32 on the CUDA cores.
+// Two paths, chosen by the caller (kernels/lln_attention.py:_tc_path) by
+// type and width, each with its own entry point:
 //
-// Bound on the H100: fp32 operations at the encoder shapes (see
-// kernels/lln_attention.py).
+// bf16 v with D, Dv <= 128 (the encoder on the card): lln_bidir_tc_launch,
+// on the tensor cores, two launches:
+//   1. state_kernel (csrc/fused_state.cuh) with one block of N rows and
+//      the final state: (s, z) per kv group in fp32, each CTA owning a
+//      32 x 64 slice of s (768 CTAs at the encoder shape) and walking the
+//      sequence in 64-row steps in order, Phi(k) in three bf16 planes
+//      against bf16 v (three MMAs; s is a residual the backward reads,
+//      held to 1e-5), each step's partial added to the fp32 total; no
+//      block state stored.  A fixed order and no atomics.  (N cut into
+//      chunks summed in parallel, then added in order, was measured
+//      slower on the card: the walk gained less than the adding pass
+//      cost.)
+//   2. bidir_apply_tc_kernel: one CTA of 4 warps per (query head, 64-row
+//      tile).  Phi(q) = exp(qs) is split into bf16 hi + lo as it is
+//      loaded and Phi(q) . z taken in fp32 with the exact Phi(q); the kv
+//      group's fp32 s is split into hi + lo as it is staged (8 loads of 16
+//      bytes in flight per thread); Phi(q) s in three MMAs (hi hi, hi lo,
+//      lo hi), den = Phi(q) . z + EPS, out rounded once.
+//   Any N: pad keys and pad query rows are staged as zero Phi rows and pad
+//   rows are not written; qs and ks are never zero-padded (exp(0) = 1).
+//   Bound on the H100 (chip_smoke.py:_bidir_counts): the bytes, mostly the
+//   fp32 qs and ks, about 5x the products at the bf16 rate.
+//
+// fp32 v, or a width above 128: lln_bidir_launch, the CUDA-core kernels
+// below, IEEE fp32, the reference's two kernels.  The TPU's reduce walked
+// the sequence on the grid's ordered minor axis and accumulated into a
+// revisited output block; GPU blocks run in no order, so here one CTA per
+// (kv head, COLS value columns) loops over the sequence in TILE-row tiles
+// and owns its slice of s (D x COLS) in shared memory, each entry summed by
+// one thread in sequence order: a fixed order, no atomics.  The column-0
+// CTA also sums z.  The apply gives each CTA one query head's TILE-row
+// tile and the whole of its kv head's s and z in shared memory; a warp
+// reads one row of Phi(q) (broadcast) against consecutive columns of s.
+// Any N: the ragged last tile loads pad keys as Phi(k) = 0 and writes no
+// pad rows.  All products are fp32 FMAs on the CUDA cores; bound: fp32
+// operations.
+#include "fused_state.cuh"
 #include "train_common.cuh"
 
 namespace {
@@ -169,6 +195,112 @@ int launch(const float* qs, const float* ks, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 v on the tensor cores.
+// ---------------------------------------------------------------------------
+
+using namespace lln;
+
+constexpr int TC_ROWS = 64;   // query rows per apply CTA (4 warps x 16)
+
+template <int DP>
+constexpr size_t apply_smem_bytes() {
+  return (2 * TC_ROWS + 2 * DP) * (DP + 8) * sizeof(__nv_bfloat16) +
+         TC_ROWS * sizeof(float);
+}
+
+// One CTA per (query head, 64-row tile): out = Phi(q) s / den and den =
+// Phi(q) . z + EPS, with s (BG,D,Dv) and z (BG,D) the kv group's fp32
+// totals.  den_out may be null.
+template <int DP>
+__global__ void __launch_bounds__(128, 2)
+bidir_apply_tc_kernel(const float* __restrict__ qs,
+                      const float* __restrict__ s,
+                      const float* __restrict__ z,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ den_out, int n, int d, int dv,
+                      int r, int vec) {
+  extern __shared__ float smem[];
+  constexpr int LD = DP + 8;
+  constexpr int NO = DP / 8;            // output tiles of 8 columns per warp
+  constexpr int TS = TC_ROWS * LD;
+  constexpr int SS = DP * LD;
+  __nv_bfloat16* sfq = reinterpret_cast<__nv_bfloat16*>(smem);  // hi, lo
+  __nv_bfloat16* ss = sfq + 2 * TS;     // s hi, lo (planes SS apart)
+  float* pz = reinterpret_cast<float*>(ss + 2 * SS);
+
+  const int h = blockIdx.x;
+  const int g = h / r;
+  const int r0 = blockIdx.y * TC_ROWS;
+  const int rows = min(TC_ROWS, n - r0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t4 = lane & 3;
+  const int no = min(NO, ((dv + 15) / 16) * 2);
+  const size_t hq = static_cast<size_t>(h) * n + r0;
+
+  // The kv group's s as hi + lo, every row and column up to DP (zero past
+  // d and dv).
+  stage_f32<DP, 2, DP>(ss, SS, s + static_cast<size_t>(g) * d * dv, 0, d,
+                       dv);
+  float zv[DP / 32];
+#pragma unroll
+  for (int u = 0; u < DP / 32; ++u)
+    zv[u] = lane + 32 * u < d ? z[static_cast<size_t>(g) * d + lane + 32 * u]
+                              : 0.f;
+  phi_rows<DP, 2, true>(sfq, TS, qs + hq * d, rows, d, zv, pz, warp, lane);
+  __syncthreads();
+
+  float acc[NO][4];
+  zero_acc(acc);
+  mma_ab_p<NO, DP / 16, 2, 2>(acc, sfq + warp * 16 * LD, TS, LD, ss, SS, LD,
+                              (d + 15) / 16, no, lane);
+
+  const bool vz = vec != 0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int a = warp * 16 + gq + hh * 8;
+    if (a >= rows) continue;
+    const float dn = pz[a] + kEps;
+    if (den_out != nullptr && t4 == 0) den_out[hq + a] = dn;
+    __nv_bfloat16* orow = out + (hq + a) * dv;
+#pragma unroll
+    for (int jj = 0; jj < NO; ++jj) {
+      const int cc = jj * 8 + 2 * t4;
+      const uint32_t x = pack_bf16(acc[jj][2 * hh] / dn,
+                                   acc[jj][2 * hh + 1] / dn);
+      if (vz && cc + 1 < dv) {
+        *reinterpret_cast<uint32_t*>(orow + cc) = x;
+      } else {
+        if (cc < dv) orow[cc] = __ushort_as_bfloat16(x & 0xffffu);
+        if (cc + 1 < dv) orow[cc + 1] = __ushort_as_bfloat16(x >> 16);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_tc(const float* qs, const float* ks, const void* v, void* out,
+              float* den, float* s, float* z, int bh, int bg, int n, int d,
+              int dv, cudaStream_t stream) {
+  // (s, z): one block of all N rows, no block state stored, the total once
+  // per kv group (reps 1); Phi(k) in three planes.
+  cudaError_t err = block_states<false, 3>(
+      ks, static_cast<const __nv_bfloat16*>(v), nullptr, nullptr, 1.f,
+      nullptr, nullptr, s, z, 1, bg, n, d, dv, 1, n, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = apply_smem_bytes<DP>();
+  err = allow_smem(bidir_apply_tc_kernel<DP>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = dv % 2 == 0 &&
+                  (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  const dim3 grid(bh, (n + TC_ROWS - 1) / TC_ROWS);
+  bidir_apply_tc_kernel<DP><<<grid, 128, bytes, stream>>>(
+      qs, s, z, static_cast<__nv_bfloat16*>(out), den, n, d, dv, bh / bg,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // vdtype: 0 = float32, 1 = bfloat16; den may be null.  Returns
@@ -187,5 +319,27 @@ extern "C" int lln_bidir_launch(const void* qs, const void* ks, const void* v,
   if (vdtype == 0)
     return launch<float>(qsp, ksp, v, out, f(den), f(s), f(z), bh, bg, n, d,
                          dv, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 tensor-core path (v and out bf16; D, Dv <= 128), any N; den may
+// be null.  Returns cudaGetLastError() (cudaErrorInvalidValue for a shape
+// it does not take).
+extern "C" int lln_bidir_tc_launch(const void* qs, const void* ks,
+                                   const void* v, void* out, void* den,
+                                   void* s, void* z, int bh, int bg, int n,
+                                   int d, int dv, void* stream) {
+  if (bg < 1 || n < 1 || bh % bg != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto q = static_cast<const float*>(qs);
+  auto k = static_cast<const float*>(ks);
+  auto f = [](void* p) { return static_cast<float*>(p); };
+  if (d <= 64 && dv <= 64)
+    return launch_tc<64>(q, k, v, out, f(den), f(s), f(z), bh, bg, n, d, dv,
+                         st);
+  if (d <= 128 && dv <= 128)
+    return launch_tc<128>(q, k, v, out, f(den), f(s), f(z), bh, bg, n, d, dv,
+                          st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

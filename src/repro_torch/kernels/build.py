@@ -45,8 +45,10 @@ SIGNATURES = {
                            "p" * 14 + "i" * 9 + "f" + "p",
                            "lln_diag_fused_bwd_tc_launch":
                            "p" * 20 + "i" * 6 + "f" + "p"},
-    "lln_bidir": {"lln_bidir_launch": "ppppppp" + "iiiiii" + "p"},
-    "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p"},
+    "lln_bidir": {"lln_bidir_launch": "ppppppp" + "iiiiii" + "p",
+                  "lln_bidir_tc_launch": "p" * 7 + "i" * 5 + "p"},
+    "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p",
+                      "lln_bidir_bwd_tc_launch": "p" * 14 + "i" * 5 + "p"},
     "block_diag_bwd": {"block_diag_bwd_launch":
                        "p" * 8 + "i" * 8 + "f" + "p"},
     "loglin_causal": {"loglin_causal_launch": "p" * 8 + "i" * 10 + "d" + "p",

@@ -85,14 +85,28 @@ carried state before the launch is a third pass over it, still in PyTorch
 ``lln_bidir`` (``csrc/lln_bidir.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_bidir_pallas``: the encoder's
 bidirectional LLN, ``Phi(q) S / (Phi(q) . z + EPS)`` with the whole
-sequence's ``S = sum Phi(k) v^T`` and ``z = sum Phi(k)`` per kv head.  Two
-kernels, as the reference's reduce and apply: the reduce gives each CTA a
-(kv head, 32 value columns) slice of ``S`` and loops over the sequence in
-order inside the CTA (the TPU's ordered grid axis), so the sums have a
-fixed order and no atomics; the apply gives each CTA a (query head,
-64-row tile) and the whole of its kv head's ``S`` and ``z`` in shared
-memory.  Any N.  Bound on the H100 at the encoder shapes (B=32, H=G=12,
-N=512, D=Dv=64): fp32 operations (about 3.3 GFLOP against 150 MB).
+sequence's ``S = sum Phi(k) v^T`` and ``z = sum Phi(k)`` per kv head, as
+the reference's reduce and apply.  Two paths (:func:`_tc_path`):
+
+- bf16 v with D and Dv at most 128 (the encoder on the card): the
+  tensor-core path, two launches and no scratch.  The causal pair's state
+  kernel (``csrc/fused_state.cuh``) with one block of all N rows sums
+  ``(S, z)`` once per kv group in fp32 (Phi(k) in three bf16 planes
+  against bf16 v, each 64-row step added in fp32, a fixed order, no
+  atomics; no block state stored); one CTA per (query head, 64-row tile)
+  splits Phi(q) and the fp32 ``S`` into bf16 hi + lo as it stages them,
+  takes ``Phi(q) S`` in three MMAs and ``Phi(q) . z`` in fp32 with the
+  exact Phi(q), and rounds the output once.  Any N: pad keys and rows are
+  staged as zero Phi rows, never by zero-padding ``qs`` or ``ks``.
+  Bound on the H100 (``chip_smoke.py:_bidir_counts``): the bytes, mostly
+  the fp32 qs and ks, at the encoder shape (B=32, H=G=12, N=512,
+  D=Dv=64).
+- fp32 v, or a wider head: the CUDA-core kernels.  The reduce gives each
+  CTA a (kv head, 32 value columns) slice of ``S`` and loops over the
+  sequence in order inside the CTA (the TPU's ordered grid axis), so the
+  sums have a fixed order and no atomics; the apply gives each CTA a
+  (query head, 64-row tile) and the whole of its kv head's ``S`` and
+  ``z`` in shared memory.  Any N.  Bound: fp32 operations.
 """
 from __future__ import annotations
 
@@ -302,9 +316,9 @@ def lln_diag_fused_plain(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
 
 
 def _tc_path(v, d: int, dv: int) -> bool:
-    """Whether ``lln_causal``, the fused pair and their backwards run their
-    tensor-core paths: bf16 inputs and D, Dv <= :data:`TC_MAX_WIDTH`;
-    otherwise their CUDA-core kernels."""
+    """Whether ``lln_causal``, the fused pair, ``lln_bidir`` and their
+    backwards run their tensor-core paths: bf16 inputs and D, Dv <=
+    :data:`TC_MAX_WIDTH`; otherwise their CUDA-core kernels."""
     return v.dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_WIDTH
 
 
@@ -454,12 +468,16 @@ def lln_bidir(qs, ks, v, *, r: int = 1, return_res: bool = False):
     z = torch.empty(bg, 1, d, **f32)
     den = torch.empty(bh, n, **f32) if return_res else None
     lib = build.library("lln_bidir")
-    with torch.cuda.device(qs.device):
-        err = lib.lln_bidir_launch(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
+    ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
             den.data_ptr() if den is not None else None, s.data_ptr(),
-            z.data_ptr(), bh, bg, n, d, dv, _VCODES[v.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            z.data_ptr())
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv):
+            err = lib.lln_bidir_tc_launch(*ptrs, bh, bg, n, d, dv, stream)
+        else:
+            err = lib.lln_bidir_launch(*ptrs, bh, bg, n, d, dv,
+                                       _VCODES[v.dtype], stream)
     build.check(err, "lln_bidir")
     lln_bidir.launches += 1
     return (out, s, z, den) if return_res else out

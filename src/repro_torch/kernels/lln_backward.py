@@ -67,15 +67,29 @@ at the training shape the bytes bound it.
 
 ``lln_bidir_bwd`` (``csrc/lln_bidir_bwd.cu``) replaces
 ``src/repro/kernels/lln_backward.py:lln_bidir_bwd_pallas``: the encoder's
-backward from the saved ``(S, z, den, o)``.  Three kernels, as the
+backward from the saved ``(S, z, den, o)``, three kernels as the
 reference's: dq applies ``(S, z)`` per (query head, 64-row tile) and
 writes each row's ``w`` for the next; the reduce sums the whole sequence's
 ``(dS, dz)`` over N and over the r query heads of a kv head, in that fixed
-order inside one CTA per (kv head, 32 columns) -- the TPU revisited one
-output block in grid order, GPU programs run concurrently, and atomics
-would make the sums' order vary; dk/dv apply ``(dS, dz)`` per (kv head,
-64-row tile).  Any N.  Bound: fp32 operations (about 6.4 GFLOP
-at B=32, H=G=12, N=512, D=Dv=64).
+order (the TPU revisited one output block in grid order; GPU programs run
+concurrently, and atomics would make the sums' order vary); dk/dv apply
+``(dS, dz)`` per (kv head, 64-row tile).  Any N.  Scratch
+(:func:`_bidir_scratch`): ``w``, ``dS`` and ``dz`` in fp32.  Two paths,
+chosen as the forward's (``lln_attention._tc_path``):
+
+- bf16 with D, Dv <= 128 (the encoder on the card): the tensor-core path.
+  dq takes ``g s^T`` with bf16 g against the fp32 ``s`` split into three
+  bf16 planes as it is staged, then ``Phi(q) (g s^T / den - w z)`` in
+  fp32; the reduce is the causal pair's reverse state kernel with one
+  block of all N rows and the final total (Phi(q) / den in three planes
+  against bf16 g, each 64-row step added in fp32, heads then rows); two
+  CTAs per (kv group, 64-key tile) give ``dks = Phi(k) (V dS^T - dz)``
+  (bf16 V, three MMAs) and ``dv = Phi(k) dS`` (both in three planes, six
+  MMAs).  No atomics: two runs equal bit for bit.  Bound
+  (``chip_smoke.py:_bidir_counts``): the bytes at the encoder shape (B=32,
+  H=G=12, N=512, D=Dv=64).
+- fp32, or a wider head: the CUDA-core kernels, one CTA per (kv head, 32
+  columns) for the reduce.  Bound: fp32 operations.
 """
 from __future__ import annotations
 
@@ -322,6 +336,15 @@ def lln_bidir_bwd_plain(qs, ks, v, g, o, den, s, z, *, r: int = 1):
     return dqs, dks, dvv
 
 
+def _bidir_scratch(bh, bg, n, d, dv, device):
+    """Scratch of both ``lln_bidir_bwd`` paths, fp32: each query row's
+    ``w`` (BH,N) and the reverse totals ``dS`` (BG,D,Dv) and ``dz``
+    (BG,D)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty(bh, n, **f32), torch.empty(bg, d, dv, **f32),
+            torch.empty(bg, d, **f32))
+
+
 def lln_bidir_bwd(qs, ks, v, g, o, den, s, z, *, r: int = 1):
     """Backward of the bidirectional LLN forward from its residuals; see
     the module docstring.  qs/g/o/den are query-side (BH, ...), ks/v and
@@ -336,17 +359,19 @@ def lln_bidir_bwd(qs, ks, v, g, o, den, s, z, *, r: int = 1):
     dqs = torch.empty(bh, n, d, **f32)
     dks = torch.empty(bg, n, d, **f32)
     dvo = torch.empty(bg, n, dv, **f32)
-    w = torch.empty(bh, n, **f32)
-    ds = torch.empty(bg, d, dv, **f32)
-    dz = torch.empty(bg, d, **f32)
+    scratch = _bidir_scratch(bh, bg, n, d, dv, qs.device)
     lib = build.library("lln_bidir_bwd")
-    with torch.cuda.device(qs.device):
-        err = lib.lln_bidir_bwd_launch(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
+    ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
             o.data_ptr(), den.data_ptr(), s.data_ptr(), z.data_ptr(),
-            dqs.data_ptr(), dks.data_ptr(), dvo.data_ptr(), w.data_ptr(),
-            ds.data_ptr(), dz.data_ptr(), bh, bg, n, d, dv, _VCODES[v.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            dqs.data_ptr(), dks.data_ptr(), dvo.data_ptr(),
+            *(t.data_ptr() for t in scratch))
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if _tc_path(v, d, dv):
+            err = lib.lln_bidir_bwd_tc_launch(*ptrs, bh, bg, n, d, dv, stream)
+        else:
+            err = lib.lln_bidir_bwd_launch(*ptrs, bh, bg, n, d, dv,
+                                           _VCODES[v.dtype], stream)
     build.check(err, "lln_bidir_bwd")
     lln_bidir_bwd.launches += 1
     return dqs, dks, dvo

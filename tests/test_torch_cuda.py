@@ -17,7 +17,14 @@ fp32 p and dsm as hi + lo bf16; fp32 on the CUDA cores) are held at blk 16,
 64 and 256, N 64, 300 and 512, D = Dv = 64 and 128 and one D != Dv, r in
 {1, 4, 8}, causal and not, their backward's two runs bitwise equal.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
-are held the same way at D = 64, r in {1, 4}, whole and ragged N.  The
+are held the same way at D = 64, r in {1, 4}, whole and ragged N; the
+tensor-core path of ``lln_bidir`` and ``lln_bidir_bwd`` (bf16 v: (s, z)
+and (dS, dz) by the causal pair's state kernel with one block of N rows,
+every fp32 operand of the backward and the state in three bf16 planes)
+also at N in {1025, 512, 300, 40, 1}, (D, Dv) in {(64, 64), (128, 128), (64,
+112)}, out within one bf16 step, s, z, den and the gradients within 1e-5,
+two runs of each bitwise equal, and through the Functions on bf16 inputs
+(one launch each).  The
 log-linear kernel (``loglin_causal``) is held the same way at r in {1, 8},
 whole and ragged N, with and without the state (the pyramid and the open
 bucket, fp32, 2e-4 of the largest entry); its two-pass decode
@@ -390,6 +397,95 @@ def test_cuda_bidir_autograd_runs_the_kernels(cuda, impl, n):
         want = _bidir_grads(fn, backend, *args)
         for gt, wt in zip(got, want):
             _close(gt, wt, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 40], ids=["n64", "ragged-n40"])
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_cuda_bidir_autograd_bf16_runs_the_kernels(cuda, impl, n):
+    """The bidirectional Functions on bf16 q/k/v, the route the encoder
+    takes on the card (lln_bidir's and lln_bidir_bwd's tensor-core
+    kernels): one launch of each kernel, bf16 gradients of the right shape
+    within 2^-4 of the largest entry of the plain versions' (two bf16
+    routes that round in different places: the outputs differentiated may
+    be a bf16 step apart and the cotangent 2 out is rounded to bf16; the
+    plain route and the core reference differ by up to 2% here)."""
+    fn = ops.lln_attention if impl == "lln" else ops.lln_diag_attention
+    kernels = [lln_bidir, lln_bidir_bwd]
+    if impl == "lln_diag":
+        kernels += [block_diag, block_diag_bwd]
+    q, k, v, alpha, beta = _model_inputs(cuda, 6, n=n)
+    args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), alpha, beta)
+    before = [f.launches for f in kernels]
+    got = _bidir_grads(fn, "kernel", *args)
+    assert [f.launches - b for f, b in zip(kernels, before)] == \
+        [1] * len(kernels)
+    want = _bidir_grads(fn, "plain", *args)
+    for gt, wt, x in zip(got, want, args):
+        assert gt.dtype == torch.bfloat16 and gt.shape == x.shape
+        _close(gt, wt, 2.0 ** -4)
+
+
+BIDIR_TC_CASES = [pytest.param(r, n, d, dv, id=f"r{r}-n{n}-d{d}-dv{dv}")
+                  for r in (1, 4) for n in (1025, 512, 300, 40, 1)
+                  for d, dv in ((64, 64), (128, 128), (64, 112))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,d,dv", BIDIR_TC_CASES)
+def test_cuda_bidir_tensor_core_path_matches_plain(cuda, r, n, d, dv):
+    """lln_bidir and lln_bidir_bwd on bf16 v (the tensor-core path)
+    against their plain twins: N of several 64-row tiles, ragged (300, 40)
+    and one row, 1025 (17 steps of the state walk, the last of one row),
+    D = Dv = 64 (the encoder's) and 128, D != Dv with Dv = 112,
+    r = 4 on the hybrid's cotangent 0.5 g.  out within one bf16 step; s, z,
+    den and the three fp32 gradients within 1e-5 of the largest plain
+    entry; two runs of each kernel bitwise equal."""
+    qs, ks, v = _kernel_inputs(100 * r + n + d + dv, 2 * r, 2, n, d, dv)
+    g = np.random.default_rng(n + r + dv).normal(size=(2 * r, n, dv))
+    qs, ks = _on(cuda, qs, ks)
+    vb, g = _on(cuda, v, g.astype(np.float32), dtype=torch.bfloat16)
+    if r > 1:
+        g = 0.5 * g
+    before = lln_bidir.launches
+    got = lln_bidir(qs, ks, vb, r=r, return_res=True)
+    again = lln_bidir(qs, ks, vb, r=r, return_res=True)
+    want = lln_bidir_plain(qs, ks, vb, r=r, return_res=True)
+    torch.cuda.synchronize()
+    assert lln_bidir.launches == before + 2
+    _close(got[0], want[0], BF16)
+    for gt, wt in zip(got[1:], want[1:]):
+        assert gt.shape == wt.shape
+        _close(gt, wt, TRAIN)
+    for gt, ag in zip(got, again):
+        assert torch.equal(gt, ag)
+    o, s, z, den = want
+    before = lln_bidir_bwd.launches
+    got = lln_bidir_bwd(qs, ks, vb, g, o, den, s, z, r=r)
+    again = lln_bidir_bwd(qs, ks, vb, g, o, den, s, z, r=r)
+    want = lln_bidir_bwd_plain(qs, ks, vb, g, o, den, s, z, r=r)
+    torch.cuda.synchronize()
+    assert lln_bidir_bwd.launches == before + 2
+    for gt, wt, ag in zip(got, want, again):
+        _close(gt, wt, TRAIN)
+        assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_lln_bidir_is_bitwise_reproducible(cuda, dtype):
+    """(s, z) are summed over the sequence in a fixed order, without
+    atomics, on both routes: two runs give out, s, z and den bit for
+    bit."""
+    qs, ks, v = _kernel_inputs(21, 8, 2, 300, 64, 64)
+    qs, ks = _on(cuda, qs, ks)
+    (v,) = _on(cuda, v, dtype=dtype)
+    a = lln_bidir(qs, ks, v, r=4, return_res=True)
+    b = lln_bidir(qs, ks, v, r=4, return_res=True)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

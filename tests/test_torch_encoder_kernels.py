@@ -13,7 +13,10 @@ version's, so no case pays for a second Pallas forward.  Tolerances as
 bf16 rounding step (2^-7 of the largest entry).
 Through the Functions: outputs 1e-5, gradients 1e-4 of the largest entry.
 ``tests/test_torch_cuda.py`` holds each CUDA kernel against its plain
-version on the card.
+version on the card.  The tensor-core route of ``lln_bidir`` and
+``lln_bidir_bwd`` is checked here without the card: which inputs take it,
+the backward's scratch, and that zero-Phi pad rows (how its kernels stage
+a ragged N) leave the plain versions' results unchanged.
 """
 import jax
 import jax.numpy as jnp
@@ -29,8 +32,9 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
                                             block_diag_bwd_plain,
                                             block_diag_plain)
-from repro_torch.kernels.lln_attention import lln_bidir, lln_bidir_plain
-from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+from repro_torch.kernels.lln_attention import (_tc_path, lln_bidir,
+                                               lln_bidir_plain)
+from repro_torch.kernels.lln_backward import (_bidir_scratch, lln_bidir_bwd,
                                               lln_bidir_bwd_plain)
 
 BLK = 16
@@ -173,6 +177,68 @@ def test_wrappers_run_plain_on_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert counts == [fn.launches for fn in (lln_bidir, lln_bidir_bwd,
                                              block_diag_bwd)]
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 64, 64, True),
+    (torch.bfloat16, 128, 128, True),
+    (torch.bfloat16, 64, 112, True),
+    (torch.float32, 64, 64, False),
+    (torch.bfloat16, 160, 64, False),
+    (torch.bfloat16, 64, 256, False)],
+    ids=["encoder", "wide", "dv112", "fp32-v", "wide-d", "wide-dv"])
+def test_bidir_tensor_core_route(dtype, d, dv, want):
+    """bf16 v with D, Dv <= 128 takes lln_bidir's and lln_bidir_bwd's
+    tensor-core kernels; fp32 v or a wider head the CUDA-core ones."""
+    assert _tc_path(torch.zeros(1, 1, dv, dtype=dtype), d, dv) is want
+
+
+@pytest.mark.parametrize("bh,bg,n,d,dv", [(384, 384, 512, 64, 64),
+                                          (8, 2, 300, 64, 112),
+                                          (4, 1, 1, 128, 128),
+                                          (4, 2, 1025, 128, 64)],
+                         ids=["encoder", "ragged", "n1", "n1025"])
+def test_bidir_bwd_scratch(bh, bg, n, d, dv):
+    """lln_bidir_bwd's scratch, the same on both routes: each query
+    row's w (BH,N), the reverse totals dS (BG,D,Dv) and dz (BG,D), all
+    fp32 (the tensor-core path keeps no plane or block state)."""
+    w, ds, dz = _bidir_scratch(bh, bg, n, d, dv, "cpu")
+    assert (w.shape, ds.shape, dz.shape) == ((bh, n), (bg, d, dv), (bg, d))
+    assert all(x.dtype == torch.float32 for x in (w, ds, dz))
+
+
+@pytest.mark.parametrize("r,n,pad,dtype", [(1, 40, 24, "float32"),
+                                           (4, 1, 63, "bfloat16"),
+                                           (4, 300, 20, "float32"),
+                                           (1, 64, 64, "bfloat16")],
+                         ids=["r1-n40", "r4-n1", "r4-n300", "r1-n64-bf16"])
+def test_bidir_plain_ignores_zero_phi_pad_rows(r, n, pad, dtype):
+    """What the tensor-core kernels' staging of a ragged N rests on: pad
+    keys and pad query rows with Phi = exp(-inf) = 0 (v any value, g zero)
+    leave lln_bidir_plain's out, s, z and den and lln_bidir_bwd_plain's
+    gradients on the true rows as they were, and the pad rows' gradients
+    zero.  (Zero-padded qs or ks would not: exp(0) = 1.)"""
+    _, tt = _case(7 * n + r + pad, r, n + pad, 16, dtype)
+    qs, ks, v, g = tt["qs"], tt["ks"], tt["v"], tt["g"]
+    true = dict(qs=qs[:, :n], ks=ks[:, :n], v=v[:, :n], g=g[:, :n])
+    padded = dict(qs=qs.clone(), ks=ks.clone(), v=v, g=g.clone())
+    padded["qs"][:, n:] = -float("inf")
+    padded["ks"][:, n:] = -float("inf")
+    padded["g"][:, n:] = 0
+    res = {}
+    for name, x in (("true", true), ("padded", padded)):
+        fwd = lln_bidir_plain(x["qs"], x["ks"], x["v"], r=r, return_res=True)
+        o, s, z, den = fwd
+        res[name] = fwd, lln_bidir_bwd_plain(x["qs"], x["ks"], x["v"],
+                                             x["g"], o, den, s, z, r=r)
+    (fo, so, zo, do), grads = res["true"]
+    (fp, sp, zp, dp), pgrads = res["padded"]
+    for got, want in ((fp[:, :n], fo), (sp, so), (zp, zo), (dp[:, :n], do)):
+        _close(got, want.float().numpy(), FP32)
+    for got, want in zip(pgrads, grads):
+        assert torch.isfinite(got).all()
+        _close(got[:, :n], want.numpy(), FP32)
+        assert not got[:, n:].any()
 
 
 def test_block_diag_bwd_plain_is_the_gradient_of_the_forward():
