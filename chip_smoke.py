@@ -13,6 +13,8 @@ Phases (any failure raises and the script exits non-zero):
                      one nvcc per source, all started together;
   3. kernels       - each serving kernel against its plain PyTorch version at
                      full-width shapes (B=4, H=32, G=4, D=Dv=128, bf16 q/k/v);
+                     lln_decode with the state's rescale inside, two runs
+                     and the fold (against a torch rescale) bitwise equal;
   4. kernels_train - each training kernel against its plain version at the
                      training shapes (B=4, N=1024 and 512, H=32, G=4,
                      D=Dv=128, blk 256, bf16 q/k/v/g);
@@ -86,8 +88,9 @@ Phases (any failure raises and the script exits non-zero):
                      batch 4 x 2048, the same checks (per step 30 ssd, 4
                      lln_diag_fused, 2 lln_diag_fused_bwd);
  21. timings       - each kernel, its plain version and its bound at the
-                     serve, training, encoder or SSD shapes; serve, train and
-                     encoder times.
+                     serve, training, encoder or SSD shapes (lln_decode at
+                     T = 1, 16 and 64, beside the torch rescale pass it
+                     replaced); serve, train and encoder times.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -297,18 +300,33 @@ def phase_kernels(results):
         results["block_diag"] = max(results.get("block_diag", 0.0), check(
             "out", got, want, bf16_tol(want)))
     s0, z0 = state
+    # A rescale factor exp(c_old - c_new) in (0.1, 1] per query head, as
+    # ops.lln_decode_chunk passes it.
+    scale = torch.exp(-2.3 * torch.rand(B * H, generator=gen, device="cuda"))
     for t in (1, 4):
         q, k, v, alpha, beta = _inputs(t, gen)
         qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
         vk = ops._to_kernel(v)
-        log(f"lln_decode T={t} (from the N={N} prefill state):")
-        got = lln_decode(qs, ks, vk, s0, z0, r=r)
-        want = lln_decode_plain(qs, ks, vk, s0, z0, r=r)
+        log(f"lln_decode T={t} (from the N={N} prefill state, rescaled in "
+            f"the kernel):")
+        got = lln_decode(qs, ks, vk, s0, z0, r=r, scale=scale)
+        again = lln_decode(qs, ks, vk, s0, z0, r=r, scale=scale)
+        first = lln_decode(qs, ks, vk, s0 * scale[:, None, None],
+                           z0 * scale[:, None, None], r=r)
+        want = lln_decode_plain(qs, ks, vk, s0, z0, r=r, scale=scale)
         torch.cuda.synchronize()
         results["lln_decode"] = max(results.get("lln_decode", 0.0), check(
             "out", got[0], want[0], bf16_tol(want[0])))
         check("s1", got[1], want[1], fp32_tol(want[1]))
         check("z1", got[2], want[2], fp32_tol(want[2]))
+        for name, a, b, c in zip(("out", "s1", "z1"), got, again, first):
+            if not torch.equal(a, b):
+                raise AssertionError(f"lln_decode {name}: two runs differ")
+            if not torch.equal(a, c):
+                raise AssertionError(f"lln_decode {name}: the folded rescale "
+                                     f"differs from a torch rescale")
+        log("  two runs bitwise equal; the folded rescale bitwise equal to a "
+            "torch rescale and scale=None")
 
 
 def phase_small():
@@ -598,6 +616,11 @@ def phase_serve(launches, serve_times):
             f"{pre_dev:.2f} ms); decode {step_ms:.3f} ms/step "
             f"({B / (step_ms / 1e3):.1f} tok/s, device {dec_dev:.3f} ms/step) "
             f"over {GEN - 2} steps; tokens[0] {toks[0].tolist()}")
+        dk = [(ms, n) for name, ms, n in dec_top if "lln_decode_kernel" in name]
+        if dk:
+            log(f"  lln_decode in the decode loop: "
+                f"{sum(m for m, _ in dk) / sum(n for _, n in dk):.5f} ms per "
+                f"launch over {sum(n for _, n in dk)} launches")
         for label, top in (("prefill", pre_top), ("decode x4", dec_top)):
             for name, ms, calls in top[:5]:
                 log(f"  top {label}: {ms:9.3f} ms  {calls:6d} calls  "
@@ -1086,39 +1109,53 @@ def phase_timings(errs, launches):
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, is_causal=True))))
 
-    t = 1
+    # lln_decode as ops.lln_decode_chunk calls it: the carried state and
+    # its (BH,) rescale factor, T=1 (the serve loop); T=16 and T=64 logged.
     s0 = torch.randn(bh, D, D, generator=gen, device="cuda")
     z0 = torch.rand(bh, 1, D, generator=gen, device="cuda") + 0.5
-    q1, k1, v1, a1, b1 = _inputs(t, gen)
-    qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
-    vk1 = ops._to_kernel(v1)
-    nbytes = (2 * bh * D * D * 4 + 2 * bh * D * 4 + bh * t * D * 4
-              + bg * t * D * 4 + bg * t * D * 2 + bh * t * D * 2)
-    flops = bh * t * (2 * D * D + 2 * D) + bh * t * (t + 1) // 2 * 4 * D \
-        + bh * t * (2 * D * D + D)
-    bnd, by = bound_ms(nbytes, flops)
+    scale = torch.exp(-torch.rand(bh, generator=gen, device="cuda"))
+    decode_ms = {}
+    for t in (1, 16, 64):
+        q1, k1, v1, a1, b1 = _inputs(t, gen)
+        qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
+        vk1 = ops._to_kernel(v1)
+        nbytes = (2 * bh * D * D * 4 + 2 * bh * D * 4 + bh * 4
+                  + bh * t * D * 4 + bg * t * D * 4 + bg * t * D * 2
+                  + bh * t * D * 2)
+        flops = bh * t * (2 * D * D + 2 * D) \
+            + bh * t * (t + 1) // 2 * 4 * D + bh * t * (2 * D * D + D) \
+            + bh * (D * D + D)
+        bnd, by = bound_ms(nbytes, flops)
+        ms = cuda_ms(lambda: lln_decode(qs1, ks1, vk1, s0, z0, r=r,
+                                        scale=scale))
+        plain = cuda_ms(lambda: lln_decode_plain(qs1, ks1, vk1, s0, z0, r=r,
+                                                 scale=scale))
+        decode_ms[t] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        log(f"timing lln_decode T={t} (rescale inside): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
     rows.append(dict(
         name="lln_decode", route="cuda",
         source="src/repro_torch/csrc/lln_decode.cu",
         replaces="src/repro/kernels/lln_attention.py:348",
         launches=launches["lln_decode"], max_abs_err=errs["lln_decode"],
-        ms=cuda_ms(lambda: lln_decode(qs1, ks1, vk1, s0, z0, r=r)),
-        plain_ms=cuda_ms(lambda: lln_decode_plain(qs1, ks1, vk1, s0, z0, r=r)),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+        library_ms=None, **decode_ms[1]))
 
-    # The torch rescale of the carried state before each decode launch
-    # (ops.lln_decode_chunk): a third pass over s, still outside the kernel.
+    # The parent's cost, no longer run: the torch rescale of the carried
+    # state (s and z) before each decode launch, T=1.
     s_state = s0.reshape(B, H, D, D)
-    resc = torch.rand(B, H, generator=gen, device="cuda")
-    rescale_ms = cuda_ms(lambda: (s_state * resc[..., None, None]).reshape(
-        bh, D, D))
+    z_state = z0.reshape(B, H, D)
+    resc = scale.reshape(B, H)
+    rescale_ms = cuda_ms(lambda: (
+        (s_state * resc[..., None, None]).reshape(bh, D, D),
+        (z_state * resc[..., None]).reshape(bh, 1, D)))
     for row in rows:
         log(f"timing {row['name']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), library {row['library_ms']}")
-    log(f"timing decode state rescale (torch, per layer, T=1): "
-        f"{rescale_ms:.4f} ms")
-    return rows, rescale_ms
+    log(f"timing the parent's decode state rescale (torch, per layer, T=1, "
+        f"no longer run): {rescale_ms:.4f} ms")
+    return rows, dict(rescale_ms=rescale_ms, **{
+        f"T={t}": v for t, v in decode_ms.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1975,7 +2012,7 @@ def main():
     phase_encoder_forward(launches, enc_times)
     phase_ssm_train(launches, train_times)
     phase_hybrid_train(launches, train_times)
-    rows, rescale_ms = phase_timings(errs, launches)
+    rows, decode_times = phase_timings(errs, launches)
     train_rows, fused_zamba2 = phase_timings_train(errs, launches)
     rows += train_rows
     enc_rows, block_diag_bidir = phase_timings_encoder(errs, launches)
@@ -1988,7 +2025,8 @@ def main():
     log("encoder times: " + json.dumps(enc_times))
     log("block_diag (causal=False, encoder shapes): "
         + json.dumps(block_diag_bidir))
-    log(f"decode_rescale_ms: {rescale_ms}")
+    log("lln_decode (rescale inside) and the parent's torch rescale: "
+        + json.dumps(decode_times))
     log("ssd (zamba2-7b shape): " + json.dumps(ssd_zamba2))
     log("lln_diag_fused / lln_diag_fused_bwd (zamba2-7b shape): "
         + json.dumps(fused_zamba2))

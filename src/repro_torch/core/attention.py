@@ -5,7 +5,7 @@ Port of ``repro.core.attention`` for the ``lln``, ``lln_diag`` and
 ``log_linear`` impls: :func:`batch_alpha_beta` (eq. 10 on the current
 batch's statistics), :class:`AttnConfig` and :func:`multi_head_attention`
 (the training forward, causal for the decoder and bidirectional for the
-encoder; ``log_linear`` is causal and, through the kernel, forward only),
+encoder; ``log_linear`` is causal and, on the CUDA kernel, forward only),
 :class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part
 is one masked softmax over [tail block ∪ chunk keys] in plain PyTorch (it
 has no kernel in the reference either).
@@ -101,10 +101,12 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
     or ``log_linear``, causal or bidirectional (``cfg.causal``; log-linear
     is causal only).  q: (B,N,H,D); k/v: (B,N,G,D[v]).  alpha/beta default
     to :func:`batch_alpha_beta` of this batch; a per-head (H,) beta is
-    pooled to the G groups.  ``log_linear`` under ``use_kernel`` has no
+    pooled to the G groups.  ``log_linear`` under ``use_kernel`` on the
+    ``kernel`` kind (the CUDA kernel, ``auto`` on a CUDA tensor) has no
     gradient (the reference has no backward kernel for it) and raises when
-    one would be needed; without ``use_kernel`` it runs the core scan, which
-    autograd differentiates."""
+    one would be needed; its ``plain`` and ``ref`` kinds, and the core scan
+    without ``use_kernel``, are plain PyTorch, which autograd
+    differentiates, as the reference's scan twin and oracle are."""
     if cfg.impl not in ("lln", "lln_diag", "log_linear"):
         raise NotImplementedError(f"attn impl {cfg.impl!r} is not ported "
                                   f"yet: {_NOT_PORTED.get(cfg.impl, '')}")
@@ -123,15 +125,18 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
     if cfg.impl == "log_linear" and not cfg.causal:
         raise ValueError("log_linear attention is causal-only")
     if cfg.use_kernel:
-        if cfg.impl == "log_linear" and torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "log_linear with use_kernel=True is forward only (the "
-                "reference has no backward kernel for it): run it under "
-                "torch.no_grad(), or with use_kernel=False for a gradient")
         from repro_torch.kernels import registry as kreg
+        backend = cfg.backend or "auto"
+        if cfg.impl == "log_linear" and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)) and kreg.resolve(
+                    backend, q.device) == "kernel":
+            raise NotImplementedError(
+                "log_linear on the CUDA kernel is forward only (the "
+                "reference has no backward kernel for it): run it under "
+                "torch.no_grad(), or with backend 'plain' or 'ref', or "
+                "use_kernel=False, for a gradient")
         spec = kreg.AttnSpec(impl=cfg.impl, causal=cfg.causal, r=h // g,
-                             backend=cfg.backend or "auto",
+                             backend=backend,
                              lln_chunk=cfg.lln_chunk,
                              diag_block=cfg.diag_block,
                              fixed_ab=cfg.fixed_ab,

@@ -34,7 +34,7 @@ SIGNATURES = {
     "lln_causal": {"lln_causal_launch": "ppppppp" + "iiiiiiii" + "p",
                    "lln_causal_tc_launch": "p" * 10 + "i" * 6 + "p"},
     "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p"},
-    "lln_decode": {"lln_decode_launch": "pppppppp" + "iiiiii" + "p"},
+    "lln_decode": {"lln_decode_launch": "p" * 9 + "i" * 7 + "p"},
     "lln_diag_fused": {"lln_diag_fused_launch":
                        "ppppppp" + "iiiiiiii" + "f" + "p",
                        "lln_diag_fused_tc_launch":

@@ -73,14 +73,18 @@ and the exps as fp32 work; at the training shape (B=4, H=32, G=4,
 N=1024, blk=256, D=128) the operations and the bytes are about equal.
 
 ``lln_decode`` (``csrc/lln_decode.cu``) replaces
-``src/repro/kernels/lln_attention.py:lln_decode_pallas``.  One CTA per
-(query head, 32 value columns) reads its slice of the carried ``s0`` once,
-uses it for Phi(q)·S of every chunk token and writes ``s1 = s0 +
-Phi(k)^T v`` in the same pass.  T is looped inside the CTA, with no
-padding.  Bound: the state's bytes (read s0, write s1: 16.8 MB per layer
-at B=4, H=32, D=Dv=128, about 5 us at 3.35 TB/s).  The rescale of the
-carried state before the launch is a third pass over it, still in PyTorch
-(``ops.lln_decode_chunk``).
+``src/repro/kernels/lln_attention.py:lln_decode_pallas`` and the rescale
+of the carried state before it: with ``scale`` (BH,), the state enters as
+``scale * s`` and ``scale * z``, each one fp32 multiply in the kernel, so
+``ops.lln_decode_chunk`` runs no pass of its own over the state.  Bound:
+the state's bytes (read s, write s1: 16.8 MB per layer at B=4, H=32,
+D=Dv=128, about 5 us at 3.35 TB/s).  Each element of s is read once by a
+16-byte load into registers, a thread's eight loads in flight before the
+first use; one CTA per (query head, :func:`_decode_columns` value
+columns) sums ``Phi(q)·S`` over its rows in a fixed order.  Tokens go 16 at
+a time, with no padding: the state advances in registers after each group,
+so s is never read twice; a group of at most 4 tokens stores each row of
+s1 as soon as its load arrives.  D at most 512.
 
 ``lln_bidir`` (``csrc/lln_bidir.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_bidir_pallas``: the encoder's
@@ -117,8 +121,9 @@ from . import build
 
 EPS = 1e-6
 NEG_INF = -1e30
-# CUDA tile shapes: prefill rows per tile, value columns per CTA (both
-# kernels), and the most chunk tokens one decode launch takes.
+# CUDA tile shapes: rows per tile and value columns per CTA of the
+# CUDA-core prefill kernels, and the most chunk tokens one decode launch
+# takes.
 PREFILL_TILE = 64
 COLS = 32
 MAX_DECODE_T = 64
@@ -376,13 +381,18 @@ lln_diag_fused.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Chunked decode against a pre-rescaled carried state.
+# Chunked decode against a carried state, its rescale folded in.
 # ---------------------------------------------------------------------------
 
-def lln_decode_plain(qs, ks, v, s0, z0, *, r: int = 1):
-    """Plain PyTorch T-token decode.  qs (BH,T,D); ks/v (BG,T,D[v]); s0
-    (BH,D,Dv) and z0 (BH,1,D) fp32, already rescaled to the chunk's key
-    constant.  Returns ``(out (BH,T,Dv) in v.dtype, s1, z1)``."""
+def lln_decode_plain(qs, ks, v, s, z, *, r: int = 1, scale=None):
+    """Plain PyTorch T-token decode.  qs (BH,T,D); ks/v (BG,T,D[v]); s
+    (BH,D,Dv) and z (BH,1,D) fp32; ``scale`` (BH,) fp32 or None: with it the
+    state is first rescaled, ``s * scale`` and ``z * scale``, to the chunk's
+    key constant (None: it already is).  Returns ``(out (BH,T,Dv) in
+    v.dtype, s1, z1)``."""
+    if scale is not None:
+        s = s * scale[:, None, None]
+        z = z * scale[:, None, None]
     t = qs.shape[1]
     fq = torch.exp(qs.float())
     fk = torch.repeat_interleave(torch.exp(ks.float()), r, dim=0)
@@ -390,38 +400,56 @@ def lln_decode_plain(qs, ks, v, s0, z0, *, r: int = 1):
     causal = torch.tril(torch.ones(t, t, device=qs.device))
     scores = torch.einsum("hid,hjd->hij", fq, fk) * causal
     intra = torch.einsum("hij,hjv->hiv", scores, vf)
-    inter = torch.einsum("hid,hdv->hiv", fq, s0)
-    den = scores.sum(-1) + torch.einsum("hid,hd->hi", fq, z0[:, 0]) + EPS
+    inter = torch.einsum("hid,hdv->hiv", fq, s)
+    den = scores.sum(-1) + torch.einsum("hid,hd->hi", fq, z[:, 0]) + EPS
     out = ((intra + inter) / den[..., None]).to(v.dtype)
-    s1 = s0 + torch.einsum("hjd,hjv->hdv", fk, vf)
-    z1 = z0 + fk.sum(1, keepdim=True)
+    s1 = s + torch.einsum("hjd,hjv->hdv", fk, vf)
+    z1 = z + fk.sum(1, keepdim=True)
     return out, s1, z1
 
 
-def lln_decode(qs, ks, v, s0, z0, *, r: int = 1):
-    """Chunked LLN decode; see the module docstring."""
+def _decode_columns(t: int, d: int) -> int:
+    """Value columns per CTA of ``lln_decode``'s kernel: 64 for T <= 4 (two
+    CTAs per SM, faster on the H100 at the serve shape), 128 above (each
+    CTA recomputes the chunk's scores), halved while a CTA of ceil(D / 32)
+    row warps would pass 512 threads."""
+    cols = 64 if t <= 4 else 128
+    while cols > 32 and -(-d // 32) * cols > 512:
+        cols //= 2
+    return cols
+
+
+def lln_decode(qs, ks, v, s, z, *, r: int = 1, scale=None):
+    """Chunked LLN decode, the state rescaled by ``scale`` first; see the
+    module docstring."""
     if qs.device.type == "cpu":
-        return lln_decode_plain(qs, ks, v, s0, z0, r=r)
+        return lln_decode_plain(qs, ks, v, s, z, r=r, scale=scale)
     _check_lln_inputs(qs, ks, v, r)
     bh, t, d = qs.shape
     bg, dv = ks.shape[0], v.shape[-1]
     if t > MAX_DECODE_T:
         raise ValueError(f"lln_decode takes at most {MAX_DECODE_T} tokens "
                          f"per call, got {t}")
-    for name, st, shape in (("s0", s0, (bh, d, dv)), ("z0", z0, (bh, 1, d))):
+    if d > 512:
+        raise ValueError(f"lln_decode takes D at most 512, got {d}")
+    states = [("s", s, (bh, d, dv)), ("z", z, (bh, 1, d))]
+    if scale is not None:
+        states.append(("scale", scale, (bh,)))
+    for name, st, shape in states:
         if st.dtype != torch.float32 or tuple(st.shape) != shape \
                 or st.device != qs.device or not st.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 {shape} "
                              f"tensor on {qs.device}")
     out = torch.empty(bh, t, dv, dtype=v.dtype, device=qs.device)
-    s1 = torch.empty_like(s0)
-    z1 = torch.empty_like(z0)
+    s1 = torch.empty_like(s)
+    z1 = torch.empty_like(z)
     lib = build.library("lln_decode")
     with torch.cuda.device(qs.device):
         err = lib.lln_decode_launch(
-            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), s0.data_ptr(),
-            z0.data_ptr(), out.data_ptr(), s1.data_ptr(), z1.data_ptr(),
-            bh, bg, t, d, dv, _VCODES[v.dtype],
+            qs.data_ptr(), ks.data_ptr(), v.data_ptr(), s.data_ptr(),
+            z.data_ptr(), scale.data_ptr() if scale is not None else None,
+            out.data_ptr(), s1.data_ptr(), z1.data_ptr(), bh, bg, t, d, dv,
+            _VCODES[v.dtype], _decode_columns(t, d),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "lln_decode")
     lln_decode.launches += 1

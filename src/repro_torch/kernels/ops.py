@@ -73,13 +73,14 @@ def _row_head_bcast(p: torch.Tensor) -> torch.Tensor:
 def _scaled_stabilized(q, k, alpha, beta):
     """Return ``(qs, ks, c_k)``: fp32 pre-scaled, stabilized q/k in kernel
     layout (exponents <= 0) and the key constant c_k (B, 1, G, 1) — the
-    decode state's reference constant."""
+    decode state's reference constant.  c_q and c_k are detached, as the
+    reference's ``stop_gradient``: they cancel in the normalized output."""
     alpha = _bcast_heads(alpha, q.shape[2], q.device)
     beta = _bcast_heads(beta, k.shape[2], k.device)
     aq = q.float() * _row_head_bcast(alpha)
     bk = k.float() * _row_head_bcast(beta)
-    c_q = torch.amax(aq, dim=(1, 3), keepdim=True)
-    c_k = torch.amax(bk, dim=(1, 3), keepdim=True)
+    c_q = torch.amax(aq, dim=(1, 3), keepdim=True).detach()
+    c_k = torch.amax(bk, dim=(1, 3), keepdim=True).detach()
     return _to_kernel(aq - c_q), _to_kernel(bk - c_k), c_k
 
 
@@ -380,9 +381,10 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
     group-mean pooled to G.  Returns ``(out (B,T,H,Dv) in v.dtype, new
     LLNState)``.
 
-    Kernel and plain kinds: one group-level max-rescale of the carried state
-    (each query head from its own old constant to the group's new one), then
-    the decode kernel (or its plain version) over the chunk.  ``ref`` runs
+    Kernel and plain kinds: one group-level max-rescale factor per query
+    head (from its own old constant to the group's new one), applied to the
+    carried state inside the decode kernel (or its plain version) over the
+    chunk; no pass here touches s or z.  ``ref`` runs
     ``core/lln.py:decode_chunk`` on repeated KV.
     """
     b, t, h, d = q.shape
@@ -407,11 +409,11 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
     c_new_g = torch.maximum(c_old_g, torch.amax(bk, dim=(1, 3), keepdim=True))
     c_new_h = _repeat_heads(c_new_g, h)
     rescale = torch.exp(state.c_k - c_new_h)[:, 0, :, 0]          # (B, H)
-    s0 = (state.s * rescale[..., None, None]).reshape(b * h, d, -1)
-    z0 = (state.z * rescale[..., None]).reshape(b * h, 1, d)
     fn = lln_decode if kind == "kernel" else lln_decode_plain
     out_k, s1, z1 = fn(_to_kernel(aq - c_q), _to_kernel(bk - c_new_g),
-                       _to_kernel(v), s0, z0, r=r)
+                       _to_kernel(v), state.s.reshape(b * h, d, -1),
+                       state.z.reshape(b * h, 1, d), r=r,
+                       scale=rescale.reshape(b * h))
     new = core_lln.LLNState(s=s1.reshape(b, h, d, -1), z=z1.reshape(b, h, d),
                             c_k=c_new_h, log_scale=state.log_scale)
     return _from_kernel(out_k, b), new
@@ -506,7 +508,7 @@ def _decode_chained(qs, ks, vk, s0, z0, r: int, kind: str):
     for i0 in range(0, qs.shape[1], MAX_DECODE_T):
         cut = slice(i0, i0 + MAX_DECODE_T)
         o, s0, z0 = fn(qs[:, cut].contiguous(), ks[:, cut].contiguous(),
-                       vk[:, cut].contiguous(), s0, z0, r=r)
+                       vk[:, cut].contiguous(), s0, z0, r=r, scale=None)
         outs.append(o)
     return torch.cat(outs, 1)
 

@@ -146,8 +146,9 @@ def resolve(backend: str, device: torch.device) -> str:
 def attention(spec: AttnSpec, q, k, v, alpha, beta):
     """Full-sequence LLN / LLN+Diag / log-linear attention under
     ``spec.backend``, causal or bidirectional as ``spec.causal`` (the
-    training forward; gradients through ``ops``' autograd Functions, none
-    for ``log_linear``)."""
+    training forward; gradients through ``ops``' autograd Functions, and
+    for ``log_linear`` through autograd of its plain and ``ref`` kinds, none
+    on its kernel)."""
     from . import ops
     if spec.impl == "log_linear":
         return ops.loglin_attention(q, k, v, alpha, beta, spec.causal,

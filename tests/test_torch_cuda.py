@@ -56,7 +56,14 @@ planes, the outputs two, the backward three throughout) are held at r in
 128)} and the kernels' blocks of 64, 128 and 256 rows: out within one bf16
 step, den, the final (s, z) and the gradients within 1e-5 of the largest
 plain entry, two backward runs bitwise equal; their fp32 cases hold the
-CUDA-core kernels.
+CUDA-core kernels.  ``lln_decode`` (its state rescale folded in with
+``scale``) is held at T in {1, 4, 16, 20, 64}, (D, Dv) in {(128, 128),
+(128, 64), (112, 66)}, r in {1, 4, 8}, fp32 and bf16 v, with and without
+``scale``, and at every column block it takes: out within one bf16 step
+(fp32: ATOL), s1 and z1 within 1e-5 of the largest entry, two runs bitwise
+equal, and the folded rescale bitwise equal to a torch rescale followed by
+``scale=None``.  ``log_linear`` through ``multi_head_attention`` refuses a
+gradient on the kernel and gives one on the plain kind.
 """
 import importlib
 
@@ -173,19 +180,91 @@ def test_cuda_block_diag_matches_plain(cuda, n, blk, d, dv, r, dtype, causal):
         assert torch.equal(gt, ag)
 
 
+def _decode_inputs(dev, seed, r, t, d, dv, vdtype):
+    """Kernel-layout decode inputs, 2 kv heads: qs, ks, v (``vdtype``), a
+    carried (s, z) and a rescale factor in (0.1, 1] per query head."""
+    qs, ks, v = _kernel_inputs(seed, 2 * r, 2, t, d, dv)
+    rng = np.random.default_rng(seed)
+    s = rng.normal(size=(2 * r, d, dv)).astype(np.float32)
+    z = rng.uniform(0.5, 3.0, (2 * r, 1, d)).astype(np.float32)
+    f = np.exp(-rng.uniform(0.0, 2.3, 2 * r)).astype(np.float32)
+    qs, ks, s, z, f = _on(dev, qs, ks, s, z, f)
+    (v,) = _on(dev, v, dtype=vdtype)
+    return qs, ks, v, s, z, f
+
+
+# (d, dv): the serve width, a narrower v, and D off the 32-row warps with
+# Dv off the 16-byte loads.
+DECODE_WIDTHS = [pytest.param(*w, id="d{}-dv{}".format(*w))
+                 for w in ((128, 128), (128, 64), (112, 66))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 4, 20])
-def test_cuda_lln_decode_matches_plain(cuda, t):
-    qs, ks, v = _kernel_inputs(t, 8, 2, t, 64, 64)
-    rng = np.random.default_rng(t)
-    s0 = rng.normal(size=(8, 64, 64)).astype(np.float32)
-    z0 = rng.uniform(0.5, 3.0, (8, 1, 64)).astype(np.float32)
-    args = _on(cuda, qs, ks, v, s0, z0)
-    got = lln_decode(*args, r=4)
-    want = lln_decode_plain(*args, r=4)
+@pytest.mark.parametrize("t", [1, 4, 16, 20, 64])
+@pytest.mark.parametrize("d,dv", DECODE_WIDTHS)
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("r", [1, 4, 8])
+@pytest.mark.parametrize("scaled", [False, True], ids=["noscale", "scale"])
+def test_cuda_lln_decode_matches_plain(cuda, t, d, dv, vdtype, r, scaled):
+    """The decode kernel (its rescale folded in with ``scale``) against its
+    plain version: out within one bf16 step (fp32: ATOL), s1 and z1 within
+    1e-5 of the largest entry; two runs bitwise equal."""
+    qs, ks, v, s, z, f = _decode_inputs(cuda, t + d + r, r, t, d, dv, vdtype)
+    scale = f if scaled else None
+    before = lln_decode.launches
+    got = lln_decode(qs, ks, v, s, z, r=r, scale=scale)
+    again = lln_decode(qs, ks, v, s, z, r=r, scale=scale)
+    want = lln_decode_plain(qs, ks, v, s, z, r=r, scale=scale)
     torch.cuda.synchronize()
-    for gt, wt in zip(got, want):
-        _close(gt, wt, ATOL)
+    assert lln_decode.launches == before + 2
+    _close(got[0], want[0], ATOL if vdtype == torch.float32 else BF16)
+    _close(got[1], want[1], TRAIN)
+    _close(got[2], want[2], TRAIN)
+    for gt, ag in zip(got, again):
+        assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 4, 64])
+@pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_lln_decode_folded_rescale_is_bitwise_torch_rescale(cuda, t,
+                                                                 vdtype):
+    """``scale`` inside the kernel gives the bits of ``s * scale`` and ``z *
+    scale`` in torch followed by a launch with ``scale=None`` (the kernel's
+    multiply is rounded on its own, never fused into an FMA)."""
+    qs, ks, v, s, z, f = _decode_inputs(cuda, 70 + t, 8, t, 128, 128, vdtype)
+    folded = lln_decode(qs, ks, v, s, z, r=8, scale=f)
+    torch_first = lln_decode(qs, ks, v, s * f[:, None, None],
+                             z * f[:, None, None], r=8)
+    torch.cuda.synchronize()
+    for a, b in zip(folded, torch_first):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 20])
+@pytest.mark.parametrize("d,dv", DECODE_WIDTHS)
+def test_cuda_lln_decode_column_blocks_match_plain(cuda, monkeypatch, cols,
+                                                   t, d, dv):
+    """Every column block the kernel takes (value columns per CTA),
+    whatever :func:`_decode_columns` picks for the shape; t > 64 is
+    refused."""
+    lla = importlib.import_module("repro_torch.kernels.lln_attention")
+    monkeypatch.setattr(lla, "_decode_columns", lambda t, d: cols)
+    qs, ks, v, s, z, f = _decode_inputs(cuda, 90 + t, 4, t, d, dv,
+                                        torch.bfloat16)
+    got = lln_decode(qs, ks, v, s, z, r=4, scale=f)
+    want = lln_decode_plain(qs, ks, v, s, z, r=4, scale=f)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], BF16)
+    _close(got[1], want[1], TRAIN)
+    _close(got[2], want[2], TRAIN)
+    long = _decode_inputs(cuda, 1, 4, 65, d, dv, torch.bfloat16)
+    with pytest.raises(ValueError, match="at most 64"):
+        lln_decode(*long[:5], r=4)
 
 
 @pytest.mark.cuda
@@ -601,6 +680,30 @@ def test_cuda_loglin_tensor_core_path_matches_plain(cuda, r, n, blk, levels,
         _close(gt, wt, TRAIN)
     for gt, ag in zip(got, again):
         assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+def test_cuda_log_linear_gradient_only_off_the_kernel(cuda):
+    """``multi_head_attention(impl="log_linear", use_kernel=True)`` refuses
+    a gradient on the ``kernel`` kind (``auto`` on CUDA too): its output has
+    no autograd Function.  The ``plain`` kind on CUDA tensors gives one."""
+    from repro_torch.core.attention import AttnConfig, multi_head_attention
+    rng = np.random.default_rng(3)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.5).astype(np.float32)).to(cuda)
+    q, k, v = (t.requires_grad_() for t in (f(2, 64, 8, 64), f(2, 64, 2, 64),
+                                            f(2, 64, 2, 64)))
+    kw = dict(impl="log_linear", lln_chunk=16, num_scales=3, use_kernel=True)
+    for backend in ("kernel", "auto"):
+        with pytest.raises(NotImplementedError, match="forward only"):
+            multi_head_attention(q, k, v, AttnConfig(backend=backend, **kw))
+    multi_head_attention(q, k, v, AttnConfig(backend="plain", **kw)) \
+        .sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+    with torch.no_grad():
+        out = multi_head_attention(q, k, v, AttnConfig(backend="kernel", **kw))
+    assert bool(torch.isfinite(out).all())
 
 
 @pytest.mark.cuda

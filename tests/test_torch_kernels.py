@@ -188,6 +188,27 @@ def test_lln_decode_plain_matches_pallas(r, t):
     _state_close(got[2], want[2])
 
 
+@pytest.mark.parametrize("r", [1, 2, 4])
+@pytest.mark.parametrize("t", [1, 3, 16])
+def test_lln_decode_plain_with_scale_matches_pallas(r, t):
+    """``scale`` rescales the carried state first: the plain version on
+    (s, z, f) against the Pallas decode on s0 = f·s, z0 = f·z made in
+    numpy."""
+    qs, ks, v = _kernel_inputs(40 + t, 2 * r, 2, t, 16, 16)
+    rng = np.random.default_rng(50 + r * t)
+    s = rng.normal(size=(2 * r, 16, 16)).astype(np.float32)
+    z = rng.uniform(0.5, 3.0, (2 * r, 1, 16)).astype(np.float32)
+    f = np.exp(-rng.uniform(0.0, 2.0, 2 * r)).astype(np.float32)
+    want = lln_decode_pallas(*(jnp.asarray(a) for a in (
+        qs, ks, v, s * f[:, None, None], z * f[:, None, None])), r=r,
+        interpret=True)
+    got = lln_decode(*(torch.from_numpy(a) for a in (qs, ks, v, s, z)), r=r,
+                     scale=torch.from_numpy(f))
+    _close(got[0], want[0])
+    _state_close(got[1], want[1])
+    _state_close(got[2], want[2])
+
+
 def _j_lln_state(st):
     return JLLNState(s=jnp.asarray(st.s), z=jnp.asarray(st.z),
                      c_k=jnp.asarray(st.c_k),

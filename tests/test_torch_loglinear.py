@@ -4,11 +4,14 @@
 quadratic oracle, prefill, chunked decode with rows at different depths),
 ``repro_torch.kernels.ops``' log-linear entries (plain kind) against the
 reference's CPU paths, the reductions to plain LLN, and the
-``multi_head_attention`` branch.  Inputs are made with numpy from a seed
-and fed to both sides.  Tolerances: fp32 outputs 2e-4 absolute (the port's
-CPU suite), fp32 states 2e-4 of their largest entry (sums over the
-prompt).
+``multi_head_attention`` branch with its q/k/v gradients under
+``use_kernel`` (``plain`` and ``ref`` kinds) against ``jax.grad``.  Inputs
+are made with numpy from a seed and fed to both sides.  Tolerances: fp32
+outputs 2e-4 absolute (the port's CPU suite), fp32 states 2e-4 of their
+largest entry (sums over the prompt), gradients 1e-5 of their largest
+entry.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -188,12 +191,21 @@ def test_multi_head_attention_matches_reference(use_kernel):
     _close(got, want)
 
 
-def test_log_linear_kernel_path_refuses_a_gradient():
+def test_log_linear_kernel_path_gives_a_gradient_on_the_cpu():
+    """use_kernel=True under ``auto`` resolves to ``plain`` on the CPU,
+    which autograd differentiates; the ``kernel`` kind needs CUDA tensors
+    (on the card it refuses a gradient, ``tests/test_torch_cuda.py``)."""
     rng = np.random.default_rng(6)
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(rng, 2 * CH)))
     cfg = AttnConfig(impl="log_linear", lln_chunk=CH, use_kernel=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        multi_head_attention(q, k, v, cfg)
+    multi_head_attention(q, k, v, cfg).sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multi_head_attention(q, k, v, AttnConfig(
+            impl="log_linear", lln_chunk=CH, use_kernel=True,
+            backend="kernel"))
+    q.grad = None
     out = multi_head_attention(q, k, v, AttnConfig(impl="log_linear",
                                                    lln_chunk=CH))
     out.sum().backward()
@@ -201,6 +213,37 @@ def test_log_linear_kernel_path_refuses_a_gradient():
     with pytest.raises(ValueError, match="causal-only"):
         multi_head_attention(q, k, v, AttnConfig(impl="log_linear",
                                                  causal=False))
+
+
+@pytest.mark.parametrize("backend", ["plain", "ref"])
+@pytest.mark.parametrize("n", [4 * CH, 4 * CH + 3], ids=["whole", "ragged"])
+def test_log_linear_kernel_path_gradients_match_reference(backend, n):
+    """q/k/v gradients of ``multi_head_attention(impl="log_linear",
+    use_kernel=True)`` on the ``plain`` (the kernel's plain version) and
+    ``ref`` (the quadratic oracle) kinds against ``jax.grad`` of the
+    reference's (its scan twin for a granule multiple, its oracle for a
+    ragged N) at the same fixed alpha/beta, within 1e-5 of the largest
+    entry (the port's training-gradient tolerance; fp32 sums in another
+    order)."""
+    rng = np.random.default_rng(40 + n)
+    q, k, v = _qkv(rng, n)
+    alpha, beta = _calib(rng)
+    cot = rng.normal(size=(B, n, H, D)).astype(np.float32)
+    kw = dict(impl="log_linear", lln_chunk=CH, num_scales=L,
+              scale_decay=DECAY, use_kernel=True)
+
+    def loss(q, k, v):
+        out = j_mha(q, k, v, JAttnConfig(**kw), alpha=jnp.asarray(alpha),
+                    beta=jnp.asarray(beta))
+        return jnp.sum(out * cot)
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = multi_head_attention(tq, tk, tv, AttnConfig(backend=backend, **kw),
+                               alpha=torch.from_numpy(alpha),
+                               beta=torch.from_numpy(beta))
+    (out * torch.from_numpy(cot)).sum().backward()
+    for got, w in zip((tq, tk, tv), want):
+        _close(got.grad, w, 1e-5, rel=True)
 
 
 @pytest.mark.parametrize("arg", ["row_mask", "commit_len", "renorm"])
