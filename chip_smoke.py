@@ -124,6 +124,8 @@ LEVELS, DECAY = 4, 0.5        # log_linear pyramid (the config's defaults)
 SB, SH, SN, SP, SS = 8, 24, 2048, 64, 128  # mamba2-130m SSD, train batch
 ZB, ZH, ZS, ZD = 4, 112, 64, 112  # zamba2-7b: SSD heads, state, attention dim
 HL = 15                       # zamba2-7b layers: 2 groups of 6, a tail of 3
+ZN, MN = 512, 2048            # serving prompts: zamba2-7b, mamba2-130m
+PROFILE_STEPS = 4             # decode steps profiled after the served GEN
 SEED = 0
 # fp32 elementwise steps of the block softmax per (query, key) pair: scale,
 # max, subtract, exp and sum forward; the backward's recomputed p (scale,
@@ -585,7 +587,7 @@ def phase_serve(launches, serve_times):
         # The same model through the kernels' plain versions.
         plain = build_model(cfg.replace(attn_backend="plain"))
         _reset()
-        plain_logits, _ = plain.prefill(params, batch)
+        plain_logits, _ = plain.prefill(params, batch, N + GEN)
         torch.cuda.synchronize()
         if any(_read().values()):
             raise AssertionError("the plain backend launched a kernel")
@@ -1982,6 +1984,390 @@ def phase_timings_ssd(errs, launches):
     return out["mamba2-130m"], out["zamba2-7b"], layer
 
 
+# ---------------------------------------------------------------------------
+# Serving with softmax (yi-9b, zamba2-7b) and the ssm / hybrid serving path
+# (mamba2-130m, and zamba2-7b whose lln_diag shared block runs the LLN
+# serving kernels at D = 112).
+# ---------------------------------------------------------------------------
+
+def phase_kernels_hybrid_serve(results):
+    """The three serving kernels at zamba2-7b's serving shape (B = ZB, H =
+    G = H so r = 1, N = ZN, D = Dv = ZD, blk BLK, bf16 q/k/v with the port's
+    calibration) against their plain versions: lln_causal with the final
+    state, causal block_diag and lln_decode at T = 1 from that state with a
+    rescale.  Out within one bf16 step, s, z, s1 and z1 within 1e-5 of the
+    largest plain entry, two runs of each bitwise equal."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_diag import block_diag, block_diag_plain
+    from repro_torch.kernels.lln_attention import (_tc_path, lln_causal,
+                                                   lln_causal_plain,
+                                                   lln_decode,
+                                                   lln_decode_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    q, k, v, alpha, beta = _inputs(ZN, gen, ZB, H, H, ZD)
+    qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
+    qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
+    log(f"lln_causal (state) B={ZB} H=G={H} D={ZD} N={ZN} (tensor-core "
+        f"path: {_tc_path(vk, ZD, ZD)}):")
+    runs = [lln_causal(qs, ks, vk, r=1, blk=BLK) for _ in range(2)]
+    want = lln_causal_plain(qs, ks, vk, r=1, blk=BLK)
+    torch.cuda.synchronize()
+    results["lln_causal (state, D=112)"] = max(
+        check("out", runs[0][0], want[0], bf16_tol(want[0])),
+        check("s", runs[0][1], want[1], fp32_tol(want[1])),
+        check("z", runs[0][2], want[2], fp32_tol(want[2])))
+    _same_runs("lln_causal (state, D=112)", *runs)
+    s0, z0 = want[1], want[2]
+    log(f"block_diag B={ZB} H=G={H} D={ZD} N={ZN} blk={BLK} causal:")
+    runs = [block_diag(qk, kk, vk, r=1, blk=BLK, causal=True)
+            for _ in range(2)]
+    want = block_diag_plain(qk, kk, vk, r=1, blk=BLK, causal=True)
+    torch.cuda.synchronize()
+    results["block_diag (D=112)"] = check("out", runs[0], want,
+                                          bf16_tol(want))
+    _same_runs("block_diag (D=112)", (runs[0],), (runs[1],))
+    q1, k1, v1, a1, b1 = _inputs(1, gen, ZB, H, H, ZD)
+    qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
+    vk1 = ops._to_kernel(v1)
+    scale = torch.exp(-2.3 * torch.rand(ZB * H, generator=gen,
+                                        device="cuda"))
+    log(f"lln_decode T=1 B={ZB} H=G={H} D=Dv={ZD} (from the N={ZN} state, "
+        f"rescaled in the kernel):")
+    runs = [lln_decode(qs1, ks1, vk1, s0, z0, r=1, scale=scale)
+            for _ in range(2)]
+    want = lln_decode_plain(qs1, ks1, vk1, s0, z0, r=1, scale=scale)
+    torch.cuda.synchronize()
+    results["lln_decode (D=112)"] = max(
+        check("out", runs[0][0], want[0], bf16_tol(want[0])),
+        check("s1", runs[0][1], want[1], fp32_tol(want[1])),
+        check("z1", runs[0][2], want[2], fp32_tol(want[2])))
+    _same_runs("lln_decode (D=112)", *runs)
+
+
+def _same_runs(name, first, again):
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name}: two runs differ")
+    log("  two runs bitwise equal")
+
+
+def _serve_tokens(setup, params, batch, prompt, steps):
+    """Prefill, then ``steps`` greedy decode steps; returns (prefill
+    logits, tokens (B, steps + 1))."""
+    logits, caches = setup.prefill_fn(params, batch)
+    tok = torch.argmax(logits[:, -1], -1)
+    rest, _ = setup.make_generate(steps)(params, caches, tok, prompt)
+    return logits, torch.cat([tok[:, None], rest], 1)
+
+
+def _forward_logits(setup, params, batch, toks, prompt):
+    """Logits of the model's full-sequence forward over the prompt and the
+    served tokens but the last, at the prompt's last position and after:
+    what prefill and decode must give."""
+    from repro_torch.models.layers import logits_from_hidden
+    inputs = torch.cat([batch["inputs"], toks[:, :-1]], 1)
+    cfg = setup.model.cfg
+    with torch.no_grad():
+        h, _ = setup.model.hidden(params, {"inputs": inputs})
+        return logits_from_hidden(params.head, h[:, prompt - 1:], cfg.cdtype,
+                                  cfg.logit_softcap)
+
+
+def phase_small_hybrid_serve():
+    """SMOKE serving in fp32 on the card against the core reference: yi-9b
+    softmax, and zamba2-7b with softmax and with lln_diag, backend auto
+    (lln_diag: the kernels) against ref (softmax: the naive prefill; lln_diag:
+    the core LLN) with the same greedy tokens and prefill logits within
+    1e-4; mamba2-130m's served logits (prefill and 7 decode steps: no kernel,
+    as in the reference) against its full-sequence forward over the served
+    tokens within 1e-4; then the serve CLI on the default device for
+    mamba2-130m and zamba2-7b (its default softmax)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    prompt, steps = 40, 7
+    cells = (("yi-9b", "softmax"), ("zamba2-7b", "softmax"),
+             ("zamba2-7b", "lln_diag"))
+    for arch, impl in cells:
+        runs = {}
+        for backend in ("auto", "ref"):
+            cfg = get_config(arch, smoke=True, attn_impl=impl,
+                             compute_dtype="float32", attn_backend=backend)
+            setup = make_serve_setup(cfg, ShapeSpec("small", prompt + steps,
+                                                    2, "decode"))
+            params = setup.model.init(SEED)
+            batch = synthetic_batch(cfg, 2, prompt + steps, text_seq=prompt,
+                                    device="cuda")
+            runs[backend] = _serve_tokens(setup, params, batch, prompt, steps)
+        log(f"small {arch} {impl} serve (SMOKE fp32, prompt {prompt}, auto "
+            f"vs core ref):")
+        check("prefill logits", runs["auto"][0], runs["ref"][0], 1e-4)
+        if not torch.equal(runs["auto"][1], runs["ref"][1]):
+            raise AssertionError(f"small {arch} {impl}: greedy tokens differ")
+        log(f"  greedy tokens equal: {runs['auto'][1][0].tolist()}")
+    cfg = get_config("mamba2-130m", smoke=True, compute_dtype="float32")
+    setup = make_serve_setup(cfg, ShapeSpec("small", prompt + steps, 2,
+                                            "decode"))
+    params = setup.model.init(SEED)
+    batch = synthetic_batch(cfg, 2, prompt + steps, text_seq=prompt,
+                            device="cuda")
+    logits, caches = setup.prefill_fn(params, batch)
+    toks, served = [torch.argmax(logits[:, -1], -1)], [logits[:, -1]]
+    for i in range(steps):
+        logits, caches = setup.decode_fn(params, caches, toks[-1],
+                                         prompt + i)
+        served.append(logits)
+        toks.append(torch.argmax(logits, -1))
+    want = _forward_logits(setup, params, batch, torch.stack(toks, 1), prompt)
+    log(f"small mamba2-130m serve (SMOKE fp32, prompt {prompt}, {steps} "
+        f"steps) vs its full-sequence forward:")
+    check("prefill and decode logits", torch.stack(served, 1), want, 1e-4)
+    for argv in (["--arch", "mamba2-130m"], ["--arch", "zamba2-7b"]):
+        log(f"serve CLI {' '.join(argv)} (SMOKE, default device):")
+        toks = serve.main(argv + ["--smoke", "--batch", "2", "--prompt-len",
+                                  "40", "--gen", "8"])
+        if toks.shape != (2, 8):
+            raise AssertionError(f"serve CLI returned tokens of shape "
+                                 f"{toks.shape}")
+
+
+def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
+    """Serve ``cfg`` (bf16 weights from the seed) at batch B: prompt
+    ``prompt``, GEN greedy tokens, with the launch counts read around the
+    prefill and the decode steps held to ``want_pre`` and ``GEN - 1`` times
+    ``want_dec_step``.  The prefill logits and the first decode step's
+    (teacher-forced with the same token) are held within 0.1 of the largest
+    against ``against``: another attention backend (no kernel may launch
+    there) or "forward", the full-sequence forward over the same tokens.
+    The KV caches hold PROFILE_STEPS positions past the GEN tokens for the
+    profiled decode steps.  Returns (times, prefill launches, decode
+    launches)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    shape = ShapeSpec("chip", prompt + GEN + PROFILE_STEPS, B, "decode")
+    setup = make_serve_setup(cfg, shape)
+    t0 = time.time()
+    params = setup.model.init(SEED)
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.name} {cfg.n_layers}L d_model {cfg.d_model}, "
+        f"{setup.model.param_count(params) / 1e9:.2f}B params bf16 (init "
+        f"{time.time() - t0:.1f}s), batch {B}, prompt {prompt}, {GEN} "
+        f"greedy tokens")
+    batch = synthetic_batch(cfg, B, prompt + GEN, seed=SEED,
+                            text_seq=prompt, device="cuda")
+    setup.prefill_fn(params, batch)                 # warm-up (not counted)
+    torch.cuda.synchronize()
+
+    _reset()
+    t0 = time.time()
+    logits, caches = setup.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    t_prefill = time.time() - t0
+    pre = _read()
+    _reset()
+    tok = torch.argmax(logits[:, -1], -1)
+    toks = [tok]
+    logits1, caches = setup.decode_fn(params, caches, tok, prompt)
+    tok = torch.argmax(logits1, -1)
+    toks.append(tok)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rest, caches = setup.make_generate(GEN - 2)(params, caches, tok,
+                                                prompt + 1)
+    torch.cuda.synchronize()
+    t_steady = time.time() - t0
+    dec = _read()
+    toks = torch.cat([torch.stack(toks, 1), rest], 1)
+    want_dec = {name: n * (GEN - 1) for name, n in want_dec_step.items()}
+    log(f"{label}: prefill launches {pre}, decode launches {dec}")
+    if pre != want_pre or dec != want_dec:
+        raise AssertionError(f"{label}: launch counts {pre} / {dec}, "
+                             f"expected {want_pre} / {want_dec}")
+    # Greedy argmax runs over the padded vocab, as in the reference (random
+    # weights may pick a pad row: mamba2-130m pads 50280 to 50432).
+    if toks.shape != (B, GEN) or not bool(
+            ((toks >= 0) & (toks < cfg.padded_vocab)).all()):
+        raise AssertionError(f"{label}: tokens out of range: {toks}")
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(logits1).all())):
+        raise AssertionError(f"{label}: non-finite logits")
+
+    if against == "forward":
+        full = _forward_logits(setup, params, batch, toks[:, :2], prompt)
+        o_pre, o_step = full[:, :1], full[:, 1]
+    else:
+        other = make_serve_setup(cfg.replace(attn_backend=against), shape)
+        _reset()
+        o_pre, o_steps = _serve_logits(other, params, batch, toks, prompt, 1)
+        o_step = o_steps[0]
+        torch.cuda.synchronize()
+        if any(_read().values()):
+            raise AssertionError(f"the {against} backend launched a kernel")
+        del other
+    # bf16 through the layers: one-step rounding differences random-walk;
+    # hold them to 0.1 of the largest logit, as the other serve phases.
+    check(f"{label} prefill logits vs {against}", logits, o_pre,
+          0.1 * max(1.0, float(o_pre.abs().max())))
+    check(f"{label} first decode step logits vs {against}", logits1, o_step,
+          0.1 * max(1.0, float(o_step.abs().max())))
+    agree = float((torch.argmax(logits[:, -1], -1)
+                   == torch.argmax(o_pre[:, -1], -1)).float().mean())
+    log(f"  first-token agreement with {against}: {agree:.2f}")
+    del o_pre, o_step
+
+    step_ms = t_steady / (GEN - 2) * 1e3
+    pre_dev, pre_top = device_profile(lambda: setup.prefill_fn(params, batch))
+    dec_dev, dec_top = device_profile(
+        lambda: setup.make_generate(PROFILE_STEPS)(params, caches, tok,
+                                                   prompt + GEN))
+    dec_dev /= PROFILE_STEPS
+    times = {
+        "prefill_ms": t_prefill * 1e3, "decode_ms_per_step": step_ms,
+        "decode_tok_s": B / (step_ms / 1e3),
+        "prefill_device_ms": pre_dev, "decode_device_ms_per_step": dec_dev,
+        "prefill_busy": pre_dev / (t_prefill * 1e3),
+        "decode_busy": dec_dev / step_ms}
+    log(f"{label}: prefill {t_prefill * 1e3:.2f} ms (device {pre_dev:.2f} "
+        f"ms); decode {step_ms:.3f} ms/step ({B / (step_ms / 1e3):.1f} "
+        f"tok/s, device {dec_dev:.3f} ms/step) over {GEN - 2} steps; "
+        f"tokens[0] {toks[0].tolist()}")
+    ours = _port_kernels()
+    for tag, top in (("prefill", pre_top), ("decode", dec_top)):
+        mine = [(ms, n) for name, ms, n in top
+                if _kernel_name(name).split("<")[0].split("::")[-1] in ours]
+        if mine:
+            log(f"  port kernels in the {tag}: {sum(m for m, _ in mine):.3f}"
+                f" ms over {sum(n for _, n in mine)} launches")
+    for tag, top in (("prefill", pre_top),
+                     (f"decode x{PROFILE_STEPS}", dec_top)):
+        for name, ms, calls in top[:5]:
+            log(f"  top {tag}: {ms:9.3f} ms  {calls:6d} calls  {name[:90]}")
+    del setup, caches, params
+    torch.cuda.empty_cache()
+    return times, pre, dec
+
+
+def phase_serve_softmax_ssm(launches, serve_times):
+    """Full-width serving of the paths the softmax impl and the ssm /
+    hybrid family opened: yi-9b with softmax (48 layers, prompt N; logits
+    against backend ref, whose prefill is the naive softmax), mamba2-130m
+    (24 layers, prompt MN; logits against its full-sequence forward),
+    zamba2-7b (81 layers, prompt ZN) with lln_diag (per prefill one
+    lln_causal with the state and one causal block_diag per application of
+    the shared block, per decode step one lln_decode; logits against the
+    plain backend) and with softmax, its default (logits against ref).
+    softmax and the Mamba2 layers launch no kernel, as in the reference."""
+    from repro_torch.configs import get_config
+    idle = {name: 0 for name in _counts()}
+    yi = get_config("yi-9b", attn_impl="softmax", param_dtype="bfloat16")
+    serve_times["softmax"], _, _ = _serve_cell(yi, N, idle, idle, "ref",
+                                               "serve softmax (yi-9b)")
+    mamba = get_config("mamba2-130m", param_dtype="bfloat16")
+    serve_times["mamba2-130m"], _, _ = _serve_cell(
+        mamba, MN, idle, idle, "forward", "serve mamba2-130m")
+    zamba = get_config("zamba2-7b", attn_impl="lln_diag",
+                       param_dtype="bfloat16")
+    shared = zamba.n_layers // zamba.shared_attn_period
+    serve_times["zamba2-7b lln_diag"], pre, dec = _serve_cell(
+        zamba, ZN, {**idle, "lln_causal": shared, "block_diag": shared},
+        {**idle, "lln_decode": shared}, "plain", "serve zamba2-7b lln_diag")
+    launches["lln_causal (state, hybrid)"] += pre["lln_causal"]
+    launches["block_diag (hybrid)"] += pre["block_diag"]
+    launches["lln_decode (hybrid)"] += dec["lln_decode"]
+    serve_times["zamba2-7b softmax"], _, _ = _serve_cell(
+        zamba.replace(attn_impl="softmax"), ZN, idle, idle, "ref",
+        "serve zamba2-7b softmax")
+
+
+def phase_timings_hybrid_serve(errs, launches):
+    """The three serving kernels, their plain versions and the bounds at
+    zamba2-7b's serving shape (B = ZB, H = G = H, N = ZN, D = Dv = ZD):
+    lln_causal with the state (bound from _lln_counts at the kernels' own
+    block), causal block_diag (q k^T once and p v twice at the tensor
+    cores' rate, the softmax steps as fp32 work; SDPA on the blocks as the
+    library yardstick), lln_decode at T = 1 with the rescale (fp32 work
+    and the state's bytes)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_diag import block_diag, block_diag_plain
+    from repro_torch.kernels.lln_attention import (lln_causal, lln_causal_plain,
+                                                   lln_decode, lln_decode_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    bh = bg = ZB * H
+    d, n = ZD, ZN
+    q, k, v, alpha, beta = _inputs(n, gen, ZB, H, H, d)
+    qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
+    qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
+    rows = []
+    counts = _lln_counts(bh, bg, n, d, d, _lln_module().TC_BLOCK)
+    bnd, by = bound_ms(*counts["lln_causal (state)"])
+    rows.append(dict(
+        name="lln_causal (state, zamba2 D=112)", route="cuda",
+        source="src/repro_torch/csrc/lln_causal.cu",
+        replaces="src/repro/kernels/lln_attention.py:94",
+        launches=launches["lln_causal (state, hybrid)"],
+        max_abs_err=errs["lln_causal (state, D=112)"],
+        ms=cuda_ms(lambda: lln_causal(qs, ks, vk, r=1, blk=BLK)),
+        plain_ms=cuda_ms(lambda: lln_causal_plain(qs, ks, vk, r=1, blk=BLK)),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+
+    nb = n // BLK
+    pairs = nb * BLK * (BLK + 1) // 2
+    nbytes = 2 * (bh * n * d + bg * n * d + bg * n * d + bh * n * d)
+    bnd, by = bound_ms(nbytes, bh * pairs * SOFTMAX_FWD_OPS,
+                       bh * pairs * (2 * d + 2 * 2 * d))
+
+    def blocks(t):
+        return t.reshape(ZB, nb, BLK, t.shape[2], d).permute(0, 1, 3, 2, 4) \
+            .reshape(ZB * nb, t.shape[2], BLK, d)
+    qb, kb, vb = blocks(q), blocks(k), blocks(v)
+    rows.append(dict(
+        name="block_diag (zamba2 D=112)", route="cuda",
+        source="src/repro_torch/csrc/block_diag.cu",
+        replaces="src/repro/kernels/block_diag.py:109",
+        launches=launches["block_diag (hybrid)"],
+        max_abs_err=errs["block_diag (D=112)"],
+        ms=cuda_ms(lambda: block_diag(qk, kk, vk, r=1, blk=BLK, causal=True)),
+        plain_ms=cuda_ms(lambda: block_diag_plain(qk, kk, vk, r=1, blk=BLK,
+                                                  causal=True)),
+        bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=True))))
+
+    _, s0, z0 = lln_causal_plain(qs, ks, vk, r=1, blk=BLK)
+    scale = torch.exp(-torch.rand(bh, generator=gen, device="cuda"))
+    q1, k1, v1, a1, b1 = _inputs(1, gen, ZB, H, H, d)
+    qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
+    vk1 = ops._to_kernel(v1)
+    t = 1
+    nbytes = (2 * bh * d * d * 4 + 2 * bh * d * 4 + bh * 4 + bh * t * d * 4
+              + bg * t * d * 4 + bg * t * d * 2 + bh * t * d * 2)
+    flops = bh * t * (2 * d * d + 2 * d) + bh * t * (t + 1) // 2 * 4 * d \
+        + bh * t * (2 * d * d + d) + bh * (d * d + d)
+    bnd, by = bound_ms(nbytes, flops)
+    rows.append(dict(
+        name="lln_decode (zamba2 D=112)", route="cuda",
+        source="src/repro_torch/csrc/lln_decode.cu",
+        replaces="src/repro/kernels/lln_attention.py:348",
+        launches=launches["lln_decode (hybrid)"],
+        max_abs_err=errs["lln_decode (D=112)"],
+        ms=cuda_ms(lambda: lln_decode(qs1, ks1, vk1, s0, z0, r=1,
+                                      scale=scale)),
+        plain_ms=cuda_ms(lambda: lln_decode_plain(qs1, ks1, vk1, s0, z0, r=1,
+                                                  scale=scale)),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+    for row in rows:
+        log(f"timing {row['name']} (B={ZB} H=G={H} N={n}): kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']}, launches {row['launches']}")
+    return rows
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1993,20 +2379,24 @@ def main():
         "lln_bidir", "lln_bidir_bwd", "block_diag_bwd",
         "block_diag (causal=False)", "loglin_causal",
         "lln_decode (log_linear)", "ssd", "lln_diag_fused (hybrid)",
-        "lln_diag_fused_bwd (hybrid)")}
+        "lln_diag_fused_bwd (hybrid)", "lln_causal (state, hybrid)",
+        "block_diag (hybrid)", "lln_decode (hybrid)")}
     phase_kernels(errs)
     phase_kernels_train(errs)
     phase_kernels_encoder(errs)
     phase_kernels_loglin(errs)
     phase_kernels_ssd(errs)
     phase_kernels_hybrid_attn(errs)
+    phase_kernels_hybrid_serve(errs)
     phase_small()
     phase_small_train()
     phase_small_encoder()
     phase_small_loglin()
     phase_small_ssm()
+    phase_small_hybrid_serve()
     phase_serve(launches, serve_times)
     phase_serve_loglin(launches, serve_times)
+    phase_serve_softmax_ssm(launches, serve_times)
     phase_train(launches, train_times)
     phase_encoder_train(launches, enc_times)
     phase_encoder_forward(launches, enc_times)
@@ -2020,6 +2410,7 @@ def main():
     rows.append(phase_timings_loglin(errs, launches))
     ssd_row, ssd_zamba2, ssd_layer = phase_timings_ssd(errs, launches)
     rows.append(ssd_row)
+    rows += phase_timings_hybrid_serve(errs, launches)
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))

@@ -13,7 +13,10 @@ copies them into a :class:`DenseLM`, an :class:`Encoder` (encoder family)
 or a :class:`HybridLM` (ssm and hybrid families),
 :func:`train_state_from_numpy` also the AdamW moments and step.  The weight
 layout stays (d_in, d_out): the port computes ``x @ w``.  bf16 leaves
-travel through fp32, which is exact.
+travel through fp32, which is exact.  Decode state: :func:`state_from_numpy`
+converts one layer's attention state (softmax KV cache or LLN state),
+:func:`hybrid_cache_from_numpy` the ssm / hybrid caches, whose per-layer
+and per-application entries the reference stacks along a leading axis.
 """
 from __future__ import annotations
 
@@ -109,19 +112,47 @@ def _field(tree, name):
         return None
 
 
+def _leaf(a, device) -> torch.Tensor:
+    """A state leaf in its own dtype: int32, bf16 or fp32."""
+    arr = np.asarray(a)
+    dtype = torch.int32 if arr.dtype.kind in "iu" else (
+        torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32)
+    return _tensor(arr, dtype, device)
+
+
 def state_from_numpy(tree, device) -> AttentionState:
     """One layer's :class:`AttentionState` from the reference's state
     (anything indexable by field name: the reference's ``AttentionState``
     with numpy leaves, or a dict).  The fields the state does not hold
-    (the diag tails of a ``log_linear`` state, its pyramid for ``lln``)
+    (the KV cache of an LLN state, the diag tails of a ``log_linear``
+    state, its pyramid for ``lln``, the LLN fields of a softmax state)
     stay None."""
     out = {}
     for f in dataclasses.fields(AttentionState):
         a = _field(tree, f.name)
-        if a is None:
-            continue
-        arr = np.asarray(a)
-        dtype = torch.int32 if arr.dtype.kind in "iu" else (
-            torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32)
-        out[f.name] = _tensor(arr, dtype, device)
+        if a is not None:
+            out[f.name] = _leaf(a, device)
     return AttentionState(**out)
+
+
+def hybrid_cache_from_numpy(tree, device) -> dict:
+    """The port's ssm / hybrid decode caches (``models/hybrid.py``) from
+    the reference's: ``{"layers": {"state", "conv"}}`` with each leaf
+    stacked over the layers becomes a list of per-layer dicts, and
+    ``"shared"`` (an ``AttentionState`` with each leaf stacked over the
+    applications of the shared block, for the hybrid) a list of
+    :class:`AttentionState`."""
+    layers = {name: np.asarray(tree["layers"][name])
+              for name in ("state", "conv")}
+    out = {"layers": [{name: _leaf(a[i], device)
+                       for name, a in layers.items()}
+                      for i in range(layers["state"].shape[0])]}
+    if "shared" in tree:
+        stacked = {f.name: np.asarray(a)
+                   for f in dataclasses.fields(AttentionState)
+                   if (a := _field(tree["shared"], f.name)) is not None}
+        apps = next(iter(stacked.values())).shape[0]
+        out["shared"] = [state_from_numpy(
+            {name: a[i] for name, a in stacked.items()}, device)
+            for i in range(apps)]
+    return out

@@ -1,14 +1,17 @@
 """Attention front-end: calibration, full-sequence attention and chunked
-LLN(+Diag) decode.
+decode.
 
-Port of ``repro.core.attention`` for the ``lln``, ``lln_diag`` and
-``log_linear`` impls: :func:`batch_alpha_beta` (eq. 10 on the current
-batch's statistics), :class:`AttnConfig` and :func:`multi_head_attention`
-(the training forward, causal for the decoder and bidirectional for the
-encoder; ``log_linear`` is causal and, on the CUDA kernel, forward only),
+Port of ``repro.core.attention``: :func:`batch_alpha_beta` (eq. 10 on the
+current batch's statistics), :class:`AttnConfig` and
+:func:`multi_head_attention` (the training forward, causal for the decoder
+and bidirectional for the encoder, for ``softmax``, ``lln``, ``lln_diag``
+and ``log_linear``; ``log_linear`` is causal and, on the CUDA kernel,
+forward only), the softmax half (:func:`flash_softmax`, an online softmax
+chunked over keys; :func:`naive_softmax`, the quadratic oracle;
+:class:`KVCache`, :func:`decode_softmax` and :func:`commit_softmax`), and
 :class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part
-is one masked softmax over [tail block ∪ chunk keys] in plain PyTorch (it
-has no kernel in the reference either).
+is one masked softmax over [tail block ∪ chunk keys].  The softmax paths
+are plain PyTorch: the reference has no kernel for them either.
 
 GQA: k/v carry G kv heads with G | H; all inputs are (batch, seq, heads,
 head_dim).
@@ -16,45 +19,43 @@ head_dim).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import lln as lln_mod
 from . import loglinear as loglin_mod
 from .diag import block_diag_attn
-from .lln import LLNState, lln_bidir, lln_causal_scan
+from .lln import LLNState, commit_lengths, lln_bidir, lln_causal_scan
 from .moment_matching import constants_for_dim, solve_alpha_beta
+from .numerics import einsum_f32
 
 NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """The reference's ``AttnConfig``.  ``use_kernel`` routes through
-    ``kernels/registry.py:attention`` (the CUDA kernels' autograd
-    Functions); without it the core scan runs on repeated KV.  ``backend``:
-    an explicit registry backend (None -> ``auto``).  ``num_scales`` /
-    ``scale_decay``: the ``log_linear`` pyramid.  The reference's
-    ``softmax_chunk`` and ``mm_a``/``mm_b`` come with the slices that port
-    the code that reads them."""
+    """The reference's ``AttnConfig``.  ``use_kernel`` routes the LLN
+    impls through ``kernels/registry.py:attention`` (the CUDA kernels'
+    autograd Functions); without it the core scan runs on repeated KV.
+    ``softmax`` runs :func:`flash_softmax` with key chunks of
+    ``softmax_chunk`` either way.  ``backend``: an explicit registry
+    backend (None -> ``auto``).  ``num_scales`` / ``scale_decay``: the
+    ``log_linear`` pyramid.  The reference's ``mm_a``/``mm_b`` come with
+    the slice that ports the code that reads them."""
     impl: str = "softmax"
     causal: bool = True
     diag_block: int = 256
     lln_chunk: int = 128
+    softmax_chunk: int = 1024
     use_kernel: bool = False
     backend: Optional[str] = None
     fixed_ab: float = 0.0
     num_scales: int = 4
     scale_decay: float = 0.5
-
-
-# What each unported branch of multi_head_attention waits for.
-_NOT_PORTED = {
-    "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
-               "first slice', item 1)",
-}
 
 
 def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -95,21 +96,243 @@ def batch_alpha_beta(q, k, cfg, n: int | None = None):
     return alpha, beta_g
 
 
+# ---------------------------------------------------------------------------
+# Softmax attention: online softmax chunked over keys, its quadratic oracle,
+# and decode against a KV cache.
+# ---------------------------------------------------------------------------
+
+def _flash_step(m, l, acc, qq, ck, cv, cm, allowed):
+    """One key chunk of the online softmax.  qq (B,Cq,G,R,D) pre-scaled;
+    ck/cv (B,C,G,D[v]); cm (B,C) key validity; allowed (B|1,Cq,C) or None.
+    m/l (B,G,R,Cq) and acc (B,G,R,Cq,Dv) fp32."""
+    s = einsum_f32("bqgrd,bjgd->bgrqj", qq, ck)
+    bias = torch.where(cm, 0.0, NEG_INF)[:, None, None, None, :]
+    if allowed is not None:
+        bias = bias + torch.where(allowed, 0.0, NEG_INF)[:, None, None]
+    s = s + bias
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + torch.sum(p, dim=-1)
+    acc = acc * corr[..., None] + einsum_f32("bgrqj,bjgv->bgrqv",
+                                             p.to(cv.dtype), cv)
+    return m_new, l, acc
+
+
+def flash_softmax(q, k, v, *, causal: bool = True, chunk: int = 1024,
+                  mask: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None, prefix_len: int = 0,
+                  q_start=None) -> torch.Tensor:
+    """Online-softmax attention, chunked over keys (and queries).
+
+    q: (B,Nq,H,D); k/v: (B,Nk,G,D[v]) with G | H (GQA: query head i reads
+    kv head i // (H // G), without repeating k/v).  ``mask``: (B, Nk) key
+    validity.  Returns (B, Nq, H, Dv) in ``v.dtype``.  The inputs stay in
+    their dtype; each chunk's two products are taken on fp32 copies (torch's
+    bf16 matmul would return bf16) and the statistics and accumulators are
+    fp32.  q is scaled in its own dtype, as the reference does.  Padded
+    keys are masked; scores of masked keys get ``NEG_INF``.
+
+    When ``causal``, query i sees keys j <= i + (Nk - Nq) (the queries are
+    the last Nq positions); ``q_start`` sets their absolute positions to
+    ``q_start + i`` instead, as a scalar or per row (B,) (decode against a
+    cache, each row at its own depth).  ``prefix_len``: keys below it are
+    visible to every query (a prefix-LM).  With grad enabled each key
+    chunk runs under ``torch.utils.checkpoint``, as the reference wraps
+    its step in ``jax.checkpoint``: the backward recomputes the chunk's
+    probabilities instead of keeping them."""
+    b, nq, h, d = q.shape
+    nk, g = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    r = h // g
+    dev = q.device
+    scale = d ** -0.5 if scale is None else scale
+    nkc = -(-nk // chunk)
+    kpad = nkc * chunk - nk
+    if mask is None:
+        mask = torch.ones(b, nk, dtype=torch.bool, device=dev)
+    if kpad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, kpad))
+        mask = torch.nn.functional.pad(mask, (0, kpad))
+    qchunk = min(chunk, nq)
+    nqc = -(-nq // qchunk)
+    qpad = nqc * qchunk - nq
+    if qpad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, qpad))
+    qg = (q * torch.tensor(scale, dtype=q.dtype, device=dev)).reshape(
+        b, nqc * qchunk, g, r, d)
+
+    per_row = q_start is not None and torch.as_tensor(q_start).ndim == 1
+    if q_start is None:
+        q_off = torch.tensor(nk - nq, device=dev)
+    else:
+        q_off = torch.as_tensor(q_start, device=dev).to(torch.int64)
+    step = _flash_step
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, _flash_step, use_reentrant=False)
+    outs = []
+    for qi in range(nqc):
+        qq = qg[:, qi * qchunk:(qi + 1) * qchunk]
+        rel = qi * qchunk + torch.arange(qchunk, device=dev)
+        q_pos = rel[None, :] + q_off[:, None] if per_row else rel + q_off
+        m = torch.full((b, g, r, qchunk), NEG_INF, device=dev)
+        l = torch.zeros(b, g, r, qchunk, device=dev)
+        acc = torch.zeros(b, g, r, qchunk, dv, device=dev)
+        for ki in range(nkc):
+            sl = slice(ki * chunk, (ki + 1) * chunk)
+            allowed = None
+            if causal:
+                key_pos = torch.arange(ki * chunk, (ki + 1) * chunk,
+                                       device=dev)
+                allowed = q_pos[..., :, None] >= key_pos
+                if prefix_len:
+                    allowed = allowed | (key_pos < prefix_len)
+                if not per_row:
+                    allowed = allowed[None]
+            m, l, acc = step(m, l, acc, qq, k[:, sl], v[:, sl], mask[:, sl],
+                             allowed)
+        out = acc / torch.clamp(l[..., None], min=1e-20)     # (B,G,R,Cq,Dv)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qchunk, h, dv)
+                    .to(v.dtype))
+    return torch.cat(outs, 1)[:, :nq]
+
+
+def naive_softmax(q, k, v, *, causal: bool = True,
+                  mask: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
+    """Quadratic reference (small N and tests): fp32 scores over repeated
+    kv heads, one softmax, the output in ``v.dtype``."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    scale = d ** -0.5 if scale is None else scale
+    s = torch.einsum("bqhd,bjhd->bhqj", q.float(), k.float()) * scale
+    if mask is not None:
+        s = s + torch.where(mask[:, None, None, :], 0.0, NEG_INF)
+    if causal:
+        kp = torch.arange(nk, device=q.device)
+        qp = torch.arange(nq, device=q.device) + (nk - nq)
+        allowed = qp[:, None] >= kp[None, :]
+        if prefix_len:
+            allowed = allowed | (kp[None, :] < prefix_len)
+        s = s + torch.where(allowed, 0.0, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqj,bjhv->bqhv", p, v.float()).to(v.dtype)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Softmax KV cache: k/v (B, S, G, D[v]) and the filled length, a
+    scalar or per row (B,) int32."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+def _append(buf: torch.Tensor, new: torch.Tensor,
+            start: torch.Tensor) -> torch.Tensor:
+    """``buf`` (B,S,...) with ``new`` (B,T,...) written at row offsets
+    ``start`` (B,), out of place.  As the reference's
+    ``dynamic_update_slice``, a start past S - T is clamped to S - T."""
+    t, cap = new.shape[1], buf.shape[1]
+    start = torch.clamp(start.to(torch.int64), 0, cap - t)
+    idx = start[:, None] + torch.arange(t, device=buf.device)[None, :]
+    idx = idx.reshape(idx.shape + (1,) * (new.ndim - 2)).expand(new.shape)
+    return buf.scatter(1, idx, new.to(buf.dtype))
+
+
+def decode_softmax(cache: KVCache, q, k_new, v_new, *,
+                   scale: Optional[float] = None, chunk: int = 1024,
+                   row_mask: Optional[torch.Tensor] = None,
+                   commit_len: Optional[torch.Tensor] = None):
+    """Softmax decode of T >= 1 tokens against a KV cache.
+
+    q: (B,T,H,D); k/v_new: (B,T,G,D[v]).  The new keys are written at
+    ``cache.length`` (a scalar, or per row (B,)) and the T queries score
+    the cache with their absolute positions, so within-chunk causality
+    holds.  ``row_mask`` (B,) bool: rows where it is False neither write
+    the cache nor advance ``length`` (their outputs are to be discarded).
+    ``commit_len`` (B,) int in [0, T], per-row ``length`` only: all T
+    tokens are scored, ``length`` advances by ``commit_len`` and rows with
+    ``commit_len = 0`` keep their buffers bitwise.  The cache passed in is
+    not modified.  Returns (out (B,T,H,Dv), new cache)."""
+    per_row = cache.length.ndim == 1
+    if commit_len is not None and not per_row:
+        raise ValueError("decode_softmax: commit_len requires a per-row "
+                         "(B,) cache length")
+    b, t = q.shape[:2]
+    start = cache.length if per_row else cache.length.expand(b)
+    kc = _append(cache.k, k_new, start)
+    vc = _append(cache.v, v_new, start)
+    ret_k = ret_v = None
+    if commit_len is not None:
+        cl = commit_lengths(commit_len, row_mask, t)
+        keep = (cl > 0)[:, None, None, None]
+        ret_k = torch.where(keep, kc, cache.k)
+        ret_v = torch.where(keep, vc, cache.v)
+        new_len = cache.length + cl
+        score_len = cache.length + t
+    elif row_mask is not None:
+        keep = row_mask[:, None, None, None]
+        kc = torch.where(keep, kc, cache.k)
+        vc = torch.where(keep, vc, cache.v)
+        new_len = cache.length + t * row_mask.to(torch.int32)
+        score_len = new_len
+    else:
+        new_len = cache.length + t
+        score_len = new_len
+    lens = score_len if score_len.ndim == 1 else score_len.expand(b)
+    valid = torch.arange(kc.shape[1], device=q.device)[None, :] \
+        < lens[:, None]
+    out = flash_softmax(q, kc, vc, causal=True, chunk=min(chunk, kc.shape[1]),
+                        mask=valid, scale=scale, q_start=cache.length)
+    if ret_k is None:
+        ret_k, ret_v = kc, vc
+    return out, KVCache(k=ret_k, v=ret_v, length=new_len.to(torch.int32))
+
+
+def commit_softmax(cache: KVCache, k_new, v_new, *,
+                   commit_len: torch.Tensor,
+                   row_mask: Optional[torch.Tensor] = None) -> KVCache:
+    """The commit half of :func:`decode_softmax`: append the accepted
+    prefix of a chunk scored earlier, without scoring; the same cache as
+    :func:`decode_softmax` with this ``commit_len``.  Per-row ``length``
+    only."""
+    if cache.length.ndim != 1:
+        raise ValueError("commit_softmax requires a per-row (B,) cache "
+                         "length")
+    t = k_new.shape[1]
+    kc = _append(cache.k, k_new, cache.length)
+    vc = _append(cache.v, v_new, cache.length)
+    cl = commit_lengths(commit_len, row_mask, t)
+    keep = (cl > 0)[:, None, None, None]
+    return KVCache(k=torch.where(keep, kc, cache.k),
+                   v=torch.where(keep, vc, cache.v),
+                   length=(cache.length + cl).to(torch.int32))
+
+
 def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
                          beta=None) -> torch.Tensor:
-    """Full-sequence attention (training / prefill), ``lln``, ``lln_diag``
-    or ``log_linear``, causal or bidirectional (``cfg.causal``; log-linear
-    is causal only).  q: (B,N,H,D); k/v: (B,N,G,D[v]).  alpha/beta default
-    to :func:`batch_alpha_beta` of this batch; a per-head (H,) beta is
-    pooled to the G groups.  ``log_linear`` under ``use_kernel`` on the
-    ``kernel`` kind (the CUDA kernel, ``auto`` on a CUDA tensor) has no
-    gradient (the reference has no backward kernel for it) and raises when
-    one would be needed; its ``plain`` and ``ref`` kinds, and the core scan
-    without ``use_kernel``, are plain PyTorch, which autograd
-    differentiates, as the reference's scan twin and oracle are."""
+    """Full-sequence attention (training / prefill), ``softmax``, ``lln``,
+    ``lln_diag`` or ``log_linear``, causal or bidirectional
+    (``cfg.causal``; log-linear is causal only).  q: (B,N,H,D); k/v:
+    (B,N,G,D[v]).  ``softmax`` is :func:`flash_softmax` with key chunks of
+    ``min(cfg.softmax_chunk, N)`` whatever ``use_kernel`` says, as in the
+    reference.  alpha/beta default to :func:`batch_alpha_beta` of this
+    batch; a per-head (H,) beta is pooled to the G groups.  ``log_linear``
+    under ``use_kernel`` on the ``kernel`` kind (the CUDA kernel, ``auto``
+    on a CUDA tensor) has no gradient (the reference has no backward
+    kernel for it) and raises when one would be needed; its ``plain`` and
+    ``ref`` kinds, and the core scan without ``use_kernel``, are plain
+    PyTorch, which autograd differentiates, as the reference's scan twin
+    and oracle are."""
+    if cfg.impl == "softmax":
+        return flash_softmax(q, k, v, causal=cfg.causal,
+                             chunk=min(cfg.softmax_chunk, k.shape[1]))
     if cfg.impl not in ("lln", "lln_diag", "log_linear"):
-        raise NotImplementedError(f"attn impl {cfg.impl!r} is not ported "
-                                  f"yet: {_NOT_PORTED.get(cfg.impl, '')}")
+        raise ValueError(f"unknown attention impl: {cfg.impl!r}")
     h, g = q.shape[2], k.shape[2]
     if alpha is None or beta is None:
         alpha, beta = batch_alpha_beta(q, k, cfg)

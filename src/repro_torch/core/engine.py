@@ -1,8 +1,8 @@
 """The AttentionEngine: one spec, one state, one serving lifecycle.
 
-Port of ``repro.core.engine`` for ``lln``, ``lln_diag`` and
-``log_linear``: :class:`AttentionState` holds one layer's LLN decode state
-(``s``/``z``/``c_k``), the §4.2 diag tails at the G kv heads or the
+Port of ``repro.core.engine``: :class:`AttentionState` holds one layer's
+decode state, the softmax KV cache (``k``/``v``/``len``) or the LLN state
+(``s``/``z``/``c_k``) with the §4.2 diag tails at the G kv heads or the
 log-linear bucket pyramid, the per-row position and calibration;
 :class:`AttentionEngine` binds an
 :class:`~repro_torch.kernels.registry.AttnSpec` to a layer's head geometry
@@ -19,7 +19,8 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.kernels import registry as kreg
 from repro_torch.kernels.registry import AttnSpec
 from . import moment_matching as mm
-from .attention import LLNDecodeState, batch_alpha_beta, decode_lln_chunk
+from .attention import (KVCache, LLNDecodeState, batch_alpha_beta,
+                        decode_lln_chunk, decode_softmax)
 from .lln import LLNState
 from .loglinear import LogLinState
 
@@ -28,21 +29,25 @@ from .loglinear import LogLinState
 class AttentionState:
     """Per-layer decode state; the fields an impl does not use are None.
 
-    Every impl: s (B,H,D,Dv) fp32, z (B,H,D) fp32, c_k (B,1,H,1) fp32, pos
-    (B,) int32, alpha/beta (B,H) fp32 (beta repeated from the G groups),
-    log_scale (B,H) fp32.  ``lln``/``lln_diag``: tail_k/tail_v
-    (B,BLK,G,D[v]) in the compute dtype.  ``log_linear``: (s, z, c_k) is
-    the open bucket and sl (B,L,H,D,Dv), zl (B,L,H,D), cl (B,L,H) fp32 the
-    Fenwick pyramid; occupancy comes from ``pos``
-    (``core/loglinear.py:occupancy``).
+    ``softmax``: k/v (B,S,G,D[v]) the KV cache in the compute dtype, S the
+    capacity, and len (B,) int32 its filled length.  The LLN impls: s
+    (B,H,D,Dv) fp32, z (B,H,D) fp32, c_k (B,1,H,1) fp32, pos (B,) int32,
+    alpha/beta (B,H) fp32 (beta repeated from the G groups), log_scale
+    (B,H) fp32; ``lln``/``lln_diag`` also tail_k/tail_v (B,BLK,G,D[v]) in
+    the compute dtype.  ``log_linear``: (s, z, c_k) is the open bucket and
+    sl (B,L,H,D,Dv), zl (B,L,H,D), cl (B,L,H) fp32 the Fenwick pyramid;
+    occupancy comes from ``pos`` (``core/loglinear.py:occupancy``).
     """
-    s: torch.Tensor
-    z: torch.Tensor
-    c_k: torch.Tensor
-    pos: torch.Tensor
-    alpha: torch.Tensor
-    beta: torch.Tensor
-    log_scale: torch.Tensor
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    len: Optional[torch.Tensor] = None
+    s: Optional[torch.Tensor] = None
+    z: Optional[torch.Tensor] = None
+    c_k: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None
+    alpha: Optional[torch.Tensor] = None
+    beta: Optional[torch.Tensor] = None
+    log_scale: Optional[torch.Tensor] = None
     tail_k: Optional[torch.Tensor] = None
     tail_v: Optional[torch.Tensor] = None
     sl: Optional[torch.Tensor] = None
@@ -79,10 +84,18 @@ class AttentionEngine:
         return cls(spec=AttnSpec.from_cfg(cfg, r=h // g), heads=h,
                    kv_heads=g, head_dim=d, v_dim=d)
 
-    def init_state(self, batch: int, device) -> AttentionState:
-        """Zeroed decode state for ``batch`` rows (per-row pos and
-        calibration)."""
+    def init_state(self, batch: int, device, max_len: int) -> AttentionState:
+        """Zeroed decode state for ``batch`` rows (per-row counters and
+        calibration); the softmax KV cache holds ``max_len`` positions, the
+        LLN impls ignore it."""
         h, g, d, dv = self.heads, self.kv_heads, self.head_dim, self.v_dim
+        if self.spec.impl == "softmax":
+            return AttentionState(
+                k=torch.zeros(batch, max_len, g, d, dtype=self.state_dtype,
+                              device=device),
+                v=torch.zeros(batch, max_len, g, dv, dtype=self.state_dtype,
+                              device=device),
+                len=torch.zeros(batch, dtype=torch.int32, device=device))
         f32 = dict(dtype=torch.float32, device=device)
         common = dict(
             s=torch.zeros(batch, h, d, dv, **f32),
@@ -111,20 +124,30 @@ class AttentionEngine:
         return batch_alpha_beta(q, k, self.spec, n=n)
 
     def _length_gain(self, n):
-        """beta(n) schedule gain at depth ``n``; None when it is off."""
-        if self.spec.beta_n <= 0.0:
+        """beta(n) schedule gain at depth ``n``; None when it is off (and
+        for softmax, which has no calibration)."""
+        if self.spec.beta_n <= 0.0 or self.spec.impl == "softmax":
             return None
         return mm.length_gain(n, self.spec.beta_n, self.spec.calib_len)
 
-    def prefill(self, q, k, v, *, alpha=None, beta=None):
+    def prefill(self, q, k, v, *, max_len: int = 0, alpha=None, beta=None):
         """Causal forward over the prompt; returns ``(out, state)``.
-        q: (B,N,H,D); k/v: (B,N,G,D[v]).  The LLN outputs and the O(d^2)
-        state come from one pass (``log_linear``: the open bucket and the
-        bucket pyramid); ``lln_diag`` averages in the block-diag softmax.
-        ``alpha``/``beta`` override the calibration."""
+        q: (B,N,H,D); k/v: (B,N,G,D[v]).  ``softmax``: the prompt's k/v
+        become the KV cache, zero-padded to ``max(max_len, N)`` positions
+        for the tokens decode appends.  The LLN outputs and the
+        O(d^2) state come from one pass (``log_linear``: the open bucket and
+        the bucket pyramid); ``lln_diag`` averages in the block-diag
+        softmax.  ``alpha``/``beta`` override the calibration."""
         b, n, h, _ = q.shape
         g = k.shape[2]
         spec = self.spec
+        if spec.impl == "softmax":
+            out = kreg.softmax_attention(spec, q, k, v)
+            pad = (0, 0, 0, 0, 0, max(max_len, n) - n)
+            return out, AttentionState(
+                k=torch.nn.functional.pad(k.to(self.state_dtype), pad),
+                v=torch.nn.functional.pad(v.to(self.state_dtype), pad),
+                len=torch.full((b,), n, dtype=torch.int32, device=q.device))
         if alpha is None or beta is None:
             alpha, beta = self.calibrate(q, k, n=n)
         # The prefill runs at the prompt-length temperature; the state keeps
@@ -163,7 +186,14 @@ class AttentionEngine:
 
     def decode(self, state: AttentionState, q, k, v):
         """Advance ``state`` over T >= 1 new tokens; returns
-        ``(out (B,T,H,Dv), new state)``."""
+        ``(out (B,T,H,Dv), new state)``.  ``softmax`` writes the new k/v at
+        each row's ``len`` in a new cache; the state passed in is not
+        modified."""
+        if self.spec.impl == "softmax":
+            out, kv = decode_softmax(KVCache(k=state.k, v=state.v,
+                                             length=state.len), q, k, v,
+                                     chunk=self.spec.softmax_chunk)
+            return out, state.replace(k=kv.k, v=kv.v, len=kv.length)
         alpha_d, beta_d = state.alpha, state.beta
         gain = self._length_gain(state.pos)
         if gain is not None:

@@ -182,6 +182,16 @@ def prefill(q, k, v, alpha, beta, *, chunk: int = 128):
     return lln_causal_scan(q, k, v, alpha, beta, chunk=chunk)
 
 
+def commit_lengths(commit_len: torch.Tensor,
+                   row_mask: Optional[torch.Tensor], t: int) -> torch.Tensor:
+    """Normalize a partial-commit vector: clip to [0, T] and zero masked
+    rows (the one definition of the contract's edge handling)."""
+    cl = torch.clamp(commit_len.to(torch.int32), 0, t)
+    if row_mask is not None:
+        cl = torch.where(row_mask, cl, torch.zeros_like(cl))
+    return cl
+
+
 def decode_step(state: LLNState, q, k, v, alpha, beta):
     """One decode step.  q/k/v: (B, 1, H, D[v]).  Returns (out, new_state).
 

@@ -18,9 +18,15 @@ The backends:
 This module owns the policy (spec validation, :func:`resolve`) and the
 spec-level entry points: :func:`attention` (training, from
 ``core/attention.py:multi_head_attention``), the engine's prefill
-(:func:`prefill`, :func:`diag_fwd`, :func:`loglin_prefill`) and the
-``log_linear`` decode (:func:`decode_chunk`); the ops live in
-``kernels/ops.py``.  The engine's ``lln``/``lln_diag`` decode reaches
+(:func:`prefill`, :func:`diag_fwd`, :func:`loglin_prefill`,
+:func:`softmax_attention`) and the ``log_linear`` decode
+(:func:`decode_chunk`); the ops live in ``kernels/ops.py``.
+
+``softmax`` has no kernel, in the reference as here, so the backends do
+not choose between a kernel and its twin for it: ``ref`` runs the
+quadratic oracle ``core/attention.py:naive_softmax`` and every other
+backend the online softmax ``flash_softmax``, on any device.  That is the
+reference's rule, not a fallback.  The engine's ``lln``/``lln_diag`` decode reaches
 ``ops.lln_decode_chunk`` through ``core/attention.py:decode_lln_chunk``,
 which adds the diag tail.
 """
@@ -32,7 +38,7 @@ from typing import Optional
 
 import torch
 
-IMPLS = ("lln", "lln_diag", "log_linear")
+IMPLS = ("softmax", "lln", "lln_diag", "log_linear")
 BACKENDS = ("auto", "kernel", "plain", "ref")
 PRECISIONS = ("float32", "bfloat16", "float16")
 
@@ -41,14 +47,16 @@ PRECISIONS = ("float32", "bfloat16", "float16")
 class AttnSpec:
     """Declarative description of one attention configuration.
 
-    impl: ``lln`` | ``lln_diag`` (paper §4.2 hybrid) | ``log_linear``
-    (the Fenwick multi-scale state, causal only); causal: the decoder
-    (True) or the bidirectional encoder (False); r: GQA ratio H // G;
-    backend: see the module docstring; precision: dtype name of the diag
-    tails; lln_chunk: chunk of the plain causal scan (the math does not
-    depend on it), and the bucket granule of ``log_linear`` (it does);
-    diag_block: block size of the §4.2 diag part (it fixes which keys are
-    visible); fixed_ab / beta_n / calib_len: moment-matching calibration
+    impl: ``softmax`` | ``lln`` | ``lln_diag`` (paper §4.2 hybrid) |
+    ``log_linear`` (the Fenwick multi-scale state, causal only); causal:
+    the decoder (True) or the bidirectional encoder (False); r: GQA ratio
+    H // G; backend: see the module docstring; precision: dtype name of
+    the diag tails and the softmax KV cache; lln_chunk: chunk of the plain
+    causal scan (the math does not depend on it), and the bucket granule
+    of ``log_linear`` (it does); diag_block: block size of the §4.2 diag
+    part (it fixes which keys are visible); softmax_chunk: key chunk of
+    the online softmax (the math does not depend on it); fixed_ab / beta_n
+    / calib_len: moment-matching calibration
     (``core/moment_matching.py``); num_scales / scale_decay: the
     ``log_linear`` pyramid's levels and per-level weight decay.
     """
@@ -59,6 +67,7 @@ class AttnSpec:
     precision: str = "float32"
     lln_chunk: int = 128
     diag_block: int = 256
+    softmax_chunk: int = 1024
     fixed_ab: float = 0.0
     beta_n: float = 0.0
     calib_len: int = 1024
@@ -78,7 +87,7 @@ class AttnSpec:
                              f"{PRECISIONS}, got {self.precision!r}")
         if self.r < 1:
             raise ValueError(f"AttnSpec.r must be >= 1, got {self.r}")
-        for name in ("lln_chunk", "diag_block"):
+        for name in ("lln_chunk", "diag_block", "softmax_chunk"):
             if getattr(self, name) < 1:
                 raise ValueError(f"AttnSpec.{name} must be positive")
         if self.fixed_ab < 0 or self.beta_n < 0 or self.calib_len < 1:
@@ -107,6 +116,7 @@ class AttnSpec:
                    r=r if r is not None else cfg.n_heads // cfg.n_kv_heads,
                    backend=backend, precision=str(cfg.compute_dtype),
                    lln_chunk=cfg.lln_chunk, diag_block=cfg.diag_block,
+                   softmax_chunk=cfg.softmax_chunk,
                    fixed_ab=cfg.lln_fixed_ab, beta_n=cfg.lln_beta_n,
                    calib_len=cfg.lln_calib_len, num_scales=cfg.lln_num_scales,
                    scale_decay=cfg.lln_scale_decay)
@@ -161,6 +171,18 @@ def attention(spec: AttnSpec, q, k, v, alpha, beta):
                                  spec.lln_chunk, backend=spec.backend)
     return ops.lln_diag_attention(q, k, v, alpha, beta, spec.causal,
                                   spec.diag_block, backend=spec.backend)
+
+
+def softmax_attention(spec: AttnSpec, q, k, v):
+    """Softmax over the prompt under ``spec.causal``: ``naive_softmax`` for
+    backend ``ref``, ``flash_softmax`` (key chunks of
+    ``min(spec.softmax_chunk, N)``) for every other backend (see the module
+    docstring)."""
+    from repro_torch.core import attention as ca
+    if spec.backend == "ref":
+        return ca.naive_softmax(q, k, v, causal=spec.causal)
+    return ca.flash_softmax(q, k, v, causal=spec.causal,
+                            chunk=min(spec.softmax_chunk, k.shape[1]))
 
 
 def prefill(spec: AttnSpec, q, k, v, alpha, beta):

@@ -6,10 +6,11 @@
 Takes the reference driver's flags (``python -m repro.launch.serve``) plus
 ``--device`` (the CUDA card by default).  Every row advances in lockstep;
 the first decode step is timed on its own and the rest give the steady
-tok/s.  ``--attn-impl`` takes ``lln``, ``lln_diag`` and ``log_linear``.
-Continuous batching, speculative decoding, the ``softmax`` impl and meshes
-are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+tok/s.  ``--attn-impl`` takes ``softmax`` (every config's default),
+``lln``, ``lln_diag`` and ``log_linear``; ``--arch`` the dense decoder
+(yi-9b) and the SSM / hybrid LMs (mamba2-130m, zamba2-7b).  Continuous
+batching, speculative decoding and meshes are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -69,8 +70,6 @@ def _parser() -> argparse.ArgumentParser:
 _NOT_PORTED = {
     "continuous": "continuous batching (ROADMAP.md queue 1, item 8)",
     "speculative": "speculative decoding (ROADMAP.md queue 1, item 9)",
-    "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
-               "first slice')",
     "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
 }
 
@@ -92,9 +91,6 @@ def main(argv=None):
     if args.attn_backend:
         overrides["attn_backend"] = args.attn_backend
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
-    if cfg.attn_impl in _NOT_PORTED:
-        raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not "
-                                  f"ported yet: {_NOT_PORTED[cfg.attn_impl]}")
 
     max_len = args.prompt_len + args.gen
     setup = make_serve_setup(cfg, ShapeSpec("cli", max_len, args.batch,

@@ -139,7 +139,8 @@ def sample_token(logits: torch.Tensor, temperature: float,
 class ServeSetup:
     """Serving entry points for one (cfg, batch shape) on one device.
 
-    ``prefill_fn(params, batch) -> (last logits, caches)``;
+    ``prefill_fn(params, batch) -> (last logits, caches)``, softmax KV
+    caches sized to ``seq_len`` (the prompt plus the tokens to generate);
     ``decode_fn(params, caches, token, pos) -> (logits, caches)``;
     ``make_generate(steps, temperature)`` returns
     ``gen(params, caches, tok, pos0, generator) -> (tokens (B, steps),
@@ -163,6 +164,10 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec,
     """Serving steps for ``cfg`` at ``shape`` on ``device`` (the CUDA card
     unless the caller asks for another device)."""
     model = build_model(cfg, device)
+    max_len = shape.seq_len
+
+    def prefill_fn(params, batch):
+        return model.prefill(params, batch, max_len)
 
     def make_generate(steps: int, temperature: float = 0.0):
         def gen(params, caches, tok, pos0: int, generator=None):
@@ -174,6 +179,6 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec,
             return torch.stack(toks, 1), caches
         return gen
 
-    return ServeSetup(model=model, prefill_fn=model.prefill,
+    return ServeSetup(model=model, prefill_fn=prefill_fn,
                       decode_fn=model.decode, make_generate=make_generate,
                       batch=shape.global_batch, seq_len=shape.seq_len)

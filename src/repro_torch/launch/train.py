@@ -12,8 +12,9 @@ lines.
 As in the reference, the attention and SSD kernels are reached only with
 ``use_kernel=True`` in the config (``get_config(..., use_kernel=True)``);
 the CLI leaves it at its default, so it trains through the core scans.
-Meshes, checkpointing and the ``softmax`` impl are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+``--attn-impl`` takes ``softmax`` (every config's default), ``lln`` and
+``lln_diag``.  Meshes and checkpointing are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -32,8 +33,6 @@ from repro_torch.launch.steps import make_train_setup
 _NOT_PORTED = {
     "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
     "ckpt": "checkpoint/ (ROADMAP.md queue 1, item 7)",
-    "softmax": "the softmax impl (ROADMAP.md queue 1, 'left out of the "
-               "first slice', item 1)",
 }
 
 
@@ -72,9 +71,6 @@ def main(argv=None):
     if args.attn_impl:
         overrides["attn_impl"] = args.attn_impl
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
-    if cfg.attn_impl == "softmax" and cfg.family != "ssm":
-        raise NotImplementedError(f"attn_impl 'softmax' is not ported yet: "
-                                  f"{_NOT_PORTED['softmax']}")
 
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     setup = make_train_setup(cfg, shape, device=args.device,

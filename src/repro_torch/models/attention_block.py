@@ -33,6 +33,7 @@ def attn_cfg_of(cfg, causal: bool = True) -> AttnConfig:
     ``use_kernel``)."""
     return AttnConfig(impl=cfg.attn_impl, causal=causal,
                       diag_block=cfg.diag_block, lln_chunk=cfg.lln_chunk,
+                      softmax_chunk=cfg.softmax_chunk,
                       use_kernel=cfg.use_kernel, backend=cfg.attn_backend,
                       fixed_ab=cfg.lln_fixed_ab,
                       num_scales=cfg.lln_num_scales,
@@ -63,17 +64,21 @@ def attn_apply(p: Attention, x, cfg, positions, *, causal: bool = True):
     return dense(p.o_w, out.reshape(b, n, cfg.n_heads * cfg.hd), cfg.cdtype)
 
 
-def serve_state_init(cfg, batch: int, device):
+def serve_state_init(cfg, batch: int, max_len: int, device):
     """Zeroed :class:`~repro_torch.core.engine.AttentionState` for one
-    layer (per-row pos and calibration)."""
-    return attn_engine(cfg).init_state(batch, device)
+    layer (per-row counters and calibration; a softmax KV cache of
+    ``max_len`` positions)."""
+    return attn_engine(cfg).init_state(batch, device, max_len)
 
 
-def serve_prefill(p: Attention, x, cfg, positions):
-    """Forward over the prompt; returns ``(out, AttentionState)``."""
+def serve_prefill(p: Attention, x, cfg, positions, *, max_len: int = 0):
+    """Forward over the prompt; returns ``(out, AttentionState)``.  The
+    softmax KV cache holds ``max(max_len, n)`` positions, the padding for
+    the tokens decode appends; LLN emits the O(d^2) state from the same
+    pass."""
     b, n, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out, state = attn_engine(cfg).prefill(q, k, v)
+    out, state = attn_engine(cfg).prefill(q, k, v, max_len=max_len)
     return dense(p.o_w, out.reshape(b, n, cfg.n_heads * cfg.hd),
                  cfg.cdtype), state
 

@@ -1,5 +1,6 @@
 """SSM language models: pure Mamba2 (mamba2-130m) and the Zamba2-style
-hybrid (port of ``repro.models.hybrid``: the training forward).
+hybrid (port of ``repro.models.hybrid``: the training forward and
+serving).
 
 Zamba2 (arXiv:2411.15242): a Mamba2 backbone with a single *shared*
 transformer block (attention + MLP, one set of weights) applied every
@@ -15,18 +16,28 @@ when ``cfg.remat == "full"`` (per layer and per application, not per
 group, as the reference).  Parameter names match the reference pytree
 (``embed.table`` as ``embed_table``, ``final_norm``, ``layers[i].{ln,
 ssm}``, ``shared.{in_proj, ln1, attn, ln2, mlp}``, ``lm_head`` unless the
-embeddings are tied).  Serving (``hybrid_prefill``, ``hybrid_decode``,
-``hybrid_cache_init``) is not ported yet (ROADMAP.md queue 1, item 11).
+embeddings are tied).
+
+Serving (:func:`hybrid_cache_init`, :func:`hybrid_prefill`,
+:func:`hybrid_decode`) keeps ``{"layers": [{"state", "conv"} per Mamba2
+layer], "shared": [AttentionState per application of the shared block]}``;
+the reference stacks each list along a leading axis
+(``convert.hybrid_cache_from_numpy`` maps one to the other).  The Mamba2
+layers run no kernel there, as in the reference; the shared block serves
+through the attention engine, so with ``lln_diag`` its prefill and decode
+reach the LLN serving kernels.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .attention_block import Attention, attn_apply
+from .attention_block import (Attention, attn_apply, serve_decode,
+                              serve_prefill, serve_state_init)
 from .layers import (MLP, Norm, _dense_param, apply_mlp, apply_norm, dense,
                      embed_lookup, logits_from_hidden, trunc_normal)
-from .ssm import SSMBlock, ssm_apply
+from .ssm import (SSMBlock, ssm_apply, ssm_cache_init, ssm_decode,
+                  ssm_decode_chunk)
 from .transformer import _remat
 
 
@@ -135,3 +146,108 @@ def hybrid_hidden(p: HybridLM, tokens, cfg):
 def hybrid_logits(p: HybridLM, tokens, cfg):
     h, aux = hybrid_hidden(p, tokens, cfg)
     return logits_from_hidden(p.head, h, cfg.cdtype, cfg.logit_softcap), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving.
+# ---------------------------------------------------------------------------
+
+def hybrid_cache_init(p: HybridLM, cfg, batch: int, max_len: int) -> dict:
+    """Zeroed decode caches: one ``{"state", "conv"}`` per Mamba2 layer and
+    one :class:`~repro_torch.core.engine.AttentionState` per application
+    of the shared block (a softmax KV cache of ``max_len`` positions)."""
+    device = p.embed_table.device
+    g, _, _ = _groups(cfg)
+    caches = {"layers": [ssm_cache_init(cfg, batch, device)
+                         for _ in range(cfg.n_layers)]}
+    if g:
+        caches["shared"] = [serve_state_init(cfg, batch, max_len, device)
+                            for _ in range(g)]
+    return caches
+
+
+def _shared_serve(sp: SharedBlock, x, x0, cfg, attend):
+    """The shared block around ``attend(attn params, normed input) ->
+    (out, state)``; returns (x, state)."""
+    h = dense(sp.in_proj, torch.cat([x, x0], -1), cfg.cdtype)
+    a, state = attend(sp.attn, apply_norm(sp.ln1, h))
+    h = h + a.to(h.dtype)
+    m = apply_mlp(sp.mlp, apply_norm(sp.ln2, h), cfg.cdtype)
+    return x + (h + m.to(h.dtype)).to(x.dtype), state
+
+
+@torch.inference_mode()
+def hybrid_prefill(p: HybridLM, tokens, cfg, max_len: int):
+    """Prompt forward over the layers in order.  Returns (last-position
+    logits (B, 1, Vpad), caches); the shared block's softmax KV caches
+    hold ``max(max_len, N)`` positions."""
+    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    x0 = x
+    positions = torch.arange(x.shape[1], device=x.device)
+    groups, tail = _split_layers(p, cfg)
+
+    def mamba(lp, x):
+        out, cache = ssm_apply(lp.ssm, apply_norm(lp.ln, x), cfg,
+                               return_state=True)
+        return x + out.to(x.dtype), cache
+
+    def attend(ap, h):
+        return serve_prefill(ap, h, cfg, positions, max_len=max_len)
+
+    layer_caches, shared = [], []
+    for layers in groups:
+        for lp in layers:
+            x, cache = mamba(lp, x)
+            layer_caches.append(cache)
+        x, state = _shared_serve(p.shared, x, x0, cfg, attend)
+        shared.append(state)
+    for lp in tail:
+        x, cache = mamba(lp, x)
+        layer_caches.append(cache)
+    x = apply_norm(p.final_norm, x)
+    logits = logits_from_hidden(p.head, x[:, -1:], cfg.cdtype,
+                                cfg.logit_softcap)
+    caches = {"layers": layer_caches}
+    if groups:
+        caches["shared"] = shared
+    return logits, caches
+
+
+@torch.inference_mode()
+def hybrid_decode(p: HybridLM, caches, token, cfg, position: int):
+    """Decode step.  ``token`` (B,) is the one-token loop (``ssm_decode``);
+    (B, T) the chunked path (``ssm_decode_chunk``).  ``position`` is the
+    absolute index of the first new token (the shared block's RoPE base;
+    the Mamba2 layers are position-free).  Returns (logits (B, Vpad) or
+    (B, T, Vpad), the new caches)."""
+    chunked = token.ndim == 2
+    tokens = token if chunked else token[:, None]
+    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    x0 = x
+    groups, tail = _split_layers(p, cfg)
+    step = ssm_decode_chunk if chunked else ssm_decode
+    layer_caches = iter(caches["layers"])
+    new_layers, new_shared = [], []
+
+    def mamba(lp, x):
+        out, cache = step(lp.ssm, apply_norm(lp.ln, x), next(layer_caches),
+                          cfg)
+        new_layers.append(cache)
+        return x + out.to(x.dtype)
+
+    for layers, state in zip(groups, caches.get("shared", ())):
+        for lp in layers:
+            x = mamba(lp, x)
+        x, state = _shared_serve(
+            p.shared, x, x0, cfg,
+            lambda ap, h, state=state: serve_decode(ap, h, state, cfg,
+                                                    position))
+        new_shared.append(state)
+    for lp in tail:
+        x = mamba(lp, x)
+    x = apply_norm(p.final_norm, x)
+    logits = logits_from_hidden(p.head, x, cfg.cdtype, cfg.logit_softcap)
+    new = {"layers": new_layers}
+    if groups:
+        new["shared"] = new_shared
+    return (logits if chunked else logits[:, 0]), new

@@ -9,8 +9,11 @@ the masked positions).
 
 ``loss``: params, batch -> scalar (chunked xent + router aux);
 ``hidden``: params, batch -> (final hidden (B,N,D), aux);
-``prefill`` / ``decode`` / ``cache_init``: the serving path (the encoder
-has none and raises; the SSM / hybrid one is not ported yet and raises).
+``prefill``: params, batch, max_len -> (last logits (B, 1, Vpad),
+caches); ``decode``: params, caches, token (B,) or (B, T), position ->
+(logits, caches); ``cache_init``: params, batch size, max_len -> zeroed
+caches.  ``max_len`` sizes softmax KV caches; the LLN impls and the SSM
+layers ignore it.  The encoder has no serving path and raises.
 """
 from __future__ import annotations
 
@@ -35,9 +38,9 @@ class Model:
     init: Callable            # seed -> params (an nn.Module on ``device``)
     loss: Callable            # params, batch -> scalar loss
     hidden: Callable          # params, batch -> (hidden, aux)
-    prefill: Callable         # params, batch -> (last logits, caches)
+    prefill: Callable         # params, batch, max_len -> (last logits, caches)
     decode: Callable          # params, caches, token, position -> (logits, caches)
-    cache_init: Callable      # params, batch size -> caches
+    cache_init: Callable      # params, batch size, max_len -> caches
     param_count: Callable
 
 
@@ -82,19 +85,19 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         def hidden(params, batch):
             return hy.hybrid_hidden(params, batch["inputs"], cfg)
 
-        def not_ported(*a, **k):
-            raise NotImplementedError(
-                "serving the ssm/hybrid family (ssm_cache_init, ssm_decode, "
-                "ssm_decode_chunk, hybrid_prefill/hybrid_decode) is not "
-                "ported yet; see ROADMAP.md queue 1, item 11")
-
         return Model(
             cfg=cfg, device=dev,
             init=lambda seed=0: hy.hybrid_init(cfg, dev, seed),
             loss=lambda params, batch: _xent_loss(
                 cfg, hidden(params, batch)[0], params.head, batch),
-            hidden=hidden, prefill=not_ported, decode=not_ported,
-            cache_init=not_ported, param_count=_count)
+            hidden=hidden,
+            prefill=lambda params, batch, max_len: hy.hybrid_prefill(
+                params, batch["inputs"], cfg, max_len),
+            decode=lambda params, caches, token, pos: hy.hybrid_decode(
+                params, caches, token, cfg, pos),
+            cache_init=lambda params, b, max_len: hy.hybrid_cache_init(
+                params, cfg, b, max_len),
+            param_count=_count)
 
     def loss(params, batch):
         h, aux = tr.lm_hidden(params, batch["inputs"], cfg)
@@ -107,11 +110,12 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         loss=loss,
         hidden=lambda params, batch: tr.lm_hidden(params, batch["inputs"],
                                                   cfg),
-        prefill=lambda params, batch: tr.lm_prefill(params, batch["inputs"],
-                                                    cfg),
+        prefill=lambda params, batch, max_len: tr.lm_prefill(
+            params, batch["inputs"], cfg, max_len),
         decode=lambda params, caches, token, pos: tr.lm_decode(
             params, caches, token, cfg, pos),
-        cache_init=lambda params, b: tr.lm_cache_init(params, cfg, b),
+        cache_init=lambda params, b, max_len: tr.lm_cache_init(
+            params, cfg, b, max_len),
         param_count=_count)
 
 

@@ -1,5 +1,6 @@
 """Mamba2 — State Space Duality (SSD) blocks (port of ``repro.models.ssm``:
-the training forward and the state-emitting full-sequence forward).
+the training forward, the state-emitting full-sequence forward and the
+decode steps).
 
 The SSD recurrence per head (state N = ssm_state, head dim P):
 
@@ -12,9 +13,11 @@ With ``cfg.use_kernel`` the training forward (no ``state0``, no
 ``return_state``, L a multiple of ``ssm_chunk``) runs ``ops.ssd_scan``
 (the CUDA kernel, its plain version or the core scan, as
 ``cfg.attn_backend`` selects); otherwise :func:`ssd_chunked` runs on B/C
-repeated over the heads of each group.  The decode steps
-(``ssm_cache_init``, ``ssm_decode``, ``ssm_decode_chunk``) are not ported
-yet (ROADMAP.md queue 1, item 11).
+repeated over the heads of each group.  Serving, as in the reference, runs
+no kernel: the prefill is ``ssm_apply(..., return_state=True)`` on
+:func:`ssd_chunked`, decode is :func:`ssm_decode` (one token) or
+:func:`ssm_decode_chunk` (T tokens, the chunk's quadratic form against the
+carried state), from the cache of :func:`ssm_cache_init`.
 
 Parameter names match the reference's ``ssm_init`` pytree (``w_z``,
 ``w_x``, ``w_B``, ``w_C``, ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip``,
@@ -206,3 +209,119 @@ def ssm_apply(p: SSMBlock, x, cfg, *, state0=None,
         tail = torch.cat([xs_raw, b_raw, c_raw], -1)[:, -(cfg.conv_width - 1):]
         return out, {"state": state, "conv": tail.to(dtype)}
     return out
+
+
+def ssm_cache_init(cfg, batch: int, device) -> dict:
+    """Zeroed decode cache of one layer: ``{"state": (B, H, S, P) fp32,
+    "conv": the last W - 1 conv inputs (B, W - 1, conv_dim) in the compute
+    dtype}``."""
+    di, h, p_dim, s, g = _dims(cfg)
+    conv_dim = di + 2 * g * s
+    return {"state": torch.zeros(batch, h, s, p_dim, dtype=torch.float32,
+                                 device=device),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, conv_dim,
+                                dtype=cfg.cdtype, device=device)}
+
+
+def _decode_proj(p: SSMBlock, x, cfg):
+    """The input projections of a decode step: z, [x | B | C] (the conv's
+    input) in the compute dtype, and dt in fp32."""
+    dtype = cfg.cdtype
+    conv_in = torch.cat([dense(p.w_x, x, dtype), dense(p.w_B, x, dtype),
+                         dense(p.w_C, x, dtype)], -1)
+    return dense(p.w_z, x, dtype), conv_in, dense(p.w_dt, x, dtype).float()
+
+
+def _decode_out(p: SSMBlock, y, xh, z, cfg):
+    """The skip term, the gate, the norm and the output projection."""
+    di = _dims(cfg)[0]
+    y = y + xh * p.d_skip.float()[:, None]
+    y = y.reshape(y.shape[0], -1, di).to(cfg.cdtype)
+    y = y * F.silu(z)
+    return dense(p.out_w, apply_norm(p.norm, y), cfg.cdtype)
+
+
+def ssm_decode_chunk(p: SSMBlock, x, cache, cfg, *, row_mask=None,
+                     commit_len=None):
+    """Chunked T-token decode.  x: (B, T, D).  Every position is scored
+    against the carried state and conv window plus the chunk's prefix (the
+    chunk's quadratic form and the state term of :func:`ssd_chunked`, the
+    decay exps clipped to [-60, 0]); all T tokens then enter the state,
+    and the conv window becomes the last W - 1 rows of [cache | chunk].
+    ``row_mask`` and ``commit_len`` are taken only as None (the partial
+    commit is ROADMAP.md queue 1, item 2).  Returns (out (B, T, D), new
+    cache); the cache passed in is not modified."""
+    for name, val in (("row_mask", row_mask), ("commit_len", commit_len)):
+        if val is not None:
+            raise NotImplementedError(
+                f"ssm_decode_chunk with {name} is not ported yet; see "
+                "ROADMAP.md queue 1, item 2")
+    di, h, p_dim, s, g = _dims(cfg)
+    bsz, t, _ = x.shape
+    dtype = cfg.cdtype
+    wdt = cfg.conv_width
+    z, conv_in, dt = _decode_proj(p, x, cfg)
+    # Causal conv over [cached window | chunk]: position t sees rows
+    # t .. t+W-1 of the concatenation, the window a one-token loop sees.
+    window = torch.cat([cache["conv"].to(dtype), conv_in], 1)
+    conv_out = torch.zeros(bsz, t, window.shape[-1], dtype=dtype,
+                           device=x.device)
+    for j in range(wdt):
+        conv_out = conv_out + window[:, j:j + t] * p.conv_w[j].to(dtype)
+    conv_out = F.silu(conv_out + p.conv_b.to(dtype))
+    xs = conv_out[..., :di]
+    b_proj = conv_out[..., di:di + g * s]
+    c_proj = conv_out[..., di + g * s:]
+
+    dt = _softplus(dt + p.dt_bias)                            # (B,T,H)
+    log_a = dt * -torch.exp(p.a_log.float())
+    xh = xs.reshape(bsz, t, h, p_dim).float()
+    xbar = xh * dt[..., None]
+    rep = h // g
+    b_in = torch.repeat_interleave(b_proj.reshape(bsz, t, g, s), rep,
+                                   2).float()
+    c_in = torch.repeat_interleave(c_proj.reshape(bsz, t, g, s), rep,
+                                   2).float()
+
+    lcum = torch.cumsum(log_a, 1)                             # (B,T,H)
+    dot = einsum_f32("bihs,bjhs->bhij", c_in, b_in)
+    dec = _clip_exp(lcum[:, :, None] - lcum[:, None, :]).permute(0, 3, 1, 2)
+    tri = torch.tril(torch.ones(t, t, device=x.device))
+    y = einsum_f32("bhij,bjhp->bihp", dot * dec * tri, xbar) \
+        + einsum_f32("bihs,bhsp->bihp", c_in, cache["state"]) \
+        * _clip_exp(lcum)[..., None]
+    l_tot = lcum[:, -1]                                       # (B,H)
+    state = cache["state"] * _clip_exp(l_tot)[:, :, None, None] \
+        + torch.einsum("bjhs,bjh,bjhp->bhsp", b_in,
+                       _clip_exp(l_tot[:, None] - lcum), xbar)
+    out = _decode_out(p, y, xh, z, cfg)
+    return out, {"state": state, "conv": window[:, t:].to(cfg.cdtype)}
+
+
+def ssm_decode(p: SSMBlock, x, cache, cfg):
+    """One-token step.  x: (B, 1, D).  Returns (out (B, 1, D), new cache);
+    the cache passed in is not modified."""
+    di, h, p_dim, s, g = _dims(cfg)
+    bsz = x.shape[0]
+    dtype = cfg.cdtype
+    z, conv_in, dt = _decode_proj(p, x, cfg)
+    window = torch.cat([cache["conv"].to(dtype), conv_in], 1)  # (B,W,Cd)
+    conv_out = torch.einsum("bwc,wc->bc", window, p.conv_w.to(dtype)) \
+        + p.conv_b.to(dtype)
+    conv_out = F.silu(conv_out)[:, None]
+    xs = conv_out[..., :di]
+    b_proj = conv_out[..., di:di + g * s]
+    c_proj = conv_out[..., di + g * s:]
+
+    dt = _softplus(dt + p.dt_bias)[:, 0]                      # (B,H)
+    decay = torch.exp(dt * -torch.exp(p.a_log.float()))
+    xh = xs.reshape(bsz, h, p_dim).float()
+    xbar = xh * dt[..., None]
+    rep = h // g
+    b_in = torch.repeat_interleave(b_proj.reshape(bsz, g, s), rep, 1).float()
+    c_in = torch.repeat_interleave(c_proj.reshape(bsz, g, s), rep, 1).float()
+    state = cache["state"] * decay[..., None, None] \
+        + torch.einsum("bhs,bhp->bhsp", b_in, xbar)
+    y = torch.einsum("bhs,bhsp->bhp", c_in, state)
+    out = _decode_out(p, y, xh, z, cfg)
+    return out, {"state": state, "conv": window[:, 1:].to(cfg.cdtype)}

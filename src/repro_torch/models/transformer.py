@@ -101,9 +101,10 @@ def lm_logits(p: DenseLM, tokens, cfg):
                               cfg.logit_softcap), aux
 
 
-def block_prefill(p: Block, x, cfg, positions):
+def block_prefill(p: Block, x, cfg, positions, max_len: int):
     h = apply_norm(p.ln1, x)
-    attn_out, cache = serve_prefill(p.attn, h, cfg, positions)
+    attn_out, cache = serve_prefill(p.attn, h, cfg, positions,
+                                    max_len=max_len)
     x = x + attn_out.to(x.dtype)
     h = apply_norm(p.ln2, x)
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), cache
@@ -117,22 +118,23 @@ def block_decode(p: Block, x, cache, cfg, position: int):
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), cache
 
 
-def lm_cache_init(p: DenseLM, cfg, batch: int) -> dict:
-    """Per-layer decode states, ``{"layers": [AttentionState, ...]}``."""
+def lm_cache_init(p: DenseLM, cfg, batch: int, max_len: int) -> dict:
+    """Per-layer decode states, ``{"layers": [AttentionState, ...]}``
+    (softmax KV caches of ``max_len`` positions)."""
     device = p.embed_table.device
-    return {"layers": [serve_state_init(cfg, batch, device)
+    return {"layers": [serve_state_init(cfg, batch, max_len, device)
                        for _ in range(cfg.n_layers)]}
 
 
 @torch.inference_mode()
-def lm_prefill(p: DenseLM, tokens, cfg):
+def lm_prefill(p: DenseLM, tokens, cfg, max_len: int):
     """Prompt forward.  Returns (last-position logits (B, 1, Vpad),
-    caches)."""
+    caches); softmax KV caches hold ``max(max_len, N)`` positions."""
     x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for lp in p.layers:
-        x, cache = block_prefill(lp, x, cfg, positions)
+        x, cache = block_prefill(lp, x, cfg, positions, max_len)
         caches.append(cache)
     x = apply_norm(p.final_norm, x)
     logits = logits_from_hidden(p.head, x[:, -1:], cfg.cdtype,

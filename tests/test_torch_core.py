@@ -120,7 +120,6 @@ def test_entry_points_raise_without_a_device(monkeypatch):
 @pytest.mark.parametrize("argv", [["--continuous", "--requests", "12",
                                    "--segment", "4", "--gen-lens", "3,17"],
                                   ["--speculative", "--spec-k", "3"],
-                                  ["--attn-impl", "softmax"],
                                   ["--attn-impl", "log_linear",
                                    "--speculative", "--spec-k", "3"],
                                   ["--mesh", "2,1"]])
@@ -131,3 +130,18 @@ def test_serve_unported_modes_raise(argv):
         base += ["--attn-impl", "lln"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(base + argv)
+
+
+@pytest.mark.parametrize("argv", [[], ["--attn-impl", "softmax"]],
+                         ids=["default", "explicit"])
+@pytest.mark.parametrize("backend", ["auto", "ref"])
+def test_serve_cli_serves_softmax(argv, backend, capsys):
+    """``softmax``, every config's default impl, serves (it was refused
+    before the softmax impl was ported); backend ``ref`` prefills with the
+    naive softmax."""
+    from repro_torch.launch import serve
+    toks = serve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
+                       "--attn-backend", backend, "--batch", "2",
+                       "--prompt-len", "20", "--gen", "5"] + argv)
+    assert toks.shape == (2, 5)
+    assert "sample tokens:" in capsys.readouterr().out

@@ -1015,3 +1015,71 @@ def test_cuda_mamba2_smoke_train_step_counts_launches(cuda):
         2 * cfg.n_layers, 0, 0, 0, 0]
     assert np.isfinite(float(m["loss"])) and np.isfinite(
         float(m["grad_norm"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lln_causal_state", "block_diag_causal",
+                                    "lln_decode_t1"])
+def test_cuda_serve_kernels_match_plain_at_the_zamba2_serving_shape(cuda,
+                                                                   kernel):
+    """The three kernels of zamba2-7b's ``lln_diag`` serving path at its
+    shape (B = 4, H = G = 32 so r = 1, N = 512, D = Dv = 112, blk 256, bf16
+    v) against their plain twins: ``lln_causal`` with the final state,
+    causal ``block_diag`` and ``lln_decode`` at T = 1 from that state with
+    a rescale.  out within one bf16 step; s, z, s1 and z1 within 1e-5 of
+    the largest plain entry; two runs bitwise equal."""
+    bh, n, d = 4 * 32, 512, 112
+    qs, ks, v = _kernel_inputs(112, bh, bh, n, d, d)
+    qs, ks = _on(cuda, qs, ks)
+    (vb,) = _on(cuda, v, dtype=torch.bfloat16)
+    if kernel == "lln_causal_state":
+        fn, plain = lln_causal, lln_causal_plain
+        args, kw = (qs, ks, vb), dict(r=1, blk=256)
+        tols = (BF16, TRAIN, TRAIN)
+    elif kernel == "block_diag_causal":
+        q, k = (t.bfloat16() for t in (qs, ks))
+        fn, plain = block_diag, block_diag_plain
+        args, kw = (q, k, vb), dict(r=1, blk=256, causal=True)
+        tols = (BF16,)
+    else:
+        _, s, z = lln_causal_plain(qs, ks, vb, r=1, blk=256)
+        f = torch.exp(-2.3 * torch.rand(bh, device=cuda,
+                                        generator=torch.Generator(
+                                            cuda).manual_seed(3)))
+        fn, plain = lln_decode, lln_decode_plain
+        args = (qs[:, -1:].contiguous(), ks[:, -1:].contiguous(),
+                vb[:, -1:].contiguous(), s, z)
+        kw = dict(r=1, scale=f)
+        tols = (BF16, TRAIN, TRAIN)
+    got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    if len(tols) == 1:
+        got, again, want = (got,), (again,), (want,)
+    for gt, ag, wt, tol in zip(got, again, want, tols):
+        _close(gt, wt, tol)
+        assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("r", [1, 4])
+@pytest.mark.parametrize("n,chunk", [(512, 512), (300, 128)],
+                         ids=["n512-one-chunk", "n300-ragged-chunks"])
+def test_cuda_flash_softmax_bf16_matches_naive(cuda, causal, r, n, chunk):
+    """The softmax impl's online softmax (plain PyTorch: the reference has
+    no kernel for it) on bf16 CUDA tensors against the fp32 naive softmax,
+    rounded once, on the same inputs: bf16 out within one bf16 step.  As
+    in the reference, the online softmax scales q in bf16 before its
+    product, so the naive one gets that scaled q (and scale 1)."""
+    from repro_torch.core.attention import flash_softmax, naive_softmax
+    rng = np.random.default_rng(n + r)
+    q = rng.normal(size=(2, n, 4 * r, 112)).astype(np.float32)
+    k = rng.normal(size=(2, n, 4, 112)).astype(np.float32)
+    v = rng.normal(size=(2, n, 4, 112)).astype(np.float32)
+    q, k, v = _on(cuda, q, k, v, dtype=torch.bfloat16)
+    got = flash_softmax(q, k, v, causal=causal, chunk=chunk)
+    qs = q * torch.tensor(112 ** -0.5, dtype=q.dtype, device=cuda)
+    want = naive_softmax(qs, k, v, causal=causal, scale=1.0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _close(got, want, BF16)

@@ -171,7 +171,7 @@ def _cache_layout_matches(impl):
     tcfg = get_config("yi-9b", smoke=True, **over)
     jcaches = j_cache_init(None, jcfg, 3, 24)["layers"]
     model = build_model(tcfg, "cpu")
-    caches = model.cache_init(model.init(0), 3)["layers"]
+    caches = model.cache_init(model.init(0), 3, 24)["layers"]
     assert len(caches) == tcfg.n_layers
     for name in IMPL_FIELDS[impl] + ("log_scale",):
         want = np.asarray(jcaches[name])[0]

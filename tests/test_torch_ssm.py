@@ -246,16 +246,22 @@ def test_train_cli_on_cpu(argv):
 
 def test_ssm_entry_points_raise_where_unported_or_without_a_device(
         monkeypatch):
+    """The serving entry points now serve (``tests/test_torch_hybrid_serve.py``
+    holds them against the reference), zamba2-7b trains with its default
+    softmax shared block, and without a card and without an explicit
+    device every entry point still raises."""
     cfg = get_config("mamba2-130m", smoke=True)
     model = build_model(cfg, "cpu")
-    for call in (lambda: model.prefill(None, None),
-                 lambda: model.decode(None, None, None, 0),
-                 lambda: model.cache_init(None, 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
-    with pytest.raises(NotImplementedError, match="softmax"):
-        train.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
-                    "--steps", "1"])
+    params = model.init(0)
+    tokens = torch.zeros(2, 8, dtype=torch.int64)
+    logits, caches = model.prefill(params, {"inputs": tokens}, 12)
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    logits, caches = model.decode(params, caches, tokens[:, 0], 8)
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert len(model.cache_init(params, 2, 12)["layers"]) == cfg.n_layers
+    hist = train.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu",
+                       "--steps", "1", "--seq", "32", "--batch", "2"])
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for arch in ("mamba2-130m", "zamba2-7b"):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -176,11 +176,20 @@ def test_train_cli_on_cpu(impl, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2,1"], "mesh"),
     (["--ckpt-dir", "x"], "checkpoint"),
-    (["--attn-impl", "softmax"], "softmax"),
 ])
 def test_train_cli_refuses_unported_options(argv, match):
-    base = ["--arch", "yi-9b", "--smoke", "--device", "cpu", "--steps", "1"]
-    if "--attn-impl" not in argv:
-        base += ["--attn-impl", "lln"]
+    base = ["--arch", "yi-9b", "--smoke", "--device", "cpu", "--steps", "1",
+            "--attn-impl", "lln"]
     with pytest.raises(NotImplementedError, match=match):
         train.main(base + argv)
+
+
+@pytest.mark.parametrize("argv", [[], ["--attn-impl", "softmax"]],
+                         ids=["default", "explicit"])
+def test_train_cli_trains_softmax(argv):
+    """``softmax``, every config's default impl, trains (it was refused
+    before the softmax impl was ported)."""
+    hist = train.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
+                       "--steps", "2", "--seq", "32", "--batch", "2"] + argv)
+    assert [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in hist)
