@@ -2,7 +2,11 @@
 """Drive the PyTorch/CUDA port's serving and training paths (the yi-9b
 decoder, with lln, lln_diag and log_linear), its encoder pre-training path
 (roberta-lln, MLM) and its SSM training path (mamba2-130m, and the
-zamba2-7b hybrid with lln_diag) on one CUDA card and check them.
+zamba2-7b hybrid with lln_diag) on one CUDA card and check them; since the
+softmax and ssm / hybrid serving slice also softmax, mamba2-130m and
+zamba2-7b serving, and since the dense-configs slice the serving of
+qwen3-14b, chatglm3-6b and stablelm-1.6b, the decode contract (row_mask,
+commit_len, the drift renorm) and the paper's instruments.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -91,6 +95,18 @@ Phases (any failure raises and the script exits non-zero):
                      serve, training, encoder or SSD shapes (lln_decode at
                      T = 1, 16 and 64, beside the torch rescale pass it
                      replaced); serve, train and encoder times.
+Later phases (in main()'s order): kernels_hybrid_serve and kernels_dense
+(rows 1-3 at zamba2-7b's serving shape and at those of qwen3-14b, r = 5,
+chatglm3-6b, r = 16, and stablelm-1.6b, D = 64, decode at T = 1 and 16,
+two runs bitwise equal), small_hybrid_serve, serve_softmax_ssm and
+serve_dense (full-width, full-depth serving: yi-9b softmax, mamba2-130m,
+zamba2-7b, qwen3-14b lln_diag, chatglm3-6b lln and lln_diag, stablelm-1.6b
+lln_diag, logits against the plain backend, exact launch counts),
+contract (row_mask and commit_len through lln_decode against the plain
+kind, masked rows bitwise), renorm (yi-9b lln serving with the drift
+renorm firing in every layer, and the streaming instruments of its caches
+against CPU copies) and instruments (the paper's probe on Gaussian q, k
+and fit_lln_constants on the card), and their kernels' timings.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1990,13 +2006,16 @@ def phase_timings_ssd(errs, launches):
 # serving kernels at D = 112).
 # ---------------------------------------------------------------------------
 
-def phase_kernels_hybrid_serve(results):
-    """The three serving kernels at zamba2-7b's serving shape (B = ZB, H =
-    G = H so r = 1, N = ZN, D = Dv = ZD, blk BLK, bf16 q/k/v with the port's
-    calibration) against their plain versions: lln_causal with the final
-    state, causal block_diag and lln_decode at T = 1 from that state with a
-    rescale.  Out within one bf16 step, s, z, s1 and z1 within 1e-5 of the
-    largest plain entry, two runs of each bitwise equal."""
+def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,)):
+    """The three serving kernels at one model's serving shape (``b`` rows,
+    ``h`` query and ``g`` kv heads, N = 512, D = Dv = ``d``, blk BLK, bf16
+    q/k/v with the port's calibration) against their plain versions:
+    lln_causal with the final state, causal block_diag and lln_decode at
+    each T of ``decode_ts`` from that state with a rescale.  Out within one
+    bf16 step, s, z, s1 and z1 within 1e-5 of the largest plain entry, two
+    runs of each bitwise equal.  The errors go to ``results`` under
+    "lln_causal (state, <tag>)", "block_diag (<tag>)" and "lln_decode
+    (<tag>)"."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_diag import block_diag, block_diag_plain
     from repro_torch.kernels.lln_attention import (_tc_path, lln_causal,
@@ -2004,45 +2023,73 @@ def phase_kernels_hybrid_serve(results):
                                                    lln_decode,
                                                    lln_decode_plain)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 11)
-    q, k, v, alpha, beta = _inputs(ZN, gen, ZB, H, H, ZD)
+    gen.manual_seed(seed)
+    r, n = h // g, 512
+    shape = f"B={b} H={h} G={g} D=Dv={d} N={n}"
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d)
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
     qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
-    log(f"lln_causal (state) B={ZB} H=G={H} D={ZD} N={ZN} (tensor-core "
-        f"path: {_tc_path(vk, ZD, ZD)}):")
-    runs = [lln_causal(qs, ks, vk, r=1, blk=BLK) for _ in range(2)]
-    want = lln_causal_plain(qs, ks, vk, r=1, blk=BLK)
+    name = f"lln_causal (state, {tag})"
+    log(f"{name} {shape} (tensor-core path: {_tc_path(vk, d, d)}):")
+    runs = [lln_causal(qs, ks, vk, r=r, blk=BLK) for _ in range(2)]
+    want = lln_causal_plain(qs, ks, vk, r=r, blk=BLK)
     torch.cuda.synchronize()
-    results["lln_causal (state, D=112)"] = max(
+    results[name] = max(
         check("out", runs[0][0], want[0], bf16_tol(want[0])),
         check("s", runs[0][1], want[1], fp32_tol(want[1])),
         check("z", runs[0][2], want[2], fp32_tol(want[2])))
-    _same_runs("lln_causal (state, D=112)", *runs)
+    _same_runs(name, *runs)
     s0, z0 = want[1], want[2]
-    log(f"block_diag B={ZB} H=G={H} D={ZD} N={ZN} blk={BLK} causal:")
-    runs = [block_diag(qk, kk, vk, r=1, blk=BLK, causal=True)
+    name = f"block_diag ({tag})"
+    log(f"{name} {shape} blk={BLK} causal:")
+    runs = [block_diag(qk, kk, vk, r=r, blk=BLK, causal=True)
             for _ in range(2)]
-    want = block_diag_plain(qk, kk, vk, r=1, blk=BLK, causal=True)
+    want = block_diag_plain(qk, kk, vk, r=r, blk=BLK, causal=True)
     torch.cuda.synchronize()
-    results["block_diag (D=112)"] = check("out", runs[0], want,
-                                          bf16_tol(want))
-    _same_runs("block_diag (D=112)", (runs[0],), (runs[1],))
-    q1, k1, v1, a1, b1 = _inputs(1, gen, ZB, H, H, ZD)
-    qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
-    vk1 = ops._to_kernel(v1)
-    scale = torch.exp(-2.3 * torch.rand(ZB * H, generator=gen,
-                                        device="cuda"))
-    log(f"lln_decode T=1 B={ZB} H=G={H} D=Dv={ZD} (from the N={ZN} state, "
-        f"rescaled in the kernel):")
-    runs = [lln_decode(qs1, ks1, vk1, s0, z0, r=1, scale=scale)
-            for _ in range(2)]
-    want = lln_decode_plain(qs1, ks1, vk1, s0, z0, r=1, scale=scale)
-    torch.cuda.synchronize()
-    results["lln_decode (D=112)"] = max(
-        check("out", runs[0][0], want[0], bf16_tol(want[0])),
-        check("s1", runs[0][1], want[1], fp32_tol(want[1])),
-        check("z1", runs[0][2], want[2], fp32_tol(want[2])))
-    _same_runs("lln_decode (D=112)", *runs)
+    results[name] = check("out", runs[0], want, bf16_tol(want))
+    _same_runs(name, (runs[0],), (runs[1],))
+    name = f"lln_decode ({tag})"
+    for t in decode_ts:
+        q1, k1, v1, a1, b1 = _inputs(t, gen, b, h, g, d)
+        qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
+        vk1 = ops._to_kernel(v1)
+        scale = torch.exp(-2.3 * torch.rand(b * h, generator=gen,
+                                            device="cuda"))
+        log(f"{name} T={t} {shape} (from the N={n} state, rescaled in the "
+            f"kernel):")
+        runs = [lln_decode(qs1, ks1, vk1, s0, z0, r=r, scale=scale)
+                for _ in range(2)]
+        want = lln_decode_plain(qs1, ks1, vk1, s0, z0, r=r, scale=scale)
+        torch.cuda.synchronize()
+        results[name] = max(
+            results.get(name, 0.0),
+            check("out", runs[0][0], want[0], bf16_tol(want[0])),
+            check("s1", runs[0][1], want[1], fp32_tol(want[1])),
+            check("z1", runs[0][2], want[2], fp32_tol(want[2])))
+        _same_runs(f"{name} T={t}", *runs)
+
+
+def phase_kernels_hybrid_serve(results):
+    """The three serving kernels at zamba2-7b's serving shape (B = ZB, H =
+    G = H so r = 1, N = ZN, D = Dv = ZD) against their plain versions
+    (:func:`_check_serve_kernels`, decode at T = 1)."""
+    _check_serve_kernels(results, "D=112", ZB, H, H, ZD, SEED + 11)
+
+
+# The dense configs' serving shapes (batch B, N = 512): (tag, arch, H, G, D).
+DENSE = (("qwen3-14b r=5", "qwen3-14b", 40, 8, 128),
+         ("chatglm3-6b r=16", "chatglm3-6b", 32, 2, 128),
+         ("stablelm-1.6b D=64", "stablelm-1.6b", 32, 32, 64))
+
+
+def phase_kernels_dense(results):
+    """The three serving kernels at the serving shapes of qwen3-14b (r = 5),
+    chatglm3-6b (r = 16) and stablelm-1.6b (r = 1, D = 64) against their
+    plain versions (:func:`_check_serve_kernels`, decode at T = 1 and
+    16)."""
+    for i, (tag, _, h, g, d) in enumerate(DENSE):
+        _check_serve_kernels(results, tag, B, h, g, d, SEED + 30 + i,
+                             decode_ts=(1, 16))
 
 
 def _same_runs(name, first, again):
@@ -2282,37 +2329,44 @@ def phase_serve_softmax_ssm(launches, serve_times):
         "serve zamba2-7b softmax")
 
 
-def phase_timings_hybrid_serve(errs, launches):
+def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
+                       launch_keys=None, decode_ts=(1,)):
     """The three serving kernels, their plain versions and the bounds at
-    zamba2-7b's serving shape (B = ZB, H = G = H, N = ZN, D = Dv = ZD):
-    lln_causal with the state (bound from _lln_counts at the kernels' own
-    block), causal block_diag (q k^T once and p v twice at the tensor
-    cores' rate, the softmax steps as fp32 work; SDPA on the blocks as the
-    library yardstick), lln_decode at T = 1 with the rescale (fp32 work
-    and the state's bytes)."""
+    one serving shape (``b`` rows, ``h`` query and ``g`` kv heads, N = 512,
+    D = Dv = ``d``): lln_causal with the state (bound from _lln_counts at
+    the kernels' own block), causal block_diag (q k^T once and p v twice at
+    the tensor cores' rate, the softmax steps as fp32 work; SDPA on the
+    blocks, k/v expanded to the h query heads before the timed call, as the
+    library yardstick), lln_decode with the rescale (fp32 work and the
+    state's bytes) at each T of ``decode_ts``, the first in the row and
+    the others logged.  ``row_names`` names the three rows; the errors are
+    read under "lln_causal (state, <tag>)", "block_diag (<tag>)" and
+    "lln_decode (<tag>)" (the keys of :func:`_check_serve_kernels`), the
+    launches under the same keys or ``launch_keys``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_diag import block_diag, block_diag_plain
     from repro_torch.kernels.lln_attention import (lln_causal, lln_causal_plain,
                                                    lln_decode, lln_decode_plain)
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 12)
-    bh = bg = ZB * H
-    d, n = ZD, ZN
-    q, k, v, alpha, beta = _inputs(n, gen, ZB, H, H, d)
+    gen.manual_seed(seed)
+    bh, bg, r, n = b * h, b * g, h // g, 512
+    keys = (f"lln_causal (state, {tag})", f"block_diag ({tag})",
+            f"lln_decode ({tag})")
+    lkeys = launch_keys or keys
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d)
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
     qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
     rows = []
     counts = _lln_counts(bh, bg, n, d, d, _lln_module().TC_BLOCK)
     bnd, by = bound_ms(*counts["lln_causal (state)"])
     rows.append(dict(
-        name="lln_causal (state, zamba2 D=112)", route="cuda",
+        name=row_names[0], route="cuda",
         source="src/repro_torch/csrc/lln_causal.cu",
         replaces="src/repro/kernels/lln_attention.py:94",
-        launches=launches["lln_causal (state, hybrid)"],
-        max_abs_err=errs["lln_causal (state, D=112)"],
-        ms=cuda_ms(lambda: lln_causal(qs, ks, vk, r=1, blk=BLK)),
-        plain_ms=cuda_ms(lambda: lln_causal_plain(qs, ks, vk, r=1, blk=BLK)),
+        launches=launches[lkeys[0]], max_abs_err=errs[keys[0]],
+        ms=cuda_ms(lambda: lln_causal(qs, ks, vk, r=r, blk=BLK)),
+        plain_ms=cuda_ms(lambda: lln_causal_plain(qs, ks, vk, r=r, blk=BLK)),
         bound_ms=bnd, bound_by=by, library_ms=None))
 
     nb = n // BLK
@@ -2322,50 +2376,316 @@ def phase_timings_hybrid_serve(errs, launches):
                        bh * pairs * (2 * d + 2 * 2 * d))
 
     def blocks(t):
-        return t.reshape(ZB, nb, BLK, t.shape[2], d).permute(0, 1, 3, 2, 4) \
-            .reshape(ZB * nb, t.shape[2], BLK, d)
-    qb, kb, vb = blocks(q), blocks(k), blocks(v)
+        return t.reshape(b, nb, BLK, t.shape[2], d).permute(0, 1, 3, 2, 4) \
+            .reshape(b * nb, t.shape[2], BLK, d)
+    qb = blocks(q)
+    kb = blocks(torch.repeat_interleave(k, r, dim=2))
+    vb = blocks(torch.repeat_interleave(v, r, dim=2))
     rows.append(dict(
-        name="block_diag (zamba2 D=112)", route="cuda",
+        name=row_names[1], route="cuda",
         source="src/repro_torch/csrc/block_diag.cu",
         replaces="src/repro/kernels/block_diag.py:109",
-        launches=launches["block_diag (hybrid)"],
-        max_abs_err=errs["block_diag (D=112)"],
-        ms=cuda_ms(lambda: block_diag(qk, kk, vk, r=1, blk=BLK, causal=True)),
-        plain_ms=cuda_ms(lambda: block_diag_plain(qk, kk, vk, r=1, blk=BLK,
+        launches=launches[lkeys[1]], max_abs_err=errs[keys[1]],
+        ms=cuda_ms(lambda: block_diag(qk, kk, vk, r=r, blk=BLK, causal=True)),
+        plain_ms=cuda_ms(lambda: block_diag_plain(qk, kk, vk, r=r, blk=BLK,
                                                   causal=True)),
         bound_ms=bnd, bound_by=by,
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qb, kb, vb, is_causal=True))))
 
-    _, s0, z0 = lln_causal_plain(qs, ks, vk, r=1, blk=BLK)
+    _, s0, z0 = lln_causal_plain(qs, ks, vk, r=r, blk=BLK)
     scale = torch.exp(-torch.rand(bh, generator=gen, device="cuda"))
-    q1, k1, v1, a1, b1 = _inputs(1, gen, ZB, H, H, d)
-    qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
-    vk1 = ops._to_kernel(v1)
-    t = 1
-    nbytes = (2 * bh * d * d * 4 + 2 * bh * d * 4 + bh * 4 + bh * t * d * 4
-              + bg * t * d * 4 + bg * t * d * 2 + bh * t * d * 2)
-    flops = bh * t * (2 * d * d + 2 * d) + bh * t * (t + 1) // 2 * 4 * d \
-        + bh * t * (2 * d * d + d) + bh * (d * d + d)
-    bnd, by = bound_ms(nbytes, flops)
+    decode = {}
+    for t in decode_ts:
+        q1, k1, v1, a1, b1 = _inputs(t, gen, b, h, g, d)
+        qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
+        vk1 = ops._to_kernel(v1)
+        nbytes = (2 * bh * d * d * 4 + 2 * bh * d * 4 + bh * 4
+                  + bh * t * d * 4 + bg * t * d * 4 + bg * t * d * 2
+                  + bh * t * d * 2)
+        flops = bh * t * (2 * d * d + 2 * d) \
+            + bh * t * (t + 1) // 2 * 4 * d + bh * t * (2 * d * d + d) \
+            + bh * (d * d + d)
+        bnd, by = bound_ms(nbytes, flops)
+        decode[t] = dict(
+            ms=cuda_ms(lambda: lln_decode(qs1, ks1, vk1, s0, z0, r=r,
+                                          scale=scale)),
+            plain_ms=cuda_ms(lambda: lln_decode_plain(qs1, ks1, vk1, s0, z0,
+                                                      r=r, scale=scale)),
+            bound_ms=bnd, bound_by=by)
+        if t != decode_ts[0]:
+            log(f"timing {row_names[2]} T={t}: kernel "
+                f"{decode[t]['ms']:.4f} ms, plain {decode[t]['plain_ms']:.4f}"
+                f" ms, bound {bnd:.4f} ms ({by})")
     rows.append(dict(
-        name="lln_decode (zamba2 D=112)", route="cuda",
+        name=row_names[2], route="cuda",
         source="src/repro_torch/csrc/lln_decode.cu",
         replaces="src/repro/kernels/lln_attention.py:348",
-        launches=launches["lln_decode (hybrid)"],
-        max_abs_err=errs["lln_decode (D=112)"],
-        ms=cuda_ms(lambda: lln_decode(qs1, ks1, vk1, s0, z0, r=1,
-                                      scale=scale)),
-        plain_ms=cuda_ms(lambda: lln_decode_plain(qs1, ks1, vk1, s0, z0, r=1,
-                                                  scale=scale)),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+        launches=launches[lkeys[2]], max_abs_err=errs[keys[2]],
+        library_ms=None, **decode[decode_ts[0]]))
     for row in rows:
-        log(f"timing {row['name']} (B={ZB} H=G={H} N={n}): kernel "
+        log(f"timing {row['name']} (B={b} H={h} G={g} N={n}): kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
             f"{row['library_ms']}, launches {row['launches']}")
     return rows
+
+
+def phase_timings_hybrid_serve(errs, launches):
+    """Rows 1-3 at zamba2-7b's serving shape (B = ZB, H = G = H, N = ZN, D =
+    Dv = ZD), decode at T = 1 (:func:`_serve_kernel_rows`)."""
+    return _serve_kernel_rows(
+        errs, launches, "D=112", ZB, H, H, ZD, SEED + 12,
+        ("lln_causal (state, zamba2 D=112)", "block_diag (zamba2 D=112)",
+         "lln_decode (zamba2 D=112)"),
+        launch_keys=("lln_causal (state, hybrid)", "block_diag (hybrid)",
+                     "lln_decode (hybrid)"))
+
+
+def phase_timings_dense(errs, launches):
+    """Rows 1-3 at the serving shapes of qwen3-14b, chatglm3-6b and
+    stablelm-1.6b, decode at T = 1 (its row) and 16 (logged)."""
+    rows = []
+    for i, (tag, _, h, g, d) in enumerate(DENSE):
+        rows += _serve_kernel_rows(
+            errs, launches, tag, B, h, g, d, SEED + 40 + i,
+            (f"lln_causal (state, {tag})", f"block_diag ({tag})",
+             f"lln_decode ({tag})"), decode_ts=(1, 16))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The dense configs (qwen3-14b, chatglm3-6b, stablelm-1.6b), the decode
+# contract and the drift renorm, and the paper's instruments.
+# ---------------------------------------------------------------------------
+
+def phase_serve_dense(launches, serve_times):
+    """Full-width, full-depth serving of the three dense configs through
+    _serve_cell (batch B, prompt N, GEN greedy tokens), logits against the
+    plain backend: qwen3-14b with lln_diag (r = 5, qk-norm; per prefill 40
+    lln_causal with the state and 40 causal block_diag, 40 lln_decode per
+    step), chatglm3-6b with lln (r = 16; 28 lln_causal per prefill, 28
+    lln_decode per step) and with lln_diag (28 + 28 per prefill: the path
+    that runs block_diag at r = 16) and stablelm-1.6b with lln_diag (D =
+    64; 24 + 24 per prefill, 24 per step).  Each model is freed before the
+    next."""
+    from repro_torch.configs import get_config
+    idle = {name: 0 for name in _counts()}
+    tags = {arch: tag for tag, arch, *_ in DENSE}
+    for arch, impl in (("qwen3-14b", "lln_diag"), ("chatglm3-6b", "lln"),
+                       ("chatglm3-6b", "lln_diag"),
+                       ("stablelm-1.6b", "lln_diag")):
+        tag = tags[arch]
+        cfg = get_config(arch, attn_impl=impl, param_dtype="bfloat16")
+        nl = cfg.n_layers
+        want_pre = {**idle, "lln_causal": nl,
+                    "block_diag": nl if impl == "lln_diag" else 0}
+        serve_times[f"{arch} {impl}"], pre, dec = _serve_cell(
+            cfg, N, want_pre, {**idle, "lln_decode": nl}, "plain",
+            f"serve {arch} {impl}")
+        launches[f"lln_causal (state, {tag})"] += pre["lln_causal"]
+        launches[f"block_diag ({tag})"] += pre["block_diag"]
+        launches[f"lln_decode ({tag})"] += dec["lln_decode"]
+
+
+def phase_contract(errs):
+    """The decode contract through the kernel at yi-9b's attention shape
+    (B, H, G, D; a bf16 prompt of N on the kernels, then a chunk of T = 16):
+    for lln and lln_diag, with row_mask (True, False, True, False) the
+    masked rows keep every state leaf bitwise; with commit_len (0, 5, 16,
+    11) the output and every state leaf within the kernel tolerances (one
+    bf16 step, fp32 1e-5 of the largest entry) of the plain kind, the
+    uncommitted row bitwise.  One lln_decode launch per decode."""
+    from repro_torch.core.engine import AttentionEngine
+    from repro_torch.kernels.lln_attention import lln_decode
+    from repro_torch.kernels.registry import AttnSpec
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 50)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    fields = ("s", "z", "c_k", "log_scale", "tail_k", "tail_v", "pos")
+    for impl in ("lln", "lln_diag"):
+        eng = {kind: AttentionEngine(
+            spec=AttnSpec(impl=impl, r=H // G, backend=kind, diag_block=BLK,
+                          precision="bfloat16"),
+            heads=H, kv_heads=G, head_dim=D, v_dim=D)
+            for kind in ("kernel", "plain")}
+        _, st = eng["kernel"].prefill(rnd(B, N, H, D), rnd(B, N, G, D),
+                                      rnd(B, N, G, D))
+        q, k, v = rnd(B, 16, H, D), rnd(B, 16, G, D), rnd(B, 16, G, D)
+        worst = 0.0
+        for what, kw, still in (
+                ("row_mask", {"row_mask": torch.tensor(
+                    [True, False, True, False], device="cuda")}, (1, 3)),
+                ("commit_len", {"commit_len": torch.tensor(
+                    [0, 5, 16, 11], dtype=torch.int32, device="cuda")}, (0,))):
+            before = lln_decode.launches
+            got, gst = eng["kernel"].decode(st, q, k, v, **kw)
+            torch.cuda.synchronize()
+            if lln_decode.launches != before + 1:
+                raise AssertionError(f"contract {impl} {what}: "
+                                     f"{lln_decode.launches - before} "
+                                     f"lln_decode launches, expected 1")
+            want, wst = eng["plain"].decode(st, q, k, v, **kw)
+            keep = [i for i in range(B) if i not in still]
+            log(f"contract {impl} {what} (T=16, kernel vs plain, rows "
+                f"{list(still)} unchanged):")
+            worst = max(worst, check("out", got[keep], want[keep],
+                                     bf16_tol(want[keep])))
+            for name in fields:
+                a, w = getattr(gst, name), getattr(wst, name)
+                for row in still:
+                    if not torch.equal(a[row], getattr(st, name)[row]):
+                        raise AssertionError(f"contract {impl} {what}: "
+                                             f"{name}[{row}] changed")
+                check(name, a, w, fp32_tol(w.float()))
+            log(f"  rows {list(still)}: every leaf bitwise unchanged")
+        errs[f"contract {impl}"] = worst
+
+
+def phase_renorm(launches, serve_times):
+    """yi-9b lln at full width and depth (bf16 weights from the seed, batch
+    B, prompt N, GEN greedy tokens) with the drift renorm: the threshold
+    is half the smallest max_d z that the prefill leaves in any layer, row
+    and head, so it fires in every layer.  The first decode step's logits
+    (the renorm acts on the state after the step's outputs) and the
+    second's, scored from the renormalized state (both runs teacher-forced
+    with the same tokens), within 0.1 of the largest of the renorm-off
+    run's; the rows and layers that fired and the greedy tokens equal to
+    the renorm-off run's are printed; 48 lln_decode launches per step.  Then the streaming instruments of the renorm-off run's caches
+    on the card against the same function on CPU copies (1e-5 of the
+    largest entry), and beside the renorm-on run's log key mass."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.metrics import streaming_concentration_tree
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    cfg = get_config("yi-9b", attn_impl="lln", param_dtype="bfloat16")
+    shape = ShapeSpec("chip", N + GEN, B, "decode")
+    off = make_serve_setup(cfg, shape)
+    params = off.model.init(SEED)
+    batch = synthetic_batch(cfg, B, N + GEN, seed=SEED, text_seq=N,
+                            device="cuda")
+    logits, caches = off.prefill_fn(params, batch)
+    thresh = 0.5 * min(float(st.z.amax(-1).min()) for st in caches["layers"])
+    on = make_serve_setup(cfg.replace(lln_renorm=thresh), shape)
+    tok = torch.argmax(logits[:, -1], -1)
+    runs = {}
+    tok2 = None
+    for label, setup in (("off", off), ("on", on)):
+        _reset()
+        step1, c1 = setup.decode_fn(params, caches, tok, N)
+        fired = torch.stack([st.log_scale > 0 for st in c1["layers"]])
+        if tok2 is None:
+            tok2 = torch.argmax(step1, -1)
+        step2, c2 = setup.decode_fn(params, c1, tok2, N + 1)
+        rest, c_end = setup.make_generate(GEN - 3)(
+            params, c2, torch.argmax(step2, -1), N + 2)
+        torch.cuda.synchronize()
+        dec = _read()
+        runs[label] = (step1, step2, fired, torch.cat(
+            [tok[:, None], tok2[:, None], torch.argmax(step2, -1)[:, None],
+             rest], 1), c_end)
+        if dec["lln_decode"] != cfg.n_layers * (GEN - 1) or \
+                sum(dec.values()) != dec["lln_decode"]:
+            raise AssertionError(f"renorm {label}: decode launches {dec}")
+    step_on, step2_on, fired, toks_on, c_on = runs["on"]
+    step_off, step2_off, fired_off, toks_off, c_off = runs["off"]
+    if bool(fired_off.any()):
+        raise AssertionError("the renorm fired with the renorm off")
+    layers_fired = int(fired.any(-1).any(-1).sum())
+    log(f"renorm yi-9b lln (threshold {thresh:.4f}, half the prefill's "
+        f"smallest max_d z): fired in {layers_fired} of {cfg.n_layers} "
+        f"layers, {int(fired.any(-1).any(0).sum())} of {B} rows, "
+        f"{int(fired.sum())} of {fired.numel()} (layer, row, head) states "
+        f"at the first decode step; decode launches {cfg.n_layers} per step")
+    if layers_fired != cfg.n_layers:
+        raise AssertionError(f"renorm fired in {layers_fired} layers only")
+    check("renorm first decode step logits vs renorm off", step_on, step_off,
+          0.1 * max(1.0, float(step_off.abs().max())))
+    check("renorm second decode step logits (from the renormalized state) "
+          "vs renorm off", step2_on, step2_off,
+          0.1 * max(1.0, float(step2_off.abs().max())))
+    log(f"  greedy tokens equal to the renorm-off run: "
+        f"{int((toks_on == toks_off).sum())} of {toks_on.numel()}")
+    serve_times["lln renorm"] = {"threshold": thresh,
+                                 "layers_fired": layers_fired,
+                                 "tokens_equal": int((toks_on ==
+                                                      toks_off).sum())}
+
+    fields = ("z", "c_k", "log_scale", "pos")
+    card = streaming_concentration_tree(c_off)
+    host = streaming_concentration_tree(
+        {"layers": [{f: getattr(st, f).cpu() for f in fields}
+                    for st in c_off["layers"]]})
+    log("streaming_concentration_tree (yi-9b lln serve caches, card vs "
+        "CPU copies):")
+    for name in sorted(card):
+        check(name, card[name].cpu(), host[name], fp32_tol(host[name]))
+    mass_on = streaming_concentration_tree(c_on)["log_mass"]
+    log(f"  log_mass off {card['log_mass'].tolist()}, renorm on "
+        f"{mass_on.tolist()}")
+    del off, on, params, caches, c_on, c_off, runs
+    torch.cuda.empty_cache()
+
+
+def phase_instruments(errs):
+    """The paper's probe on the card: Gaussian q, k (N = 1024, d = 128) at
+    three sigma_tilde^2 of fit_lln_constants' grid (sigma_q = sigma_k =
+    sigma_tilde / sqrt(2)), made on the card from the seed; softmax (eq. 6)
+    against moment-matched LLN (eq. 9, alpha and beta from eq. 10 with the
+    shipped (a, b) for d = 128): row entropy, log variance and the
+    log-normality score (fp32, within 1e-5 relative of the same function
+    on CPU copies of the same matrices) and spectral_gap_power (float64,
+    within 1e-9).  Then fit_lln_constants(d=128, n=1024) on the card,
+    printed beside the shipped constants (information only)."""
+    import numpy as np
+    from repro_torch.core import metrics as met
+    from repro_torch.core import moment_matching as mm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 60)
+    n, d = 1024, 128
+    a, b = mm.constants_for_dim(d)
+    grid = np.linspace(1.0, 36.0, 15)
+    worst = 0.0
+    for s2 in (grid[0], grid[7], grid[14]):
+        sig = float(np.sqrt(s2 / 2.0))
+        q = sig * torch.randn(n, d, generator=gen, device="cuda")
+        k = sig * torch.randn(n, d, generator=gen, device="cuda")
+        alpha, beta = (float(x) for x in mm.solve_alpha_beta(sig, sig, a, b))
+        mats = {"softmax": mm.softmax_attn_matrix(q, k),
+                "lln": mm.lln_attn_matrix(q, k, alpha, beta)}
+        line = []
+        for name, p in mats.items():
+            ph = p.cpu()
+            for what, fn in (("entropy", met.row_entropy),
+                             ("log_variance", mm.log_variance)):
+                got, want = fn(p), fn(ph)
+                worst = max(worst, check(f"sigma_tilde^2={s2:.1f} {name} "
+                                         f"{what}", got, want,
+                                         1e-5 * max(1.0, float(want.abs()))))
+                line.append(f"{name} {what} {float(got):.4f}")
+            for what, fn, tol in (
+                    ("lognormality", met.lognormality_score, 1e-5),
+                    ("spectral_gap_power", met.spectral_gap_power, 1e-9)):
+                got, want = fn(p), fn(ph)
+                err = abs(got - want)
+                log(f"  sigma_tilde^2={s2:.1f} {name} {what}: card {got:.6f},"
+                    f" CPU {want:.6f}, err {err:.3e} (tol {tol:.0e})")
+                if not err <= tol * max(1.0, abs(want)):
+                    raise AssertionError(f"{name} {what}: {got} vs {want}")
+                line.append(f"{name} {what} {got:.4f}")
+        log(f"instruments sigma_tilde^2={s2:.1f} (alpha={alpha:.3f}, "
+            f"beta={beta:.3f}): " + "; ".join(line))
+    errs["instruments"] = worst
+    t0 = time.time()
+    fa, fb = mm.fit_lln_constants(d=d, n=n, device="cuda")
+    log(f"fit_lln_constants(d=128, n=1024) on the card: a={fa:.4f} "
+        f"b={fb:.4f} in {time.time() - t0:.1f}s; shipped d=128: "
+        f"{mm.FITTED_CONSTANTS[128]} (n-grid 1024: "
+        f"{mm.FITTED_CONSTANTS_N[128][1024]}); information only")
 
 
 def main():
@@ -2381,6 +2701,10 @@ def main():
         "lln_decode (log_linear)", "ssd", "lln_diag_fused (hybrid)",
         "lln_diag_fused_bwd (hybrid)", "lln_causal (state, hybrid)",
         "block_diag (hybrid)", "lln_decode (hybrid)")}
+    for tag, *_ in DENSE:
+        for name in (f"lln_causal (state, {tag})", f"block_diag ({tag})",
+                     f"lln_decode ({tag})"):
+            launches[name] = 0
     phase_kernels(errs)
     phase_kernels_train(errs)
     phase_kernels_encoder(errs)
@@ -2388,6 +2712,7 @@ def main():
     phase_kernels_ssd(errs)
     phase_kernels_hybrid_attn(errs)
     phase_kernels_hybrid_serve(errs)
+    phase_kernels_dense(errs)
     phase_small()
     phase_small_train()
     phase_small_encoder()
@@ -2397,6 +2722,10 @@ def main():
     phase_serve(launches, serve_times)
     phase_serve_loglin(launches, serve_times)
     phase_serve_softmax_ssm(launches, serve_times)
+    phase_serve_dense(launches, serve_times)
+    phase_contract(errs)
+    phase_renorm(launches, serve_times)
+    phase_instruments(errs)
     phase_train(launches, train_times)
     phase_encoder_train(launches, enc_times)
     phase_encoder_forward(launches, enc_times)
@@ -2411,6 +2740,7 @@ def main():
     ssd_row, ssd_zamba2, ssd_layer = phase_timings_ssd(errs, launches)
     rows.append(ssd_row)
     rows += phase_timings_hybrid_serve(errs, launches)
+    rows += phase_timings_dense(errs, launches)
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))

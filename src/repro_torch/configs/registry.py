@@ -1,9 +1,10 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers.
 
 Only the archs whose model family the port runs are registered (the dense
-decoder yi-9b, the bidirectional encoder roberta-lln, the pure SSM
-mamba2-130m and the hybrid zamba2-7b); the others arrive with the slices
-that port their families (ROADMAP.md, queue 1).
+decoders yi-9b, stablelm-1.6b, qwen3-14b and chatglm3-6b, the
+bidirectional encoder roberta-lln, the pure SSM mamba2-130m and the hybrid
+zamba2-7b); the others arrive with the slices that port their families
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ from .base import ArchConfig
 
 _MODULES = {
     "yi-9b": "yi_9b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "qwen3-14b": "qwen3_14b",
+    "chatglm3-6b": "chatglm3_6b",
     "roberta-lln": "roberta_lln",
     "mamba2-130m": "mamba2_130m",
     "zamba2-7b": "zamba2_7b",

@@ -5,9 +5,10 @@ The reference's parameter pytrees (``repro.models.transformer.lm_init``,
 ``repro.models.encoder.encoder_init`` and ``repro.models.hybrid.
 hybrid_init``) stack the per-layer subtrees along a leading layer axis
 under ``"layers"``.  :func:`leaves_from_numpy` names their leaves as the
-port's parameters (``layers.3.attn.q_w``, ``layers.3.ssm.norm.scale``),
-splitting the layer axis; every other subtree (the hybrid's one
-``shared`` block) is named as it stands.  The caller maps ``np.asarray``
+port's parameters (``layers.3.attn.q_w``, ``layers.3.attn.q_norm_scale``
+of a qk-norm config, ``layers.3.ssm.norm.scale``), splitting the layer
+axis; every other subtree (the hybrid's one ``shared`` block) is named as
+it stands.  The caller maps ``np.asarray``
 over the tree, so this module never sees JAX.  :func:`params_from_numpy`
 copies them into a :class:`DenseLM`, an :class:`Encoder` (encoder family)
 or a :class:`HybridLM` (ssm and hybrid families),

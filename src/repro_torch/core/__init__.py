@@ -8,7 +8,8 @@ from .engine import AttentionEngine, AttentionState
 from .lln import LLNState, lln_bidir, lln_causal, lln_causal_scan
 from .loglinear import LogLinState
 from .moment_matching import (DEFAULT_A, DEFAULT_B, constants_for_dim,
-                              length_gain, solve_alpha_beta)
+                              fit_lln_constants, length_gain,
+                              solve_alpha_beta)
 
 __all__ = [
     "AttentionEngine", "AttentionState", "AttnConfig", "KVCache",
@@ -17,5 +18,6 @@ __all__ = [
     "decode_lln", "decode_lln_chunk", "decode_softmax", "commit_softmax",
     "block_diag_attn",
     "lln_bidir", "lln_causal", "lln_causal_scan", "DEFAULT_A", "DEFAULT_B",
-    "constants_for_dim", "length_gain", "solve_alpha_beta",
+    "constants_for_dim", "fit_lln_constants", "length_gain",
+    "solve_alpha_beta",
 ]

@@ -64,25 +64,30 @@ def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
     return t if g == h else torch.repeat_interleave(t, h // g, dim=2)
 
 
-def batch_alpha_beta(q, k, cfg, n: int | None = None):
+def batch_alpha_beta(q, k, cfg, per_row: bool = False,
+                     n: int | None = None):
     """Moment-matched (alpha, beta) from the current batch's statistics.
 
     Statistics are pooled over the batch and per kv group (the r query heads
-    sharing one kv head): alpha (H,), beta (G,).  ``cfg`` is any object with
-    a ``fixed_ab`` attribute and optionally ``beta_n`` (an ``AttnSpec`` or
+    sharing one kv head): alpha (H,), beta (G,).  ``per_row=True`` measures
+    each batch row alone (its sequence and feature dims only) and returns
+    alpha (B, H) and beta (B, G): a batched prefill then gives each row the
+    calibration it would get alone.  ``cfg`` is any object with a
+    ``fixed_ab`` attribute and optionally ``beta_n`` (an ``AttnSpec`` or
     ``AttnConfig``); (a, b) are the shipped constants for the head dim
     (length-aware when ``beta_n > 0``).  As in the reference, only
     ``solve_alpha_beta`` stops its inputs' gradient: alpha keeps its graph
     to q and k through the per-head statistics.
     """
-    h, g = q.shape[2], k.shape[2]
+    bsz, h, g = q.shape[0], q.shape[2], k.shape[2]
     length_aware = getattr(cfg, "beta_n", 0.0) > 0.0 and n is not None
     if cfg.fixed_ab:
-        return (torch.full((h,), cfg.fixed_ab, device=q.device),
-                torch.full((g,), cfg.fixed_ab, device=q.device))
+        lead = (bsz,) if per_row else ()
+        return (torch.full(lead + (h,), cfg.fixed_ab, device=q.device),
+                torch.full(lead + (g,), cfg.fixed_ab, device=q.device))
     a, b = constants_for_dim(q.shape[-1], n=n if length_aware else None)
     r = h // g
-    dims = (0, 1, 3)
+    dims = (1, 3) if per_row else (0, 1, 3)      # row-local vs batch-pooled
     sq = torch.sqrt(torch.mean(torch.square(q.float()), dim=dims))
     sq_g = torch.mean(sq.reshape(sq.shape[:-1] + (g, r)), dim=-1)    # (.., G)
     sk_g = torch.sqrt(torch.mean(torch.square(k.float()), dim=dims))  # (.., G)
@@ -399,7 +404,8 @@ class LLNDecodeState:
 
 
 def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
-                     *, impl: str = "lln_diag", backend: str = "auto"):
+                     *, impl: str = "lln_diag", backend: str = "auto",
+                     row_mask=None, commit_len=None, renorm=None):
     """LLN(+Diag) decode of T >= 1 tokens.  q: (B,T,H,D); k/v_new: (B,T,G,D[v]).
 
     The LLN state advance runs through ``kernels/ops.py:lln_decode_chunk``
@@ -407,13 +413,22 @@ def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
     ``core/lln.py:decode_chunk`` (``ref``).  The diag part is one masked
     softmax over [tail ∪ chunk] keys with per-token block-diagonal
     visibility from absolute positions, so a chunk may straddle a block
-    boundary.
+    boundary.  ``alpha``/``beta`` may be per row ((B, H)/(B, G)).
+
+    The serving contract: ``row_mask`` (B,) bool rows advance nothing (LLN
+    state, tails and ``pos`` keep their values; their outputs are to be
+    discarded); ``commit_len`` (B,) in [0, T] scores every position but
+    folds only the accepted prefix into the LLN state, the tail and
+    ``pos`` (0 is the masked row, T a plain decode); ``renorm`` is the
+    drift-renorm threshold of ``core/lln.py:decode_chunk``, applied the
+    same way by every backend.
     """
     b, t, h, d = q.shape
     if backend != "ref":
         from repro_torch.kernels import ops as kops
         lln_out, lln_state = kops.lln_decode_chunk(
-            state.lln, q, k_new, v_new, alpha, beta, backend=backend)
+            state.lln, q, k_new, v_new, alpha, beta, backend=backend,
+            row_mask=row_mask, commit_len=commit_len, renorm=renorm)
     else:
         g = k_new.shape[2]
         beta_h = torch.as_tensor(beta, dtype=torch.float32)
@@ -421,19 +436,23 @@ def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
             beta_h = torch.repeat_interleave(beta_h, h // g, dim=-1)
         lln_out, lln_state = lln_mod.decode_chunk(
             state.lln, q, _repeat_kv(k_new, h), _repeat_kv(v_new, h),
-            alpha, beta_h)
+            alpha, beta_h, row_mask=row_mask, commit_len=commit_len,
+            renorm=renorm)
 
-    # Rolling tail update: for each slot i the last chunk token writing it
-    # is j_i = j0 + block*((t-1-j0)//block), j0 = (i-pos) % block.
+    # Rolling tail update: for each slot i the last committed chunk token
+    # writing it is j_i = j0 + block*((c-1-j0)//block), j0 = (i-pos) % block,
+    # c the row's committed length (T for a plain decode).
     block = state.tail_k.shape[1]
     dev = q.device
     posb = state.pos.to(torch.int64)                               # (B,)
+    cl = commit_lengths(commit_len, row_mask, t)
+    c = cl[:, None] if torch.is_tensor(cl) else cl
     idx = torch.arange(block, device=dev)
     j0 = torch.remainder(idx[None, :] - posb[:, None], block)      # (B, BLK)
     j_last = torch.clamp(
-        j0 + block * torch.div(t - 1 - j0, block, rounding_mode="floor"),
+        j0 + block * torch.div(c - 1 - j0, block, rounding_mode="floor"),
         0, t - 1)
-    wrote = (j0 < t)[:, :, None, None]
+    wrote = (j0 < c)[:, :, None, None]
     gather = j_last[:, :, None, None]
     tail_k = torch.where(
         wrote, torch.take_along_dim(k_new, gather, dim=1).to(state.tail_k.dtype),
@@ -442,7 +461,7 @@ def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
         wrote, torch.take_along_dim(v_new, gather, dim=1).to(state.tail_v.dtype),
         state.tail_v)
     new_state = LLNDecodeState(lln=lln_state, tail_k=tail_k, tail_v=tail_v,
-                               pos=state.pos + t)
+                               pos=state.pos + cl)
     if impl == "lln":
         return lln_out, new_state
 

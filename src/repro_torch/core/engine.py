@@ -21,7 +21,7 @@ from repro_torch.kernels.registry import AttnSpec
 from . import moment_matching as mm
 from .attention import (KVCache, LLNDecodeState, batch_alpha_beta,
                         decode_lln_chunk, decode_softmax)
-from .lln import LLNState
+from .lln import LLNState, commit_lengths
 from .loglinear import LogLinState
 
 
@@ -120,8 +120,12 @@ class AttentionEngine:
                                device=device))
 
     def calibrate(self, q, k, n: Optional[int] = None):
-        """Batch-pooled moment-matched (alpha (H,), beta (G,))."""
-        return batch_alpha_beta(q, k, self.spec, n=n)
+        """Moment-matched (alpha, beta) per ``spec.calibration``: ``batch``
+        pools the statistics ((H,), (G,)), ``per_row`` measures each row
+        alone ((B, H), (B, G))."""
+        return batch_alpha_beta(q, k, self.spec,
+                                per_row=self.spec.calibration == "per_row",
+                                n=n)
 
     def _length_gain(self, n):
         """beta(n) schedule gain at depth ``n``; None when it is off (and
@@ -184,15 +188,24 @@ class AttentionEngine:
             tail_v=_tail_of(v, n, blk).to(self.state_dtype), **common)
         return out, state
 
-    def decode(self, state: AttentionState, q, k, v):
+    def decode(self, state: AttentionState, q, k, v, *, row_mask=None,
+               commit_len=None):
         """Advance ``state`` over T >= 1 new tokens; returns
         ``(out (B,T,H,Dv), new state)``.  ``softmax`` writes the new k/v at
         each row's ``len`` in a new cache; the state passed in is not
-        modified."""
+        modified.
+
+        ``row_mask`` (B,) bool: masked rows advance nothing (their outputs
+        are to be discarded).  ``commit_len`` (B,) int in [0, T]: all T
+        positions are scored, only the accepted prefix folds into the state
+        (0 is the masked row, T a plain decode).  The LLN impls apply
+        ``spec.renorm``, the drift renorm, to the rows that fold a token."""
         if self.spec.impl == "softmax":
             out, kv = decode_softmax(KVCache(k=state.k, v=state.v,
                                              length=state.len), q, k, v,
-                                     chunk=self.spec.softmax_chunk)
+                                     chunk=self.spec.softmax_chunk,
+                                     row_mask=row_mask,
+                                     commit_len=commit_len)
             return out, state.replace(k=kv.k, v=kv.v, len=kv.length)
         alpha_d, beta_d = state.alpha, state.beta
         gain = self._length_gain(state.pos)
@@ -204,18 +217,23 @@ class AttentionEngine:
                              sl=state.sl, zl=state.zl, cl=state.cl,
                              log_scale=state.log_scale)
             out, st2 = kreg.decode_chunk(self.spec, st, q, k, v, alpha_d,
-                                         beta_d, pos=state.pos)
+                                         beta_d, pos=state.pos,
+                                         row_mask=row_mask,
+                                         commit_len=commit_len)
+            t = q.shape[1]
+            adv = commit_lengths(commit_len, row_mask, t)
             return out, state.replace(
                 s=st2.s, z=st2.z, c_k=st2.c_k, sl=st2.sl, zl=st2.zl,
-                cl=st2.cl, log_scale=st2.log_scale,
-                pos=state.pos + q.shape[1])
+                cl=st2.cl, log_scale=st2.log_scale, pos=state.pos + adv)
         st = LLNDecodeState(
             lln=LLNState(s=state.s, z=state.z, c_k=state.c_k,
                          log_scale=state.log_scale),
             tail_k=state.tail_k, tail_v=state.tail_v, pos=state.pos)
         out, st2 = decode_lln_chunk(st, q, k, v, alpha_d, beta_d,
                                     impl=self.spec.impl,
-                                    backend=self.spec.backend)
+                                    backend=self.spec.backend,
+                                    row_mask=row_mask, commit_len=commit_len,
+                                    renorm=self.spec.renorm or None)
         return out, state.replace(
             s=st2.lln.s, z=st2.lln.z, c_k=st2.lln.c_k,
             log_scale=st2.lln.log_scale, tail_k=st2.tail_k,

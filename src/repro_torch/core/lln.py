@@ -182,10 +182,14 @@ def prefill(q, k, v, alpha, beta, *, chunk: int = 128):
     return lln_causal_scan(q, k, v, alpha, beta, chunk=chunk)
 
 
-def commit_lengths(commit_len: torch.Tensor,
-                   row_mask: Optional[torch.Tensor], t: int) -> torch.Tensor:
-    """Normalize a partial-commit vector: clip to [0, T] and zero masked
-    rows (the one definition of the contract's edge handling)."""
+def commit_lengths(commit_len: Optional[torch.Tensor],
+                   row_mask: Optional[torch.Tensor], t: int):
+    """The tokens each row folds this call: ``commit_len`` clipped to
+    [0, T], or all T when it is None, and 0 on masked rows (the one
+    definition of the contract's edge handling).  (B,) int32, or the int T
+    when neither argument is given (a plain decode builds nothing)."""
+    if commit_len is None:
+        return t if row_mask is None else t * row_mask.to(torch.int32)
     cl = torch.clamp(commit_len.to(torch.int32), 0, t)
     if row_mask is not None:
         cl = torch.where(row_mask, cl, torch.zeros_like(cl))
@@ -214,19 +218,89 @@ def decode_step(state: LLNState, q, k, v, alpha, beta):
     return out, LLNState(s=s, z=z, c_k=c_new, log_scale=state.log_scale)
 
 
-def decode_chunk(state: LLNState, q, k, v, alpha, beta):
+def _renorm(s, z, c_k, log_scale, folded, renorm: float):
+    """The drift renorm: where ``max_d z`` exceeds ``renorm`` in a row of
+    ``folded`` ((B, 1) bool; None: every row), raise the reference constant
+    by delta = ln(max_d z) and scale (s, z) by exp(-delta).  The normalized
+    output is invariant to the reference constant, so only the carried
+    magnitudes change (``max_d z`` returns to about 1); the shift
+    accumulates into ``log_scale``."""
+    zmax = torch.amax(z, dim=-1).detach()                      # (B, H)
+    fire = zmax > renorm if folded is None else folded & (zmax > renorm)
+    delta = torch.where(fire, torch.log(torch.clamp(zmax, min=EPS)),
+                        torch.zeros_like(zmax))
+    scale = torch.exp(-delta)
+    s = s * scale[..., None, None]
+    z = z * scale[..., None]
+    c_k = c_k + delta[:, None, :, None]
+    if log_scale is not None:
+        log_scale = log_scale + delta
+    return s, z, c_k, log_scale
+
+
+def folded_rows(row_mask=None, cl=None) -> Optional[torch.Tensor]:
+    """(B, 1) bool: the rows that fold at least one token this call (the
+    rows the drift renorm may touch); None when every row does.  ``cl`` is
+    :func:`commit_lengths`' result, or None."""
+    if torch.is_tensor(cl):
+        return (cl > 0)[:, None]
+    return None if row_mask is None else row_mask[:, None]
+
+
+def keep_rows(row_mask, new: LLNState, old: LLNState) -> LLNState:
+    """Masked rows (``row_mask`` False) keep every leaf of ``old``
+    bitwise."""
+    if row_mask is None:
+        return new
+    keep = row_mask
+    log_scale = new.log_scale
+    if log_scale is not None:
+        log_scale = torch.where(keep[:, None], log_scale, old.log_scale)
+    return LLNState(
+        s=torch.where(keep[:, None, None, None], new.s, old.s),
+        z=torch.where(keep[:, None, None], new.z, old.z),
+        c_k=torch.where(keep[:, None, None, None], new.c_k, old.c_k),
+        log_scale=log_scale)
+
+
+def decode_chunk(state: LLNState, q, k, v, alpha, beta, row_mask=None,
+                 commit_len=None, renorm: Optional[float] = None):
     """Advance the state over T new tokens at once.  q/k/v: (B, T, H, D[v]).
 
     One max-rescale of the carried state against the chunk's keys, an
     intra-chunk causal quadratic for the new tokens and a per-row
-    normalizer — equal to T sequential single-token steps.
+    normalizer: equal to T sequential single-token steps.  ``alpha`` /
+    ``beta``: scalar, (H,) or per row (B, H).
+
+    The serving contract, as the reference's:
+    ``row_mask`` (B,) bool: rows where it is False keep ``(s, z, c_k,
+    log_scale)`` bitwise (their outputs are to be discarded).
+    ``commit_len`` (B,) int in [0, T]: every position is scored, but only
+    tokens ``j < commit_len[b]`` fold into the state, the reference
+    constant advancing over the committed keys only; 0 is the masked row,
+    T a plain decode.
+    ``renorm``: the drift-renorm threshold on ``max_d z`` (:func:`_renorm`),
+    applied after the fold to the rows that folded at least one token.
     """
     t = q.shape[1]
     bk = k * _bcast(beta, k)
-    c_new = torch.maximum(state.c_k,
-                          torch.amax(bk, dim=(1, 3), keepdim=True).detach())
-    r_out = torch.exp(state.c_k - c_new)[:, 0, :, 0]           # (B, H) <= 1
-    fk = torch.exp(bk - c_new).float()
+    cl = None
+    if commit_len is not None:
+        cl = commit_lengths(commit_len, row_mask, t)
+        cmask = torch.arange(t, device=q.device)[None, :] < cl[:, None]
+        bk_c = torch.where(cmask[:, :, None, None], bk, -torch.inf)
+        # The committed prefix's constant (an empty commit keeps c_k); the
+        # scores need one covering every chunk key.
+        c_new = torch.maximum(
+            state.c_k, torch.amax(bk_c, dim=(1, 3), keepdim=True).detach())
+        c_out = torch.maximum(
+            c_new, torch.amax(bk, dim=(1, 3), keepdim=True).detach())
+    else:
+        c_new = torch.maximum(
+            state.c_k, torch.amax(bk, dim=(1, 3), keepdim=True).detach())
+        c_out = c_new
+    r_out = torch.exp(state.c_k - c_out)[:, 0, :, 0]           # (B, H) <= 1
+    fk = torch.exp(bk - c_out).float()
     vf = v.float()
     aq = q * _bcast(alpha, q)
     fq = torch.exp(aq - _stab_const(aq)).float()
@@ -239,7 +313,18 @@ def decode_chunk(state: LLNState, q, k, v, alpha, beta):
     inter = torch.einsum("bihd,bhdv->bihv", fq, s0)
     inter_z = torch.einsum("bihd,bhd->bih", fq, z0)
     out = (intra + inter) / (intra_z + inter_z + EPS)[..., None]
-    s = s0 + torch.einsum("bjhd,bjhv->bhdv", fk, vf)
-    z = z0 + fk.sum(1)
-    return out.to(v.dtype), LLNState(s=s, z=z, c_k=c_new,
-                                     log_scale=state.log_scale)
+    if cl is not None:
+        r_c = torch.exp(state.c_k - c_new)[:, 0, :, 0]
+        fk_c = torch.exp(bk_c - c_new).float()              # 0 past commit
+        s = state.s * r_c[..., None, None] \
+            + torch.einsum("bjhd,bjhv->bhdv", fk_c, vf)
+        z = state.z * r_c[..., None] + fk_c.sum(1)
+    else:
+        s = s0 + torch.einsum("bjhd,bjhv->bhdv", fk, vf)
+        z = z0 + fk.sum(1)
+    log_scale = state.log_scale
+    if renorm is not None and renorm > 0.0:
+        s, z, c_new, log_scale = _renorm(
+            s, z, c_new, log_scale, folded_rows(row_mask, cl), renorm)
+    new = LLNState(s=s, z=z, c_k=c_new, log_scale=log_scale)
+    return out.to(v.dtype), keep_rows(row_mask, new, state)

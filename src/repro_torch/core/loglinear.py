@@ -19,10 +19,10 @@ weight 1.  ``scale_decay = 1`` or ``num_scales = 1`` give plain causal LLN.
 
 Numerics follow ``core/lln.py``: every bucket carries its own reference
 constant (``cl`` per level, ``c_k`` for the open bucket); merges rescale
-both operands to the larger reference.  The serving contract arguments
-(``row_mask``, ``commit_len``) and the drift renorm are not ported yet:
-they are taken only as ``None`` (ROADMAP.md queue 1, item 2), and the
-speculative ``commit_chunk`` waits for item 9.
+both operands to the larger reference.  Decode honours the serving
+contract of ``core/lln.py:decode_chunk`` (``row_mask``, ``commit_len`` and
+the drift renorm, per bucket); the speculative ``commit_chunk`` waits for
+ROADMAP.md queue 1, item 9.
 
 Layout: (batch, seq, heads, head_dim); k/v carry the full H heads (the
 caller repeats GQA kv heads).
@@ -34,17 +34,8 @@ from typing import Optional
 
 import torch
 
-from .lln import EPS, _bcast, _stab_const
-
-
-def check_contract(row_mask=None, commit_len=None, renorm=None) -> None:
-    """Raise for the serving-contract arguments the port does not take."""
-    for name, val in (("row_mask", row_mask), ("commit_len", commit_len),
-                      ("renorm", renorm)):
-        if val is not None:
-            raise NotImplementedError(
-                f"log_linear decode with {name} is not ported yet; see "
-                "ROADMAP.md queue 1, item 2")
+from .lln import (EPS, _bcast, _renorm, _stab_const, commit_lengths,
+                  folded_rows)
 
 
 @dataclasses.dataclass
@@ -262,26 +253,34 @@ def _fold(fk, vf):
 
 
 def _advance(state: LogLinState, bk, vf, *, pos, granule: int,
-             num_scales: int, t: int):
-    """The state advance of :func:`decode_chunk` (full commit).
+             num_scales: int, t: int, row_mask=None, commit_len=None,
+             renorm=None):
+    """The state advance of :func:`decode_chunk`.
 
     ``bk`` = beta*k (B,T,H,D) fp32; ``vf`` (B,T,H,Dv) fp32; ``pos`` (B,)
     int32 tokens already folded.  Returns ``(new_state, aux)``; ``aux`` =
     ``(split, crossed, occ, occ2, sl2, zl2, cl2)`` is what scoring needs:
-    the pre-boundary count ``split``, whether the chunk closes the open
+    the pre-boundary count ``split``, whether the commit closes the open
     granule, the occupancies before and after the close, and the cascaded
-    pyramid (which absorbed every pre-boundary chunk key).
+    pyramid (which absorbed every pre-boundary chunk key: what a sequential
+    decode would see).  The committed state folds only ``j <
+    commit_len``; a commit that crosses the boundary has committed every
+    pre-boundary key, so there the two folds coincide.  ``row_mask`` rows
+    keep every leaf bitwise; ``renorm`` renormalizes the open bucket of the
+    rows that folded a token and the closed buckets of those that crossed,
+    each into its own reference.
     """
     b = bk.shape[0]
     ls = num_scales
     dev = bk.device
+    cl_c = commit_lengths(commit_len, row_mask, t)   # (B,) or the int T
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     n = pos // granule
     split = granule - (pos - n * granule)            # (B,) in [1, granule]
-    crossed = split <= t                             # the close fires
+    crossed = cl_c >= split                          # the close fires
     j = torch.arange(t, device=dev)
-    # Fold every pre-boundary key into the open bucket.  Not crossed, that
-    # is the new open bucket; crossed, it is the granule that closes.
+    # Close the open granule with every pre-boundary key (the scoring view;
+    # the committed one too whenever ``crossed``).
     c_cas, bk_a = _masked_max(bk, j[None, :] < split[:, None], state.c_k)
     r_a = torch.exp(state.c_k - c_cas)[:, 0, :, 0]              # (B,H)
     add_s, add_z = _fold(torch.exp(bk_a - c_cas), vf)
@@ -316,16 +315,59 @@ def _advance(state: LogLinState, bk, vf, *, pos, granule: int,
     zl2 = torch.stack(new_zl, 1)
     cl2 = torch.stack(new_cl, 1)
     occ2 = occupancy(n + 1, ls)
-    # Crossed: a new open bucket from the post-boundary keys, its reference
-    # from zero as a fresh row's first fold.
-    c_b, bk_b = _masked_max(bk, j[None, :] >= split[:, None],
-                            torch.zeros_like(state.c_k))
+    # The committed pyramid takes the cascade only when the commit crossed.
+    sl_new = _sel(crossed, sl2, state.sl)
+    zl_new = _sel(crossed, zl2, state.zl)
+    cl_new = _sel(crossed, cl2, state.cl)
+    # Not crossed: the open bucket folds the committed keys j < commit.  A
+    # full commit that does not cross commits every key, j < T < split:
+    # that is the cascade's fold.
+    s_nc, z_nc, c_nc = closed_s, closed_z, c_cas
+    if commit_len is not None:
+        c_nc, bk_nc = _masked_max(
+            bk, j[None, :] < torch.minimum(cl_c, split)[:, None], state.c_k)
+        r_nc = torch.exp(state.c_k - c_nc)[:, 0, :, 0]
+        add_s, add_z = _fold(torch.exp(bk_nc - c_nc), vf)
+        s_nc = state.s * r_nc[..., None, None] + add_s
+        z_nc = state.z * r_nc[..., None] + add_z
+    # Crossed: a new open bucket from the committed post-boundary keys, its
+    # reference from zero as a fresh row's first fold.
+    post = j[None, :] >= split[:, None]
+    if torch.is_tensor(cl_c):
+        post = post & (j[None, :] < cl_c[:, None])
+    c_b, bk_b = _masked_max(bk, post, torch.zeros_like(state.c_k))
     s_b, z_b = _fold(torch.exp(bk_b - c_b), vf)
-    new = LogLinState(
-        s=_sel(crossed, s_b, closed_s), z=_sel(crossed, z_b, closed_z),
-        c_k=_sel(crossed, c_b, c_cas), sl=_sel(crossed, sl2, state.sl),
-        zl=_sel(crossed, zl2, state.zl), cl=_sel(crossed, cl2, state.cl),
-        log_scale=state.log_scale)
+    s_new = _sel(crossed, s_b, s_nc)
+    z_new = _sel(crossed, z_b, z_nc)
+    c_new = _sel(crossed, c_b, c_nc)
+    log_scale = state.log_scale
+    if renorm is not None and renorm > 0.0:
+        # The open bucket: the drift renorm of core/lln.py (the shift folds
+        # into c_k, which the mix weight exp(c_k - c_out) repays exactly).
+        s_new, z_new, c_new, log_scale = _renorm(
+            s_new, z_new, c_new, log_scale, folded_rows(row_mask, cl_c),
+            renorm)
+        # The closed buckets renormalize into their own cl at the merge.
+        zlmax = torch.amax(zl_new, dim=-1)                      # (B,L,H)
+        dl = torch.where(crossed[:, None, None] & (zlmax > renorm),
+                         torch.log(torch.clamp(zlmax, min=EPS)),
+                         torch.zeros_like(zlmax))
+        sc = torch.exp(-dl)
+        sl_new = sl_new * sc[..., None, None]
+        zl_new = zl_new * sc[..., None]
+        cl_new = cl_new + dl
+    if row_mask is not None:
+        keep = row_mask
+        s_new, z_new, c_new = (_sel(keep, s_new, state.s),
+                               _sel(keep, z_new, state.z),
+                               _sel(keep, c_new, state.c_k))
+        sl_new, zl_new, cl_new = (_sel(keep, sl_new, state.sl),
+                                  _sel(keep, zl_new, state.zl),
+                                  _sel(keep, cl_new, state.cl))
+        if log_scale is not None:
+            log_scale = _sel(keep, log_scale, state.log_scale)
+    new = LogLinState(s=s_new, z=z_new, c_k=c_new, sl=sl_new, zl=zl_new,
+                      cl=cl_new, log_scale=log_scale)
     return new, (split, crossed, occ, occ2, sl2, zl2, cl2)
 
 
@@ -373,20 +415,31 @@ def decode_chunk(state: LogLinState, q, k, v, alpha, beta, *, pos,
     layouts).  Each position scores what a sequential decode would see:
     pre-boundary queries mix pyramid(n) + open + intra, post-boundary ones
     pyramid(n+1) (which absorbed the closed granule and every pre-boundary
-    chunk key) + intra over post-boundary keys.  ``T > granule`` runs in
-    granule-sized sub-chunks.  Returns ``(out, new LogLinState)``.
+    chunk key) + intra over post-boundary keys.  The serving contract of
+    ``core/lln.py:decode_chunk``: ``row_mask`` rows keep every leaf
+    bitwise, ``commit_len`` scores all T positions but folds only the
+    accepted prefix, ``renorm`` bounds the carried magnitudes per bucket
+    (:func:`_advance`).  ``T > granule`` runs in granule-sized sub-chunks
+    (full commit only: a speculative draft is never longer than a
+    granule).  Returns ``(out, new LogLinState)``.
     """
-    check_contract(row_mask, commit_len, renorm)
     b, t, h, _ = q.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     if t > granule:
+        if commit_len is not None:
+            raise ValueError(
+                "log_linear decode_chunk supports commit_len only for "
+                f"T <= granule (T={t}, granule={granule})")
         outs = []
+        done = torch.zeros_like(pos)
         for i0 in range(0, t, granule):
             cut = slice(i0, min(i0 + granule, t))
             o, state = decode_chunk(
                 state, q[:, cut], k[:, cut], v[:, cut], alpha, beta,
-                pos=pos + i0, granule=granule, num_scales=num_scales,
-                scale_decay=scale_decay)
+                pos=pos + done, granule=granule, num_scales=num_scales,
+                scale_decay=scale_decay, row_mask=row_mask, renorm=renorm)
+            step = cut.stop - cut.start
+            done = done + commit_lengths(None, row_mask, step)
             outs.append(o)
         return torch.cat(outs, 1), state
     bk = (k * _bcast(beta, k)).float()
@@ -395,7 +448,8 @@ def decode_chunk(state: LogLinState, q, k, v, alpha, beta, *, pos,
     vf = v.float()
     w = level_weights(num_scales, scale_decay, q.device)
     new_state, aux = _advance(state, bk, vf, pos=pos, granule=granule,
-                              num_scales=num_scales, t=t)
+                              num_scales=num_scales, t=t, row_mask=row_mask,
+                              commit_len=commit_len, renorm=renorm)
     split = aux[0]
     c_out = state_reference(state, aux, bk)
     fk = torch.exp(bk - c_out).float()

@@ -1,8 +1,10 @@
 """Moment matching between LLN and Softmax attention (paper Appendix A.7).
 
 Port of ``repro.core.moment_matching``: the shipped (a, b) tables as data,
-:func:`constants_for_dim`, the beta(n) schedule :func:`length_gain` and the
-eq. 10 solver :func:`solve_alpha_beta`.
+:func:`constants_for_dim`, the beta(n) schedule :func:`length_gain`, the
+eq. 10 solver :func:`solve_alpha_beta`, the attention matrices of eq. 6
+and eq. 9 on raw inputs, the (a, b) fit (App. A.7) and the running
+per-head statistics :class:`QKStats`.
 
 Eq. 10 splits the matched log-variance symmetrically::
 
@@ -11,15 +13,23 @@ Eq. 10 splits the matched log-variance symmetrically::
     sigma_tilde = sqrt((sigma_q^2 sigma_k^2 - b) / a)
 
 The (a, b) tables below are the reference's shipped fit (d=64/128,
-N=1024 over sigma_tilde^2 in [1, 36]); the fit itself is not ported, since
-its output depends on the environment that runs it.
+N=1024 over sigma_tilde^2 in [1, 36]).  :func:`fit_lln_constants` refits
+them from Gaussian samples drawn by a seeded ``torch.Generator`` on the
+target device: the same procedure, but not the reference's random stream
+(``jax.random``), so a fresh fit is close to the tables, not equal to them.
+Regenerate with ``python -m repro_torch.core.moment_matching [--grid]
+[--device cpu]``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import Iterable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 FITTED_CONSTANTS: dict[int, Tuple[float, float]] = {
     64: (0.1935, -0.7577),
@@ -93,3 +103,152 @@ def solve_alpha_beta(
         alpha = alpha * gain
         beta = beta * gain
     return alpha, beta
+
+
+# ---------------------------------------------------------------------------
+# Attention matrices on raw Gaussian inputs (analysis-scale only).
+# ---------------------------------------------------------------------------
+
+def softmax_attn_matrix(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """P^(SM) (eq. 6) for q, k: (N, d).  Returns (N, N) rows summing to 1."""
+    scores = (q @ k.T) / math.sqrt(q.shape[-1])
+    return torch.softmax(scores, dim=-1)
+
+
+def lln_attn_matrix(q: torch.Tensor, k: torch.Tensor, alpha: float,
+                    beta: float) -> torch.Tensor:
+    """P^(LLN) (eq. 9) for q, k: (N, d).  Returns (N, N) rows summing to 1."""
+    fq = torch.exp(alpha * q - torch.max(alpha * q))
+    fk = torch.exp(beta * k - torch.max(beta * k))
+    scores = fq @ fk.T
+    return scores / (torch.sum(scores, dim=-1, keepdim=True) + 1e-30)
+
+
+def log_variance(p: torch.Tensor) -> torch.Tensor:
+    """Variance of ln(P): the log-normal shape parameter estimate."""
+    logp = torch.log(torch.clamp(p, min=1e-30))
+    return torch.var(logp, unbiased=False)
+
+
+# ---------------------------------------------------------------------------
+# (a, b) calibration (paper App. A.7).
+# ---------------------------------------------------------------------------
+
+def _fit_from_samples(samples: Iterable) -> Tuple[float, float]:
+    """Least-squares line Var[ln P^(LLN)] = a * sigma_tilde^2 + b through
+    ``(sigma_tilde^2, q, k)`` samples, P^(LLN) at alpha = beta = 1."""
+    xs, ys = [], []
+    for s2, q, k in samples:
+        xs.append(float(s2))
+        ys.append(float(log_variance(lln_attn_matrix(q, k, 1.0, 1.0))))
+    a, b = np.polyfit(np.asarray(xs), np.asarray(ys), 1)
+    return float(a), float(b)
+
+
+def fit_lln_constants(
+    d: int = 64,
+    n: int = 1024,
+    sigma_tilde_sq: Optional[np.ndarray] = None,
+    num_seeds: int = 4,
+    seed: int = 0,
+    device=None,
+) -> Tuple[float, float]:
+    """Fit Var[ln P^(LLN)] = a * sigma_tilde^2 + b on Gaussian samples.
+
+    alpha = beta = 1 and sigma_q = sigma_k = sigma_tilde / sqrt(2), so the
+    abscissa is exactly sigma_tilde^2 = alpha^2 s_q^2 + beta^2 s_k^2.  The
+    (n, d) samples come from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the CUDA card unless the caller asks for another device).
+    """
+    dev = resolve_device(device)
+    if sigma_tilde_sq is None:
+        sigma_tilde_sq = np.linspace(1.0, 36.0, 15)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def samples():
+        for s2 in sigma_tilde_sq:
+            sig = float(np.sqrt(s2 / 2.0))
+            for _ in range(num_seeds):
+                q = sig * torch.randn(n, d, generator=gen, device=dev)
+                k = sig * torch.randn(n, d, generator=gen, device=dev)
+                yield s2, q, k
+
+    return _fit_from_samples(samples())
+
+
+def fit_lln_constants_grid(
+    d: int = 64,
+    ns: Tuple[int, ...] = (256, 1024, 4096),
+    num_seeds: int = 4,
+    seed: int = 0,
+    device=None,
+) -> dict[int, Tuple[float, float]]:
+    """Length-aware fit: (a, b) per sequence length N (FITTED_CONSTANTS_N)."""
+    return {n: fit_lln_constants(d=d, n=n, num_seeds=num_seeds, seed=seed,
+                                 device=device)
+            for n in ns}
+
+
+# ---------------------------------------------------------------------------
+# Running input statistics (per-head EMA of sigma_q / sigma_k).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QKStats:
+    """Per-head EMA of query/key standard deviations (batchnorm-style)."""
+    sigma_q: torch.Tensor   # (H,)
+    sigma_k: torch.Tensor   # (H,)
+
+    @staticmethod
+    def init(heads: int, device=None) -> "QKStats":
+        dev = resolve_device(device)
+        return QKStats(sigma_q=torch.ones(heads, device=dev),
+                       sigma_k=torch.ones(heads, device=dev))
+
+
+def _masked_rms(x: torch.Tensor, mask: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """Per-head RMS over (B, N, D) of a (B, N, H, D) tensor, optionally
+    excluding padded positions via a (B, N) mask."""
+    x2 = torch.square(x.float())
+    if mask is None:
+        return torch.sqrt(torch.mean(x2, dim=(0, 1, 3)))
+    m = torch.as_tensor(mask, dtype=torch.float32,
+                        device=x.device)[:, :, None, None]
+    num = torch.sum(x2 * m, dim=(0, 1, 3))
+    den = torch.clamp(torch.sum(m) * x.shape[-1], min=1.0)
+    return torch.sqrt(num / den)
+
+
+def update_stats(stats: QKStats, q: torch.Tensor, k: torch.Tensor,
+                 decay: float = 0.99,
+                 mask: Optional[torch.Tensor] = None) -> QKStats:
+    """EMA update from a (B, N, H, D) batch; no gradient.  ``mask``
+    (optional, (B, N), 1 = real token) keeps padded positions out of the
+    per-head RMS, so a ragged batch does not pull the EMA toward zero."""
+    sq = _masked_rms(q, mask).detach()
+    sk = _masked_rms(k, mask).detach()
+    return QKStats(sigma_q=decay * stats.sigma_q + (1 - decay) * sq,
+                   sigma_k=decay * stats.sigma_k + (1 - decay) * sk)
+
+
+def matched_alpha_beta(stats: QKStats, a: float = DEFAULT_A,
+                       b: float = DEFAULT_B
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return solve_alpha_beta(stats.sigma_q, stats.sigma_k, a, b)
+
+
+if __name__ == "__main__":
+    import sys
+    dev = sys.argv[sys.argv.index("--device") + 1] \
+        if "--device" in sys.argv else None
+    if "--grid" in sys.argv:
+        for d in sorted(FITTED_CONSTANTS_N):
+            got = fit_lln_constants_grid(d=d, device=dev)
+            print(f"d={d}: " + ", ".join(
+                f"n={n}: ({a:.4f}, {b:.4f})" for n, (a, b) in got.items()))
+    else:
+        a, b = fit_lln_constants(device=dev)
+        print(f"fit: a={a:.4f} b={b:.4f}  "
+              f"(defaults: a={DEFAULT_A} b={DEFAULT_B})")

@@ -372,7 +372,8 @@ def block_diag_fwd(q, k, v, block: int = 256, causal: bool = True,
     return _from_kernel(out, b)
 
 
-def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
+def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto",
+                     row_mask=None, commit_len=None, renorm=None):
     """Advance an ``LLNState`` over T new tokens in one launch.
 
     state: ``core.lln.LLNState`` (s (B,H,D,Dv), z (B,H,D), c_k (B,1,H,1),
@@ -381,11 +382,21 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
     group-mean pooled to G.  Returns ``(out (B,T,H,Dv) in v.dtype, new
     LLNState)``.
 
+    The serving contract (``core/lln.py:decode_chunk``): ``row_mask`` (B,)
+    bool rows keep ``(s, z, c_k, log_scale)`` bitwise; ``commit_len`` (B,)
+    in [0, T] scores every position but folds only the accepted prefix;
+    ``renorm`` is the drift-renorm threshold, applied to the rows that
+    folded at least one token.
+
     Kernel and plain kinds: one group-level max-rescale factor per query
     head (from its own old constant to the group's new one), applied to the
     carried state inside the decode kernel (or its plain version) over the
-    chunk; no pass here touches s or z.  ``ref`` runs
-    ``core/lln.py:decode_chunk`` on repeated KV.
+    chunk; no pass here touches s or z on a full commit.  Under
+    ``commit_len`` the kernel still scores all T tokens and its (s1, z1)
+    are discarded: the accepted prefix is refolded here from the carried
+    (s, z), which the kernel leaves intact (it writes s1/z1 out of place),
+    at the group constant advanced over the committed keys only.  ``ref``
+    runs ``core/lln.py:decode_chunk`` on repeated KV.
     """
     b, t, h, d = q.shape
     g = k.shape[2]
@@ -398,7 +409,9 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
     if kind == "ref":
         return core_lln.decode_chunk(state, q, _repeat_heads(k, h),
                                      _repeat_heads(v, h), alpha,
-                                     _repeat_heads(beta_b, h, dim=-1))
+                                     _repeat_heads(beta_b, h, dim=-1),
+                                     row_mask=row_mask,
+                                     commit_len=commit_len, renorm=renorm)
     alpha_b = _bcast_heads(alpha, h, q.device)
     aq = q.float() * _row_head_bcast(alpha_b)
     bk = k.float() * _row_head_bcast(beta_b)
@@ -414,9 +427,31 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto"):
                        _to_kernel(v), state.s.reshape(b * h, d, -1),
                        state.z.reshape(b * h, 1, d), r=r,
                        scale=rescale.reshape(b * h))
-    new = core_lln.LLNState(s=s1.reshape(b, h, d, -1), z=z1.reshape(b, h, d),
-                            c_k=c_new_h, log_scale=state.log_scale)
-    return _from_kernel(out_k, b), new
+    cl = None
+    if commit_len is not None:
+        cl = core_lln.commit_lengths(commit_len, row_mask, t)
+        cmask = torch.arange(t, device=q.device)[None, :] < cl[:, None]
+        bk_c = torch.where(cmask[:, :, None, None], bk, -torch.inf)
+        c_com_g = torch.maximum(c_old_g,
+                                torch.amax(bk_c, dim=(1, 3), keepdim=True))
+        c_new_h = _repeat_heads(c_com_g, h)
+        resc = torch.exp(state.c_k - c_new_h)[:, 0, :, 0]         # (B, H)
+        fk_c = torch.exp(bk_c - c_com_g)              # (B,T,G,D), 0 beyond
+        add_s = _repeat_heads(torch.einsum("bjgd,bjgv->bgdv", fk_c,
+                                           v.float()), h, dim=1)
+        add_z = _repeat_heads(fk_c.sum(1), h, dim=1)
+        s_new = state.s * resc[..., None, None] + add_s
+        z_new = state.z * resc[..., None] + add_z
+    else:
+        s_new, z_new = s1.reshape(b, h, d, -1), z1.reshape(b, h, d)
+    log_scale = state.log_scale
+    if renorm is not None and renorm > 0.0:
+        s_new, z_new, c_new_h, log_scale = core_lln._renorm(
+            s_new, z_new, c_new_h, log_scale,
+            core_lln.folded_rows(row_mask, cl), renorm)
+    new = core_lln.LLNState(s=s_new, z=z_new, c_k=c_new_h,
+                            log_scale=log_scale)
+    return _from_kernel(out_k, b), core_lln.keep_rows(row_mask, new, state)
 
 
 # ---------------------------------------------------------------------------
@@ -523,8 +558,9 @@ def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
     row has folded, which fixes its bucket layout.  alpha: scalar, (H,) or
     (B, H); beta: scalar, (G,), (B, G), or an (H,)/(B, H) repeat that is
     group-mean pooled to G.  Returns ``(out (B,T,H,Dv) in v.dtype, new
-    LogLinState)``.  ``row_mask``, ``commit_len`` and ``renorm`` are taken
-    only as None (ROADMAP.md queue 1, item 2).
+    LogLinState)``.  The serving contract of :func:`lln_decode_chunk`
+    (``row_mask``, ``commit_len``, ``renorm`` per bucket) holds on every
+    kind: the committed fold is the core ``_advance``.
 
     ``ref`` runs ``core/loglinear.py:decode_chunk`` on repeated KV.
     ``kernel``/``plain``: the new state is the core ``_advance`` at H heads
@@ -535,9 +571,8 @@ def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
     ``s0``, pass B masks the keys before the boundary and carries the
     cascaded pyramid(n+1); each position takes the pass of its side.
     Each pass runs in launches of at most ``MAX_DECODE_T`` tokens.  T >
-    granule runs in granule-sized sub-chunks.
+    granule runs in granule-sized sub-chunks (full commit only).
     """
-    core_loglin.check_contract(row_mask, commit_len, renorm)
     b, t, h, d = q.shape
     g = k.shape[2]
     r = h // g
@@ -552,21 +587,32 @@ def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
     if kind == "ref":
         return core_loglin.decode_chunk(
             state, q, kf, vf, alpha, beta_h, pos=pos, granule=granule,
-            num_scales=num_scales, scale_decay=scale_decay)
+            num_scales=num_scales, scale_decay=scale_decay,
+            row_mask=row_mask, commit_len=commit_len, renorm=renorm)
     if t > granule:
+        if commit_len is not None:
+            raise ValueError(
+                "log_linear decode_chunk supports commit_len only for "
+                f"T <= granule (T={t}, granule={granule})")
         outs = []
+        done = torch.zeros_like(pos)
         for i0 in range(0, t, granule):
             cut = slice(i0, min(i0 + granule, t))
             o, state = loglin_decode_chunk(
                 state, q[:, cut], k[:, cut], v[:, cut], alpha, beta_b,
-                pos=pos + i0, granule=granule, num_scales=num_scales,
-                scale_decay=scale_decay, backend=backend)
+                pos=pos + done, granule=granule, num_scales=num_scales,
+                scale_decay=scale_decay, backend=backend, row_mask=row_mask,
+                renorm=renorm)
+            step = cut.stop - cut.start
+            done = done + (step * row_mask.to(torch.int32)
+                           if row_mask is not None else step)
             outs.append(o)
         return torch.cat(outs, 1), state
     bk_h = kf.float() * _row_head_bcast(beta_h)
     new_state, aux = core_loglin._advance(
         state, bk_h, vf.float(), pos=pos, granule=granule,
-        num_scales=num_scales, t=t)
+        num_scales=num_scales, t=t, row_mask=row_mask,
+        commit_len=commit_len, renorm=renorm)
     split = aux[0]
     # One group-level reference covering every bucket and chunk key (the
     # normalized form does not depend on it; pooling changes rounding).

@@ -41,6 +41,7 @@ import torch
 IMPLS = ("softmax", "lln", "lln_diag", "log_linear")
 BACKENDS = ("auto", "kernel", "plain", "ref")
 PRECISIONS = ("float32", "bfloat16", "float16")
+CALIBRATIONS = ("batch", "per_row")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,26 +52,32 @@ class AttnSpec:
     ``log_linear`` (the Fenwick multi-scale state, causal only); causal:
     the decoder (True) or the bidirectional encoder (False); r: GQA ratio
     H // G; backend: see the module docstring; precision: dtype name of
-    the diag tails and the softmax KV cache; lln_chunk: chunk of the plain
+    the diag tails and the softmax KV cache; calibration: ``batch`` pools
+    the moment-matching statistics over the batch, ``per_row`` measures
+    each row alone (alpha (B, H), beta (B, G)); lln_chunk: chunk of the plain
     causal scan (the math does not depend on it), and the bucket granule
     of ``log_linear`` (it does); diag_block: block size of the §4.2 diag
     part (it fixes which keys are visible); softmax_chunk: key chunk of
     the online softmax (the math does not depend on it); fixed_ab / beta_n
     / calib_len: moment-matching calibration
-    (``core/moment_matching.py``); num_scales / scale_decay: the
-    ``log_linear`` pyramid's levels and per-level weight decay.
+    (``core/moment_matching.py``); renorm: the decode's drift-renorm
+    threshold on ``max_d z`` (0 = off; ``core/lln.py:decode_chunk``);
+    num_scales / scale_decay: the ``log_linear`` pyramid's levels and
+    per-level weight decay.
     """
     impl: str = "lln"
     causal: bool = True
     r: int = 1
     backend: str = "auto"
     precision: str = "float32"
+    calibration: str = "batch"
     lln_chunk: int = 128
     diag_block: int = 256
     softmax_chunk: int = 1024
     fixed_ab: float = 0.0
     beta_n: float = 0.0
     calib_len: int = 1024
+    renorm: float = 0.0
     num_scales: int = 4
     scale_decay: float = 0.5
 
@@ -82,6 +89,9 @@ class AttnSpec:
         if self.backend not in BACKENDS:
             raise ValueError(f"AttnSpec.backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
+        if self.calibration not in CALIBRATIONS:
+            raise ValueError(f"AttnSpec.calibration must be one of "
+                             f"{CALIBRATIONS}, got {self.calibration!r}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"AttnSpec.precision must be one of "
                              f"{PRECISIONS}, got {self.precision!r}")
@@ -90,9 +100,10 @@ class AttnSpec:
         for name in ("lln_chunk", "diag_block", "softmax_chunk"):
             if getattr(self, name) < 1:
                 raise ValueError(f"AttnSpec.{name} must be positive")
-        if self.fixed_ab < 0 or self.beta_n < 0 or self.calib_len < 1:
-            raise ValueError("AttnSpec: fixed_ab and beta_n must be >= 0, "
-                             "calib_len positive")
+        if self.fixed_ab < 0 or self.beta_n < 0 or self.renorm < 0 \
+                or self.calib_len < 1:
+            raise ValueError("AttnSpec: fixed_ab, beta_n and renorm must be "
+                             ">= 0, calib_len positive")
         if self.num_scales < 1 or not self.scale_decay > 0:
             raise ValueError("AttnSpec: num_scales must be >= 1 and "
                              "scale_decay > 0")
@@ -104,21 +115,21 @@ class AttnSpec:
     @classmethod
     def from_cfg(cls, cfg, r: Optional[int] = None) -> "AttnSpec":
         """The spec an ``ArchConfig`` implies.  ``use_serve_kernel=False``
-        maps to ``backend='ref'``; a drift renorm is not ported yet."""
-        if cfg.lln_renorm > 0 or cfg.lln_per_row_calib:
-            raise NotImplementedError(
-                "lln_renorm and lln_per_row_calib are not ported yet; see "
-                "ROADMAP.md queue 1")
+        maps to ``backend='ref'``; ``lln_per_row_calib`` to the ``per_row``
+        calibration and ``lln_renorm`` to the drift-renorm threshold."""
         backend = cfg.attn_backend
         if backend == "auto" and not cfg.use_serve_kernel:
             backend = "ref"
         return cls(impl=cfg.attn_impl,
                    r=r if r is not None else cfg.n_heads // cfg.n_kv_heads,
                    backend=backend, precision=str(cfg.compute_dtype),
+                   calibration=("per_row" if cfg.lln_per_row_calib
+                                else "batch"),
                    lln_chunk=cfg.lln_chunk, diag_block=cfg.diag_block,
                    softmax_chunk=cfg.softmax_chunk,
                    fixed_ab=cfg.lln_fixed_ab, beta_n=cfg.lln_beta_n,
-                   calib_len=cfg.lln_calib_len, num_scales=cfg.lln_num_scales,
+                   calib_len=cfg.lln_calib_len, renorm=cfg.lln_renorm,
+                   num_scales=cfg.lln_num_scales,
                    scale_decay=cfg.lln_scale_decay)
 
 
@@ -210,10 +221,13 @@ def loglin_prefill(spec: AttnSpec, q, k, v, alpha, beta):
                               backend=spec.backend)
 
 
-def decode_chunk(spec: AttnSpec, state, q, k, v, alpha, beta, *, pos):
+def decode_chunk(spec: AttnSpec, state, q, k, v, alpha, beta, *, pos,
+                 row_mask=None, commit_len=None):
     """Advance a ``log_linear`` ``LogLinState`` over T tokens under
     ``spec.backend``; ``pos`` (B,) is the per-row depth that fixes each
-    row's bucket layout (:func:`ops.loglin_decode_chunk`).  The
+    row's bucket layout (:func:`ops.loglin_decode_chunk`); ``row_mask`` /
+    ``commit_len`` the serving contract, ``spec.renorm`` its drift
+    renorm.  The
     ``lln``/``lln_diag`` decode runs through
     ``core/attention.py:decode_lln_chunk``, which adds the diag tail."""
     from . import ops
@@ -225,4 +239,6 @@ def decode_chunk(spec: AttnSpec, state, q, k, v, alpha, beta, *, pos):
                                    granule=spec.lln_chunk,
                                    num_scales=spec.num_scales,
                                    scale_decay=spec.scale_decay,
-                                   backend=spec.backend)
+                                   backend=spec.backend, row_mask=row_mask,
+                                   commit_len=commit_len,
+                                   renorm=spec.renorm or None)

@@ -7,8 +7,9 @@ Takes the reference driver's flags (``python -m repro.launch.serve``) plus
 ``--device`` (the CUDA card by default).  Every row advances in lockstep;
 the first decode step is timed on its own and the rest give the steady
 tok/s.  ``--attn-impl`` takes ``softmax`` (every config's default),
-``lln``, ``lln_diag`` and ``log_linear``; ``--arch`` the dense decoder
-(yi-9b) and the SSM / hybrid LMs (mamba2-130m, zamba2-7b).  Continuous
+``lln``, ``lln_diag`` and ``log_linear``; ``--arch`` the dense decoders
+(yi-9b, qwen3-14b, stablelm-1.6b, chatglm3-6b) and the SSM / hybrid LMs
+(mamba2-130m, zamba2-7b).  Continuous
 batching, speculative decoding and meshes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """

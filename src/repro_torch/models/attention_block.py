@@ -4,6 +4,8 @@ Port of ``repro.models.attention_block`` for self-attention: the training
 forward ``attn_apply`` through ``core/attention.py:multi_head_attention``,
 and the serving lifecycle ``serve_state_init`` / ``serve_prefill`` /
 ``serve_decode`` over :class:`repro_torch.core.engine.AttentionEngine`.
+GQA/MQA, qk-norm (``cfg.qk_norm``: an RMS norm over head_dim of q and k
+before the RoPE, qwen3) and partial RoPE (``cfg.rotary_pct``).
 """
 from __future__ import annotations
 
@@ -12,11 +14,13 @@ from torch import nn
 
 from repro_torch.core.attention import AttnConfig, multi_head_attention
 from repro_torch.core.engine import AttentionEngine
-from .layers import _dense_param, dense, rope
+from .layers import _dense_param, dense, rms_head_norm, rope
 
 
 class Attention(nn.Module):
-    """q/k/v/o projection weights in (d_in, d_out) layout."""
+    """q/k/v/o projection weights in (d_in, d_out) layout, and with
+    ``cfg.qk_norm`` the (head_dim,) scales ``q_norm_scale`` /
+    ``k_norm_scale`` (ones at init)."""
 
     def __init__(self, cfg, dtype, device, generator):
         super().__init__()
@@ -25,6 +29,11 @@ class Attention(nn.Module):
         self.k_w = _dense_param(d, g * hd, dtype, device, generator)
         self.v_w = _dense_param(d, g * hd, dtype, device, generator)
         self.o_w = _dense_param(h * hd, cfg.d_model, dtype, device, generator)
+        if cfg.qk_norm:
+            self.q_norm_scale = nn.Parameter(
+                torch.ones(hd, dtype=dtype, device=device))
+            self.k_norm_scale = nn.Parameter(
+                torch.ones(hd, dtype=dtype, device=device))
 
 
 def attn_cfg_of(cfg, causal: bool = True) -> AttnConfig:
@@ -51,6 +60,9 @@ def _project_qkv(p: Attention, x, cfg, positions):
     q = dense(p.q_w, x, cfg.cdtype).reshape(b, n, h, hd)
     k = dense(p.k_w, x, cfg.cdtype).reshape(b, n, g, hd)
     v = dense(p.v_w, x, cfg.cdtype).reshape(b, n, g, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(p.q_norm_scale, q)
+        k = rms_head_norm(p.k_norm_scale, k)
     q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
     return q, k, v
@@ -83,12 +95,23 @@ def serve_prefill(p: Attention, x, cfg, positions, *, max_len: int = 0):
                  cfg.cdtype), state
 
 
-def serve_decode(p: Attention, x, state, cfg, position: int):
-    """Decode over T >= 1 new tokens; x: (B, T, d); ``position`` is the
-    absolute index of the first new token (every row at the same depth)."""
+def serve_decode(p: Attention, x, state, cfg, position, *, row_mask=None,
+                 commit_len=None):
+    """Decode over T >= 1 new tokens; x: (B, T, d).  ``position``: the
+    absolute index of the first new token, an int (every row at the same
+    depth) or a per-row (B,) tensor.  ``row_mask`` (B,) bool: masked rows
+    write nothing (their outputs are to be discarded); ``commit_len`` (B,)
+    int in [0, T]: all T positions are scored, only the accepted prefix
+    folds into the state (``AttentionEngine.decode``)."""
     b, t, _ = x.shape
-    pos = position + torch.arange(t, dtype=torch.int32, device=x.device)
+    steps = torch.arange(t, dtype=torch.int32, device=x.device)
+    if torch.is_tensor(position) and position.ndim == 1:
+        pos = position.to(device=x.device, dtype=torch.int32)[:, None] \
+            + steps[None, :]
+    else:
+        pos = position + steps
     q, k, v = _project_qkv(p, x, cfg, pos)
-    out, state = attn_engine(cfg).decode(state, q, k, v)
+    out, state = attn_engine(cfg).decode(state, q, k, v, row_mask=row_mask,
+                                         commit_len=commit_len)
     return dense(p.o_w, out.reshape(b, t, cfg.n_heads * cfg.hd),
                  cfg.cdtype), state

@@ -214,24 +214,35 @@ def hybrid_prefill(p: HybridLM, tokens, cfg, max_len: int):
 
 
 @torch.inference_mode()
-def hybrid_decode(p: HybridLM, caches, token, cfg, position: int):
+def hybrid_decode(p: HybridLM, caches, token, cfg, position, *,
+                  row_mask=None, commit_len=None):
     """Decode step.  ``token`` (B,) is the one-token loop (``ssm_decode``);
     (B, T) the chunked path (``ssm_decode_chunk``).  ``position`` is the
-    absolute index of the first new token (the shared block's RoPE base;
-    the Mamba2 layers are position-free).  Returns (logits (B, Vpad) or
-    (B, T, Vpad), the new caches)."""
+    absolute index of the first new token, an int or a per-row (B,)
+    tensor (the shared block's RoPE base; the Mamba2 layers are
+    position-free).  ``row_mask`` / ``commit_len`` hold on every cache, as
+    in ``AttentionEngine.decode``: masked rows advance neither the SSM
+    states, the conv windows nor the shared block's attention state, and
+    ``commit_len`` folds only the accepted prefix (both take the chunked
+    SSM path, as the reference).  Returns (logits (B, Vpad) or (B, T,
+    Vpad), the new caches)."""
     chunked = token.ndim == 2
+    use_chunk = chunked or row_mask is not None or commit_len is not None
     tokens = token if chunked else token[:, None]
     x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
     x0 = x
     groups, tail = _split_layers(p, cfg)
-    step = ssm_decode_chunk if chunked else ssm_decode
     layer_caches = iter(caches["layers"])
     new_layers, new_shared = [], []
 
     def mamba(lp, x):
-        out, cache = step(lp.ssm, apply_norm(lp.ln, x), next(layer_caches),
-                          cfg)
+        xn, cache = apply_norm(lp.ln, x), next(layer_caches)
+        if use_chunk:
+            out, cache = ssm_decode_chunk(lp.ssm, xn, cache, cfg,
+                                          row_mask=row_mask,
+                                          commit_len=commit_len)
+        else:
+            out, cache = ssm_decode(lp.ssm, xn, cache, cfg)
         new_layers.append(cache)
         return x + out.to(x.dtype)
 
@@ -240,8 +251,9 @@ def hybrid_decode(p: HybridLM, caches, token, cfg, position: int):
             x = mamba(lp, x)
         x, state = _shared_serve(
             p.shared, x, x0, cfg,
-            lambda ap, h, state=state: serve_decode(ap, h, state, cfg,
-                                                    position))
+            lambda ap, h, state=state: serve_decode(
+                ap, h, state, cfg, position, row_mask=row_mask,
+                commit_len=commit_len))
         new_shared.append(state)
     for lp in tail:
         x = mamba(lp, x)

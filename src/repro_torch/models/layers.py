@@ -51,6 +51,15 @@ def apply_norm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (out * p.scale.float() + p.bias.float()).to(x.dtype)
 
 
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """qk-norm: RMS-normalize the last (head_dim) axis in fp32 (qwen3), cast
+    back to ``x.dtype``."""
+    xf = x.float()
+    inv = torch.rsqrt(torch.mean(torch.square(xf), -1, keepdim=True) + eps)
+    return (xf * inv * scale.float()).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
          rotary_pct: float = 1.0) -> torch.Tensor:
     """x: (B, N, H, D); positions: (N,) or (B, N).  Rotates the first

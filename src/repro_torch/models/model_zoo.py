@@ -1,19 +1,20 @@
 """build_model(cfg) -> Model: the port's uniform interface per family.
 
-The dense decoder (yi-9b), the bidirectional encoder (roberta-lln) and
-the SSM / hybrid LMs (mamba2-130m, zamba2-7b) are ported; other families
-raise.  Batch convention: ``{"inputs" (B,N),
-"targets" (B,N), "mask" (B,N)}`` int64 tokens in [0, vocab) (for the
-encoder's MLM batches the targets are the original tokens and the mask
-the masked positions).
+The dense decoders (yi-9b, qwen3-14b with qk-norm, stablelm-1.6b,
+chatglm3-6b), the bidirectional encoder (roberta-lln) and the SSM / hybrid
+LMs (mamba2-130m, zamba2-7b) are ported; other families raise.  Batch
+convention: ``{"inputs" (B,N), "targets" (B,N), "mask" (B,N)}`` int64
+tokens in [0, vocab) (for the encoder's MLM batches the targets are the
+original tokens and the mask the masked positions).
 
 ``loss``: params, batch -> scalar (chunked xent + router aux);
 ``hidden``: params, batch -> (final hidden (B,N,D), aux);
 ``prefill``: params, batch, max_len -> (last logits (B, 1, Vpad),
-caches); ``decode``: params, caches, token (B,) or (B, T), position ->
-(logits, caches); ``cache_init``: params, batch size, max_len -> zeroed
-caches.  ``max_len`` sizes softmax KV caches; the LLN impls and the SSM
-layers ignore it.  The encoder has no serving path and raises.
+caches); ``decode``: params, caches, token (B,) or (B, T), position,
+optionally ``row_mask`` / ``commit_len`` (the serving contract of
+``AttentionEngine.decode``) -> (logits, caches); ``cache_init``: params,
+batch size, max_len -> zeroed caches.  ``max_len`` sizes softmax KV
+caches; the LLN impls and the SSM layers ignore it.  The encoder has no serving path and raises.
 """
 from __future__ import annotations
 
@@ -58,11 +59,10 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     """The interface of ``cfg`` on ``device`` (the CUDA card unless the
     caller asks for another device)."""
     dev = resolve_device(device)
-    if cfg.family not in ("dense", "encoder", "ssm", "hybrid") \
-            or cfg.qk_norm:
+    if cfg.family not in ("dense", "encoder", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"family {cfg.family!r} (qk_norm={cfg.qk_norm}) is not ported "
-            "yet; see ROADMAP.md queue 1")
+            f"family {cfg.family!r} is not ported yet; see ROADMAP.md "
+            "queue 1")
     if cfg.family == "encoder":
         def mlm_loss(params, batch):
             h, _ = enc.encoder_hidden(params, batch["inputs"], cfg)
@@ -93,8 +93,10 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
             hidden=hidden,
             prefill=lambda params, batch, max_len: hy.hybrid_prefill(
                 params, batch["inputs"], cfg, max_len),
-            decode=lambda params, caches, token, pos: hy.hybrid_decode(
-                params, caches, token, cfg, pos),
+            decode=lambda params, caches, token, pos, row_mask=None,
+            commit_len=None: hy.hybrid_decode(
+                params, caches, token, cfg, pos, row_mask=row_mask,
+                commit_len=commit_len),
             cache_init=lambda params, b, max_len: hy.hybrid_cache_init(
                 params, cfg, b, max_len),
             param_count=_count)
@@ -112,8 +114,9 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
                                                   cfg),
         prefill=lambda params, batch, max_len: tr.lm_prefill(
             params, batch["inputs"], cfg, max_len),
-        decode=lambda params, caches, token, pos: tr.lm_decode(
-            params, caches, token, cfg, pos),
+        decode=lambda params, caches, token, pos, row_mask=None,
+        commit_len=None: tr.lm_decode(params, caches, token, cfg, pos,
+                                      row_mask, commit_len),
         cache_init=lambda params, b, max_len: tr.lm_cache_init(
             params, cfg, b, max_len),
         param_count=_count)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.lln import commit_lengths
 from repro_torch.core.numerics import einsum_f32
 from .layers import Norm, _dense_param, apply_norm, dense, trunc_normal
 
@@ -243,19 +244,16 @@ def _decode_out(p: SSMBlock, y, xh, z, cfg):
 
 def ssm_decode_chunk(p: SSMBlock, x, cache, cfg, *, row_mask=None,
                      commit_len=None):
-    """Chunked T-token decode.  x: (B, T, D).  Every position is scored
-    against the carried state and conv window plus the chunk's prefix (the
-    chunk's quadratic form and the state term of :func:`ssd_chunked`, the
-    decay exps clipped to [-60, 0]); all T tokens then enter the state,
-    and the conv window becomes the last W - 1 rows of [cache | chunk].
-    ``row_mask`` and ``commit_len`` are taken only as None (the partial
-    commit is ROADMAP.md queue 1, item 2).  Returns (out (B, T, D), new
-    cache); the cache passed in is not modified."""
-    for name, val in (("row_mask", row_mask), ("commit_len", commit_len)):
-        if val is not None:
-            raise NotImplementedError(
-                f"ssm_decode_chunk with {name} is not ported yet; see "
-                "ROADMAP.md queue 1, item 2")
+    """Chunked T-token decode under the serving contract.  x: (B, T, D).
+    Every position is scored against the carried state and conv window
+    plus the chunk's prefix (the chunk's quadratic form and the state term
+    of :func:`ssd_chunked`, the decay exps clipped to [-60, 0]).  Only the
+    accepted prefix enters the cache: ``commit_len`` (B,) int in [0, T]
+    tokens per row (all T without it) fold into the state, and the conv
+    window becomes the W - 1 rows of [cache | chunk] that a sequential
+    decode of that prefix saw; ``row_mask`` (B,) bool rows keep their cache
+    bitwise (their outputs are to be discarded).  Returns (out (B, T, D),
+    new cache); the cache passed in is not modified."""
     di, h, p_dim, s, g = _dims(cfg)
     bsz, t, _ = x.shape
     dtype = cfg.cdtype
@@ -290,12 +288,28 @@ def ssm_decode_chunk(p: SSMBlock, x, cache, cfg, *, row_mask=None,
     y = einsum_f32("bhij,bjhp->bihp", dot * dec * tri, xbar) \
         + einsum_f32("bihs,bhsp->bihp", c_in, cache["state"]) \
         * _clip_exp(lcum)[..., None]
-    l_tot = lcum[:, -1]                                       # (B,H)
+    # Only tokens j < commit_len[b] enter the recurrence.
+    cl = torch.as_tensor(commit_lengths(commit_len, row_mask, t),
+                         device=x.device).long().expand(bsz)
+    lcum0 = torch.cat([torch.zeros(bsz, 1, h, device=x.device), lcum], 1)
+    l_tot = torch.take_along_dim(lcum0, cl[:, None, None].expand(-1, 1, h),
+                                 dim=1)[:, 0]                 # (B,H)
+    take = torch.arange(t, device=x.device)[None, :] < cl[:, None]
+    carry_dec = torch.where(take[..., None], _clip_exp(l_tot[:, None] - lcum),
+                            torch.zeros_like(lcum))
     state = cache["state"] * _clip_exp(l_tot)[:, :, None, None] \
-        + torch.einsum("bjhs,bjh,bjhp->bhsp", b_in,
-                       _clip_exp(l_tot[:, None] - lcum), xbar)
+        + torch.einsum("bjhs,bjh,bjhp->bhsp", b_in, carry_dec, xbar)
+    # The conv window: rows cl .. cl+W-2 of [cache | chunk] are the last
+    # W - 1 inputs a sequential decode of the accepted prefix saw.
+    idx = cl[:, None] + torch.arange(wdt - 1, device=x.device)[None, :]
+    conv = torch.take_along_dim(window, idx[:, :, None], dim=1)
+    if row_mask is not None:
+        state = torch.where(row_mask[:, None, None, None], state,
+                            cache["state"])
+        conv = torch.where(row_mask[:, None, None], conv,
+                           cache["conv"].to(dtype))
     out = _decode_out(p, y, xh, z, cfg)
-    return out, {"state": state, "conv": window[:, t:].to(cfg.cdtype)}
+    return out, {"state": state, "conv": conv.to(cfg.cdtype)}
 
 
 def ssm_decode(p: SSMBlock, x, cache, cfg):

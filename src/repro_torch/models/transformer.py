@@ -110,9 +110,11 @@ def block_prefill(p: Block, x, cfg, positions, max_len: int):
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), cache
 
 
-def block_decode(p: Block, x, cache, cfg, position: int):
+def block_decode(p: Block, x, cache, cfg, position, *, row_mask=None,
+                 commit_len=None):
     h = apply_norm(p.ln1, x)
-    attn_out, cache = serve_decode(p.attn, h, cache, cfg, position)
+    attn_out, cache = serve_decode(p.attn, h, cache, cfg, position,
+                                   row_mask=row_mask, commit_len=commit_len)
     x = x + attn_out.to(x.dtype)
     h = apply_norm(p.ln2, x)
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), cache
@@ -143,16 +145,22 @@ def lm_prefill(p: DenseLM, tokens, cfg, max_len: int):
 
 
 @torch.inference_mode()
-def lm_decode(p: DenseLM, caches, token, cfg, position: int):
+def lm_decode(p: DenseLM, caches, token, cfg, position, row_mask=None,
+              commit_len=None):
     """Decode step.  token: (B,) or (B, T) int; ``position`` the absolute
-    index of the first new token.  Returns logits (B, Vpad) for (B,) input,
+    index of the first new token, an int or a per-row (B,) tensor.
+    ``row_mask`` (B,) bool: masked rows leave every cache untouched (their
+    logits are to be discarded).  ``commit_len`` (B,) int in [0, T]: logits
+    cover all T positions, every layer folds only the accepted prefix
+    (0 is the masked row).  Returns logits (B, Vpad) for (B,) input,
     (B, T, Vpad) for chunked input, and the new caches."""
     single = token.ndim == 1
     toks = token[:, None] if single else token
     x = embed_lookup(p.embed_table, toks, cfg.cdtype, cfg.embed_scale)
     new = []
     for lp, cache in zip(p.layers, caches["layers"]):
-        x, cache = block_decode(lp, x, cache, cfg, position)
+        x, cache = block_decode(lp, x, cache, cfg, position,
+                                row_mask=row_mask, commit_len=commit_len)
         new.append(cache)
     x = apply_norm(p.final_norm, x)
     logits = logits_from_hidden(p.head, x, cfg.cdtype, cfg.logit_softcap)

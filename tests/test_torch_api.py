@@ -66,7 +66,8 @@ def test_kernels_export_every_reference_name(name):
 
 @pytest.mark.parametrize("name", ["lln_causal", "decode_lln", "KVCache",
                                   "flash_softmax", "naive_softmax",
-                                  "decode_softmax", "commit_softmax"])
+                                  "decode_softmax", "commit_softmax",
+                                  "fit_lln_constants"])
 def test_core_exports(name):
     assert name in tcore.__all__ and hasattr(tcore, name)
 

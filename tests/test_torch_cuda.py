@@ -141,14 +141,17 @@ def test_cuda_lln_causal_matches_plain(cuda, n, vdtype):
 
 # (n, blk, d, dv, r): blk 16 and 64 (below and at the tensor-core kernels'
 # 64-row tile) and 256, whole and ragged N, D = Dv = 64 and 128, one
-# D != Dv, r in {1, 4, 8} (the serve shape has r = 8).
+# D != Dv, r in {1, 4, 8} (the yi-9b serve shape has r = 8), and qwen3-14b's
+# r = 5 and chatglm3-6b's r = 16.
 BLOCK_DIAG_CASES = [
     pytest.param(*c, id="n{}-blk{}-d{}-dv{}-r{}".format(*c))
     for c in ((64, 16, 64, 64, 4), (300, 256, 64, 64, 4),
               (512, 256, 128, 128, 8), (300, 64, 128, 128, 1),
               (512, 64, 64, 64, 1), (64, 64, 128, 128, 8),
               (300, 16, 64, 64, 8), (300, 256, 64, 128, 4),
-              (512, 16, 128, 128, 4))]
+              (512, 16, 128, 128, 4), (512, 256, 128, 128, 5),
+              (300, 64, 128, 128, 5), (512, 256, 128, 128, 16),
+              (300, 64, 64, 64, 16))]
 
 
 @pytest.mark.cuda
@@ -204,7 +207,7 @@ DECODE_WIDTHS = [pytest.param(*w, id="d{}-dv{}".format(*w))
 @pytest.mark.parametrize("d,dv", DECODE_WIDTHS)
 @pytest.mark.parametrize("vdtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("r", [1, 4, 8])
+@pytest.mark.parametrize("r", [1, 4, 5, 8, 16])
 @pytest.mark.parametrize("scaled", [False, True], ids=["noscale", "scale"])
 def test_cuda_lln_decode_matches_plain(cuda, t, d, dv, vdtype, r, scaled):
     """The decode kernel (its rescale folded in with ``scale``) against its
@@ -948,7 +951,7 @@ LLN_TC_CASES = [
     pytest.param(r, n, *LLN_TC_DIMS[j], (64, 128, 256)[(i + j) % 3],
                  id=f"r{r}-n{n}-d{LLN_TC_DIMS[j][0]}-dv{LLN_TC_DIMS[j][1]}"
                     f"-blk{(64, 128, 256)[(i + j) % 3]}")
-    for r in (1, 4, 8) for i, n in enumerate((64, 512, 300))
+    for r in (1, 4, 5, 8, 16) for i, n in enumerate((64, 512, 300))
     for j in range(3)]
 
 
@@ -1017,39 +1020,36 @@ def test_cuda_mamba2_smoke_train_step_counts_launches(cuda):
         float(m["grad_norm"]))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["lln_causal_state", "block_diag_causal",
-                                    "lln_decode_t1"])
-def test_cuda_serve_kernels_match_plain_at_the_zamba2_serving_shape(cuda,
-                                                                   kernel):
-    """The three kernels of zamba2-7b's ``lln_diag`` serving path at its
-    shape (B = 4, H = G = 32 so r = 1, N = 512, D = Dv = 112, blk 256, bf16
-    v) against their plain twins: ``lln_causal`` with the final state,
-    causal ``block_diag`` and ``lln_decode`` at T = 1 from that state with
-    a rescale.  out within one bf16 step; s, z, s1 and z1 within 1e-5 of
-    the largest plain entry; two runs bitwise equal."""
-    bh, n, d = 4 * 32, 512, 112
-    qs, ks, v = _kernel_inputs(112, bh, bh, n, d, d)
-    qs, ks = _on(cuda, qs, ks)
-    (vb,) = _on(cuda, v, dtype=torch.bfloat16)
+def _serve_kernel_case(dev, kernel, b, h, g, d, n=512, seed=112):
+    """One serving kernel at a model's serving shape (``b`` rows, ``h``
+    query and ``g`` kv heads, N = ``n``, D = Dv = ``d``, blk 256, bf16 v)
+    against its plain twin: ``lln_causal`` with the final state, causal
+    ``block_diag``, or ``lln_decode`` at T = 1 or 16 from that state with a
+    rescale.  out within one bf16 step; s, z, s1 and z1 within 1e-5 of the
+    largest plain entry; two runs bitwise equal."""
+    bh, bg, r = b * h, b * g, h // g
+    qs, ks, v = _kernel_inputs(seed, bh, bg, n, d, d)
+    qs, ks = _on(dev, qs, ks)
+    (vb,) = _on(dev, v, dtype=torch.bfloat16)
     if kernel == "lln_causal_state":
         fn, plain = lln_causal, lln_causal_plain
-        args, kw = (qs, ks, vb), dict(r=1, blk=256)
+        args, kw = (qs, ks, vb), dict(r=r, blk=256)
         tols = (BF16, TRAIN, TRAIN)
     elif kernel == "block_diag_causal":
         q, k = (t.bfloat16() for t in (qs, ks))
         fn, plain = block_diag, block_diag_plain
-        args, kw = (q, k, vb), dict(r=1, blk=256, causal=True)
+        args, kw = (q, k, vb), dict(r=r, blk=256, causal=True)
         tols = (BF16,)
     else:
-        _, s, z = lln_causal_plain(qs, ks, vb, r=1, blk=256)
-        f = torch.exp(-2.3 * torch.rand(bh, device=cuda,
+        t = int(kernel.rsplit("t", 1)[1])
+        _, s, z = lln_causal_plain(qs, ks, vb, r=r, blk=256)
+        f = torch.exp(-2.3 * torch.rand(bh, device=dev,
                                         generator=torch.Generator(
-                                            cuda).manual_seed(3)))
+                                            dev).manual_seed(3)))
         fn, plain = lln_decode, lln_decode_plain
-        args = (qs[:, -1:].contiguous(), ks[:, -1:].contiguous(),
-                vb[:, -1:].contiguous(), s, z)
-        kw = dict(r=1, scale=f)
+        args = (qs[:, -t:].contiguous(), ks[:, -t:].contiguous(),
+                vb[:, -t:].contiguous(), s, z)
+        kw = dict(r=r, scale=f)
         tols = (BF16, TRAIN, TRAIN)
     got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
     torch.cuda.synchronize()
@@ -1058,6 +1058,88 @@ def test_cuda_serve_kernels_match_plain_at_the_zamba2_serving_shape(cuda,
     for gt, ag, wt, tol in zip(got, again, want, tols):
         _close(gt, wt, tol)
         assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lln_causal_state", "block_diag_causal",
+                                    "lln_decode_t1"])
+def test_cuda_serve_kernels_match_plain_at_the_zamba2_serving_shape(cuda,
+                                                                   kernel):
+    """The three kernels of zamba2-7b's ``lln_diag`` serving path at its
+    shape (B = 4, H = G = 32 so r = 1, N = 512, D = Dv = 112, blk 256, bf16
+    v) against their plain twins (:func:`_serve_kernel_case`)."""
+    _serve_kernel_case(cuda, kernel, 4, 32, 32, 112)
+
+
+# (B, H, G, D) of the dense configs' serving paths: qwen3-14b (r = 5),
+# chatglm3-6b (r = 16) and stablelm-1.6b (r = 1, D = 64).
+DENSE_SERVING = [pytest.param(4, 40, 8, 128, id="qwen3-14b"),
+                 pytest.param(4, 32, 2, 128, id="chatglm3-6b"),
+                 pytest.param(4, 32, 32, 64, id="stablelm-1.6b")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lln_causal_state", "block_diag_causal",
+                                    "lln_decode_t1", "lln_decode_t16"])
+@pytest.mark.parametrize("b,h,g,d", DENSE_SERVING)
+def test_cuda_serve_kernels_match_plain_at_the_dense_serving_shapes(
+        cuda, b, h, g, d, kernel):
+    """Rows 1-3 at the GQA ratios and head dim of the three dense configs'
+    serving shapes (N = 512) against their plain twins, decode at T = 1
+    and 16 (:func:`_serve_kernel_case`)."""
+    _serve_kernel_case(cuda, kernel, b, h, g, d, seed=h + g + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_cuda_decode_contract_through_the_kernel(cuda, impl):
+    """The decode contract through ``lln_decode`` (the engine, backend
+    kernel against plain, B = 4, H = 8, G = 2, D = 128, bf16 q/k/v, a
+    prompt of 300, a chunk of 16): with ``row_mask`` (True, False, True,
+    False) the masked rows keep every leaf bitwise; with ``commit_len``
+    (0, 5, 16, 11) and a renorm below the prompt's smallest max_d z, out
+    within one bf16 step and the states within 1e-5 of the largest plain
+    entry, the uncommitted row bitwise, the renorm fired."""
+    from repro_torch.core.engine import AttentionEngine
+    from repro_torch.kernels.registry import AttnSpec
+    gen = torch.Generator(cuda).manual_seed(24)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).bfloat16()
+
+    engines = {kind: AttentionEngine(
+        spec=AttnSpec(impl=impl, r=4, backend=kind, diag_block=256,
+                      precision="bfloat16"),
+        heads=8, kv_heads=2, head_dim=128, v_dim=128)
+        for kind in ("kernel", "plain")}
+    q, k, v = rnd(4, 300, 8, 128), rnd(4, 300, 2, 128), rnd(4, 300, 2, 128)
+    _, st = engines["kernel"].prefill(q, k, v)
+    thresh = 0.5 * float(st.z.amax(-1).min())
+    engines = {kind: AttentionEngine(
+        spec=AttnSpec(impl=impl, r=4, backend=kind, diag_block=256,
+                      precision="bfloat16", renorm=thresh),
+        heads=8, kv_heads=2, head_dim=128, v_dim=128)
+        for kind in ("kernel", "plain")}
+    q, k, v = rnd(4, 16, 8, 128), rnd(4, 16, 2, 128), rnd(4, 16, 2, 128)
+    fields = ("s", "z", "c_k", "log_scale", "tail_k", "tail_v", "pos")
+    before = lln_decode.launches
+    for kw, still in (
+            ({"row_mask": torch.tensor([True, False, True, False],
+                                       device=cuda)}, (1, 3)),
+            ({"commit_len": torch.tensor([0, 5, 16, 11], dtype=torch.int32,
+                                         device=cuda)}, (0,))):
+        got, gst = engines["kernel"].decode(st, q, k, v, **kw)
+        want, wst = engines["plain"].decode(st, q, k, v, **kw)
+        torch.cuda.synchronize()
+        keep = [i for i in range(4) if i not in still]
+        _close(got[keep], want[keep], BF16)
+        for name in fields:
+            for row in still:
+                assert torch.equal(getattr(gst, name)[row],
+                                   getattr(st, name)[row]), (name, row)
+            _close(getattr(gst, name), getattr(wst, name), TRAIN)
+        assert float(gst.log_scale[keep].min()) > 0.0
+    assert lln_decode.launches == before + 2
 
 
 @pytest.mark.cuda

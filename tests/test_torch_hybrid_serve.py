@@ -212,15 +212,35 @@ def test_ssm_decode_steps_match_the_reference(t):
 
 
 def test_ssm_decode_chunk_takes_the_contract_arguments_only_as_none():
-    _, cfg = _cfgs("mamba2-130m", None)
-    model = build_model(cfg, "cpu")
-    params = model.init(0)
-    cache = model.cache_init(params, 2, 8)["layers"][0]
-    x = torch.zeros(2, 3, cfg.d_model)
-    for kw in ({"row_mask": torch.ones(2, dtype=torch.bool)},
-               {"commit_len": torch.ones(2, dtype=torch.int32)}):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            ssm.ssm_decode_chunk(params.layers[0].ssm, x, cache, cfg, **kw)
+    """The contract arguments, which ``ssm_decode_chunk`` took only as None
+    until the contract was ported, match the reference's: a chunk of 3
+    from a carried state and conv window with ``row_mask`` (True, False)
+    and with ``commit_len`` (2, 0); the masked and the uncommitted row keep
+    their cache bitwise."""
+    jcfg, cfg = _cfgs("mamba2-130m", None)
+    jparams = j_build_model(jcfg).init(jax.random.PRNGKey(6))
+    block = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                              cfg, "cpu").layers[0].ssm
+    jp = jax.tree_util.tree_map(lambda a: a[0], jparams["layers"]["ssm"])
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(BATCH, 3, jcfg.d_model)).astype(np.float32)
+    cache = {n: (rng.normal(size=a.shape) * 0.5).astype(np.float32)
+             for n, a in j_ssm.ssm_cache_init(jcfg, BATCH).items()}
+    for kw in ({"row_mask": np.array([True, False])},
+               {"commit_len": np.array([2, 0], np.int32)}):
+        want, wc = j_ssm.ssm_decode_chunk(
+            jp, jnp.asarray(x), {n: jnp.asarray(a) for n, a in cache.items()},
+            jcfg, **{n: jnp.asarray(a) for n, a in kw.items()})
+        with torch.no_grad():
+            got, gc = ssm.ssm_decode_chunk(
+                block, torch.from_numpy(x),
+                {n: torch.from_numpy(a) for n, a in cache.items()}, cfg,
+                **{n: torch.from_numpy(a) for n, a in kw.items()})
+        _close(got, want)
+        for name in ("state", "conv"):
+            _close(gc[name], wc[name])
+            np.testing.assert_array_equal(gc[name][1].numpy(),
+                                          cache[name][1])
 
 
 @pytest.mark.parametrize("arch,impl", CELLS)

@@ -247,18 +247,64 @@ def test_log_linear_kernel_path_gradients_match_reference(backend, n):
 
 
 @pytest.mark.parametrize("arg", ["row_mask", "commit_len", "renorm"])
-def test_contract_arguments_raise(arg):
+@pytest.mark.parametrize("backend", ["plain", "ref"])
+def test_contract_arguments_raise(arg, backend):
+    """The serving-contract arguments, which ``loglin_decode_chunk``
+    refused until the contract was ported, are taken and match the
+    reference: a chunk of 5 from rows at depths 36 and 45 (both cross a
+    granule boundary) with row 1 masked, with ``commit_len`` (5, 2) (row 0
+    commits across its boundary, row 1 stops before its), or with a
+    renorm threshold at half the largest carried z.  Outputs and every
+    state leaf against the reference's CPU path at the suite's
+    tolerances; a masked row keeps its state bitwise."""
     rng = np.random.default_rng(7)
-    q, k, v = _t(*_qkv(rng, 1))
-    st = tl.LogLinState.init(B, H, D, D, L)
-    val = {"row_mask": torch.ones(B, dtype=torch.bool),
-           "commit_len": torch.ones(B, dtype=torch.int32),
-           "renorm": 1.0}[arg]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tops.loglin_decode_chunk(st, q, k, v, 1.0, 1.0,
-                                 pos=torch.zeros(B, dtype=torch.int32),
-                                 granule=CH, num_scales=L, scale_decay=DECAY,
-                                 **{arg: val})
+    alpha, beta = _calib(rng)
+    j_st, t_st = _per_row_state(rng, 36, 45, alpha, beta)
+    q, k, v = _qkv(rng, 5)
+    pos = np.array([36, 45], np.int32)
+    val = {"row_mask": np.array([True, False]),
+           "commit_len": np.array([5, 2], np.int32),
+           "renorm": 0.5 * float(np.max(np.asarray(j_st.z)))}[arg]
+    kw = dict(granule=CH, num_scales=L, scale_decay=DECAY)
+    j_out, j_new = jops.loglin_decode_chunk(
+        j_st, *_j(q, k, v, alpha, beta), pos=jnp.asarray(pos),
+        **{arg: val if arg == "renorm" else jnp.asarray(val)}, **kw)
+    t_out, t_new = tops.loglin_decode_chunk(
+        t_st, *_t(q, k, v, alpha, beta), pos=torch.from_numpy(pos),
+        backend=backend,
+        **{arg: val if arg == "renorm" else torch.from_numpy(val)}, **kw)
+    _close(t_out, j_out)
+    _state_close(t_new, j_new)
+    _close(t_new.log_scale, j_new.log_scale, rel=True)
+    if arg == "row_mask":
+        for name in FIELDS + ("log_scale",):
+            assert torch.equal(getattr(t_new, name)[1],
+                               getattr(t_st, name)[1]), name
+    if arg == "renorm":
+        assert float(t_new.log_scale.max()) > 0.0
+
+
+@pytest.mark.parametrize("renorm", [None, 0.5])
+@pytest.mark.parametrize("backend", ["plain", "ref"])
+def test_full_commit_equals_the_plain_decode_bitwise(backend, renorm):
+    """``commit_len = T`` on every row is the plain decode, bit for bit: a
+    chunk of 3 from depths 36 and 45, so row 0 stays inside its granule
+    (the open bucket's fold) and row 1 crosses its boundary (the close and
+    a new open bucket), with the renorm off and on."""
+    rng = np.random.default_rng(11)
+    alpha, beta = _calib(rng)
+    _, t_st = _per_row_state(rng, 36, 45, alpha, beta)
+    q, k, v = _t(*_qkv(rng, 3))
+    kw = dict(granule=CH, num_scales=L, scale_decay=DECAY, backend=backend,
+              pos=torch.tensor([36, 45], dtype=torch.int32), renorm=renorm)
+    a_out, a_st = tops.loglin_decode_chunk(t_st, q, k, v, *_t(alpha, beta),
+                                           **kw)
+    b_out, b_st = tops.loglin_decode_chunk(
+        t_st, q, k, v, *_t(alpha, beta),
+        commit_len=torch.tensor([3, 3], dtype=torch.int32), **kw)
+    assert torch.equal(a_out, b_out)
+    for name in FIELDS + ("log_scale",):
+        assert torch.equal(getattr(a_st, name), getattr(b_st, name)), name
 
 
 def test_spec_carries_the_pyramid_and_refuses_bidirectional():
