@@ -106,7 +106,18 @@ contract (row_mask and commit_len through lln_decode against the plain
 kind, masked rows bitwise), renorm (yi-9b lln serving with the drift
 renorm firing in every layer, and the streaming instruments of its caches
 against CPU copies) and instruments (the paper's probe on Gaussian q, k
-and fit_lln_constants on the card), and their kernels' timings.
+and fit_lln_constants on the card), and their kernels' timings.  Since
+the checkpoint and pool slice: f4 (block_diag_bwd at r = 16, chatglm3-6b's
+shape, within 1e-5, two runs bitwise; timed as the block_diag_bwd row's
+"r16" entry), small_pool (yi-9b SMOKE fp32 through a 2-slot pool on the
+kernels, equal to solo runs; a nan fault recovered; kill and resume),
+pool (full-width yi-9b behind a 4-slot pool, lln_diag and softmax, 10
+requests: budgets met, first logits against solo prefills, exact launch
+counts, nan and kill faults, steady decode tok/s and busy share),
+ckpt_train (full-size roberta-lln: 2 steps, save_now, restore, 2 steps,
+bitwise equal to 4 uninterrupted steps; the train CLI's --ckpt-dir
+resume) and remat_dots (the yi-9b train cell with remat="dots" against
+"full").
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -116,15 +127,18 @@ import importlib
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate (data sheet)
@@ -744,7 +758,8 @@ def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV):
         "step_ms": step_ms, "step_ms_all": [t * 1e3 for t in times],
         "tokens_per_s": tokens / (step_ms / 1e3),
         "device_ms_per_step": dev_ms, "busy": dev_ms / step_ms,
-        "peak_gib": peak, "loss_grad_norm": losses}
+        "peak_gib": peak, "loss_grad_norm": losses,
+        "first": first["kernel"]}
     log(f"{label} {impl}: step {step_ms:.1f} ms (median of {TSTEPS}: "
         f"{[round(t * 1e3, 1) for t in times]}), "
         f"{tokens / (step_ms / 1e3):.0f} tokens/s, device "
@@ -1362,10 +1377,12 @@ def phase_timings_encoder(errs, launches):
     count each input read once and each output written once, and the
     operations: lln_bidir and lln_bidir_bwd by _bidir_counts (the CUDA-core
     count logged beside); the block softmax per (query, key) pair its
-    products at the tensor cores' bf16 rate, an fp32 left operand (p or
-    dsm) counted twice since it goes in as hi + lo bf16 (forward q k^T and
-    p v, 2 D + 4 Dv; backward q k^T, g v^T, dsm k, dsm^T q and p^T g,
-    10 D + 6 Dv), and the softmax's elementwise steps as fp32 work
+    products at the tensor cores' bf16 rate (forward: an fp32 left operand
+    p counted once per bf16 plane it goes in as, q k^T and p v in hi + lo,
+    2 D + 4 Dv; backward: each of the function's five products once, q
+    k^T, g v^T, dsm k, dsm^T q and p^T g, 6 D + 4 Dv, whatever planes the
+    kernel splits p and dsm into), and the softmax's elementwise steps as
+    fp32 work
     (SOFTMAX_FWD_OPS, SOFTMAX_BWD_OPS).  Returns the three kernels' rows
     and block_diag's non-causal time, which is logged on a line of its own
     with the encoder's launches of it."""
@@ -1411,7 +1428,7 @@ def phase_timings_encoder(errs, launches):
          lambda: block_diag_bwd_plain(qk, kk, vk, g, r=r, blk=BLK,
                                       causal=False),
          qkvg + (bh + bg) * n * d * f32 + bg * n * dv * f32,
-         pairs * SOFTMAX_BWD_OPS, pairs * (10 * d + 6 * dv),
+         pairs * SOFTMAX_BWD_OPS, pairs * (6 * d + 4 * dv),
          lambda: torch.autograd.grad(sdpa_out, (qb, kb, vb), gb,
                                      retain_graph=True)),
     ]
@@ -2688,9 +2705,608 @@ def phase_instruments(errs):
         f"{mm.FITTED_CONSTANTS_N[128][1024]}); information only")
 
 
+# ---------------------------------------------------------------------------
+# F4, the request pool, checkpoints and remat "dots" (ROADMAP queue 1,
+# items 7 and 8).
+# ---------------------------------------------------------------------------
+
+F4_SHAPE = ("chatglm3-6b", B, 32, 2, N, 128)   # tag, B, H, G, N, D: r = 16
+
+
+def _f4_inputs(gen):
+    _, b, h, g, n, d = F4_SHAPE
+    mk = lambda rows: torch.randn(b * rows, n, d, generator=gen,  # noqa: E731
+                                  device="cuda").bfloat16()
+    return mk(h), mk(g), mk(g), mk(h)
+
+
+def phase_f4(results):
+    """block_diag_bwd (row 8) at r = 16, chatglm3-6b's attention shape
+    (B=4, H=32, G=2, N=512, D=Dv=128, blk 256), bf16, causal and not: dq,
+    dk, dv within 1e-5 of the largest plain entry (the gate it missed before
+    its dk/dv kernel took p and dsm as three bf16 planes), two runs bitwise
+    equal."""
+    from repro_torch.kernels.block_diag import (block_diag_bwd,
+                                                block_diag_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 25)
+    q, k, v, g = _f4_inputs(gen)
+    r = F4_SHAPE[2] // F4_SHAPE[3]
+    for causal in (True, False):
+        log(f"f4: block_diag_bwd r={r} causal={causal} blk={BLK} bf16 "
+            f"({F4_SHAPE[0]} shape):")
+        got = block_diag_bwd(q, k, v, g, r=r, blk=BLK, causal=causal)
+        again = block_diag_bwd(q, k, v, g, r=r, blk=BLK, causal=causal)
+        want = block_diag_bwd_plain(q, k, v, g, r=r, blk=BLK, causal=causal)
+        torch.cuda.synchronize()
+        for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+            err = check(name, gt, wt, fp32_tol(wt))
+            results["block_diag_bwd (r=16)"] = max(
+                results.get("block_diag_bwd (r=16)", 0.0), err)
+        _same_runs("block_diag_bwd r=16", got, again)
+
+
+def phase_timings_f4(errs, row8):
+    """Row 8 at r = 16 (chatglm3-6b's shape, causal): the kernel, its plain
+    version, SDPA's backward on the blocks (k and v repeated to the query
+    heads outside the timing) and the bound, as ``row8["r16"]``.  The
+    bound's products per causal (query, key) pair are the function's five,
+    each once: q k^T, g v^T, dsm k, dsm^T q and p^T g (6 D + 4 Dv, the
+    kernel's bf16 planes not counted), and the softmax's elementwise steps
+    as fp32 work."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_diag import (block_diag_bwd,
+                                                block_diag_bwd_plain)
+    tag, b, h, g_, n, d = F4_SHAPE
+    r, nb = h // g_, n // BLK
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 26)
+    q, k, v, g = _f4_inputs(gen)
+    bh, bg = b * h, b * g_
+    pairs = bh * nb * BLK * (BLK + 1) // 2
+    nbytes = (2 * bh + 2 * bg) * n * d * 2 + (bh + 2 * bg) * n * d * 4
+    bnd, by = bound_ms(nbytes, pairs * SOFTMAX_BWD_OPS, pairs * 10 * d)
+
+    def blocks(t, heads):
+        return t.reshape(b, heads, nb, BLK, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b * nb, heads, BLK, d)
+    qb = blocks(q, h).detach().requires_grad_()
+    kb = blocks(k, g_).repeat_interleave(r, 1).detach().requires_grad_()
+    vb = blocks(v, g_).repeat_interleave(r, 1).detach().requires_grad_()
+    gb = blocks(g, h)
+    out = F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+    row8["r16"] = dict(
+        shape=f"{tag}: B={b} H={h} G={g_} N={n} D=Dv={d} blk={BLK} causal",
+        max_abs_err=errs["block_diag_bwd (r=16)"],
+        ms=cuda_ms(lambda: block_diag_bwd(q, k, v, g, r=r, blk=BLK,
+                                          causal=True), reps=10),
+        plain_ms=cuda_ms(lambda: block_diag_bwd_plain(
+            q, k, v, g, r=r, blk=BLK, causal=True), reps=10),
+        bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            out, (qb, kb, vb), gb, retain_graph=True), reps=10))
+    e = row8["r16"]
+    log(f"timing block_diag_bwd r=16 ({e['shape']}): kernel {e['ms']:.4f} "
+        f"ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_by']}), library {e['library_ms']:.4f} ms (SDPA "
+        f"backward, k/v repeated)")
+
+
+class _PoolProbe:
+    """Counts and times a ``PoolSetup``'s calls: prefills (one per admitted
+    group or rebuilt row), segment steps, replay calls, the segments' wall
+    time and emitted tokens, and every prefill's (tokens, last logits).
+    The inputs of segment call ``profile_at`` (1-based) are copied into
+    ``saved`` (the pool's functions leave their inputs unchanged, but the
+    batcher writes into its tok/pos rows) for a profile after the run.
+    While ``record`` is set, every decode step inside a segment is kept as
+    (input tokens, positions, active rows, logits) and every admission as
+    (decode steps so far, slots, prompts), for :meth:`trace`."""
+
+    def __init__(self, setup, profile_at=0, record=False):
+        self.setup, self.profile_at, self.record = setup, profile_at, record
+        self.prefill_fn, self.segment_fn = setup.prefill_fn, setup.segment_fn
+        self.replay_fn, self.admit_fn = setup.replay_fn, setup.admit_fn
+        setup.prefill_fn, setup.segment_fn = self._prefill, self._segment
+        setup.replay_fn, setup.admit_fn = self._replay, self._admit
+        self.decode_fn = setup.model.decode
+        # The Model is frozen; segment_fn looks its decode up on each step.
+        object.__setattr__(setup.model, "decode", self._decode)
+        self.prefills = self.steps = self.replays = self.calls = 0
+        self.tokens = self.timed = 0
+        self.segment_s = 0.0
+        self.first, self.saved = [], None
+        self.decodes, self.admits = [], []
+        self.in_segment = False
+
+    def _prefill(self, params, tokens):
+        logits, caches = self.prefill_fn(params, tokens)
+        self.prefills += 1
+        self.first.append((tokens, logits[:, -1].float()))
+        return logits, caches
+
+    def _admit(self, pooled, slot_caches, slot_idx):
+        if self.record:
+            tokens = self.first[-1][0]
+            slots = [int(x) for x in slot_idx]
+            if len(slots) != tokens.shape[0]:
+                raise AssertionError("pool probe: an admission without its "
+                                     "prefill's rows")
+            self.admits.append((len(self.decodes), slots, tokens))
+        return self.admit_fn(pooled, slot_caches, slot_idx)
+
+    def _decode(self, params, caches, tok, pos, **kw):
+        logits, caches = self.decode_fn(params, caches, tok, pos, **kw)
+        if self.record and self.in_segment:
+            self.decodes.append((tok.clone(), pos.clone(),
+                                 kw["row_mask"].clone(), logits.float()))
+        return logits, caches
+
+    def _segment(self, *args):
+        self.calls += 1
+        self.steps += self.setup.segment
+        if self.calls == self.profile_at:
+            from repro_torch.tree import map_with_path
+            self.saved = (args[0], map_with_path(
+                lambda _, a: a.clone(), args[1])) + tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args[2:])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        self.in_segment = True
+        out = self.segment_fn(*args)
+        self.in_segment = False
+        torch.cuda.synchronize()
+        self.segment_s += time.time() - t0
+        self.timed += self.setup.segment
+        self.tokens += int(out[6].sum())
+        return out
+
+    def _replay(self, *args):
+        self.replays += 1
+        return self.replay_fn(*args)
+
+    def first_logits(self, prompt):
+        """The last logits of the first prefill of ``prompt``."""
+        p = torch.as_tensor(prompt, dtype=torch.long, device="cuda")
+        for tokens, logits in self.first:
+            for row in range(tokens.shape[0]):
+                if tokens.shape[1] == p.shape[0] and torch.equal(
+                        tokens[row], p):
+                    return logits[row]
+        raise AssertionError("no prefill of this prompt")
+
+    def trace(self, prompt):
+        """The recorded decode steps of the request with ``prompt`` in its
+        slot, from its admission to the slot's next one: (input tokens,
+        positions, logits (V,) per step)."""
+        p = torch.as_tensor(prompt, dtype=torch.long, device="cuda")
+        hits = [(at, slot) for at, slots, tokens in self.admits
+                for j, slot in enumerate(slots)
+                if tokens.shape[1] == p.shape[0]
+                and torch.equal(tokens[j], p)]
+        if len(hits) != 1:
+            raise AssertionError(f"pool probe: {len(hits)} admissions of "
+                                 "one prompt")
+        start, slot = hits[0]
+        end = min((at for at, slots, _ in self.admits
+                   if slot in slots and at > start),
+                  default=len(self.decodes))
+        steps = self.decodes[start:end]
+        active = torch.stack([st[2][slot] for st in steps]).tolist()
+        toks = torch.stack([st[0][slot] for st in steps]).tolist()
+        poss = torch.stack([st[1][slot] for st in steps]).tolist()
+        keep = [i for i, a in enumerate(active) if a]
+        return ([toks[i] for i in keep], [poss[i] for i in keep],
+                [steps[i][3][slot] for i in keep])
+
+
+def _pool_want(impl, n_layers, probe):
+    want = {name: 0 for name in _counts()}
+    if impl in ("lln", "lln_diag"):
+        want["lln_causal"] = n_layers * probe.prefills
+        want["lln_decode"] = n_layers * (probe.steps + probe.replays)
+        if impl == "lln_diag":
+            want["block_diag"] = n_layers * probe.prefills
+    return want
+
+
+def _expect_launches(label, got, want):
+    log(f"  launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got}, expected {want}")
+
+
+def _solo(model_cfg, params, req, max_len, cache):
+    """The request alone: a batch-1 prefill and greedy decode."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    if "serve" not in cache:
+        cache["serve"] = make_serve_setup(
+            model_cfg, ShapeSpec("solo", max_len, 1, "decode"))
+    sv = cache["serve"]
+    prompt = torch.as_tensor(req.prompt, dtype=torch.long, device="cuda")
+    logits, caches = sv.prefill_fn(params, {"inputs": prompt[None]})
+    tok = torch.argmax(logits[:, -1], -1)
+    out = [int(tok)]
+    if req.budget > 1:
+        toks, _ = sv.make_generate(req.budget - 1)(params, caches, tok,
+                                                   len(req.prompt))
+        out += toks[0].tolist()
+    return logits[0, -1].float(), np.asarray(out, np.int32)
+
+
+def _kill_and_resume(setup, params, reqs, every, kill_at, snap_dir):
+    """A run killed at boundary ``kill_at`` with a snapshot every ``every``
+    segments, then ``run([], resume=True)``; returns the resumed run's
+    stats."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.batcher import ContinuousBatcher
+    from repro_torch.launch.faults import FaultEvent, FaultPlan, SimulatedCrash
+    mgr = CheckpointManager(snap_dir, keep_n=2, interval=1)
+    eng = ContinuousBatcher(setup, params, snapshot_mgr=mgr,
+                            snapshot_every=every)
+    plan = FaultPlan(events=[FaultEvent(kind="kill", segment=kill_at)])
+    t0 = time.time()
+    try:
+        eng.run(reqs, fault_plan=plan)
+    except SimulatedCrash as e:
+        log(f"  killed at segment boundary {e.segment}; latest snapshot "
+            f"{mgr.latest_step()} ({time.time() - t0:.1f}s)")
+    else:
+        raise AssertionError("the kill fault did not fire")
+    eng.snapshot_every = 0          # the resumed run needs no snapshots
+    return eng.run([], resume=True)
+
+
+def _same_tokens(label, stats, clean, rids):
+    for rid in rids:
+        if not np.array_equal(stats.outputs[rid], clean.outputs[rid]):
+            raise AssertionError(f"{label}: request {rid} tokens "
+                                 f"{stats.outputs[rid].tolist()} != "
+                                 f"{clean.outputs[rid].tolist()}")
+    log(f"  {label}: tokens bitwise equal for requests {list(rids)}")
+
+
+def phase_small_pool(tmp):
+    """yi-9b SMOKE in fp32 (use_kernel=True) through a 2-slot pool on the
+    serving kernels, lln_diag and lln: mixed traffic (prompts 8 and 11,
+    budgets 14 and 9, segment 3) equals each request served alone; a nan
+    fault at segment 2 recovers the hurt request to the same tokens
+    (status retried); a kill at segment 3, then run([], resume=True),
+    finishes every request with the clean run's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.faults import FaultEvent, FaultPlan
+    from repro_torch.launch.steps import make_pool_setup
+    for impl in ("lln_diag", "lln"):
+        cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+                         compute_dtype="float32", use_kernel=True)
+        setup = make_pool_setup(cfg, slots=2, max_len=48, segment=3)
+        params = setup.model.init(SEED)
+        reqs = synthetic_traffic(3, cfg.vocab, prompt_lens=[8, 11],
+                                 gen_lens=[14, 9], seed=3)
+        probe = _PoolProbe(setup)
+        _reset()
+        clean = ContinuousBatcher(setup, params).run(reqs)
+        log(f"small_pool {impl}: statuses {clean.statuses}, "
+            f"{clean.segments} segments")
+        _expect_launches(f"small_pool {impl}", _read(),
+                         _pool_want(impl, cfg.n_layers, probe))
+        cache = {}
+        for req in reqs:
+            _, want = _solo(setup.cfg, params, req, 48, cache)
+            if not np.array_equal(clean.outputs[req.rid], want):
+                raise AssertionError(f"small_pool {impl}: request {req.rid}"
+                                     f" differs from its solo run")
+        log("  every request equals its solo run, token for token")
+        plan = FaultPlan(events=[FaultEvent(kind="nan", segment=2, row=0)])
+        faulty = ContinuousBatcher(setup, params).run(reqs, fault_plan=plan)
+        hurt = faulty.health_events[0]["rid"] if faulty.health_events \
+            else None
+        if faulty.recoveries != 1 or faulty.statuses.get(hurt) != "retried":
+            raise AssertionError(f"small_pool {impl}: nan fault gave "
+                                 f"{faulty.statuses}, recoveries "
+                                 f"{faulty.recoveries}")
+        _same_tokens(f"nan fault (request {hurt} retried)", faulty, clean,
+                     [r.rid for r in reqs])
+        resumed = _kill_and_resume(setup, params, reqs, 1, 3,
+                                   str(tmp / f"small_pool_{impl}"))
+        _same_tokens("kill at segment 3 and resume", resumed, clean,
+                     [r.rid for r in reqs])
+        del setup, params
+
+
+def _teacher_forced(label, sv, params, req, out, trace):
+    """Feed the pool's tokens of ``req`` through the static batch-1 decode
+    ``sv`` (make_serve_setup) and hold every step's logits to the pooled
+    step's within the serve cell's bound (0.1 of the largest logit).  The
+    trace must hold exactly the request's decode steps, its emitted tokens
+    as inputs at positions plen, plen + 1, ...  Returns the worst step's
+    error over its bound."""
+    toks, poss, logits = trace
+    plen, n = len(req.prompt), len(out) - 1
+    if toks != [int(t) for t in out[:n]] or \
+            poss != list(range(plen, plen + n)):
+        raise AssertionError(f"{label}: request {req.rid}'s pooled decode "
+                             f"steps took tokens {toks} at positions "
+                             f"{poss}, not its {n} emitted tokens from "
+                             f"position {plen}")
+    prompt = torch.as_tensor(req.prompt, dtype=torch.long, device="cuda")
+    _, caches = sv.prefill_fn(params, {"inputs": prompt[None]})
+    worst = 0.0
+    for k in range(n):
+        tok = torch.as_tensor([int(out[k])], dtype=torch.long, device="cuda")
+        lg, caches = sv.decode_fn(params, caches, tok, plen + k)
+        want = lg[0].float()
+        tol = 0.1 * max(1.0, float(want.abs().max()))
+        err = max_err(logits[k], want)
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"{label}: request {req.rid} step {k} "
+                                 f"logits {err} off the teacher-forced "
+                                 f"batch-1 decode (tol {tol})")
+    return worst
+
+
+def phase_pool(launches, pool_times, tmp):
+    """yi-9b at full width and depth (bf16 weights from the seed) behind a
+    4-slot pool, lln_diag then softmax: 10 requests of synthetic_traffic
+    (prompts 128, 300, 512; budgets 8, 24, 40), segment 8, max_len 576.
+    Every request ends done with exactly its budget; each request's first
+    logits within the serve cell's bound (0.1 of the largest logit) of its
+    solo prefill; every pooled decode step (per-row positions, masked
+    rows, per-row calibration at B = 4) within that bound of the static
+    batch-1 decode fed the same tokens (teacher-forced); the greedy
+    tokens' agreement with free-running solo runs printed (bf16 GEMMs at
+    batch 4 and 1 may round apart); exact launch counts; a nan fault on one
+    row at segment 2 leaves the healthy rows' tokens bitwise equal to the
+    clean run's; a kill at segment 3 with a snapshot every 2 segments
+    resumes to the clean run's tokens for every request.  Steady decode
+    tok/s (tokens over the segments' wall time) and the device busy share
+    (the device ms of the third segment, rerun on a copy of its inputs
+    under the profiler after the timed run, per decode step, over the
+    segments' mean wall ms per step) are recorded beside the static serve
+    rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.faults import FaultEvent, FaultPlan
+    from repro_torch.launch.steps import make_pool_setup
+    params = None
+    for impl in ("lln_diag", "softmax"):
+        cfg = get_config("yi-9b", attn_impl=impl, param_dtype="bfloat16")
+        setup = make_pool_setup(cfg, slots=B, max_len=576, segment=8)
+        if params is None:
+            params = setup.model.init(SEED)
+        reqs = synthetic_traffic(10, cfg.vocab, prompt_lens=[128, 300, 512],
+                                 gen_lens=[8, 24, 40], seed=SEED)
+        eng = ContinuousBatcher(setup, params)
+        eng.warmup([128, 300, 512])
+        probe = _PoolProbe(setup, profile_at=3, record=True)
+        _reset()
+        t0 = time.time()
+        clean = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counted = _read()
+        probe.record = False
+        log(f"pool {impl}: {cfg.n_layers}L, {len(reqs)} requests over {B} "
+            f"slots, {clean.segments} segments, {probe.prefills} prefills, "
+            f"{probe.steps} decode steps in {wall:.2f}s")
+        _expect_launches(f"pool {impl}", counted,
+                         _pool_want(impl, cfg.n_layers, probe))
+        for key, name in (("lln_causal", "lln_causal (state)"),
+                          ("block_diag", "block_diag"),
+                          ("lln_decode", "lln_decode")):
+            launches[name] += counted[key]
+        for req in reqs:
+            if clean.statuses[req.rid] != "done" or \
+                    len(clean.outputs[req.rid]) != req.budget:
+                raise AssertionError(f"pool {impl}: request {req.rid} "
+                                     f"{clean.statuses[req.rid]} with "
+                                     f"{len(clean.outputs[req.rid])} tokens")
+        dev_ms, top = device_profile(lambda: probe.segment_fn(*probe.saved))
+        dev_ms /= setup.segment
+        probe.saved = None
+        agree = total = 0
+        worst = worst_tf = 0.0
+        cache = {}
+        for req in reqs:
+            solo_logits, solo = _solo(setup.cfg, params, req, 576, cache)
+            tol = 0.1 * max(1.0, float(solo_logits.abs().max()))
+            err = max_err(probe.first_logits(req.prompt), solo_logits)
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                raise AssertionError(f"pool {impl}: request {req.rid} first "
+                                     f"logits {err} off its solo prefill "
+                                     f"(tol {tol})")
+            worst_tf = max(worst_tf, _teacher_forced(
+                f"pool {impl}", cache["serve"], params, req,
+                clean.outputs[req.rid], probe.trace(req.prompt)))
+            agree += int((clean.outputs[req.rid] == solo).sum())
+            total += len(solo)
+        probe.decodes = []
+        log(f"  first logits within {worst:.3f} of the bound of the solo "
+            f"prefills; every pooled decode step within {worst_tf:.3f} of "
+            f"the bound of the teacher-forced batch-1 decode; greedy tokens "
+            f"equal to free-running solo runs: {agree} of {total}")
+        steady = probe.tokens / probe.segment_s
+        step_ms = probe.segment_s / probe.timed * 1e3
+        pool_times[impl] = {
+            "wall_s": wall, "segments": clean.segments,
+            "decode_steps": probe.steps, "prefills": probe.prefills,
+            "tokens": clean.completed_tokens, "steady_decode_tok_s": steady,
+            "decode_ms_per_step": step_ms,
+            "decode_device_ms_per_step": dev_ms, "busy": dev_ms / step_ms,
+            "teacher_forced_worst": worst_tf,
+            "solo_token_agreement": [agree, total]}
+        log(f"  steady decode {steady:.1f} tok/s ({step_ms:.1f} ms per "
+            f"step; the static serve rows: 43.1 and 28.8 tok/s), device "
+            f"{dev_ms:.2f} ms per step (busy {dev_ms / step_ms:.0%})")
+        for name, ms, calls in top[:5]:
+            log(f"  top pool segment: {ms:9.3f} ms  {calls:6d} calls  "
+                f"{name[:80]}")
+
+        plan = FaultPlan(events=[FaultEvent(kind="nan", segment=2, row=0)])
+        faulty = ContinuousBatcher(setup, params).run(reqs, fault_plan=plan)
+        hurt = faulty.health_events[0]["rid"] if faulty.health_events \
+            else None
+        if hurt is None or hurt < 0:
+            raise AssertionError(f"pool {impl}: the nan fault hit no "
+                                 f"request: {faulty.health_events}")
+        _same_tokens("nan fault, healthy rows", faulty, clean,
+                     [r.rid for r in reqs if r.rid != hurt])
+        log(f"  hurt request {hurt}: status {faulty.statuses[hurt]}, "
+            f"{int((faulty.outputs[hurt] == clean.outputs[hurt]).sum())} of "
+            f"{len(clean.outputs[hurt])} tokens equal to the clean run's")
+        resumed = _kill_and_resume(setup, params, reqs, 2, 3,
+                                   str(tmp / f"pool_{impl}"))
+        if resumed.restored_step != 2:
+            raise AssertionError(f"pool {impl}: resumed from "
+                                 f"{resumed.restored_step}")
+        _same_tokens("kill at segment 3, resumed from the snapshot at 2",
+                     resumed, clean, [r.rid for r in reqs])
+        del setup, eng, probe, cache
+    del params
+    torch.cuda.empty_cache()
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_ckpt_train(launches, ckpt_times, tmp):
+    """roberta-lln at full size (lln_diag, use_kernel=True, batch EB x EN):
+    through make_train_setup with total_steps 4, 2 steps, save_now,
+    restore_or_init into a fresh state, 2 more steps; the losses and final
+    parameters bitwise equal to an uninterrupted 4-step run.  Then the
+    train CLI (SMOKE) with --ckpt-dir: 6 steps, then --steps 10 resumes at
+    step 6."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import torch_placer
+    from repro_torch.data.synthetic import mlm_batches
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_setup
+    cfg = get_config("roberta-lln", attn_impl="lln_diag", use_kernel=True)
+    setup = make_train_setup(cfg, ShapeSpec("ckpt", EN, EB, "train"),
+                             peak_lr=3e-4, total_steps=4)
+    place = torch_placer("cuda")
+    gen = mlm_batches(cfg.vocab, EB, EN, seed=SEED + 2)
+    batches = [place(next(gen)) for _ in range(4)]
+
+    def steps(state, idx):
+        losses = []
+        for i in idx:
+            state, m = setup.step_fn(state, batches[i])
+            losses.append(m["loss"].detach().clone())
+        return state, losses
+
+    _reset()
+    whole, losses = steps(setup.init_state(SEED), range(4))
+    torch.cuda.synchronize()
+    counted = _read()
+    _expect_launches("ckpt_train (4 steps)", counted,
+                     _enc_want("lln_diag", cfg.n_layers, 2 * 4, 4))
+    _add_encoder_launches(launches, counted)
+    mgr = CheckpointManager(str(tmp / "ckpt_train"), interval=2)
+    state, first = steps(setup.init_state(SEED), range(2))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path = mgr.save_now(2, state)
+    t_save = time.time() - t0
+    size = _dir_bytes(path)
+    del state
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, start = mgr.restore_or_init(lambda: setup.init_state(SEED + 1))
+    torch.cuda.synchronize()
+    t_restore = time.time() - t0
+    if start != 2:
+        raise AssertionError(f"ckpt_train: restored at step {start}")
+    state, second = steps(state, range(2, 4))
+    torch.cuda.synchronize()
+    same_loss = all(torch.equal(a, b) for a, b in zip(first + second, losses))
+    pa = dict(state["params"].named_parameters())
+    pw = dict(whole["params"].named_parameters())
+    same_params = all(torch.equal(pa[n], pw[n]) for n in pw)
+    same_opt = all(torch.equal(state["opt"][k][n], whole["opt"][k][n])
+                   for k in ("m", "v") for n in pw)
+    n_params = sum(p.numel() for p in pw.values())
+    log(f"ckpt_train: roberta-lln {n_params / 1e6:.1f}M params; checkpoint of params and AdamW moments {size / 1e9:.3f} "
+        f"GB, save_now {t_save:.2f}s, restore {t_restore:.2f}s; losses "
+        f"{[round(float(x), 6) for x in losses]}; after the resume the "
+        f"losses {'are' if same_loss else 'are NOT'} bitwise equal, the "
+        f"params {'are' if same_params else 'are NOT'}, the moments "
+        f"{'are' if same_opt else 'are NOT'}")
+    if not (same_loss and same_params and same_opt):
+        raise AssertionError("ckpt_train: the resumed run differs from the "
+                             "uninterrupted one")
+    ckpt_times.update(bytes=size, save_now_s=t_save, restore_s=t_restore)
+    del setup, state, whole, batches
+    torch.cuda.empty_cache()
+    ckpt = str(tmp / "ckpt_cli")
+    base = ["--arch", "roberta-lln", "--smoke", "--ckpt-dir", ckpt,
+            "--ckpt-interval", "2", "--seq", "64", "--batch", "2",
+            "--log-every", "100"]
+    log("train CLI --arch roberta-lln --smoke --ckpt-dir (default device):")
+    h1 = train.main(base + ["--steps", "6"])
+    h2 = train.main(base + ["--steps", "10"])
+    if [h["step"] for h in h1] != list(range(6)) or \
+            [h["step"] for h in h2] != list(range(6, 10)):
+        raise AssertionError(f"train CLI resume: steps {h1} then {h2}")
+    log("  the second call resumed at step 6 and ran to 9")
+
+
+def phase_remat_dots(launches, train_times):
+    """The yi-9b train cell (TL layers, lln_diag, batch B x TN) with
+    remat="dots" (the matrix products' outputs kept, the rest recomputed,
+    the kernels' Functions included): the same checks and timings as the
+    cell with remat="full", its first step's loss and grad norm within the
+    cell's gate of the "full" run's (bitwise equality printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    cfg = get_config("yi-9b", attn_impl="lln_diag", n_layers=TL,
+                     use_kernel=True, remat="dots")
+
+    def want(steps):
+        out = {name: 0 for name in _counts()}
+        out["lln_diag_fused"] = 2 * cfg.n_layers * steps
+        out["lln_diag_fused_bwd"] = cfg.n_layers * steps
+        return out
+
+    times, counted = _train_cell(cfg, B, TN, lm_batches, want, "remat_dots")
+    launches["lln_diag_fused"] += counted["lln_diag_fused"]
+    launches["lln_diag_fused_bwd"] += counted["lln_diag_fused_bwd"]
+    full = train_times["lln_diag"]
+    (ld, gd), (lf, gf) = times["first"][:2], full["first"][:2]
+    log(f"remat_dots: first step loss {ld:.6f} / {lf:.6f}, grad norm "
+        f"{gd:.6f} / {gf:.6f} (dots / full), bitwise equal: "
+        f"{ld == lf and gd == gf}; step {times['step_ms']:.1f} / "
+        f"{full['step_ms']:.1f} ms, device {times['device_ms_per_step']:.1f}"
+        f" / {full['device_ms_per_step']:.1f} ms, peak "
+        f"{times['peak_gib']:.2f} / {full['peak_gib']:.2f} GiB")
+    if not (abs(ld - lf) <= 1e-4 * abs(lf) and abs(gd - gf) <= 1e-3 * abs(gf)):
+        raise AssertionError(f"remat_dots: first step {ld}, {gd} against "
+                             f"full {lf}, {gf}")
+    train_times["lln_diag remat=dots"] = times
+
+
+_T0 = time.time()
+
+
+def _phase(fn, *args):
+    """Run one phase and log its wall time and the run's so far."""
+    t0 = time.time()
+    out = fn(*args)
+    log(f"[{fn.__name__}: {time.time() - t0:.1f}s; {time.time() - _T0:.1f}s "
+        f"since the start]")
+    return out
+
+
 def main():
     smi = phase_device()
-    phase_build()
+    _phase(phase_build)
     errs, serve_times, train_times = {}, {}, {}
     enc_times = {}
     launches = {name: 0 for name in (
@@ -2705,42 +3321,54 @@ def main():
         for name in (f"lln_causal (state, {tag})", f"block_diag ({tag})",
                      f"lln_decode ({tag})"):
             launches[name] = 0
-    phase_kernels(errs)
-    phase_kernels_train(errs)
-    phase_kernels_encoder(errs)
-    phase_kernels_loglin(errs)
-    phase_kernels_ssd(errs)
-    phase_kernels_hybrid_attn(errs)
-    phase_kernels_hybrid_serve(errs)
-    phase_kernels_dense(errs)
-    phase_small()
-    phase_small_train()
-    phase_small_encoder()
-    phase_small_loglin()
-    phase_small_ssm()
-    phase_small_hybrid_serve()
-    phase_serve(launches, serve_times)
-    phase_serve_loglin(launches, serve_times)
-    phase_serve_softmax_ssm(launches, serve_times)
-    phase_serve_dense(launches, serve_times)
-    phase_contract(errs)
-    phase_renorm(launches, serve_times)
-    phase_instruments(errs)
-    phase_train(launches, train_times)
-    phase_encoder_train(launches, enc_times)
-    phase_encoder_forward(launches, enc_times)
-    phase_ssm_train(launches, train_times)
-    phase_hybrid_train(launches, train_times)
-    rows, decode_times = phase_timings(errs, launches)
-    train_rows, fused_zamba2 = phase_timings_train(errs, launches)
+    _phase(phase_kernels, errs)
+    _phase(phase_kernels_train, errs)
+    _phase(phase_kernels_encoder, errs)
+    _phase(phase_kernels_loglin, errs)
+    _phase(phase_kernels_ssd, errs)
+    _phase(phase_kernels_hybrid_attn, errs)
+    _phase(phase_kernels_hybrid_serve, errs)
+    _phase(phase_kernels_dense, errs)
+    _phase(phase_f4, errs)
+    _phase(phase_small)
+    _phase(phase_small_train)
+    _phase(phase_small_encoder)
+    _phase(phase_small_loglin)
+    _phase(phase_small_ssm)
+    _phase(phase_small_hybrid_serve)
+    _phase(phase_serve, launches, serve_times)
+    _phase(phase_serve_loglin, launches, serve_times)
+    _phase(phase_serve_softmax_ssm, launches, serve_times)
+    _phase(phase_serve_dense, launches, serve_times)
+    _phase(phase_contract, errs)
+    _phase(phase_renorm, launches, serve_times)
+    _phase(phase_instruments, errs)
+    _phase(phase_train, launches, train_times)
+    _phase(phase_encoder_train, launches, enc_times)
+    _phase(phase_encoder_forward, launches, enc_times)
+    _phase(phase_ssm_train, launches, train_times)
+    _phase(phase_hybrid_train, launches, train_times)
+    pool_times, ckpt_times = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        _phase(phase_small_pool, tmp)
+        _phase(phase_pool, launches, pool_times, tmp)
+        _phase(phase_ckpt_train, launches, ckpt_times, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _phase(phase_remat_dots, launches, train_times)
+    rows, decode_times = _phase(phase_timings, errs, launches)
+    train_rows, fused_zamba2 = _phase(phase_timings_train, errs, launches)
     rows += train_rows
-    enc_rows, block_diag_bidir = phase_timings_encoder(errs, launches)
+    enc_rows, block_diag_bidir = _phase(phase_timings_encoder, errs, launches)
+    _phase(phase_timings_f4, errs, next(r for r in enc_rows
+                                if r["name"] == "block_diag_bwd"))
     rows += enc_rows
-    rows.append(phase_timings_loglin(errs, launches))
-    ssd_row, ssd_zamba2, ssd_layer = phase_timings_ssd(errs, launches)
+    rows.append(_phase(phase_timings_loglin, errs, launches))
+    ssd_row, ssd_zamba2, ssd_layer = _phase(phase_timings_ssd, errs, launches)
     rows.append(ssd_row)
-    rows += phase_timings_hybrid_serve(errs, launches)
-    rows += phase_timings_dense(errs, launches)
+    rows += _phase(phase_timings_hybrid_serve, errs, launches)
+    rows += _phase(phase_timings_dense, errs, launches)
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))
@@ -2752,6 +3380,8 @@ def main():
     log("lln_diag_fused / lln_diag_fused_bwd (zamba2-7b shape): "
         + json.dumps(fused_zamba2))
     log("ops.ssd_scan per layer: " + json.dumps(ssd_layer))
+    log("pool times: " + json.dumps(pool_times))
+    log("checkpoint (roberta-lln train state): " + json.dumps(ckpt_times))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

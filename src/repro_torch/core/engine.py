@@ -6,7 +6,8 @@ decode state, the softmax KV cache (``k``/``v``/``len``) or the LLN state
 log-linear bucket pyramid, the per-row position and calibration;
 :class:`AttentionEngine` binds an
 :class:`~repro_torch.kernels.registry.AttnSpec` to a layer's head geometry
-and runs ``init_state -> prefill -> decode*``.
+and runs ``init_state -> prefill -> decode*``, with ``check_health`` and
+``evict`` for the serving pool.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 from repro_torch.configs.base import torch_dtype
 from repro_torch.kernels import registry as kreg
 from repro_torch.kernels.registry import AttnSpec
+from repro_torch.tree import map_with_path
+from . import health as health_mod
 from . import moment_matching as mm
 from .attention import (KVCache, LLNDecodeState, batch_alpha_beta,
                         decode_lln_chunk, decode_softmax)
@@ -238,3 +241,40 @@ class AttentionEngine:
             s=st2.lln.s, z=st2.lln.z, c_k=st2.lln.c_k,
             log_scale=st2.lln.log_scale, tail_k=st2.tail_k,
             tail_v=st2.tail_v, pos=st2.pos)
+
+    def check_health(self, state: AttentionState, *,
+                     config: Optional[health_mod.HealthConfig] = None
+                     ) -> dict:
+        """Per-row state-health flags (the serving sentinel hook):
+        ``{"unhealthy", "nonfinite", "magnitude", "calib"}``, each a (B,)
+        bool over the state's rows (``core/health.py``).  A freshly evicted
+        row (zeros, alpha = beta = 1) is healthy by construction."""
+        cfg = config if config is not None else health_mod.HealthConfig()
+        return health_mod.row_health(state, config=cfg)
+
+    def evict(self, state: AttentionState, rows) -> AttentionState:
+        """Reset the given rows (freed slots) of every state leaf to their
+        ``init_state`` values; the state passed in is not modified.
+
+        ``rows``: slot indices, or a (B,) bool mask of the rows to clear.
+        Every leaf resets to zero except the per-row calibration
+        ``alpha``/``beta``, which resets to one (its init value): a
+        previous request's constants must never reach the next request
+        admitted to that slot."""
+        return evict_rows(state, rows)
+
+
+def evict_rows(tree, rows):
+    """:meth:`AttentionEngine.evict` over any decode-state tree whose
+    leaves carry the rows on axis 0 (one state, or a model's per-layer
+    caches)."""
+    def clear(path, leaf):
+        fill = 1 if path[-1] in ("alpha", "beta") else 0
+        if torch.is_tensor(rows) and rows.dtype == torch.bool:
+            return leaf.masked_fill(rows.to(leaf.device).reshape(
+                (-1,) + (1,) * (leaf.ndim - 1)), fill)
+        out = leaf.clone()
+        out[torch.as_tensor(rows, dtype=torch.long,
+                            device=leaf.device)] = fill
+        return out
+    return map_with_path(clear, tree)

@@ -18,12 +18,12 @@ float.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 
 import numpy as np
 import torch
 
+from ..tree import leaves_with_path
 from .moment_matching import DEFAULT_A, DEFAULT_B
 
 
@@ -158,30 +158,6 @@ def streaming_concentration(z: torch.Tensor, log_scale=None, c=None,
 _STATE_FIELDS = ("z", "c_k", "log_scale", "pos")
 
 
-def _collect(node, found: dict) -> None:
-    """Append every ``z`` / ``c_k`` / ``log_scale`` / ``pos`` tensor of a
-    cache tree to ``found[name]``, in walk order.  The tree is the port's
-    cache layout: dicts and lists of per-layer dicts and dataclasses
-    (``AttentionState``, ``LLNState``, ``LogLinState``, ...)."""
-    if node is None or torch.is_tensor(node):
-        return
-    if isinstance(node, dict):
-        items = node.items()
-    elif isinstance(node, (list, tuple)):
-        items = ((None, v) for v in node)
-    elif dataclasses.is_dataclass(node):
-        items = ((f.name, getattr(node, f.name))
-                 for f in dataclasses.fields(node))
-    else:
-        return
-    for name, value in items:
-        if torch.is_tensor(value):
-            if name in _STATE_FIELDS:
-                found[name].append(value)
-        else:
-            _collect(value, found)
-
-
 def streaming_concentration_tree(tree) -> dict | None:
     """:func:`streaming_concentration` over a whole decode-state tree,
     averaged across layers.
@@ -197,7 +173,9 @@ def streaming_concentration_tree(tree) -> dict | None:
     ``z``).
     """
     found = {name: [] for name in _STATE_FIELDS}
-    _collect(tree, found)
+    for path, leaf in leaves_with_path(tree):
+        if path and path[-1] in found:
+            found[path[-1]].append(leaf)
     zs, cs, lss, poss = (found[n] for n in _STATE_FIELDS)
     if not zs:
         return None

@@ -30,10 +30,13 @@
 // exp2(s - lse) on the special-function unit), then dsm and dq += dsm k;
 // it saves (lse, delta).  The dk/dv kernel, per (kv head, block, 64-key tile),
 // recomputes p from lse and dsm from delta for each 32-query slice and
-// accumulates dk += dsm^T q and dv += p^T g in MMA accumulators.  q k^T and
-// g v^T take the raw bf16 operands (exact products, fp32 sums); the fp32
-// left operands p and dsm go in as hi + lo bf16 (two MMAs, about 2^-17
-// relative).  Bound on the H100: bytes at the encoder shapes (the fp32
+// accumulates dk += dsm^T q and dv += p^T g, each 32-query slice's products
+// in a fresh MMA accumulator added to the total in fp32.  q k^T and g v^T
+// take the raw bf16 operands (exact products, fp32 sums); the fp32 left
+// operands p and dsm go in as three bf16 planes (three MMAs, about 2^-24
+// relative), as the fused pair's backward takes them: with hi + lo alone
+// the sums over r = 16 query heads missed the 1e-5 gradient gate.  The
+// dq kernel sums over one block's keys only and keeps hi + lo.  Bound on the H100: bytes at the encoder shapes (the fp32
 // gradients are most of them; see chip_smoke.py).
 //
 // fp32 (the card tests and the SMOKE parity runs): the CUDA-core kernels,
@@ -560,12 +563,9 @@ block_diag_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   stage_q(0, 0);
   cp_async_commit();
 
-  float ak[NO][4], av[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    ak[j][0] = ak[j][1] = ak[j][2] = ak[j][3] = 0.f;
-    av[j][0] = av[j][1] = av[j][2] = av[j][3] = 0.f;
-  }
+  float ak[NO][4], av[NO][4], part[NO][4];
+  zero_acc(ak);
+  zero_acc(av);
   const __nv_bfloat16* ak_s = sk + warp * 16 * LD;
   const __nv_bfloat16* av_s = sv + warp * 16 * LD;
 
@@ -611,10 +611,24 @@ block_diag_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
           dt[j][e] = p * (dt[j][e] - ((e & 1) ? dl.y : dl.x));
         }
       }
-      mma_pb_p<NO, 2, 2, 1>(av, pt, tg + qa * LD, 0, LD, nov,
-                            lane);                      // dv += p^T g
-      mma_pb_p<NO, 2, 2, 1>(ak, dt, tq + qa * LD, 0, LD, nok,
-                            lane);                      // dk += dsm^T q
+      // Each slice's products go into a fresh accumulator that is added
+      // to the total in fp32: the tensor cores' own accumulation does not
+      // round to nearest, and its error would grow with the r x blk query
+      // rows summed.
+      zero_acc(part);
+      mma_pb_p<NO, 2, 3, 1>(part, pt, tg + qa * LD, 0, LD, nov,
+                            lane);                      // p^T g
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) av[j][e] += part[j][e];
+      zero_acc(part);
+      mma_pb_p<NO, 2, 3, 1>(part, dt, tq + qa * LD, 0, LD, nok,
+                            lane);                      // dsm^T q
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ak[j][e] += part[j][e];
     }
     __syncthreads();                 // this stage is free for the prefetch
   }

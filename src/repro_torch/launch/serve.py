@@ -9,8 +9,16 @@ the first decode step is timed on its own and the rest give the steady
 tok/s.  ``--attn-impl`` takes ``softmax`` (every config's default),
 ``lln``, ``lln_diag`` and ``log_linear``; ``--arch`` the dense decoders
 (yi-9b, qwen3-14b, stablelm-1.6b, chatglm3-6b) and the SSM / hybrid LMs
-(mamba2-130m, zamba2-7b).  Continuous
-batching, speculative decoding and meshes are not ported yet and raise
+(mamba2-130m, zamba2-7b).  ``--continuous`` serves mixed-length
+synthetic traffic from a slotted request pool (``launch/batcher.py``) with
+the health sentinel, fault injection (``--fault-plan``) and pool snapshots
+(``--snapshot-dir``, ``--snapshot-every``, ``--restore``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
+      --attn-impl lln_diag --device cpu --continuous --requests 8 \
+      --gen-lens 4,12
+
+Speculative decoding and meshes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -20,9 +28,14 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.launch.steps import make_serve_setup, sample_token
+from repro_torch.core.health import HealthConfig
+from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+from repro_torch.launch.faults import FaultPlan, SimulatedCrash
+from repro_torch.launch.steps import (make_pool_setup, make_serve_setup,
+                                      sample_token)
 from repro_torch.models import synthetic_batch
 
 
@@ -52,24 +65,37 @@ def _parser() -> argparse.ArgumentParser:
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--continuous", action="store_true")
     ap.add_argument("--speculative", action="store_true")
-    # The reference's flags of the continuous and speculative modes: they
-    # parse, so a reference command line reaches the NotImplementedError
-    # that names the ROADMAP item.
-    for flag, kind in (("--draft-layers", int), ("--spec-k", int),
-                       ("--requests", int), ("--segment", int),
-                       ("--gen-lens", str), ("--prompt-lens", str),
-                       ("--deadline", float), ("--queue-cap", int),
-                       ("--fault-plan", str), ("--snapshot-dir", str),
-                       ("--snapshot-every", int)):
-        ap.add_argument(flag, type=kind, default=None)
-    for flag in ("--drift", "--no-health", "--restore"):
-        ap.add_argument(flag, action="store_true")
+    # The speculative mode's flags parse, so a reference command line
+    # reaches the NotImplementedError that names the ROADMAP item.
+    ap.add_argument("--draft-layers", type=int, default=None)
+    ap.add_argument("--spec-k", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--segment", type=int, default=8)
+    ap.add_argument("--gen-lens", default=None,
+                    help="comma-separated generation budgets of the "
+                    "--continuous traffic")
+    ap.add_argument("--prompt-lens", default=None,
+                    help="comma-separated prompt lengths (default: "
+                    "--prompt-len)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="per-request wall-clock budget in seconds")
+    ap.add_argument("--queue-cap", type=int, default=1024)
+    ap.add_argument("--drift", action="store_true",
+                    help="quarantine rows whose concentration drifts")
+    ap.add_argument("--no-health", dest="health", action="store_false",
+                    default=True, help="turn the state-health sentinel off")
+    ap.add_argument("--fault-plan", default=None,
+                    help="FaultPlan JSON (a path or an inline literal)")
+    ap.add_argument("--snapshot-dir", default=None)
+    ap.add_argument("--snapshot-every", type=int, default=4)
+    ap.add_argument("--restore", action="store_true",
+                    help="resume the pool from --snapshot-dir's latest "
+                    "snapshot")
     return ap
 
 
 # What each unported mode waits for (ROADMAP.md, queue 1).
 _NOT_PORTED = {
-    "continuous": "continuous batching (ROADMAP.md queue 1, item 8)",
     "speculative": "speculative decoding (ROADMAP.md queue 1, item 9)",
     "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
 }
@@ -77,10 +103,9 @@ _NOT_PORTED = {
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    for flag in ("continuous", "speculative"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet: "
-                                      f"{_NOT_PORTED[flag]}")
+    if args.speculative:
+        raise NotImplementedError(f"--speculative is not ported yet: "
+                                  f"{_NOT_PORTED['speculative']}")
     if args.mesh != "1,1":
         raise NotImplementedError(f"--mesh is not ported yet: "
                                   f"{_NOT_PORTED['mesh']}")
@@ -92,6 +117,8 @@ def main(argv=None):
     if args.attn_backend:
         overrides["attn_backend"] = args.attn_backend
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
+    if args.continuous:
+        return _run_continuous(cfg, args)
 
     max_len = args.prompt_len + args.gen
     setup = make_serve_setup(cfg, ShapeSpec("cli", max_len, args.batch,
@@ -143,6 +170,76 @@ def main(argv=None):
           f"({tok_s:.1f} tok/s)")
     print("sample tokens:", toks[0, :16].tolist())
     return toks
+
+
+def _run_continuous(cfg, args):
+    """The continuous-batching pool over mixed-length synthetic traffic."""
+    gen_lens = ([int(x) for x in args.gen_lens.split(",")]
+                if args.gen_lens else [args.gen // 4 or 1] * 3 + [args.gen])
+    prompt_lens = ([int(x) for x in args.prompt_lens.split(",")]
+                   if args.prompt_lens else [args.prompt_len])
+    max_len = max(prompt_lens) + max(gen_lens)
+    plan = FaultPlan.load(args.fault_plan) if args.fault_plan else None
+    mgr = (CheckpointManager(args.snapshot_dir, keep_n=3, interval=1)
+           if args.snapshot_dir else None)
+    setup = make_pool_setup(
+        cfg, args.device, slots=args.batch, max_len=max_len,
+        segment=args.segment, temperature=args.temperature,
+        health=(HealthConfig(check_drift=args.drift) if args.health
+                else None))
+    params = setup.model.init(args.seed)
+    eng = ContinuousBatcher(setup, params, queue_cap=args.queue_cap,
+                            snapshot_mgr=mgr,
+                            snapshot_every=args.snapshot_every if mgr else 0)
+    reqs = synthetic_traffic(args.requests, cfg.vocab, prompt_lens,
+                             gen_lens, seed=args.seed)
+    if args.deadline is not None:
+        for r in reqs:
+            r.deadline_s = args.deadline
+    eng.warmup(prompt_lens)
+    gen = None
+    if args.temperature > 0:
+        gen = torch.Generator(device=setup.device)
+        gen.manual_seed(args.seed + 1)
+    try:
+        stats = eng.run(reqs, generator=gen, fault_plan=plan,
+                        resume=args.restore)
+    except SimulatedCrash as e:
+        print(f"simulated crash at segment boundary {e.segment}; "
+              f"resume with --restore --snapshot-dir {args.snapshot_dir}")
+        return None
+
+    # Useful tokens over dispatched row-steps (+1 prefill-emitted token per
+    # request), as the reference's report.
+    util = stats.completed_tokens / max(
+        stats.decode_steps * args.batch + max(stats.admitted, 1), 1)
+    print(f"continuous: {args.requests} requests over {args.batch} slots, "
+          f"segment={args.segment}, gen_lens={gen_lens}")
+    print(f"  {stats.completed_tokens} tokens in {stats.wall_s:.3f}s "
+          f"({stats.completed_tokens / max(stats.wall_s, 1e-9):.1f} tok/s "
+          f"goodput), {stats.segments} segments, "
+          f"slot utilization {util:.2f}")
+    by = {}
+    for v in stats.statuses.values():
+        by[v] = by.get(v, 0) + 1
+    print(f"  statuses: {by}; recoveries={stats.recoveries}, "
+          f"snapshots={stats.snapshots}, "
+          f"stragglers={len(stats.stragglers)}, "
+          f"segment EWMA {stats.segment_ewma_s * 1e3:.1f}ms"
+          + (f" (restored from step {stats.restored_step})"
+             if stats.restored_step is not None else ""))
+    if stats.telemetry:
+        t = stats.telemetry
+        print(f"  concentration: drift_max {t['conc_drift_max']:.2f}, "
+              f"log_mass {t['log_mass_mean']:.2f}, "
+              f"log_var {t['log_mass_var_mean']:.3f}, "
+              f"tau_hat {t['tau_hat_mean']:.3f}"
+              + (" [drift quarantine ON]" if args.drift else ""))
+    if stats.outputs:
+        rid0 = min(stats.outputs)
+        print(f"request {rid0} tokens:",
+              stats.outputs[rid0][:16].tolist())
+    return stats
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Step builders (port of ``repro.launch.steps``): the train step and the
-serving steps.
+"""Step builders (port of ``repro.launch.steps``): the train step, the
+serving steps and the continuous-batching pool (``PoolSetup``).
 
 The reference jits its steps and folds generation into one ``lax.scan``;
 here PyTorch runs eagerly, generation is a Python loop of decode steps and
@@ -14,9 +14,13 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.core.engine import evict_rows
+from repro_torch.core.health import HealthConfig, unhealthy_rows
+from repro_torch.core.metrics import streaming_concentration_tree
 from repro_torch.models import Model, build_model
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -182,3 +186,173 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec,
     return ServeSetup(model=model, prefill_fn=prefill_fn,
                       decode_fn=model.decode, make_generate=make_generate,
                       batch=shape.global_batch, seq_len=shape.seq_len)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: a slotted request pool over per-row caches.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PoolSetup:
+    """The building blocks of the continuous-batching pool
+    (``launch/batcher.py`` drives them).  The caches are the model's
+    per-layer lists with the slots on axis 0 of every leaf.
+
+    * ``cache_init()`` - zeroed pool caches for ``slots`` rows at
+      ``max_len``: (B,) positions and lengths, (B, H) calibration, so each
+      slot sits at its own depth with its own prompt's constants.
+    * ``prefill_fn(params, tokens (batch, plen)) -> (last logits, slot
+      caches)`` at the requests' exact prompt length (an
+      LLN state sums every key it sees, so a right-padded prompt would
+      corrupt it).  With per-row calibration a same-length group prefills
+      in one call and stays exact per request.
+    * ``admit_fn(pooled, slot_caches, slot_idx)`` - the pooled caches with
+      the k rows of a slot-local cache written into rows ``slot_idx`` ((k,)
+      int); the caches passed in are not modified.
+    * ``segment_fn(params, caches, tok, pos, remaining, active,
+      generator=None) -> (caches, tok, pos, remaining, active, tokens (S,
+      B), emitted (S, B), unhealthy (B,), metrics)`` - ``segment`` decode
+      steps in an eager loop.  Each step decodes every slot under
+      ``row_mask=active``, zeroes the masked rows' logits before sampling
+      (they are garbage by the decode contract, NaN even after a fault),
+      advances the active rows' positions and retires the rows whose
+      ``remaining`` reaches zero.  After the loop, ``unhealthy`` is the
+      health sentinel (``core/health.py``) on the post-segment caches
+      (all False with ``health=None``) and ``metrics`` the streaming
+      concentration telemetry (``log_mass``, ``log_mass_var``,
+      ``tau_hat``, ``conc_drift``; None without LLN state); with ``health.check_drift`` an active row whose
+      ``|conc_drift|`` exceeds ``health.max_conc_drift`` is unhealthy too.
+    * ``replay_fn(params, caches, chunk (B, R), pos (B,), commit (B,))``
+      - advance rows over tokens they already committed, emitting nothing:
+      one chunked decode under ``commit_len`` (rows with ``commit = 0``
+      are untouched).  The quarantine recovery re-prefills a row's prompt
+      and replays its emitted tokens in ``REPLAY_CHUNK`` pieces.
+    * ``evict_fn(caches, row_mask)`` - the engine's ``evict`` over the
+      whole cache tree: the rows where ``row_mask`` ((slots,) bool) is
+      True reset to zero, their ``alpha``/``beta`` to one.
+    """
+    cfg: Any
+    model: Model
+    slots: int
+    max_len: int
+    segment: int
+    temperature: float
+    cache_init: Any
+    prefill_fn: Any
+    admit_fn: Any
+    segment_fn: Any
+    evict_fn: Any
+    replay_fn: Any
+    health: Any = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+
+_HEALTH_DEFAULT = HealthConfig()
+REPLAY_CHUNK = 8            # tokens per replay_fn call in a recovery
+
+
+def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
+                    max_len: int, segment: int = 8,
+                    temperature: float = 0.0,
+                    health: Optional[HealthConfig] = _HEALTH_DEFAULT,
+                    spec_k: int = 0) -> PoolSetup:
+    """The pool's building blocks for ``cfg`` on ``device`` (the CUDA card
+    unless the caller asks for another device): the dense decoders and the
+    ssm / hybrid LMs, with every serving impl.  The pool's model calibrates
+    per row (``lln_per_row_calib=True``, as in the reference): each
+    request's alpha/beta come from its own prompt, which keeps a batched
+    slot prefill exact per request.  ``health=None`` turns the sentinel
+    off.
+    ``spec_k >= 1`` (speculative pool rows) waits for ROADMAP.md queue 1,
+    item 9, and MoE / MLA configs for item 11b."""
+    if cfg.family in ("moe", "mla_moe", "encdec", "vlm") or cfg.kv_lora > 0:
+        raise NotImplementedError(
+            f"continuous batching of the {cfg.family} family is not ported "
+            "yet (ROADMAP.md queue 1, item 11b)")
+    if cfg.family not in ("dense", "ssm", "hybrid"):
+        raise NotImplementedError(
+            "continuous batching serves decoders only "
+            f"(family={cfg.family})")
+    if spec_k < 0:
+        raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+    if spec_k >= 1:
+        raise NotImplementedError(
+            "speculative pool rows are not ported yet (ROADMAP.md queue 1, "
+            "item 9)")
+    cfg = cfg.replace(lln_per_row_calib=True)
+    model = build_model(cfg, device)
+
+    def cache_init():
+        return model.cache_init(None, slots, max_len, per_row=True)
+
+    def prefill_fn(params, tokens):
+        return model.prefill(params, {"inputs": tokens}, max_len)
+
+    @torch.inference_mode()
+    def admit_fn(pooled, slot_caches, slot_idx):
+        idx = torch.as_tensor(slot_idx, dtype=torch.long,
+                              device=model.device)
+        return tree_map(
+            lambda pl, sl: pl.index_copy(0, idx, sl.to(pl.dtype)),
+            pooled, slot_caches)
+
+    @torch.inference_mode()
+    def evict_fn(pooled, row_mask):
+        return evict_rows(pooled, row_mask)
+
+    def _sentinel(caches, active):
+        if health is not None:
+            unhealthy = unhealthy_rows(caches, config=health)
+        else:
+            unhealthy = torch.zeros(slots, dtype=torch.bool,
+                                    device=model.device)
+        conc = streaming_concentration_tree(caches)
+        metrics = None
+        if conc is not None:
+            zero = torch.zeros(slots, dtype=torch.float32,
+                               device=model.device)
+            metrics = {k: conc.get(k, zero).float()
+                       for k in ("log_mass", "log_mass_var", "tau_hat",
+                                 "conc_drift")}
+            if health is not None and health.check_drift:
+                # Gated on active: a free slot's zero state has a
+                # meaningless (hugely negative) log mass.
+                unhealthy = unhealthy | (
+                    active & (metrics["conc_drift"].abs()
+                              > health.max_conc_drift))
+        return unhealthy, metrics
+
+    @torch.inference_mode()
+    def segment_fn(params, caches, tok, pos, remaining, active,
+                   generator=None):
+        toks, emitted = [], []
+        for _ in range(segment):
+            logits, caches = model.decode(params, caches, tok, pos,
+                                          row_mask=active)
+            logits = logits.masked_fill(~active[:, None], 0.0)
+            nxt = sample_token(logits, temperature, generator)
+            tok = torch.where(active, nxt, tok)
+            toks.append(tok)
+            emitted.append(active)
+            adv = active.to(pos.dtype)
+            pos = pos + adv
+            remaining = remaining - adv
+            active = active & (remaining > 0)
+        unhealthy, metrics = _sentinel(caches, active)
+        return (caches, tok, pos, remaining, active, torch.stack(toks),
+                torch.stack(emitted), unhealthy, metrics)
+
+    @torch.inference_mode()
+    def replay_fn(params, caches, chunk, pos, commit):
+        _, caches = model.decode(params, caches, chunk, pos,
+                                 commit_len=commit)
+        return caches
+
+    return PoolSetup(cfg=cfg, model=model, slots=slots, max_len=max_len,
+                     segment=segment, temperature=temperature,
+                     cache_init=cache_init, prefill_fn=prefill_fn,
+                     admit_fn=admit_fn, segment_fn=segment_fn,
+                     evict_fn=evict_fn, replay_fn=replay_fn, health=health)

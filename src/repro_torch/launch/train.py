@@ -13,7 +13,13 @@ As in the reference, the attention and SSD kernels are reached only with
 ``use_kernel=True`` in the config (``get_config(..., use_kernel=True)``);
 the CLI leaves it at its default, so it trains through the core scans.
 ``--attn-impl`` takes ``softmax`` (every config's default), ``lln`` and
-``lln_diag``.  Meshes and checkpointing are not ported yet and raise
+``lln_diag``.  ``--ckpt-dir`` restores or initializes ``{"params",
+"opt"}`` through ``CheckpointManager``, starts the data stream at the
+restored step, saves every ``--ckpt-interval`` steps on a thread and
+once more at the end.  Its step labels are the reference's: the state
+saved under label ``step`` is the state after step ``step`` has run, and
+a resume from it starts at ``step`` (so step ``step`` runs twice; a quirk
+of the reference, kept).  Meshes are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -22,6 +28,7 @@ import argparse
 import json
 import time
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import HostShardedSource, Prefetcher, torch_placer
@@ -32,7 +39,6 @@ from repro_torch.launch.steps import make_train_setup
 # What each unported option waits for (ROADMAP.md, queue 1).
 _NOT_PORTED = {
     "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
-    "ckpt": "checkpoint/ (ROADMAP.md queue 1, item 7)",
 }
 
 
@@ -64,9 +70,6 @@ def main(argv=None):
     if args.mesh != "1,1":
         raise NotImplementedError(f"--mesh is not ported yet: "
                                   f"{_NOT_PORTED['mesh']}")
-    if args.ckpt_dir:
-        raise NotImplementedError(f"--ckpt-dir is not ported yet: "
-                                  f"{_NOT_PORTED['ckpt']}")
     overrides = {}
     if args.attn_impl:
         overrides["attn_impl"] = args.attn_impl
@@ -75,11 +78,19 @@ def main(argv=None):
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     setup = make_train_setup(cfg, shape, device=args.device,
                              peak_lr=args.lr, total_steps=args.steps)
-    state = setup.init_state(args.seed)
+    start_step = 0
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval)
+        state, start_step = mgr.restore_or_init(
+            lambda: setup.init_state(args.seed))
+    else:
+        state = setup.init_state(args.seed)
 
     batches = mlm_batches if cfg.family == "encoder" else lm_batches
     source = HostShardedSource(
-        lambda b, s: batches(cfg.vocab, b, args.seq, seed=s), args.batch)
+        lambda b, s: batches(cfg.vocab, b, args.seq, seed=s), args.batch,
+        start_step=start_step)
     pipe = Prefetcher(source, place=torch_placer(setup.device))
     watchdog = StepWatchdog(
         on_anomaly=lambda r: print(f"[straggler] step {r.step} took "
@@ -87,7 +98,7 @@ def main(argv=None):
     history = []
     t_start = time.time()
     try:
-        for step in range(args.steps):
+        for step in range(start_step, args.steps):
             batch = next(pipe)
             watchdog.start()
             state, metrics = setup.step_fn(state, batch)
@@ -98,11 +109,16 @@ def main(argv=None):
                       f"gnorm {float(metrics['grad_norm']):7.3f}  "
                       f"lr {float(metrics['lr']):.2e}", flush=True)
             history.append({"step": step, "loss": loss})
+            if mgr:
+                mgr.maybe_save(step, state)
     finally:
         pipe.close()
+    if mgr:
+        mgr.finalize(args.steps, state)
     dt = time.time() - t_start
-    print(f"done: {args.steps} steps in {dt:.1f}s "
-          f"({args.steps / max(dt, 1e-9):.2f} it/s); "
+    ran = args.steps - start_step
+    print(f"done: {ran} steps in {dt:.1f}s "
+          f"({ran / max(dt, 1e-9):.2f} it/s); "
           f"{len(watchdog.anomalies)} straggler events")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:

@@ -152,11 +152,18 @@ def hybrid_logits(p: HybridLM, tokens, cfg):
 # Serving.
 # ---------------------------------------------------------------------------
 
-def hybrid_cache_init(p: HybridLM, cfg, batch: int, max_len: int) -> dict:
+def hybrid_cache_init(p: HybridLM, cfg, batch: int, max_len: int,
+                      per_row: bool = False, device=None) -> dict:
     """Zeroed decode caches: one ``{"state", "conv"}`` per Mamba2 layer and
     one :class:`~repro_torch.core.engine.AttentionState` per application
-    of the shared block (a softmax KV cache of ``max_len`` positions)."""
-    device = p.embed_table.device
+    of the shared block (a softmax KV cache of ``max_len`` positions).
+    ``per_row`` is accepted for the pool's signature, as the reference's
+    is: the SSM caches carry no position counters and the attention state
+    is per row by construction, so the layout is the same either way.
+    The caches go on ``device``, by default the parameters'."""
+    del per_row
+    if device is None:
+        device = p.embed_table.device
     g, _, _ = _groups(cfg)
     caches = {"layers": [ssm_cache_init(cfg, batch, device)
                          for _ in range(cfg.n_layers)]}

@@ -13,8 +13,11 @@ original tokens and the mask the masked positions).
 caches); ``decode``: params, caches, token (B,) or (B, T), position,
 optionally ``row_mask`` / ``commit_len`` (the serving contract of
 ``AttentionEngine.decode``) -> (logits, caches); ``cache_init``: params,
-batch size, max_len -> zeroed caches.  ``max_len`` sizes softmax KV
-caches; the LLN impls and the SSM layers ignore it.  The encoder has no serving path and raises.
+batch size, max_len (and ``per_row``, accepted as in the reference: the
+port's states are always per row) -> zeroed caches on the model's device
+(the params may be None).  ``max_len`` sizes softmax KV caches; the LLN
+impls and the SSM layers ignore it.  The encoder has no serving path and
+raises.
 """
 from __future__ import annotations
 
@@ -97,8 +100,8 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
             commit_len=None: hy.hybrid_decode(
                 params, caches, token, cfg, pos, row_mask=row_mask,
                 commit_len=commit_len),
-            cache_init=lambda params, b, max_len: hy.hybrid_cache_init(
-                params, cfg, b, max_len),
+            cache_init=lambda params, b, max_len, per_row=False:
+            hy.hybrid_cache_init(params, cfg, b, max_len, per_row, dev),
             param_count=_count)
 
     def loss(params, batch):
@@ -117,8 +120,8 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
         decode=lambda params, caches, token, pos, row_mask=None,
         commit_len=None: tr.lm_decode(params, caches, token, cfg, pos,
                                       row_mask, commit_len),
-        cache_init=lambda params, b, max_len: tr.lm_cache_init(
-            params, cfg, b, max_len),
+        cache_init=lambda params, b, max_len, per_row=False:
+        tr.lm_cache_init(params, cfg, b, max_len, per_row, dev),
         param_count=_count)
 
 

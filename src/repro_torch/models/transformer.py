@@ -4,7 +4,8 @@
 The reference stacks layers along a leading axis and runs them with
 ``lax.scan`` under ``jax.checkpoint``; here the layers are a ``ModuleList``
 and a Python loop, each block under ``torch.utils.checkpoint`` when
-``cfg.remat == "full"``.  Parameter names match the reference pytree
+``cfg.remat`` is ``"full"`` or ``"dots"`` (a selective checkpoint that
+keeps the matrix products' outputs).  Parameter names match the reference pytree
 (``embed.table``, ``final_norm``, ``layers[i].{ln1, ln2, attn, mlp}``,
 ``lm_head``) so ``convert.py`` is a copy.
 """
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention_block import (Attention, attn_apply, serve_decode,
                               serve_prefill, serve_state_init)
@@ -69,13 +71,30 @@ def block_apply(p: Block, x, cfg, positions, *, causal: bool = True):
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype)
 
 
+# The products ``remat="dots"`` keeps: matrix products without batch
+# dimensions (the reference's ``dots_with_no_batch_dims_saveable``).
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(fn, cfg):
+    """``fn`` under the config's rematerialization: ``none``; ``full``
+    (keep the inputs, recompute everything in the backward); ``dots``
+    (keep the outputs of the matrix products without batch dimensions,
+    recompute everything else, the kernels' autograd Functions included)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs) is not ported yet; see "
-            "ROADMAP.md queue 1, item 7")
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=_dots_context)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -120,10 +139,17 @@ def block_decode(p: Block, x, cache, cfg, position, *, row_mask=None,
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), cache
 
 
-def lm_cache_init(p: DenseLM, cfg, batch: int, max_len: int) -> dict:
+def lm_cache_init(p: DenseLM, cfg, batch: int, max_len: int,
+                  per_row: bool = False, device=None) -> dict:
     """Per-layer decode states, ``{"layers": [AttentionState, ...]}``
-    (softmax KV caches of ``max_len`` positions)."""
-    device = p.embed_table.device
+    (softmax KV caches of ``max_len`` positions).  The state is always per
+    row ((B,) ``len``/``pos``, (B, H) alpha/beta; the static lockstep batch
+    is the degenerate case), so ``per_row`` is accepted, as the
+    reference's is, and changes nothing.  The caches go on ``device``,
+    by default the parameters'."""
+    del per_row
+    if device is None:
+        device = p.embed_table.device
     return {"layers": [serve_state_init(cfg, batch, max_len, device)
                        for _ in range(cfg.n_layers)]}
 

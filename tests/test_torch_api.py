@@ -72,6 +72,27 @@ def test_core_exports(name):
     assert name in tcore.__all__ and hasattr(tcore, name)
 
 
+@pytest.mark.parametrize("module,name", [
+    ("repro_torch.launch.batcher", "ContinuousBatcher"),
+    ("repro_torch.launch.batcher", "synthetic_traffic"),
+    ("repro_torch.launch.steps", "make_pool_setup"),
+    ("repro_torch.launch.steps", "PoolSetup"),
+    ("repro_torch.core.health", "HealthConfig"),
+    ("repro_torch.checkpoint", "CheckpointManager"),
+    ("repro_torch.optim", "bf16_allreduce_cast"),
+    ("repro_torch.optim", "ef_init"),
+    ("repro_torch.optim", "ef_compress"),
+    ("repro_torch.optim", "ef_decompress")])
+def test_serving_and_training_exports(module, name):
+    """The pool, the sentinel, the checkpoints and the gradient
+    compression, under the reference's module names."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert hasattr(mod, name)
+    if hasattr(mod, "__all__"):
+        assert name in mod.__all__
+
+
 @pytest.mark.parametrize("which", ["q", "k"])
 @pytest.mark.parametrize("param", ["scalar", "heads", "rows"])
 def test_feature_maps(which, param):

@@ -117,8 +117,9 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         serve.main(["--arch", "yi-9b", "--smoke", "--attn-impl", "lln"])
 
 
-@pytest.mark.parametrize("argv", [["--continuous", "--requests", "12",
-                                   "--segment", "4", "--gen-lens", "3,17"],
+@pytest.mark.parametrize("argv", [["--continuous", "--speculative",
+                                   "--requests", "12", "--segment", "4",
+                                   "--gen-lens", "3,17"],
                                   ["--speculative", "--spec-k", "3"],
                                   ["--attn-impl", "log_linear",
                                    "--speculative", "--spec-k", "3"],

@@ -13,9 +13,12 @@ and round once.  The training kernels' fp32 outputs (den and every
 gradient) are held to 1e-5 of the largest entry, as on the CPU against the
 reference; gradients through the autograd Functions to 1e-4.
 ``block_diag`` and ``block_diag_bwd`` (bf16 on the tensor cores, with the
-fp32 p and dsm as hi + lo bf16; fp32 on the CUDA cores) are held at blk 16,
-64 and 256, N 64, 300 and 512, D = Dv = 64 and 128 and one D != Dv, r in
-{1, 4, 8}, causal and not, their backward's two runs bitwise equal.  The
+fp32 p as hi + lo bf16 forward and in the backward's dq kernel, p and dsm
+as three bf16 planes in its dk/dv kernel; fp32 on the CUDA cores) are held
+at blk 16, 64 and 256, N 64, 300 and 512, D = Dv = 64 and 128 and one
+D != Dv, r in {1, 4, 5, 8, 16}, causal and not, their backward's two runs
+bitwise equal.  A 2-slot continuous-batching pool of yi-9b SMOKE on the
+serving kernels equals solo runs token for token.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
 are held the same way at D = 64, r in {1, 4}, whole and ragged N; the
 tensor-core path of ``lln_bidir`` and ``lln_bidir_bwd`` (bf16 v: (s, z)
@@ -1165,3 +1168,40 @@ def test_cuda_flash_softmax_bf16_matches_naive(cuda, causal, r, n, chunk):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     _close(got, want, BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_cuda_pool_matches_solo_runs(cuda, impl):
+    """A 2-slot continuous-batching pool of yi-9b SMOKE (fp32) on the
+    serving kernels: mixed traffic (prompts 8 and 11, budgets 14 and 9,
+    segment 3) gives every request the tokens of the same request served
+    alone through ``make_serve_setup``, token for token, and the pool
+    launches ``lln_causal`` and ``lln_decode`` (``block_diag`` with
+    ``lln_diag``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.steps import make_pool_setup, make_serve_setup
+    cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    setup = make_pool_setup(cfg, cuda, slots=2, max_len=32, segment=3)
+    params = setup.model.init(0)
+    reqs = synthetic_traffic(4, cfg.vocab, prompt_lens=[8, 11],
+                             gen_lens=[14, 9], seed=0)
+    kernels = [lln_causal, lln_decode] + ([block_diag]
+                                          if impl == "lln_diag" else [])
+    before = [f.launches for f in kernels]
+    stats = ContinuousBatcher(setup, params).run(reqs)
+    assert all(f.launches > b for f, b in zip(kernels, before))
+    solo = make_serve_setup(setup.cfg, ShapeSpec("solo", 32, 1, "decode"),
+                            device=cuda)
+    for req in reqs:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=cuda)[None]
+        logits, caches = solo.prefill_fn(params, {"inputs": prompt})
+        tok = torch.argmax(logits[:, -1], -1)
+        toks, _ = solo.make_generate(req.gen_len - 1)(params, caches, tok,
+                                                      len(req.prompt))
+        want = [int(tok)] + toks[0].tolist()
+        assert stats.outputs[req.rid].tolist() == want, req.rid

@@ -175,7 +175,6 @@ def test_train_cli_on_cpu(impl, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2,1"], "mesh"),
-    (["--ckpt-dir", "x"], "checkpoint"),
 ])
 def test_train_cli_refuses_unported_options(argv, match):
     base = ["--arch", "yi-9b", "--smoke", "--device", "cpu", "--steps", "1",
