@@ -111,15 +111,33 @@ the checkpoint and pool slice: f4 (block_diag_bwd at r = 16, chatglm3-6b's
 shape, within 1e-5, two runs bitwise; timed as the block_diag_bwd row's
 "r16" entry), small_pool (yi-9b SMOKE fp32 through a 2-slot pool on the
 kernels, equal to solo runs; a nan fault recovered; kill and resume),
-pool (full-width yi-9b behind a 4-slot pool, lln_diag and softmax, 10
-requests: budgets met, first logits against solo prefills, exact launch
-counts, nan and kill faults, steady decode tok/s and busy share),
+pool (full-width yi-9b, PL layers, behind a 4-slot pool, lln_diag and
+softmax, 10 requests: budgets met, first logits against solo prefills,
+exact launch counts, nan and kill faults, steady decode tok/s and busy
+share),
 ckpt_train (full-size roberta-lln: 2 steps, save_now, restore, 2 steps,
 bitwise equal to 4 uninterrupted steps; the train CLI's --ckpt-dir
 resume) and remat_dots (the yi-9b train cell with remat="dots" against
-"full").
+"full").  Since the speculative-decoding slice: spec (yi-9b SMOKE in fp32
+on the kernels: speculative greedy tokens equal to the plain greedy loop
+for lln, lln_diag, log_linear and softmax, the tied full-depth draft
+accepting every draft, AttentionEngine.commit after a commit_len = 0
+verify bitwise equal to decode(commit_len); then full-width, full-depth
+yi-9b with a 24-layer draft, k = 3, batch 4, prompt 512, 32 tokens,
+lln_diag and softmax: exact launch counts, every emitted position's score
+logits against the teacher-forced T = 1 decode, acceptance, tokens per
+iteration, wall and device ms per iteration, busy share, target passes per
+token, beside the plain decode's ms per step) and spec_pool (a SMOKE
+speculative pool equal to solo speculative runs with a nan fault
+recovered bitwise; then the pool cell (PL layers, a PL / 2-layer draft)
+with spec_k = 2: budgets, launch counts, the teacher-forced check per
+pooled iteration, a nan fault replayed on both states).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --phases spec,spec_pool`` runs only the named
+check phases (spec, spec_pool, small_pool) after device and build, and
+prints no kernels line.
 """
 from __future__ import annotations
 
@@ -154,6 +172,7 @@ LEVELS, DECAY = 4, 0.5        # log_linear pyramid (the config's defaults)
 SB, SH, SN, SP, SS = 8, 24, 2048, 64, 128  # mamba2-130m SSD, train batch
 ZB, ZH, ZS, ZD = 4, 112, 64, 112  # zamba2-7b: SSD heads, state, attention dim
 HL = 15                       # zamba2-7b layers: 2 groups of 6, a tail of 3
+PL = 16                       # yi-9b layers behind the pools (pool, spec_pool)
 ZN, MN = 512, 2048            # serving prompts: zamba2-7b, mamba2-130m
 PROFILE_STEPS = 4             # decode steps profiled after the served GEN
 SEED = 0
@@ -240,23 +259,25 @@ def bound_ms(nbytes: float, flops: float, bf16_flops: float = 0.0):
 def device_profile(fn):
     """Run ``fn`` under ``torch.profiler``; return (device ms, every kernel
     as (name, ms, calls), the most device time first).  Device ms is 0.0
-    where the profiler sees no device activity."""
+    where the profiler sees no device activity.
+
+    Only the device activity is traced, and the trace's raw events are
+    summed by name: ``key_averages()`` first builds the host op tree of
+    every event, which on a 48-layer decode step costs seconds of host time
+    per traced step (the device totals are the same)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        # Device-side events only: a host op (aten::mm) also reports the
-        # device time of the kernels it launched, which would count twice.
-        if e.device_type != DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        # Device-side events only (kernels, copies and sets on the card).
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
             continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((e.key, us / 1e3, e.count))
+        ns, calls = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (ns + e.duration_ns(), calls + 1)
+    rows = [(name, ns / 1e6, calls) for name, (ns, calls) in by_name.items()]
     rows.sort(key=lambda x: -x[1])
     return sum(r[1] for r in rows), rows
 
@@ -3049,8 +3070,11 @@ def _teacher_forced(label, sv, params, req, out, trace):
 
 
 def phase_pool(launches, pool_times, tmp):
-    """yi-9b at full width and depth (bf16 weights from the seed) behind a
-    4-slot pool, lln_diag then softmax: 10 requests of synthetic_traffic
+    """yi-9b at full width with PL of its 48 layers (bf16 weights from the
+    seed; the depth is cut so that the script stays well inside its time
+    limit: the pool's checks run every request solo, teacher-forced, with
+    a fault and resumed, all host-bound) behind a 4-slot pool, lln_diag
+    then softmax: 10 requests of synthetic_traffic
     (prompts 128, 300, 512; budgets 8, 24, 40), segment 8, max_len 576.
     Every request ends done with exactly its budget; each request's first
     logits within the serve cell's bound (0.1 of the largest logit) of its
@@ -3058,9 +3082,10 @@ def phase_pool(launches, pool_times, tmp):
     rows, per-row calibration at B = 4) within that bound of the static
     batch-1 decode fed the same tokens (teacher-forced); the greedy
     tokens' agreement with free-running solo runs printed (bf16 GEMMs at
-    batch 4 and 1 may round apart); exact launch counts; a nan fault on one
-    row at segment 2 leaves the healthy rows' tokens bitwise equal to the
-    clean run's; a kill at segment 3 with a snapshot every 2 segments
+    batch 4 and 1 may round apart); exact launch counts; after a nan fault
+    on one row at segment 2 every request's tokens, the hurt one's too
+    (retried: its admission group re-prefilled and its steps replayed),
+    are bitwise the clean run's; a kill at segment 3 with a snapshot every 2 segments
     resumes to the clean run's tokens for every request.  Steady decode
     tok/s (tokens over the segments' wall time) and the device busy share
     (the device ms of the third segment, rerun on a copy of its inputs
@@ -3073,7 +3098,8 @@ def phase_pool(launches, pool_times, tmp):
     from repro_torch.launch.steps import make_pool_setup
     params = None
     for impl in ("lln_diag", "softmax"):
-        cfg = get_config("yi-9b", attn_impl=impl, param_dtype="bfloat16")
+        cfg = get_config("yi-9b", attn_impl=impl, param_dtype="bfloat16",
+                         n_layers=PL)
         setup = make_pool_setup(cfg, slots=B, max_len=576, segment=8)
         if params is None:
             params = setup.model.init(SEED)
@@ -3140,8 +3166,8 @@ def phase_pool(launches, pool_times, tmp):
             "teacher_forced_worst": worst_tf,
             "solo_token_agreement": [agree, total]}
         log(f"  steady decode {steady:.1f} tok/s ({step_ms:.1f} ms per "
-            f"step; the static serve rows: 43.1 and 28.8 tok/s), device "
-            f"{dev_ms:.2f} ms per step (busy {dev_ms / step_ms:.0%})")
+            f"step), device {dev_ms:.2f} ms per step (busy "
+            f"{dev_ms / step_ms:.0%})")
         for name, ms, calls in top[:5]:
             log(f"  top pool segment: {ms:9.3f} ms  {calls:6d} calls  "
                 f"{name[:80]}")
@@ -3150,14 +3176,13 @@ def phase_pool(launches, pool_times, tmp):
         faulty = ContinuousBatcher(setup, params).run(reqs, fault_plan=plan)
         hurt = faulty.health_events[0]["rid"] if faulty.health_events \
             else None
-        if hurt is None or hurt < 0:
-            raise AssertionError(f"pool {impl}: the nan fault hit no "
-                                 f"request: {faulty.health_events}")
-        _same_tokens("nan fault, healthy rows", faulty, clean,
-                     [r.rid for r in reqs if r.rid != hurt])
-        log(f"  hurt request {hurt}: status {faulty.statuses[hurt]}, "
-            f"{int((faulty.outputs[hurt] == clean.outputs[hurt]).sum())} of "
-            f"{len(clean.outputs[hurt])} tokens equal to the clean run's")
+        if hurt is None or hurt < 0 or faulty.recoveries != 1 \
+                or faulty.statuses[hurt] != "retried":
+            raise AssertionError(f"pool {impl}: the nan fault gave "
+                                 f"{faulty.health_events}, "
+                                 f"{faulty.recoveries} recoveries")
+        _same_tokens(f"nan fault (request {hurt} retried)", faulty, clean,
+                     [r.rid for r in reqs])
         resumed = _kill_and_resume(setup, params, reqs, 2, 3,
                                    str(tmp / f"pool_{impl}"))
         if resumed.restored_step != 2:
@@ -3292,6 +3317,539 @@ def phase_remat_dots(launches, train_times):
     train_times["lln_diag remat=dots"] = times
 
 
+SPEC_K, SPEC_POOL_K = 3, 2      # draft tokens per verify: spec, spec_pool
+
+
+def _spec_want(impl, n_layers, draft_layers, k, iters, prefills=0,
+               replays=0):
+    """The launches of the speculative loop, from the code: per prefill
+    every layer of the target and of the draft runs lln_causal (log_linear:
+    loglin_causal), and with lln_diag block_diag; per verify iteration the
+    draft's k T = 1 decodes and its commit decode of the (k+1)-token chunk
+    run lln_decode in each draft layer, the target's score in each target
+    layer, and the target's commit folds in torch (no kernel); a replay
+    decodes both models once.  log_linear's decode runs lln_decode twice
+    per layer and call.  softmax launches nothing."""
+    want = {name: 0 for name in _counts()}
+    if impl == "softmax":
+        return want
+    dec = iters * ((k + 1) * draft_layers + n_layers) \
+        + replays * (draft_layers + n_layers)
+    pre = prefills * (n_layers + draft_layers)
+    if impl == "log_linear":
+        want["loglin_causal"], want["lln_decode"] = pre, 2 * dec
+        return want
+    want["lln_causal"], want["lln_decode"] = pre, dec
+    if impl == "lln_diag":
+        want["block_diag"] = pre
+    return want
+
+
+def _equal_trees(label, got, want):
+    from repro_torch.tree import leaves_with_path
+    for (path, a), (_, b) in zip(leaves_with_path(got),
+                                 leaves_with_path(want)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{label}: state leaf {path} differs")
+
+
+def _commit_is_decode(impl, b, h, g, d, n, blk, seed):
+    """AttentionEngine on the kernel route (backend auto, CUDA tensors):
+    a commit_len = 0 verify leaves the prefilled state bitwise as it was,
+    and commit of (k+1, 0, 1, 2, ...) after it equals decode with that
+    commit_len, bit for bit."""
+    from repro_torch.core.engine import AttentionEngine
+    from repro_torch.kernels.registry import AttnSpec
+    eng = AttentionEngine(spec=AttnSpec(impl=impl, r=h // g, lln_chunk=blk,
+                                        diag_block=blk),
+                          heads=h, kv_heads=g, head_dim=d, v_dim=d)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def qkv(t):
+        return (torch.randn(b, t, h, d, generator=gen, device="cuda"),
+                torch.randn(b, t, g, d, generator=gen, device="cuda"),
+                torch.randn(b, t, g, d, generator=gen, device="cuda"))
+
+    t = SPEC_K + 1
+    _, st = eng.prefill(*qkv(n), max_len=n + t)
+    qc, kc, vc = qkv(t)
+    _, st0, resid = eng.verify(st, qc, kc, vc, commit_len=torch.zeros(
+        b, dtype=torch.int32, device="cuda"), return_residuals=True)
+    _equal_trees(f"{impl} commit_len=0 verify", st0, st)
+    cl = torch.tensor([(t, 0, 1, 2)[i % 4] for i in range(b)],
+                      dtype=torch.int32, device="cuda")
+    got = eng.commit(st0, resid, commit_len=cl)
+    _, want = eng.decode(st, qc, kc, vc, commit_len=cl)
+    _equal_trees(f"{impl} commit", got, want)
+
+
+def _spec_run(sp, params, batch, plen, steps, iters=None):
+    logits, tc, dc = sp.prefill_fn(params, batch)
+    tok = torch.argmax(logits[:, -1], -1)
+    return tok, sp.make_generate(steps, iters=iters)(params, tc, dc, tok,
+                                                     plen)
+
+
+def _spec_small():
+    """yi-9b SMOKE in fp32 on the kernels: speculative greedy tokens (k =
+    SPEC_K, a draft of n_layers // 2 layers) equal the plain greedy loop's
+    for lln, lln_diag, log_linear and softmax (prompt 20, 30 tokens: decode
+    crosses granule and diag-block boundaries), with exact launch counts;
+    the tied full-depth draft accepts every draft in every row; commit
+    after a commit_len = 0 verify equals decode(commit_len) bitwise per
+    impl, at SMOKE's heads and at yi-9b's (B=4, H=32, G=4, D=128, prompt
+    300, block 256)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import (flatten_spec_tokens,
+                                          make_serve_setup, make_spec_setup)
+    from repro_torch.models import synthetic_batch
+    plen, steps, k = 20, 30, SPEC_K
+    for impl in ("lln", "lln_diag", "log_linear", "softmax"):
+        cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+                         compute_dtype="float32")
+        ml = plen + steps + k + 2
+        dl = cfg.n_layers // 2
+        sp = make_spec_setup(cfg, ShapeSpec("spec", ml, B, "decode"),
+                             spec_k=k, draft_layers=dl)
+        params = sp.model.init(SEED)
+        batch = synthetic_batch(cfg, B, ml, seed=SEED, text_seq=plen,
+                                device="cuda")
+        _reset()
+        tok, (toks, n_emit, n_acc, live, *_) = _spec_run(sp, params, batch,
+                                                         plen, steps)
+        torch.cuda.synchronize()
+        iters = int(live.any(0).sum())
+        _expect_launches(f"spec small {impl}", _read(), _spec_want(
+            impl, cfg.n_layers, dl, k, iters, prefills=1))
+        ss = make_serve_setup(cfg, ShapeSpec("plain", plen + steps + 1, B,
+                                             "decode"))
+        logits, caches = ss.prefill_fn(params, batch)
+        tok2 = torch.argmax(logits[:, -1], -1)
+        plain = ss.make_generate(steps)(params, caches, tok2, plen)[0]
+        flat = flatten_spec_tokens(toks, n_emit, steps)
+        if not (torch.equal(tok, tok2)
+                and np.array_equal(flat, plain.cpu().numpy())):
+            raise AssertionError(f"spec small {impl}: speculative tokens "
+                                 f"{flat.tolist()} != plain greedy "
+                                 f"{plain.tolist()}")
+        _, (toks, n_emit, n_acc_full, live_full, *_) = _spec_run(
+            make_spec_setup(cfg, ShapeSpec("spec", ml, B, "decode"),
+                            spec_k=k, draft_layers=cfg.n_layers),
+            params, batch, plen, steps)
+        if not bool((n_acc_full[live_full] == k).all()) or not \
+                np.array_equal(flatten_spec_tokens(toks, n_emit, steps),
+                               flat):
+            raise AssertionError(f"spec small {impl}: the full-depth "
+                                 f"draft accepted {n_acc_full.tolist()}")
+        _commit_is_decode(impl, B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, 21,
+                          cfg.diag_block, SEED + 1)
+        _commit_is_decode(impl, B, H, G, D, 300, BLK, SEED + 2)
+        log(f"spec small {impl}: {B} rows x {steps} tokens equal to the "
+            f"plain greedy loop in {iters} iterations (accepted "
+            f"{int(n_acc.sum())} of {int(live.sum()) * k} drafts); the "
+            f"full-depth draft accepted all; commit bitwise equal to "
+            f"decode(commit_len) at both shapes")
+
+
+class _ScoreProbe:
+    """Records every target score pass of a SpecSetup while ``record`` is
+    set: (positions (B,), logits (B, k+1, V) fp32)."""
+
+    def __init__(self, model):
+        self.score, self.record, self.passes = model.score, False, []
+        object.__setattr__(model, "score", self._score)
+
+    def _score(self, params, caches, token, pos, row_mask=None):
+        logits, resid = self.score(params, caches, token, pos, row_mask)
+        if self.record:
+            self.passes.append((pos.clone(), logits.float()))
+        return logits, resid
+
+
+def phase_spec(launches, spec_times):
+    """Speculative decoding: the SMOKE checks (:func:`_spec_small`), then
+    yi-9b at full width and depth (bf16 weights from the seed), batch B,
+    prompt N, GEN tokens (the first from the prefill), k = SPEC_K and a
+    24-layer draft, lln_diag then softmax: exact launch counts for the
+    prefill and the loop; every score logit at an emitted position within
+    the serve cell's bound (0.1 of the largest logit) of the batch-B T = 1
+    decode fed the emitted sequence (teacher-forced, every emitted position
+    covered), whose step time is the plain decode's; the acceptance rate,
+    tokens per verify iteration, wall and device ms per iteration, busy
+    share and target passes per emitted token (``_count_pass``, per row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import (flatten_spec_tokens,
+                                          make_serve_setup, make_spec_setup)
+    from repro_torch.models import synthetic_batch
+    from repro_torch.models import transformer as tr
+    _spec_small()
+    params = None
+    k, steps = SPEC_K, GEN - 1
+    for impl in ("lln_diag", "softmax"):
+        cfg = get_config("yi-9b", attn_impl=impl, param_dtype="bfloat16")
+        dl = cfg.n_layers // 2
+        ml = N + GEN + k + 2
+        sp = make_spec_setup(cfg, ShapeSpec("spec", ml, B, "decode"),
+                             spec_k=k, draft_layers=dl)
+        if params is None:
+            params = sp.model.init(SEED)
+        probe = _ScoreProbe(sp.model)
+        batch = synthetic_batch(cfg, B, ml, seed=SEED, text_seq=N,
+                                device="cuda")
+        _spec_run(sp, params, batch, N, steps, iters=1)      # warm-up
+        torch.cuda.synchronize()
+        _reset()
+        t0 = time.time()
+        logits, tc, dc = sp.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.time() - t0
+        pre = _read()
+        tok = torch.argmax(logits[:, -1], -1)
+        _reset()
+        tr.DECODE_PASS_COUNTS.clear()
+        probe.record = True
+        t0 = time.time()
+        toks, n_emit, n_acc, live, *_ = sp.make_generate(steps)(
+            params, tc, dc, tok, N)
+        torch.cuda.synchronize()
+        t_gen = time.time() - t0
+        probe.record = False
+        dec = _read()
+        iters = int(live.any(0).sum())
+        passes = tr.DECODE_PASS_COUNTS.get(cfg.name, 0)
+        log(f"spec {impl}: {cfg.n_layers}L target, {dl}L draft, k={k}, "
+            f"batch {B}, prompt {N}: prefill launches {pre}, loop "
+            f"launches {dec} over {iters} iterations")
+        _expect_launches(f"spec {impl} prefill", pre,
+                         _spec_want(impl, cfg.n_layers, dl, k, 0, 1))
+        _expect_launches(f"spec {impl} loop", dec,
+                         _spec_want(impl, cfg.n_layers, dl, k, iters))
+        if passes != iters or len(probe.passes) != iters:
+            raise AssertionError(f"spec {impl}: {passes} target passes "
+                                 f"counted, {len(probe.passes)} recorded, "
+                                 f"for {iters} iterations")
+        for key, name in (("lln_causal", "lln_causal (state)"),
+                          ("block_diag", "block_diag"),
+                          ("lln_decode", "lln_decode")):
+            launches[name] += pre[key] + dec[key]
+        flat = torch.as_tensor(flatten_spec_tokens(toks, n_emit, steps),
+                               device="cuda").long()
+        # Teacher-forced: the emitted sequence through the T = 1 decode.
+        t_tf = time.time()
+        ss = make_serve_setup(cfg, ShapeSpec("tf", N + GEN, B, "decode"))
+        _, caches = ss.prefill_fn(params, batch)
+        seq = torch.cat([tok[:, None], flat], 1)          # inputs at N + m
+        tf = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for m in range(steps):
+            lg, caches = ss.decode_fn(params, caches, seq[:, m], N + m)
+            tf.append(lg.float())
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) / steps * 1e3
+        worst, covered = 0.0, [set() for _ in range(B)]
+        n_emit_h, live_h = n_emit.cpu(), live.cpu()
+        for i, (pos, lg) in enumerate(probe.passes):
+            for row in range(B):
+                if not live_h[row, i]:
+                    continue
+                for j in range(int(n_emit_h[row, i])):
+                    m = int(pos[row]) - N + j
+                    if m >= steps:
+                        break
+                    want = tf[m][row]
+                    tol = 0.1 * max(1.0, float(want.abs().max()))
+                    err = max_err(lg[row, j], want)
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"spec {impl}: row {row} position {N + m} score "
+                            f"logits {err} off the teacher-forced decode "
+                            f"(tol {tol})")
+                    covered[row].add(m)
+        if any(c != set(range(steps)) for c in covered):
+            raise AssertionError(f"spec {impl}: the score passes cover "
+                                 f"{[len(c) for c in covered]} of {steps} "
+                                 f"emitted positions per row")
+        probe.passes = []
+        t_check = time.time() - t_tf
+        t0 = time.time()
+        dev_ms, top = device_profile(lambda: sp.make_generate(
+            steps, iters=1)(params, tc, dc, tok, N))
+        t_profile = time.time() - t0
+        wall_ms = t_gen / iters * 1e3
+        emitted = int(n_emit.sum())
+        acc = float(n_acc.sum()) / max(float(live.sum()) * k, 1.0)
+        spec_times[impl] = {
+            "prefill_ms": t_prefill * 1e3, "iterations": iters,
+            "acceptance_rate": acc,
+            "tokens_per_iter": emitted / max(int(live.sum()), 1),
+            "wall_ms_per_iter": wall_ms, "device_ms_per_iter": dev_ms,
+            "busy": dev_ms / wall_ms,
+            "target_passes_per_token": passes / (emitted / B),
+            "ms_per_token": t_gen / steps * 1e3,
+            "plain_decode_ms_per_step": plain_ms,
+            "teacher_forced_worst": worst}
+        log(f"  every emitted position's score logits within {worst:.3f} of "
+            f"the bound of the teacher-forced decode")
+        log(f"  acceptance {acc:.3f} (random weights: the draft and the "
+            f"target agree by chance only), {emitted / int(live.sum()):.3f} "
+            f"tokens per verify iteration, {wall_ms:.1f} ms wall and "
+            f"{dev_ms:.2f} ms device per iteration (busy "
+            f"{dev_ms / wall_ms:.0%}), {passes / (emitted / B):.3f} target "
+            f"passes per emitted token; {t_gen / steps * 1e3:.1f} ms per "
+            f"token against the plain decode's {plain_ms:.1f} ms per step")
+        log(f"  host s: loop {t_gen:.1f}, teacher-forced check "
+            f"{t_check:.1f}, profile of one iteration {t_profile:.1f}")
+        for name, ms, calls in top[:5]:
+            log(f"  top spec iteration: {ms:9.3f} ms  {calls:6d} calls  "
+                f"{name[:80]}")
+        del sp, ss, caches, tc, dc, tf, probe
+    del params
+    torch.cuda.empty_cache()
+
+
+class _SpecPoolProbe(_PoolProbe):
+    """A :class:`_PoolProbe` for a speculative pool: while ``record`` is
+    set, every target score pass inside a segment is kept as (chunk tokens
+    (B, k+1), positions, active rows, logits (B, k+1, V)), so
+    :meth:`trace` gives a request's verify iterations."""
+
+    def __init__(self, setup, record=False):
+        super().__init__(setup, record=record)
+        self.score_fn = setup.model.score
+        object.__setattr__(setup.model, "score", self._score)
+
+    def _score(self, params, caches, token, pos, row_mask=None):
+        logits, resid = self.score_fn(params, caches, token, pos, row_mask)
+        if self.record and self.in_segment:
+            self.decodes.append((token.clone(), pos.clone(),
+                                 row_mask.clone(), logits.float()))
+        return logits, resid
+
+    def reset(self):
+        self.prefills = self.steps = self.replays = self.calls = 0
+        self.tokens = self.timed = 0
+        self.segment_s = 0.0
+        self.first, self.decodes, self.admits = [], [], []
+
+
+def _spec_teacher_forced(label, sv, params, reqs, outputs, probe):
+    """Hold each pooled speculative request's verify logits to the static
+    T = 1 decode ``sv`` fed its emitted tokens (the requests of one prompt
+    length decoded as one batch, a row past its end fed its last token):
+    in each of its iterations the chunk's accepted prefix (inputs equal to
+    the emitted sequence from the chunk's position) scores within 0.1 of
+    the largest logit, and every emitted position is covered.  Returns the
+    worst error over its bound."""
+    worst = 0.0
+    for plen in sorted({len(r.prompt) for r in reqs}):
+        group = [r for r in reqs if len(r.prompt) == plen]
+        seqs = [[int(t) for t in outputs[r.rid]] for r in group]
+        n_max = max(len(q) for q in seqs) - 1
+        prompts = torch.as_tensor(np.stack([r.prompt for r in group]),
+                                  dtype=torch.long, device="cuda")
+        _, caches = sv.prefill_fn(params, {"inputs": prompts})
+        tf = []
+        for m in range(n_max):
+            tok = torch.as_tensor([q[min(m, len(q) - 1)] for q in seqs],
+                                  dtype=torch.long, device="cuda")
+            lg, caches = sv.decode_fn(params, caches, tok, plen + m)
+            tf.append(lg.float())
+        for i, (req, seq) in enumerate(zip(group, seqs)):
+            chunks, poss, logits = probe.trace(req.prompt)
+            n, covered = len(seq) - 1, set()
+            for chunk, p, lg in zip(chunks, poss, logits):
+                if p - plen >= n:
+                    continue
+                if chunk[0] != seq[p - plen]:
+                    raise AssertionError(
+                        f"{label}: request {req.rid}'s iteration at "
+                        f"position {p} took token {chunk[0]}, not its "
+                        f"emitted {seq[p - plen]}")
+                for j, t in enumerate(chunk):
+                    m = p - plen + j
+                    if m >= n or t != seq[m]:
+                        break
+                    want = tf[m][i]
+                    tol = 0.1 * max(1.0, float(want.abs().max()))
+                    err = max_err(lg[j], want)
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"{label}: request {req.rid} position "
+                            f"{plen + m} logits {err} off the "
+                            f"teacher-forced decode (tol {tol})")
+                    covered.add(m)
+            if covered != set(range(n)):
+                raise AssertionError(
+                    f"{label}: request {req.rid}'s iterations cover "
+                    f"{sorted(covered)} of its {n} decode inputs")
+    return worst
+
+
+def _spec_pool_small():
+    """yi-9b SMOKE in fp32 on the kernels through a 2-slot speculative pool
+    (k = SPEC_POOL_K, 1-layer draft, lln_diag): mixed traffic equals each
+    request served alone by make_spec_setup, with exact launch counts; a
+    nan fault at segment 2 recovers by replaying both states, and every
+    request's tokens equal the clean run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.faults import FaultEvent, FaultPlan
+    from repro_torch.launch.steps import (flatten_spec_tokens,
+                                          make_pool_setup, make_spec_setup)
+    k = SPEC_POOL_K
+    cfg = get_config("yi-9b", smoke=True, attn_impl="lln_diag",
+                     compute_dtype="float32")
+    setup = make_pool_setup(cfg, slots=2, max_len=48, segment=3, spec_k=k,
+                            draft_layers=1)
+    params = setup.model.init(SEED)
+    reqs = synthetic_traffic(3, cfg.vocab, prompt_lens=[8, 11],
+                             gen_lens=[14, 9], seed=3)
+    probe = _SpecPoolProbe(setup)
+    _reset()
+    clean = ContinuousBatcher(setup, params).run(reqs)
+    _expect_launches("spec_pool small", _read(), _spec_want(
+        "lln_diag", cfg.n_layers, 1, k, probe.steps, probe.prefills,
+        probe.replays))
+    sp = make_spec_setup(setup.cfg, ShapeSpec("solo", 48, 1, "decode"),
+                         spec_k=k, draft_layers=1)
+    for req in reqs:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device="cuda")[None]
+        tok, (toks, n_emit, *_) = _spec_run(sp, params, {"inputs": prompt},
+                                            len(req.prompt), req.budget - 1)
+        want = [int(tok)] + flatten_spec_tokens(toks, n_emit,
+                                                req.budget - 1)[0].tolist()
+        if clean.outputs[req.rid].tolist() != want:
+            raise AssertionError(f"spec_pool small: request {req.rid} "
+                                 f"{clean.outputs[req.rid].tolist()} != "
+                                 f"solo {want}")
+    probe.reset()
+    _reset()
+    plan = FaultPlan(events=[FaultEvent(kind="nan", segment=2, row=0)])
+    faulty = ContinuousBatcher(setup, params).run(reqs, fault_plan=plan)
+    hurt = faulty.health_events[0]["rid"] if faulty.health_events else None
+    if faulty.recoveries != 1 or faulty.statuses.get(hurt) != "retried" \
+            or probe.replays < 1:
+        raise AssertionError(f"spec_pool small: nan fault gave "
+                             f"{faulty.statuses}, {probe.replays} replays")
+    _expect_launches("spec_pool small, nan fault", _read(), _spec_want(
+        "lln_diag", cfg.n_layers, 1, k, probe.steps, probe.prefills,
+        probe.replays))
+    _same_tokens(f"spec_pool small nan fault (request {hurt} retried, "
+                 f"{probe.replays} replays of both states)", faulty, clean,
+                 [r.rid for r in reqs])
+
+
+def phase_spec_pool(launches, pool_times):
+    """The pool cell (yi-9b at full width with PL layers, bf16 weights from
+    the seed, 4 slots, lln_diag, 10 requests of prompts 128, 300, 512 and
+    budgets 8, 24, 40, segment 8, max_len 576) with speculative rows:
+    k = SPEC_POOL_K and a draft of PL / 2 layers.  After the SMOKE checks
+    (:func:`_spec_pool_small`): every request done with exactly its budget;
+    exact launch counts; per pooled iteration, each request's accepted
+    prefix scores within 0.1 of the largest logit of the static T = 1
+    decode fed its emitted tokens (every emitted position covered); a nan
+    fault on one row at segment 2 is quarantined and rebuilt by replaying
+    the target and the draft (exact launch counts with the replays), and
+    every request's tokens, the hurt one's too, are bitwise the clean
+    run's.  Acceptance, tokens per iteration and the segments' tok/s are
+    recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.faults import FaultEvent, FaultPlan
+    from repro_torch.launch.steps import make_pool_setup, make_serve_setup
+    _spec_pool_small()
+    k = SPEC_POOL_K
+    cfg = get_config("yi-9b", attn_impl="lln_diag", param_dtype="bfloat16",
+                     n_layers=PL)
+    dl = cfg.n_layers // 2
+    setup = make_pool_setup(cfg, slots=B, max_len=576, segment=8, spec_k=k,
+                            draft_layers=dl)
+    params = setup.model.init(SEED)
+    reqs = synthetic_traffic(10, cfg.vocab, prompt_lens=[128, 300, 512],
+                             gen_lens=[8, 24, 40], seed=SEED)
+    probe = _SpecPoolProbe(setup, record=True)
+    _reset()
+    t0 = time.time()
+    clean = ContinuousBatcher(setup, params).run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counted = _read()
+    probe.record = False
+    log(f"spec_pool lln_diag: {cfg.n_layers}L target, {dl}L draft, k={k}, "
+        f"{len(reqs)} requests over {B} slots, {clean.segments} segments, "
+        f"{probe.prefills} prefills, {probe.steps} iterations in "
+        f"{wall:.2f}s")
+    _expect_launches("spec_pool", counted, _spec_want(
+        "lln_diag", cfg.n_layers, dl, k, probe.steps, probe.prefills,
+        probe.replays))
+    for key, name in (("lln_causal", "lln_causal (state)"),
+                      ("block_diag", "block_diag"),
+                      ("lln_decode", "lln_decode")):
+        launches[name] += counted[key]
+    for req in reqs:
+        if clean.statuses[req.rid] != "done" or \
+                len(clean.outputs[req.rid]) != req.budget:
+            raise AssertionError(f"spec_pool: request {req.rid} "
+                                 f"{clean.statuses[req.rid]} with "
+                                 f"{len(clean.outputs[req.rid])} tokens")
+    t0 = time.time()
+    sv = make_serve_setup(setup.cfg, ShapeSpec("tf", 576, B, "decode"))
+    worst = _spec_teacher_forced("spec_pool", sv, params, reqs,
+                                 clean.outputs, probe)
+    probe.decodes = []
+    t_check = time.time() - t0
+    steady = probe.tokens / probe.segment_s
+    pool_times["lln_diag spec_k=2"] = {
+        "wall_s": wall, "segments": clean.segments,
+        "iterations": probe.steps, "prefills": probe.prefills,
+        "tokens": clean.completed_tokens, "steady_decode_tok_s": steady,
+        "ms_per_iteration": probe.segment_s / probe.timed * 1e3,
+        "acceptance_rate": clean.acceptance_rate,
+        "tokens_per_iter": clean.goodput_tokens_per_iter,
+        "teacher_forced_worst": worst}
+    log(f"  every pooled iteration's accepted prefix within {worst:.3f} of "
+        f"the bound of the teacher-forced decode; acceptance "
+        f"{clean.acceptance_rate:.3f} (random weights), "
+        f"{clean.goodput_tokens_per_iter:.3f} tokens per verify iteration, "
+        f"steady {steady:.1f} tok/s, "
+        f"{probe.segment_s / probe.timed * 1e3:.1f} ms per iteration "
+        f"(the teacher-forced check {t_check:.1f}s)")
+    probe.reset()
+    _reset()
+    plan = FaultPlan(events=[FaultEvent(kind="nan", segment=2, row=0)])
+    faulty = ContinuousBatcher(setup, params).run(reqs, fault_plan=plan)
+    hurt = faulty.health_events[0]["rid"] if faulty.health_events else None
+    if hurt is None or hurt < 0 or faulty.recoveries != 1 \
+            or probe.replays < 1:
+        raise AssertionError(f"spec_pool: the nan fault gave "
+                             f"{faulty.health_events}, {probe.replays} "
+                             "replays")
+    counted = _read()
+    _expect_launches("spec_pool, nan fault", counted, _spec_want(
+        "lln_diag", cfg.n_layers, dl, k, probe.steps, probe.prefills,
+        probe.replays))
+    for key, name in (("lln_causal", "lln_causal (state)"),
+                      ("block_diag", "block_diag"),
+                      ("lln_decode", "lln_decode")):
+        launches[name] += counted[key]
+    if faulty.statuses[hurt] != "retried":
+        raise AssertionError(f"spec_pool: the hurt request {hurt} ended "
+                             f"{faulty.statuses[hurt]}")
+    _same_tokens(f"spec_pool nan fault (request {hurt} retried after "
+                 f"{probe.replays} replays of target and draft)", faulty,
+                 clean, [r.rid for r in reqs])
+    del setup, params, probe, sv
+    torch.cuda.empty_cache()
+
+
 _T0 = time.time()
 
 
@@ -3304,9 +3862,23 @@ def _phase(fn, *args):
     return out
 
 
-def main():
+def _selected(argv):
+    """``--phases a,b`` (names without ``phase_``): run only those check
+    phases after device and build, and print no kernels line (the timing
+    phases that make it do not run).  No argument: the whole run."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases name,name,...]")
+    return set(argv[1].split(","))
+
+
+def main(argv=None):
+    only = _selected(sys.argv[1:] if argv is None else argv)
     smi = phase_device()
     _phase(phase_build)
+    if only is not None:
+        return _main_selected(smi, only)
     errs, serve_times, train_times = {}, {}, {}
     enc_times = {}
     launches = {name: 0 for name in (
@@ -3357,6 +3929,9 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _phase(phase_remat_dots, launches, train_times)
+    spec_times = {}
+    _phase(phase_spec, launches, spec_times)
+    _phase(phase_spec_pool, launches, pool_times)
     rows, decode_times = _phase(phase_timings, errs, launches)
     train_rows, fused_zamba2 = _phase(phase_timings_train, errs, launches)
     rows += train_rows
@@ -3381,12 +3956,46 @@ def main():
         + json.dumps(fused_zamba2))
     log("ops.ssd_scan per layer: " + json.dumps(ssd_layer))
     log("pool times: " + json.dumps(pool_times))
+    log("speculative times: " + json.dumps(spec_times))
     log("checkpoint (roberta-lln train state): " + json.dumps(ckpt_times))
     print(smi)
     print(json.dumps({"kernels": rows}))
+    _print_ok()
+    return 0
+
+
+def _print_ok():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def _small_pool_in_tmp():
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        phase_small_pool(Path(tmp))
+
+
+def _main_selected(smi, only):
+    """The check phases named in ``only``, each with fresh accumulators."""
+    launches = {name: 0 for name in (
+        "lln_causal (state)", "block_diag", "lln_decode")}
+    times = {}
+    table = {"spec": lambda: phase_spec(launches, times),
+             "spec_pool": lambda: phase_spec_pool(launches, times),
+             "small_pool": _small_pool_in_tmp}
+    unknown = only - set(table)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; known: "
+                         f"{sorted(table)}")
+    for name in sorted(only, key=list(table).index):
+        t0 = time.time()
+        table[name]()
+        log(f"[{name}: {time.time() - t0:.1f}s; {time.time() - _T0:.1f}s "
+            f"since the start]")
+    log("launches: " + json.dumps(launches))
+    log("times: " + json.dumps(times))
+    print(smi)
+    _print_ok()
     return 0
 
 

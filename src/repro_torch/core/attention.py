@@ -10,7 +10,8 @@ forward only), the softmax half (:func:`flash_softmax`, an online softmax
 chunked over keys; :func:`naive_softmax`, the quadratic oracle;
 :class:`KVCache`, :func:`decode_softmax` and :func:`commit_softmax`), and
 :class:`LLNDecodeState` and :func:`decode_lln_chunk`, whose §4.2 diag part
-is one masked softmax over [tail block ∪ chunk keys].  The softmax paths
+is one masked softmax over [tail block ∪ chunk keys], with its commit half
+:func:`commit_lln_chunk` (the speculative verify's fold).  The softmax paths
 are plain PyTorch: the reference has no kernel for them either.
 
 GQA: k/v carry G kv heads with G | H; all inputs are (batch, seq, heads,
@@ -439,31 +440,14 @@ def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
             alpha, beta_h, row_mask=row_mask, commit_len=commit_len,
             renorm=renorm)
 
-    # Rolling tail update: for each slot i the last committed chunk token
-    # writing it is j_i = j0 + block*((c-1-j0)//block), j0 = (i-pos) % block,
-    # c the row's committed length (T for a plain decode).
+    cl = commit_lengths(commit_len, row_mask, t)
+    new_state = _roll_tail(state, lln_state, k_new, v_new, cl)
+    if impl == "lln":
+        return lln_out, new_state
     block = state.tail_k.shape[1]
     dev = q.device
     posb = state.pos.to(torch.int64)                               # (B,)
-    cl = commit_lengths(commit_len, row_mask, t)
-    c = cl[:, None] if torch.is_tensor(cl) else cl
     idx = torch.arange(block, device=dev)
-    j0 = torch.remainder(idx[None, :] - posb[:, None], block)      # (B, BLK)
-    j_last = torch.clamp(
-        j0 + block * torch.div(c - 1 - j0, block, rounding_mode="floor"),
-        0, t - 1)
-    wrote = (j0 < c)[:, :, None, None]
-    gather = j_last[:, :, None, None]
-    tail_k = torch.where(
-        wrote, torch.take_along_dim(k_new, gather, dim=1).to(state.tail_k.dtype),
-        state.tail_k)
-    tail_v = torch.where(
-        wrote, torch.take_along_dim(v_new, gather, dim=1).to(state.tail_v.dtype),
-        state.tail_v)
-    new_state = LLNDecodeState(lln=lln_state, tail_k=tail_k, tail_v=tail_v,
-                               pos=state.pos + cl)
-    if impl == "lln":
-        return lln_out, new_state
 
     # Diag part: one softmax over [tail ∪ chunk] keys.  Tail slot i holds
     # absolute position cur_base + i (this block) or that minus block (the
@@ -491,6 +475,66 @@ def decode_lln_chunk(state: LLNDecodeState, q, k_new, v_new, alpha, beta,
     diag_out = torch.einsum("bhij,bjhv->bihv", p, vf)
     out = 0.5 * (lln_out.float() + diag_out)
     return out.to(v_new.dtype), new_state
+
+
+def _roll_tail(state: LLNDecodeState, lln_state, k_new, v_new, cl
+               ) -> LLNDecodeState:
+    """The decode state after a chunk whose rows commit ``cl`` tokens (the
+    int T, or (B,)): the new LLN state, the rolling diag tails and ``pos``.
+    For each tail slot i the last committed chunk token writing it is
+    j_i = j0 + block*((c-1-j0)//block), j0 = (i-pos) % block, c the row's
+    committed length."""
+    t = k_new.shape[1]
+    block = state.tail_k.shape[1]
+    posb = state.pos.to(torch.int64)                               # (B,)
+    c = cl[:, None] if torch.is_tensor(cl) else cl
+    idx = torch.arange(block, device=k_new.device)
+    j0 = torch.remainder(idx[None, :] - posb[:, None], block)      # (B, BLK)
+    j_last = torch.clamp(
+        j0 + block * torch.div(c - 1 - j0, block, rounding_mode="floor"),
+        0, t - 1)
+    wrote = (j0 < c)[:, :, None, None]
+    gather = j_last[:, :, None, None]
+    tail_k = torch.where(
+        wrote, torch.take_along_dim(k_new, gather, dim=1).to(state.tail_k.dtype),
+        state.tail_k)
+    tail_v = torch.where(
+        wrote, torch.take_along_dim(v_new, gather, dim=1).to(state.tail_v.dtype),
+        state.tail_v)
+    return LLNDecodeState(lln=lln_state, tail_k=tail_k, tail_v=tail_v,
+                          pos=state.pos + cl)
+
+
+def commit_lln_chunk(state: LLNDecodeState, k_new, v_new, beta, *,
+                     impl: str = "lln_diag", commit_len,
+                     row_mask=None, backend: str = "auto",
+                     renorm=None) -> LLNDecodeState:
+    """The commit half of :func:`decode_lln_chunk`: fold the accepted
+    prefix of a chunk scored earlier into the LLN state, the diag tails and
+    ``pos``, without scoring.  k/v_new: (B,T,G,D[v]), the post-RoPE keys
+    and values the score pass returned.  The same state, bit for bit, as
+    :func:`decode_lln_chunk` with this ``commit_len`` on the same backend
+    (the two share the LLN fold per backend and :func:`_roll_tail`).
+    ``impl`` is accepted for the reference's signature: the state update
+    does not depend on it."""
+    del impl
+    t = k_new.shape[1]
+    if backend != "ref":
+        from repro_torch.kernels import ops as kops
+        lln_state = kops.lln_commit_chunk(
+            state.lln, k_new, v_new, beta, backend=backend,
+            row_mask=row_mask, commit_len=commit_len, renorm=renorm)
+    else:
+        h = state.lln.s.shape[1]
+        g = k_new.shape[2]
+        beta_h = torch.as_tensor(beta, dtype=torch.float32)
+        if beta_h.ndim and beta_h.shape[-1] == g and g != h:
+            beta_h = torch.repeat_interleave(beta_h, h // g, dim=-1)
+        lln_state = lln_mod.commit_chunk(
+            state.lln, _repeat_kv(k_new, h), _repeat_kv(v_new, h), beta_h,
+            row_mask=row_mask, commit_len=commit_len, renorm=renorm)
+    return _roll_tail(state, lln_state, k_new, v_new,
+                      commit_lengths(commit_len, row_mask, t))
 
 
 def decode_lln(state: LLNDecodeState, q, k_new, v_new, alpha, beta,

@@ -6,8 +6,9 @@ decode state, the softmax KV cache (``k``/``v``/``len``) or the LLN state
 log-linear bucket pyramid, the per-row position and calibration;
 :class:`AttentionEngine` binds an
 :class:`~repro_torch.kernels.registry.AttnSpec` to a layer's head geometry
-and runs ``init_state -> prefill -> decode*``, with ``check_health`` and
-``evict`` for the serving pool.
+and runs ``init_state -> prefill -> decode*``, with ``verify`` / ``commit``
+for speculative decoding, ``check_health`` and ``evict`` for the serving
+pool, and the stateless full-sequence ``attention``.
 """
 from __future__ import annotations
 
@@ -22,9 +23,11 @@ from repro_torch.kernels.registry import AttnSpec
 from repro_torch.tree import map_with_path
 from . import health as health_mod
 from . import moment_matching as mm
-from .attention import (KVCache, LLNDecodeState, batch_alpha_beta,
-                        decode_lln_chunk, decode_softmax)
-from .lln import LLNState, commit_lengths
+from .attention import (AttnConfig, KVCache, LLNDecodeState,
+                        batch_alpha_beta, commit_lln_chunk, commit_softmax,
+                        decode_lln_chunk, decode_softmax,
+                        multi_head_attention)
+from .lln import LLNState, commit_lengths, full_commit
 from .loglinear import LogLinState
 
 
@@ -57,8 +60,18 @@ class AttentionState:
     zl: Optional[torch.Tensor] = None
     cl: Optional[torch.Tensor] = None
 
+    def __getitem__(self, name: str):
+        """Dict-style read (``state["pos"]``), as the reference's legacy
+        cache dicts; ``KeyError`` for a name that is not a field."""
+        if name not in _STATE_FIELDS:
+            raise KeyError(name)
+        return getattr(self, name)
+
     def replace(self, **kw) -> "AttentionState":
         return dataclasses.replace(self, **kw)
+
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(AttentionState))
 
 
 def _tail_of(t: torch.Tensor, n: int, blk: int) -> torch.Tensor:
@@ -136,6 +149,40 @@ class AttentionEngine:
         if self.spec.beta_n <= 0.0 or self.spec.impl == "softmax":
             return None
         return mm.length_gain(n, self.spec.beta_n, self.spec.calib_len)
+
+    def attention(self, q, k, v, *, mask=None, alpha=None, beta=None,
+                  prefix_len: int = 0):
+        """Stateless full-sequence attention (training, scoring).  q:
+        (B,N,H,D); k/v: (B,N,G,D[v]).  ``softmax``: the naive quadratic
+        for backend ``ref``, the online softmax otherwise.  The LLN impls
+        calibrate here per ``spec.calibration`` (with the beta(n) gain at
+        N) unless ``alpha``/``beta`` are given, then run
+        ``core/attention.py:multi_head_attention`` under ``spec.backend``
+        (``ref`` is the core scan).  ``mask`` and ``prefix_len`` come with
+        the families that need them (ROADMAP.md queue 1, item 11b)."""
+        if mask is not None or prefix_len:
+            raise NotImplementedError(
+                "AttentionEngine.attention's mask and prefix_len are not "
+                "ported yet (ROADMAP.md queue 1, item 11b)")
+        spec = self.spec
+        if spec.impl == "softmax":
+            return kreg.softmax_attention(spec, q, k, v)
+        if alpha is None or beta is None:
+            # Calibrate here, so that spec.calibration="per_row" holds for
+            # the full-sequence forward too.
+            alpha, beta = self.calibrate(q, k, n=q.shape[1])
+            gain = self._length_gain(q.shape[1])
+            if gain is not None:
+                alpha = torch.as_tensor(alpha, dtype=torch.float32) * gain
+                beta = torch.as_tensor(beta, dtype=torch.float32) * gain
+        acfg = AttnConfig(
+            impl=spec.impl, causal=spec.causal, diag_block=spec.diag_block,
+            lln_chunk=spec.lln_chunk, softmax_chunk=spec.softmax_chunk,
+            use_kernel=spec.backend != "ref",
+            backend=None if spec.backend == "auto" else spec.backend,
+            fixed_ab=spec.fixed_ab, num_scales=spec.num_scales,
+            scale_decay=spec.scale_decay)
+        return multi_head_attention(q, k, v, acfg, alpha=alpha, beta=beta)
 
     def prefill(self, q, k, v, *, max_len: int = 0, alpha=None, beta=None):
         """Causal forward over the prompt; returns ``(out, state)``.
@@ -238,6 +285,73 @@ class AttentionEngine:
                                     row_mask=row_mask, commit_len=commit_len,
                                     renorm=self.spec.renorm or None)
         return out, state.replace(
+            s=st2.lln.s, z=st2.lln.z, c_k=st2.lln.c_k,
+            log_scale=st2.lln.log_scale, tail_k=st2.tail_k,
+            tail_v=st2.tail_v, pos=st2.pos)
+
+    def verify(self, state: AttentionState, q, k, v, *, commit_len,
+               row_mask=None, return_residuals: bool = False):
+        """Speculative verify: score a T-token draft chunk, commit only the
+        accepted prefix.  :meth:`decode` with ``commit_len`` (B,) required:
+        the outputs cover all T positions, the state folds only tokens
+        ``j < commit_len[b]`` (0 is the masked row, T a plain decode).
+
+        ``return_residuals=True`` also returns the chunk's post-RoPE
+        ``{"k", "v"}`` (B,T,G,D[v]).  A ``commit_len=0`` score leaves the
+        state as it was, so the single-pass verify is: score once with
+        ``commit_len=0`` and the residuals, run the acceptance rule on the
+        logits, then fold the accepted prefix with :meth:`commit`."""
+        if commit_len is None:
+            raise ValueError("verify requires commit_len; use decode for "
+                             "an unconditional advance")
+        out, st = self.decode(state, q, k, v, row_mask=row_mask,
+                              commit_len=commit_len)
+        if return_residuals:
+            return out, st, {"k": k, "v": v}
+        return out, st
+
+    def commit(self, state: AttentionState, residual: dict, *, commit_len,
+               row_mask=None) -> AttentionState:
+        """Fold a scored chunk's accepted prefix into ``state``: the second
+        half of the single-pass speculative verify, O(T d^2) per layer.
+        ``residual``: the ``{"k", "v"}`` a ``commit_len=0`` :meth:`verify`
+        returned against this ``state``.  The same state, bit for bit, as
+        :meth:`decode` with this ``commit_len`` on the same backend; the
+        beta(n) gain is derived from ``state.pos`` as the score pass
+        derived it (``pos`` did not advance)."""
+        k, v = residual["k"], residual["v"]
+        spec = self.spec
+        if spec.impl == "softmax":
+            kv = commit_softmax(KVCache(k=state.k, v=state.v,
+                                        length=state.len), k, v,
+                                commit_len=commit_len, row_mask=row_mask)
+            return state.replace(k=kv.k, v=kv.v, len=kv.length)
+        beta_d = state.beta
+        gain = self._length_gain(state.pos)
+        if gain is not None:
+            beta_d = state.beta * gain.to(state.beta.device)[..., None]
+        if spec.impl == "log_linear":
+            st = LogLinState(s=state.s, z=state.z, c_k=state.c_k,
+                             sl=state.sl, zl=state.zl, cl=state.cl,
+                             log_scale=state.log_scale)
+            st2 = kreg.commit_chunk(spec, st, k, v, beta_d,
+                                    row_mask=row_mask,
+                                    commit_len=commit_len, pos=state.pos)
+            t = k.shape[1]
+            adv = commit_lengths(commit_len if commit_len is not None
+                                 else full_commit(t, k), row_mask, t)
+            return state.replace(
+                s=st2.s, z=st2.z, c_k=st2.c_k, sl=st2.sl, zl=st2.zl,
+                cl=st2.cl, log_scale=st2.log_scale, pos=state.pos + adv)
+        st = LLNDecodeState(
+            lln=LLNState(s=state.s, z=state.z, c_k=state.c_k,
+                         log_scale=state.log_scale),
+            tail_k=state.tail_k, tail_v=state.tail_v, pos=state.pos)
+        st2 = commit_lln_chunk(st, k, v, beta_d, impl=spec.impl,
+                               commit_len=commit_len, row_mask=row_mask,
+                               backend=spec.backend,
+                               renorm=spec.renorm or None)
+        return state.replace(
             s=st2.lln.s, z=st2.lln.z, c_k=st2.lln.c_k,
             log_scale=st2.lln.log_scale, tail_k=st2.tail_k,
             tail_v=st2.tail_v, pos=st2.pos)

@@ -287,12 +287,9 @@ def decode_chunk(state: LLNState, q, k, v, alpha, beta, row_mask=None,
     cl = None
     if commit_len is not None:
         cl = commit_lengths(commit_len, row_mask, t)
-        cmask = torch.arange(t, device=q.device)[None, :] < cl[:, None]
-        bk_c = torch.where(cmask[:, :, None, None], bk, -torch.inf)
         # The committed prefix's constant (an empty commit keeps c_k); the
         # scores need one covering every chunk key.
-        c_new = torch.maximum(
-            state.c_k, torch.amax(bk_c, dim=(1, 3), keepdim=True).detach())
+        _, c_new = _committed(state, bk, cl)
         c_out = torch.maximum(
             c_new, torch.amax(bk, dim=(1, 3), keepdim=True).detach())
     else:
@@ -314,17 +311,69 @@ def decode_chunk(state: LLNState, q, k, v, alpha, beta, row_mask=None,
     inter_z = torch.einsum("bihd,bhd->bih", fq, z0)
     out = (intra + inter) / (intra_z + inter_z + EPS)[..., None]
     if cl is not None:
-        r_c = torch.exp(state.c_k - c_new)[:, 0, :, 0]
-        fk_c = torch.exp(bk_c - c_new).float()              # 0 past commit
-        s = state.s * r_c[..., None, None] \
-            + torch.einsum("bjhd,bjhv->bhdv", fk_c, vf)
-        z = state.z * r_c[..., None] + fk_c.sum(1)
-    else:
-        s = s0 + torch.einsum("bjhd,bjhv->bhdv", fk, vf)
-        z = z0 + fk.sum(1)
+        return out.to(v.dtype), _fold_committed(state, bk, vf, cl, row_mask,
+                                                renorm)
+    s = s0 + torch.einsum("bjhd,bjhv->bhdv", fk, vf)
+    z = z0 + fk.sum(1)
     log_scale = state.log_scale
     if renorm is not None and renorm > 0.0:
         s, z, c_new, log_scale = _renorm(
             s, z, c_new, log_scale, folded_rows(row_mask, cl), renorm)
     new = LLNState(s=s, z=z, c_k=c_new, log_scale=log_scale)
     return out.to(v.dtype), keep_rows(row_mask, new, state)
+
+
+def _committed(state: LLNState, bk, cl):
+    """``(bk_c, c_new)``: beta*k with the keys past each row's commit
+    length at -inf, and the reference constant advanced over the committed
+    keys only (an empty commit keeps c_k)."""
+    t = bk.shape[1]
+    cmask = torch.arange(t, device=bk.device)[None, :] < cl[:, None]
+    bk_c = torch.where(cmask[:, :, None, None], bk, -torch.inf)
+    c_new = torch.maximum(
+        state.c_k, torch.amax(bk_c, dim=(1, 3), keepdim=True).detach())
+    return bk_c, c_new
+
+
+def _fold_committed(state: LLNState, bk, vf, cl, row_mask, renorm):
+    """Fold each row's first ``cl`` keys (beta*k ``bk``, fp32 values
+    ``vf``) into the state, with the drift renorm and the row mask: the
+    state half of :func:`decode_chunk` under ``commit_len``, and all of
+    :func:`commit_chunk`, so the two agree bit for bit."""
+    bk_c, c_new = _committed(state, bk, cl)
+    r_c = torch.exp(state.c_k - c_new)[:, 0, :, 0]
+    fk_c = torch.exp(bk_c - c_new).float()                  # 0 past commit
+    s = state.s * r_c[..., None, None] \
+        + torch.einsum("bjhd,bjhv->bhdv", fk_c, vf)
+    z = state.z * r_c[..., None] + fk_c.sum(1)
+    log_scale = state.log_scale
+    if renorm is not None and renorm > 0.0:
+        s, z, c_new, log_scale = _renorm(
+            s, z, c_new, log_scale, folded_rows(row_mask, cl), renorm)
+    new = LLNState(s=s, z=z, c_k=c_new, log_scale=log_scale)
+    return keep_rows(row_mask, new, state)
+
+
+def full_commit(t: int, like: torch.Tensor) -> torch.Tensor:
+    """A (B,) commit length of ``t`` for every row of ``like`` (B, ...)."""
+    return torch.full((like.shape[0],), t, dtype=torch.int32,
+                      device=like.device)
+
+
+def commit_chunk(state: LLNState, k, v, beta, row_mask=None,
+                 commit_len=None, renorm: Optional[float] = None) -> LLNState:
+    """Fold a chunk's accepted prefix into the state without scoring.
+
+    The state half of :func:`decode_chunk`: the same (k, v, beta), the
+    same :func:`commit_lengths` contract (None commits all T), the same
+    drift renorm and ``row_mask``, no queries.  A speculative verify scores
+    its chunk with ``commit_len=0`` (the state untouched); once the accept
+    counts are known this O(T d^2) fold commits the accepted prefix, equal
+    bit for bit to :func:`decode_chunk` with that ``commit_len``.
+    k/v: (B, T, H, D[v]).
+    """
+    t = k.shape[1]
+    cl = commit_lengths(commit_len if commit_len is not None
+                        else full_commit(t, k), row_mask, t)
+    return _fold_committed(state, k * _bcast(beta, k), v.float(), cl,
+                           row_mask, renorm)

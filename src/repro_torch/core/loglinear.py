@@ -21,8 +21,8 @@ Numerics follow ``core/lln.py``: every bucket carries its own reference
 constant (``cl`` per level, ``c_k`` for the open bucket); merges rescale
 both operands to the larger reference.  Decode honours the serving
 contract of ``core/lln.py:decode_chunk`` (``row_mask``, ``commit_len`` and
-the drift renorm, per bucket); the speculative ``commit_chunk`` waits for
-ROADMAP.md queue 1, item 9.
+the drift renorm, per bucket), and :func:`commit_chunk` folds a scored
+chunk's accepted prefix (the speculative verify's commit).
 
 Layout: (batch, seq, heads, head_dim); k/v carry the full H heads (the
 caller repeats GQA kv heads).
@@ -471,3 +471,22 @@ def decode_chunk(state: LogLinState, q, k, v, alpha, beta, *, pos,
                           torch.einsum("bihd,bhd->bih", fq, z_b))
     out = (intra + inter) / (intra_z + inter_z + EPS)[..., None]
     return out.to(v.dtype), new_state
+
+
+def commit_chunk(state: LogLinState, k, v, beta, *, pos, granule: int,
+                 num_scales: int, row_mask=None, commit_len=None,
+                 renorm=None) -> LogLinState:
+    """Fold a scored chunk's accepted prefix without scoring: the
+    speculative verify's commit.  It runs the ``_advance`` that
+    :func:`decode_chunk` runs, so it equals that decode with the final
+    ``commit_len`` bit for bit.  k/v: (B,T,H,D[v]), T <= granule."""
+    t = k.shape[1]
+    if t > granule:
+        raise ValueError(f"log_linear commit_chunk requires T <= granule "
+                         f"(T={t}, granule={granule})")
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k.device)
+    new_state, _ = _advance(state, (k * _bcast(beta, k)).float(), v.float(),
+                            pos=pos, granule=granule, num_scales=num_scales,
+                            t=t, row_mask=row_mask, commit_len=commit_len,
+                            renorm=renorm)
+    return new_state

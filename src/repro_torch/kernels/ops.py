@@ -1,9 +1,10 @@
 """Ops around the kernels (port of ``repro.kernels.ops``): the training
 entries ``lln_attention`` / ``lln_diag_attention`` (causal and
 bidirectional) and ``block_diag_attention``, the serving entries
-``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk``, and the
-log-linear (Fenwick multi-scale) entries ``loglin_attention`` /
-``loglin_prefill`` / ``loglin_decode_chunk`` (inference only), and the
+``lln_prefill`` / ``block_diag_fwd`` / ``lln_decode_chunk`` with its
+commit half ``lln_commit_chunk``, the log-linear (Fenwick multi-scale)
+entries ``loglin_attention`` / ``loglin_prefill`` /
+``loglin_decode_chunk`` / ``loglin_commit_chunk`` (inference only), and the
 Mamba2 SSD scan ``ssd_scan`` (training).
 
 Responsibilities:
@@ -402,10 +403,7 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto",
     g = k.shape[2]
     r = h // g
     kind = registry.resolve(backend, q.device)
-    beta_b = torch.as_tensor(beta, dtype=torch.float32, device=q.device)
-    if beta_b.ndim and beta_b.shape[-1] == h and g != h:
-        beta_b = beta_b.reshape(beta_b.shape[:-1] + (g, r)).mean(dim=-1)
-    beta_b = _bcast_heads(beta_b, g, q.device)
+    beta_b = _group_beta(beta, h, g, q.device)
     if kind == "ref":
         return core_lln.decode_chunk(state, q, _repeat_heads(k, h),
                                      _repeat_heads(v, h), alpha,
@@ -427,23 +425,52 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto",
                        _to_kernel(v), state.s.reshape(b * h, d, -1),
                        state.z.reshape(b * h, 1, d), r=r,
                        scale=rescale.reshape(b * h))
-    cl = None
     if commit_len is not None:
-        cl = core_lln.commit_lengths(commit_len, row_mask, t)
-        cmask = torch.arange(t, device=q.device)[None, :] < cl[:, None]
-        bk_c = torch.where(cmask[:, :, None, None], bk, -torch.inf)
-        c_com_g = torch.maximum(c_old_g,
-                                torch.amax(bk_c, dim=(1, 3), keepdim=True))
-        c_new_h = _repeat_heads(c_com_g, h)
-        resc = torch.exp(state.c_k - c_new_h)[:, 0, :, 0]         # (B, H)
-        fk_c = torch.exp(bk_c - c_com_g)              # (B,T,G,D), 0 beyond
-        add_s = _repeat_heads(torch.einsum("bjgd,bjgv->bgdv", fk_c,
-                                           v.float()), h, dim=1)
-        add_z = _repeat_heads(fk_c.sum(1), h, dim=1)
-        s_new = state.s * resc[..., None, None] + add_s
-        z_new = state.z * resc[..., None] + add_z
-    else:
-        s_new, z_new = s1.reshape(b, h, d, -1), z1.reshape(b, h, d)
+        return _from_kernel(out_k, b), _fold_group(
+            state, bk, v, core_lln.commit_lengths(commit_len, row_mask, t),
+            row_mask, renorm)
+    s_new, z_new = s1.reshape(b, h, d, -1), z1.reshape(b, h, d)
+    log_scale = state.log_scale
+    if renorm is not None and renorm > 0.0:
+        s_new, z_new, c_new_h, log_scale = core_lln._renorm(
+            s_new, z_new, c_new_h, log_scale,
+            core_lln.folded_rows(row_mask), renorm)
+    new = core_lln.LLNState(s=s_new, z=z_new, c_k=c_new_h,
+                            log_scale=log_scale)
+    return _from_kernel(out_k, b), core_lln.keep_rows(row_mask, new, state)
+
+
+def _group_beta(beta, h: int, g: int, device) -> torch.Tensor:
+    """beta at the G kv groups: scalar, (G,) and (B, G) pass through (a
+    scalar broadcast to (G,)); an (H,)/(B, H) repeat is group-mean pooled."""
+    beta_b = torch.as_tensor(beta, dtype=torch.float32, device=device)
+    if beta_b.ndim and beta_b.shape[-1] == h and g != h:
+        beta_b = beta_b.reshape(beta_b.shape[:-1] + (g, h // g)).mean(dim=-1)
+    return _bcast_heads(beta_b, g, device)
+
+
+def _fold_group(state, bk, v, cl, row_mask, renorm):
+    """The kernel kinds' commit fold: each row's first ``cl`` keys (beta*k
+    ``bk`` (B,T,G,D) fp32, values ``v`` (B,T,G,Dv)) folded into the carried
+    (s, z) once per kv group, at the group constant advanced over the
+    committed keys only, then the drift renorm and the row mask.  The
+    state half of :func:`lln_decode_chunk` under ``commit_len`` and all of
+    :func:`lln_commit_chunk`, so the two agree bit for bit."""
+    b, t, g, _ = bk.shape
+    h = state.s.shape[1]
+    c_old_g = torch.amax(state.c_k.reshape(b, 1, g, h // g, 1), dim=3)
+    cmask = torch.arange(t, device=bk.device)[None, :] < cl[:, None]
+    bk_c = torch.where(cmask[:, :, None, None], bk, -torch.inf)
+    c_com_g = torch.maximum(c_old_g,
+                            torch.amax(bk_c, dim=(1, 3), keepdim=True))
+    c_new_h = _repeat_heads(c_com_g, h)
+    resc = torch.exp(state.c_k - c_new_h)[:, 0, :, 0]             # (B, H)
+    fk_c = torch.exp(bk_c - c_com_g)                  # (B,T,G,D), 0 beyond
+    add_s = _repeat_heads(torch.einsum("bjgd,bjgv->bgdv", fk_c, v.float()),
+                          h, dim=1)
+    add_z = _repeat_heads(fk_c.sum(1), h, dim=1)
+    s_new = state.s * resc[..., None, None] + add_s
+    z_new = state.z * resc[..., None] + add_z
     log_scale = state.log_scale
     if renorm is not None and renorm > 0.0:
         s_new, z_new, c_new_h, log_scale = core_lln._renorm(
@@ -451,7 +478,37 @@ def lln_decode_chunk(state, q, k, v, alpha, beta, backend: str = "auto",
             core_lln.folded_rows(row_mask, cl), renorm)
     new = core_lln.LLNState(s=s_new, z=z_new, c_k=c_new_h,
                             log_scale=log_scale)
-    return _from_kernel(out_k, b), core_lln.keep_rows(row_mask, new, state)
+    return core_lln.keep_rows(row_mask, new, state)
+
+
+def lln_commit_chunk(state, k, v, beta, backend: str = "auto",
+                     row_mask=None, commit_len=None, renorm=None):
+    """Fold a chunk's accepted prefix into an ``LLNState`` without scoring:
+    the commit half of :func:`lln_decode_chunk`, the single-pass
+    speculative verify's second step.  A ``commit_len=0`` verify scores
+    the chunk and leaves the state as it was; this folds the accepted
+    prefix from the chunk's (k, v), bit for bit the state
+    :func:`lln_decode_chunk` gives with the final ``commit_len`` on the
+    same backend (the kernel and plain kinds share :func:`_fold_group`,
+    torch at the G kv groups; ``ref`` runs ``core/lln.py:commit_chunk``
+    on repeated KV).  No kernel runs: the fold is O(T d^2).
+    k/v: (B,T,G,D[v]); beta as in :func:`lln_decode_chunk`;
+    ``commit_len`` None commits all T.  Returns the new ``LLNState``."""
+    b, t, g, _ = k.shape
+    h = state.s.shape[1]
+    kind = registry.resolve(backend, k.device)
+    beta_b = _group_beta(beta, h, g, k.device)
+    if kind == "ref":
+        return core_lln.commit_chunk(state, _repeat_heads(k, h),
+                                     _repeat_heads(v, h),
+                                     _repeat_heads(beta_b, h, dim=-1),
+                                     row_mask=row_mask,
+                                     commit_len=commit_len, renorm=renorm)
+    bk = k.float() * _row_head_bcast(beta_b)
+    cl = core_lln.commit_lengths(
+        commit_len if commit_len is not None
+        else core_lln.full_commit(t, k), row_mask, t)
+    return _fold_group(state, bk, v, cl, row_mask, renorm)
 
 
 # ---------------------------------------------------------------------------
@@ -578,10 +635,7 @@ def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
     r = h // g
     kind = registry.resolve(backend, q.device)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
-    beta_b = torch.as_tensor(beta, dtype=torch.float32, device=q.device)
-    if beta_b.ndim and beta_b.shape[-1] == h and g != h:
-        beta_b = beta_b.reshape(beta_b.shape[:-1] + (g, r)).mean(dim=-1)
-    beta_b = _bcast_heads(beta_b, g, q.device)
+    beta_b = _group_beta(beta, h, g, q.device)
     beta_h = _repeat_heads(beta_b, h, dim=-1)
     kf, vf = _repeat_heads(k, h), _repeat_heads(v, h)
     if kind == "ref":
@@ -639,6 +693,37 @@ def loglin_decode_chunk(state, q, k, v, alpha, beta, *, pos, granule: int,
         z_b.reshape(b * h, 1, d).contiguous(), r, kind)
     out = torch.where(pre_key, _from_kernel(out_a, b), _from_kernel(out_b, b))
     return out, new_state
+
+
+def loglin_commit_chunk(state, k, v, beta, *, pos, granule: int,
+                        num_scales: int, backend: str = "auto",
+                        row_mask=None, commit_len=None, renorm=None):
+    """Fold a scored chunk's accepted prefix into a ``LogLinState`` without
+    scoring: the commit half of :func:`loglin_decode_chunk`.  Every kind
+    runs the core ``_advance`` at H heads on the (k, v) of the chunk, as
+    :func:`loglin_decode_chunk` does for its state (``ref`` through
+    ``core/loglinear.py:commit_chunk``), so the commit equals that decode
+    with the final ``commit_len`` bit for bit.  No kernel runs.
+    k/v: (B,T,G,D[v]), T <= granule; beta as in :func:`lln_decode_chunk`."""
+    t, g = k.shape[1], k.shape[2]
+    h = state.s.shape[1]
+    kind = registry.resolve(backend, k.device)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k.device)
+    beta_h = _repeat_heads(_group_beta(beta, h, g, k.device), h, dim=-1)
+    kf, vf = _repeat_heads(k, h), _repeat_heads(v, h)
+    if kind == "ref":
+        return core_loglin.commit_chunk(
+            state, kf, vf, beta_h, pos=pos, granule=granule,
+            num_scales=num_scales, row_mask=row_mask,
+            commit_len=commit_len, renorm=renorm)
+    if t > granule:
+        raise ValueError(f"log_linear commit_chunk requires T <= granule "
+                         f"(T={t}, granule={granule})")
+    new_state, _ = core_loglin._advance(
+        state, kf.float() * _row_head_bcast(beta_h), vf.float(), pos=pos,
+        granule=granule, num_scales=num_scales, t=t, row_mask=row_mask,
+        commit_len=commit_len, renorm=renorm)
+    return new_state
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,10 @@ This module owns the policy (spec validation, :func:`resolve`) and the
 spec-level entry points: :func:`attention` (training, from
 ``core/attention.py:multi_head_attention``), the engine's prefill
 (:func:`prefill`, :func:`diag_fwd`, :func:`loglin_prefill`,
-:func:`softmax_attention`) and the ``log_linear`` decode
-(:func:`decode_chunk`); the ops live in ``kernels/ops.py``.
+:func:`softmax_attention`), the ``log_linear`` decode
+(:func:`decode_chunk`) and the speculative commit (:func:`commit_chunk`);
+the ops live in ``kernels/ops.py``.  :func:`deprecated_shim` marks the
+legacy entry points.
 
 ``softmax`` has no kernel, in the reference as here, so the backends do
 not choose between a kernel and its twin for it: ``ref`` runs the
@@ -33,8 +35,9 @@ which adds the diag tail.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -150,6 +153,21 @@ def warn_deprecated(name: str, replacement: str) -> None:
                   DeprecationWarning, stacklevel=3)
 
 
+def deprecated_shim(name: str, replacement: str) -> Callable:
+    """Decorator marking a legacy entry point: it warns once
+    (:func:`warn_deprecated`), then delegates to the wrapped function,
+    whose signature and return value it keeps.  The wrapper carries
+    ``__deprecated_shim__ = (name, replacement)``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            warn_deprecated(name, replacement)
+            return fn(*args, **kwargs)
+        wrapper.__deprecated_shim__ = (name, replacement)
+        return wrapper
+    return deco
+
+
 def resolve(backend: str, device: torch.device) -> str:
     """The implementation kind a backend runs for tensors on ``device``:
     ``"kernel"``, ``"plain"`` or ``"ref"``."""
@@ -242,3 +260,24 @@ def decode_chunk(spec: AttnSpec, state, q, k, v, alpha, beta, *, pos,
                                    backend=spec.backend, row_mask=row_mask,
                                    commit_len=commit_len,
                                    renorm=spec.renorm or None)
+
+
+def commit_chunk(spec: AttnSpec, state, k, v, beta, row_mask=None,
+                 commit_len=None, pos=None):
+    """Fold a scored chunk's accepted prefix into an ``LLNState`` (or, for
+    ``log_linear``, a ``LogLinState`` at the per-row depth ``pos``) under
+    ``spec.backend``, without scoring: the speculative verify's commit
+    (``ops.lln_commit_chunk`` / ``ops.loglin_commit_chunk``), with
+    ``spec.renorm``'s drift renorm."""
+    from . import ops
+    if spec.impl == "log_linear":
+        return ops.loglin_commit_chunk(state, k, v, beta, pos=pos,
+                                       granule=spec.lln_chunk,
+                                       num_scales=spec.num_scales,
+                                       backend=spec.backend,
+                                       row_mask=row_mask,
+                                       commit_len=commit_len,
+                                       renorm=spec.renorm or None)
+    return ops.lln_commit_chunk(state, k, v, beta, backend=spec.backend,
+                                row_mask=row_mask, commit_len=commit_len,
+                                renorm=spec.renorm or None)

@@ -29,8 +29,10 @@ The engine is driven by the host between segments.  Robustness layer:
   ``unhealthy`` flag (``core/health.py``).  A flagged row is quarantined:
   its segment tokens are discarded, its slot is evicted and the request is
   re-queued with exponential backoff.  On re-admission its row is rebuilt
-  exactly: the original prompt re-prefilled, then the emitted tokens
-  replayed through ``PoolSetup.replay_fn`` (the partial commit);
+  bit for bit: its admission group re-prefilled (the same batch, so the
+  same kernels and sums), then each of its recorded steps rerun through
+  ``PoolSetup.replay_fn`` (the partial commit, on the step's own inputs:
+  a speculative row's verify chunks hold its rejected drafts too);
 * **streaming concentration telemetry** - the last segment's summary over
   live rows lands in ``BatchingStats.telemetry``; with
   ``HealthConfig.check_drift`` a drifting row is quarantined as above;
@@ -47,8 +49,10 @@ The engine is driven by the host between segments.  Robustness layer:
   ``distributed/straggler.py:StepWatchdog``; anomalies surface in the
   stats.
 
-Speculative pool rows (``spec_k >= 1``) wait for ROADMAP.md queue 1,
-item 9: ``make_pool_setup`` refuses them.
+Speculative pools (``PoolSetup.spec_k >= 1``) emit up to ``spec_k + 1``
+tokens per row and step: the harvest reads an (S, B, E) token panel with
+int counts (E = 1 for plain pools), caps each row at its budget, and the
+stats carry the acceptance counters, per run and per request.
 """
 from __future__ import annotations
 
@@ -64,8 +68,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import restore as _restore_tree
 from repro_torch.distributed.straggler import StepWatchdog
 from repro_torch.launch.faults import FaultPlan, SimulatedCrash, poison_rows
-from repro_torch.launch.steps import (REPLAY_CHUNK, PoolSetup,
-                                      make_pool_setup)
+from repro_torch.launch.steps import PoolSetup, make_pool_setup
 from repro_torch.tree import map_with_path
 
 
@@ -115,7 +118,16 @@ class BatchingStats:
     (segments x segment length); ``statuses`` every rid's terminal status;
     ``reject_reasons`` the typed error of rejected or failed rids;
     ``telemetry`` the last segment's concentration summary over live rows
-    (empty without LLN state)."""
+    (empty without LLN state).
+
+    Speculative pools (``spec_k >= 1``): ``verify_iters`` counts the
+    draft / verify iterations that emitted, ``drafted_tokens`` is
+    ``spec_k * verify_iters``, ``accepted_tokens`` the accepted drafts (not
+    the bonus or resampled token each iteration adds), so
+    ``acceptance_rate`` is the drafts' hit rate, and
+    ``goodput_tokens_per_iter`` the emitted tokens per iteration, in [1,
+    spec_k + 1].  ``request_acceptance`` maps each rid to its (accepted,
+    drafted) counts."""
     outputs: dict
     completed_tokens: int
     decode_steps: int
@@ -135,6 +147,13 @@ class BatchingStats:
     snapshots: int = 0
     restored_step: Optional[int] = None
     telemetry: dict = dataclasses.field(default_factory=dict)
+    spec_k: int = 0
+    drafted_tokens: int = 0
+    accepted_tokens: int = 0
+    acceptance_rate: float = 0.0
+    verify_iters: int = 0
+    goodput_tokens_per_iter: float = 0.0
+    request_acceptance: dict = dataclasses.field(default_factory=dict)
 
 
 def synthetic_traffic(n_requests: int, vocab: int, prompt_lens,
@@ -159,6 +178,12 @@ class _Tracked:
     deadline_at: Optional[float] = None   # absolute time.monotonic() bound
     retries: int = 0
     eligible_seg: int = 0                 # backoff: earliest admit boundary
+    # What a quarantine recovery replays: the prompts of the prefill that
+    # admitted the request (G, plen) and its row there, then per committed
+    # step its inputs (E tokens) and how many of them it committed.
+    group: Optional[np.ndarray] = None
+    row: int = 0
+    steps: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -185,6 +210,11 @@ class _RunState:
     snapshots: int = 0
     restored_step: Optional[int] = None
     telemetry: dict = dataclasses.field(default_factory=dict)
+    emitted_tokens: int = 0
+    verify_iters: int = 0
+    accepted_tokens: int = 0
+    drafted_tokens: int = 0
+    request_acceptance: dict = dataclasses.field(default_factory=dict)
 
 
 class ContinuousBatcher:
@@ -259,10 +289,14 @@ class ContinuousBatcher:
             raise AdmissionError(
                 f"request {req.rid}: deadline_s must be > 0, "
                 f"got {req.deadline_s}")
-        if p.shape[0] + req.budget > s.max_len:
+        # A speculative pool reserves spec_k positions of slack: a row's
+        # last iteration may commit up to spec_k tokens past its budget.
+        slack = s.spec_k
+        if p.shape[0] + req.budget + slack > s.max_len:
             raise AdmissionError(
                 f"request {req.rid}: prompt {p.shape[0]} + gen "
-                f"{req.budget} exceeds max_len {s.max_len}")
+                f"{req.budget}" + (f" + spec slack {slack}" if slack else "")
+                + f" exceeds max_len {s.max_len}")
 
     def _enqueue(self, st: _RunState, req: Request) -> bool:
         try:
@@ -329,13 +363,14 @@ class ContinuousBatcher:
     def _admit_group(self, st: _RunState, group: list, free: list) -> None:
         s = self.setup
         plen = group[0].req.prompt.shape[0]
-        logits, slot_caches = s.prefill_fn(self.params, self._tokens(
-            np.stack([t.req.prompt for t in group])))
+        prompts = np.stack([t.req.prompt for t in group])
+        logits, slot_caches = s.prefill_fn(self.params, self._tokens(prompts))
         last = logits[:, -1] if logits.ndim == 3 else logits
         tok0 = torch.argmax(last, -1).cpu().numpy()
         live, live_slots, live_rem = [], [], []
         for j, tr in enumerate(group):
             rid = tr.req.rid
+            tr.group, tr.row = prompts, j
             st.outputs[rid].append(int(tok0[j]))
             st.admitted += 1
             if tr.req.budget <= 1:          # done at prefill; slot free
@@ -362,33 +397,39 @@ class ContinuousBatcher:
         st.active[slots] = True
 
     def _admit_resume(self, st: _RunState, tr: _Tracked, slot: int) -> None:
-        """Rebuild a quarantined request's row from its committed tokens:
-        re-prefill the original prompt alone (the same per-row
-        calibration), then replay the emitted tokens but the last through
-        ``replay_fn`` (every other row commits 0 and stays untouched).  The
-        replayed trajectory is the original decode trajectory, so the
-        rebuilt state is exact under every calibration mode."""
+        """Rebuild a quarantined request's row from its committed steps:
+        re-prefill its admission group (the same prompts in the same batch,
+        so its row's prefill is bit for bit the first one), then rerun each
+        recorded step on its own inputs through ``replay_fn`` (every other
+        row commits 0 and stays untouched).  The replay is the original
+        trajectory, the same calls at the same shapes, so the rebuilt
+        state is the one the fault destroyed, bit for bit."""
         s = self.setup
         req = tr.req
         emitted = st.outputs[req.rid]
         plen = req.prompt.shape[0]
         n = len(emitted)
-        _, slot_caches = s.prefill_fn(self.params,
-                                      self._tokens(req.prompt[None, :]))
+        _, slot_caches = s.prefill_fn(self.params, self._tokens(tr.group))
+        if tr.group.shape[0] > 1:
+            sel = torch.as_tensor([tr.row], device=self.device)
+            slot_caches = map_with_path(lambda _, a: a[sel], slot_caches)
         st.caches = s.admit_fn(st.caches, slot_caches, [slot])
-        replay = emitted[:-1]
-        r_chunk = REPLAY_CHUNK
-        for off in range(0, len(replay), r_chunk):
-            piece = replay[off:off + r_chunk]
-            chunk = np.zeros((s.slots, r_chunk), np.int64)
-            chunk[slot, :len(piece)] = piece
+        committed = [t for inputs, c in tr.steps for t in inputs[:c]]
+        if committed != list(emitted[:-1]):
+            raise RuntimeError(f"request {req.rid}: the recorded steps "
+                               "commit other tokens than it emitted")
+        off = 0
+        for inputs, c in tr.steps:
+            chunk = np.zeros((s.slots, len(inputs)), np.int64)
+            chunk[slot] = inputs
             commit = torch.zeros(s.slots, dtype=torch.int32,
                                  device=self.device)
-            commit[slot] = len(piece)
+            commit[slot] = c
             pos_r = st.pos.clone()
             pos_r[slot] = plen + off
             st.caches = s.replay_fn(self.params, st.caches,
                                     self._tokens(chunk), pos_r, commit)
+            off += c
         st.tok[slot] = int(emitted[-1])
         st.pos[slot] = plen + n - 1
         left = req.budget - n
@@ -436,9 +477,15 @@ class ContinuousBatcher:
             st.queue.append(tr)
 
     def _harvest(self, st: _RunState, toks_h, emitted_h, active_h,
-                 unhealthy_h) -> None:
-        """``toks_h`` (S, B) tokens and ``emitted_h`` (S, B) bool from the
-        segment; each row's output stops at its request's budget."""
+                 unhealthy_h, inputs_h) -> None:
+        """``toks_h`` (S, B, E) token panel and ``emitted_h`` (S, B) int
+        emission counts per step (E = 1 and counts in {0, 1} for a plain
+        pool, E = spec_k + 1 for a speculative one); ``inputs_h`` (S, B, E)
+        the steps' inputs, recorded per request with the count each step
+        committed (its emission count) for a recovery's replay.  Each row's
+        flattened stream stops at its request's budget: a speculative row's
+        overshoot is committed in the cache slack but never reaches
+        ``outputs``."""
         freed: list = []
         for idx in range(self.setup.slots):
             if unhealthy_h[idx]:
@@ -451,8 +498,14 @@ class ContinuousBatcher:
             tr = st.tracked[rid]
             out = st.outputs[rid]
             room = tr.req.budget - len(out)
-            take = toks_h[emitted_h[:, idx], idx][:max(room, 0)]
-            out.extend(int(t) for t in take)
+            for step in np.nonzero(emitted_h[:, idx])[0]:
+                if room <= 0:
+                    break
+                tr.steps.append((inputs_h[step, idx].tolist(),
+                                 int(emitted_h[step, idx])))
+                take = toks_h[step, idx, :int(emitted_h[step, idx])][:room]
+                out.extend(int(t) for t in take)
+                room -= len(take)
             if not active_h[idx]:             # evict: budget spent
                 st.statuses[rid] = "retried" if tr.retries else "done"
                 st.slot_rid[idx] = -1
@@ -530,7 +583,10 @@ class ContinuousBatcher:
                 "deadline_left": (tr.deadline_at - now
                                   if tr.deadline_at is not None else None),
                 "retries": tr.retries,
-                "eligible_seg": tr.eligible_seg}
+                "eligible_seg": tr.eligible_seg,
+                "group": (tr.group.tolist() if tr.group is not None
+                          else None),
+                "row": tr.row, "steps": tr.steps}
 
     @staticmethod
     def _deser_tracked(entry: dict, now: float) -> _Tracked:
@@ -543,7 +599,12 @@ class ContinuousBatcher:
                         deadline_at=(now + left if left is not None
                                      else None),
                         retries=int(entry.get("retries", 0)),
-                        eligible_seg=int(entry.get("eligible_seg", 0)))
+                        eligible_seg=int(entry.get("eligible_seg", 0)),
+                        group=(np.asarray(entry["group"], np.int32)
+                               if entry.get("group") is not None else None),
+                        row=int(entry.get("row", 0)),
+                        steps=[(list(i), int(c))
+                               for i, c in entry.get("steps", [])])
 
     @staticmethod
     def _generator_state(gen: Optional[torch.Generator]) -> torch.Tensor:
@@ -565,6 +626,12 @@ class ContinuousBatcher:
             "segments": st.segments, "decode_steps": st.decode_steps,
             "admitted": st.admitted, "recoveries": st.recoveries,
             "rejected": st.rejected, "snapshots": st.snapshots,
+            "emitted_tokens": st.emitted_tokens,
+            "verify_iters": st.verify_iters,
+            "accepted_tokens": st.accepted_tokens,
+            "drafted_tokens": st.drafted_tokens,
+            "request_acceptance": {str(r): v for r, v
+                                   in st.request_acceptance.items()},
             "queue": [self._ser_tracked(tr, now) for tr in st.queue],
             "resident": [self._ser_tracked(tr, now)
                          for rid, tr in st.tracked.items()
@@ -606,6 +673,13 @@ class ContinuousBatcher:
         st.recoveries = int(meta["recoveries"])
         st.rejected = int(meta["rejected"])
         st.snapshots = int(meta["snapshots"])
+        st.emitted_tokens = int(meta.get("emitted_tokens", 0))
+        st.verify_iters = int(meta.get("verify_iters", 0))
+        st.accepted_tokens = int(meta.get("accepted_tokens", 0))
+        st.drafted_tokens = int(meta.get("drafted_tokens", 0))
+        st.request_acceptance = {
+            int(r): list(v)
+            for r, v in meta.get("request_acceptance", {}).items()}
         st.health_events = list(meta["health_events"])
         st.outputs = {int(r): list(t) for r, t in meta["outputs"].items()}
         st.statuses = {int(r): v for r, v in meta["statuses"].items()}
@@ -643,7 +717,8 @@ class ContinuousBatcher:
         s = self.setup
         plens = list(dict.fromkeys(int(p) for p in prompt_lens))
         dummy = [Request(rid=i, prompt=np.zeros((p,), np.int32),
-                         gen_len=max(1, min(s.segment + 1, s.max_len - p)))
+                         gen_len=max(1, min(s.segment + 1,
+                                            s.max_len - p - s.spec_k)))
                  for i, p in enumerate(plens)]
         every, self.snapshot_every = self.snapshot_every, 0
         try:
@@ -698,18 +773,26 @@ class ContinuousBatcher:
             wd.start()
             self._fire_faults(st, fault_plan, fired, ("delay", "nan"))
             (st.caches, st.tok, st.pos, st.remaining, st.active,
-             toks, emitted, unhealthy, metrics) = s.segment_fn(
+             toks, emitted, unhealthy, metrics, inputs) = s.segment_fn(
                 self.params, st.caches, st.tok, st.pos, st.remaining,
                 st.active, st.generator)
             # The host reads land inside the watchdog's window, so that it
-            # sees the segment's wall clock, not the enqueue.
+            # sees the segment's wall clock, not the enqueue.  One panel
+            # for both pools: a plain pool's (S, B) tokens and bool mask
+            # become (S, B, 1) and {0, 1} counts.
             toks_h = toks.cpu().numpy()
-            emitted_h = emitted.cpu().numpy()
+            if toks_h.ndim == 2:
+                toks_h = toks_h[..., None]
+            emitted_h = emitted.cpu().numpy().astype(np.int64)
+            inputs_h = inputs.cpu().numpy()
             active_h = st.active.cpu().numpy()
             unhealthy_h = unhealthy.cpu().numpy()
             wd.stop(st.segments)
             st.segments += 1
             st.decode_steps += s.segment
+            st.emitted_tokens += int(emitted_h.sum())
+            if s.spec_k:
+                self._count_acceptance(st, emitted_h)
             live = emitted_h.any(axis=0)          # rows that decoded here
             if metrics is not None and live.any():
                 m = {k: v.cpu().numpy() for k, v in metrics.items()}
@@ -721,7 +804,8 @@ class ContinuousBatcher:
                         np.mean(m["log_mass_var"][live])),
                     "tau_hat_mean": float(np.mean(m["tau_hat"][live]))}
 
-            self._harvest(st, toks_h, emitted_h, active_h, unhealthy_h)
+            self._harvest(st, toks_h, emitted_h, active_h, unhealthy_h,
+                          inputs_h)
             self._sweep_deadlines(st)
             if (self.snapshot_mgr is not None and self.snapshot_every
                     and st.segments % self.snapshot_every == 0):
@@ -747,7 +831,34 @@ class ContinuousBatcher:
             stragglers=list(wd.anomalies),
             segment_ewma_s=wd.ewma or 0.0,
             snapshots=st.snapshots, restored_step=st.restored_step,
-            telemetry=dict(st.telemetry))
+            telemetry=dict(st.telemetry),
+            spec_k=s.spec_k, drafted_tokens=st.drafted_tokens,
+            accepted_tokens=st.accepted_tokens,
+            acceptance_rate=(st.accepted_tokens / st.drafted_tokens
+                             if st.drafted_tokens else 0.0),
+            verify_iters=st.verify_iters,
+            goodput_tokens_per_iter=(st.emitted_tokens / st.verify_iters
+                                     if st.verify_iters else 0.0),
+            request_acceptance={r: tuple(v) for r, v
+                                in st.request_acceptance.items()})
+
+    def _count_acceptance(self, st: _RunState, emitted_h) -> None:
+        """A speculative segment's counters: an iteration that emitted n
+        tokens drafted ``spec_k`` and accepted n - 1 of them (the last is
+        the target's correction or bonus), per run and per request."""
+        k = self.setup.spec_k
+        iters = emitted_h > 0
+        accepted = np.maximum(emitted_h - 1, 0)
+        st.verify_iters += int(iters.sum())
+        st.drafted_tokens += k * int(iters.sum())
+        st.accepted_tokens += int(accepted.sum())
+        for idx in range(self.setup.slots):
+            rid = int(st.slot_rid[idx])
+            if rid < 0 or not iters[:, idx].any():
+                continue
+            acc = st.request_acceptance.setdefault(rid, [0, 0])
+            acc[0] += int(accepted[:, idx].sum())
+            acc[1] += k * int(iters[:, idx].sum())
 
 
 __all__ = ["Request", "BatchingStats", "ContinuousBatcher",

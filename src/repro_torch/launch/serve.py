@@ -18,14 +18,23 @@ the health sentinel, fault injection (``--fault-plan``) and pool snapshots
       --attn-impl lln_diag --device cpu --continuous --requests 8 \
       --gen-lens 4,12
 
-Speculative decoding and meshes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``--speculative`` decodes draft-then-verify (a tied first-k-layers draft,
+``--draft-layers``, by default half the layers, proposes ``--spec-k``
+tokens and the target verifies them in one pass); with ``--continuous``
+the pool's rows are speculative:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
+      --attn-impl lln_diag --device cpu --speculative --spec-k 3 --gen 16
+
+Meshes are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
@@ -34,7 +43,8 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.health import HealthConfig
 from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
 from repro_torch.launch.faults import FaultPlan, SimulatedCrash
-from repro_torch.launch.steps import (make_pool_setup, make_serve_setup,
+from repro_torch.launch.steps import (flatten_spec_tokens, make_pool_setup,
+                                      make_serve_setup, make_spec_setup,
                                       sample_token)
 from repro_torch.models import synthetic_batch
 
@@ -64,11 +74,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--continuous", action="store_true")
-    ap.add_argument("--speculative", action="store_true")
-    # The speculative mode's flags parse, so a reference command line
-    # reaches the NotImplementedError that names the ROADMAP item.
-    ap.add_argument("--draft-layers", type=int, default=None)
-    ap.add_argument("--spec-k", type=int, default=3)
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-then-verify decoding (composes with "
+                    "--continuous)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="layers of the tied draft (default: half)")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="draft tokens per verify")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--segment", type=int, default=8)
     ap.add_argument("--gen-lens", default=None,
@@ -96,16 +108,12 @@ def _parser() -> argparse.ArgumentParser:
 
 # What each unported mode waits for (ROADMAP.md, queue 1).
 _NOT_PORTED = {
-    "speculative": "speculative decoding (ROADMAP.md queue 1, item 9)",
     "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
 }
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.speculative:
-        raise NotImplementedError(f"--speculative is not ported yet: "
-                                  f"{_NOT_PORTED['speculative']}")
     if args.mesh != "1,1":
         raise NotImplementedError(f"--mesh is not ported yet: "
                                   f"{_NOT_PORTED['mesh']}")
@@ -119,6 +127,8 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
     if args.continuous:
         return _run_continuous(cfg, args)
+    if args.speculative:
+        return _run_speculative(cfg, args)
 
     max_len = args.prompt_len + args.gen
     setup = make_serve_setup(cfg, ShapeSpec("cli", max_len, args.batch,
@@ -172,13 +182,67 @@ def main(argv=None):
     return toks
 
 
+def _run_speculative(cfg, args):
+    """Draft-then-verify decoding: the tied first-k-layers draft and one
+    target verify per iteration with per-row partial commits."""
+    draft_layers = args.draft_layers or max(cfg.n_layers // 2, 1)
+    steps = max(args.gen - 1, 1)
+    max_len = args.prompt_len + args.gen + args.spec_k + 2
+    setup = make_spec_setup(cfg, ShapeSpec("spec", max_len, args.batch,
+                                           "decode"), device=args.device,
+                            spec_k=args.spec_k, draft_layers=draft_layers)
+    dev = setup.device
+    params = setup.model.init(args.seed)
+    batch = synthetic_batch(cfg, args.batch, max_len,
+                            text_seq=args.prompt_len, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 1)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.time()
+    logits, tgt_caches, dr_caches = setup.prefill_fn(params, batch)
+    sync()
+    t_prefill = time.time() - t0
+    tok0 = torch.argmax(logits[:, -1], -1)
+    gen_fn = setup.make_generate(steps, args.temperature)
+    t0 = time.time()
+    toks, n_emit, n_acc, live, *_ = gen_fn(params, tgt_caches, dr_caches,
+                                           tok0, args.prompt_len, gen)
+    sync()
+    t_gen = time.time() - t0
+    n_emit_h, n_acc_h = n_emit.cpu().numpy(), n_acc.cpu().numpy()
+    acc_rate = float(n_acc_h.sum()) / max(float(live.sum()) * args.spec_k,
+                                          1.0)
+    iters_used = [int(np.argmax(np.cumsum(n_emit_h[r]) >= steps)) + 1
+                  for r in range(args.batch)]
+    tps = float(np.mean([steps / i for i in iters_used]))
+    flat = flatten_spec_tokens(toks, n_emit, steps)
+    tok_s = steps * args.batch / max(t_gen, 1e-9)
+    print(f"prefill: {args.batch}x{args.prompt_len} (target + "
+          f"{draft_layers}-layer draft) in {t_prefill:.3f}s")
+    print(f"speculative: k={args.spec_k}, draft_layers={draft_layers}; "
+          f"{steps} tokens/row in {t_gen:.3f}s ({tok_s:.1f} tok/s)")
+    print(f"  acceptance rate {acc_rate:.2f}, tokens/verify-step {tps:.2f} "
+          f"(1.0 = non-speculative)")
+    print("sample tokens:", flat[0, :16].tolist())
+    return flat
+
+
 def _run_continuous(cfg, args):
     """The continuous-batching pool over mixed-length synthetic traffic."""
     gen_lens = ([int(x) for x in args.gen_lens.split(",")]
                 if args.gen_lens else [args.gen // 4 or 1] * 3 + [args.gen])
     prompt_lens = ([int(x) for x in args.prompt_lens.split(",")]
                    if args.prompt_lens else [args.prompt_len])
-    max_len = max(prompt_lens) + max(gen_lens)
+    # --speculative with --continuous: speculative pool rows, with the
+    # spec_k slack reserved in the cache.
+    spec_k = args.spec_k if args.speculative else 0
+    draft_layers = ((args.draft_layers or max(cfg.n_layers // 2, 1))
+                    if args.speculative else 0)
+    max_len = max(prompt_lens) + max(gen_lens) + spec_k
     plan = FaultPlan.load(args.fault_plan) if args.fault_plan else None
     mgr = (CheckpointManager(args.snapshot_dir, keep_n=3, interval=1)
            if args.snapshot_dir else None)
@@ -186,7 +250,7 @@ def _run_continuous(cfg, args):
         cfg, args.device, slots=args.batch, max_len=max_len,
         segment=args.segment, temperature=args.temperature,
         health=(HealthConfig(check_drift=args.drift) if args.health
-                else None))
+                else None), spec_k=spec_k, draft_layers=draft_layers)
     params = setup.model.init(args.seed)
     eng = ContinuousBatcher(setup, params, queue_cap=args.queue_cap,
                             snapshot_mgr=mgr,
@@ -214,11 +278,18 @@ def _run_continuous(cfg, args):
     util = stats.completed_tokens / max(
         stats.decode_steps * args.batch + max(stats.admitted, 1), 1)
     print(f"continuous: {args.requests} requests over {args.batch} slots, "
-          f"segment={args.segment}, gen_lens={gen_lens}")
+          f"segment={args.segment}, gen_lens={gen_lens}"
+          + (f", speculative k={spec_k} draft_layers={draft_layers}"
+             if spec_k else ""))
     print(f"  {stats.completed_tokens} tokens in {stats.wall_s:.3f}s "
           f"({stats.completed_tokens / max(stats.wall_s, 1e-9):.1f} tok/s "
           f"goodput), {stats.segments} segments, "
           f"slot utilization {util:.2f}")
+    if stats.spec_k:
+        print(f"  speculative: acceptance {stats.acceptance_rate:.2f} "
+              f"({stats.accepted_tokens}/{stats.drafted_tokens} drafts), "
+              f"{stats.goodput_tokens_per_iter:.2f} tokens/verify-iter "
+              f"over {stats.verify_iters} iterations")
     by = {}
     for v in stats.statuses.values():
         by[v] = by.get(v, 0) + 1

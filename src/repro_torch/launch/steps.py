@@ -1,5 +1,7 @@
 """Step builders (port of ``repro.launch.steps``): the train step, the
-serving steps and the continuous-batching pool (``PoolSetup``).
+serving steps, speculative decoding (``SpecSetup``) and the
+continuous-batching pool (``PoolSetup``, with speculative rows at
+``spec_k >= 1``).
 
 The reference jits its steps and folds generation into one ``lax.scan``;
 here PyTorch runs eagerly, generation is a Python loop of decode steps and
@@ -11,13 +13,16 @@ import contextlib
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.engine import evict_rows
 from repro_torch.core.health import HealthConfig, unhealthy_rows
 from repro_torch.core.metrics import streaming_concentration_tree
-from repro_torch.models import Model, build_model
+from repro_torch.core import speculative
+from repro_torch.models import (Model, build_model, draft_config,
+                                draft_params)
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
 from repro_torch.tree import tree_map
@@ -189,6 +194,186 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec,
 
 
 # ---------------------------------------------------------------------------
+# Speculative decoding: draft-then-verify over the partial-commit contract.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpecSetup:
+    """Speculative decoding for one (cfg, batch shape) on one device.
+
+    Draft-then-verify (Leviathan et al.; Chen et al.) over the engine's
+    partial commit: each iteration the tied first-``draft_layers`` draft
+    proposes ``spec_k`` tokens one by one on scratch state, the target
+    scores the chunk ``[tok, d_1..d_k]`` in one ``commit_len=0`` pass
+    (``Model.score``: its caches unchanged), the acceptance rule
+    (``core/speculative.py``) gives per-row commit lengths, the target
+    folds the accepted prefix from the score's residuals
+    (``Model.commit``) and the draft decodes the chunk under the same
+    ``commit_len``.  A rejected draft never enters a running sum.
+
+    * ``prefill_fn(params, batch) -> (last logits, tgt_caches,
+      draft_caches)``: both models prefill the prompt (the draft's
+      parameters are a view of the target's first layers).
+    * ``make_generate(steps, temperature=0.0, iters=None)`` returns
+      ``gen(params, tgt_caches, draft_caches, tok, pos0, generator=None)
+      -> (toks (B, iters, k+1), n_emit (B, iters), n_accept (B, iters),
+      live (B, iters), tgt_caches, draft_caches)``; one iteration emits
+      1..k+1 tokens per row, and a row stops (``commit_len`` 0, the
+      masked row) once it has ``steps`` tokens.  ``iters`` defaults to
+      ``steps``, the worst case of one token per verify.  The reference
+      scans all ``iters``; the eager loop here stops when no row is live,
+      and the iterations it leaves out are zero (``live`` False, nothing
+      emitted), which is what running them would give but for their
+      unused token slots.  :func:`flatten_spec_tokens` makes (B, steps)
+      sequences.
+
+    Greedy speculative decoding gives the plain greedy loop's tokens.
+    """
+    cfg: Any
+    draft_cfg: Any
+    model: Model
+    draft_model: Model
+    spec_k: int
+    draft_layers: int
+    max_len: int
+    prefill_fn: Any
+    make_generate: Any = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+
+def _draft_chunk(dmodel, dparams, dr_caches, tok, pos, k: int,
+                 temperature: float, generator, row_mask=None):
+    """k draft tokens from ``tok`` at per-row positions ``pos``, decoded
+    one by one on scratch caches (discarded).  Returns ``(drafts (B, k),
+    draft logits (B, k, V))``; with ``row_mask`` the masked rows' logits
+    are zeroed before sampling (garbage by the decode contract)."""
+    drafts, dlogits = [], []
+    cur = tok
+    for j in range(k):
+        lg, dr_caches = dmodel.decode(dparams, dr_caches, cur, pos + j,
+                                      row_mask=row_mask)
+        if row_mask is not None:
+            lg = lg.masked_fill(~row_mask[:, None], 0.0)
+        cur = sample_token(lg, temperature, generator)
+        drafts.append(cur)
+        dlogits.append(lg)
+    return torch.stack(drafts, 1), torch.stack(dlogits, 1)
+
+
+def _verify_step(model, dmodel, params, dparams, tgt, dr, tok, pos, k: int,
+                 temperature: float, generator, live, row_mask=None):
+    """One draft / score / accept / commit iteration.  ``live`` (B,) bool:
+    the rows that may commit (the others commit 0).  Returns ``(tgt, dr,
+    emitted (B, k+1), n_accept (B,), next token (B,), commit (B,), verify
+    chunk (B, k+1))``."""
+    drafts, dlogits = _draft_chunk(dmodel, dparams, dr, tok, pos, k,
+                                   temperature, generator, row_mask)
+    chunk = torch.cat([tok[:, None], drafts], 1)
+    tlogits, resid = model.score(params, tgt, chunk, pos, row_mask=row_mask)
+    if row_mask is not None:
+        tlogits = tlogits.masked_fill(~row_mask[:, None, None], 0.0)
+    n_acc, nxt, commit = speculative.verify_tokens(
+        drafts, tlogits, temperature, generator=generator,
+        draft_logits=dlogits)
+    commit = torch.where(live, commit, torch.zeros_like(commit))
+    tgt = model.commit(tgt, resid, commit, row_mask=row_mask)
+    _, dr = dmodel.decode(dparams, dr, chunk, pos, row_mask=row_mask,
+                          commit_len=commit)
+    return (tgt, dr, speculative.emit_tokens(drafts, n_acc, nxt), n_acc,
+            nxt, commit, chunk)
+
+
+def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
+                    spec_k: int, draft_layers: int) -> SpecSetup:
+    """The speculative loop for a dense decoder on ``device`` (the CUDA
+    card unless the caller asks for another device).  ``shape.seq_len`` is
+    the cache budget: the prompt, the generation budget and one verify
+    chunk of overshoot (``prompt + steps + spec_k + 1``)."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    dcfg = draft_config(cfg, draft_layers)   # validates k and the family
+    model = build_model(cfg, device)
+    dmodel = build_model(dcfg, device)
+    draft_layers = draft_layers or cfg.draft_layers
+    max_len = shape.seq_len
+    k = spec_k
+
+    def prefill_fn(params, batch):
+        logits, tgt = model.prefill(params, batch, max_len)
+        _, dr = dmodel.prefill(draft_params(params, cfg, draft_layers),
+                               batch, max_len)
+        return logits, tgt, dr
+
+    def make_generate(steps: int, temperature: float = 0.0,
+                      iters: Optional[int] = None):
+        n_iters = steps if iters is None else iters
+
+        @torch.inference_mode()
+        def gen(params, tgt_caches, dr_caches, tok, pos0, generator=None):
+            b = tok.shape[0]
+            dev = tok.device
+            dparams = draft_params(params, cfg, draft_layers)
+            pos = torch.as_tensor(pos0, dtype=torch.int32,
+                                  device=dev).expand(b).clone()
+            count = torch.zeros(b, dtype=torch.int32, device=dev)
+            toks = torch.zeros(b, n_iters, k + 1, dtype=tok.dtype,
+                               device=dev)
+            n_emit = torch.zeros(b, n_iters, dtype=torch.int32, device=dev)
+            n_accept = torch.zeros_like(n_emit)
+            live_all = torch.zeros(b, n_iters, dtype=torch.bool, device=dev)
+            for i in range(n_iters):
+                live = count < steps
+                if not bool(live.any()):
+                    break
+                tgt_caches, dr_caches, out, n_acc, nxt, commit, _ = \
+                    _verify_step(model, dmodel, params, dparams, tgt_caches,
+                                 dr_caches, tok, pos, k, temperature,
+                                 generator, live)
+                emit = torch.where(live, n_acc + 1, torch.zeros_like(n_acc))
+                toks[:, i] = out
+                n_emit[:, i] = emit
+                n_accept[:, i] = torch.where(live, n_acc,
+                                             torch.zeros_like(n_acc))
+                live_all[:, i] = live
+                tok = torch.where(live, nxt, tok)
+                pos = pos + commit
+                count = count + emit
+            return toks, n_emit, n_accept, live_all, tgt_caches, dr_caches
+
+        return gen
+
+    return SpecSetup(cfg=cfg, draft_cfg=dcfg, model=model,
+                     draft_model=dmodel, spec_k=spec_k,
+                     draft_layers=draft_layers, max_len=max_len,
+                     prefill_fn=prefill_fn, make_generate=make_generate)
+
+
+def flatten_spec_tokens(toks, n_emit, steps: int) -> np.ndarray:
+    """One speculative run's (B, steps) token sequences: each row's
+    emitted prefixes ``toks[r, it, :n_emit[r, it]]`` concatenated, the
+    overshoot past ``steps`` dropped.  Raises if a row has fewer than
+    ``steps`` tokens (too few iterations)."""
+    toks = np.asarray(toks.cpu() if torch.is_tensor(toks) else toks)
+    n_emit = np.asarray(n_emit.cpu() if torch.is_tensor(n_emit) else n_emit)
+    b = toks.shape[0]
+    out = np.zeros((b, steps), np.int32)
+    for r in range(b):
+        seq: list[int] = []
+        for it in range(toks.shape[1]):
+            seq.extend(int(x) for x in toks[r, it, :int(n_emit[r, it])])
+            if len(seq) >= steps:
+                break
+        if len(seq) < steps:
+            raise ValueError(f"row {r} emitted {len(seq)} < {steps} tokens"
+                             " - increase iters")
+        out[r] = np.asarray(seq[:steps], np.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Continuous batching: a slotted request pool over per-row caches.
 # ---------------------------------------------------------------------------
 
@@ -211,8 +396,8 @@ class PoolSetup:
       int); the caches passed in are not modified.
     * ``segment_fn(params, caches, tok, pos, remaining, active,
       generator=None) -> (caches, tok, pos, remaining, active, tokens (S,
-      B), emitted (S, B), unhealthy (B,), metrics)`` - ``segment`` decode
-      steps in an eager loop.  Each step decodes every slot under
+      B), emitted (S, B), unhealthy (B,), metrics, inputs (S, B, 1))`` -
+      ``segment`` decode steps in an eager loop.  Each step decodes every slot under
       ``row_mask=active``, zeroes the masked rows' logits before sampling
       (they are garbage by the decode contract, NaN even after a fault),
       advances the active rows' positions and retires the rows whose
@@ -222,14 +407,30 @@ class PoolSetup:
       concentration telemetry (``log_mass``, ``log_mass_var``,
       ``tau_hat``, ``conc_drift``; None without LLN state); with ``health.check_drift`` an active row whose
       ``|conc_drift|`` exceeds ``health.max_conc_drift`` is unhealthy too.
-    * ``replay_fn(params, caches, chunk (B, R), pos (B,), commit (B,))``
-      - advance rows over tokens they already committed, emitting nothing:
-      one chunked decode under ``commit_len`` (rows with ``commit = 0``
-      are untouched).  The quarantine recovery re-prefills a row's prompt
-      and replays its emitted tokens in ``REPLAY_CHUNK`` pieces.
+      ``inputs`` are each step's input tokens per row, the steps' record
+      that a recovery replays.
+    * ``replay_fn(params, caches, chunk (B, E), pos (B,), commit (B,))``
+      - rerun one recorded step on the rows with ``commit > 0``, emitting
+      nothing: the segment's own calls on the step's ``inputs`` (E = 1: a
+      decode step; speculative: the score and commit of the verify chunk
+      and the draft's commit decode) under ``row_mask = commit > 0``, so
+      the other rows are untouched and the replayed rows' caches come out
+      bit for bit as the step left them.  The quarantine recovery
+      re-prefills a row's admission group and replays its steps.
     * ``evict_fn(caches, row_mask)`` - the engine's ``evict`` over the
       whole cache tree: the rows where ``row_mask`` ((slots,) bool) is
       True reset to zero, their ``alpha``/``beta`` to one.
+
+    Speculative pool (``spec_k >= 1``): every cache tree is the pair
+    ``{"target", "draft"}`` (both prefill on admission and advance together
+    through replay and evict; the draft is the target's first
+    ``draft_layers`` layers, ``draft_model`` its ``Model``), each segment
+    step is one draft / verify / accept iteration, and ``segment_fn``'s
+    tokens are (S, B, k+1) with ``emitted`` (S, B) int counts (0 for a
+    frozen row, up to ``spec_k + 1``) and its ``inputs`` the verify chunks
+    ``[tok, d_1..d_k]`` (S, B, k+1): the rejected drafts set the chunk's
+    stabilization constants, so an exact replay needs them.  The health
+    sentinel and the telemetry read the target's caches.
     """
     cfg: Any
     model: Model
@@ -244,6 +445,9 @@ class PoolSetup:
     evict_fn: Any
     replay_fn: Any
     health: Any = None
+    spec_k: int = 0
+    draft_layers: int = 0
+    draft_model: Optional[Model] = None
 
     @property
     def device(self) -> torch.device:
@@ -251,14 +455,13 @@ class PoolSetup:
 
 
 _HEALTH_DEFAULT = HealthConfig()
-REPLAY_CHUNK = 8            # tokens per replay_fn call in a recovery
 
 
 def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
                     max_len: int, segment: int = 8,
                     temperature: float = 0.0,
                     health: Optional[HealthConfig] = _HEALTH_DEFAULT,
-                    spec_k: int = 0) -> PoolSetup:
+                    spec_k: int = 0, draft_layers: int = 0) -> PoolSetup:
     """The pool's building blocks for ``cfg`` on ``device`` (the CUDA card
     unless the caller asks for another device): the dense decoders and the
     ssm / hybrid LMs, with every serving impl.  The pool's model calibrates
@@ -266,8 +469,17 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     request's alpha/beta come from its own prompt, which keeps a batched
     slot prefill exact per request.  ``health=None`` turns the sentinel
     off.
-    ``spec_k >= 1`` (speculative pool rows) waits for ROADMAP.md queue 1,
-    item 9, and MoE / MLA configs for item 11b."""
+
+    ``spec_k >= 1`` makes the rows speculative (the dense family): paired
+    target and draft caches (the draft the tied first ``draft_layers``
+    layers), and per segment step one draft-k / verify / accept iteration
+    whose per-row accept counts become per-row ``commit_len``; done, free
+    and quarantined rows ride ``commit_len=0``.  The verify is one
+    ``commit_len=0`` target score and the ``lm_commit`` fold of the
+    accepted prefix.  A row may overshoot its budget by up to ``spec_k``
+    tokens in its last iteration: the batcher caps the harvest at the
+    budget and ``check_request`` reserves ``spec_k`` positions of slack.
+    MoE / MLA configs wait for ROADMAP.md queue 1, item 11b."""
     if cfg.family in ("moe", "mla_moe", "encdec", "vlm") or cfg.kv_lora > 0:
         raise NotImplementedError(
             f"continuous batching of the {cfg.family} family is not ported "
@@ -278,18 +490,34 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
             f"(family={cfg.family})")
     if spec_k < 0:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-    if spec_k >= 1:
+    if spec_k >= 1 and cfg.family != "dense":
         raise NotImplementedError(
-            "speculative pool rows are not ported yet (ROADMAP.md queue 1, "
-            "item 9)")
+            "speculative pools need a first-k-layers draft "
+            f"(family={cfg.family})")
     cfg = cfg.replace(lln_per_row_calib=True)
     model = build_model(cfg, device)
+    spec = spec_k >= 1
+    dmodel = None
+    if spec:
+        dmodel = build_model(draft_config(cfg, draft_layers), device)
+        draft_layers = draft_layers or cfg.draft_layers
+    k = spec_k
 
     def cache_init():
-        return model.cache_init(None, slots, max_len, per_row=True)
+        tgt = model.cache_init(None, slots, max_len, per_row=True)
+        if not spec:
+            return tgt
+        return {"target": tgt,
+                "draft": dmodel.cache_init(None, slots, max_len,
+                                           per_row=True)}
 
     def prefill_fn(params, tokens):
-        return model.prefill(params, {"inputs": tokens}, max_len)
+        logits, tgt = model.prefill(params, {"inputs": tokens}, max_len)
+        if not spec:
+            return logits, tgt
+        _, dr = dmodel.prefill(draft_params(params, cfg, draft_layers),
+                               {"inputs": tokens}, max_len)
+        return logits, {"target": tgt, "draft": dr}
 
     @torch.inference_mode()
     def admit_fn(pooled, slot_caches, slot_idx):
@@ -328,8 +556,9 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     @torch.inference_mode()
     def segment_fn(params, caches, tok, pos, remaining, active,
                    generator=None):
-        toks, emitted = [], []
+        toks, emitted, inputs = [], [], []
         for _ in range(segment):
+            inputs.append(tok)
             logits, caches = model.decode(params, caches, tok, pos,
                                           row_mask=active)
             logits = logits.masked_fill(~active[:, None], 0.0)
@@ -343,16 +572,57 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
             active = active & (remaining > 0)
         unhealthy, metrics = _sentinel(caches, active)
         return (caches, tok, pos, remaining, active, torch.stack(toks),
-                torch.stack(emitted), unhealthy, metrics)
+                torch.stack(emitted), unhealthy, metrics,
+                torch.stack(inputs)[..., None])
+
+    @torch.inference_mode()
+    def segment_spec_fn(params, caches, tok, pos, remaining, active,
+                        generator=None):
+        """``segment`` draft / verify / accept iterations over the paired
+        caches; frozen rows ride ``commit_len=0`` on both.  Emits (S, B,
+        k+1) tokens, (S, B) int32 counts and the (S, B, k+1) verify
+        chunks."""
+        dparams = draft_params(params, cfg, draft_layers)
+        tgt, dr = caches["target"], caches["draft"]
+        toks, emitted, inputs = [], [], []
+        for _ in range(segment):
+            tgt, dr, out, n_acc, nxt, commit, chunk = _verify_step(
+                model, dmodel, params, dparams, tgt, dr, tok, pos, k,
+                temperature, generator, active, row_mask=active)
+            inputs.append(chunk)
+            n_emit = torch.where(active, n_acc + 1, torch.zeros_like(n_acc))
+            tok = torch.where(active, nxt, tok)
+            toks.append(out)
+            emitted.append(n_emit)
+            pos = pos + commit
+            remaining = remaining - n_emit
+            active = active & (remaining > 0)
+        unhealthy, metrics = _sentinel(tgt, active)
+        return ({"target": tgt, "draft": dr}, tok, pos, remaining, active,
+                torch.stack(toks), torch.stack(emitted), unhealthy, metrics,
+                torch.stack(inputs))
 
     @torch.inference_mode()
     def replay_fn(params, caches, chunk, pos, commit):
-        _, caches = model.decode(params, caches, chunk, pos,
-                                 commit_len=commit)
-        return caches
+        rows = commit > 0
+        if not spec:
+            _, caches = model.decode(params, caches, chunk[:, 0], pos,
+                                     row_mask=rows)
+            return caches
+        # Both states rerun the step's commits on its verify chunk.
+        _, resid = model.score(params, caches["target"], chunk, pos,
+                               row_mask=rows)
+        tgt = model.commit(caches["target"], resid, commit, row_mask=rows)
+        _, dr = dmodel.decode(draft_params(params, cfg, draft_layers),
+                              caches["draft"], chunk, pos, row_mask=rows,
+                              commit_len=commit)
+        return {"target": tgt, "draft": dr}
 
     return PoolSetup(cfg=cfg, model=model, slots=slots, max_len=max_len,
                      segment=segment, temperature=temperature,
                      cache_init=cache_init, prefill_fn=prefill_fn,
-                     admit_fn=admit_fn, segment_fn=segment_fn,
-                     evict_fn=evict_fn, replay_fn=replay_fn, health=health)
+                     admit_fn=admit_fn,
+                     segment_fn=segment_spec_fn if spec else segment_fn,
+                     evict_fn=evict_fn, replay_fn=replay_fn, health=health,
+                     spec_k=spec_k, draft_layers=draft_layers,
+                     draft_model=dmodel)

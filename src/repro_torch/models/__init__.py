@@ -1,5 +1,7 @@
 """Model zoo of the port (the dense decoder, encoder, ssm and hybrid
 families)."""
-from .model_zoo import Model, build_model, synthetic_batch
+from .model_zoo import (Model, build_model, draft_config, draft_params,
+                        synthetic_batch)
 
-__all__ = ["Model", "build_model", "synthetic_batch"]
+__all__ = ["Model", "build_model", "draft_config", "draft_params",
+           "synthetic_batch"]

@@ -2,8 +2,10 @@
 
 Port of ``repro.models.attention_block`` for self-attention: the training
 forward ``attn_apply`` through ``core/attention.py:multi_head_attention``,
-and the serving lifecycle ``serve_state_init`` / ``serve_prefill`` /
-``serve_decode`` over :class:`repro_torch.core.engine.AttentionEngine`.
+the serving lifecycle ``serve_state_init`` / ``serve_prefill`` /
+``serve_decode`` / ``serve_commit`` over
+:class:`repro_torch.core.engine.AttentionEngine`, and the legacy
+warn-once shims ``attn_cache_init`` / ``attn_prefill`` / ``attn_decode``.
 GQA/MQA, qk-norm (``cfg.qk_norm``: an RMS norm over head_dim of q and k
 before the RoPE, qwen3) and partial RoPE (``cfg.rotary_pct``).
 """
@@ -14,6 +16,8 @@ from torch import nn
 
 from repro_torch.core.attention import AttnConfig, multi_head_attention
 from repro_torch.core.engine import AttentionEngine
+from repro_torch.device import resolve_device
+from repro_torch.kernels.registry import deprecated_shim
 from .layers import _dense_param, dense, rms_head_norm, rope
 
 
@@ -96,13 +100,17 @@ def serve_prefill(p: Attention, x, cfg, positions, *, max_len: int = 0):
 
 
 def serve_decode(p: Attention, x, state, cfg, position, *, row_mask=None,
-                 commit_len=None):
+                 commit_len=None, return_residuals: bool = False):
     """Decode over T >= 1 new tokens; x: (B, T, d).  ``position``: the
     absolute index of the first new token, an int (every row at the same
     depth) or a per-row (B,) tensor.  ``row_mask`` (B,) bool: masked rows
     write nothing (their outputs are to be discarded); ``commit_len`` (B,)
     int in [0, T]: all T positions are scored, only the accepted prefix
-    folds into the state (``AttentionEngine.decode``)."""
+    folds into the state (``AttentionEngine.decode``).
+    ``return_residuals=True`` (with ``commit_len``) returns a third
+    element, the layer's post-RoPE ``{"k", "v"}``, so that a
+    ``commit_len=0`` score can be folded later by :func:`serve_commit`
+    (``AttentionEngine.verify``)."""
     b, t, _ = x.shape
     steps = torch.arange(t, dtype=torch.int32, device=x.device)
     if torch.is_tensor(position) and position.ndim == 1:
@@ -111,7 +119,53 @@ def serve_decode(p: Attention, x, state, cfg, position, *, row_mask=None,
     else:
         pos = position + steps
     q, k, v = _project_qkv(p, x, cfg, pos)
-    out, state = attn_engine(cfg).decode(state, q, k, v, row_mask=row_mask,
-                                         commit_len=commit_len)
-    return dense(p.o_w, out.reshape(b, t, cfg.n_heads * cfg.hd),
-                 cfg.cdtype), state
+    eng = attn_engine(cfg)
+    if return_residuals:
+        out, state, resid = eng.verify(state, q, k, v, row_mask=row_mask,
+                                       commit_len=commit_len,
+                                       return_residuals=True)
+    else:
+        out, state = eng.decode(state, q, k, v, row_mask=row_mask,
+                                commit_len=commit_len)
+    out = dense(p.o_w, out.reshape(b, t, cfg.n_heads * cfg.hd), cfg.cdtype)
+    return (out, state, resid) if return_residuals else (out, state)
+
+
+def serve_commit(state, residual, cfg, *, commit_len, row_mask=None):
+    """Fold a scored chunk's accepted prefix into one layer's state, with
+    no parameters: ``residual`` is the ``{"k", "v"}`` that
+    :func:`serve_decode` returned under ``return_residuals=True``, and
+    ``state`` the state that score ran against (``AttentionEngine.commit``,
+    O(T d^2))."""
+    return attn_engine(cfg).commit(state, residual, commit_len=commit_len,
+                                   row_mask=row_mask)
+
+
+# --- legacy entry points (deprecation shims over the engine) ---------------
+
+@deprecated_shim("models.attention_block.attn_cache_init",
+                 "attn_engine(cfg).init_state / serve_state_init")
+def attn_cache_init(cfg, batch: int, max_len: int, per_row: bool = False,
+                    device=None):
+    """Legacy cache initializer.  The state is always per row, so
+    ``per_row`` is accepted and ignored; ``device`` is the CUDA card
+    unless the caller asks for another."""
+    del per_row
+    return serve_state_init(cfg, batch, max_len, resolve_device(device))
+
+
+@deprecated_shim("models.attention_block.attn_prefill", "serve_prefill")
+def attn_prefill(p, x, cfg, positions, *, prefix_len: int = 0,
+                 max_len: int = 0):
+    """Legacy prefill: delegates to :func:`serve_prefill`.  A prefix-LM
+    ``prefix_len`` comes with ROADMAP.md queue 1, item 11b."""
+    if prefix_len:
+        raise NotImplementedError("prefix_len is not ported yet (ROADMAP.md "
+                                  "queue 1, item 11b)")
+    return serve_prefill(p, x, cfg, positions, max_len=max_len)
+
+
+@deprecated_shim("models.attention_block.attn_decode", "serve_decode")
+def attn_decode(p, x, cache, cfg, position, *, row_mask=None):
+    """Legacy decode: delegates to :func:`serve_decode`."""
+    return serve_decode(p, x, cache, cfg, position, row_mask=row_mask)

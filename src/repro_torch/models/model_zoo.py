@@ -17,7 +17,9 @@ batch size, max_len (and ``per_row``, accepted as in the reference: the
 port's states are always per row) -> zeroed caches on the model's device
 (the params may be None).  ``max_len`` sizes softmax KV caches; the LLN
 impls and the SSM layers ignore it.  The encoder has no serving path and
-raises.
+raises.  The dense family also has ``score`` and ``commit``, the two
+halves of the speculative verify; :func:`draft_config` and
+:func:`draft_params` give the tied first-k-layers draft.
 """
 from __future__ import annotations
 
@@ -46,6 +48,12 @@ class Model:
     decode: Callable          # params, caches, token, position -> (logits, caches)
     cache_init: Callable      # params, batch size, max_len -> caches
     param_count: Callable
+    # Speculative decoding (the dense family; None elsewhere): ``score`` =
+    # logits and per-layer (k, v) residuals without advancing the caches,
+    # ``commit`` = the parameter-free O(T d^2) fold of the accepted prefix
+    # (transformer.py:lm_score / lm_commit).
+    score: Optional[Callable] = None
+    commit: Optional[Callable] = None
 
 
 def _xent_loss(cfg, h, head, batch):
@@ -65,7 +73,7 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
     if cfg.family not in ("dense", "encoder", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; see ROADMAP.md "
-            "queue 1")
+            "queue 1, item 11b")
     if cfg.family == "encoder":
         def mlm_loss(params, batch):
             h, _ = enc.encoder_hidden(params, batch["inputs"], cfg)
@@ -122,7 +130,49 @@ def build_model(cfg: ArchConfig, device=None) -> Model:
                                       row_mask, commit_len),
         cache_init=lambda params, b, max_len, per_row=False:
         tr.lm_cache_init(params, cfg, b, max_len, per_row, dev),
-        param_count=_count)
+        param_count=_count,
+        score=lambda params, caches, token, pos, row_mask=None: tr.lm_score(
+            params, caches, token, cfg, pos, row_mask),
+        commit=lambda caches, resid, commit_len, row_mask=None: tr.lm_commit(
+            caches, resid, cfg, commit_len, row_mask))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the tied first-k-layers draft model.
+# ---------------------------------------------------------------------------
+
+def draft_config(cfg: ArchConfig, draft_layers: int = 0) -> ArchConfig:
+    """The draft model's config: the target cut to its first
+    ``draft_layers`` blocks (embedding, final norm and LM head shared), the
+    early-exit draft of draft-then-verify decoding.  ``draft_layers``
+    defaults to ``cfg.draft_layers``; at ``cfg.n_layers`` it is the tied
+    full model (every draft accepted)."""
+    k = draft_layers or cfg.draft_layers
+    if not 1 <= k <= cfg.n_layers:
+        raise ValueError(f"draft_layers must be in [1, {cfg.n_layers}], "
+                         f"got {k}")
+    if cfg.family not in ("dense", "moe") or cfg.first_dense_layers:
+        raise NotImplementedError(
+            "first-k-layers draft supports dense/moe decoders without "
+            f"first_dense_layers (family={cfg.family})")
+    return cfg.replace(name=f"{cfg.name}-draft{k}", n_layers=k)
+
+
+def draft_params(params, cfg: ArchConfig, draft_layers: int = 0):
+    """The draft's parameters: a ``DenseLM`` whose ``layers`` are the
+    target's first k blocks and whose embedding, final norm and head are
+    the target's, the same ``nn.Parameter`` objects (no copy: the draft is
+    tied to the target and has no weights of its own)."""
+    k = draft_layers or cfg.draft_layers
+    draft_config(cfg, k)                 # validates k and the family
+    view = tr.DenseLM.__new__(tr.DenseLM)
+    torch.nn.Module.__init__(view)
+    view.embed_table = params.embed_table
+    view.final_norm = params.final_norm
+    view.layers = torch.nn.ModuleList(list(params.layers)[:k])
+    if hasattr(params, "lm_head"):
+        view.lm_head = params.lm_head
+    return view
 
 
 def synthetic_batch(cfg: ArchConfig, batch: int, seq: int, seed: int = 0,

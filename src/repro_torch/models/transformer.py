@@ -7,7 +7,9 @@ and a Python loop, each block under ``torch.utils.checkpoint`` when
 ``cfg.remat`` is ``"full"`` or ``"dots"`` (a selective checkpoint that
 keeps the matrix products' outputs).  Parameter names match the reference pytree
 (``embed.table``, ``final_norm``, ``layers[i].{ln1, ln2, attn, mlp}``,
-``lm_head``) so ``convert.py`` is a copy.
+``lm_head``) so ``convert.py`` is a copy.  The speculative verify's
+single pass is :func:`lm_score` (a ``commit_len=0`` decode that returns the
+layers' (k, v)) and :func:`lm_commit` (the fold of the accepted prefix).
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .attention_block import (Attention, attn_apply, serve_decode,
-                              serve_prefill, serve_state_init)
+from .attention_block import (Attention, attn_apply, serve_commit,
+                              serve_decode, serve_prefill, serve_state_init)
 from .layers import (MLP, Norm, apply_mlp, apply_norm, embed_lookup,
                      logits_from_hidden, trunc_normal)
 
@@ -139,6 +141,20 @@ def block_decode(p: Block, x, cache, cfg, position, *, row_mask=None,
     return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), cache
 
 
+def block_score(p: Block, x, cache, cfg, position, *, row_mask=None):
+    """The speculative score pass over one block: a ``commit_len=0`` decode
+    that leaves ``cache`` as it was and returns the attention layer's
+    ``{"k", "v"}`` commit residuals beside the activations."""
+    h = apply_norm(p.ln1, x)
+    zeros = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    attn_out, _, resid = serve_decode(p.attn, h, cache, cfg, position,
+                                      row_mask=row_mask, commit_len=zeros,
+                                      return_residuals=True)
+    x = x + attn_out.to(x.dtype)
+    h = apply_norm(p.ln2, x)
+    return x + apply_mlp(p.mlp, h, cfg.cdtype).to(x.dtype), resid
+
+
 def lm_cache_init(p: DenseLM, cfg, batch: int, max_len: int,
                   per_row: bool = False, device=None) -> dict:
     """Per-layer decode states, ``{"layers": [AttentionState, ...]}``
@@ -170,6 +186,19 @@ def lm_prefill(p: DenseLM, tokens, cfg, max_len: int):
     return logits, {"layers": caches}
 
 
+#: Full target passes per config name: :func:`lm_decode` and
+#: :func:`lm_score` each add one per call (the speculative loop's audit of
+#: target passes per emitted token).
+DECODE_PASS_COUNTS: dict = {}
+
+
+def _count_pass(cfg):
+    """Count one full decode pass of ``cfg``.  The reference counts traces
+    (its decode is jitted, so a count is a compiled pass); the port runs
+    eagerly, so this counts calls."""
+    DECODE_PASS_COUNTS[cfg.name] = DECODE_PASS_COUNTS.get(cfg.name, 0) + 1
+
+
 @torch.inference_mode()
 def lm_decode(p: DenseLM, caches, token, cfg, position, row_mask=None,
               commit_len=None):
@@ -181,6 +210,7 @@ def lm_decode(p: DenseLM, caches, token, cfg, position, row_mask=None,
     (0 is the masked row).  Returns logits (B, Vpad) for (B,) input,
     (B, T, Vpad) for chunked input, and the new caches."""
     single = token.ndim == 1
+    _count_pass(cfg)
     toks = token[:, None] if single else token
     x = embed_lookup(p.embed_table, toks, cfg.cdtype, cfg.embed_scale)
     new = []
@@ -191,3 +221,37 @@ def lm_decode(p: DenseLM, caches, token, cfg, position, row_mask=None,
     x = apply_norm(p.final_norm, x)
     logits = logits_from_hidden(p.head, x, cfg.cdtype, cfg.logit_softcap)
     return (logits[:, 0] if single else logits), {"layers": new}
+
+
+@torch.inference_mode()
+def lm_score(p: DenseLM, caches, token, cfg, position, row_mask=None):
+    """The speculative score pass: logits for a (B, T) draft chunk without
+    advancing the caches, and each layer's commit residuals.  Every layer
+    decodes with ``commit_len=0``, which leaves its cache as it was; once
+    the acceptance rule has given per-row commit lengths, :func:`lm_commit`
+    folds the accepted prefix from the residuals (one full pass per verify
+    instead of two).  Returns ``(logits (B, T, Vpad), residuals)``, the
+    residuals ``{"layers": [{"k", "v"}, ...]}`` beside the caches."""
+    _count_pass(cfg)
+    x = embed_lookup(p.embed_table, token, cfg.cdtype, cfg.embed_scale)
+    resids = []
+    for lp, cache in zip(p.layers, caches["layers"]):
+        x, resid = block_score(lp, x, cache, cfg, position,
+                               row_mask=row_mask)
+        resids.append(resid)
+    x = apply_norm(p.final_norm, x)
+    logits = logits_from_hidden(p.head, x, cfg.cdtype, cfg.logit_softcap)
+    return logits, {"layers": resids}
+
+
+@torch.inference_mode()
+def lm_commit(caches, residuals, cfg, commit_len, row_mask=None):
+    """Fold the accepted prefix of a scored chunk into every layer's cache,
+    with no parameters: the residuals carry the post-RoPE (k, v) of the
+    score pass, so the commit is one O(T d^2) fold per layer
+    (``AttentionEngine.commit``), the same caches bit for bit as
+    :func:`lm_decode` with this ``commit_len``.  Returns the new caches."""
+    return {"layers": [serve_commit(c, r, cfg, commit_len=commit_len,
+                                    row_mask=row_mask)
+                       for c, r in zip(caches["layers"],
+                                       residuals["layers"])]}

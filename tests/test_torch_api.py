@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 import repro.configs as jconfigs
 import repro.kernels as jkernels
 import repro_torch.configs as tconfigs
@@ -203,3 +205,140 @@ def test_arch_registry():
     assert set(tconfigs.ASSIGNED_ARCHS) <= set(jconfigs.ASSIGNED_ARCHS)
     for name in tconfigs.list_archs():
         assert tconfigs.get_config(name, smoke=True).name
+
+
+# --- F5: the engine's stateless call, the state's dict read and the shims --
+
+def _engine_pair(impl, backend="plain", **spec):
+    from repro.core.engine import AttentionEngine as JEngine
+    from repro.kernels.registry import AttnSpec as JSpec
+    kw = dict(impl=impl, r=2, lln_chunk=8, diag_block=8, **spec)
+    heads = dict(heads=4, kv_heads=2, head_dim=8, v_dim=8)
+    jback = {"plain": "auto", "ref": "ref"}[backend]
+    return (JEngine(spec=JSpec(backend=jback, **kw), **heads),
+            tcore.AttentionEngine(spec=treg.AttnSpec(backend=backend, **kw),
+                                  **heads))
+
+
+@pytest.mark.parametrize("impl,backend,calibration", [
+    ("lln", "plain", "batch"), ("lln_diag", "plain", "per_row"),
+    ("lln_diag", "ref", "batch"), ("log_linear", "plain", "batch"),
+    ("softmax", "plain", "batch"), ("softmax", "ref", "batch")])
+def test_engine_attention_matches_reference(impl, backend, calibration):
+    """``AttentionEngine.attention`` (stateless, causal, calibrated inside
+    per ``spec.calibration``) equals the reference's on the same inputs,
+    and with the engine's own ``calibrate`` passed in."""
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(2, 24, 4, 8)).astype(np.float32)
+    k = rng.normal(size=(2, 24, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(2, 24, 2, 8)).astype(np.float32)
+    jeng, teng = _engine_pair(impl, backend, calibration=calibration)
+    want = jeng.attention(*_j(q, k, v))
+    got = teng.attention(*_t(q, k, v))
+    _close(got.numpy(), want, 1e-4)
+    if impl != "softmax":
+        alpha, beta = teng.calibrate(*_t(q, k))
+        again = teng.attention(*_t(q, k, v), alpha=alpha, beta=beta)
+        _close(again.numpy(), got.numpy(), 1e-6)
+
+
+def test_engine_attention_length_gain_and_refusals():
+    """The beta(n) gain applies at N, as in the reference; ``mask`` and
+    ``prefix_len`` name item 11b."""
+    rng = np.random.default_rng(22)
+    q = rng.normal(size=(1, 40, 4, 8)).astype(np.float32)
+    k = rng.normal(size=(1, 40, 2, 8)).astype(np.float32)
+    v = rng.normal(size=(1, 40, 2, 8)).astype(np.float32)
+    jeng, teng = _engine_pair("lln", beta_n=0.5, calib_len=16)
+    _close(teng.attention(*_t(q, k, v)).numpy(),
+           jeng.attention(*_j(q, k, v)), 1e-4)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        teng.attention(*_t(q, k, v), mask=torch.ones(1, 40, dtype=bool))
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        teng.attention(*_t(q, k, v), prefix_len=4)
+
+
+def test_attention_state_getitem():
+    """``state["pos"]`` reads the field; an unknown name is a KeyError,
+    as in the reference."""
+    st = tcore.AttentionEngine(spec=treg.AttnSpec(impl="lln", r=2),
+                               heads=4, kv_heads=2, head_dim=8,
+                               v_dim=8).init_state(2, "cpu", 8)
+    assert st["pos"] is st.pos and st["k"] is None
+    with pytest.raises(KeyError):
+        st["nope"]
+
+
+def test_deprecated_shim_warns_once_and_delegates():
+    calls = []
+
+    @treg.deprecated_shim("test.old_fn", "test.new_fn")
+    def old_fn(x, *, y=1):
+        """Doc kept."""
+        calls.append((x, y))
+        return x + y
+
+    treg.reset_deprecations()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert old_fn(2, y=3) == 5 and old_fn(4) == 5
+    assert [w.category for w in caught] == [DeprecationWarning]
+    assert "test.new_fn" in str(caught[0].message)
+    assert calls == [(2, 3), (4, 1)]
+    assert old_fn.__doc__ == "Doc kept."
+    assert old_fn.__deprecated_shim__ == ("test.old_fn", "test.new_fn")
+
+
+def test_attention_block_shims_warn_once_and_match_the_canonical_calls():
+    """``attn_cache_init`` / ``attn_prefill`` / ``attn_decode`` warn once
+    each and give what ``serve_state_init`` / ``serve_prefill`` /
+    ``serve_decode`` give; the prefill and decode outputs equal the
+    reference's shims' from converted weights."""
+    import jax
+    from repro.configs import get_config as j_get_config
+    from repro.models import attention_block as jab
+    from repro.models import build_model as j_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import attention_block as ab
+    from repro_torch.models import build_model
+
+    over = dict(attn_impl="lln_diag", compute_dtype="float32")
+    cfg = get_config("yi-9b", smoke=True, **over)
+    jcfg = j_get_config("yi-9b", smoke=True, **over)
+    jparams = j_build_model(jcfg).init(jax.random.PRNGKey(0))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               cfg, "cpu")
+    jp = jax.tree_util.tree_map(lambda a: a[0], jparams["layers"])["attn"]
+    p = params.layers[0].attn
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(2, 12, cfg.d_model)).astype(np.float32)
+    x1 = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    pos = np.arange(12)
+    treg.reset_deprecations()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(2):
+            st0 = ab.attn_cache_init(cfg, 2, 16, device="cpu")
+            out, st = ab.attn_prefill(p, torch.from_numpy(x), cfg,
+                                      torch.from_numpy(pos), max_len=16)
+            out1, st1 = ab.attn_decode(p, torch.from_numpy(x1), st, cfg, 12)
+    assert [w.category for w in caught] == [DeprecationWarning] * 3
+    ref0 = ab.serve_state_init(cfg, 2, 16, torch.device("cpu"))
+    assert all(torch.equal(getattr(st0, f), getattr(ref0, f))
+               for f in ("s", "z", "pos", "alpha", "tail_k"))
+    ref_out, ref_st = ab.serve_prefill(p, torch.from_numpy(x), cfg,
+                                       torch.from_numpy(pos), max_len=16)
+    assert torch.equal(out, ref_out) and torch.equal(st.s, ref_st.s)
+    assert torch.equal(out1, ab.serve_decode(p, torch.from_numpy(x1), st,
+                                             cfg, 12)[0])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        jout, jst = jab.attn_prefill(jp, jnp.asarray(x), jcfg,
+                                     jnp.asarray(pos), max_len=16)
+        jout1, _ = jab.attn_decode(jp, jnp.asarray(x1), jst, jcfg, 12)
+    _close(out.detach().numpy(), jout, 1e-4)
+    _close(out1.detach().numpy(), jout1, 1e-4)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        ab.attn_prefill(p, torch.from_numpy(x), cfg, torch.from_numpy(pos),
+                        prefix_len=2)

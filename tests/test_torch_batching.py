@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.configs.base import ArchConfig as JArchConfig
 from repro.launch.batcher import ContinuousBatcher as JBatcher
 from repro.launch.batcher import synthetic_traffic as j_traffic
@@ -553,9 +555,20 @@ class TestFaultPlan:
 
 class TestUnported:
     def test_speculative_rows_name_item_9(self):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make_pool_setup(_tiny_cfg(), "cpu", slots=2, max_len=32,
-                            spec_k=2)
+        """Speculative rows (item 9) raised before they were ported; now
+        the pool pairs target and draft caches (the ssm family, which has
+        no first-k-layers draft, still refuses)."""
+        setup = make_pool_setup(_tiny_cfg(), "cpu", slots=2, max_len=32,
+                                spec_k=2, draft_layers=1)
+        assert setup.spec_k == 2 and setup.draft_layers == 1
+        assert setup.draft_model.cfg.n_layers == 1
+        caches = setup.cache_init()
+        assert set(caches) == {"target", "draft"}
+        assert len(caches["target"]["layers"]) == 2
+        assert len(caches["draft"]["layers"]) == 1
+        with pytest.raises(NotImplementedError, match="first-k-layers"):
+            make_pool_setup(get_config("mamba2-130m", smoke=True), "cpu",
+                            slots=2, max_len=32, spec_k=2, draft_layers=1)
 
     def test_moe_names_item_11b(self):
         cfg = dataclasses.replace(_tiny_cfg(), family="moe", n_experts=4)

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.configs import get_config as j_get_config
 from repro.configs.base import ShapeSpec as JShape

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.core import attention as jattn
 from repro.core import moment_matching as jmm
 from repro_torch.core import attention as tattn
@@ -124,13 +126,26 @@ def test_entry_points_raise_without_a_device(monkeypatch):
                                   ["--attn-impl", "log_linear",
                                    "--speculative", "--spec-k", "3"],
                                   ["--mesh", "2,1"]])
-def test_serve_unported_modes_raise(argv):
+def test_serve_unported_modes_raise(argv, capsys):
+    """``--mesh`` names its ROADMAP item; ``--speculative``, alone or with
+    ``--continuous``, raised before speculative decoding was ported and
+    now serves."""
     from repro_torch.launch import serve
     base = ["--arch", "yi-9b", "--smoke", "--device", "cpu"]
     if "--attn-impl" not in argv:
         base += ["--attn-impl", "lln"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(base + argv)
+    if "--speculative" not in argv:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.main(base + argv)
+        return
+    out = serve.main(base + argv)
+    text = capsys.readouterr().out
+    assert "speculative" in text
+    if "--continuous" in argv:
+        assert out.statuses and set(out.statuses.values()) == {"done"}
+        assert out.spec_k == 3 and out.verify_iters > 0
+    else:
+        assert out.shape == (4, 31) and "acceptance rate" in text
 
 
 @pytest.mark.parametrize("argv", [[], ["--attn-impl", "softmax"]],

@@ -66,7 +66,12 @@ CUDA-core kernels.  ``lln_decode`` (its state rescale folded in with
 (fp32: ATOL), s1 and z1 within 1e-5 of the largest entry, two runs bitwise
 equal, and the folded rescale bitwise equal to a torch rescale followed by
 ``scale=None``.  ``log_linear`` through ``multi_head_attention`` refuses a
-gradient on the kernel and gives one on the plain kind.
+gradient on the kernel and gives one on the plain kind.  The speculative
+verify on the kernel route: a ``commit_len = 0`` verify leaves the state
+bitwise, ``commit`` equals ``decode(commit_len)`` bitwise and the plain
+kind within the tolerances above, for every impl in fp32 and bf16; greedy
+speculative decoding and a speculative pool of yi-9b SMOKE give the plain
+greedy loop's and the solo runs' tokens.
 """
 import importlib
 
@@ -1204,4 +1209,107 @@ def test_cuda_pool_matches_solo_runs(cuda, impl):
         toks, _ = solo.make_generate(req.gen_len - 1)(params, caches, tok,
                                                       len(req.prompt))
         want = [int(tok)] + toks[0].tolist()
+        assert stats.outputs[req.rid].tolist() == want, req.rid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["lln", "lln_diag", "log_linear", "softmax"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_verify_and_commit_on_the_kernel_route(cuda, impl, dtype):
+    """The speculative verify on the kernel route (B = 4, H = 8, G = 2,
+    D = 128, a prompt of 300, a chunk of 4): a ``commit_len = 0`` verify
+    leaves every state leaf bitwise as it was; ``commit`` of (4, 0, 1, 3)
+    after it equals ``decode`` with that ``commit_len`` bit for bit; the
+    verify outputs and the committed state against the plain kind, out
+    within one bf16 step (fp32: ATOL), states within 1e-5 of the largest
+    plain entry.  The commit launches no kernel."""
+    from repro_torch.core.engine import AttentionEngine
+    from repro_torch.kernels.registry import AttnSpec
+    from repro_torch.tree import leaves_with_path
+    gen = torch.Generator(cuda).manual_seed(26)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    engines = {kind: AttentionEngine(
+        spec=AttnSpec(impl=impl, r=4, backend=kind, diag_block=256,
+                      lln_chunk=256, precision=str(dtype)[6:]),
+        heads=8, kv_heads=2, head_dim=128, v_dim=128)
+        for kind in ("kernel", "plain")}
+    q, k, v = rnd(4, 300, 8, 128), rnd(4, 300, 2, 128), rnd(4, 300, 2, 128)
+    _, st = engines["kernel"].prefill(q, k, v, max_len=310)
+    q, k, v = rnd(4, 4, 8, 128), rnd(4, 4, 2, 128), rnd(4, 4, 2, 128)
+    zero = torch.zeros(4, dtype=torch.int32, device=cuda)
+    cl = torch.tensor([4, 0, 1, 3], dtype=torch.int32, device=cuda)
+    out, st0, resid = engines["kernel"].verify(st, q, k, v, commit_len=zero,
+                                               return_residuals=True)
+    for (path, a), (_, b) in zip(leaves_with_path(st0),
+                                 leaves_with_path(st)):
+        assert torch.equal(a, b), path
+    before = lln_decode.launches
+    got = engines["kernel"].commit(st0, resid, commit_len=cl)
+    assert lln_decode.launches == before
+    _, want = engines["kernel"].decode(st, q, k, v, commit_len=cl)
+    for (path, a), (_, b) in zip(leaves_with_path(got),
+                                 leaves_with_path(want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    pout, _, presid = engines["plain"].verify(st, q, k, v, commit_len=zero,
+                                              return_residuals=True)
+    pst = engines["plain"].commit(st, presid, commit_len=cl)
+    torch.cuda.synchronize()
+    _close(out, pout, ATOL if dtype == torch.float32 else BF16)
+    for (path, a), (_, b) in zip(leaves_with_path(got),
+                                 leaves_with_path(pst)):
+        if a.is_floating_point():
+            _close(a, b, TRAIN)
+        else:
+            assert torch.equal(a, b), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["lln_diag", "log_linear"])
+def test_cuda_speculative_greedy_matches_the_plain_loop(cuda, impl):
+    """yi-9b SMOKE (fp32) on the serving kernels: greedy speculative
+    decoding (k = 3, a 1-layer draft) gives the plain greedy loop's 20
+    tokens per row, and a 2-slot speculative pool (k = 2) gives every
+    request the tokens of the same request decoded speculatively alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.steps import (flatten_spec_tokens,
+                                          make_pool_setup, make_serve_setup,
+                                          make_spec_setup)
+    cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    plen, steps = 14, 20
+    sp = make_spec_setup(cfg, ShapeSpec("s", plen + steps + 5, 2, "decode"),
+                         cuda, spec_k=3, draft_layers=1)
+    params = sp.model.init(0)
+    toks = torch.randint(0, cfg.vocab, (2, plen), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(3))
+    logits, tc, dc = sp.prefill_fn(params, {"inputs": toks})
+    tok = torch.argmax(logits[:, -1], -1)
+    out, n_emit, *_ = sp.make_generate(steps)(params, tc, dc, tok, plen)
+    ss = make_serve_setup(cfg, ShapeSpec("p", plen + steps + 1, 2, "decode"),
+                          cuda)
+    logits, caches = ss.prefill_fn(params, {"inputs": toks})
+    plain, _ = ss.make_generate(steps)(params, caches, tok, plen)
+    np.testing.assert_array_equal(flatten_spec_tokens(out, n_emit, steps),
+                                  plain.cpu().numpy())
+    pool = make_pool_setup(cfg, cuda, slots=2, max_len=40, segment=3,
+                           spec_k=2, draft_layers=1)
+    reqs = synthetic_traffic(3, cfg.vocab, prompt_lens=[8, 11],
+                             gen_lens=[12, 7], seed=5)
+    stats = ContinuousBatcher(pool, params).run(reqs)
+    solo = make_spec_setup(pool.cfg, ShapeSpec("solo", 40, 1, "decode"),
+                           cuda, spec_k=2, draft_layers=1)
+    for req in reqs:
+        prompt = torch.as_tensor(req.prompt, dtype=torch.long,
+                                 device=cuda)[None]
+        lg, tc, dc = solo.prefill_fn(params, {"inputs": prompt})
+        t0 = torch.argmax(lg[:, -1], -1)
+        o, ne, *_ = solo.make_generate(req.budget - 1)(params, tc, dc, t0,
+                                                       len(req.prompt))
+        want = [int(t0)] + flatten_spec_tokens(o, ne,
+                                               req.budget - 1)[0].tolist()
         assert stats.outputs[req.rid].tolist() == want, req.rid

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.kernels import ops as jops
 from repro.kernels.block_diag import block_diag_bwd_pallas, block_diag_pallas
 from repro.kernels.lln_attention import lln_bidir_pallas

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.configs import get_config as j_get_config
 from repro.configs.base import ShapeSpec as JShape
 from repro.launch.mesh import compat_mesh

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.configs import get_config as j_get_config
 from repro.core import metrics as jmet
 from repro.core import moment_matching as jmm

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.core.diag import block_diag_attn as j_block_diag_attn
 from repro.core.engine import AttentionEngine as JEngine
 from repro.core.lln import LLNState as JLLNState

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.core import loglinear as jl
 from repro.core.attention import AttnConfig as JAttnConfig
 from repro.core.attention import multi_head_attention as j_mha

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.core import loglinear as jcore
 from repro.kernels import ops as jops
 from repro.kernels.loglinear import loglin_causal_pallas

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.data.synthetic import lm_batches as j_lm_batches
 from repro.optim import adamw as j_adamw
 from repro.optim import schedules as j_sched

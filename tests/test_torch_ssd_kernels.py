@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.kernels import ssd_scan as j_ssd_scan
 from repro.kernels.ssd import ssd_pallas
 from repro_torch.kernels import ops as tops

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
 

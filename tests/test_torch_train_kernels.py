@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (one torch thread per test worker)
+
 from repro.kernels.lln_attention import (lln_causal_pallas,
                                          lln_diag_fused_pallas)
 from repro.kernels.lln_backward import (lln_causal_bwd_pallas,
