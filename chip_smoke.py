@@ -135,12 +135,30 @@ pooled iteration, a nan fault replayed on both states).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
+Since the families slice (item 11b): kernels_families (rows 1-3 at the
+serving shapes of qwen3-moe-235b-a22b (H = 64, G = 4, D = 128),
+deepseek-v2-236b's MLA (H = G = 128, D = 192, Dv = 128), paligemma-3b (H
+= 8, G = 1, D = 256) and the seamless-m4t-medium decoder (H = G = 16, D =
+64, N = 64), decode at T = 1 and 4; row 5 and the non-causal row 2 at
+the seamless encoder's shape (B = 4, H = G = 16, N = 2048, D = 64); two
+runs bitwise equal; D above 128 takes the CUDA-core kernels),
+small_families (each family's SMOKE config in fp32 on the kernels against
+the core reference, greedy tokens equal; a qwen3-moe pool and speculative
+run equal to solo runs and the plain loop) and serve_families (full
+width: qwen3-moe cut to 4 layers, deepseek-v2 cut to 4 (lln_diag, and
+softmax with the absorbed decode), seamless 12 + 12 layers with 2048
+source frames, paligemma 18 layers with 256 patches (lln_diag, and
+softmax with the prefix-LM mask); exact launch counts, logits against
+the plain backend), and the rows' timings.
+
 ``python3 chip_smoke.py --phases spec,spec_pool`` runs only the named
-check phases (spec, spec_pool, small_pool) after device and build, and
-prints no kernels line.
+check phases (spec, spec_pool, small_pool, kernels_families,
+small_families, serve_families) after device and build, and prints no
+kernels line.
 """
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import math
@@ -308,15 +326,16 @@ def phase_build():
     return secs
 
 
-def _inputs(n, gen, b=B, h=H, g=G, d=D):
-    """Post-RoPE-like bf16 q/k/v (b, n, h|g, d) and moment-matched
-    alpha/beta from the port's calibration (yi-9b's heads by default)."""
+def _inputs(n, gen, b=B, h=H, g=G, d=D, dv=None):
+    """Post-RoPE-like bf16 q/k/v (b, n, h|g, d; v of width ``dv``, by
+    default d) and moment-matched alpha/beta from the port's calibration
+    (yi-9b's heads by default)."""
     from repro_torch.core.attention import batch_alpha_beta
     from repro_torch.kernels.registry import AttnSpec
     dev = "cuda"
     q = torch.randn(b, n, h, d, generator=gen, device=dev).bfloat16()
     k = torch.randn(b, n, g, d, generator=gen, device=dev).bfloat16()
-    v = torch.randn(b, n, g, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, n, g, dv or d, generator=gen, device=dev).bfloat16()
     alpha, beta = batch_alpha_beta(q, k, AttnSpec(impl="lln", r=h // g))
     return q, k, v, alpha, beta
 
@@ -569,10 +588,23 @@ def _counts():
 def _reset():
     for fn in _counts().values():
         fn.launches = 0
+    _counts()["block_diag"].noncausal_launches = 0
 
 
 def _read():
-    return {name: fn.launches for name, fn in _counts().items()}
+    """The launches since :func:`_reset`, per wrapper; block_diag's causal
+    launches under "block_diag", its non-causal ones under "block_diag
+    (causal=False)" (the wrapper counts those apart where it launches)."""
+    got = {name: fn.launches for name, fn in _counts().items()}
+    noncausal = _counts()["block_diag"].noncausal_launches
+    got["block_diag"] -= noncausal
+    got["block_diag (causal=False)"] = noncausal
+    return got
+
+
+def _idle():
+    """Every count :func:`_read` returns, at 0."""
+    return dict.fromkeys(_read(), 0)
 
 
 def phase_serve(launches, serve_times):
@@ -617,7 +649,7 @@ def phase_serve(launches, serve_times):
         dec = _read()
         toks = torch.cat([torch.stack(toks, 1), rest], 1)
 
-        idle = {name: 0 for name in _counts()}
+        idle = _idle()
         want_pre = {**idle, "lln_causal": cfg.n_layers,
                     "block_diag": cfg.n_layers if impl == "lln_diag" else 0}
         want_dec = {**idle, "lln_decode": cfg.n_layers * (GEN - 1)}
@@ -813,7 +845,7 @@ def phase_train(launches, train_times):
                          use_kernel=True)
 
         def want(steps):
-            out = {name: 0 for name in _counts()}
+            out = _idle()
             out[fwd[impl]] = 2 * cfg.n_layers * steps
             out[bwd[impl]] = cfg.n_layers * steps
             return out
@@ -1296,11 +1328,11 @@ def phase_small_encoder():
 
 
 def _enc_want(impl, n_layers, fwd_per_layer, bwd_per_layer):
-    want = {name: 0 for name in _counts()}
+    want = _idle()
     want["lln_bidir"] = fwd_per_layer * n_layers
     want["lln_bidir_bwd"] = bwd_per_layer * n_layers
     if impl == "lln_diag":
-        want["block_diag"] = fwd_per_layer * n_layers
+        want["block_diag (causal=False)"] = fwd_per_layer * n_layers
         want["block_diag_bwd"] = bwd_per_layer * n_layers
     return want
 
@@ -1310,7 +1342,8 @@ def _add_encoder_launches(launches, counted):
     serve path's (the kernels line times block_diag at the serve shapes)."""
     for name in ("lln_bidir", "lln_bidir_bwd", "block_diag_bwd"):
         launches[name] += counted[name]
-    launches["block_diag (causal=False)"] += counted["block_diag"]
+    launches["block_diag (causal=False)"] += \
+        counted["block_diag (causal=False)"]
 
 
 def phase_encoder_train(launches, enc_times):
@@ -1664,7 +1697,7 @@ def phase_serve_loglin(launches, serve_times):
     dec = _read()
     toks = torch.cat([torch.stack(toks, 1), rest], 1)
 
-    idle = {name: 0 for name in _counts()}
+    idle = _idle()
     want_pre = {**idle, "loglin_causal": cfg.n_layers}
     want_dec = {**idle, "lln_decode": 2 * cfg.n_layers * (GEN - 1)}
     log(f"log_linear: prefill launches {pre}, decode launches {dec}")
@@ -1932,7 +1965,7 @@ def phase_ssm_train(launches, train_times):
     cfg = get_config("mamba2-130m", use_kernel=True)
 
     def want(steps):
-        return {**{name: 0 for name in _counts()},
+        return {**_idle(),
                 "ssd": 2 * cfg.n_layers * steps}
 
     train_times["mamba2-130m"], counted = _train_cell(
@@ -1951,7 +1984,7 @@ def phase_hybrid_train(launches, train_times):
     shared = cfg.n_layers // cfg.shared_attn_period
 
     def want(steps):
-        return {**{name: 0 for name in _counts()},
+        return {**_idle(),
                 "ssd": 2 * cfg.n_layers * steps,
                 "lln_diag_fused": 2 * shared * steps,
                 "lln_diag_fused_bwd": shared * steps}
@@ -2044,10 +2077,12 @@ def phase_timings_ssd(errs, launches):
 # serving kernels at D = 112).
 # ---------------------------------------------------------------------------
 
-def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,)):
+def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,),
+                         dv=None, n=512):
     """The three serving kernels at one model's serving shape (``b`` rows,
-    ``h`` query and ``g`` kv heads, N = 512, D = Dv = ``d``, blk BLK, bf16
-    q/k/v with the port's calibration) against their plain versions:
+    ``h`` query and ``g`` kv heads, N = ``n``, D = ``d``, Dv = ``dv`` (by
+    default d), blk BLK, bf16 q/k/v with the port's calibration; D or Dv
+    above 128 takes the CUDA-core kernels) against their plain versions:
     lln_causal with the final state, causal block_diag and lln_decode at
     each T of ``decode_ts`` from that state with a rescale.  Out within one
     bf16 step, s, z, s1 and z1 within 1e-5 of the largest plain entry, two
@@ -2062,13 +2097,13 @@ def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,)):
                                                    lln_decode_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    r, n = h // g, 512
-    shape = f"B={b} H={h} G={g} D=Dv={d} N={n}"
-    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d)
+    r, dv = h // g, dv or d
+    shape = f"B={b} H={h} G={g} D={d} Dv={dv} N={n}"
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d, dv)
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
     qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
     name = f"lln_causal (state, {tag})"
-    log(f"{name} {shape} (tensor-core path: {_tc_path(vk, d, d)}):")
+    log(f"{name} {shape} (tensor-core path: {_tc_path(vk, d, dv)}):")
     runs = [lln_causal(qs, ks, vk, r=r, blk=BLK) for _ in range(2)]
     want = lln_causal_plain(qs, ks, vk, r=r, blk=BLK)
     torch.cuda.synchronize()
@@ -2088,7 +2123,7 @@ def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,)):
     _same_runs(name, (runs[0],), (runs[1],))
     name = f"lln_decode ({tag})"
     for t in decode_ts:
-        q1, k1, v1, a1, b1 = _inputs(t, gen, b, h, g, d)
+        q1, k1, v1, a1, b1 = _inputs(t, gen, b, h, g, d, dv)
         qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
         vk1 = ops._to_kernel(v1)
         scale = torch.exp(-2.3 * torch.rand(b * h, generator=gen,
@@ -2218,9 +2253,12 @@ def phase_small_hybrid_serve():
                                  f"{toks.shape}")
 
 
-def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
+def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label,
+                batch=None, pos0=None):
     """Serve ``cfg`` (bf16 weights from the seed) at batch B: prompt
-    ``prompt``, GEN greedy tokens, with the launch counts read around the
+    ``prompt`` (or the family's ``batch``, whose decode starts at position
+    ``pos0``: after a VLM's patches), GEN greedy tokens, with the launch
+    counts read around the
     prefill and the decode steps held to ``want_pre`` and ``GEN - 1`` times
     ``want_dec_step``.  The prefill logits and the first decode step's
     (teacher-forced with the same token) are held within 0.1 of the largest
@@ -2232,7 +2270,9 @@ def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.steps import make_serve_setup
     from repro_torch.models import synthetic_batch
-    shape = ShapeSpec("chip", prompt + GEN + PROFILE_STEPS, B, "decode")
+    pos0 = prompt if pos0 is None else pos0
+    torch.cuda.reset_peak_memory_stats()
+    shape = ShapeSpec("chip", pos0 + GEN + PROFILE_STEPS, B, "decode")
     setup = make_serve_setup(cfg, shape)
     t0 = time.time()
     params = setup.model.init(SEED)
@@ -2241,8 +2281,9 @@ def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
         f"{setup.model.param_count(params) / 1e9:.2f}B params bf16 (init "
         f"{time.time() - t0:.1f}s), batch {B}, prompt {prompt}, {GEN} "
         f"greedy tokens")
-    batch = synthetic_batch(cfg, B, prompt + GEN, seed=SEED,
-                            text_seq=prompt, device="cuda")
+    if batch is None:
+        batch = synthetic_batch(cfg, B, prompt + GEN, seed=SEED,
+                                text_seq=prompt, device="cuda")
     setup.prefill_fn(params, batch)                 # warm-up (not counted)
     torch.cuda.synchronize()
 
@@ -2255,13 +2296,13 @@ def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
     _reset()
     tok = torch.argmax(logits[:, -1], -1)
     toks = [tok]
-    logits1, caches = setup.decode_fn(params, caches, tok, prompt)
+    logits1, caches = setup.decode_fn(params, caches, tok, pos0)
     tok = torch.argmax(logits1, -1)
     toks.append(tok)
     torch.cuda.synchronize()
     t0 = time.time()
     rest, caches = setup.make_generate(GEN - 2)(params, caches, tok,
-                                                prompt + 1)
+                                                pos0 + 1)
     torch.cuda.synchronize()
     t_steady = time.time() - t0
     dec = _read()
@@ -2286,7 +2327,7 @@ def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
     else:
         other = make_serve_setup(cfg.replace(attn_backend=against), shape)
         _reset()
-        o_pre, o_steps = _serve_logits(other, params, batch, toks, prompt, 1)
+        o_pre, o_steps = _serve_logits(other, params, batch, toks, pos0, 1)
         o_step = o_steps[0]
         torch.cuda.synchronize()
         if any(_read().values()):
@@ -2307,14 +2348,15 @@ def _serve_cell(cfg, prompt, want_pre, want_dec_step, against, label):
     pre_dev, pre_top = device_profile(lambda: setup.prefill_fn(params, batch))
     dec_dev, dec_top = device_profile(
         lambda: setup.make_generate(PROFILE_STEPS)(params, caches, tok,
-                                                   prompt + GEN))
+                                                   pos0 + GEN))
     dec_dev /= PROFILE_STEPS
     times = {
         "prefill_ms": t_prefill * 1e3, "decode_ms_per_step": step_ms,
         "decode_tok_s": B / (step_ms / 1e3),
         "prefill_device_ms": pre_dev, "decode_device_ms_per_step": dec_dev,
         "prefill_busy": pre_dev / (t_prefill * 1e3),
-        "decode_busy": dec_dev / step_ms}
+        "decode_busy": dec_dev / step_ms,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f"{label}: prefill {t_prefill * 1e3:.2f} ms (device {pre_dev:.2f} "
         f"ms); decode {step_ms:.3f} ms/step ({B / (step_ms / 1e3):.1f} "
         f"tok/s, device {dec_dev:.3f} ms/step) over {GEN - 2} steps; "
@@ -2346,7 +2388,7 @@ def phase_serve_softmax_ssm(launches, serve_times):
     plain backend) and with softmax, its default (logits against ref).
     softmax and the Mamba2 layers launch no kernel, as in the reference."""
     from repro_torch.configs import get_config
-    idle = {name: 0 for name in _counts()}
+    idle = _idle()
     yi = get_config("yi-9b", attn_impl="softmax", param_dtype="bfloat16")
     serve_times["softmax"], _, _ = _serve_cell(yi, N, idle, idle, "ref",
                                                "serve softmax (yi-9b)")
@@ -2368,16 +2410,19 @@ def phase_serve_softmax_ssm(launches, serve_times):
 
 
 def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
-                       launch_keys=None, decode_ts=(1,)):
+                       launch_keys=None, decode_ts=(1,), dv=None, n=512):
     """The three serving kernels, their plain versions and the bounds at
-    one serving shape (``b`` rows, ``h`` query and ``g`` kv heads, N = 512,
-    D = Dv = ``d``): lln_causal with the state (bound from _lln_counts at
-    the kernels' own block), causal block_diag (q k^T once and p v twice at
-    the tensor cores' rate, the softmax steps as fp32 work; SDPA on the
-    blocks, k/v expanded to the h query heads before the timed call, as the
+    one serving shape (``b`` rows, ``h`` query and ``g`` kv heads, N =
+    ``n``, D = ``d``, Dv = ``dv``, by default d): lln_causal with the state
+    (bound from _lln_counts at the kernels' own block), causal block_diag
+    (q k^T once and p v twice at the tensor cores' rate, the softmax steps
+    as fp32 work; SDPA on the blocks, k/v expanded to the h query heads before the timed call, as the
     library yardstick), lln_decode with the rescale (fp32 work and the
     state's bytes) at each T of ``decode_ts``, the first in the row and
-    the others logged.  ``row_names`` names the three rows; the errors are
+    the others logged.  Rows 1 and 2 are bounded by the tensor-core count
+    at every width, also where the kernel itself takes its CUDA cores (D
+    or Dv above 128): the function needs no more work for that.  The
+    CUDA-core count (every product as fp32 work) is logged beside.  ``row_names`` names the three rows; the errors are
     read under "lln_causal (state, <tag>)", "block_diag (<tag>)" and
     "lln_decode (<tag>)" (the keys of :func:`_check_serve_kernels`), the
     launches under the same keys or ``launch_keys``."""
@@ -2388,16 +2433,17 @@ def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
                                                    lln_decode, lln_decode_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    bh, bg, r, n = b * h, b * g, h // g, 512
+    bh, bg, r, dv = b * h, b * g, h // g, dv or d
     keys = (f"lln_causal (state, {tag})", f"block_diag ({tag})",
             f"lln_decode ({tag})")
     lkeys = launch_keys or keys
-    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d)
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d, dv)
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
     qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
     rows = []
-    counts = _lln_counts(bh, bg, n, d, d, _lln_module().TC_BLOCK)
+    counts = _lln_counts(bh, bg, n, d, dv, _lln_module().TC_BLOCK)
     bnd, by = bound_ms(*counts["lln_causal (state)"])
+    cores = [bound_ms(*counts["lln_causal (state) (CUDA cores)"])]
     rows.append(dict(
         name=row_names[0], route="cuda",
         source="src/repro_torch/csrc/lln_causal.cu",
@@ -2407,15 +2453,19 @@ def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
         plain_ms=cuda_ms(lambda: lln_causal_plain(qs, ks, vk, r=r, blk=BLK)),
         bound_ms=bnd, bound_by=by, library_ms=None))
 
-    nb = n // BLK
-    pairs = nb * BLK * (BLK + 1) // 2
-    nbytes = 2 * (bh * n * d + bg * n * d + bg * n * d + bh * n * d)
+    blk = min(BLK, n)
+    nb = n // blk
+    pairs = nb * blk * (blk + 1) // 2
+    nbytes = 2 * (bh * n * d + bg * n * d + bg * n * dv + bh * n * dv)
     bnd, by = bound_ms(nbytes, bh * pairs * SOFTMAX_FWD_OPS,
-                       bh * pairs * (2 * d + 2 * 2 * d))
+                       bh * pairs * (2 * d + 2 * 2 * dv))
+    cores.append(bound_ms(nbytes, bh * pairs * (SOFTMAX_FWD_OPS + 2 * d
+                                                + 2 * dv)))
 
     def blocks(t):
-        return t.reshape(b, nb, BLK, t.shape[2], d).permute(0, 1, 3, 2, 4) \
-            .reshape(b * nb, t.shape[2], BLK, d)
+        w = t.shape[-1]
+        return t.reshape(b, nb, blk, t.shape[2], w).permute(0, 1, 3, 2, 4) \
+            .reshape(b * nb, t.shape[2], blk, w)
     qb = blocks(q)
     kb = blocks(torch.repeat_interleave(k, r, dim=2))
     vb = blocks(torch.repeat_interleave(v, r, dim=2))
@@ -2435,15 +2485,15 @@ def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
     scale = torch.exp(-torch.rand(bh, generator=gen, device="cuda"))
     decode = {}
     for t in decode_ts:
-        q1, k1, v1, a1, b1 = _inputs(t, gen, b, h, g, d)
+        q1, k1, v1, a1, b1 = _inputs(t, gen, b, h, g, d, dv)
         qs1, ks1, _ = ops._scaled_stabilized(q1, k1, a1, b1)
         vk1 = ops._to_kernel(v1)
-        nbytes = (2 * bh * d * d * 4 + 2 * bh * d * 4 + bh * 4
-                  + bh * t * d * 4 + bg * t * d * 4 + bg * t * d * 2
-                  + bh * t * d * 2)
-        flops = bh * t * (2 * d * d + 2 * d) \
-            + bh * t * (t + 1) // 2 * 4 * d + bh * t * (2 * d * d + d) \
-            + bh * (d * d + d)
+        nbytes = (2 * bh * d * dv * 4 + 2 * bh * d * 4 + bh * 4
+                  + bh * t * d * 4 + bg * t * d * 4 + bg * t * dv * 2
+                  + bh * t * dv * 2)
+        flops = bh * t * (2 * d * dv + 2 * d) \
+            + bh * t * (t + 1) // 2 * (2 * d + 2 * dv) \
+            + bh * t * (2 * d * dv + d) + bh * (d * dv + d)
         bnd, by = bound_ms(nbytes, flops)
         decode[t] = dict(
             ms=cuda_ms(lambda: lln_decode(qs1, ks1, vk1, s0, z0, r=r,
@@ -2461,10 +2511,12 @@ def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
         replaces="src/repro/kernels/lln_attention.py:348",
         launches=launches[lkeys[2]], max_abs_err=errs[keys[2]],
         library_ms=None, **decode[decode_ts[0]]))
-    for row in rows:
+    for row, core in zip(rows, cores + [None]):
+        extra = " [CUDA-core count: {:.4f} ms ({})]".format(*core) \
+            if core else ""
         log(f"timing {row['name']} (B={b} H={h} G={g} N={n}): kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}, library "
             f"{row['library_ms']}, launches {row['launches']}")
     return rows
 
@@ -2508,7 +2560,7 @@ def phase_serve_dense(launches, serve_times):
     64; 24 + 24 per prefill, 24 per step).  Each model is freed before the
     next."""
     from repro_torch.configs import get_config
-    idle = {name: 0 for name in _counts()}
+    idle = _idle()
     tags = {arch: tag for tag, arch, *_ in DENSE}
     for arch, impl in (("qwen3-14b", "lln_diag"), ("chatglm3-6b", "lln"),
                        ("chatglm3-6b", "lln_diag"),
@@ -2922,7 +2974,7 @@ class _PoolProbe:
 
 
 def _pool_want(impl, n_layers, probe):
-    want = {name: 0 for name in _counts()}
+    want = _idle()
     if impl in ("lln", "lln_diag"):
         want["lln_causal"] = n_layers * probe.prefills
         want["lln_decode"] = n_layers * (probe.steps + probe.replays)
@@ -3295,7 +3347,7 @@ def phase_remat_dots(launches, train_times):
                      use_kernel=True, remat="dots")
 
     def want(steps):
-        out = {name: 0 for name in _counts()}
+        out = _idle()
         out["lln_diag_fused"] = 2 * cfg.n_layers * steps
         out["lln_diag_fused_bwd"] = cfg.n_layers * steps
         return out
@@ -3330,7 +3382,7 @@ def _spec_want(impl, n_layers, draft_layers, k, iters, prefills=0,
     layer, and the target's commit folds in torch (no kernel); a replay
     decodes both models once.  log_linear's decode runs lln_decode twice
     per layer and call.  softmax launches nothing."""
-    want = {name: 0 for name in _counts()}
+    want = _idle()
     if impl == "softmax":
         return want
     dec = iters * ((k + 1) * draft_layers + n_layers) \
@@ -3850,6 +3902,314 @@ def phase_spec_pool(launches, pool_times):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The MoE, MLA, encoder-decoder and VLM families (qwen3-moe-235b-a22b,
+# deepseek-v2-236b, seamless-m4t-medium, paligemma-3b).
+# ---------------------------------------------------------------------------
+
+# Their attention at the serving batch B (tag, arch, H, G, D, Dv, N): rows
+# 1-3 at each.  D or Dv above 128 (MLA's assembled q/k, paligemma's heads)
+# take the CUDA-core kernels.  The seamless decoder serves a 64-token
+# target prompt.
+FAMILIES = (("qwen3-moe r=16", "qwen3-moe-235b-a22b", 64, 4, 128, 128, N),
+            ("mla D=192 Dv=128", "deepseek-v2-236b", 128, 128, 192, 128, N),
+            ("paligemma D=256 r=8", "paligemma-3b", 8, 1, 256, 256, N),
+            ("seamless decoder D=64", "seamless-m4t-medium", 16, 16, 64, 64,
+             64))
+FL = 4                          # layers of the two cut MoE cells
+SEAMLESS = (B, 16, 2048, 64)    # the seamless encoder: B, H = G, frames, D
+VLM_TEXT = 256                  # paligemma's text prompt after 256 patches
+
+
+def phase_kernels_families(results):
+    """Rows 1-3 at the families' serving shapes (:data:`FAMILIES`; decode
+    at T = 1 and 4) against their plain versions, two runs bitwise equal
+    (:func:`_check_serve_kernels`); then the seamless encoder's kernels at
+    its shape (:data:`SEAMLESS`, H = G): lln_bidir (out within one bf16
+    step, s, z and den within 1e-5 of the largest plain entry) and
+    block_diag with causal=False (blk BLK), two runs of each bitwise
+    equal."""
+    from repro_torch.kernels.block_diag import block_diag, block_diag_plain
+    from repro_torch.kernels.lln_attention import lln_bidir, lln_bidir_plain
+    for i, (tag, _, h, g, d, dv, n) in enumerate(FAMILIES):
+        _check_serve_kernels(results, tag, B, h, g, d, SEED + 60 + i,
+                             decode_ts=(1, 4), dv=dv, n=n)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 64)
+    b, h, n, d = SEAMLESS
+    qs, ks, qk, kk, vk, _ = _train_inputs(n, gen, b, h, h, d)
+    log(f"lln_bidir (seamless encoder) B={b} H=G={h} N={n} D=Dv={d}:")
+    runs = [lln_bidir(qs, ks, vk, r=1, return_res=True) for _ in range(2)]
+    want = lln_bidir_plain(qs, ks, vk, r=1, return_res=True)
+    torch.cuda.synchronize()
+    results["lln_bidir (seamless encoder)"] = max(
+        check("out", runs[0][0], want[0], bf16_tol(want[0])),
+        *(check(nm, gt, wt, fp32_tol(wt))
+          for nm, gt, wt in zip(("s", "z", "den"), runs[0][1:], want[1:])))
+    _same_runs("lln_bidir (seamless encoder)", *runs)
+    log(f"block_diag (causal=False, seamless encoder) blk={BLK}:")
+    runs = [block_diag(qk, kk, vk, r=1, blk=BLK, causal=False)
+            for _ in range(2)]
+    want = block_diag_plain(qk, kk, vk, r=1, blk=BLK, causal=False)
+    torch.cuda.synchronize()
+    results["block_diag (causal=False, seamless encoder)"] = check(
+        "out", runs[0], want, bf16_tol(want))
+    _same_runs("block_diag (causal=False, seamless encoder)", (runs[0],),
+               (runs[1],))
+
+
+def _no_drop(cfg):
+    """``cfg`` with a capacity no slot can pass (n_experts / top_k): a
+    dropped slot makes a row's MoE output depend on the other rows of its
+    batch (in the reference as here), so the pool and speculative checks
+    run without drops."""
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def phase_small_families():
+    """Each family's SMOKE config in fp32 with use_kernel=True, prompt 20
+    and 8 greedy tokens, the kernels (backend auto) against the core
+    reference (backend ref): qwen3-moe lln and lln_diag, deepseek-v2
+    lln_diag and softmax (the absorbed decode), seamless lln_diag (its
+    encoder through lln_bidir and the non-causal block_diag), paligemma
+    lln_diag and softmax (the prefix-LM mask): prefill logits within 1e-4,
+    greedy tokens equal.  Then qwen3-moe SMOKE (lln_diag, no drops)
+    through a 2-slot pool, plain and with spec_k = 2 (a 1-layer draft),
+    each request equal to its solo run, and make_spec_setup's greedy
+    tokens (k = 3) equal to the plain greedy loop."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
+    from repro_torch.launch.steps import (flatten_spec_tokens, make_pool_setup,
+                                          make_serve_setup, make_spec_setup)
+    from repro_torch.models import synthetic_batch
+    prompt, steps = 20, 8
+    cells = (("qwen3-moe-235b-a22b", "lln"), ("qwen3-moe-235b-a22b",
+                                              "lln_diag"),
+             ("deepseek-v2-236b", "lln_diag"), ("deepseek-v2-236b",
+                                                "softmax"),
+             ("seamless-m4t-medium", "lln_diag"), ("paligemma-3b", "lln_diag"),
+             ("paligemma-3b", "softmax"))
+    for arch, impl in cells:
+        runs = {}
+        for backend in ("auto", "ref"):
+            cfg = get_config(arch, smoke=True, attn_impl=impl,
+                             compute_dtype="float32", use_kernel=True,
+                             attn_backend=backend)
+            extra = cfg.num_prefix_tokens
+            ml = prompt + steps + 1 + extra
+            setup = make_serve_setup(cfg, ShapeSpec("small", ml, 2,
+                                                    "decode"))
+            params = setup.model.init(SEED)
+            batch = synthetic_batch(cfg, 2, ml, seed=SEED, text_seq=prompt,
+                                    device="cuda")
+            _reset()
+            runs[backend] = _serve_tokens(
+                setup, params, batch, batch["inputs"].shape[1] + extra,
+                steps)
+            runs[backend + " launches"] = _read()
+        log(f"small {arch} {impl} (SMOKE fp32, auto vs core ref; kernel "
+            f"launches {runs['auto launches']}):")
+        if any(runs["ref launches"].values()):
+            raise AssertionError(f"small {arch} {impl}: the ref backend "
+                                 f"launched {runs['ref launches']}")
+        if impl != "softmax" and not runs["auto launches"]["lln_decode"]:
+            raise AssertionError(f"small {arch} {impl}: no lln_decode")
+        check("prefill logits", runs["auto"][0], runs["ref"][0], 1e-4)
+        if not torch.equal(runs["auto"][1], runs["ref"][1]):
+            raise AssertionError(f"small {arch} {impl}: greedy tokens "
+                                 f"differ: {runs['auto'][1].tolist()} vs "
+                                 f"{runs['ref'][1].tolist()}")
+        log(f"  greedy tokens equal: {runs['auto'][1][0].tolist()}")
+
+    cfg = _no_drop(get_config("qwen3-moe-235b-a22b", smoke=True,
+                              attn_impl="lln_diag", compute_dtype="float32"))
+    for spec_k in (0, 2):
+        setup = make_pool_setup(cfg, slots=2, max_len=48, segment=3,
+                                spec_k=spec_k, draft_layers=1 if spec_k
+                                else 0)
+        params = setup.model.init(SEED)
+        reqs = synthetic_traffic(4, cfg.vocab, prompt_lens=[8, 8, 11],
+                                 gen_lens=[3, 7, 5], seed=5)
+        stats = ContinuousBatcher(setup, params).run(reqs)
+        cache = {}
+        for req in reqs:
+            got = stats.outputs[req.rid]
+            want = _solo(setup.cfg, params, req, 48, cache)[1]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"small qwen3-moe pool spec_k={spec_k}"
+                                     f": request {req.rid} {got} != solo "
+                                     f"{want}")
+        log(f"small qwen3-moe pool (2 slots, spec_k={spec_k}): 4 requests "
+            f"equal to their solo runs")
+    plen, steps, k = 9, 10, 3
+    sp = make_spec_setup(cfg, ShapeSpec("s", plen + steps + k + 2, 2,
+                                        "decode"), spec_k=k, draft_layers=1)
+    params = sp.model.init(SEED + 1)
+    batch = synthetic_batch(cfg, 2, plen, seed=SEED, device="cuda")
+    tok, (toks, n_emit, *_) = _spec_run(sp, params, batch, plen, steps)
+    ss = make_serve_setup(cfg, ShapeSpec("s", plen + steps + 2, 2, "decode"))
+    _, caches = ss.prefill_fn(params, batch)
+    plain = ss.make_generate(steps)(params, caches, tok, plen)[0]
+    if not np.array_equal(flatten_spec_tokens(toks, n_emit, steps),
+                          plain.cpu().numpy()):
+        raise AssertionError("small qwen3-moe speculative tokens differ "
+                             "from the plain greedy loop")
+    log("small qwen3-moe speculative (k = 3, 1-layer draft): tokens equal "
+        "to the plain greedy loop")
+
+
+def phase_serve_families(launches, serve_times):
+    """Full-width serving of the four families through _serve_cell (bf16
+    weights from the seed, batch B, GEN greedy tokens, logits against the
+    plain backend at the prefill and the first decode step; softmax cells
+    against ref, whose prefill is the naive softmax), exact launch counts:
+    - serve_moe: qwen3-moe-235b-a22b cut to FL of its 94 layers (94 are
+      about 470 GB in bf16), lln_diag, prompt N: per prefill FL
+      lln_causal and FL causal block_diag, FL lln_decode per step;
+    - serve_mla: deepseek-v2-236b cut to FL of 60 (the dense first layer
+      and 3 MoE layers), prompt N, lln_diag (the engine at G = H = 128, D
+      = 192, Dv = 128: FL + FL per prefill, FL per step) and softmax (the
+      absorbed decode over the latent cache: no kernel);
+    - serve_encdec: seamless-m4t-medium at full depth (12 encoder and 12
+      decoder layers), use_kernel=True, 2048 source frames and a 64-token
+      target prompt, lln_diag: per prefill 12 lln_bidir and 12 non-causal
+      block_diag in the encoder (read apart by the wrapper's non-causal
+      count) and 12 lln_causal and 12 causal block_diag in the decoder, 12
+      lln_decode per step;
+    - serve_vlm: paligemma-3b at full depth (18 layers), 256 patches and
+      VLM_TEXT text tokens, lln_diag (18 + 18 per prefill, 18 per step) and
+      softmax with the prefix-LM mask (no kernel).
+    Each model is freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import synthetic_batch
+    idle = _idle()
+    tags = {arch: tag for tag, arch, *_ in FAMILIES}
+
+    def diag(nl):
+        return ({**idle, "lln_causal": nl, "block_diag": nl},
+                {**idle, "lln_decode": nl})
+
+    def count(tag, pre, dec):
+        launches[f"lln_causal (state, {tag})"] += pre["lln_causal"]
+        launches[f"block_diag ({tag})"] += pre["block_diag"]
+        launches[f"lln_decode ({tag})"] += dec["lln_decode"]
+
+    cfg = get_config("qwen3-moe-235b-a22b", attn_impl="lln_diag",
+                     n_layers=FL)
+    serve_times["serve_moe lln_diag"], pre, dec = _serve_cell(
+        cfg, N, *diag(FL), "plain", f"serve_moe qwen3-moe ({FL} layers)")
+    count(tags[cfg.name], pre, dec)
+
+    for impl in ("lln_diag", "softmax"):
+        cfg = get_config("deepseek-v2-236b", attn_impl=impl, n_layers=FL)
+        want = diag(FL) if impl == "lln_diag" else (idle, idle)
+        serve_times[f"serve_mla {impl}"], pre, dec = _serve_cell(
+            cfg, N, *want, "plain" if impl == "lln_diag" else "ref",
+            f"serve_mla deepseek-v2 ({FL} layers) {impl}")
+        if impl == "lln_diag":
+            count(tags[cfg.name], pre, dec)
+
+    cfg = get_config("seamless-m4t-medium", attn_impl="lln_diag",
+                     param_dtype="bfloat16", use_kernel=True)
+    b, _, frames, _ = SEAMLESS
+    tgt = FAMILIES[3][6]
+    batch = synthetic_batch(cfg, b, frames, seed=SEED, text_seq=tgt,
+                            device="cuda")
+    nl = cfg.n_layers
+    want_pre = {**idle, "lln_bidir": cfg.enc_layers, "lln_causal": nl,
+                "block_diag": nl, "block_diag (causal=False)": cfg.enc_layers}
+    serve_times["serve_encdec lln_diag"], pre, dec = _serve_cell(
+        cfg, tgt, want_pre, {**idle, "lln_decode": nl}, "plain",
+        "serve_encdec seamless (12 + 12 layers)", batch=batch)
+    count(tags[cfg.name], pre, dec)
+    launches["lln_bidir (seamless encoder)"] += pre["lln_bidir"]
+    launches["block_diag (causal=False, seamless encoder)"] += \
+        pre["block_diag (causal=False)"]
+
+    for impl in ("lln_diag", "softmax"):
+        cfg = get_config("paligemma-3b", attn_impl=impl,
+                         param_dtype="bfloat16")
+        p = cfg.num_prefix_tokens
+        batch = synthetic_batch(cfg, B, p + VLM_TEXT, seed=SEED,
+                                device="cuda")
+        nl = cfg.n_layers
+        want = diag(nl) if impl == "lln_diag" else (idle, idle)
+        serve_times[f"serve_vlm {impl}"], pre, dec = _serve_cell(
+            cfg, VLM_TEXT, *want, "plain" if impl == "lln_diag" else "ref",
+            f"serve_vlm paligemma {impl} ({p} patches + {VLM_TEXT} text)",
+            batch=batch, pos0=p + VLM_TEXT)
+        if impl == "lln_diag":
+            count(tags[cfg.name], pre, dec)
+
+
+def phase_timings_families(errs, launches):
+    """Rows 1-3 at the families' serving shapes (:data:`FAMILIES`, decode
+    at T = 1 in the row, T = 4 logged; :func:`_serve_kernel_rows`, whose
+    bounds take the tensor-core count at every width), then row 5 and the
+    non-causal row 2 at the seamless encoder's shape (lln_bidir by
+    _bidir_counts, its CUDA-core count logged; block_diag as
+    phase_timings_encoder counts it, SDPA on the blocks as the library
+    yardstick)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.block_diag import block_diag, block_diag_plain
+    from repro_torch.kernels.lln_attention import lln_bidir, lln_bidir_plain
+    rows = []
+    for i, (tag, arch, h, g, d, dv, n) in enumerate(FAMILIES):
+        rows += _serve_kernel_rows(
+            errs, launches, tag, B, h, g, d, SEED + 70 + i,
+            (f"lln_causal (state, {arch} {tag})",
+             f"block_diag ({arch} {tag})", f"lln_decode ({arch} {tag})"),
+            decode_ts=(1, 4), dv=dv, n=n)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 75)
+    b, h, n, d = SEAMLESS
+    bh = b * h
+    qs, ks, qk, kk, vk, _ = _train_inputs(n, gen, b, h, h, d)
+    counts = _bidir_counts(bh, bh, n, d, d)
+    bnd, by = bound_ms(*counts["lln_bidir"])
+    rows.append(dict(
+        name="lln_bidir (seamless-m4t-medium encoder)", route="cuda",
+        source="src/repro_torch/csrc/lln_bidir.cu",
+        replaces="src/repro/kernels/lln_attention.py:166",
+        launches=launches["lln_bidir (seamless encoder)"],
+        max_abs_err=errs["lln_bidir (seamless encoder)"],
+        ms=cuda_ms(lambda: lln_bidir(qs, ks, vk, r=1, return_res=True)),
+        plain_ms=cuda_ms(lambda: lln_bidir_plain(qs, ks, vk, r=1,
+                                                 return_res=True)),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+    log("  lln_bidir (seamless) CUDA-core count: {:.4f} ms ({})".format(
+        *bound_ms(*counts["lln_bidir (CUDA cores)"])))
+    nb = n // BLK
+    pairs = bh * nb * BLK * BLK
+    nbytes = 2 * (bh * n * d * 4)
+    bnd, by = bound_ms(nbytes, pairs * SOFTMAX_FWD_OPS, pairs * 6 * d)
+
+    def blocks(t):
+        return t.reshape(b, h, nb, BLK, d).permute(0, 2, 1, 3, 4) \
+            .reshape(b * nb, h, BLK, d)
+    qb, kb, vb = (blocks(t) for t in (qk, kk, vk))
+    rows.append(dict(
+        name="block_diag (causal=False, seamless-m4t-medium encoder)",
+        route="cuda", source="src/repro_torch/csrc/block_diag.cu",
+        replaces="src/repro/kernels/block_diag.py:109",
+        launches=launches["block_diag (causal=False, seamless encoder)"],
+        max_abs_err=errs["block_diag (causal=False, seamless encoder)"],
+        ms=cuda_ms(lambda: block_diag(qk, kk, vk, r=1, blk=BLK,
+                                      causal=False)),
+        plain_ms=cuda_ms(lambda: block_diag_plain(qk, kk, vk, r=1, blk=BLK,
+                                                  causal=False)),
+        bound_ms=bnd, bound_by=by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb))))
+    for row in rows[-2:]:
+        log(f"timing {row['name']} (B={b} H=G={h} N={n} D={d}): kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']}, launches {row['launches']}")
+    return rows
+
+
 _T0 = time.time()
 
 
@@ -3889,10 +4249,12 @@ def main(argv=None):
         "lln_decode (log_linear)", "ssd", "lln_diag_fused (hybrid)",
         "lln_diag_fused_bwd (hybrid)", "lln_causal (state, hybrid)",
         "block_diag (hybrid)", "lln_decode (hybrid)")}
-    for tag, *_ in DENSE:
+    for tag, *_ in DENSE + FAMILIES:
         for name in (f"lln_causal (state, {tag})", f"block_diag ({tag})",
                      f"lln_decode ({tag})"):
             launches[name] = 0
+    launches["lln_bidir (seamless encoder)"] = 0
+    launches["block_diag (causal=False, seamless encoder)"] = 0
     _phase(phase_kernels, errs)
     _phase(phase_kernels_train, errs)
     _phase(phase_kernels_encoder, errs)
@@ -3901,6 +4263,7 @@ def main(argv=None):
     _phase(phase_kernels_hybrid_attn, errs)
     _phase(phase_kernels_hybrid_serve, errs)
     _phase(phase_kernels_dense, errs)
+    _phase(phase_kernels_families, errs)
     _phase(phase_f4, errs)
     _phase(phase_small)
     _phase(phase_small_train)
@@ -3908,10 +4271,12 @@ def main(argv=None):
     _phase(phase_small_loglin)
     _phase(phase_small_ssm)
     _phase(phase_small_hybrid_serve)
+    _phase(phase_small_families)
     _phase(phase_serve, launches, serve_times)
     _phase(phase_serve_loglin, launches, serve_times)
     _phase(phase_serve_softmax_ssm, launches, serve_times)
     _phase(phase_serve_dense, launches, serve_times)
+    _phase(phase_serve_families, launches, serve_times)
     _phase(phase_contract, errs)
     _phase(phase_renorm, launches, serve_times)
     _phase(phase_instruments, errs)
@@ -3944,6 +4309,7 @@ def main(argv=None):
     rows.append(ssd_row)
     rows += _phase(phase_timings_hybrid_serve, errs, launches)
     rows += _phase(phase_timings_dense, errs, launches)
+    rows += _phase(phase_timings_families, errs, launches)
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))
@@ -3977,12 +4343,15 @@ def _small_pool_in_tmp():
 
 def _main_selected(smi, only):
     """The check phases named in ``only``, each with fresh accumulators."""
-    launches = {name: 0 for name in (
-        "lln_causal (state)", "block_diag", "lln_decode")}
-    times = {}
+    launches = collections.defaultdict(int)
+    times, results = {}, {}
     table = {"spec": lambda: phase_spec(launches, times),
              "spec_pool": lambda: phase_spec_pool(launches, times),
-             "small_pool": _small_pool_in_tmp}
+             "small_pool": _small_pool_in_tmp,
+             "kernels_families": lambda: phase_kernels_families(results),
+             "small_families": phase_small_families,
+             "serve_families": lambda: phase_serve_families(launches,
+                                                            times)}
     unknown = only - set(table)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}; known: "
@@ -3994,6 +4363,8 @@ def _main_selected(smi, only):
             f"since the start]")
     log("launches: " + json.dumps(launches))
     log("times: " + json.dumps(times))
+    if results:
+        log("max abs errors: " + json.dumps(results))
     print(smi)
     _print_ok()
     return 0

@@ -2,16 +2,22 @@
 numpy arrays.
 
 The reference's parameter pytrees (``repro.models.transformer.lm_init``,
-``repro.models.encoder.encoder_init`` and ``repro.models.hybrid.
-hybrid_init``) stack the per-layer subtrees along a leading layer axis
-under ``"layers"``.  :func:`leaves_from_numpy` names their leaves as the
+``repro.models.encoder.encoder_init``, ``repro.models.hybrid.
+hybrid_init``, ``repro.models.encdec.encdec_init`` and
+``repro.models.vlm.vlm_init``) stack the per-layer subtrees along a
+leading layer axis under ``"layers"``, and deepseek-v2's dense first
+blocks under ``"first_layers"``, the encoder-decoder's encoder under
+``"enc_layers"``.  :func:`leaves_from_numpy` names their leaves as the
 port's parameters (``layers.3.attn.q_w``, ``layers.3.attn.q_norm_scale``
-of a qk-norm config, ``layers.3.ssm.norm.scale``), splitting the layer
-axis; every other subtree (the hybrid's one ``shared`` block) is named as
-it stands.  The caller maps ``np.asarray``
+of a qk-norm config, ``layers.3.ssm.norm.scale``, ``layers.1.moe.exp_wo``,
+``first_layers.0.attn.w_dkv``, ``layers.0.cross.k_w``), splitting each
+stack over its own depth; every other subtree (the hybrid's one
+``shared`` block, ``patch_proj``, ``frontend_proj``) is named as it
+stands.  The caller maps ``np.asarray``
 over the tree, so this module never sees JAX.  :func:`params_from_numpy`
-copies them into a :class:`DenseLM`, an :class:`Encoder` (encoder family)
-or a :class:`HybridLM` (ssm and hybrid families),
+copies them into a :class:`DenseLM` (the dense and MoE families), an
+:class:`Encoder` (encoder family), a :class:`HybridLM` (ssm and hybrid
+families), an :class:`EncDec` or a :class:`VLM`,
 :func:`train_state_from_numpy` also the AdamW moments and step.  The weight
 layout stays (d_in, d_out): the port computes ``x @ w``.  bf16 leaves
 travel through fp32, which is exact.  Decode state: :func:`state_from_numpy`
@@ -28,9 +34,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import AttentionState
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.encoder import Encoder
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import DenseLM
+from repro_torch.models.vlm import VLM
+
+# The subtrees the reference stacks along a leading layer axis.
+_STACKS = ("first_layers", "layers", "enc_layers")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -61,24 +72,28 @@ def _flatten(tree: dict, prefix: str = ""):
 def leaves_from_numpy(tree: dict, cfg: ArchConfig) -> dict:
     """``{port parameter name: numpy array}`` from a reference-shaped tree
     (the params, or one AdamW moment tree)."""
+    del cfg                           # each stack has its own depth
     out = {"embed_table": np.asarray(tree["embed"]["table"])}
-    rest = {k: a for k, a in tree.items() if k not in ("embed", "layers")}
+    rest = {k: a for k, a in tree.items()
+            if k != "embed" and k not in _STACKS}
     for name, a in _flatten(rest):
         out[name] = np.asarray(a)
-    for name, a in _flatten(tree["layers"]):
-        a = np.asarray(a)
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = a[i]
+    for stack in _STACKS:
+        for name, a in _flatten(tree.get(stack, {})):
+            a = np.asarray(a)
+            for i in range(a.shape[0]):
+                out[f"{stack}.{i}.{name}"] = a[i]
     return out
 
 
 def params_from_numpy(tree: dict, cfg: ArchConfig, device):
     """A :class:`DenseLM` (an :class:`Encoder` for the encoder family, a
-    :class:`HybridLM` for the ssm and hybrid families) on ``device``
+    :class:`HybridLM` for the ssm and hybrid families, an :class:`EncDec`
+    for the encoder-decoder, a :class:`VLM` for the VLM) on ``device``
     holding the reference's weights."""
     gen = torch.Generator(device=device)
-    cls = {"encoder": Encoder, "ssm": HybridLM,
-           "hybrid": HybridLM}.get(cfg.family, DenseLM)
+    cls = {"encoder": Encoder, "ssm": HybridLM, "hybrid": HybridLM,
+           "encdec": EncDec, "vlm": VLM}.get(cfg.family, DenseLM)
     model = cls(cfg, device, gen)             # shapes and names; overwritten
     named = dict(model.named_parameters())
     leaves = leaves_from_numpy(tree, cfg)
@@ -126,8 +141,9 @@ def state_from_numpy(tree, device) -> AttentionState:
     (anything indexable by field name: the reference's ``AttentionState``
     with numpy leaves, or a dict).  The fields the state does not hold
     (the KV cache of an LLN state, the diag tails of a ``log_linear``
-    state, its pyramid for ``lln``, the LLN fields of a softmax state)
-    stay None."""
+    state, its pyramid for ``lln``, the LLN fields of a softmax state,
+    MLA's latent ``ckv`` / ``kr`` cache outside its softmax decode) stay
+    None."""
     out = {}
     for f in dataclasses.fields(AttentionState):
         a = _field(tree, f.name)

@@ -319,8 +319,8 @@ def commit_softmax(cache: KVCache, k_new, v_new, *,
                    length=(cache.length + cl).to(torch.int32))
 
 
-def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
-                         beta=None) -> torch.Tensor:
+def multi_head_attention(q, k, v, cfg: AttnConfig, *, mask=None, alpha=None,
+                         beta=None, prefix_len: int = 0) -> torch.Tensor:
     """Full-sequence attention (training / prefill), ``softmax``, ``lln``,
     ``lln_diag`` or ``log_linear``, causal or bidirectional
     (``cfg.causal``; log-linear is causal only).  q: (B,N,H,D); k/v:
@@ -333,10 +333,14 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
     kernel for it) and raises when one would be needed; its ``plain`` and
     ``ref`` kinds, and the core scan without ``use_kernel``, are plain
     PyTorch, which autograd differentiates, as the reference's scan twin
-    and oracle are."""
+    and oracle are.  ``mask`` (B, N) key validity: the softmax, and the core
+    path's bidirectional LLN and diag part (the kernels take none, as in
+    the reference); ``prefix_len``: the softmax's prefix-LM mask (the LLN
+    impls approximate a prefix causally, as the reference does)."""
     if cfg.impl == "softmax":
         return flash_softmax(q, k, v, causal=cfg.causal,
-                             chunk=min(cfg.softmax_chunk, k.shape[1]))
+                             chunk=min(cfg.softmax_chunk, k.shape[1]),
+                             mask=mask, prefix_len=prefix_len)
     if cfg.impl not in ("lln", "lln_diag", "log_linear"):
         raise ValueError(f"unknown attention impl: {cfg.impl!r}")
     h, g = q.shape[2], k.shape[2]
@@ -385,11 +389,11 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, alpha=None,
         lln_out, _ = lln_causal_scan(q, kv_k, kv_v, alpha, beta_h,
                                      chunk=cfg.lln_chunk)
     else:
-        lln_out = lln_bidir(q, kv_k, kv_v, alpha, beta_h)
+        lln_out = lln_bidir(q, kv_k, kv_v, alpha, beta_h, mask=mask)
     if cfg.impl == "lln":
         return lln_out
     diag_out = block_diag_attn(q, kv_k, kv_v, block=cfg.diag_block,
-                               causal=cfg.causal)
+                               causal=cfg.causal, mask=mask)
     return (0.5 * (lln_out.float() + diag_out.float())).to(v.dtype)
 
 

@@ -12,9 +12,10 @@ import torch
 NEG_INF = -1e30
 
 
-def block_diag_attn(q, k, v, *, block: int = 256,
-                    causal: bool = False) -> torch.Tensor:
-    """q,k: (B, N, H, D); v: (B, N, H, Dv).
+def block_diag_attn(q, k, v, *, block: int = 256, causal: bool = False,
+                    mask=None) -> torch.Tensor:
+    """q,k: (B, N, H, D); v: (B, N, H, Dv); mask: optional (B, N) key
+    validity.
 
     Sequences are zero-padded to a block multiple; padded keys are masked.
     """
@@ -23,7 +24,9 @@ def block_diag_attn(q, k, v, *, block: int = 256,
     scale = d ** -0.5
     nb = -(-n // block)
     pad = nb * block - n
-    mask = torch.ones(b, n, dtype=torch.bool, device=q.device)
+    if mask is None:
+        mask = torch.ones(b, n, dtype=torch.bool, device=q.device)
+    mask = mask.to(torch.bool)
     if pad:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))

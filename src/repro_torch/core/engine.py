@@ -42,7 +42,9 @@ class AttentionState:
     (B,H) fp32; ``lln``/``lln_diag`` also tail_k/tail_v (B,BLK,G,D[v]) in
     the compute dtype.  ``log_linear``: (s, z, c_k) is the open bucket and
     sl (B,L,H,D,Dv), zl (B,L,H,D), cl (B,L,H) fp32 the Fenwick pyramid;
-    occupancy comes from ``pos`` (``core/loglinear.py:occupancy``).
+    occupancy comes from ``pos`` (``core/loglinear.py:occupancy``).  MLA's
+    absorbed softmax decode (``models/mla.py``): ckv (B,S,kv_lora) and kr
+    (B,S,rd), the latent cache in the compute dtype, and len (B,) int32.
     """
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
@@ -59,6 +61,8 @@ class AttentionState:
     sl: Optional[torch.Tensor] = None
     zl: Optional[torch.Tensor] = None
     cl: Optional[torch.Tensor] = None
+    ckv: Optional[torch.Tensor] = None
+    kr: Optional[torch.Tensor] = None
 
     def __getitem__(self, name: str):
         """Dict-style read (``state["pos"]``), as the reference's legacy
@@ -95,10 +99,20 @@ class AttentionEngine:
         return torch_dtype(self.spec.precision)
 
     @classmethod
-    def from_cfg(cls, cfg) -> "AttentionEngine":
-        h, g, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        return cls(spec=AttnSpec.from_cfg(cfg, r=h // g), heads=h,
-                   kv_heads=g, head_dim=d, v_dim=d)
+    def from_cfg(cls, cfg, causal: bool = True, *,
+                 heads: Optional[int] = None, kv_heads: Optional[int] = None,
+                 head_dim: Optional[int] = None,
+                 v_dim: Optional[int] = None) -> "AttentionEngine":
+        """The engine of an ``ArchConfig`` attention layer, causal or
+        bidirectional; the head geometry defaults to the config's and can
+        be overridden (MLA binds ``heads = kv_heads = H``, its assembled
+        ``nope + rope`` q/k width and its own ``v_dim``)."""
+        h = heads if heads is not None else cfg.n_heads
+        g = kv_heads if kv_heads is not None else cfg.n_kv_heads
+        d = head_dim if head_dim is not None else cfg.hd
+        return cls(spec=AttnSpec.from_cfg(cfg, causal=causal, r=h // g),
+                   heads=h, kv_heads=g, head_dim=d,
+                   v_dim=v_dim if v_dim is not None else d)
 
     def init_state(self, batch: int, device, max_len: int) -> AttentionState:
         """Zeroed decode state for ``batch`` rows (per-row counters and
@@ -158,15 +172,14 @@ class AttentionEngine:
         calibrate here per ``spec.calibration`` (with the beta(n) gain at
         N) unless ``alpha``/``beta`` are given, then run
         ``core/attention.py:multi_head_attention`` under ``spec.backend``
-        (``ref`` is the core scan).  ``mask`` and ``prefix_len`` come with
-        the families that need them (ROADMAP.md queue 1, item 11b)."""
-        if mask is not None or prefix_len:
-            raise NotImplementedError(
-                "AttentionEngine.attention's mask and prefix_len are not "
-                "ported yet (ROADMAP.md queue 1, item 11b)")
+        (``ref`` is the core scan).  ``mask`` (B, N) key validity;
+        ``prefix_len``: keys below it are visible to every query (the
+        prefix-LM mask; the LLN impls approximate it causally, as in the
+        reference)."""
         spec = self.spec
         if spec.impl == "softmax":
-            return kreg.softmax_attention(spec, q, k, v)
+            return kreg.softmax_attention(spec, q, k, v, mask=mask,
+                                          prefix_len=prefix_len)
         if alpha is None or beta is None:
             # Calibrate here, so that spec.calibration="per_row" holds for
             # the full-sequence forward too.
@@ -182,21 +195,26 @@ class AttentionEngine:
             backend=None if spec.backend == "auto" else spec.backend,
             fixed_ab=spec.fixed_ab, num_scales=spec.num_scales,
             scale_decay=spec.scale_decay)
-        return multi_head_attention(q, k, v, acfg, alpha=alpha, beta=beta)
+        return multi_head_attention(q, k, v, acfg, mask=mask, alpha=alpha,
+                                    beta=beta, prefix_len=prefix_len)
 
-    def prefill(self, q, k, v, *, max_len: int = 0, alpha=None, beta=None):
+    def prefill(self, q, k, v, *, max_len: int = 0, prefix_len: int = 0,
+                alpha=None, beta=None):
         """Causal forward over the prompt; returns ``(out, state)``.
         q: (B,N,H,D); k/v: (B,N,G,D[v]).  ``softmax``: the prompt's k/v
         become the KV cache, zero-padded to ``max(max_len, N)`` positions
         for the tokens decode appends.  The LLN outputs and the
         O(d^2) state come from one pass (``log_linear``: the open bucket and
         the bucket pyramid); ``lln_diag`` averages in the block-diag
-        softmax.  ``alpha``/``beta`` override the calibration."""
+        softmax.  ``prefix_len``: the prefix-LM mask of the softmax
+        prefill (the LLN impls ignore it, as in the reference).
+        ``alpha``/``beta`` override the calibration."""
         b, n, h, _ = q.shape
         g = k.shape[2]
         spec = self.spec
         if spec.impl == "softmax":
-            out = kreg.softmax_attention(spec, q, k, v)
+            out = kreg.softmax_attention(spec, q, k, v,
+                                         prefix_len=prefix_len)
             pad = (0, 0, 0, 0, 0, max(max_len, n) - n)
             return out, AttentionState(
                 k=torch.nn.functional.pad(k.to(self.state_dtype), pad),

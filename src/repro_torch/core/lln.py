@@ -71,18 +71,22 @@ class LLNState:
     log_scale: Optional[torch.Tensor] = None
 
 
-def lln_bidir(q, k, v, alpha, beta) -> torch.Tensor:
+def lln_bidir(q, k, v, alpha, beta, *, mask=None) -> torch.Tensor:
     """Non-causal LLN attention, O(N d^2) time, O(d^2) state.
 
     out_i = Phi(q_i) S / (Phi(q_i) . z + EPS) with S = sum_j Phi(k_j) v_j^T
     and z = sum_j Phi(k_j) over the whole sequence.  As in the reference,
     the feature maps are rounded to q's / k's dtype and the summaries to
-    Phi(q)'s dtype before the fp32 products.
+    Phi(q)'s dtype before the fp32 products.  ``mask``: optional (B, N)
+    1/0 key validity (masked keys get Phi(k) = 0).
     """
     aq = q * _bcast(alpha, q)
     bk = k * _bcast(beta, k)
     fq = torch.exp(aq - _stab_const(aq)).to(q.dtype)
-    fk = torch.exp(bk - _stab_const(bk)).to(k.dtype).float()
+    fk = torch.exp(bk - _stab_const(bk)).to(k.dtype)
+    if mask is not None:
+        fk = fk * mask[:, :, None, None].to(fk.dtype)
+    fk = fk.float()
     s = torch.einsum("bnhd,bnhv->bhdv", fk, v.float())
     z = fk.sum(1)
     num = torch.einsum("bnhd,bhdv->bnhv", fq.float(), s.to(fq.dtype).float())

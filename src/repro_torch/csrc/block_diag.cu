@@ -25,8 +25,10 @@
 // encoder and serve shapes (q, k, v read once, out written once; the
 // products at the tensor cores' rate take less, see chip_smoke.py).
 //
-// fp32 (the card tests and the SMOKE parity runs): block_diag_kernel, IEEE
-// fp32 on the CUDA cores.  One CTA per (query head, block, qtile-row query
+// fp32 (the card tests and the SMOKE parity runs), and bf16 with a head
+// wider than 128 (MLA's D = 192, paligemma's D = 256): block_diag_kernel,
+// IEEE fp32 on the CUDA cores (bf16 inputs widened as they are staged, the
+// output rounded once).  One CTA per (query head, block, qtile-row query
 // tile) keeps the scaled query tile, its score rows over the block's keys
 // (up to its last row if causal) and its output rows in shared memory;
 // keys, then values, stream through a KTILE-row buffer; the softmax is the
@@ -360,5 +362,8 @@ extern "C" int block_diag_launch(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float>(q, k, v, out, bh, bg, n, d, dv, blk, causal, qtile,
                          scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, out, bh, bg, n, d, dv, blk, causal,
+                                 qtile, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,8 +24,11 @@ backward's dq kernel (per 64-row query tile: max, sum and delta in one
 pass, then dsm k) saves each row's (m, l, delta) for the dk/dv kernel (per 64-key
 tile, over the r heads and the query tiles in a fixed order).  Bound on
 the H100: bytes (the products at the tensor cores' rate take less).
-fp32: IEEE fp32 on the CUDA cores, the reference's exact softmax form
-(max, exponentiate, divide, then multiply by V), in 32-row tiles.
+fp32, and the forward's bf16 above D or Dv = 128 (MLA's 192, paligemma's
+256): IEEE fp32 on the CUDA cores, the reference's exact softmax form
+(max, exponentiate, divide, then multiply by V), in 32-row tiles; the
+shared memory grows with D (164 KB at D = Dv = 256, 32 query rows and
+the whole 256-key block's scores).  The backward takes bf16 up to 128.
 """
 from __future__ import annotations
 
@@ -54,9 +57,6 @@ def _check_qkv(q, k, v, r, blk):
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, r={r}")
     if n < 1 or blk < 1:
         raise ValueError("empty sequence or block")
-    if q.dtype == torch.bfloat16 and max(d, v.shape[-1]) > 128:
-        raise ValueError(f"the bf16 kernels take D, Dv <= 128, got D={d}, "
-                         f"Dv={v.shape[-1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -112,10 +112,12 @@ def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
             d ** -0.5, torch.cuda.current_stream().cuda_stream)
     build.check(err, "block_diag")
     block_diag.launches += 1
+    block_diag.noncausal_launches += not causal
     return out
 
 
 block_diag.launches = 0
+block_diag.noncausal_launches = 0     # the non-causal ones among ``launches``
 
 
 def block_diag_bwd_plain(q, k, v, g, *, r: int = 1, blk: int = 256,
@@ -145,6 +147,9 @@ def block_diag_bwd(q, k, v, g, *, r: int = 1, blk: int = 256,
     _check_qkv(q, k, v, r, blk)
     bh, n, d = q.shape
     bg, dv = k.shape[0], v.shape[-1]
+    if q.dtype == torch.bfloat16 and max(d, dv) > 128:
+        raise ValueError(f"the bf16 backward takes D, Dv <= 128, got D={d}, "
+                         f"Dv={dv}")
     if g.dtype != v.dtype or g.shape != (bh, n, dv) \
             or g.device != q.device or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous {v.dtype} {(bh, n, dv)} "

@@ -116,14 +116,17 @@ class AttnSpec:
                              "summary)")
 
     @classmethod
-    def from_cfg(cls, cfg, r: Optional[int] = None) -> "AttnSpec":
+    def from_cfg(cls, cfg, causal: bool = True,
+                 r: Optional[int] = None) -> "AttnSpec":
         """The spec an ``ArchConfig`` implies.  ``use_serve_kernel=False``
         maps to ``backend='ref'``; ``lln_per_row_calib`` to the ``per_row``
-        calibration and ``lln_renorm`` to the drift-renorm threshold."""
+        calibration and ``lln_renorm`` to the drift-renorm threshold.
+        ``r`` overrides the GQA ratio (MLA runs full heads whatever
+        ``cfg.n_kv_heads`` says)."""
         backend = cfg.attn_backend
         if backend == "auto" and not cfg.use_serve_kernel:
             backend = "ref"
-        return cls(impl=cfg.attn_impl,
+        return cls(impl=cfg.attn_impl, causal=causal,
                    r=r if r is not None else cfg.n_heads // cfg.n_kv_heads,
                    backend=backend, precision=str(cfg.compute_dtype),
                    calibration=("per_row" if cfg.lln_per_row_calib
@@ -202,16 +205,20 @@ def attention(spec: AttnSpec, q, k, v, alpha, beta):
                                   spec.diag_block, backend=spec.backend)
 
 
-def softmax_attention(spec: AttnSpec, q, k, v):
+def softmax_attention(spec: AttnSpec, q, k, v, *, mask=None,
+                      prefix_len: int = 0):
     """Softmax over the prompt under ``spec.causal``: ``naive_softmax`` for
     backend ``ref``, ``flash_softmax`` (key chunks of
     ``min(spec.softmax_chunk, N)``) for every other backend (see the module
-    docstring)."""
+    docstring).  ``mask`` (B, N) key validity; ``prefix_len`` the
+    prefix-LM mask (keys below it visible to every query)."""
     from repro_torch.core import attention as ca
     if spec.backend == "ref":
-        return ca.naive_softmax(q, k, v, causal=spec.causal)
+        return ca.naive_softmax(q, k, v, causal=spec.causal, mask=mask,
+                                prefix_len=prefix_len)
     return ca.flash_softmax(q, k, v, causal=spec.causal,
-                            chunk=min(spec.softmax_chunk, k.shape[1]))
+                            chunk=min(spec.softmax_chunk, k.shape[1]),
+                            mask=mask, prefix_len=prefix_len)
 
 
 def prefill(spec: AttnSpec, q, k, v, alpha, beta):

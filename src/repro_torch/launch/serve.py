@@ -8,8 +8,11 @@ Takes the reference driver's flags (``python -m repro.launch.serve``) plus
 the first decode step is timed on its own and the rest give the steady
 tok/s.  ``--attn-impl`` takes ``softmax`` (every config's default),
 ``lln``, ``lln_diag`` and ``log_linear``; ``--arch`` the dense decoders
-(yi-9b, qwen3-14b, stablelm-1.6b, chatglm3-6b) and the SSM / hybrid LMs
-(mamba2-130m, zamba2-7b).  ``--continuous`` serves mixed-length
+(yi-9b, qwen3-14b, stablelm-1.6b, chatglm3-6b), the MoE decoders
+(qwen3-moe-235b-a22b, and deepseek-v2-236b with MLA), the encoder-decoder
+seamless-m4t-medium (its source frames are a synthetic stub), the VLM
+paligemma-3b (synthetic patches before the prompt; decode positions start
+after them) and the SSM / hybrid LMs (mamba2-130m, zamba2-7b).  ``--continuous`` serves mixed-length
 synthetic traffic from a slotted request pool (``launch/batcher.py``) with
 the health sentinel, fault injection (``--fault-plan``) and pool snapshots
 (``--snapshot-dir``, ``--snapshot-every``, ``--restore``):
@@ -130,7 +133,7 @@ def main(argv=None):
     if args.speculative:
         return _run_speculative(cfg, args)
 
-    max_len = args.prompt_len + args.gen
+    max_len = args.prompt_len + args.gen + cfg.num_prefix_tokens
     setup = make_serve_setup(cfg, ShapeSpec("cli", max_len, args.batch,
                                             "decode"), device=args.device)
     dev = setup.device
@@ -151,7 +154,9 @@ def main(argv=None):
 
     tok = torch.argmax(logits[:, -1], -1)
     generated = [tok]
-    pos = args.prompt_len
+    pos = batch["inputs"].shape[1]
+    if cfg.family == "vlm":
+        pos += cfg.num_prefix_tokens
     t_first = t_steady = 0.0
     if args.gen > 1:
         t0 = time.time()

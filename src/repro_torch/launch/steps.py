@@ -171,7 +171,10 @@ class ServeSetup:
 def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec,
                      device=None) -> ServeSetup:
     """Serving steps for ``cfg`` at ``shape`` on ``device`` (the CUDA card
-    unless the caller asks for another device)."""
+    unless the caller asks for another device), every family with a decode
+    step.  The batch carries the family's inputs (``src`` for the
+    encoder-decoder, ``patches`` for the VLM, whose decode positions start
+    after its ``num_prefix_tokens`` patches)."""
     model = build_model(cfg, device)
     max_len = shape.seq_len
 
@@ -288,7 +291,7 @@ def _verify_step(model, dmodel, params, dparams, tgt, dr, tok, pos, k: int,
 
 def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
                     spec_k: int, draft_layers: int) -> SpecSetup:
-    """The speculative loop for a dense decoder on ``device`` (the CUDA
+    """The speculative loop for a dense or MoE decoder on ``device`` (the CUDA
     card unless the caller asks for another device).  ``shape.seq_len`` is
     the cache budget: the prompt, the generation budget and one verify
     chunk of overshoot (``prompt + steps + spec_k + 1``)."""
@@ -463,14 +466,14 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
                     health: Optional[HealthConfig] = _HEALTH_DEFAULT,
                     spec_k: int = 0, draft_layers: int = 0) -> PoolSetup:
     """The pool's building blocks for ``cfg`` on ``device`` (the CUDA card
-    unless the caller asks for another device): the dense decoders and the
-    ssm / hybrid LMs, with every serving impl.  The pool's model calibrates
+    unless the caller asks for another device): the dense and MoE decoders
+    (not MLA) and the ssm / hybrid LMs, with every serving impl.  The pool's model calibrates
     per row (``lln_per_row_calib=True``, as in the reference): each
     request's alpha/beta come from its own prompt, which keeps a batched
     slot prefill exact per request.  ``health=None`` turns the sentinel
     off.
 
-    ``spec_k >= 1`` makes the rows speculative (the dense family): paired
+    ``spec_k >= 1`` makes the rows speculative (dense and MoE): paired
     target and draft caches (the draft the tied first ``draft_layers``
     layers), and per segment step one draft-k / verify / accept iteration
     whose per-row accept counts become per-row ``commit_len``; done, free
@@ -479,18 +482,17 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     accepted prefix.  A row may overshoot its budget by up to ``spec_k``
     tokens in its last iteration: the batcher caps the harvest at the
     budget and ``check_request`` reserves ``spec_k`` positions of slack.
-    MoE / MLA configs wait for ROADMAP.md queue 1, item 11b."""
-    if cfg.family in ("moe", "mla_moe", "encdec", "vlm") or cfg.kv_lora > 0:
+    MLA, the encoder-decoder and the VLM are refused, as in the
+    reference."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+            or cfg.kv_lora > 0:
         raise NotImplementedError(
-            f"continuous batching of the {cfg.family} family is not ported "
-            "yet (ROADMAP.md queue 1, item 11b)")
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            "continuous batching serves decoders only "
-            f"(family={cfg.family})")
+            "continuous batching supports dense/moe decoders and "
+            "ssm/hybrid models "
+            f"(family={cfg.family}, kv_lora={cfg.kv_lora})")
     if spec_k < 0:
         raise ValueError(f"spec_k must be >= 0, got {spec_k}")
-    if spec_k >= 1 and cfg.family != "dense":
+    if spec_k >= 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             "speculative pools need a first-k-layers draft "
             f"(family={cfg.family})")

@@ -6,8 +6,10 @@
 Takes the reference CLI's flags (``python -m repro.launch.train``) plus
 ``--device`` (the CUDA card by default): a host-sharded, prefetched
 ``lm_batches`` stream (``mlm_batches`` for the encoder family, e.g.
-``--arch roberta-lln``; ``lm_batches`` for ``--arch mamba2-130m`` and
-``--arch zamba2-7b``), the straggler watchdog and the same printed
+``--arch roberta-lln``; ``lm_batches`` for ``--arch mamba2-130m``,
+``--arch zamba2-7b`` and the MoE decoders; ``synthetic_batch``'s frames or
+patches beside the tokens for ``--arch seamless-m4t-medium`` and
+``--arch paligemma-3b``), the straggler watchdog and the same printed
 lines.
 As in the reference, the attention and SSD kernels are reached only with
 ``use_kernel=True`` in the config (``get_config(..., use_kernel=True)``);
@@ -33,6 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import HostShardedSource, Prefetcher, torch_placer
 from repro_torch.data.synthetic import lm_batches, mlm_batches
+from repro_torch.models import synthetic_batch
 from repro_torch.distributed.straggler import StepWatchdog
 from repro_torch.launch.steps import make_train_setup
 
@@ -88,6 +91,16 @@ def main(argv=None):
         state = setup.init_state(args.seed)
 
     batches = mlm_batches if cfg.family == "encoder" else lm_batches
+    if cfg.family in ("encdec", "vlm"):
+        def batches(vocab, b, seq, seed):
+            """The multimodal stubs: synthetic frames or patches beside
+            the tokens, as the reference's train CLI makes them."""
+            step = 0
+            while True:
+                yield {k: v.numpy() for k, v in synthetic_batch(
+                    cfg, b, seq, seed=hash((seed, step)) % 2 ** 31,
+                    device="cpu").items()}
+                step += 1
     source = HostShardedSource(
         lambda b, s: batches(cfg.vocab, b, args.seq, seed=s), args.batch,
         start_step=start_step)

@@ -1,7 +1,9 @@
 """Attention sub-block: projections + RoPE + unified attention.
 
-Port of ``repro.models.attention_block`` for self-attention: the training
-forward ``attn_apply`` through ``core/attention.py:multi_head_attention``,
+Port of ``repro.models.attention_block``: the training forward
+``attn_apply`` through ``core/attention.py:multi_head_attention`` (with a
+key mask, a prefix-LM ``prefix_len``, or cross-attention over a memory
+``kv``, always the online softmax),
 the serving lifecycle ``serve_state_init`` / ``serve_prefill`` /
 ``serve_decode`` / ``serve_commit`` over
 :class:`repro_torch.core.engine.AttentionEngine`, and the legacy
@@ -14,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.attention import AttnConfig, multi_head_attention
+from repro_torch.core.attention import (AttnConfig, flash_softmax,
+                                        multi_head_attention)
 from repro_torch.core.engine import AttentionEngine
 from repro_torch.device import resolve_device
 from repro_torch.kernels.registry import deprecated_shim
@@ -53,9 +56,9 @@ def attn_cfg_of(cfg, causal: bool = True) -> AttnConfig:
                       scale_decay=cfg.lln_scale_decay)
 
 
-def attn_engine(cfg) -> AttentionEngine:
+def attn_engine(cfg, causal: bool = True) -> AttentionEngine:
     """The serving engine an ``ArchConfig`` attention layer implies."""
-    return AttentionEngine.from_cfg(cfg)
+    return AttentionEngine.from_cfg(cfg, causal=causal)
 
 
 def _project_qkv(p: Attention, x, cfg, positions):
@@ -72,12 +75,27 @@ def _project_qkv(p: Attention, x, cfg, positions):
     return q, k, v
 
 
-def attn_apply(p: Attention, x, cfg, positions, *, causal: bool = True):
-    """Full-sequence self-attention (training forward); x: (B, N, d)."""
+def attn_apply(p: Attention, x, cfg, positions, *, causal: bool = True,
+               kv=None, mask=None, prefix_len: int = 0):
+    """Full-sequence attention (training forward); x: (B, N, d).  ``kv``:
+    a cross-attention memory (B, M, d), projected by ``k_w`` / ``v_w``
+    without RoPE and attended by the online softmax whatever
+    ``cfg.attn_impl`` (the seamless decoder); ``mask`` (B, N or M) key
+    validity; ``prefix_len`` the prefix-LM mask of the self-attention."""
     b, n, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = multi_head_attention(q, k, v, attn_cfg_of(cfg, causal))
-    return dense(p.o_w, out.reshape(b, n, cfg.n_heads * cfg.hd), cfg.cdtype)
+    hd, h, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+        out = multi_head_attention(q, k, v, attn_cfg_of(cfg, causal),
+                                   mask=mask, prefix_len=prefix_len)
+    else:
+        m = kv.shape[1]
+        q = dense(p.q_w, x, cfg.cdtype).reshape(b, n, h, hd)
+        k = dense(p.k_w, kv, cfg.cdtype).reshape(b, m, g, hd)
+        v = dense(p.v_w, kv, cfg.cdtype).reshape(b, m, g, hd)
+        out = flash_softmax(q, k, v, causal=False,
+                            chunk=min(cfg.softmax_chunk, m), mask=mask)
+    return dense(p.o_w, out.reshape(b, n, h * hd), cfg.cdtype)
 
 
 def serve_state_init(cfg, batch: int, max_len: int, device):
@@ -87,14 +105,17 @@ def serve_state_init(cfg, batch: int, max_len: int, device):
     return attn_engine(cfg).init_state(batch, device, max_len)
 
 
-def serve_prefill(p: Attention, x, cfg, positions, *, max_len: int = 0):
+def serve_prefill(p: Attention, x, cfg, positions, *, prefix_len: int = 0,
+                  max_len: int = 0):
     """Forward over the prompt; returns ``(out, AttentionState)``.  The
     softmax KV cache holds ``max(max_len, n)`` positions, the padding for
     the tokens decode appends; LLN emits the O(d^2) state from the same
-    pass."""
+    pass.  ``prefix_len``: the softmax prefill's prefix-LM mask (a VLM's
+    patches; the LLN impls take the prefix causally)."""
     b, n, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out, state = attn_engine(cfg).prefill(q, k, v, max_len=max_len)
+    out, state = attn_engine(cfg).prefill(q, k, v, max_len=max_len,
+                                          prefix_len=prefix_len)
     return dense(p.o_w, out.reshape(b, n, cfg.n_heads * cfg.hd),
                  cfg.cdtype), state
 
@@ -157,12 +178,9 @@ def attn_cache_init(cfg, batch: int, max_len: int, per_row: bool = False,
 @deprecated_shim("models.attention_block.attn_prefill", "serve_prefill")
 def attn_prefill(p, x, cfg, positions, *, prefix_len: int = 0,
                  max_len: int = 0):
-    """Legacy prefill: delegates to :func:`serve_prefill`.  A prefix-LM
-    ``prefix_len`` comes with ROADMAP.md queue 1, item 11b."""
-    if prefix_len:
-        raise NotImplementedError("prefix_len is not ported yet (ROADMAP.md "
-                                  "queue 1, item 11b)")
-    return serve_prefill(p, x, cfg, positions, max_len=max_len)
+    """Legacy prefill: delegates to :func:`serve_prefill`."""
+    return serve_prefill(p, x, cfg, positions, prefix_len=prefix_len,
+                         max_len=max_len)
 
 
 @deprecated_shim("models.attention_block.attn_decode", "serve_decode")

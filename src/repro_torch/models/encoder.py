@@ -40,7 +40,7 @@ def encoder_hidden(p: Encoder, tokens, cfg):
     positions = torch.arange(x.shape[1], device=x.device)
     block = _remat(functools.partial(block_apply, causal=False), cfg)
     for lp in p.layers:
-        x = block(lp, x, cfg, positions)
+        x, _ = block(lp, x, cfg, positions)
     x = apply_norm(p.final_norm, x)
     return x, torch.zeros((), device=x.device)
 

@@ -244,18 +244,92 @@ def test_engine_attention_matches_reference(impl, backend, calibration):
 
 def test_engine_attention_length_gain_and_refusals():
     """The beta(n) gain applies at N, as in the reference; ``mask`` and
-    ``prefix_len`` name item 11b."""
+    ``prefix_len`` reach the attention as the reference's do (a key mask
+    on the core path of the causal LLN changes nothing there, as in the
+    reference; the softmax masks by both)."""
     rng = np.random.default_rng(22)
     q = rng.normal(size=(1, 40, 4, 8)).astype(np.float32)
     k = rng.normal(size=(1, 40, 2, 8)).astype(np.float32)
     v = rng.normal(size=(1, 40, 2, 8)).astype(np.float32)
+    mask = rng.random((1, 40)) > 0.2
     jeng, teng = _engine_pair("lln", beta_n=0.5, calib_len=16)
     _close(teng.attention(*_t(q, k, v)).numpy(),
            jeng.attention(*_j(q, k, v)), 1e-4)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        teng.attention(*_t(q, k, v), mask=torch.ones(1, 40, dtype=bool))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        teng.attention(*_t(q, k, v), prefix_len=4)
+    _close(teng.attention(*_t(q, k, v), mask=torch.from_numpy(mask),
+                          prefix_len=4).numpy(),
+           jeng.attention(*_j(q, k, v), mask=jnp.asarray(mask),
+                          prefix_len=4), 1e-4)
+    jeng, teng = _engine_pair("softmax")
+    for kw in ({"prefix_len": 4}, {"mask": mask}):
+        tkw = {n: torch.from_numpy(a) if n == "mask" else a
+               for n, a in kw.items()}
+        jkw = {n: jnp.asarray(a) if n == "mask" else a
+               for n, a in kw.items()}
+        _close(teng.attention(*_t(q, k, v), **tkw).numpy(),
+               jeng.attention(*_j(q, k, v), **jkw), 1e-5)
+
+
+# --- F6: AttentionEngine.from_cfg with the reference's signature ---------
+
+def test_engine_from_cfg_takes_causal_and_the_head_geometry():
+    """``from_cfg(cfg, causal, heads=, kv_heads=, head_dim=, v_dim=)``: the
+    spec's ``causal`` and GQA ratio and the state shapes with ``v_dim !=
+    head_dim`` are the reference's."""
+    from repro.configs import get_config as j_get_config
+    from repro.core.engine import AttentionEngine as JEngine
+    over = dict(attn_impl="lln_diag", compute_dtype="float32")
+    cfg = tconfigs.get_config("yi-9b", smoke=True, **over)
+    jcfg = j_get_config("yi-9b", smoke=True, **over)
+    for causal in (True, False):
+        for geo in ({}, dict(heads=4, kv_heads=4, head_dim=24, v_dim=16)):
+            got = tcore.AttentionEngine.from_cfg(cfg, causal, **geo)
+            want = JEngine.from_cfg(jcfg, causal, **geo)
+            assert (got.heads, got.kv_heads, got.head_dim, got.v_dim) == \
+                (want.heads, want.kv_heads, want.head_dim, want.v_dim)
+            assert (got.spec.causal, got.spec.r) == (want.spec.causal,
+                                                     want.spec.r)
+    geo = dict(heads=4, kv_heads=4, head_dim=24, v_dim=16)
+    for impl in ("lln_diag", "softmax", "log_linear"):
+        got = tcore.AttentionEngine.from_cfg(
+            cfg.replace(attn_impl=impl), **geo).init_state(2, "cpu", 12)
+        want = JEngine.from_cfg(jcfg.replace(attn_impl=impl),
+                                **geo).init_state(2, 12)
+        for name in ("k", "v", "s", "z", "c_k", "tail_k", "tail_v", "sl",
+                     "zl", "alpha"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None) == (b is None), (impl, name)
+            if a is not None:
+                assert tuple(a.shape) == tuple(b.shape), (impl, name)
+
+
+@pytest.mark.parametrize("impl", ["lln", "lln_diag", "softmax"])
+def test_engine_from_cfg_prefill_and_decode_at_g_eq_h_and_dv_ne_d(impl):
+    """A prefill of 20 tokens and a 3-token decode at G = H = 4, D = 24,
+    Dv = 16 (MLA's geometry at SMOKE size) through engines bound by
+    ``from_cfg``: the outputs and the state against the reference's."""
+    from repro.configs import get_config as j_get_config
+    from repro.core.engine import AttentionEngine as JEngine
+    over = dict(attn_impl=impl, compute_dtype="float32", diag_block=8,
+                lln_chunk=8)
+    cfg = tconfigs.get_config("yi-9b", smoke=True, **over)
+    jcfg = j_get_config("yi-9b", smoke=True, **over)
+    geo = dict(heads=4, kv_heads=4, head_dim=24, v_dim=16)
+    teng = tcore.AttentionEngine.from_cfg(cfg, **geo)
+    jeng = JEngine.from_cfg(jcfg, **geo)
+    rng = np.random.default_rng(24)
+    q, k = (rng.normal(size=(2, 23, 4, 24)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(2, 23, 4, 16)).astype(np.float32)
+    out, st = teng.prefill(*_t(q[:, :20], k[:, :20], v[:, :20]), max_len=24)
+    jout, jst = jeng.prefill(*_j(q[:, :20], k[:, :20], v[:, :20]),
+                             max_len=24)
+    _close(out.numpy(), jout)
+    out, st = teng.decode(st, *_t(q[:, 20:], k[:, 20:], v[:, 20:]))
+    jout, jst = jeng.decode(jst, *_j(q[:, 20:], k[:, 20:], v[:, 20:]))
+    _close(out.numpy(), jout)
+    for name in (("k", "v", "len") if impl == "softmax"
+                 else ("s", "z", "tail_v", "pos")):
+        _close(getattr(st, name).numpy(), getattr(jst, name))
 
 
 def test_attention_state_getitem():
@@ -339,6 +413,12 @@ def test_attention_block_shims_warn_once_and_match_the_canonical_calls():
         jout1, _ = jab.attn_decode(jp, jnp.asarray(x1), jst, jcfg, 12)
     _close(out.detach().numpy(), jout, 1e-4)
     _close(out1.detach().numpy(), jout1, 1e-4)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ab.attn_prefill(p, torch.from_numpy(x), cfg, torch.from_numpy(pos),
-                        prefix_len=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        pre, _ = ab.attn_prefill(p, torch.from_numpy(x), cfg,
+                                 torch.from_numpy(pos), prefix_len=2,
+                                 max_len=16)
+        jpre, _ = jab.attn_prefill(jp, jnp.asarray(x), jcfg,
+                                   jnp.asarray(pos), prefix_len=2,
+                                   max_len=16)
+    _close(pre.detach().numpy(), jpre, 1e-4)

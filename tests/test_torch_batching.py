@@ -571,9 +571,16 @@ class TestUnported:
                             slots=2, max_len=32, spec_k=2, draft_layers=1)
 
     def test_moe_names_item_11b(self):
-        cfg = dataclasses.replace(_tiny_cfg(), family="moe", n_experts=4)
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            make_pool_setup(cfg, "cpu", slots=2, max_len=32)
+        """Item 11b ported the MoE pool: a MoE config builds its pool (its
+        blocks route), while MLA keeps the reference's refusal."""
+        cfg = dataclasses.replace(_tiny_cfg(), family="moe", n_experts=4,
+                                  expert_d_ff=32)
+        setup = make_pool_setup(cfg, "cpu", slots=2, max_len=32)
+        assert hasattr(setup.model.init(0).layers[0], "moe")
+        with pytest.raises(NotImplementedError,
+                           match="continuous batching supports dense/moe"):
+            make_pool_setup(dataclasses.replace(cfg, kv_lora=8), "cpu",
+                            slots=2, max_len=32)
 
 
 class TestServeCLI:

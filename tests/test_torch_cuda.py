@@ -17,7 +17,10 @@ fp32 p as hi + lo bf16 forward and in the backward's dq kernel, p and dsm
 as three bf16 planes in its dk/dv kernel; fp32 on the CUDA cores) are held
 at blk 16, 64 and 256, N 64, 300 and 512, D = Dv = 64 and 128 and one
 D != Dv, r in {1, 4, 5, 8, 16}, causal and not, their backward's two runs
-bitwise equal.  A 2-slot continuous-batching pool of yi-9b SMOKE on the
+bitwise equal.  The serving kernels (``lln_causal`` with the state,
+causal ``block_diag``, ``lln_decode``) are also held, bf16 on their
+CUDA-core paths, at the model families' wide heads: D = 192 with Dv = 128
+(MLA, r = 1) and D = Dv = 256 with r = 8 (paligemma).  A 2-slot continuous-batching pool of yi-9b SMOKE on the
 serving kernels equals solo runs token for token.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
 are held the same way at D = 64, r in {1, 4}, whole and ragged N; the
@@ -293,8 +296,60 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         block_diag(qs, ks, v, r=1, blk=16)
     wide = torch.zeros(2, 32, 256, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="128"):
-        block_diag(wide, wide, wide, r=1, blk=16)
+        block_diag_bwd(wide, wide, wide, wide, r=1, blk=16)
     assert lln_causal.launches == before + 1
+    before = (block_diag.launches, block_diag.noncausal_launches)
+    block_diag(qs, ks, v, r=2, blk=16, causal=True)
+    block_diag(qs, ks, v, r=2, blk=16, causal=False)
+    assert (block_diag.launches, block_diag.noncausal_launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
+# The serving kernels at the model families' wide heads, on their CUDA-core
+# paths (D above TC_MAX_WIDTH = 128): MLA's assembled q/k (deepseek-v2: H = G,
+# D = nope + rope = 192, Dv = 128) and paligemma's MQA (r = 8, D = Dv = 256).
+WIDE_HEADS = [pytest.param(1, 192, 128, id="mla-r1-d192-dv128"),
+              pytest.param(8, 256, 256, id="paligemma-r8-d256")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
+@pytest.mark.parametrize("n", [512, 300])
+def test_cuda_serve_kernels_at_wide_heads(cuda, r, d, dv, n):
+    """bf16 v: lln_causal with the final state, causal block_diag (blk 256)
+    and lln_decode at T = 1 and 4 from that state with a rescale, each
+    within one bf16 step of its plain version (s, z, s1, z1 within 1e-5 of
+    the largest plain entry), two runs of each bitwise equal."""
+    qs, ks, v = _kernel_inputs(d + n + r, 2 * r, 2, n, d, dv)
+    qs, ks = _on(cuda, qs, ks)
+    (v,) = _on(cuda, v, dtype=torch.bfloat16)
+    runs = [lln_causal(qs, ks, v, r=r, blk=256) for _ in range(2)]
+    want = lln_causal_plain(qs, ks, v, r=r, blk=256)
+    torch.cuda.synchronize()
+    _close(runs[0][0], want[0], BF16)
+    _close(runs[0][1], want[1], TRAIN)
+    _close(runs[0][2], want[2], TRAIN)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    q, k = qs.bfloat16(), ks.bfloat16()
+    runs = [block_diag(q, k, v, r=r, blk=256, causal=True) for _ in range(2)]
+    bd = block_diag_plain(q, k, v, r=r, blk=256, causal=True)
+    torch.cuda.synchronize()
+    _close(runs[0], bd, BF16)
+    assert torch.equal(runs[0], runs[1])
+    s0, z0 = want[1].contiguous(), want[2].contiguous()
+    for t in (1, 4):
+        q1, k1, v1 = _kernel_inputs(t + d, 2 * r, 2, t, d, dv)
+        q1, k1 = _on(cuda, q1, k1)
+        (v1,) = _on(cuda, v1, dtype=torch.bfloat16)
+        scale = torch.linspace(0.2, 1.0, 2 * r, device=cuda)
+        runs = [lln_decode(q1, k1, v1, s0, z0, r=r, scale=scale)
+                for _ in range(2)]
+        dec = lln_decode_plain(q1, k1, v1, s0, z0, r=r, scale=scale)
+        torch.cuda.synchronize()
+        _close(runs[0][0], dec[0], BF16)
+        _close(runs[0][1], dec[1], TRAIN)
+        _close(runs[0][2], dec[2], TRAIN)
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def _train_inputs(dev, seed, r, n, d, dtype):

@@ -305,9 +305,12 @@ def test_draft_params_share_storage_and_draft_config_validates():
             draft_config(cfg, bad)
     with pytest.raises(NotImplementedError, match="first-k-layers"):
         draft_config(cfg.replace(family="ssm"), 1)
-    moe = draft_config(cfg.replace(family="moe", n_experts=4), 1)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        build_model(moe, "cpu")
+    mcfg = cfg.replace(family="moe", n_experts=4, expert_d_ff=32)
+    moe = draft_config(mcfg, 1)
+    mparams = build_model(mcfg, "cpu").init(0)
+    view = draft_params(mparams, moe, 1)
+    assert len(view.layers) == 1 and view.layers[0] is mparams.layers[0]
+    assert hasattr(view.layers[0], "moe")
 
 
 # ---------------------------------------------------------------------------
