@@ -151,10 +151,29 @@ source frames, paligemma 18 layers with 256 patches (lln_diag, and
 softmax with the prefix-LM mask); exact launch counts, logits against
 the plain backend), and the rows' timings.
 
+Since the families' training slice (item 11c): kernels_families_train
+(rows 4 and 9 at the four train cells' attention shapes, rows 1 with
+den and 6 at the MLA and paligemma widths, rows 5, 7, the non-causal 2
+and 8 at the seamless encoder's training shape, and block_diag_bwd in
+bf16 above D = 128, causal and not, N 512 and 300; outputs within one
+bf16 step, den, states and gradients within 1e-5 of the largest plain
+entry, two runs bitwise equal), small_families_train (each family's
+SMOKE config in fp32, 3 steps on the kernels against 3 through the core
+reference; then the train CLI --arch <family> --smoke --attn-impl
+lln_diag for 3 steps) and train_families (train_moe: qwen3-moe cut to 1
+layer, batch 2 x 512; train_mla: deepseek-v2 cut to its dense first
+layer, 4 x 512; train_encdec: seamless 12 + 12 layers, 4 x 1024 with
+1024 stub frames; train_vlm: paligemma 18 layers, 2 x 512 with 256
+patches: use_kernel=True, lln_diag, and lln for train_mla and
+train_vlm, fp32 params and AdamW moments, the first step on the kernels
+against the plain versions, exact launch counts, timed steps), and their
+kernels' timings.
+
 ``python3 chip_smoke.py --phases spec,spec_pool`` runs only the named
 check phases (spec, spec_pool, small_pool, kernels_families,
-small_families, serve_families) after device and build, and prints no
-kernels line.
+small_families, serve_families, kernels_families_train,
+small_families_train, train_families) after device and build, and
+prints no kernels line.
 """
 from __future__ import annotations
 
@@ -434,13 +453,15 @@ def phase_small():
         raise AssertionError(f"serve CLI returned tokens of shape {toks.shape}")
 
 
-def _train_inputs(n, gen, b=B, h=H, g=G, d=D):
+def _train_inputs(n, gen, b=B, h=H, g=G, d=D, dv=None):
     """Kernel-layout training inputs: fp32 qs/ks from the port's
-    calibration, bf16 q/k/v and a bf16 cotangent g."""
+    calibration, bf16 q/k/v (v of width ``dv``, by default d) and a bf16
+    cotangent g."""
     from repro_torch.kernels import ops
-    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d)
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, g, d, dv)
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
-    cot = torch.randn(b * h, n, d, generator=gen, device="cuda").bfloat16()
+    cot = torch.randn(b * h, n, dv or d, generator=gen,
+                      device="cuda").bfloat16()
     return (qs, ks, ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v),
             cot)
 
@@ -509,13 +530,13 @@ def phase_kernels_train(results):
 
 
 def _small_vs_core(arch, batches_fn, label, impls=("lln", "lln_diag"),
-                   core=None):
+                   core=None, over=None):
     """``arch`` SMOKE training in fp32 on the card with use_kernel=True: 3
     steps on the kernels (backend auto) against 3 through the core
     reference (backend ref, or the config overrides ``core``), from the
     same seeded init and batches of ``batches_fn``, for each attn_impl of
-    ``impls`` (None: the config's own); losses and grad norms within 1e-4
-    relative."""
+    ``impls`` (None: the config's own), with the config overrides ``over``
+    on both sides; losses and grad norms within 1e-4 relative."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import torch_placer
@@ -523,13 +544,13 @@ def _small_vs_core(arch, batches_fn, label, impls=("lln", "lln_diag"),
     for impl in impls:
         runs = {}
         for backend in ("auto", "ref"):
-            over = dict(compute_dtype="float32", use_kernel=True,
-                        attn_backend=backend)
+            kw = dict(compute_dtype="float32", use_kernel=True,
+                      attn_backend=backend, **(over or {}))
             if impl:
-                over["attn_impl"] = impl
+                kw["attn_impl"] = impl
             if backend == "ref" and core:
-                over.update(core)
-            cfg = get_config(arch, smoke=True, **over)
+                kw.update(core)
+            cfg = get_config(arch, smoke=True, **kw)
             setup = make_train_setup(cfg, ShapeSpec("small", 64, 2, "train"),
                                      peak_lr=1e-3, total_steps=3)
             state = setup.init_state(SEED)
@@ -549,12 +570,12 @@ def _small_vs_core(arch, batches_fn, label, impls=("lln", "lln_diag"),
                                      f" vs core ref {lr_}, {gr}")
 
 
-def _train_cli(argv):
+def _train_cli(argv, batch=2):
     """The train CLI on the default device for 3 steps; finite losses."""
     from repro_torch.launch import train
-    log(f"train CLI {' '.join(argv)} (default device):")
-    hist = train.main(argv + ["--steps", "3", "--seq", "64", "--batch", "2",
-                              "--log-every", "1"])
+    log(f"train CLI {' '.join(argv)} --batch {batch} (default device):")
+    hist = train.main(argv + ["--steps", "3", "--seq", "64", "--batch",
+                              str(batch), "--log-every", "1"])
     if len(hist) != 3 or not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"train CLI history {hist}")
 
@@ -717,13 +738,18 @@ QKV = ("q_w", "k_w", "v_w")
 SSM_IN = ("w_x", "w_B", "w_C", "w_dt")
 
 
-def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV):
+def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV,
+                first_fp32=False):
     """Train ``cfg`` (use_kernel=True) at ``batch_size`` x ``seq`` on
     batches of ``batches_fn``: the first step's loss, grad norm and the grad
     norm of the weights named ``probe`` (by suffix) on the kernels against
     the plain versions, then one untimed and TSTEPS timed steps.
-    ``want(steps)`` is the exact launch count of that many steps.  Returns
-    (times, launches of the timed steps)."""
+    ``want(steps)`` is the exact launch count of that many steps.
+    ``first_fp32``: take that first step in fp32 compute and hold the three
+    numbers within 1e-5 relative (for a model whose attention runs the
+    CUDA-core kernels, which take fp32 and bf16 inputs through the same
+    code; in bf16 two correct routes already differ by about 1e-4 there).
+    Returns (times, launches of the timed steps)."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import torch_placer
     from repro_torch.launch.steps import make_train_setup
@@ -748,8 +774,9 @@ def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV):
 
     # First step's loss and grad norm: kernels against plain versions.
     first = {}
+    first_cfg = cfg.replace(compute_dtype="float32") if first_fp32 else cfg
     for backend in ("kernel", "plain"):
-        model = build_model(cfg.replace(attn_backend=backend))
+        model = build_model(first_cfg.replace(attn_backend=backend))
         _reset()
         loss = model.loss(state["params"], batch)
         grads = dict(zip(params, torch.autograd.grad(
@@ -769,17 +796,20 @@ def _train_cell(cfg, batch_size, seq, batches_fn, want, label, probe=QKV):
         first[backend] = (float(loss.detach()), gnorm, qkv)
         del grads
     (lk, gk, qk), (lp, gp, qp) = first["kernel"], first["plain"]
-    log(f"  first step: loss {lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / "
-        f"{gp:.6f}, {'/'.join(probe)} grad norm {qk:.6f} / {qp:.6f} "
-        f"(kernels / plain)")
+    log(f"  first step{' (fp32 compute)' if first_fp32 else ''}: loss "
+        f"{lk:.6f} / {lp:.6f}, grad norm {gk:.6f} / {gp:.6f}, "
+        f"{'/'.join(probe)} grad norm {qk:.6f} / {qp:.6f} (kernels / plain)")
     # bf16 activations through the layers: a one-step rounding difference
     # in one layer's attention output propagates.  The decoder's runs before
     # this check showed relative gaps of 2e-5 in the loss and 2.6e-5 in the
-    # grad norm; hold the loss to 1e-4 and both grad norms to 1e-3.
+    # grad norm; hold the loss to 1e-4 and both grad norms to 1e-3.  In fp32
+    # the kernels and the plain versions differ by sums in another order
+    # only: 1e-5 for all three.
+    tl, tg = (1e-5, 1e-5) if first_fp32 else (1e-4, 1e-3)
     if not (all(math.isfinite(x) for x in (lk, gk, qk))
-            and abs(lk - lp) <= 1e-4 * abs(lp)
-            and abs(gk - gp) <= 1e-3 * abs(gp)
-            and abs(qk - qp) <= 1e-3 * abs(qp)):
+            and abs(lk - lp) <= tl * abs(lp)
+            and abs(gk - gp) <= tg * abs(gp)
+            and abs(qk - qp) <= tg * abs(qp)):
         raise AssertionError(f"{label} {impl}: kernels {lk}, {gk}, {qk} vs "
                              f"plain {lp}, {gp}, {qp}")
 
@@ -4210,6 +4240,485 @@ def phase_timings_families(errs, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The families' training path (item 11c): make_train_setup -> Model.loss ->
+# autograd -> AdamW for qwen3-moe, deepseek-v2, seamless and paligemma.
+# ---------------------------------------------------------------------------
+
+# Their self-attention in the train cells (tag, arch, B, H, G, D, Dv, N):
+# rows 4 and 9 at each, blk BLK (the configs' diag_block).  D or Dv above
+# 128 take the CUDA-core kernels.
+FAMILIES_TRAIN = (
+    ("qwen3-moe r=16", "qwen3-moe-235b-a22b", 2, 64, 4, 128, 128, 512),
+    ("mla D=192 Dv=128", "deepseek-v2-236b", 4, 128, 128, 192, 128, 512),
+    ("seamless decoder D=64", "seamless-m4t-medium", 4, 16, 16, 64, 64,
+     1024),
+    ("paligemma D=256 r=8", "paligemma-3b", 2, 8, 1, 256, 256, 512))
+SEAMLESS_TRAIN = (4, 16, 1024, 64)  # the encoder in training: B, H = G, N, D
+# block_diag_bwd in bf16 above D = 128, at the MLA and paligemma cells'
+# heads: (tag, B, H, G, D, Dv).
+WIDE_BDB = (("bf16 mla D=192 Dv=128", 4, 128, 128, 192, 128),
+            ("bf16 paligemma D=256 r=8", 2, 8, 1, 256, 256))
+
+
+def _is_wide(d, dv):
+    return max(d, dv) > 128
+
+
+def _hold(results, key, runs, want, names, bf16_first=False):
+    """``runs[0]`` against ``want``, entry by entry under ``names``: the
+    first within one bf16 step if ``bf16_first`` (an output), the others
+    within 1e-5 of the largest plain entry (fp32 den, states and
+    gradients); ``runs[0]`` and ``runs[1]`` bitwise equal.  The largest
+    error is kept under ``key``."""
+    errs = [check(nm, gt, wt, bf16_tol(wt) if i == 0 and bf16_first
+                  else fp32_tol(wt))
+            for i, (nm, gt, wt) in enumerate(zip(names, runs[0], want))]
+    _same_runs(key, *runs)
+    results[key] = max(results.get(key, 0.0), *errs)
+
+
+def phase_kernels_families_train(results):
+    """The families' backward kernels and their forwards at the train
+    cells' shapes, each against its plain version (:func:`_hold`): rows 4
+    and 9 at :data:`FAMILIES_TRAIN`; rows 1 (``return_res``) and 6 at the
+    wide heads (MLA, paligemma); rows 5, 7, the non-causal 2 and 8 at the
+    seamless encoder's (:data:`SEAMLESS_TRAIN`); row 8 in bf16 above D =
+    128 (:data:`WIDE_BDB`), causal and not, N 512 and a ragged 300."""
+    from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
+                                                block_diag_bwd_plain,
+                                                block_diag_plain)
+    from repro_torch.kernels.lln_attention import (_tc_path, lln_bidir,
+                                                   lln_bidir_plain,
+                                                   lln_causal,
+                                                   lln_causal_plain,
+                                                   lln_diag_fused,
+                                                   lln_diag_fused_plain)
+    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+                                                  lln_bidir_bwd_plain,
+                                                  lln_causal_bwd,
+                                                  lln_causal_bwd_plain,
+                                                  lln_diag_fused_bwd,
+                                                  lln_diag_fused_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 80)
+    for tag, _, b, h, g, d, dv, n in FAMILIES_TRAIN:
+        r = h // g
+        qs, ks, qk, kk, vk, cot = _train_inputs(n, gen, b, h, g, d, dv)
+        log(f"lln_diag_fused (train, {tag}) B={b} H={h} G={g} N={n} D={d} "
+            f"Dv={dv} blk={BLK} (tensor-core path: {_tc_path(vk, d, dv)}):")
+        runs = [lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
+                               return_res=True) for _ in range(2)]
+        want = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
+                                    return_res=True)
+        torch.cuda.synchronize()
+        _hold(results, f"lln_diag_fused (train, {tag})", runs, want,
+              ("out", "den"), bf16_first=True)
+        o, den = want
+        log(f"lln_diag_fused_bwd (train, {tag}):")
+        runs = [lln_diag_fused_bwd(qs, ks, qk, kk, vk, cot, o, den, r=r,
+                                   blk=BLK) for _ in range(2)]
+        want = lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, cot, o, den,
+                                        r=r, blk=BLK)
+        torch.cuda.synchronize()
+        _hold(results, f"lln_diag_fused_bwd (train, {tag})", runs, want,
+              ("dqs", "dqd", "dks", "dkd", "dv"))
+        if _is_wide(d, dv):
+            log(f"lln_causal (res, {tag}) (tensor-core path: "
+                f"{_tc_path(vk, d, dv)}):")
+            runs = [lln_causal(qs, ks, vk, r=r, blk=BLK, return_res=True,
+                               return_state=False) for _ in range(2)]
+            want = lln_causal_plain(qs, ks, vk, r=r, blk=BLK,
+                                    return_res=True, return_state=False)
+            torch.cuda.synchronize()
+            _hold(results, f"lln_causal (res, {tag})", runs, want,
+                  ("out", "den"), bf16_first=True)
+            o, den = want
+            log(f"lln_causal_bwd ({tag}):")
+            runs = [lln_causal_bwd(qs, ks, vk, cot, o, den, r=r, blk=BLK)
+                    for _ in range(2)]
+            want = lln_causal_bwd_plain(qs, ks, vk, cot, o, den, r=r,
+                                        blk=BLK)
+            torch.cuda.synchronize()
+            _hold(results, f"lln_causal_bwd ({tag})", runs, want,
+                  ("dqs", "dks", "dv"))
+        del qs, ks, qk, kk, vk, cot, o, den, runs, want
+
+    b, h, n, d = SEAMLESS_TRAIN
+    qs, ks, qk, kk, vk, cot = _train_inputs(n, gen, b, h, h, d)
+    gh = 0.5 * cot                      # as _LLNDiagAttention passes it
+    log(f"lln_bidir (train, seamless encoder) B={b} H=G={h} N={n} D={d}:")
+    runs = [lln_bidir(qs, ks, vk, r=1, return_res=True) for _ in range(2)]
+    want = lln_bidir_plain(qs, ks, vk, r=1, return_res=True)
+    torch.cuda.synchronize()
+    _hold(results, "lln_bidir (train, seamless encoder)", runs, want,
+          ("out", "s", "z", "den"), bf16_first=True)
+    o, s_, z_, den = want
+    log("lln_bidir_bwd (seamless encoder):")
+    runs = [lln_bidir_bwd(qs, ks, vk, gh, o, den, s_, z_, r=1)
+            for _ in range(2)]
+    want = lln_bidir_bwd_plain(qs, ks, vk, gh, o, den, s_, z_, r=1)
+    torch.cuda.synchronize()
+    _hold(results, "lln_bidir_bwd (seamless encoder)", runs, want,
+          ("dqs", "dks", "dv"))
+    log(f"block_diag (causal=False, train, seamless encoder) blk={BLK}:")
+    runs = [(block_diag(qk, kk, vk, r=1, blk=BLK, causal=False),)
+            for _ in range(2)]
+    want = (block_diag_plain(qk, kk, vk, r=1, blk=BLK, causal=False),)
+    torch.cuda.synchronize()
+    _hold(results, "block_diag (causal=False, train, seamless encoder)",
+          runs, want, ("out",), bf16_first=True)
+    log(f"block_diag_bwd (causal=False, seamless encoder) blk={BLK}:")
+    runs = [block_diag_bwd(qk, kk, vk, gh, r=1, blk=BLK, causal=False)
+            for _ in range(2)]
+    want = block_diag_bwd_plain(qk, kk, vk, gh, r=1, blk=BLK, causal=False)
+    torch.cuda.synchronize()
+    _hold(results, "block_diag_bwd (seamless encoder)", runs, want,
+          ("dq", "dk", "dv"))
+    del qs, ks, qk, kk, vk, cot, gh, runs, want
+
+    for tag, b, h, g, d, dv in WIDE_BDB:
+        r = h // g
+        for n in (N, 300):
+            q, k, v, _, _ = _inputs(n, gen, b, h, g, d, dv)
+            qk, kk, vk = (t.permute(0, 2, 1, 3).reshape(-1, n, t.shape[-1])
+                          .contiguous() for t in (q, k, v))
+            cot = torch.randn(b * h, n, dv, generator=gen,
+                              device="cuda").bfloat16()
+            for causal in (True, False):
+                log(f"block_diag_bwd ({tag}) B={b} H={h} G={g} N={n} "
+                    f"blk={BLK} causal={causal} (CUDA cores):")
+                runs = [block_diag_bwd(qk, kk, vk, cot, r=r, blk=BLK,
+                                       causal=causal) for _ in range(2)]
+                want = block_diag_bwd_plain(qk, kk, vk, cot, r=r, blk=BLK,
+                                            causal=causal)
+                torch.cuda.synchronize()
+                _hold(results, f"block_diag_bwd ({tag})", runs, want,
+                      ("dq", "dk", "dv"))
+            del q, k, v, qk, kk, vk, cot, runs, want
+
+
+def _synthetic_batches(cfg):
+    """A ``batches_fn(vocab, b, seq, seed)`` for :func:`_train_cell` and
+    :func:`_small_vs_core`: the family's synthetic batches as numpy (stub
+    frames or patches beside the tokens, as the train CLI makes them)."""
+    from repro_torch.models import synthetic_batch
+
+    def batches(vocab, b, seq, seed):
+        step = 0
+        while True:
+            yield {k: t.numpy() for k, t in synthetic_batch(
+                cfg, b, seq, seed=seed + step, device="cpu").items()}
+            step += 1
+    return batches
+
+
+def phase_small_families_train():
+    """Each family's SMOKE config in fp32 with use_kernel=True and one
+    microbatch: 3 steps on the kernels against 3 through the core
+    reference (:func:`_small_vs_core`), lln_diag for each, and lln for
+    deepseek-v2 and paligemma (the causal pair at D != Dv and r = 4).
+    Then the train CLI --arch <family> --smoke --attn-impl lln_diag for
+    each (batch 8 for the MoE configs, which accumulate 8 microbatches)."""
+    from repro_torch.configs import get_config
+    families = (("qwen3-moe-235b-a22b", ("lln_diag",)),
+                ("deepseek-v2-236b", ("lln_diag", "lln")),
+                ("seamless-m4t-medium", ("lln_diag",)),
+                ("paligemma-3b", ("lln_diag", "lln")))
+    for arch, impls in families:
+        cfg = get_config(arch, smoke=True)
+        _small_vs_core(arch, _synthetic_batches(cfg),
+                       f"small_families_train {arch}", impls=impls,
+                       over=dict(grad_accum=1))
+    for arch, _ in families:
+        cfg = get_config(arch, smoke=True)
+        _train_cli(["--arch", arch, "--smoke", "--attn-impl", "lln_diag"],
+                   batch=max(2, cfg.grad_accum))
+
+
+def phase_train_families(launches, train_times):
+    """Four train cells through :func:`_train_cell` at full width
+    (use_kernel=True, lln_diag, bf16 compute, fp32 params and AdamW
+    moments, remat full, one microbatch), exact launch counts; per layer
+    and step the forward kernels run twice (the forward and remat's
+    recompute) and the backward ones once:
+    - train_moe: qwen3-moe-235b-a22b cut to 1 of its 94 layers (a second
+      layer's fp32 params, moments and gradients would add 39 GB), batch 2
+      x 512: the fused pair at H = 64, G = 4 (r = 16) on the tensor cores;
+    - train_mla: deepseek-v2-236b cut to its dense first layer (its first
+      MoE layer would add 3.77 B expert weights, about 60 GB at 16 B per
+      param), batch 4 x 512: the fused pair at H = G = 128, D = 192, Dv =
+      128 on the CUDA cores, then with lln the causal pair (lln_causal
+      with den and lln_causal_bwd) there;
+    - train_encdec: seamless-m4t-medium at full depth (12 + 12 layers),
+      batch 4 x 1024 with 1024 stub source frames: lln_bidir and the
+      non-causal block_diag with their backwards in the encoder, the fused
+      pair in the decoder;
+    - train_vlm: paligemma-3b at full depth (18 layers), batch 2 x 512
+      (256 patches + 256 text tokens): the fused pair at r = 8, D = 256 on
+      the CUDA cores, then with lln the causal pair there.
+    The MoE configs accumulate 8 microbatches, which a batch of 2 or 4
+    does not split into: both cells take grad_accum = 1.  The first step
+    of train_mla and train_vlm is held in fp32 (_train_cell's
+    ``first_fp32``)."""
+    from repro_torch.configs import get_config
+    idle = _idle()
+    tags = {arch: tag for tag, arch, *_ in FAMILIES_TRAIN}
+    mla_probe = ("w_uq", "w_uk", "w_uv", "w_kr")
+    cells = (("train_moe", "qwen3-moe-235b-a22b", dict(n_layers=1), QKV,
+              ("lln_diag",)),
+             ("train_mla", "deepseek-v2-236b", dict(n_layers=1), mla_probe,
+              ("lln_diag", "lln")),
+             ("train_encdec", "seamless-m4t-medium", {},
+              ("attn.q_w", "attn.k_w", "attn.v_w"), ("lln_diag",)),
+             ("train_vlm", "paligemma-3b", {}, QKV, ("lln_diag", "lln")))
+    fwd = {"lln": "lln_causal", "lln_diag": "lln_diag_fused"}
+    bwd = {"lln": "lln_causal_bwd", "lln_diag": "lln_diag_fused_bwd"}
+    for label, arch, cut, probe, impls in cells:
+        tag = tags[arch]
+        b, d, dv, n = next((b, d, dv, n) for t, _, b, _, _, d, dv, n
+                           in FAMILIES_TRAIN if t == tag)
+        for impl in impls:
+            cfg = get_config(arch, attn_impl=impl, use_kernel=True,
+                             param_dtype="float32", grad_accum=1, **cut)
+            enc = cfg.enc_layers if cfg.family == "encdec" else 0
+
+            def want(steps, nl=cfg.n_layers, enc=enc, impl=impl):
+                out = dict(idle)
+                out[fwd[impl]] = 2 * nl * steps
+                out[bwd[impl]] = nl * steps
+                out["lln_bidir"] = out["block_diag (causal=False)"] = \
+                    2 * enc * steps
+                out["lln_bidir_bwd"] = out["block_diag_bwd"] = enc * steps
+                return out
+
+            # The wide heads (MLA, paligemma) run the CUDA-core kernels,
+            # which take fp32 as they take bf16: their first step is held
+            # in fp32.
+            train_times[f"{label} {impl}"], counted = _train_cell(
+                cfg, b, n, _synthetic_batches(cfg), want, label,
+                probe=probe, first_fp32=_is_wide(d, dv))
+            if impl == "lln":
+                launches[f"lln_causal (res, {tag})"] += \
+                    counted["lln_causal"]
+                launches[f"lln_causal_bwd ({tag})"] += \
+                    counted["lln_causal_bwd"]
+            else:
+                launches[f"lln_diag_fused (train, {tag})"] += \
+                    counted["lln_diag_fused"]
+                launches[f"lln_diag_fused_bwd (train, {tag})"] += \
+                    counted["lln_diag_fused_bwd"]
+            if enc:
+                for key, name in (
+                        ("lln_bidir", "lln_bidir (train, seamless encoder)"),
+                        ("lln_bidir_bwd", "lln_bidir_bwd (seamless encoder)"),
+                        ("block_diag (causal=False)",
+                         "block_diag (causal=False, train, seamless "
+                         "encoder)"),
+                        ("block_diag_bwd",
+                         "block_diag_bwd (seamless encoder)")):
+                    launches[name] += counted[key]
+
+
+def _block_diag_bwd_counts(bh, bg, n, d, dv, blk, causal):
+    """Bytes and operations of block_diag_bwd at one shape as
+    phase_timings_encoder counts them: bf16 q, k, v and g read, fp32 dq,
+    dk and dv written; per (query, key) pair of a block the function's
+    five products (q k^T, g v^T, dsm k, dsm^T q, p^T g: 6 D + 4 Dv) at the
+    tensor cores' rate and the softmax's steps as fp32 work."""
+    sizes = [min(blk, n - b0) for b0 in range(0, n, blk)]
+    pairs = bh * sum(m * (m + 1) // 2 if causal else m * m for m in sizes)
+    nbytes = 2 * ((bh + bg) * n * d + bg * n * dv + bh * n * dv) \
+        + 4 * ((bh + bg) * n * d + bg * n * dv)
+    return nbytes, pairs * SOFTMAX_BWD_OPS, pairs * (6 * d + 4 * dv)
+
+
+def _sdpa_blocks(t, b, heads, n, blk, r=1):
+    """(B, N, heads, w) -> (B * nb, heads * r, blk, w) blocks for SDPA (kv
+    heads repeated r times)."""
+    if r > 1:
+        t = torch.repeat_interleave(t, r, dim=2)
+    nb = n // blk
+    return t.reshape(b, nb, blk, t.shape[2], t.shape[-1]) \
+        .permute(0, 1, 3, 2, 4).reshape(b * nb, t.shape[2], blk,
+                                       t.shape[-1])
+
+
+def phase_timings_families_train(errs, launches):
+    """The families' train kernels, their plain versions and their bounds
+    at the train cells' shapes: rows 4 and 9 (_fused_counts), rows 1 and 6
+    at the wide heads (_lln_counts at the kernels' own block), rows 5 and
+    7 (_bidir_counts), the non-causal row 2 (as phase_timings_families
+    counts it) and row 8 (_block_diag_bwd_counts) at the seamless
+    encoder's, and row 8 in bf16 above D = 128 (N 512, non-causal, the
+    case a wide lln_diag encoder layer would run).  Every row is bounded
+    by the tensor-core count, also where the kernel takes its CUDA cores
+    (D or Dv above 128): the function needs no more work for that; the
+    CUDA-core count is logged beside.  Rows 2 and 8 take SDPA on the
+    blocks (forward, or autograd's backward) as the library yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
+                                                block_diag_bwd_plain,
+                                                block_diag_plain)
+    from repro_torch.kernels.lln_attention import (lln_bidir,
+                                                   lln_bidir_plain,
+                                                   lln_causal,
+                                                   lln_causal_plain,
+                                                   lln_diag_fused,
+                                                   lln_diag_fused_plain)
+    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+                                                  lln_bidir_bwd_plain,
+                                                  lln_causal_bwd,
+                                                  lln_causal_bwd_plain,
+                                                  lln_diag_fused_bwd,
+                                                  lln_diag_fused_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 90)
+    rows = []
+
+    def row(name, src, ref, key, kernel, plain, counts, core=None,
+            library=None, shape=""):
+        bnd, by = bound_ms(*counts)
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{ref}", launches=launches[key],
+            max_abs_err=errs[key], ms=cuda_ms(kernel, reps=10),
+            plain_ms=cuda_ms(plain, reps=10), bound_ms=bnd, bound_by=by,
+            library_ms=cuda_ms(library, reps=10) if library else None))
+        r_ = rows[-1]
+        extra = " [CUDA-core count: {:.4f} ms ({})]".format(
+            *bound_ms(*core)) if core else ""
+        log(f"timing {name} ({shape}): kernel {r_['ms']:.4f} ms, plain "
+            f"{r_['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}){extra}, "
+            f"library {r_['library_ms']}, launches {r_['launches']}")
+
+    for tag, arch, b, h, g, d, dv, n in FAMILIES_TRAIN:
+        r, bh, bg = h // g, b * h, b * g
+        shape = f"B={b} H={h} G={g} N={n} D={d} Dv={dv} blk={BLK}"
+        qs, ks, qk, kk, vk, cot = _train_inputs(n, gen, b, h, g, d, dv)
+        o, den = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
+                                      return_res=True)
+        fused = _fused_counts(bh, bg, n, d, dv, BLK)
+        key = f"lln_diag_fused (train, {tag})"
+        row(f"lln_diag_fused (train, {arch} {tag})", "lln_diag_fused.cu",
+            "lln_attention.py:274", key,
+            lambda: lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
+                                   return_res=True),
+            lambda: lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
+                                         return_res=True),
+            fused["lln_diag_fused"], fused["lln_diag_fused (CUDA cores)"],
+            shape=shape)
+        key = f"lln_diag_fused_bwd (train, {tag})"
+        row(f"lln_diag_fused_bwd (train, {arch} {tag})",
+            "lln_diag_fused_bwd.cu", "lln_backward.py:441", key,
+            lambda: lln_diag_fused_bwd(qs, ks, qk, kk, vk, cot, o, den, r=r,
+                                       blk=BLK),
+            lambda: lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, cot, o, den,
+                                             r=r, blk=BLK),
+            fused["lln_diag_fused_bwd"],
+            fused["lln_diag_fused_bwd (CUDA cores)"], shape=shape)
+        if _is_wide(d, dv):
+            lo, lden = lln_causal_plain(qs, ks, vk, r=r, blk=BLK,
+                                        return_res=True, return_state=False)
+            lc = _lln_counts(bh, bg, n, d, dv, _lln_module().TC_BLOCK)
+            row(f"lln_causal (res, {arch} {tag})", "lln_causal.cu",
+                "lln_attention.py:94", f"lln_causal (res, {tag})",
+                lambda: lln_causal(qs, ks, vk, r=r, blk=BLK, return_res=True,
+                                   return_state=False),
+                lambda: lln_causal_plain(qs, ks, vk, r=r, blk=BLK,
+                                         return_res=True,
+                                         return_state=False),
+                lc["lln_causal (res)"], lc["lln_causal (res) (CUDA cores)"],
+                shape=shape)
+            row(f"lln_causal_bwd ({arch} {tag})", "lln_causal_bwd.cu",
+                "lln_backward.py:160", f"lln_causal_bwd ({tag})",
+                lambda: lln_causal_bwd(qs, ks, vk, cot, lo, lden, r=r,
+                                       blk=BLK),
+                lambda: lln_causal_bwd_plain(qs, ks, vk, cot, lo, lden, r=r,
+                                             blk=BLK),
+                lc["lln_causal_bwd"], lc["lln_causal_bwd (CUDA cores)"],
+                shape=shape)
+            del lo, lden
+        del qs, ks, qk, kk, vk, cot, o, den
+
+    b, h, n, d = SEAMLESS_TRAIN
+    bh = b * h
+    shape = f"B={b} H=G={h} N={n} D={d} blk={BLK}"
+    q, k, v, alpha, beta = _inputs(n, gen, b, h, h, d)
+    qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
+    qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
+    gh = 0.5 * torch.randn(bh, n, d, generator=gen, device="cuda").bfloat16()
+    o, s_, z_, den = lln_bidir_plain(qs, ks, vk, r=1, return_res=True)
+    bidir = _bidir_counts(bh, bh, n, d, d)
+    row("lln_bidir (train, seamless-m4t-medium encoder)", "lln_bidir.cu",
+        "lln_attention.py:166", "lln_bidir (train, seamless encoder)",
+        lambda: lln_bidir(qs, ks, vk, r=1, return_res=True),
+        lambda: lln_bidir_plain(qs, ks, vk, r=1, return_res=True),
+        bidir["lln_bidir"], bidir["lln_bidir (CUDA cores)"], shape=shape)
+    row("lln_bidir_bwd (seamless-m4t-medium encoder)", "lln_bidir_bwd.cu",
+        "lln_backward.py:261", "lln_bidir_bwd (seamless encoder)",
+        lambda: lln_bidir_bwd(qs, ks, vk, gh, o, den, s_, z_, r=1),
+        lambda: lln_bidir_bwd_plain(qs, ks, vk, gh, o, den, s_, z_, r=1),
+        bidir["lln_bidir_bwd"], bidir["lln_bidir_bwd (CUDA cores)"],
+        shape=shape)
+    qb, kb, vb, gb = (_sdpa_blocks(t, b, h, n, BLK) for t in (
+        q, k, v, gh.reshape(b, h, n, d).permute(0, 2, 1, 3)))
+    qb, kb, vb = (t.detach().requires_grad_() for t in (qb, kb, vb))
+    sdpa_out = F.scaled_dot_product_attention(qb, kb, vb)
+    pairs = bh * (n // BLK) * BLK * BLK
+    row("block_diag (causal=False, train, seamless-m4t-medium encoder)",
+        "block_diag.cu", "block_diag.py:109",
+        "block_diag (causal=False, train, seamless encoder)",
+        lambda: block_diag(qk, kk, vk, r=1, blk=BLK, causal=False),
+        lambda: block_diag_plain(qk, kk, vk, r=1, blk=BLK, causal=False),
+        (2 * 4 * bh * n * d, pairs * SOFTMAX_FWD_OPS, pairs * 6 * d),
+        library=lambda: F.scaled_dot_product_attention(qb, kb, vb),
+        shape=shape)
+    row("block_diag_bwd (seamless-m4t-medium encoder)", "block_diag_bwd.cu",
+        "block_diag.py:69", "block_diag_bwd (seamless encoder)",
+        lambda: block_diag_bwd(qk, kk, vk, gh, r=1, blk=BLK, causal=False),
+        lambda: block_diag_bwd_plain(qk, kk, vk, gh, r=1, blk=BLK,
+                                     causal=False),
+        _block_diag_bwd_counts(bh, bh, n, d, d, BLK, False),
+        library=lambda: torch.autograd.grad(sdpa_out, (qb, kb, vb), gb,
+                                            retain_graph=True),
+        shape=shape)
+    del q, k, v, qs, ks, qk, kk, vk, gh, o, s_, z_, den, qb, kb, vb, gb, \
+        sdpa_out
+
+    n = N
+    for tag, b, h, g, d, dv in WIDE_BDB:
+        r = h // g
+        shape = f"B={b} H={h} G={g} N={n} D={d} Dv={dv} blk={BLK}, causal=False"
+        q, k, v, _, _ = _inputs(n, gen, b, h, g, d, dv)
+        qk, kk, vk = (t.permute(0, 2, 1, 3).reshape(-1, n, t.shape[-1])
+                      .contiguous() for t in (q, k, v))
+        cot = torch.randn(b * h, n, dv, generator=gen,
+                          device="cuda").bfloat16()
+        qb = _sdpa_blocks(q, b, h, n, BLK)
+        kb, vb = (_sdpa_blocks(t, b, g, n, BLK, r) for t in (k, v))
+        gb = _sdpa_blocks(cot.reshape(b, h, n, dv).permute(0, 2, 1, 3), b,
+                          h, n, BLK)
+        qb, kb, vb = (t.detach().requires_grad_() for t in (qb, kb, vb))
+        sdpa_out = F.scaled_dot_product_attention(qb, kb, vb)
+        nbytes, f32, tc = _block_diag_bwd_counts(b * h, b * g, n, d, dv,
+                                                 BLK, False)
+        pairs = b * h * n * BLK
+        row(f"block_diag_bwd ({tag})", "block_diag_bwd.cu",
+            "block_diag.py:69", f"block_diag_bwd ({tag})",
+            lambda: block_diag_bwd(qk, kk, vk, cot, r=r, blk=BLK,
+                                   causal=False),
+            lambda: block_diag_bwd_plain(qk, kk, vk, cot, r=r, blk=BLK,
+                                         causal=False),
+            (nbytes, f32, tc), (nbytes, f32 + pairs * (6 * d + 4 * dv)),
+            library=lambda: torch.autograd.grad(sdpa_out, (qb, kb, vb), gb,
+                                                retain_graph=True),
+            shape=shape)
+        del q, k, v, qk, kk, vk, cot, qb, kb, vb, gb, sdpa_out
+    return rows
+
+
 _T0 = time.time()
 
 
@@ -4255,6 +4764,19 @@ def main(argv=None):
             launches[name] = 0
     launches["lln_bidir (seamless encoder)"] = 0
     launches["block_diag (causal=False, seamless encoder)"] = 0
+    for tag, _, b, h, g, d, dv, n in FAMILIES_TRAIN:
+        launches[f"lln_diag_fused (train, {tag})"] = 0
+        launches[f"lln_diag_fused_bwd (train, {tag})"] = 0
+        if _is_wide(d, dv):
+            launches[f"lln_causal (res, {tag})"] = 0
+            launches[f"lln_causal_bwd ({tag})"] = 0
+    for name in ("lln_bidir (train, seamless encoder)",
+                 "lln_bidir_bwd (seamless encoder)",
+                 "block_diag (causal=False, train, seamless encoder)",
+                 "block_diag_bwd (seamless encoder)"):
+        launches[name] = 0
+    for tag, *_ in WIDE_BDB:
+        launches[f"block_diag_bwd ({tag})"] = 0
     _phase(phase_kernels, errs)
     _phase(phase_kernels_train, errs)
     _phase(phase_kernels_encoder, errs)
@@ -4264,6 +4786,7 @@ def main(argv=None):
     _phase(phase_kernels_hybrid_serve, errs)
     _phase(phase_kernels_dense, errs)
     _phase(phase_kernels_families, errs)
+    _phase(phase_kernels_families_train, errs)
     _phase(phase_f4, errs)
     _phase(phase_small)
     _phase(phase_small_train)
@@ -4272,6 +4795,7 @@ def main(argv=None):
     _phase(phase_small_ssm)
     _phase(phase_small_hybrid_serve)
     _phase(phase_small_families)
+    _phase(phase_small_families_train)
     _phase(phase_serve, launches, serve_times)
     _phase(phase_serve_loglin, launches, serve_times)
     _phase(phase_serve_softmax_ssm, launches, serve_times)
@@ -4285,6 +4809,7 @@ def main(argv=None):
     _phase(phase_encoder_forward, launches, enc_times)
     _phase(phase_ssm_train, launches, train_times)
     _phase(phase_hybrid_train, launches, train_times)
+    _phase(phase_train_families, launches, train_times)
     pool_times, ckpt_times = {}, {}
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -4310,6 +4835,7 @@ def main(argv=None):
     rows += _phase(phase_timings_hybrid_serve, errs, launches)
     rows += _phase(phase_timings_dense, errs, launches)
     rows += _phase(phase_timings_families, errs, launches)
+    rows += _phase(phase_timings_families_train, errs, launches)
     log("serve times: " + json.dumps(serve_times))
     log("train times: " + json.dumps(train_times))
     log("encoder times: " + json.dumps(enc_times))
@@ -4351,6 +4877,11 @@ def _main_selected(smi, only):
              "kernels_families": lambda: phase_kernels_families(results),
              "small_families": phase_small_families,
              "serve_families": lambda: phase_serve_families(launches,
+                                                            times),
+             "kernels_families_train":
+                 lambda: phase_kernels_families_train(results),
+             "small_families_train": phase_small_families_train,
+             "train_families": lambda: phase_train_families(launches,
                                                             times)}
     unknown = only - set(table)
     if unknown:

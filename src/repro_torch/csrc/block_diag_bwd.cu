@@ -21,7 +21,7 @@
 // walks the r query heads and the block's query tiles in a fixed order and
 // uses no atomics, so gradients are the same bit for bit from run to run.
 //
-// bf16 (every model path on the card; D, Dv <= 128): the tensor-core
+// bf16 with D, Dv <= 128 (every model path on the card): the tensor-core
 // kernels.  CTAs of 4 warps, 16 rows per warp, bf16 tiles of 64 rows in
 // shared memory staged by cp.async (double-buffered), products by mma.sync
 // (csrc/mma.cuh).  The dq kernel, per (query head, block, 64-row tile),
@@ -39,8 +39,12 @@
 // dq kernel sums over one block's keys only and keeps hi + lo.  Bound on the H100: bytes at the encoder shapes (the fp32
 // gradients are most of them; see chip_smoke.py).
 //
-// fp32 (the card tests and the SMOKE parity runs): the CUDA-core kernels,
-// IEEE fp32.  The dq kernel gives each CTA one query head's TILE-row tile
+// fp32 (the card tests and the SMOKE parity runs), and bf16 with D or Dv
+// above 128 (MLA's D = 192, paligemma's 256; the tiles are loaded to fp32):
+// the CUDA-core kernels, IEEE fp32.  Their shared memory grows with D and
+// blk: at D = Dv = 256, blk 256 the dq kernel takes 197,504 bytes and the
+// dk/dv kernel 206,208, under the 232,448 a block may opt into, so each
+// runs one CTA per SM.  The dq kernel gives each CTA one query head's TILE-row tile
 // of one block with its score rows against the block's keys (TILE x blk):
 // softmax, g . v, delta, dsm and dq.  The dk/dv kernel gives each CTA one
 // kv head's TILE-key tile and recomputes each p from the saved m and l
@@ -715,5 +719,8 @@ extern "C" int block_diag_bwd_launch(const void* q, const void* k,
   if (dtype == 0)
     return launch<float>(q, k, v, g, f(dq), f(dk), f(dv), f(stats), bh, bg, n,
                          d, dvd, blk, causal, scale, st);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, g, f(dq), f(dk), f(dv), f(stats), bh,
+                                 bg, n, d, dvd, blk, causal, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,12 +36,18 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // Allow a kernel more than 48 KB of dynamic shared memory when it asks.
+// Past the block's opt-in limit (232,448 bytes on the H100) the attribute
+// is refused with cudaErrorInvalidValue: returned here, and cleared from
+// the runtime's last-error state, so that it is reported by this launch
+// and not again by the next launch's cudaGetLastError().
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 }  // namespace lln

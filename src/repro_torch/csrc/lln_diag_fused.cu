@@ -38,7 +38,8 @@
 // fp32, or a width above 128: lln_diag_fused_launch, the CUDA-core kernel
 // below, IEEE fp32.  One CTA per (query head, COLS value columns) walks the
 // sequence in TILE-row tiles (TILE divides blk, so a tile never straddles
-// a diag block) and keeps its columns of the LLN state S and all of z in
+// a diag block; at most 64 rows, fewer where the shared memory would pass
+// the block's limit, as at D = 256) and keeps its columns of the LLN state S and all of z in
 // shared memory, as csrc/lln_causal.cu does.  Per tile it computes the
 // LLN rows (intra-tile scores, den, (scores V + Phi(q) S) / den), advances
 // (S, z), then the diag rows: the scores of q*D^-1/2 against the block's
@@ -201,15 +202,26 @@ int launch(const float* qs, const float* ks, const void* q, const void* k,
            const void* v, void* out, float* den, int bh, int bg, int n, int d,
            int dv, int blk, int cols, float scale, cudaStream_t stream) {
   if (n % blk != 0 || bh % bg != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int tile = lln::tile_for(blk, 64);
-  const size_t floats = static_cast<size_t>(tile) * (d + 1) +
-                        static_cast<size_t>(tile) * ((d > cols ? d : cols) + 1) +
-                        static_cast<size_t>(tile) * cols * 3 +
-                        static_cast<size_t>(tile) * (tile + 1) +
-                        static_cast<size_t>(tile) * (blk + 1) +
-                        static_cast<size_t>(d) * cols + d + tile;
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = lln::allow_smem(lln_diag_fused_kernel<T>, bytes);
+  const auto smem_bytes = [&](int tile) {
+    const size_t t = static_cast<size_t>(tile);
+    return (t * (d + 1) + t * ((d > cols ? d : cols) + 1) + t * cols * 3 +
+            t * (tile + 1) + t * (blk + 1) + static_cast<size_t>(d) * cols +
+            d + t) * sizeof(float);
+  };
+  // The largest tile (a power of two that divides blk, at most 64) whose
+  // shared memory fits the block's opt-in limit: at D = Dv = 256 and blk
+  // 256 (paligemma) 64 rows take 272,640 bytes and 32 rows 149,120.  Any
+  // width that fit before keeps its tile, and so its results bit for bit.
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int tile = lln::tile_for(blk, 64);
+  while (tile > 1 && smem_bytes(tile) > static_cast<size_t>(limit)) tile /= 2;
+  const size_t bytes = smem_bytes(tile);
+  err = lln::allow_smem(lln_diag_fused_kernel<T>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (dv + cols - 1) / cols);
   lln_diag_fused_kernel<T><<<grid, 256, bytes, stream>>>(

@@ -143,7 +143,22 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+# The cudaError_t codes a launch here can return, by name.
+_CUDA_ERRORS = {
+    1: "cudaErrorInvalidValue: an argument out of range, e.g. more dynamic "
+       "shared memory than a block may opt into",
+    2: "cudaErrorMemoryAllocation",
+    9: "cudaErrorInvalidConfiguration: a grid or block of a size the card "
+       "does not take",
+    98: "cudaErrorInvalidDeviceFunction",
+    209: "cudaErrorNoKernelImageForDevice",
+    700: "cudaErrorIllegalAddress",
+}
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error code."""
     if err != 0:
-        raise RuntimeError(f"{what} failed to launch: cudaError_t {err}")
+        name = _CUDA_ERRORS.get(err, "see the CUDA runtime's cudaError_t")
+        raise RuntimeError(f"{what} failed to launch: cudaError_t {err} "
+                           f"({name})")

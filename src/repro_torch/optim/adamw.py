@@ -5,8 +5,10 @@ Trees are dicts of tensors keyed by parameter name (``dict(module.
 named_parameters())``).  The reference is pure-functional; here
 :func:`adamw_update` writes the new parameters and moments into the given
 tensors in place, which saves a copy of each (at 8 layers of yi-9b, 7.6 GB
-per copy of the parameters alone).  The order of operations is the
-reference's: clip, bias correction, then decay on every leaf.
+per copy of the parameters alone), and clips each gradient leaf as it
+updates it, which saves a clipped copy of the gradients.  The order of
+operations is the reference's: clip, bias correction, then decay on every
+leaf.
 """
 from __future__ import annotations
 
@@ -51,14 +53,22 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+def _clip_scale(grads: dict, max_norm: float):
+    """``(min(1, max_norm / norm), norm)`` of the tree's global norm."""
+    norm = global_norm(grads)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.float() * scale).to(g.dtype)
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """Scale every leaf by min(1, max_norm / norm); returns ``(clipped,
     norm)`` with each leaf in its own dtype."""
     grads = _leaves(grads)
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, \
-        norm
+    scale, norm = _clip_scale(grads, max_norm)
+    return {n: _clipped(g, scale) for n, g in grads.items()}, norm
 
 
 @torch.no_grad()
@@ -66,19 +76,26 @@ def adamw_update(grads: Tree, state: dict, params: Tree, lr,
                  cfg: AdamWConfig = AdamWConfig()):
     """One AdamW step, in place.  Returns ``(params, state, {"grad_norm"})``
     with ``params`` and ``state`` the objects passed in, updated."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads = _leaves(grads)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
     step = state["step"] + 1
     t = step.float()
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
     leaves = _leaves(params)
     for name, p in leaves.items():
-        gf = grads[name].float()
+        # One leaf at a time, in place where the value is the same: the
+        # clipped leaf is clip_by_global_norm's, and each product and sum
+        # below is the one the reference's formula takes, in its order.
+        # The transients stay at a few copies of the largest leaf (a
+        # clipped copy of the tree would cost the gradients' bytes again).
+        gf = _clipped(grads[name], scale).float()
         m, v = state["m"][name], state["v"][name]
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * gf)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(gf))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
-            + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        m.mul_(cfg.b1).add_(gf * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(torch.square(gf).mul_(1 - cfg.b2))
+        del gf
+        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps)) \
+            .add_(cfg.weight_decay * p.float())
+        p.copy_((p.float() - delta.mul_(lr)).to(p.dtype))
     state["step"] = step
     return params, state, {"grad_norm": gnorm}

@@ -20,7 +20,11 @@ D != Dv, r in {1, 4, 5, 8, 16}, causal and not, their backward's two runs
 bitwise equal.  The serving kernels (``lln_causal`` with the state,
 causal ``block_diag``, ``lln_decode``) are also held, bf16 on their
 CUDA-core paths, at the model families' wide heads: D = 192 with Dv = 128
-(MLA, r = 1) and D = Dv = 256 with r = 8 (paligemma).  A 2-slot continuous-batching pool of yi-9b SMOKE on the
+(MLA, r = 1) and D = Dv = 256 with r = 8 (paligemma), and so are the
+training kernels there: ``block_diag_bwd`` in bf16 (causal and not, N 512
+and 300), the fused pair and the causal pair with ``den`` and their
+backwards, each within the tolerances above and two runs bitwise equal;
+the fused pair also at r = 16 on the tensor cores (qwen3-moe).  A 2-slot continuous-batching pool of yi-9b SMOKE on the
 serving kernels equals solo runs token for token.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
 are held the same way at D = 64, r in {1, 4}, whole and ragged N; the
@@ -100,6 +104,7 @@ from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
                                               lln_diag_fused_bwd_plain)
 from repro_torch.kernels.loglinear import loglin_causal, loglin_causal_plain
 from repro_torch.kernels.ssd import ssd, ssd_plain
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 ATOL = 2e-4
 TRAIN = 1e-5
@@ -294,10 +299,14 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         lln_causal(qs.half(), ks, v, r=2)
     with pytest.raises(ValueError, match="shape"):
         block_diag(qs, ks, v, r=1, blk=16)
-    wide = torch.zeros(2, 32, 256, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="128"):
-        block_diag_bwd(wide, wide, wide, wide, r=1, blk=16)
     assert lln_causal.launches == before + 1
+    # bf16 with D above 128 runs (the CUDA-core kernels), counted once.
+    wide = torch.zeros(2, 32, 256, dtype=torch.bfloat16, device=cuda)
+    before = block_diag_bwd.launches
+    grads = block_diag_bwd(wide, wide, wide, wide, r=1, blk=16)
+    torch.cuda.synchronize()
+    assert block_diag_bwd.launches == before + 1
+    assert all(g.dtype == torch.float32 and not bool(g.any()) for g in grads)
     before = (block_diag.launches, block_diag.noncausal_launches)
     block_diag(qs, ks, v, r=2, blk=16, causal=True)
     block_diag(qs, ks, v, r=2, blk=16, causal=False)
@@ -350,6 +359,104 @@ def test_cuda_serve_kernels_at_wide_heads(cuda, r, d, dv, n):
         _close(runs[0][1], dec[1], TRAIN)
         _close(runs[0][2], dec[2], TRAIN)
         assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
+@pytest.mark.parametrize("n", [512, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_block_diag_bwd_bf16_at_wide_heads(cuda, r, d, dv, n, causal):
+    """block_diag_bwd on bf16 inputs above D = 128 (the CUDA-core kernels,
+    whose shared memory at D = Dv = 256 and blk 256 is 197 KB and 206 KB):
+    dq, dk and dv within 1e-5 of the largest plain entry, two runs bitwise
+    equal."""
+    rng = np.random.default_rng(7 * d + n + r + causal)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda).bfloat16()
+    q, k, v, g = f(2 * r, n, d), f(2, n, d), f(2, n, dv), f(2 * r, n, dv)
+    runs = [block_diag_bwd(q, k, v, g, r=r, blk=256, causal=causal)
+            for _ in range(2)]
+    want = block_diag_bwd_plain(q, k, v, g, r=r, blk=256, causal=causal)
+    torch.cuda.synchronize()
+    for gt, wt, ag in zip(runs[0], want, runs[1]):
+        _close(gt, wt, TRAIN)
+        assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
+@pytest.mark.parametrize("n,blk", [(512, 256), (300, 60)])
+def test_cuda_training_kernels_at_wide_heads(cuda, r, d, dv, n, blk):
+    """The training pairs on bf16 v at the families' wide heads (the
+    CUDA-core kernels): lln_diag_fused and lln_diag_fused_bwd (rows 4 and
+    9), lln_causal with den and lln_causal_bwd (rows 1 and 6).  out within
+    one bf16 step; den and every fp32 gradient within 1e-5 of the largest
+    plain entry; two runs of each bitwise equal."""
+    rng = np.random.default_rng(1000 * r + n + d + dv)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    qs, ks = f(2 * r, n, d) - 0.5, f(2, n, d) - 0.5
+    q, k = f(2 * r, n, d).bfloat16(), f(2, n, d).bfloat16()
+    v, g = f(2, n, dv).bfloat16(), f(2 * r, n, dv).bfloat16()
+    pairs = (
+        (lambda: lln_diag_fused(qs, ks, q, k, v, r=r, blk=blk,
+                                return_res=True),
+         lln_diag_fused_plain(qs, ks, q, k, v, r=r, blk=blk,
+                              return_res=True),
+         lambda o, den: lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, r=r,
+                                           blk=blk),
+         lambda o, den: lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den,
+                                                 r=r, blk=blk)),
+        (lambda: lln_causal(qs, ks, v, r=r, blk=blk, return_res=True,
+                            return_state=False),
+         lln_causal_plain(qs, ks, v, r=r, blk=blk, return_res=True,
+                          return_state=False),
+         lambda o, den: lln_causal_bwd(qs, ks, v, g, o, den, r=r, blk=blk),
+         lambda o, den: lln_causal_bwd_plain(qs, ks, v, g, o, den, r=r,
+                                             blk=blk)))
+    for fwd, want, bwd, bwd_plain in pairs:
+        runs = [fwd() for _ in range(2)]
+        torch.cuda.synchronize()
+        _close(runs[0][0], want[0], BF16)
+        _close(runs[0][1], want[1], TRAIN)
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        runs = [bwd(*want) for _ in range(2)]
+        grads = bwd_plain(*want)
+        torch.cuda.synchronize()
+        for gt, wt, ag in zip(runs[0], grads, runs[1]):
+            _close(gt, wt, TRAIN)
+            assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,blk", [(512, 256), (256, 64)])
+def test_cuda_fused_pair_at_r16(cuda, n, blk):
+    """The fused pair (rows 4 and 9) at qwen3-moe's r = 16 (H = 64, G = 4)
+    on the tensor cores, 16 query heads per kv group walked in a fixed
+    order: out within one bf16 step, den and the five gradients within
+    1e-5 of the largest plain entry, two runs of each bitwise equal."""
+    r, d = 16, 128
+    rng = np.random.default_rng(16 * n + blk)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    qs, ks = f(2 * r, n, d) - 0.5, f(2, n, d) - 0.5
+    q, k = f(2 * r, n, d).bfloat16(), f(2, n, d).bfloat16()
+    v, g = f(2, n, d).bfloat16(), f(2 * r, n, d).bfloat16()
+    runs = [lln_diag_fused(qs, ks, q, k, v, r=r, blk=blk, return_res=True)
+            for _ in range(2)]
+    o, den = lln_diag_fused_plain(qs, ks, q, k, v, r=r, blk=blk,
+                                  return_res=True)
+    torch.cuda.synchronize()
+    _close(runs[0][0], o, BF16)
+    _close(runs[0][1], den, TRAIN)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    runs = [lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
+            for _ in range(2)]
+    want = lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, r=r, blk=blk)
+    torch.cuda.synchronize()
+    for gt, wt, ag in zip(runs[0], want, runs[1]):
+        _close(gt, wt, TRAIN)
+        assert torch.equal(gt, ag)
 
 
 def _train_inputs(dev, seed, r, n, d, dtype):
@@ -1368,3 +1475,61 @@ def test_cuda_speculative_greedy_matches_the_plain_loop(cuda, impl):
         want = [int(t0)] + flatten_spec_tokens(o, ne,
                                                req.budget - 1)[0].tolist()
         assert stats.outputs[req.rid].tolist() == want, req.rid
+
+
+def _adamw_formula(grads, state, params, lr, cfg):
+    """AdamW as the reference writes it, a whole-tree clipped copy of the
+    gradients first, each leaf's update as one expression."""
+    norm = torch.sqrt(torch.sum(torch.stack(
+        [torch.sum(torch.square(g.float())) for g in grads.values()])))
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(norm, min=1e-9),
+                        max=1.0)
+    clipped = {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}
+    t = (state["step"] + 1).float()
+    bc1, bc2 = 1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t
+    for name, p in params.items():
+        gf = clipped[name].float()
+        m, v = state["m"][name], state["v"][name]
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * gf)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(gf))
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+            + cfg.weight_decay * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+    state["step"] = state["step"] + 1
+    return norm
+
+
+def _adamw_matches_the_formula(device):
+    """Four steps of ``adamw_update`` and of the formula from the same
+    fp32 and bf16 leaves, with the clip inactive and active: params,
+    moments and the returned norm bitwise equal."""
+    cfg = AdamWConfig()
+    gen = torch.Generator(device=device).manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for size in (0.01, 100.0):      # gradient norm below / above clip
+            params = {f"w{i}": torch.randn(
+                67, 33, generator=gen, device=device).to(dtype)
+                for i in range(3)}
+            params["b"] = torch.randn(5, generator=gen,
+                                      device=device).to(dtype)
+            ref = {n: p.clone() for n, p in params.items()}
+            state, ref_state = adamw_init(params), adamw_init(ref)
+            for step in range(4):
+                grads = {n: (size * torch.randn(
+                    p.shape, generator=gen, device=device)).to(dtype)
+                    for n, p in params.items()}
+                lr = torch.tensor(1e-3 * (step + 1), device=device)
+                _, state, m = adamw_update(grads, state, params, lr, cfg)
+                norm = _adamw_formula(grads, ref_state, ref, lr, cfg)
+                assert torch.equal(m["grad_norm"], norm)
+                for n in params:
+                    assert torch.equal(params[n], ref[n]), (dtype, n)
+                    assert torch.equal(state["m"][n], ref_state["m"][n])
+                    assert torch.equal(state["v"][n], ref_state["v"][n])
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_update_is_the_formula_bit_for_bit(cuda):
+    """``adamw_update`` on the card (leaf by leaf, in place) gives the
+    formula's params, moments and norm bit for bit."""
+    _adamw_matches_the_formula(cuda)

@@ -17,6 +17,13 @@ against the JAX reference.
   ``attn_apply``'s cross-attention (``kv=``), against the reference.
 * ``encdec_decode`` refuses a (B, T) chunk, as the reference does.
 * The serve CLI for the arch.
+* Training: seamless SMOKE ``lln_diag`` with ``use_kernel`` False and
+  True (the bidirectional encoder through ``lln_bidir`` and the
+  non-causal ``block_diag`` and their backwards, the causal decoder
+  through the fused pair, the softmax cross-attention in plain torch),
+  48 source frames under 32 target tokens, from the reference's initial
+  state: the first-step gradient of every leaf against ``jax.grad`` and 3
+  ``make_train_setup`` steps (``_torch_families.trains_like_the_reference``).
 
 Every JAX run is made once per module (module-scoped fixtures).
 """
@@ -139,3 +146,9 @@ def test_serve_cli():
                        "--device", "cpu", "--batch", "2", "--prompt-len",
                        "12", "--gen", "5"])
     assert toks.shape == (2, 5)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True],
+                         ids=["lln_diag-core", "lln_diag-kernel"])
+def test_trains_like_the_reference(use_kernel):
+    fam.trains_like_the_reference(ARCH, "lln_diag", use_kernel)

@@ -16,6 +16,14 @@ against the JAX reference.
   the reference does; ``Model.score`` / ``commit`` are None; the
   deprecated ``mla_cache_init`` warns once and gives ``mla_state_init``.
 * The serve CLI for the arch.
+* Training: deepseek-v2 SMOKE (its dense first layer in ``first_layers``
+  beside the MoE layers with a shared expert) from the reference's
+  initial state, the first-step gradient of every leaf against
+  ``jax.grad`` and 3 ``make_train_setup`` steps
+  (``_torch_families.trains_like_the_reference``): ``lln_diag`` with
+  ``use_kernel`` False and True (the fused pair's plain versions at D =
+  24, Dv = 16), and ``lln`` with ``use_kernel=True`` (the causal pair,
+  ``return_res`` and its backward, at D != Dv, r = 1).
 
 Every JAX run is made once per module (module-scoped fixtures).
 """
@@ -142,3 +150,13 @@ def test_serve_cli():
                            "--device", "cpu", "--batch", "2",
                            "--prompt-len", "12", "--gen", "5"])
         assert toks.shape == (2, 5)
+
+
+@pytest.mark.parametrize("impl,use_kernel", [
+    ("lln_diag", False), ("lln_diag", True), ("lln", True)],
+    ids=["lln_diag-core", "lln_diag-kernel", "lln-kernel"])
+def test_trains_like_the_reference(impl, use_kernel):
+    setup = fam.trains_like_the_reference(ARCH, impl, use_kernel)
+    names = dict(setup.model.init(0).named_parameters())
+    assert any(n.startswith("first_layers.0.") for n in names)
+    assert setup.model.cfg.first_dense_layers == 1

@@ -22,6 +22,13 @@ reference.
   the reference's words.
 * The serve CLI for the arch, alone, ``--continuous`` and
   ``--speculative``.
+* Training: qwen3-moe SMOKE (``lln_diag``, ``use_kernel`` False and True)
+  from the reference's initial state, the first-step gradient of every
+  leaf against ``jax.grad`` and 3 ``make_train_setup`` steps
+  (``_torch_families.trains_like_the_reference``), at the reference's
+  ``capacity_factor`` of 1.25, where slots drop in the first batch
+  (checked): a dropped slot adds nothing to the output, so its expert
+  weights get no gradient from it, in the port as in the reference.
 
 Every JAX run is made once per module (module-scoped fixtures).
 """
@@ -191,3 +198,27 @@ def test_serve_cli(capsys):
     assert serve.main(base + ["--speculative", "--spec-k", "2", "--gen",
                               "6"]).shape == (2, 5)
     assert "speculative: k=2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("use_kernel", [False, True],
+                         ids=["lln_diag-core", "lln_diag-kernel"])
+def test_trains_like_the_reference(use_kernel, monkeypatch):
+    """The gradient through the router's renormalised top-k weights, the
+    capacity drop, the experts and the summed aux loss, then 3 AdamW
+    steps; the first batch's forward drops slots."""
+    cfg = get_config(ARCH, smoke=True)
+    assert cfg.capacity_factor == 1.25
+    route, dropped = moe._route, []
+
+    def counted(x, router_w, top_k):
+        idx, w, aux = route(x, router_w, top_k)
+        e = router_w.shape[1]
+        cap = max(int(x.shape[0] * top_k * cfg.capacity_factor / e), 1)
+        pos = moe._positions_in_expert(idx.reshape(-1), e)
+        dropped.append(int((pos >= cap).sum()))
+        return idx, w, aux
+
+    monkeypatch.setattr(moe, "_route", counted)
+    fam.trains_like_the_reference(ARCH, "lln_diag", use_kernel)
+    # The first n_layers routes are the first-step gradient's forward.
+    assert sum(dropped[:cfg.n_layers]) > 0, dropped

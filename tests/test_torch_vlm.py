@@ -15,6 +15,15 @@ against the JAX reference.
   against the reference's, for ``softmax`` (which masks by it) and
   ``lln`` / ``lln_diag`` (which ignore it).
 * The serve CLI for the arch.
+* Training: paligemma SMOKE (8 patches + 24 text tokens) from the
+  reference's initial state, the first-step gradient of every leaf
+  (``patch_proj`` included) against ``jax.grad`` and 3
+  ``make_train_setup`` steps (``_torch_families.trains_like_the_reference``):
+  ``lln_diag`` with ``use_kernel`` False and True, and ``lln`` with
+  ``use_kernel=True`` (the causal pair at r = 4).  Under ``use_kernel``
+  the reference's kernel route drops ``mask`` and ``prefix_len`` for the
+  LLN impls (its core route ignores ``prefix_len`` too), so the patches
+  are taken causally on both routes, in the port as in the reference.
 
 Every JAX run is made once per module (module-scoped fixtures).
 """
@@ -136,3 +145,10 @@ def test_serve_cli():
                            "--device", "cpu", "--batch", "2",
                            "--prompt-len", "12", "--gen", "5"])
         assert toks.shape == (2, 5)
+
+
+@pytest.mark.parametrize("impl,use_kernel", [
+    ("lln_diag", False), ("lln_diag", True), ("lln", True)],
+    ids=["lln_diag-core", "lln_diag-kernel", "lln-kernel"])
+def test_trains_like_the_reference(impl, use_kernel):
+    fam.trains_like_the_reference(ARCH, impl, use_kernel)
