@@ -169,11 +169,26 @@ train_vlm, fp32 params and AdamW moments, the first step on the kernels
 against the plain versions, exact launch counts, timed steps), and their
 kernels' timings.
 
+Since the mesh slice (item 12a), before the timings: mesh (a one-rank
+NCCL group and a 1 x 1 DeviceMesh: yi-9b lln_diag at full width, ML
+layers, batch 4, prompt 512, MGEN greedy steps through
+make_serve_setup(mesh=...) with tokens and launch counts equal to the
+meshless run from the same weights, and one decode step under cProfile;
+the caches saved and restored with cache_shardings, bitwise; yi-9b
+training, MTL layers, MSTEPS steps on the kernels, losses within 1e-5
+and launches equal; qwen3-moe's MoE block at full width through the
+expert-parallel path within 1e-5 of the meshless one; the group
+destroyed at the end) and mesh_fake (in a child process: a fake process
+group of 4 ranks, a (1, 4) mesh, yi-9b lln_diag at full width with 4
+layers, one prefill and 2 decode steps: 8 query heads and 1 kv head per
+rank in the state and the diag tails, rows 1-3 launched at those heads,
+and the collectives of one decode step).
+
 ``python3 chip_smoke.py --phases spec,spec_pool`` runs only the named
 check phases (spec, spec_pool, small_pool, kernels_families,
 small_families, serve_families, kernels_families_train,
-small_families_train, train_families) after device and build, and
-prints no kernels line.
+small_families_train, train_families, mesh, mesh_fake) after device and
+build, and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -4719,6 +4734,308 @@ def phase_timings_families_train(errs, launches):
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# Item 12a: the port on a DTensor mesh.
+# ---------------------------------------------------------------------------
+
+ML, MGEN = 8, 16              # mesh serve: yi-9b layers, greedy decode steps
+MTL, MTN, MSTEPS = 4, 512, 2  # mesh train: layers, sequence, steps
+FAKE_WORLD, FAKE_L = 4, 4     # mesh_fake: ranks of the fake group, layers
+
+
+def _mesh_serve_run(setup, params, batch):
+    """Prefill and MGEN greedy decode steps (one untimed warm-up run
+    first); returns (tokens (B, 1 + MGEN), prefill launches, decode
+    launches, caches, prefill ms, decode ms per step)."""
+    for counted in (False, True):
+        _reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, caches = setup.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        t_pre = time.time() - t0
+        pre = _read()
+        _reset()
+        tok = torch.argmax(logits[:, -1], -1)
+        toks = [tok]
+        t0 = time.time()
+        for i in range(MGEN):
+            logits, caches = setup.decode_fn(params, caches, tok, N + i)
+            tok = torch.argmax(logits, -1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_dec = time.time() - t0
+        dec = _read()
+    return (torch.stack(toks, 1), pre, dec, caches, t_pre * 1e3,
+            t_dec / MGEN * 1e3)
+
+
+def phase_mesh(launches, mesh_times):
+    """A one-rank NCCL group and a 1 x 1 DeviceMesh: yi-9b lln_diag at full
+    width (ML layers, bf16 weights), batch B, prompt N, MGEN greedy steps
+    through make_serve_setup(mesh=...) against the meshless run from the
+    same weights (tokens and launch counts equal); a save of the mesh
+    run's caches restored with cache_shardings, bitwise; yi-9b training
+    (MTL layers, fp32 params and moments, use_kernel=True) for MSTEPS
+    steps, losses within 1e-5 relative and launch counts equal; qwen3-moe's
+    first MoE block at full width through the expert-parallel path, within
+    1e-5 of the meshless path.  The group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.data import torch_placer
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_serve_setup, make_train_setup
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import synthetic_batch
+    from repro_torch.tree import leaves_with_path
+    mesh = make_smoke_mesh(1, 1)
+    log(f"mesh: {dist.get_backend()} group of {dist.get_world_size()}, "
+        f"{mesh}")
+    try:
+        # Serving: the meshless run, then the mesh run from the same weights.
+        cfg = get_config("yi-9b", attn_impl="lln_diag", n_layers=ML,
+                         param_dtype="bfloat16")
+        shape = ShapeSpec("chip", N + MGEN + 1, B, "decode")
+        plain = make_serve_setup(cfg, shape)
+        params = plain.model.init(SEED)
+        batch = synthetic_batch(cfg, B, N + MGEN + 1, seed=SEED, text_seq=N,
+                                device="cuda")
+        toks0, pre0, dec0, _, pre_ms0, dec_ms0 = _mesh_serve_run(
+            plain, params, batch)
+        setup = make_serve_setup(cfg, shape, mesh=mesh)
+        params = setup.shard_params(params)
+        toks1, pre1, dec1, caches, pre_ms1, dec_ms1 = _mesh_serve_run(
+            setup, params, batch)
+        want_pre = {**_idle(), "lln_causal": ML, "block_diag": ML}
+        want_dec = {**_idle(), "lln_decode": ML * MGEN}
+        log(f"mesh serve: launches meshless {pre0} / {dec0}, mesh "
+            f"{pre1} / {dec1}; tokens[0] {toks1[0].tolist()}")
+        if (pre0, dec0) != (want_pre, want_dec) or (pre1, dec1) != (pre0,
+                                                                    dec0):
+            raise AssertionError("mesh serve: launch counts differ")
+        if not torch.equal(toks0, toks1):
+            raise AssertionError(f"mesh serve: tokens {toks1.tolist()} vs "
+                                 f"meshless {toks0.tolist()}")
+        for name in ("lln_causal (state)", "block_diag", "lln_decode"):
+            key = name.split(" ")[0]
+            launches[name] += pre1[key] + dec1[key]
+        mesh_times["serve"] = {
+            "prefill_ms": pre_ms1, "decode_ms_per_step": dec_ms1,
+            "meshless_prefill_ms": pre_ms0,
+            "meshless_decode_ms_per_step": dec_ms0}
+        log(f"mesh serve: prefill {pre_ms1:.1f} ms (meshless {pre_ms0:.1f}),"
+            f" decode {dec_ms1:.2f} ms/step (meshless {dec_ms0:.2f})")
+        # Where the host time of one mesh decode step goes (cProfile, by
+        # the functions' own time).
+        import cProfile
+        import pstats
+        prof = cProfile.Profile()
+        tok = toks1[:, -1]
+        prof.enable()
+        setup.decode_fn(params, caches, tok, N + MGEN)
+        torch.cuda.synchronize()
+        prof.disable()
+        st = pstats.Stats(prof).stats
+        total = sum(v[2] for v in st.values())
+        top = sorted(st.items(), key=lambda kv: -kv[1][2])[:8]
+        mesh_times["decode_profile"] = {
+            "total_s": total, "calls": sum(v[1] for v in st.values()),
+            "top": [(f"{Path(f).name}:{ln}:{fn}", v[1], v[2])
+                    for (f, ln, fn), v in top]}
+        log(f"mesh decode step under cProfile: {total:.3f} s own time in "
+            f"{mesh_times['decode_profile']['calls']} calls; top "
+            + "; ".join(f"{n} x{c} {t:.3f}s"
+                        for n, c, t in mesh_times["decode_profile"]["top"]))
+        # Who calls the two costliest (by cumulative time of the callers'
+        # edges), walking up six levels.
+        for key, _ in top[:2]:
+            chain, cur = [], key
+            for _ in range(6):
+                callers = st[cur][4]
+                if not callers:
+                    break
+                cur = max(callers, key=lambda c: callers[c][3])
+                chain.append(f"{Path(cur[0]).name}:{cur[1]}:{cur[2]}")
+            log(f"  callers of {Path(key[0]).name}:{key[2]}: "
+                + " <- ".join(chain))
+
+        # The mesh run's caches, saved (gathered; rank 0 writes) and
+        # restored with the mesh's shardings.
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+        try:
+            t0 = time.time()
+            ck.save(str(tmp), 1, {"caches": caches})
+            template = {"caches": setup.model.cache_init(None, B,
+                                                         N + MGEN + 1)}
+            shardings = {f"caches/{k}": v for k, v in setup.cache_shardings(
+                template["caches"]).items()}
+            got = dict(leaves_with_path(ck.restore(str(tmp), 1, template,
+                                                   shardings)))
+            for kp, want in leaves_with_path({"caches": caches}):
+                if tuple(got[kp].placements) != tuple(want.placements) or \
+                        not torch.equal(got[kp].full_tensor(),
+                                        want.full_tensor()):
+                    raise AssertionError(f"mesh restore: {kp} differs")
+            mesh_times["ckpt_s"] = time.time() - t0
+            log(f"mesh checkpoint: {len(got)} cache leaves saved and "
+                f"restored bitwise in {time.time() - t0:.1f}s")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del plain, setup, params, caches, got, template
+        torch.cuda.empty_cache()
+
+        # Training: MSTEPS steps without and with the mesh.
+        cfg = get_config("yi-9b", attn_impl="lln_diag", n_layers=MTL,
+                         use_kernel=True)
+        tshape = ShapeSpec("chip", MTN, B, "train")
+        place = torch_placer("cuda")
+        gen = lm_batches(cfg.vocab, B, MTN, seed=SEED)
+        tbatches = [place(next(gen)) for _ in range(MSTEPS)]
+        runs = {}
+        for label, mesh_ in (("meshless", None), ("mesh", mesh)):
+            tsetup = make_train_setup(cfg, tshape, mesh=mesh_,
+                                      peak_lr=3e-4, total_steps=1000)
+            state = tsetup.init_state(SEED)
+            torch.cuda.synchronize()
+            _reset()
+            t0 = time.time()
+            losses = []
+            for tb in tbatches:
+                state, m = tsetup.step_fn(state, tb)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            runs[label] = (losses, _read(), (time.time() - t0) / MSTEPS)
+            del tsetup, state, m
+            torch.cuda.empty_cache()
+        (l0, c0, s0), (l1, c1, s1) = runs["meshless"], runs["mesh"]
+        log(f"mesh train: losses {l1} (meshless {l0}); launches {c1}; "
+            f"{s1 * 1e3:.0f} ms/step (meshless {s0 * 1e3:.0f}, the first "
+            f"step's warm-up included)")
+        if c1 != c0 or not c1["lln_diag_fused"]:
+            raise AssertionError(f"mesh train: launches {c1} vs {c0}")
+        if any(abs(a - b) > 1e-5 * abs(b) for a, b in zip(l1, l0)):
+            raise AssertionError(f"mesh train: losses {l1} vs {l0}")
+        launches["lln_diag_fused"] += c1["lln_diag_fused"]
+        launches["lln_diag_fused_bwd"] += c1["lln_diag_fused_bwd"]
+        mesh_times["train"] = {"losses": l1, "meshless_losses": l0,
+                               "ms_per_step": s1 * 1e3,
+                               "meshless_ms_per_step": s0 * 1e3}
+
+        # qwen3-moe's MoE block (E = 128, top 8, D = 4096) at full width.
+        mcfg = get_config("qwen3-moe-235b-a22b", n_layers=1)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        block = moe_mod.MoE(mcfg, mcfg.pdtype, "cuda", gen)
+        x = torch.randn(B, 128, mcfg.d_model, device="cuda",
+                        generator=gen).to(mcfg.cdtype)
+        rules = shd.make_rules(mcfg, multi_pod=False)
+        with torch.no_grad():
+            want, _ = moe_mod.moe_apply(block, x, mcfg)
+            shd.shard_tree(block, shd.param_shardings(block, mesh))
+            with shd.logical_rules(mesh, rules):
+                xd = shd.place_leaf(x, shd.NamedSharding(mesh, shd.fit_spec(
+                    shd.P(rules["act_batch"], rules["act_seq"], None),
+                    x.shape, mesh)))
+                got, _ = moe_mod.moe_apply(block, xd, mcfg)
+        err = max_err(got.full_tensor(), want)
+        log(f"mesh moe: expert-parallel block vs meshless, max abs err "
+            f"{err:.3e} (largest {float(want.abs().max()):.3e})")
+        if err > 1e-5 * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"mesh moe: error {err}")
+        mesh_times["moe_err"] = err
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_fake_child():
+    """The body of phase mesh_fake, in its own process: a fake process group
+    of FAKE_WORLD ranks (its collectives are no-ops, so the values are
+    garbage and only shapes and launches are checked), a (1, FAKE_WORLD)
+    mesh on the card and yi-9b lln_diag at full width with FAKE_L layers:
+    one prefill and 2 decode steps.  Prints one JSON line."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=FAKE_WORLD)
+    try:
+        mesh = make_smoke_mesh(1, FAKE_WORLD)
+        shapes = collections.defaultdict(set)
+        for name in ("lln_causal", "block_diag", "lln_decode"):
+            def rec(*args, _fn=getattr(ops, name), _name=name, **kw):
+                shapes[_name].add(tuple(tuple(a.shape) for a in args[:3]))
+                return _fn(*args, **kw)
+            setattr(ops, name, rec)
+        cfg = get_config("yi-9b", attn_impl="lln_diag", n_layers=FAKE_L,
+                         param_dtype="bfloat16")
+        setup = make_serve_setup(cfg, ShapeSpec("chip", N + 3, B, "decode"),
+                                 mesh=mesh)
+        params = setup.shard_params(setup.model.init(SEED))
+        batch = synthetic_batch(cfg, B, N + 3, seed=SEED, text_seq=N,
+                                device="cuda")
+        _reset()
+        logits, caches = setup.prefill_fn(params, batch)
+        tok = torch.argmax(logits[:, -1], -1)
+        _, caches = setup.decode_fn(params, caches, tok, N)
+        with CommDebugMode() as comm:
+            _, caches = setup.decode_fn(params, caches, tok, N + 1)
+        torch.cuda.synchronize()
+        local = {k: list(getattr(caches["layers"][0], k).to_local().shape)
+                 for k in ("s", "z", "c_k", "tail_k", "tail_v")}
+        print(json.dumps({
+            "local": local, "launches": _read(),
+            "shapes": {k: sorted(v) for k, v in shapes.items()},
+            "comm": {str(op): n for op, n in
+                     comm.get_comm_counts().items()}}))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_fake(launches):
+    """mesh_fake: run _mesh_fake_child in a process of its own (no group of
+    it outlives the phase) and check its line: 8 query heads and 1 kv head
+    per rank in the (s, z) state and the diag tails, and rows 1-3 launched
+    at those heads (kernel layout: B x heads rows)."""
+    del launches                  # a fake group's values are not results
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--mesh-fake-child"], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh_fake child failed:\n{proc.stdout}"
+                             f"\n{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    hq, hk = H // FAKE_WORLD, G // FAKE_WORLD
+    want = {"s": [B, hq, D, D], "z": [B, hq, D], "c_k": [B, 1, hq, 1],
+            "tail_k": [B, BLK, hk, D], "tail_v": [B, BLK, hk, D]}
+    log(f"mesh_fake: local state {got['local']}; launches "
+        f"{got['launches']}; kernel input shapes {got['shapes']}; "
+        f"collectives of one decode step {got['comm']}")
+    if got["local"] != want:
+        raise AssertionError(f"mesh_fake: local shapes {got['local']}, "
+                             f"expected {want}")
+    rows = {"lln_causal": FAKE_L, "block_diag": FAKE_L,
+            "lln_decode": 2 * FAKE_L}
+    for name, n in rows.items():
+        if got["launches"][name] != n:
+            raise AssertionError(f"mesh_fake: {name} launched "
+                                 f"{got['launches'][name]} times, not {n}")
+        heads = {(s[0][0], s[1][0]) for s in got["shapes"][name]}
+        if heads != {(B * hq, B * hk)}:
+            raise AssertionError(f"mesh_fake: {name} ran at q/k rows "
+                                 f"{heads}, expected {(B * hq, B * hk)}")
+
+
 _T0 = time.time()
 
 
@@ -4737,6 +5054,8 @@ def _selected(argv):
     phases that make it do not run).  No argument: the whole run."""
     if not argv:
         return None
+    if argv == ["--mesh-fake-child"]:
+        return argv[0]
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases name,name,...]")
     return set(argv[1].split(","))
@@ -4744,6 +5063,10 @@ def _selected(argv):
 
 def main(argv=None):
     only = _selected(sys.argv[1:] if argv is None else argv)
+    if only == "--mesh-fake-child":
+        phase_device()
+        _mesh_fake_child()
+        return 0
     smi = phase_device()
     _phase(phase_build)
     if only is not None:
@@ -4822,6 +5145,9 @@ def main(argv=None):
     spec_times = {}
     _phase(phase_spec, launches, spec_times)
     _phase(phase_spec_pool, launches, pool_times)
+    mesh_times = {}
+    _phase(phase_mesh, launches, mesh_times)
+    _phase(phase_mesh_fake, launches)
     rows, decode_times = _phase(phase_timings, errs, launches)
     train_rows, fused_zamba2 = _phase(phase_timings_train, errs, launches)
     rows += train_rows
@@ -4850,6 +5176,7 @@ def main(argv=None):
     log("pool times: " + json.dumps(pool_times))
     log("speculative times: " + json.dumps(spec_times))
     log("checkpoint (roberta-lln train state): " + json.dumps(ckpt_times))
+    log("mesh times: " + json.dumps(mesh_times))
     print(smi)
     print(json.dumps({"kernels": rows}))
     _print_ok()
@@ -4882,7 +5209,9 @@ def _main_selected(smi, only):
                  lambda: phase_kernels_families_train(results),
              "small_families_train": phase_small_families_train,
              "train_families": lambda: phase_train_families(launches,
-                                                            times)}
+                                                            times),
+             "mesh": lambda: phase_mesh(launches, times),
+             "mesh_fake": lambda: phase_mesh_fake(launches)}
     unknown = only - set(table)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}; known: "

@@ -28,6 +28,15 @@ leaves, each leaf named by its path (``params/layers.0.attn.q_w``,
 as its uint16 bits with ``"dtype": "bfloat16"`` in the index, and read back
 bit for bit.  :func:`restore` puts each leaf on the template leaf's device
 and dtype; a module of the template is filled in place.
+
+On a mesh the leaves are DTensors.  A save gathers each leaf to its full
+array in the caller's thread (a collective: never on the writer's thread),
+as the reference saves process-gathered arrays; rank 0 writes, and a
+barrier follows (for an async save, in :meth:`AsyncCheckpointer.wait`).
+``restore(..., shardings)`` places each leaf by ``{path: NamedSharding}``
+(``distributed/sharding.py``), onto the same mesh or another one: the
+elastic-reshard path; without ``shardings`` a DTensor template leaf keeps
+its own placements.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import torch
 from torch import nn
 
 from repro_torch import tree as tr
+from repro_torch.distributed import sharding as shd
 
 # torch dtypes numpy cannot hold, stored as same-width unsigned bits.
 _BITS = {torch.bfloat16: np.uint16}
@@ -94,11 +104,35 @@ def _write_atomic(path: str, data) -> None:
     os.replace(tmp, path)
 
 
+def _distributed(tree) -> bool:
+    """The tree holds DTensors: its save gathers and rank 0 writes."""
+    return any(shd.is_dtensor(t) for _, t in tr.leaves_with_path(tree))
+
+
+def _writes() -> bool:
+    return not torch.distributed.is_initialized() \
+        or torch.distributed.get_rank() == 0
+
+
 def save(directory: str, step: int, tree: Any,
          extra: Optional[dict] = None) -> str:
     """Synchronous checkpoint write.  ``extra`` maps file names to
     ``str``/``bytes`` sidecar payloads saved in the same atomic commit (read
-    back with :func:`read_extra`), e.g. the serving batcher's JSON."""
+    back with :func:`read_extra`), e.g. the serving batcher's JSON.  A
+    tree of DTensors is gathered, written by rank 0, then every rank
+    meets at a barrier."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _distributed(tree):
+        host = _host_copy(tree)
+        if _writes():
+            _write(directory, step, host, extra)
+        torch.distributed.barrier()
+        return final
+    return _write(directory, step, tree, extra)
+
+
+def _write(directory: str, step: int, tree: Any,
+           extra: Optional[dict] = None) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -180,11 +214,13 @@ def read_extra(directory: str, step: int, name: str) -> bytes:
         return f.read()
 
 
-def restore(directory: str, step: int, target_tree: Any) -> Any:
+def restore(directory: str, step: int, target_tree: Any,
+            shardings: Optional[dict] = None) -> Any:
     """Restore into the structure of ``target_tree``: each leaf takes the
-    template leaf's dtype and device.  Raises ``IOError`` on a CRC
-    mismatch, ``KeyError`` on a leaf the checkpoint lacks and
-    ``ValueError`` on a shape mismatch."""
+    template leaf's dtype and device, and with ``shardings`` (``{leaf
+    path: NamedSharding}``) its placement on a mesh: the elastic-reshard
+    path.  Raises ``IOError`` on a CRC mismatch, ``KeyError`` on a leaf
+    the checkpoint lacks and ``ValueError`` on a shape mismatch."""
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "index.json")) as f:
         index = json.load(f)
@@ -204,18 +240,42 @@ def restore(directory: str, step: int, target_tree: Any) -> Any:
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch at {p}: "
                              f"{tuple(arr.shape)} vs {tuple(t.shape)}")
-        return _from_numpy(arr, dtype_name).to(device=t.device,
-                                                dtype=t.dtype)
+        out = _from_numpy(arr, dtype_name).to(device=t.device,
+                                               dtype=t.dtype)
+        if shardings is not None:
+            return shd.place_leaf(out, shardings[p])
+        if shd.is_dtensor(t):
+            return shd.place_leaf(out, shd.NamedSharding(
+                t.device_mesh, _spec_of(t)))
+        return out
     return _fill(target_tree, tr.map_with_path(leaf, target_tree))
+
+
+def _spec_of(t) -> shd.P:
+    """The spec of a DTensor's placements (Shard / Replicate only)."""
+    names = t.device_mesh.mesh_dim_names
+    dims: list = [[] for _ in range(t.ndim)]
+    for name, pl in zip(names, t.placements):
+        if pl.is_shard():
+            dims[pl.dim].append(name)
+    return shd.P(*(None if not d else d[0] if len(d) == 1 else tuple(d)
+                   for d in dims))
 
 
 @torch.no_grad()
 def _fill(template, restored):
     """``restored`` (``tr.map_with_path``'s output) with each module of
-    ``template`` filled in place and kept in its place in the tree."""
+    ``template`` filled in place and kept in its place in the tree (a
+    parameter placed on another layout is replaced)."""
     if isinstance(template, nn.Module):
         for name, p in template.named_parameters():
-            p.copy_(restored[name])
+            new = restored[name]
+            if shd.is_dtensor(new) and not (
+                    shd.is_dtensor(p) and p.device_mesh == new.device_mesh
+                    and p.placements == new.placements):
+                shd.set_parameter(template, name, new)
+            else:
+                p.copy_(new)
         return template
     if isinstance(template, dict):
         return {k: _fill(template[k], v) for k, v in restored.items()}
@@ -226,9 +286,13 @@ def _fill(template, restored):
 
 def _host_copy(tree: Any) -> Any:
     """Every tensor leaf copied to host memory (a fresh copy even of a CPU
-    tensor), so that later in-place updates cannot reach what is saved."""
-    return tr.map_with_path(
-        lambda _, t: t.detach().to("cpu", copy=True), tree)
+    tensor), so that later in-place updates cannot reach what is saved; a
+    DTensor leaf is gathered to its full array first (a collective)."""
+    def host(_, t):
+        if shd.is_dtensor(t):
+            t = t.full_tensor()
+        return t.detach().to("cpu", copy=True)
+    return tr.map_with_path(host, tree)
 
 
 class AsyncCheckpointer:
@@ -239,18 +303,23 @@ class AsyncCheckpointer:
         self.keep_n = keep_n
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self._barrier = False
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[dict] = None):
         self.wait()
         # The port's AdamW updates in place: copy every leaf to host memory
         # before returning, so that the next step cannot overwrite what the
-        # thread is writing.
+        # thread is writing.  DTensors are gathered here, in the caller's
+        # thread; only rank 0 writes.
+        self._barrier = _distributed(tree)
         host_tree = _host_copy(tree)
+        if not _writes():
+            return
 
         def work():
             try:
-                save(self.directory, step, host_tree, extra=extra)
+                _write(self.directory, step, host_tree, extra=extra)
                 self._gc()
             except Exception as e:       # raised again by wait()
                 self._error = e
@@ -258,9 +327,14 @@ class AsyncCheckpointer:
         self._pending.start()
 
     def wait(self):
+        """Join the writer; after a save of DTensors every rank meets at a
+        barrier, so no rank reads the step before it is committed."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._barrier:
+            self._barrier = False
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -48,14 +48,16 @@ class CheckpointManager:
                     ignore_errors=True)
         return latest
 
-    def restore_or_init(self, init_fn: Callable[[], Any]) -> tuple[Any, int]:
+    def restore_or_init(self, init_fn: Callable[[], Any],
+                        shardings: Any = None) -> tuple[Any, int]:
         """Resume from the latest committed checkpoint, else a fresh
-        ``init_fn()``; returns ``(state, step)``."""
+        ``init_fn()``; returns ``(state, step)``.  Re-sharding onto the
+        *current* mesh happens here (``shardings``: the elastic restart)."""
         step = self.latest_step()
         template = init_fn()
         if step is None:
             return template, 0
-        return restore(self.directory, step, template), step
+        return restore(self.directory, step, template, shardings), step
 
     def maybe_save(self, step: int, state: Any):
         if self.interval and step % self.interval == 0 and step > 0:

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import is_dtensor
 from . import lln as lln_mod
 from . import loglinear as loglin_mod
 from .diag import block_diag_attn
@@ -66,7 +67,7 @@ def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
 
 
 def batch_alpha_beta(q, k, cfg, per_row: bool = False,
-                     n: int | None = None):
+                     n: int | None = None, *, pool=None):
     """Moment-matched (alpha, beta) from the current batch's statistics.
 
     Statistics are pooled over the batch and per kv group (the r query heads
@@ -78,7 +79,10 @@ def batch_alpha_beta(q, k, cfg, per_row: bool = False,
     ``AttnConfig``); (a, b) are the shipped constants for the head dim
     (length-aware when ``beta_n > 0``).  As in the reference, only
     ``solve_alpha_beta`` stops its inputs' gradient: alpha keeps its graph
-    to q and k through the per-head statistics.
+    to q and k through the per-head statistics.  ``pool``: on a mesh, a
+    function of the local mean squares (q's per head, k's per group) that
+    returns them pooled over the ranks, all H and G heads (the caller
+    takes its own heads' slice of the result).
     """
     bsz, h, g = q.shape[0], q.shape[2], k.shape[2]
     length_aware = getattr(cfg, "beta_n", 0.0) > 0.0 and n is not None
@@ -89,9 +93,15 @@ def batch_alpha_beta(q, k, cfg, per_row: bool = False,
     a, b = constants_for_dim(q.shape[-1], n=n if length_aware else None)
     r = h // g
     dims = (1, 3) if per_row else (0, 1, 3)      # row-local vs batch-pooled
-    sq = torch.sqrt(torch.mean(torch.square(q.float()), dim=dims))
+    msq = torch.mean(torch.square(q.float()), dim=dims)
+    msk = torch.mean(torch.square(k.float()), dim=dims)
+    if pool is not None:
+        msq, msk = pool(msq, msk)
+        h, g = msq.shape[-1], msk.shape[-1]
+        r = h // g
+    sq = torch.sqrt(msq)
     sq_g = torch.mean(sq.reshape(sq.shape[:-1] + (g, r)), dim=-1)    # (.., G)
-    sk_g = torch.sqrt(torch.mean(torch.square(k.float()), dim=dims))  # (.., G)
+    sk_g = torch.sqrt(msk)                                            # (.., G)
     _, beta_g = solve_alpha_beta(sq_g, sk_g, a, b)
     # Per-query-head alpha re-solved against the group's sigma_tilde so each
     # q head is normalized by its own sigma_q (eq. 10).
@@ -337,6 +347,11 @@ def multi_head_attention(q, k, v, cfg: AttnConfig, *, mask=None, alpha=None,
     path's bidirectional LLN and diag part (the kernels take none, as in
     the reference); ``prefix_len``: the softmax's prefix-LM mask (the LLN
     impls approximate a prefix causally, as the reference does)."""
+    if is_dtensor(q):               # on a mesh: per rank, under local_map
+        from repro_torch.distributed import local_attention
+        return local_attention.multi_head_attention(
+            q, k, v, cfg, mask=mask, alpha=alpha, beta=beta,
+            prefix_len=prefix_len)
     if cfg.impl == "softmax":
         return flash_softmax(q, k, v, causal=cfg.causal,
                              chunk=min(cfg.softmax_chunk, k.shape[1]),

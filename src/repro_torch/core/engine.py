@@ -23,6 +23,7 @@ from repro_torch.kernels.registry import AttnSpec
 from repro_torch.tree import map_with_path
 from . import health as health_mod
 from . import moment_matching as mm
+from repro_torch.distributed.sharding import is_dtensor
 from .attention import (AttnConfig, KVCache, LLNDecodeState,
                         batch_alpha_beta, commit_lln_chunk, commit_softmax,
                         decode_lln_chunk, decode_softmax,
@@ -209,6 +210,11 @@ class AttentionEngine:
         softmax.  ``prefix_len``: the prefix-LM mask of the softmax
         prefill (the LLN impls ignore it, as in the reference).
         ``alpha``/``beta`` override the calibration."""
+        if is_dtensor(q):
+            from repro_torch.distributed import local_attention
+            return local_attention.prefill(self, q, k, v, max_len=max_len,
+                                           prefix_len=prefix_len,
+                                           alpha=alpha, beta=beta)
         b, n, h, _ = q.shape
         g = k.shape[2]
         spec = self.spec
@@ -268,6 +274,11 @@ class AttentionEngine:
         positions are scored, only the accepted prefix folds into the state
         (0 is the masked row, T a plain decode).  The LLN impls apply
         ``spec.renorm``, the drift renorm, to the rows that fold a token."""
+        if is_dtensor(q):
+            from repro_torch.distributed import local_attention
+            return local_attention.decode(self, state, q, k, v,
+                                          row_mask=row_mask,
+                                          commit_len=commit_len)
         if self.spec.impl == "softmax":
             out, kv = decode_softmax(KVCache(k=state.k, v=state.v,
                                              length=state.len), q, k, v,

@@ -4,8 +4,9 @@
 * per-host sharding: each process draws only its slice of the global batch
   (deterministic in (seed, step, host));
 * background prefetch so the input pipeline never stalls the step;
-* device placement: :func:`torch_placer` in place of the reference's
-  ``device_placer`` (one device, no mesh).
+* device placement: :func:`torch_placer` (one device) and
+  :func:`mesh_placer` (the reference's ``device_placer``: DTensors placed
+  by the batch specs on a mesh).
 """
 from __future__ import annotations
 
@@ -100,4 +101,24 @@ def torch_placer(device) -> Callable[[dict], dict]:
             dtype = torch.int64 if a.dtype.kind in "iu" else torch.float32
             out[k] = torch.from_numpy(a).to(device=dev, dtype=dtype)
         return out
+    return place
+
+
+def mesh_placer(mesh, batch_placements: dict) -> Callable[[dict], dict]:
+    """A callable placing a host numpy batch on ``mesh`` as DTensors with
+    ``batch_placements`` (key -> placements, ``launch/steps.py:
+    batch_struct``).  Every rank holds the whole global batch (the same
+    rows the meshless run draws, so losses compare) and keeps its own
+    slice, without communication.  The rank's own card is named here: a
+    prefetch thread does not inherit the caller's current CUDA device."""
+    from torch.distributed.tensor import distribute_tensor
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    place_local = torch_placer(dev)
+
+    def place(batch: dict) -> dict:
+        return {k: distribute_tensor(v, mesh, batch_placements[k],
+                                     src_data_rank=None)
+                for k, v in place_local(batch).items()}
     return place

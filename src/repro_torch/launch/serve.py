@@ -29,8 +29,16 @@ the pool's rows are speculative:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
       --attn-impl lln_diag --device cpu --speculative --spec-k 3 --gen 16
 
-Meshes are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+``--mesh d,m`` serves the dense and MoE decoders (static mode) on a
+(data, model) DeviceMesh, one process per device under ``torchrun`` (NCCL
+on the card, gloo with ``--device cpu``); every rank samples the same
+tokens from the whole logits and rank 0 prints:
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch yi-9b --smoke --attn-impl lln_diag --mesh 2,2 --device cpu
+
+Other families, MLA, ``--continuous`` and ``--speculative`` on a mesh
+raise ``NotImplementedError`` naming ROADMAP.md item 12b.
 """
 from __future__ import annotations
 
@@ -46,6 +54,7 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.health import HealthConfig
 from repro_torch.launch.batcher import ContinuousBatcher, synthetic_traffic
 from repro_torch.launch.faults import FaultPlan, SimulatedCrash
+from repro_torch.launch.mesh import is_main_rank, mesh_from_flag
 from repro_torch.launch.steps import (flatten_spec_tokens, make_pool_setup,
                                       make_serve_setup, make_spec_setup,
                                       sample_token)
@@ -109,17 +118,8 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-# What each unported mode waits for (ROADMAP.md, queue 1).
-_NOT_PORTED = {
-    "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
-}
-
-
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.mesh != "1,1":
-        raise NotImplementedError(f"--mesh is not ported yet: "
-                                  f"{_NOT_PORTED['mesh']}")
     overrides = {}
     if args.attn_impl:
         overrides["attn_impl"] = args.attn_impl
@@ -128,6 +128,9 @@ def main(argv=None):
     if args.attn_backend:
         overrides["attn_backend"] = args.attn_backend
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
+    mesh = mesh_from_flag(args.mesh, cfg, args.device,
+                          continuous=args.continuous,
+                          speculative=args.speculative)
     if args.continuous:
         return _run_continuous(cfg, args)
     if args.speculative:
@@ -135,9 +138,10 @@ def main(argv=None):
 
     max_len = args.prompt_len + args.gen + cfg.num_prefix_tokens
     setup = make_serve_setup(cfg, ShapeSpec("cli", max_len, args.batch,
-                                            "decode"), device=args.device)
+                                            "decode"), device=args.device,
+                             mesh=mesh)
     dev = setup.device
-    params = setup.model.init(args.seed)
+    params = setup.shard_params(setup.model.init(args.seed))
     batch = synthetic_batch(cfg, args.batch, max_len,
                             text_seq=args.prompt_len, device=dev)
     gen = torch.Generator(device=dev)
@@ -178,6 +182,8 @@ def main(argv=None):
     toks = torch.stack(generated, 1).cpu()
     mode = "scan" if args.scan else "loop"
     tok_s = steady_steps * args.batch / max(t_steady, 1e-9)
+    if not is_main_rank():
+        return toks
     print(f"prefill: {args.batch}x{args.prompt_len} in {t_prefill:.3f}s"
           f"  (serve_kernel={cfg.use_serve_kernel})")
     print(f"decode : first step {t_first:.3f}s (compile, excluded); "

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 from typing import Any, Optional
 
 import numpy as np
@@ -21,11 +22,129 @@ from repro_torch.core.engine import evict_rows
 from repro_torch.core.health import HealthConfig, unhealthy_rows
 from repro_torch.core.metrics import streaming_concentration_tree
 from repro_torch.core import speculative
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import check_mesh_family
 from repro_torch.models import (Model, build_model, draft_config,
                                 draft_params)
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves_with_path, path_str, tree_map
+
+
+# ---------------------------------------------------------------------------
+# Input and cache placement on a mesh.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafStruct:
+    """One input's global shape, dtype and fitted spec (the reference's
+    ``ShapeDtypeStruct`` with its sharding)."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: shd.P
+
+
+def batch_struct(cfg: ArchConfig, shape: ShapeSpec, mesh, rules) -> dict:
+    """Training / prefill batch structs with their specs."""
+    b, n = shape.global_batch, shape.seq_len
+    batch_axes = rules["act_batch"]
+    seq_axes = rules["act_seq"]
+
+    def leaf(shape_, dtype, spec):
+        return LeafStruct(tuple(shape_), dtype,
+                          shd.fit_spec(shd.P(*spec), shape_, mesh))
+
+    n_text = n
+    if cfg.family == "vlm":
+        n_text = max(n - cfg.num_prefix_tokens, 8)
+    out = {name: leaf((b, n_text), torch.int64, (batch_axes, seq_axes))
+           for name in ("inputs", "targets")}
+    out["mask"] = leaf((b, n_text), torch.float32, (batch_axes, seq_axes))
+    if cfg.family == "encdec":
+        out["src"] = leaf((b, n, cfg.frontend_dim), torch.float32,
+                          (batch_axes, seq_axes, None))
+    if cfg.family == "vlm":
+        out["patches"] = leaf((b, cfg.num_prefix_tokens, cfg.frontend_dim),
+                              torch.float32, (batch_axes, None, None))
+    return out
+
+
+def batch_placements(struct: dict, mesh) -> dict:
+    return {k: shd.to_placements(v.spec, mesh) for k, v in struct.items()}
+
+
+def place_batch(batch: dict, struct: dict, mesh) -> dict:
+    """A batch of plain tensors (the whole global batch on every rank)
+    placed by ``struct``; DTensor entries stay as they are."""
+    return {k: shd.place_leaf(v, shd.NamedSharding(mesh, struct[k].spec))
+            for k, v in batch.items()}
+
+
+def cache_shardings(cache_tree, cfg, mesh, rules) -> dict:
+    """``{leaf path: NamedSharding}`` of a decode-cache tree on ``mesh``.
+
+    The dominant bytes at decode are the caches, so they use the model
+    axis.  Heads shard over 'model' when divisible; otherwise the
+    *feature* dim (head_dim) shards.  Scalars and per-row counters
+    replicate.  A leaf's spec is the reference's for the same path without
+    the reference's leading layer axis."""
+    msize = shd._axis_size(mesh, "model")
+    kv_div = cfg.n_kv_heads % msize == 0
+    h_div = cfg.n_heads % msize == 0
+    kv_ax = "model" if kv_div else None
+    kv_fd = None if kv_div else "model"
+    h_ax = "model" if h_div else None
+    h_fd = None if h_div else "model"
+    b_ax = rules["act_batch"]
+
+    per_name = [
+        (r"(^|/)(len|pos|alpha|beta|log_scale)$", ()),
+        # LLN tails carry G kv-heads on the kernelized serve path (H on the
+        # seed path / MLA); fit_spec drops non-divisible axes either way.
+        (r"(^|/)(tail_k|tail_v)$", (b_ax, None, kv_ax, kv_fd)),
+        # MLA latent cache: shard the latent dim
+        (r"(^|/)ckv$", (b_ax, None, "model")),
+        (r"(^|/)kr$", (b_ax, None, None)),
+        (r"(^|/)c_k$", (b_ax, None, h_ax, None)),
+        # log_linear Fenwick pyramid: (B, L, H, D[, Dv]) - scale axis
+        # replicates (L = lln_num_scales is tiny), heads/feature as LLN
+        (r"(^|/)sl$", (b_ax, None, h_ax, h_fd, None)),
+        (r"(^|/)zl$", (b_ax, None, h_ax, h_fd)),
+        (r"(^|/)cl$", (b_ax, None, h_ax)),
+        # softmax KV caches (kv heads) / cross-attn caches
+        (r"(^|/)(ck|cv|k|v)$", (b_ax, None, kv_ax, kv_fd)),
+        # LLN state: heads when divisible, else the feature dim
+        (r"(^|/)s$", (b_ax, h_ax, h_fd, None)),
+        (r"(^|/)z$", (b_ax, h_ax, h_fd)),
+        # SSM state: heads when divisible (zamba 112 ok, mamba 24 not)
+        (r"(^|/)state$", (b_ax, h_ax, None, None)),
+        (r"(^|/)conv$", (b_ax, None, None)),
+    ]
+
+    def leaf(kp, a):
+        path = path_str(kp)
+        axes: tuple = (None,) * a.ndim
+        for pat, ax in per_name:
+            if re.search(pat, path):
+                lead = a.ndim - len(ax)
+                axes = (None,) * lead + tuple(ax)
+                break
+        return shd.NamedSharding(mesh, shd.fit_spec(shd.P(*axes), a.shape,
+                                                    mesh))
+    return {path_str(kp): leaf(kp, a)
+            for kp, a in leaves_with_path(cache_tree)}
+
+
+def _multi_pod(mesh) -> bool:
+    """The rules' batch axes take the 'pod' axis where the mesh has one."""
+    return "pod" in shd.mesh_axes(mesh)
+
+
+def _full(t):
+    """A DTensor's whole value on every rank (a plain tensor as it is)."""
+    return t.full_tensor() if shd.is_dtensor(t) else t
+
+
 
 
 @dataclasses.dataclass
@@ -41,10 +160,18 @@ class TrainSetup:
     init_state: Any
     batch: int
     seq_len: int
+    mesh: Any = None
+    rules: Optional[dict] = None
+    batch_placements: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    def state_shardings(self, state) -> dict:
+        """``{leaf path: placements}`` of a train state on the mesh (the
+        parameters' rules; the AdamW moments follow their parameters)."""
+        return shd.param_shardings(state, self.mesh)
 
 
 @contextlib.contextmanager
@@ -68,7 +195,8 @@ def _substituted(module: torch.nn.Module, leaves: dict):
 def make_train_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
                      peak_lr: float = 3e-4, total_steps: int = 10000,
                      cast_params_once: bool | None = None,
-                     opt_cfg: AdamWConfig = AdamWConfig()) -> TrainSetup:
+                     opt_cfg: AdamWConfig = AdamWConfig(),
+                     mesh=None) -> TrainSetup:
     """The reference's train step on ``device`` (the CUDA card unless the
     caller asks for another device): value and gradient of ``model.loss``
     (``cfg.grad_accum`` microbatches summed in fp32), the warmup-cosine
@@ -76,15 +204,31 @@ def make_train_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
     total_steps // 10)``), then AdamW.  ``cast_params_once``: take the
     gradient with respect to compute-dtype copies of the fp32 matrices
     (ndim >= 2), as the reference does, so gradients arrive in that dtype.
-    """
+
+    ``mesh``: a DeviceMesh (``launch/mesh.py``), the device its type; the
+    state is sharded by ``param_shardings``, a batch is placed by
+    ``batch_struct`` (``batch_placements``; a batch of plain tensors, the
+    whole global batch on every rank, is placed on entry) and the step
+    runs inside ``logical_rules(mesh, make_rules(cfg, ...))``.  ``None``
+    is the one-device path."""
+    if mesh is not None:
+        check_mesh_family(cfg)
+        device = mesh.device_type
     model = build_model(cfg, device)
     if cast_params_once is None:
         cast_params_once = cfg.cast_params_once
     accum = max(int(cfg.grad_accum), 1)
+    rules = struct = None
+    if mesh is not None:
+        rules = shd.make_rules(cfg, multi_pod=_multi_pod(mesh))
+        struct = batch_struct(cfg, shape, mesh, rules)
 
     def init_state(seed: int = 0):
         params = model.init(seed)
-        return {"params": params, "opt": adamw_init(params)}
+        state = {"params": params, "opt": adamw_init(params)}
+        if mesh is not None:
+            state = shd.shard_tree(state, shd.param_shardings(state, mesh))
+        return state
 
     def loss_and_grads(params, leaves, batch):
         loss = model.loss(params, batch)
@@ -107,11 +251,12 @@ def make_train_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
                 raise ValueError(f"batch of {rows} rows does not split into "
                                  f"grad_accum={accum} microbatches")
             loss_sum = torch.zeros((), device=model.device)
-            gacc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            gacc = {n: torch.zeros_like(p, dtype=torch.float32)
                     for n, p in leaves.items()}
+            mbr = rows // accum
             for i in range(accum):
-                mb = {k: v.reshape(accum, rows // accum, *v.shape[1:])[i]
+                mb = {k: v[i * mbr:(i + 1) * mbr] if shd.is_dtensor(v)
+                      else v.reshape(accum, mbr, *v.shape[1:])[i]
                       for k, v in batch.items()}
                 loss, grads = loss_and_grads(params, leaves, mb)
                 loss_sum = loss_sum + loss
@@ -119,19 +264,29 @@ def make_train_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
                     gacc[n] += g.float()
             return loss_sum / accum, {n: g / accum for n, g in gacc.items()}
 
-    def step_fn(state, batch):
+    def step(state, batch):
         params = state["params"]
         loss, grads = compute_grads(params, batch)
-        lr = warmup_cosine(state["opt"]["step"], peak_lr=peak_lr,
+        lr = warmup_cosine(_full(state["opt"]["step"]), peak_lr=peak_lr,
                            warmup_steps=min(500, total_steps // 10),
                            total_steps=total_steps)
         _, opt, metrics = adamw_update(grads, state["opt"], params, lr,
                                        opt_cfg)
         return ({"params": params, "opt": opt},
-                {"loss": loss, "lr": lr, **metrics})
+                {"loss": _full(loss), "lr": lr, **metrics})
+
+    def step_fn(state, batch):
+        if mesh is None:
+            return step(state, batch)
+        batch = place_batch(batch, struct, mesh)
+        with shd.logical_rules(mesh, rules):
+            return step(state, batch)
 
     return TrainSetup(model=model, step_fn=step_fn, init_state=init_state,
-                      batch=shape.global_batch, seq_len=shape.seq_len)
+                      batch=shape.global_batch, seq_len=shape.seq_len,
+                      mesh=mesh, rules=rules,
+                      batch_placements=None if mesh is None
+                      else batch_placements(struct, mesh))
 
 
 def sample_token(logits: torch.Tensor, temperature: float,
@@ -162,38 +317,92 @@ class ServeSetup:
     make_generate: Any
     batch: int
     seq_len: int
+    mesh: Any = None
+    rules: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
+    def shard_params(self, params):
+        """``params`` (the whole tree on every rank: the same seed or the
+        same restored file) placed by ``param_shardings`` on the mesh; as
+        they are without one."""
+        if self.mesh is None:
+            return params
+        return shd.shard_tree(params, shd.param_shardings(params, self.mesh))
 
-def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec,
-                     device=None) -> ServeSetup:
+    def cache_shardings(self, caches) -> dict:
+        return cache_shardings(caches, self.model.cfg, self.mesh, self.rules)
+
+
+def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
+                     mesh=None) -> ServeSetup:
     """Serving steps for ``cfg`` at ``shape`` on ``device`` (the CUDA card
     unless the caller asks for another device), every family with a decode
     step.  The batch carries the family's inputs (``src`` for the
     encoder-decoder, ``patches`` for the VLM, whose decode positions start
-    after its ``num_prefix_tokens`` patches)."""
+    after its ``num_prefix_tokens`` patches).
+
+    ``mesh``: a DeviceMesh, the dense and MoE decoders.  The parameters are
+    placed by :meth:`ServeSetup.shard_params`, a batch of plain tensors
+    (the whole batch on every rank) by ``batch_struct`` and the token by
+    the batch axes; prefill and decode run inside ``logical_rules`` and
+    leave their caches placed by :func:`cache_shardings`; the logits come
+    back whole on every rank, so every rank samples the same tokens."""
+    if mesh is not None:
+        check_mesh_family(cfg)
+        device = mesh.device_type
     model = build_model(cfg, device)
     max_len = shape.seq_len
+    prefill, decode = model.prefill, model.decode
+    rules = None
+    if mesh is not None:
+        rules = shd.make_rules(cfg, multi_pod=_multi_pod(mesh), serve=True)
+
+        def place(t, spec):
+            return shd.place_leaf(t, shd.NamedSharding(
+                mesh, shd.fit_spec(shd.P(*spec), t.shape, mesh)))
+
+        def placed(caches):
+            return shd.shard_tree(caches,
+                                  cache_shardings(caches, cfg, mesh, rules))
+
+        @torch.inference_mode()
+        def prefill(params, batch, n):
+            axes = (rules["act_batch"], rules["act_seq"])
+            batch = {k: place(v, axes) for k, v in batch.items()}
+            with shd.logical_rules(mesh, rules):
+                logits, caches = model.prefill(params, batch, n)
+                return _full(logits), placed(caches)
+
+        @torch.inference_mode()
+        def decode(params, caches, token, pos, row_mask=None,
+                   commit_len=None):
+            token = place(token, (rules["act_batch"],))
+            with shd.logical_rules(mesh, rules):
+                logits, caches = model.decode(params, caches, token, pos,
+                                              row_mask=row_mask,
+                                              commit_len=commit_len)
+                return _full(logits), placed(caches)
 
     def prefill_fn(params, batch):
-        return model.prefill(params, batch, max_len)
+        return prefill(params, batch, max_len)
 
     def make_generate(steps: int, temperature: float = 0.0):
         def gen(params, caches, tok, pos0: int, generator=None):
             toks = []
             for i in range(steps):
-                logits, caches = model.decode(params, caches, tok, pos0 + i)
+                logits, caches = decode(params, caches, tok, pos0 + i)
                 tok = sample_token(logits, temperature, generator)
                 toks.append(tok)
             return torch.stack(toks, 1), caches
         return gen
 
     return ServeSetup(model=model, prefill_fn=prefill_fn,
-                      decode_fn=model.decode, make_generate=make_generate,
-                      batch=shape.global_batch, seq_len=shape.seq_len)
+                      decode_fn=decode, make_generate=make_generate,
+                      batch=shape.global_batch, seq_len=shape.seq_len,
+                      mesh=mesh, rules=rules)
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +498,20 @@ def _verify_step(model, dmodel, params, dparams, tgt, dr, tok, pos, k: int,
             nxt, commit, chunk)
 
 
+def _no_mesh(what: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(f"{what} on a mesh is ROADMAP.md item 12b")
+
+
 def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
-                    spec_k: int, draft_layers: int) -> SpecSetup:
+                    spec_k: int, draft_layers: int,
+                    mesh=None) -> SpecSetup:
     """The speculative loop for a dense or MoE decoder on ``device`` (the CUDA
     card unless the caller asks for another device).  ``shape.seq_len`` is
     the cache budget: the prompt, the generation budget and one verify
-    chunk of overshoot (``prompt + steps + spec_k + 1``)."""
+    chunk of overshoot (``prompt + steps + spec_k + 1``).  A ``mesh``
+    raises ``NotImplementedError`` (item 12b)."""
+    _no_mesh("speculative decoding", mesh)
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     dcfg = draft_config(cfg, draft_layers)   # validates k and the family
@@ -464,7 +681,8 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
                     max_len: int, segment: int = 8,
                     temperature: float = 0.0,
                     health: Optional[HealthConfig] = _HEALTH_DEFAULT,
-                    spec_k: int = 0, draft_layers: int = 0) -> PoolSetup:
+                    spec_k: int = 0, draft_layers: int = 0,
+                    mesh=None) -> PoolSetup:
     """The pool's building blocks for ``cfg`` on ``device`` (the CUDA card
     unless the caller asks for another device): the dense and MoE decoders
     (not MLA) and the ssm / hybrid LMs, with every serving impl.  The pool's model calibrates
@@ -483,7 +701,8 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     tokens in its last iteration: the batcher caps the harvest at the
     budget and ``check_request`` reserves ``spec_k`` positions of slack.
     MLA, the encoder-decoder and the VLM are refused, as in the
-    reference."""
+    reference.  A ``mesh`` raises ``NotImplementedError`` (item 12b)."""
+    _no_mesh("the request pool", mesh)
     if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
             or cfg.kv_lora > 0:
         raise NotImplementedError(

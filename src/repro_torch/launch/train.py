@@ -21,8 +21,20 @@ restored step, saves every ``--ckpt-interval`` steps on a thread and
 once more at the end.  Its step labels are the reference's: the state
 saved under label ``step`` is the state after step ``step`` has run, and
 a resume from it starts at ``step`` (so step ``step`` runs twice; a quirk
-of the reference, kept).  Meshes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP.md item.
+of the reference, kept).
+
+``--mesh d,m`` trains the dense and MoE decoders on a (data, model)
+DeviceMesh, one process per device under ``torchrun`` (NCCL on the card,
+gloo with ``--device cpu``):
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch yi-9b --smoke --attn-impl lln_diag --mesh 2,2 --device cpu
+
+Every rank draws the whole global batch (the meshless run's rows) and
+keeps its slice; the state is sharded by ``param_shardings`` and a
+``--ckpt-dir`` restore places it with the mesh's shardings.  Rank 0
+prints and writes.  Other families and MLA on a mesh raise
+``NotImplementedError`` naming ROADMAP.md item 12b.
 """
 from __future__ import annotations
 
@@ -33,16 +45,13 @@ import time
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.data import HostShardedSource, Prefetcher, torch_placer
+from repro_torch.data import (HostShardedSource, Prefetcher, mesh_placer,
+                              torch_placer)
 from repro_torch.data.synthetic import lm_batches, mlm_batches
 from repro_torch.models import synthetic_batch
 from repro_torch.distributed.straggler import StepWatchdog
+from repro_torch.launch.mesh import is_main_rank, mesh_from_flag
 from repro_torch.launch.steps import make_train_setup
-
-# What each unported option waits for (ROADMAP.md, queue 1).
-_NOT_PORTED = {
-    "mesh": "meshes and sharding (ROADMAP.md queue 1, item 12)",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -57,7 +66,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="1,1",
-                    help="data,model mesh sizes (only 1,1 is ported)")
+                    help="data,model mesh sizes (1,1: no mesh; otherwise "
+                    "one process per device under torchrun)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-interval", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
@@ -70,25 +80,24 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.mesh != "1,1":
-        raise NotImplementedError(f"--mesh is not ported yet: "
-                                  f"{_NOT_PORTED['mesh']}")
     overrides = {}
     if args.attn_impl:
         overrides["attn_impl"] = args.attn_impl
     cfg = get_config(args.arch, smoke=args.smoke, **overrides)
+    mesh = mesh_from_flag(args.mesh, cfg, args.device)
 
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     setup = make_train_setup(cfg, shape, device=args.device,
-                             peak_lr=args.lr, total_steps=args.steps)
+                             peak_lr=args.lr, total_steps=args.steps,
+                             mesh=mesh)
     start_step = 0
     mgr = None
+    state = setup.init_state(args.seed)
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval)
         state, start_step = mgr.restore_or_init(
-            lambda: setup.init_state(args.seed))
-    else:
-        state = setup.init_state(args.seed)
+            lambda: state,
+            None if mesh is None else setup.state_shardings(state))
 
     batches = mlm_batches if cfg.family == "encoder" else lm_batches
     if cfg.family in ("encdec", "vlm"):
@@ -101,10 +110,15 @@ def main(argv=None):
                     cfg, b, seq, seed=hash((seed, step)) % 2 ** 31,
                     device="cpu").items()}
                 step += 1
+    # On a mesh every rank draws the whole global batch (process 0 of 1)
+    # and keeps its slice.
+    one = {} if mesh is None else {"process_index": 0, "process_count": 1}
     source = HostShardedSource(
         lambda b, s: batches(cfg.vocab, b, args.seq, seed=s), args.batch,
-        start_step=start_step)
-    pipe = Prefetcher(source, place=torch_placer(setup.device))
+        start_step=start_step, **one)
+    pipe = Prefetcher(source, place=torch_placer(setup.device)
+                      if mesh is None
+                      else mesh_placer(mesh, setup.batch_placements))
     watchdog = StepWatchdog(
         on_anomaly=lambda r: print(f"[straggler] step {r.step} took "
                                    f"{r.duration:.2f}s ({r.ratio:.1f}x)"))
@@ -117,7 +131,8 @@ def main(argv=None):
             state, metrics = setup.step_fn(state, batch)
             loss = float(metrics["loss"])
             watchdog.stop(step)
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if is_main_rank() and (step % args.log_every == 0
+                                   or step == args.steps - 1):
                 print(f"step {step:5d}  loss {loss:8.4f}  "
                       f"gnorm {float(metrics['grad_norm']):7.3f}  "
                       f"lr {float(metrics['lr']):.2e}", flush=True)
@@ -130,6 +145,8 @@ def main(argv=None):
         mgr.finalize(args.steps, state)
     dt = time.time() - t_start
     ran = args.steps - start_step
+    if not is_main_rank():
+        return history
     print(f"done: {ran} steps in {dt:.1f}s "
           f"({ran / max(dt, 1e-9):.2f} it/s); "
           f"{len(watchdog.anomalies)} straggler events")

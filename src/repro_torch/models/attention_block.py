@@ -20,6 +20,7 @@ from repro_torch.core.attention import (AttnConfig, flash_softmax,
                                         multi_head_attention)
 from repro_torch.core.engine import AttentionEngine
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.registry import deprecated_shim
 from .layers import _dense_param, dense, rms_head_norm, rope
 
@@ -72,6 +73,9 @@ def _project_qkv(p: Attention, x, cfg, positions):
         k = rms_head_norm(p.k_norm_scale, k)
     q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    q = constrain(q, "act_batch", "attn_seq", "heads", None)
+    k = constrain(k, "act_batch", None, "kv_heads", None)
+    v = constrain(v, "act_batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -93,9 +97,13 @@ def attn_apply(p: Attention, x, cfg, positions, *, causal: bool = True,
         q = dense(p.q_w, x, cfg.cdtype).reshape(b, n, h, hd)
         k = dense(p.k_w, kv, cfg.cdtype).reshape(b, m, g, hd)
         v = dense(p.v_w, kv, cfg.cdtype).reshape(b, m, g, hd)
+        q = constrain(q, "act_batch", "attn_seq", "heads", None)
+        k = constrain(k, "act_batch", None, "kv_heads", None)
+        v = constrain(v, "act_batch", None, "kv_heads", None)
         out = flash_softmax(q, k, v, causal=False,
                             chunk=min(cfg.softmax_chunk, m), mask=mask)
-    return dense(p.o_w, out.reshape(b, n, h * hd), cfg.cdtype)
+    out = constrain(out.reshape(b, n, h * hd), "act_batch", "attn_seq", None)
+    return dense(p.o_w, out, cfg.cdtype)
 
 
 def serve_state_init(cfg, batch: int, max_len: int, device):

@@ -13,9 +13,15 @@ fp32.  The Switch-style load-balance loss is built by a scatter-add.
 Optional shared experts (deepseek-v2) add a dense FFN of
 ``n_shared_experts * expert_d_ff`` over every token.
 
-The reference's expert-parallel path over a mesh (a shard_map with
-expert-sharded weights and a psum) is ROADMAP.md item 12; the port runs
-this meshless path on one device.  Parameter names are the reference's
+On a mesh (a DTensor x under ``logical_rules`` with a 'model' axis) the
+reference's expert-parallel path runs as ``local_map`` (its
+``shard_map``): token rows over the largest prefix of the batch axes that
+divides the batch, ``E / model`` experts per rank (``e_start = rank *
+e_loc``), the FSDP shards of the expert weights gathered on entry, each
+rank's output a partial sum over 'model', reduce-scattered onto the
+sequence when ``n % ep == 0 and n > 1`` and all-reduced otherwise, and the
+aux loss averaged over 'model' and the batch axes.  The capacity is per
+rank's tokens, as in the reference.  Parameter names are the reference's
 (``router_w``, ``exp_wi_gate``, ``exp_wi_up``, ``exp_wo``,
 ``shared_wi_gate``, ``shared_wi_up``, ``shared_wo``).
 """
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding as shd
 from .layers import _dense_param, _gelu, trunc_normal
 
 
@@ -91,9 +98,12 @@ def _expert_ffn(xg, wi_gate, wi_up, wo, act: str, dtype):
     return torch.bmm(_act(g, act) * u, wo.to(dtype))
 
 
-def _moe_local(x, p: MoE, cfg, dtype):
-    """Dispatch, the experts and the weighted combine for tokens x (T, D);
-    returns ((T, D) in ``dtype``, aux loss)."""
+def _moe_local(x, p, cfg, e0: int, e_loc: int, dtype):
+    """Dispatch, experts [e0, e0 + e_loc) and the weighted combine for
+    tokens x (T, D); ``p`` holds ``router_w`` and the *local* expert
+    slices (E_loc, ...).  Returns (this shard's partial output (T, D) in
+    ``dtype``, the sum over shards completing it; aux loss).  The meshless
+    path passes e0 = 0, e_loc = E."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     idx, w, aux = _route(x, p.router_w, k)
@@ -101,15 +111,18 @@ def _moe_local(x, p: MoE, cfg, dtype):
     pos = _positions_in_expert(flat_e, e)
     cap = max(int(t * k * cfg.capacity_factor / e), 1)
     keep = pos < cap
-    dump = e * cap
-    slot = torch.where(keep, flat_e * cap + pos, torch.full_like(pos, dump))
+    if e_loc != e:
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + e_loc)
+    dump = e_loc * cap
+    slot = torch.where(keep, (flat_e - e0) * cap + pos,
+                       torch.full_like(pos, dump))
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
     tok_of_slot = torch.zeros(dump + 1, dtype=torch.long, device=x.device)
     tok_of_slot[slot[keep]] = tok[keep]
     filled = torch.zeros(dump + 1, dtype=torch.bool, device=x.device)
     filled[slot[keep]] = True
     xg = x[tok_of_slot] * filled[:, None].to(x.dtype)
-    y = _expert_ffn(xg[:dump].reshape(e, cap, d), p.exp_wi_gate,
+    y = _expert_ffn(xg[:dump].reshape(e_loc, cap, d), p.exp_wi_gate,
                     p.exp_wi_up, p.exp_wo, cfg.act, dtype)
     y_flat = torch.cat([y.reshape(dump, d), y.new_zeros(1, d)], 0)
     wv = (w.reshape(-1) * keep.float())[:, None]
@@ -125,11 +138,90 @@ def _shared_ffn(p: MoE, xt, cfg, dtype):
 
 
 def moe_apply(p: MoE, x, cfg):
-    """x (B, N, D) -> (out (B, N, D), aux loss)."""
+    """x (B, N, D) -> (out (B, N, D), aux loss).  Mesh-aware (see the
+    module docstring)."""
+    mesh = shd.current_mesh()
+    if shd.is_dtensor(x) and mesh is not None \
+            and "model" in mesh.mesh_dim_names:
+        return _moe_mesh(p, x, cfg, mesh)
     b, n, d = x.shape
     dtype = cfg.cdtype
     xt = x.reshape(b * n, d)
-    out, aux = _moe_local(xt, p, cfg, dtype)
+    out, aux = _moe_local(xt, p, cfg, 0, cfg.n_experts, dtype)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(p, xt, cfg, dtype)
     return out.reshape(b, n, d), aux
+
+
+class _Weights:
+    """The local weight shards under the MoE's parameter names."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def _moe_mesh(p: MoE, x, cfg, mesh):
+    """The expert-parallel path under ``local_map`` (the reference's
+    ``shard_map`` in ``repro.models.moe.moe_apply``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    b, n, d = x.shape
+    dtype = cfg.cdtype
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    ep = int(sizes["model"])
+    if cfg.n_experts % ep:
+        raise ValueError(f"{cfg.n_experts} experts do not split over "
+                         f"model = {ep}")
+    e_loc = cfg.n_experts // ep
+    fsdp = tuple(a for a in ("pod", "data") if a in names)
+    # Token rows over the largest batch-axis prefix that divides the rows.
+    batch_axes, used = (), 1
+    for a in fsdp:
+        if b % (int(sizes[a]) * used) == 0:
+            batch_axes += (a,)
+            used *= int(sizes[a])
+    scatter = n % ep == 0 and n > 1
+    rank = mesh.get_local_rank(names.index("model"))
+    n_avg = ep * used
+
+    def pl(dim_of: dict, default=Replicate()):
+        """Placements from {mesh axis: placement}."""
+        return tuple(dim_of.get(a, default) for a in names)
+
+    rows = {a: Shard(0) for a in batch_axes}
+    part_rows = {a: Partial() for a in batch_axes}
+
+    def local(xl, rw, wig, wiu, wog, swg=None, swu=None, swo=None):
+        xt = xl.reshape(-1, d)
+        w = _Weights(router_w=rw, exp_wi_gate=wig, exp_wi_up=wiu,
+                     exp_wo=wog)
+        out, aux = _moe_local(xt, w, cfg, rank * e_loc, e_loc, dtype)
+        if swg is not None:
+            # Shared experts as a TP-sharded dense MLP ('model' shards f).
+            out = out + _shared_ffn(_Weights(shared_wi_gate=swg,
+                                             shared_wi_up=swu,
+                                             shared_wo=swo), xt, cfg, dtype)
+        return out.reshape(xl.shape), aux / n_avg
+
+    espec = pl({"model": Shard(0)})
+    args = [x, p.router_w, p.exp_wi_gate, p.exp_wi_up, p.exp_wo]
+    in_pl = [pl(rows), pl({}), espec, espec, espec]
+    part_all = {**part_rows, "model": Partial()}
+    grad_pl = [pl({**rows, "model": Partial()}), pl(part_all),
+               pl({**part_rows, "model": Shard(0)})] + [
+        pl({**part_rows, "model": Shard(0)})] * 2
+    if cfg.n_shared_experts:
+        args += [p.shared_wi_gate, p.shared_wi_up, p.shared_wo]
+        in_pl += [pl({"model": Shard(1)})] * 2 + [pl({"model": Shard(0)})]
+        grad_pl += [pl({**part_rows, "model": Shard(1)})] * 2 + [
+            pl({**part_rows, "model": Shard(0)})]
+    out, aux = local_map(
+        local,
+        out_placements=(pl({**rows, "model": Partial()}), pl(part_all)),
+        in_placements=tuple(in_pl), in_grad_placements=tuple(grad_pl),
+        device_mesh=mesh, redistribute_inputs=True)(
+            *(shd.redistributed(a, p) for a, p in zip(args, in_pl)))
+    out = out.redistribute(mesh, pl({**rows, "model": Shard(1)}) if scatter
+                           else pl(rows))
+    return out, aux.redistribute(mesh, pl({}))

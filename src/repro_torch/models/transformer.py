@@ -27,6 +27,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import constrain
+
 from . import mla as mla_mod
 from .attention_block import (Attention, attn_apply, serve_commit,
                               serve_decode, serve_prefill, serve_state_init)
@@ -116,6 +118,7 @@ def block_apply(p: Block, x, cfg, positions, *, causal: bool = True,
                 prefix_len: int = 0):
     """One block of the training forward: x + attn(ln1 x), then + the FFN.
     Returns (x, the MoE aux loss, 0 for a dense FFN)."""
+    x = constrain(x, "act_batch", "act_seq", "embed")
     h = apply_norm(p.ln1, x)
     if _use_mla(cfg):
         attn_out = mla_mod.mla_apply(p.attn, h, cfg, positions, causal=causal)
@@ -127,7 +130,8 @@ def block_apply(p: Block, x, cfg, positions, *, causal: bool = True,
     ffn_out, aux = _ffn(p, h, cfg)
     if aux is None:
         aux = torch.zeros((), device=x.device)
-    return x + ffn_out.to(x.dtype), aux
+    return constrain(x + ffn_out.to(x.dtype), "act_batch", "act_seq",
+                     "embed"), aux
 
 
 # The products ``remat="dots"`` keeps: matrix products without batch
@@ -204,6 +208,10 @@ def lm_logits(p: DenseLM, tokens, cfg, **kw):
 
 def block_prefill(p: Block, x, cfg, positions, max_len: int,
                   prefix_len: int = 0):
+    # On a mesh the serving blocks place x as the training blocks do (the
+    # embedding leaves a partial sum over the vocab's mesh dim; GSPMD
+    # would propagate the batch layout from the inputs).
+    x = constrain(x, "act_batch", "act_seq", "embed")
     h = apply_norm(p.ln1, x)
     if _use_mla(cfg):
         attn_out, cache = mla_mod.mla_prefill(p.attn, h, cfg, positions,
@@ -219,6 +227,7 @@ def block_prefill(p: Block, x, cfg, positions, max_len: int,
 
 def block_decode(p: Block, x, cache, cfg, position, *, row_mask=None,
                  commit_len=None):
+    x = constrain(x, "act_batch", "act_seq", "embed")
     h = apply_norm(p.ln1, x)
     if _use_mla(cfg):
         if row_mask is not None or commit_len is not None:

@@ -1,0 +1,442 @@
+"""Multi-rank checks of the port on the CPU: gloo process groups in spawned
+processes.
+
+``spawn(target, world, tmp_path, *args)`` starts ``world`` fresh processes
+(the ``spawn`` start method: a pytest worker is reused across files, so no
+group may live in it), each with one torch thread, a gloo group over a
+``FileStore`` under ``tmp_path`` (parallel workers never share a port) and
+the port's modules only.  Rank r calls ``target(rank, world, *args)``,
+where ``target`` is ``"module:function"`` importable in the child; the
+group is destroyed before the process ends, and each rank's return value
+comes back (through ``torch.save``) as the list ``[rank 0, rank 1, ...]``.
+A rank that raises fails the call with its traceback.
+
+Run as a script (``PYTHONPATH=src python tests/_torch_dist.py``) it holds
+the same mesh (2, 2) runs to the port's own meshless runs, with weights
+from the port's seeded init instead of the reference's: a check of the
+mesh path on a machine without JAX (such as the card's host, on its CPU).
+"""
+from __future__ import annotations
+
+import contextlib
+import importlib
+import multiprocessing as mp
+import os
+import traceback
+
+
+def _entry(rank: int, world: int, store: str, target: str, args: tuple,
+           out: str) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world)
+        mod, _, fn = target.partition(":")
+        result = getattr(importlib.import_module(mod), fn)(rank, world,
+                                                           *args)
+        torch.save({"ok": result}, out)
+    except Exception:            # reported to the parent with its traceback
+        torch.save({"error": traceback.format_exc()}, out)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(target: str, world: int, tmp_path, *args, timeout: float = 300):
+    import torch
+    ctx = mp.get_context("spawn")
+    tag = f"{target.replace(':', '_').replace('.', '_')}_{world}"
+    store = os.path.join(str(tmp_path), f"{tag}.store")
+    outs = [os.path.join(str(tmp_path), f"{tag}.{r}.pt")
+            for r in range(world)]
+    procs = [ctx.Process(target=_entry,
+                         args=(r, world, store, target, args, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results = []
+    for r, path in enumerate(outs):
+        if not os.path.exists(path):
+            raise RuntimeError(f"rank {r} of {target} left no result "
+                               f"(exit code {procs[r].exitcode})")
+        got = torch.load(path, weights_only=False)
+        if "error" in got:
+            raise RuntimeError(f"rank {r} of {target} failed:\n"
+                               f"{got['error']}")
+        results.append(got["ok"])
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Rank functions of tests/test_torch_distributed.py (torch and the port
+# only: the reference runs in the test's own process).
+# ---------------------------------------------------------------------------
+
+def _mesh(data: int, model: int):
+    from repro_torch.launch.mesh import make_smoke_mesh
+    return make_smoke_mesh(data, model, device="cpu")
+
+
+def _check_local_shapes(tree, shardings) -> int:
+    """Every DTensor leaf of ``tree`` is placed as ``shardings`` says and
+    its local shape is the fitted spec's shard; returns the number of
+    leaves split on some mesh dim."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.tree import leaves_with_path, path_str
+    split = 0
+    for kp, a in leaves_with_path(tree):
+        sh = shardings[path_str(kp)]
+        assert tuple(a.placements) == sh.placements, (path_str(kp),
+                                                      a.placements)
+        want = list(a.shape)
+        for i, pl in enumerate(a.placements):
+            if isinstance(pl, Shard):
+                want[pl.dim] //= a.device_mesh.size(i)
+        assert tuple(a.to_local().shape) == tuple(want), (path_str(kp),
+                                                          want)
+        split += tuple(want) != tuple(a.shape)
+    return split
+
+
+def _params(params_np, cfg):
+    """The reference's weights converted, or (None) the port's seeded
+    init."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import build_model
+    if params_np is None:
+        return build_model(cfg, "cpu").init(0)
+    return params_from_numpy(params_np, cfg, "cpu")
+
+
+def train_on_mesh(rank, world, cases, ckpt_dir):
+    """For each (arch, impl, overrides, state numpy, batches numpy, lr,
+    total steps): ``make_train_setup(mesh=(2, 2))`` from the converted
+    state.  Returns (per case: losses, grad norms, the params and moments
+    after the steps as numpy, split leaves) and the train CLI's losses
+    under ``--mesh 2,2``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data import torch_placer
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_setup
+    mesh = _mesh(2, 2)
+    out = []
+    for arch, impl, over, state_np, batches, lr, total in cases:
+        cfg = get_config(arch, smoke=True, attn_impl=impl,
+                         compute_dtype="float32", **over)
+        b, n = batches[0]["inputs"].shape
+        setup = make_train_setup(cfg, ShapeSpec("t", n, b, "train"),
+                                 mesh=mesh, peak_lr=lr, total_steps=total)
+        state = setup.init_state(0) if state_np is None \
+            else train_state_from_numpy(state_np, cfg, "cpu")
+        shardings = setup.state_shardings(state)
+        state = shd.shard_tree(state, shardings)
+        split = _check_local_shapes(state, shardings)
+        place = torch_placer("cpu")
+        losses, norms = [], []
+        for batch in batches:
+            state, m = setup.step_fn(state, place(batch))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        _check_local_shapes(state, shardings)
+        full = {"params": {k: p.full_tensor().detach().numpy()
+                           for k, p in state["params"].named_parameters()},
+                "m": {k: t.full_tensor().numpy()
+                      for k, t in state["opt"]["m"].items()},
+                "v": {k: t.full_tensor().numpy()
+                      for k, t in state["opt"]["v"].items()}}
+        out.append({"loss": losses, "grad_norm": norms, "split": split,
+                    **(full if rank == 0 else {})})
+    hist = train.main(["--arch", "yi-9b", "--smoke", "--attn-impl",
+                       "lln_diag", "--device", "cpu", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--mesh", "2,2",
+                       "--ckpt-dir", ckpt_dir, "--ckpt-interval", "1"])
+    return out, [h["loss"] for h in hist]
+
+
+def serve_on_mesh(rank, world, cases, capacity_factor, ckpt_dir):
+    """For each (arch, impl, overrides, params numpy, batch numpy,
+    max_len, steps, pos0): ``make_serve_setup(mesh=(2, 2))``, prefill and
+    greedy decode; the caches' local shapes checked after every step.
+    Returns ``{"serve": [tokens (prefill's first) and the split cache
+    leaves per case], "moe": moe_on_mesh's, "elastic": elastic_save's
+    for the first case}``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.steps import make_serve_setup
+    mesh = _mesh(2, 2)
+    out = []
+    for arch, impl, over, params_np, batch_np, max_len, steps, pos0 in cases:
+        cfg = get_config(arch, smoke=True, attn_impl=impl,
+                         compute_dtype="float32", **over)
+        bsz = batch_np["inputs"].shape[0]
+        setup = make_serve_setup(cfg, ShapeSpec("s", max_len, bsz, "decode"),
+                                 mesh=mesh)
+        params = setup.shard_params(_params(params_np, cfg))
+        batch = {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+                 for k, v in batch_np.items() if k == "inputs"}
+        logits, caches = setup.prefill_fn(params, batch)
+        split = _check_local_shapes(caches, setup.cache_shardings(caches))
+        tok = torch.argmax(logits[:, -1], -1)
+        toks = [tok]
+        for i in range(steps):
+            logits, caches = setup.decode_fn(params, caches, tok, pos0 + i)
+            _check_local_shapes(caches, setup.cache_shardings(caches))
+            tok = torch.argmax(logits, -1)
+            toks.append(tok)
+        out.append({"tokens": torch.stack(toks, 1).numpy(), "split": split})
+    arch, impl, over, params_np, batch_np, max_len, steps, pos0 = cases[0]
+    return {"serve": out, "moe": moe_on_mesh(mesh, capacity_factor),
+            "elastic": elastic_save(mesh, arch, impl, params_np, batch_np,
+                                    max_len, steps, pos0, ckpt_dir)}
+
+
+def moe_on_mesh(mesh, capacity_factor):
+    """qwen3-moe SMOKE's first MoE block through the expert-parallel path
+    on (2, 2) against its meshless path on the same rank: a prefill-shaped
+    input (n = 16: reduce-scatter onto the sequence) and a decode-shaped
+    one (n = 1: all-reduce), with the collectives ``CommDebugMode``
+    counts; then a train step's loss on the mesh and without it."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.steps import make_train_setup
+    from repro_torch.models import build_model, synthetic_batch
+    from repro_torch.models import moe as moe_mod
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True,
+                     compute_dtype="float32",
+                     capacity_factor=capacity_factor)
+    params = build_model(cfg, "cpu").init(0)
+    gen = torch.Generator().manual_seed(0)
+    xs = {"prefill": torch.randn(4, 16, cfg.d_model, generator=gen),
+          "decode": torch.randn(4, 1, cfg.d_model, generator=gen)}
+    want = {k: moe_mod.moe_apply(params.layers[0].moe, x, cfg)[0]
+            for k, x in xs.items()}
+    rules = shd.make_rules(cfg, multi_pod=False)
+    shd.shard_tree(params, shd.param_shardings(params, mesh))
+    out = {}
+    with torch.no_grad(), shd.logical_rules(mesh, rules):
+        for k, x in xs.items():
+            xd = distribute_tensor(x, mesh, shd.spec_placements(
+                x.shape, ("act_batch", "act_seq", "embed")),
+                src_data_rank=None)
+            with CommDebugMode() as comm:
+                got, _ = moe_mod.moe_apply(params.layers[0].moe, xd, cfg)
+            out[k] = {"err": float((got.full_tensor() - want[k]).abs().max()),
+                      "scale": float(want[k].abs().max()),
+                      "placements": tuple(str(p) for p in got.placements),
+                      "comm": {str(op): n for op, n in
+                               comm.get_comm_counts().items()}}
+    # A train step without and with the mesh, and the aux loss of its
+    # params: on the mesh the aux is the mean of the shards' (as in the
+    # reference), so the step losses agree once it is taken out.
+    tcfg = cfg.replace(grad_accum=1)
+    shape = ShapeSpec("t", 16, 4, "train")
+    batch = synthetic_batch(tcfg, 4, 16, seed=1, device="cpu")
+    out["train"] = []
+    for mesh_ in (None, mesh):
+        setup = make_train_setup(tcfg, shape, "cpu", mesh=mesh_,
+                                 peak_lr=1e-3, total_steps=3)
+        state = setup.init_state(0)
+        placed, rules = batch, contextlib.nullcontext()
+        if mesh_ is not None:
+            placed = steps.place_batch(batch, steps.batch_struct(
+                tcfg, shape, mesh_, setup.rules), mesh_)
+            rules = shd.logical_rules(mesh_, setup.rules)
+        with torch.no_grad(), rules:
+            _, aux = setup.model.hidden(state["params"], placed)
+        _, m = setup.step_fn(state, batch)
+        out["train"].append((float(m["loss"]), float(
+            aux.full_tensor() if shd.is_dtensor(aux) else aux)))
+    out["aux_coef"] = tcfg.router_aux_coef
+    return out
+
+
+def elastic_save(mesh, arch, impl, params_np, batch_np, max_len, steps,
+                 pos0, ckpt_dir):
+    """World 4, mesh (2, 2): prefill, save ``{"params", "caches"}`` (each
+    leaf gathered, rank 0 writes), then ``steps`` greedy decode steps.
+    Returns the tokens and the degraded mesh over 3 surviving ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed.elastic import make_degraded_mesh
+    from repro_torch.launch.steps import make_serve_setup
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    bsz = batch_np["inputs"].shape[0]
+    setup = make_serve_setup(cfg, ShapeSpec("s", max_len, bsz, "decode"),
+                             mesh=mesh)
+    params = setup.shard_params(_params(params_np, cfg))
+    logits, caches = setup.prefill_fn(
+        params, {"inputs": torch.from_numpy(batch_np["inputs"].astype(
+            np.int64))})
+    tok = torch.argmax(logits[:, -1], -1)
+    ck.save(ckpt_dir, 1, {"params": params, "caches": caches,
+                          "tok": tok})
+    toks, caches = setup.make_generate(steps)(params, caches, tok, pos0)
+    degraded = make_degraded_mesh([0, 1, 2], prefer_model=16, device="cpu")
+    return {"tokens": toks.numpy(),
+            "degraded": (tuple(degraded.mesh.shape),
+                         degraded.get_coordinate() is not None)}
+
+
+def elastic_restore(rank, world, arch, impl, max_len, batch, steps, pos0,
+                    ckpt_dir):
+    """World 2 restart on (2, 1) (``make_degraded_mesh`` preferring model
+    = 1): restore the world-4 checkpoint with the new mesh's shardings,
+    check every leaf against a plain restore bit for bit, then decode
+    ``steps`` greedy steps.  Returns the tokens and the mesh's shape."""
+    import torch
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.elastic import make_degraded_mesh
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.tree import leaves_with_path, path_str
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    mesh = make_degraded_mesh(prefer_model=1, device="cpu")
+    setup = make_serve_setup(cfg, ShapeSpec("s", max_len, batch, "decode"),
+                             mesh=mesh)
+    model = setup.model
+    plain = {"params": model.init(0),
+             "caches": model.cache_init(None, batch, max_len),
+             "tok": torch.zeros(batch, dtype=torch.int64)}
+    template = {"params": setup.shard_params(model.init(0)),
+                "caches": plain["caches"], "tok": plain["tok"]}
+    shardings = {**{f"params/{k}": v for k, v in shd.param_shardings(
+        template["params"], mesh).items()},
+        **{f"caches/{k}": v for k, v in setup.cache_shardings(
+            plain["caches"]).items()},
+        "tok": shd.NamedSharding(mesh, shd.P(None))}
+    got = ck.restore(ckpt_dir, 1, template, shardings)
+    want = dict(leaves_with_path(ck.restore(ckpt_dir, 1, plain)))
+    for kp, a in leaves_with_path(got):
+        assert torch.equal(a.full_tensor(), want[kp]), path_str(kp)
+    _check_local_shapes(got, shardings)
+    toks, _ = setup.make_generate(steps)(
+        got["params"], got["caches"], got["tok"].full_tensor(), pos0)
+    return {"tokens": toks.numpy(), "mesh": tuple(mesh.mesh.shape)}
+
+
+def _meshless_tokens(arch, impl, over, batch_np, max_len, steps, pos0):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32", **over)
+    setup = make_serve_setup(cfg, ShapeSpec("s", max_len, 2, "decode"),
+                             "cpu")
+    params = setup.model.init(0)
+    logits, caches = setup.prefill_fn(params, {"inputs": torch.from_numpy(
+        batch_np["inputs"].astype(np.int64))})
+    tok = torch.argmax(logits[:, -1], -1)
+    toks, _ = setup.make_generate(steps)(params, caches, tok, pos0)
+    return torch.cat([tok[:, None], toks], 1).numpy()
+
+
+def main() -> int:
+    """The mesh (2, 2) checks at world 4 (and the world-2 restart) against
+    the port's meshless runs; prints one line per check."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import torch_placer
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.steps import make_train_setup
+    torch.set_num_threads(1)
+    ok = True
+
+    def report(name, good, detail=""):
+        nonlocal ok
+        ok = ok and bool(good)
+        print(f"mesh check {name}: {'ok' if good else 'FAILED'} {detail}",
+              flush=True)
+
+    prompt, steps, max_len = 20, 8, 29
+    batch_np = {"inputs": np.random.default_rng(0).integers(
+        0, 500, (2, prompt)).astype(np.int32)}
+    cases = [(a, i, o, None, batch_np, max_len, steps, prompt)
+             for a, i, o in (("yi-9b", "lln_diag", {}),
+                             ("qwen3-14b", "softmax", {}),
+                             ("yi-9b", "lln_diag", {"n_kv_heads": 1}),
+                             ("qwen3-moe-235b-a22b", "lln",
+                              {"capacity_factor": 4.0}))]
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn("_torch_dist:serve_on_mesh", 4, tmp, cases,
+                      4.0, f"{tmp}/elastic")
+        for case, got in zip(cases, ranks[0]["serve"]):
+            want = _meshless_tokens(*case[:3], batch_np, max_len, steps,
+                                    prompt)
+            report(f"serve {case[0]} {case[1]} {case[2]}",
+                   np.array_equal(got["tokens"], want) and got["split"],
+                   f"split cache leaves {got['split']}")
+        moe = ranks[0]["moe"]
+        for kind in ("prefill", "decode"):
+            report(f"moe {kind}", moe[kind]["err"] <= 1e-5 * max(
+                moe[kind]["scale"], 1.0), f"{moe[kind]}")
+        (l0, a0), (l1, a1) = moe["train"]
+        c = moe["aux_coef"]
+        report("moe train", abs((l1 - c * a1) - (l0 - c * a0))
+               <= 1e-5 * abs(l0), f"{moe['train']}")
+        after = spawn("_torch_dist:elastic_restore", 2, tmp, "yi-9b",
+                      "lln_diag", max_len, 2, steps, prompt,
+                      f"{tmp}/elastic")
+        report("elastic", np.array_equal(after[0]["tokens"],
+                                         ranks[0]["elastic"]["tokens"]),
+               f"mesh {after[0]['mesh']}")
+        tcases, want = [], []
+        for impl in ("lln_diag", "softmax"):
+            cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+                             compute_dtype="float32")
+            gen = lm_batches(cfg.vocab, 2, 32, seed=0)
+            batches = [next(gen) for _ in range(2)]
+            setup = make_train_setup(cfg, ShapeSpec("t", 32, 2, "train"),
+                                     "cpu", peak_lr=1e-3, total_steps=3)
+            state = setup.init_state(0)
+            losses = []
+            for b in batches:
+                state, m = setup.step_fn(state, torch_placer("cpu")(b))
+                losses.append(float(m["loss"]))
+            want.append(losses)
+            tcases.append(("yi-9b", impl, {}, None, batches, 1e-3, 3))
+        got, cli = spawn("_torch_dist:train_on_mesh", 4, tmp, tcases,
+                         f"{tmp}/ckpt")[0]
+        for (_, impl, *_), g, w in zip(tcases, got, want):
+            report(f"train {impl}", all(abs(a - b) <= 1e-5 * abs(b)
+                                        for a, b in zip(g["loss"], w)),
+                   f"{g['loss']} vs {w}")
+        report("train CLI", len(cli) == 2, f"losses {cli}")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -127,16 +127,19 @@ def test_entry_points_raise_without_a_device(monkeypatch):
                                    "--speculative", "--spec-k", "3"],
                                   ["--mesh", "2,1"]])
 def test_serve_unported_modes_raise(argv, capsys):
-    """``--mesh`` names its ROADMAP item; ``--speculative``, alone or with
-    ``--continuous``, raised before speculative decoding was ported and
-    now serves."""
+    """``--mesh`` other than ``1,1`` needs as many processes as devices: in
+    one process it raises ``ValueError`` before any process group starts
+    (it raised ``NotImplementedError`` before meshes were ported);
+    ``--speculative``, alone or with ``--continuous``, raised before
+    speculative decoding was ported and now serves."""
     from repro_torch.launch import serve
     base = ["--arch", "yi-9b", "--smoke", "--device", "cpu"]
     if "--attn-impl" not in argv:
         base += ["--attn-impl", "lln"]
-    if "--speculative" not in argv:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "--mesh" in argv:
+        with pytest.raises(ValueError, match="2 devices needs 2 processes"):
             serve.main(base + argv)
+        assert not torch.distributed.is_initialized()
         return
     out = serve.main(base + argv)
     text = capsys.readouterr().out

@@ -78,7 +78,11 @@ verify on the kernel route: a ``commit_len = 0`` verify leaves the state
 bitwise, ``commit`` equals ``decode(commit_len)`` bitwise and the plain
 kind within the tolerances above, for every impl in fp32 and bf16; greedy
 speculative decoding and a speculative pool of yi-9b SMOKE give the plain
-greedy loop's and the solo runs' tokens.
+greedy loop's and the solo runs' tokens.  On a one-rank NCCL group and a
+1 x 1 DeviceMesh (the one mesh with real collectives a single card runs),
+SMOKE serving (yi-9b ``lln_diag`` and ``softmax``, qwen3-moe through the
+expert-parallel path) and training give the meshless run's tokens and
+losses (1e-5) with the same kernel launches.
 """
 import importlib
 
@@ -1533,3 +1537,103 @@ def test_cuda_adamw_update_is_the_formula_bit_for_bit(cuda):
     """``adamw_update`` on the card (leaf by leaf, in place) gives the
     formula's params, moments and norm bit for bit."""
     _adamw_matches_the_formula(cuda)
+
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A one-rank NCCL group (a local port) and a 1 x 1 DeviceMesh on the
+    card, destroyed after the test: the only mesh with real collectives
+    that one card runs."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    assert not dist.is_initialized()
+    mesh = make_smoke_mesh(1, 1)
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _launch_counts():
+    kernels = {"lln_causal": lln_causal, "block_diag": block_diag,
+               "lln_decode": lln_decode, "lln_diag_fused": lln_diag_fused,
+               "lln_causal_bwd": lln_causal_bwd,
+               "lln_diag_fused_bwd": lln_diag_fused_bwd}
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [("yi-9b", "lln_diag"),
+                                       ("yi-9b", "softmax"),
+                                       ("qwen3-moe-235b-a22b", "lln")])
+def test_cuda_one_rank_mesh_serves_like_meshless(one_rank_mesh, arch, impl):
+    """SMOKE serving (fp32, prompt 24, 8 greedy steps) through
+    ``make_serve_setup(mesh=...)`` on the 1 x 1 mesh: the meshless run's
+    tokens from the same weights, and the same kernel launches (the MoE
+    block through the expert-parallel path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    shape = ShapeSpec("s", 33, 2, "decode")
+    runs = []
+    params = None
+    for mesh in (None, one_rank_mesh):
+        setup = make_serve_setup(cfg, shape, "cuda", mesh=mesh)
+        params = setup.model.init(0) if params is None else params
+        params = setup.shard_params(params)
+        batch = synthetic_batch(cfg, 2, 33, seed=1, text_seq=24,
+                                device="cuda")
+        before = _launch_counts()
+        logits, caches = setup.prefill_fn(params, batch)
+        tok = torch.argmax(logits[:, -1], -1)
+        toks, caches = setup.make_generate(8)(params, caches, tok, 24)
+        torch.cuda.synchronize()
+        runs.append((torch.cat([tok[:, None], toks], 1),
+                     _diff(_launch_counts(), before)))
+    (t0, c0), (t1, c1) = runs
+    assert torch.equal(t0, t1)
+    assert c0 == c1
+    if impl != "softmax":
+        assert c1["lln_causal"] == cfg.n_layers
+        assert c1["lln_decode"] == 8 * cfg.n_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["lln", "lln_diag"])
+def test_cuda_one_rank_mesh_trains_like_meshless(one_rank_mesh, impl):
+    """yi-9b SMOKE training (fp32, use_kernel=True, 2 steps of 2 x 32) on
+    the 1 x 1 mesh: the meshless run's losses within 1e-5 relative and the
+    same training-kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import torch_placer
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.steps import make_train_setup
+    cfg = get_config("yi-9b", smoke=True, attn_impl=impl,
+                     compute_dtype="float32", use_kernel=True)
+    shape = ShapeSpec("t", 32, 2, "train")
+    gen = lm_batches(cfg.vocab, 2, 32, seed=0)
+    place = torch_placer("cuda")
+    batches = [place(next(gen)) for _ in range(2)]
+    runs = []
+    for mesh in (None, one_rank_mesh):
+        setup = make_train_setup(cfg, shape, "cuda", mesh=mesh,
+                                 peak_lr=1e-3, total_steps=10)
+        state = setup.init_state(0)
+        before = _launch_counts()
+        losses = []
+        for b in batches:
+            state, m = setup.step_fn(state, b)
+            losses.append(float(m["loss"]))
+        runs.append((losses, _diff(_launch_counts(), before)))
+    (l0, c0), (l1, c1) = runs
+    assert c0 == c1 and (c1["lln_causal"] or c1["lln_diag_fused"])
+    for a, b in zip(l1, l0):
+        assert abs(a - b) <= 1e-5 * abs(b), (l1, l0)

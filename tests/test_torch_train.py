@@ -177,9 +177,12 @@ def test_train_cli_on_cpu(impl, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2,1"], "mesh"),
+    (["--mesh", "2,1", "--arch", "mamba2-130m"], "mesh"),
 ])
 def test_train_cli_refuses_unported_options(argv, match):
+    """A mesh trains the dense and MoE decoders (item 12a); the other
+    families on a mesh name item 12b (every ``--mesh`` raised before
+    meshes were ported)."""
     base = ["--arch", "yi-9b", "--smoke", "--device", "cpu", "--steps", "1",
             "--attn-impl", "lln"]
     with pytest.raises(NotImplementedError, match=match):
