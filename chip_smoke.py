@@ -182,13 +182,23 @@ destroyed at the end) and mesh_fake (in a child process: a fake process
 group of 4 ranks, a (1, 4) mesh, yi-9b lln_diag at full width with 4
 layers, one prefill and 2 decode steps: 8 query heads and 1 kv head per
 rank in the state and the diag tails, rows 1-3 launched at those heads,
-and the collectives of one decode step).
+and the collectives of one decode step).  Item 12b adds to mesh_fake's
+child the other families at full width (mamba2-130m, zamba2-7b, MLA in
+lln_diag and softmax, seamless-m4t-medium, paligemma-3b, yi-9b
+log_linear): every cache leaf at cache_shardings' shard on a rank, and
+the kernels' q rows per rank; mesh_families (the one-rank NCCL group and
+the 1 x 1 mesh again, at full width: each family served at batch B, 4
+greedy steps, tokens and launch counts equal to the meshless run's from
+the same weights; 2 training steps on the kernels per family, losses
+within 1e-5 relative, launches equal); and dryrun (launch/dryrun.py in
+child processes, one cell per family on 16 x 16 and 2 x 16 x 16, each ok
+with the argument bytes the port's rules give).
 
 ``python3 chip_smoke.py --phases spec,spec_pool`` runs only the named
 check phases (spec, spec_pool, small_pool, kernels_families,
 small_families, serve_families, kernels_families_train,
-small_families_train, train_families, mesh, mesh_fake) after device and
-build, and prints no kernels line.
+small_families_train, train_families, mesh, mesh_fake, mesh_families,
+dryrun) after device and build, and prints no kernels line.
 """
 from __future__ import annotations
 
@@ -196,6 +206,7 @@ import collections
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -4972,7 +4983,8 @@ def _mesh_fake_child():
     try:
         mesh = make_smoke_mesh(1, FAKE_WORLD)
         shapes = collections.defaultdict(set)
-        for name in ("lln_causal", "block_diag", "lln_decode"):
+        for name in ("lln_causal", "block_diag", "lln_decode", "lln_bidir",
+                     "loglin_causal"):
             def rec(*args, _fn=getattr(ops, name), _name=name, **kw):
                 shapes[_name].add(tuple(tuple(a.shape) for a in args[:3]))
                 return _fn(*args, **kw)
@@ -4993,11 +5005,14 @@ def _mesh_fake_child():
         torch.cuda.synchronize()
         local = {k: list(getattr(caches["layers"][0], k).to_local().shape)
                  for k in ("s", "z", "c_k", "tail_k", "tail_v")}
-        print(json.dumps({
-            "local": local, "launches": _read(),
-            "shapes": {k: sorted(v) for k, v in shapes.items()},
-            "comm": {str(op): n for op, n in
-                     comm.get_comm_counts().items()}}))
+        got = {"local": local, "launches": _read(),
+               "shapes": {k: sorted(v) for k, v in shapes.items()},
+               "comm": {str(op): n for op, n in
+                        comm.get_comm_counts().items()}}
+        del setup, params, caches
+        torch.cuda.empty_cache()
+        got["families"] = _fake_family_runs(mesh, shapes)
+        print(json.dumps(got))
     finally:
         dist.destroy_process_group()
 
@@ -5034,6 +5049,430 @@ def phase_mesh_fake(launches):
         if heads != {(B * hq, B * hk)}:
             raise AssertionError(f"mesh_fake: {name} ran at q/k rows "
                                  f"{heads}, expected {(B * hq, B * hk)}")
+    _check_fake_families(got["families"])
+
+
+# Per mesh_fake family: (cache leaf, dim, its size on one of the
+# FAKE_WORLD ranks) by the reference's rules (every leaf is also held to
+# cache_shardings' shard), and (kernel, the q rows per call: B x the heads
+# per rank).
+FAKE_WANT = {
+    # replicate: the batch over (data, model), so the rows split and the
+    # 24 heads stay whole on each rank.
+    "mamba2-130m": ((("layers/0/state", 0, B // FAKE_WORLD),
+                     ("layers/0/state", 1, 24)), ()),
+    "zamba2-7b": ((("layers/0/state", 1, 112 // FAKE_WORLD),
+                   ("shared/0/s", 1, 32 // FAKE_WORLD)),
+                  (("lln_causal", B * 32 // FAKE_WORLD),
+                   ("lln_decode", B * 32 // FAKE_WORLD))),
+    "mla lln_diag": ((("layers/0/s", 1, 128 // FAKE_WORLD),
+                      ("first_layers/0/s", 1, 128 // FAKE_WORLD)),
+                     (("lln_causal", B * 128 // FAKE_WORLD),
+                      ("lln_decode", B * 128 // FAKE_WORLD))),
+    "mla softmax": ((("layers/0/ckv", 2, 512 // FAKE_WORLD),), ()),
+    "seamless-m4t-medium": ((("layers/0/self/s", 1, 16 // FAKE_WORLD),
+                             ("layers/0/ck", 2, 16 // FAKE_WORLD)),
+                            (("lln_bidir", B * 16 // FAKE_WORLD),
+                             ("lln_causal", B * 16 // FAKE_WORLD))),
+    # context: attention whole per rank (all 8 heads), the state split.
+    "paligemma-3b": ((("layers/0/s", 1, 8 // FAKE_WORLD),),
+                     (("lln_causal", B * 8),)),
+    "yi-9b log_linear": ((("layers/0/sl", 2, 32 // FAKE_WORLD),),
+                         (("loglin_causal", B * 32 // FAKE_WORLD),))}
+
+
+def _check_fake_families(got):
+    """mesh_fake's families: each local state leaf and each kernel's q rows
+    per rank as FAKE_WANT says."""
+    for label, (leaves, kernels) in FAKE_WANT.items():
+        res = got[label]
+        log(f"mesh_fake {label}: local cache {res['local']}; kernel input "
+            f"shapes {res['kernels']}")
+        if res["wrong"]:
+            raise AssertionError(f"mesh_fake {label}: cache leaves not at "
+                                 f"cache_shardings' shard: {res['wrong']}")
+        for leaf, dim, size in leaves:
+            if res["local"][leaf][dim] != size:
+                raise AssertionError(f"mesh_fake {label}: {leaf} local "
+                                     f"{res['local'][leaf]}, dim {dim} "
+                                     f"should be {size}")
+        for name, rows in kernels:
+            seen = {tuple(s)[0][0] for s in res["kernels"].get(name, [])}
+            if seen != {rows}:
+                raise AssertionError(f"mesh_fake {label}: {name} q rows "
+                                     f"{seen}, expected {{{rows}}}")
+
+
+# ---------------------------------------------------------------------------
+# Item 12b: the other families on a mesh, and the production-mesh dry run.
+# ---------------------------------------------------------------------------
+
+MF_GEN = 4                    # mesh_families: greedy decode steps
+# (label, arch, impl, overrides, text prompt): served at batch B on the
+# 1 x 1 mesh and without it (paligemma: 256 patches before its text;
+# seamless: MF_SRC source frames before a 64-token target prompt).
+MF_SERVE = (("mamba2-130m", "mamba2-130m", "softmax", {}, N),
+            ("zamba2-7b", "zamba2-7b", "lln_diag", {"n_layers": 7}, N),
+            ("deepseek-v2 lln_diag", "deepseek-v2-236b", "lln_diag",
+             {"n_layers": 2}, N),
+            ("deepseek-v2 softmax", "deepseek-v2-236b", "softmax",
+             {"n_layers": 2}, N),
+            ("seamless-m4t-medium", "seamless-m4t-medium", "lln_diag", {},
+             64),
+            ("paligemma-3b lln_diag", "paligemma-3b", "lln_diag",
+             {"n_layers": 4}, VLM_TEXT),
+            ("paligemma-3b softmax", "paligemma-3b", "softmax",
+             {"n_layers": 4}, VLM_TEXT),
+            ("yi-9b log_linear", "yi-9b", "log_linear", {"n_layers": 8}, N))
+MF_SRC = 512
+# (label, arch, impl, overrides, batch, sequence): 2 steps on the kernels
+# (fp32 params and moments; fp32 compute at the wide heads, as PR 28's
+# train cells held their first step).
+MF_TRAIN = (("mamba2-130m", "mamba2-130m", "softmax", {}, 4, N),
+            ("zamba2-7b", "zamba2-7b", "lln_diag", {"n_layers": 7}, 4, N),
+            ("deepseek-v2", "deepseek-v2-236b", "lln_diag",
+             {"n_layers": 1, "compute_dtype": "float32"}, 4, N),
+            ("seamless-m4t-medium", "seamless-m4t-medium", "lln_diag", {}, 4,
+             N),
+            ("roberta-lln", "roberta-lln", "lln_diag", {}, EB, EN),
+            ("paligemma-3b", "paligemma-3b", "lln_diag",
+             {"n_layers": 4, "compute_dtype": "float32"}, 2, N))
+# Where a family run's launches go in the kernels line (the rows' keys).
+MF_KEYS = {"lln_causal": "lln_causal (state)", "block_diag": "block_diag",
+           "lln_decode": "lln_decode", "lln_bidir": "lln_bidir",
+           "block_diag (causal=False)": "block_diag (causal=False)",
+           "loglin_causal": "loglin_causal",
+           "lln_diag_fused": "lln_diag_fused",
+           "lln_diag_fused_bwd": "lln_diag_fused_bwd",
+           "lln_bidir_bwd": "lln_bidir_bwd",
+           "block_diag_bwd": "block_diag_bwd", "ssd": "ssd",
+           "lln_causal_bwd": "lln_causal_bwd"}
+
+
+def _mf_batch(cfg, prompt):
+    """A serving batch: ``prompt`` text tokens, and the family's patches or
+    MF_SRC source frames; returns (batch, first decode position)."""
+    from repro_torch.models import synthetic_batch
+    if cfg.family == "encdec":
+        batch = synthetic_batch(cfg, B, MF_SRC, seed=SEED, text_seq=prompt,
+                                device="cuda")
+    else:
+        batch = synthetic_batch(cfg, B, prompt + cfg.num_prefix_tokens,
+                                seed=SEED, text_seq=prompt, device="cuda")
+    batch = {k: v for k, v in batch.items()
+             if k in ("inputs", "src", "patches")}
+    return batch, batch["inputs"].shape[1] + (
+        cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+
+
+def _mf_serve(setup, params, batch, pos0):
+    """Prefill and MF_GEN greedy steps: (tokens, prefill launches, decode
+    launches, prefill ms, decode ms per step)."""
+    _reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, caches = setup.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    pre = _read()
+    _reset()
+    tok = torch.argmax(logits[:, -1], -1)
+    t0 = time.time()
+    toks, caches = setup.make_generate(MF_GEN)(params, caches, tok, pos0)
+    torch.cuda.synchronize()
+    t_dec = time.time() - t0
+    dec = _read()
+    return (torch.cat([tok[:, None], toks], 1), pre, dec, t_pre * 1e3,
+            t_dec / MF_GEN * 1e3)
+
+
+def phase_mesh_families(launches, mesh_times):
+    """Item 12b on a one-rank NCCL group and a 1 x 1 DeviceMesh, at full
+    width: each MF_SERVE cell (bf16 weights from the seed, use_kernel=True,
+    batch B) served without the mesh and then through
+    make_serve_setup(mesh=...) from the same weights, MF_GEN greedy steps:
+    the tokens and every kernel's launch counts equal; each MF_TRAIN cell
+    (use_kernel=True, one microbatch) 2 steps without and with the mesh:
+    losses within 1e-5 relative and the launch counts equal.  The mesh
+    runs' launches go into the kernels line; each model is freed before
+    the next.  The group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import torch_placer
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_serve_setup, make_train_setup
+    mesh = make_smoke_mesh(1, 1)
+
+    def count(got):
+        for key, n in got.items():
+            if key in MF_KEYS:
+                launches[MF_KEYS[key]] += n
+
+    try:
+        for label, arch, impl, over, prompt in MF_SERVE:
+            cfg = get_config(arch, attn_impl=impl, param_dtype="bfloat16",
+                             use_kernel=True, **over)
+            batch, pos0 = _mf_batch(cfg, prompt)
+            shape = ShapeSpec("chip", pos0 + MF_GEN + 1, B, "decode")
+            plain = make_serve_setup(cfg, shape)
+            params = plain.model.init(SEED)
+            _mf_serve(plain, params, batch, pos0)          # warm-up
+            toks0, pre0, dec0, p0, d0 = _mf_serve(plain, params, batch,
+                                                  pos0)
+            setup = make_serve_setup(cfg, shape, mesh=mesh)
+            params = setup.shard_params(params)
+            toks1, pre1, dec1, p1, d1 = _mf_serve(setup, params, batch, pos0)
+            log(f"mesh_families serve {label}: launches {pre1} / {dec1}; "
+                f"prefill {p1:.1f} ms (meshless {p0:.1f}), decode "
+                f"{d1:.2f} ms/step (meshless {d0:.2f})")
+            if (pre1, dec1) != (pre0, dec0):
+                raise AssertionError(f"mesh_families serve {label}: "
+                                     f"launches {pre1} / {dec1} vs "
+                                     f"meshless {pre0} / {dec0}")
+            if not torch.equal(toks0, toks1):
+                raise AssertionError(f"mesh_families serve {label}: tokens "
+                                     f"{toks1.tolist()} vs meshless "
+                                     f"{toks0.tolist()}")
+            if impl != "softmax" and not (pre1["lln_causal"]
+                                          or pre1["loglin_causal"]):
+                raise AssertionError(f"mesh_families serve {label}: no "
+                                     f"prefill kernel launched: {pre1}")
+            if impl == "log_linear":
+                launches["lln_decode (log_linear)"] += dec1["lln_decode"]
+                dec1 = {**dec1, "lln_decode": 0}
+            count(pre1)
+            count(dec1)
+            mesh_times[f"serve {label}"] = {
+                "prefill_ms": p1, "decode_ms_per_step": d1,
+                "meshless_prefill_ms": p0, "meshless_decode_ms_per_step": d0}
+            del plain, setup, params
+            torch.cuda.empty_cache()
+        place = torch_placer("cuda")
+        for label, arch, impl, over, b, n in MF_TRAIN:
+            cfg = get_config(arch, attn_impl=impl, use_kernel=True,
+                             param_dtype="float32", grad_accum=1, **over)
+            gen = _synthetic_batches(cfg)(cfg.vocab, b, n, seed=SEED)
+            tbatches = [place(next(gen)) for _ in range(2)]
+            runs = {}
+            for tag, mesh_ in (("meshless", None), ("mesh", mesh)):
+                tsetup = make_train_setup(
+                    cfg, ShapeSpec("chip", n, b, "train"), mesh=mesh_,
+                    peak_lr=3e-4, total_steps=1000)
+                state = tsetup.init_state(SEED)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset()
+                t0 = time.time()
+                losses = []
+                for tb in tbatches:
+                    state, m = tsetup.step_fn(state, tb)
+                    losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                runs[tag] = (losses, _read(), (time.time() - t0) / 2,
+                             torch.cuda.max_memory_allocated() / 2 ** 30)
+                del tsetup, state, m
+                torch.cuda.empty_cache()
+            (l0, c0, s0, g0), (l1, c1, s1, g1) = runs["meshless"], runs["mesh"]
+            log(f"mesh_families train {label}: losses {l1} (meshless {l0}); "
+                f"launches {c1}; {s1 * 1e3:.0f} ms/step (meshless "
+                f"{s0 * 1e3:.0f}, the first step included); peak "
+                f"{g1:.2f} GiB")
+            if c1 != c0 or not any(c1.values()):
+                raise AssertionError(f"mesh_families train {label}: "
+                                     f"launches {c1} vs {c0}")
+            if any(abs(a - b_) > 1e-5 * abs(b_) for a, b_ in zip(l1, l0)):
+                raise AssertionError(f"mesh_families train {label}: losses "
+                                     f"{l1} vs {l0}")
+            if max(g0, g1) > 70:
+                raise AssertionError(f"mesh_families train {label}: peak "
+                                     f"{max(g0, g1):.1f} GiB")
+            count(c1)
+            mesh_times[f"train {label}"] = {
+                "losses": l1, "meshless_losses": l0, "ms_per_step": s1 * 1e3,
+                "meshless_ms_per_step": s0 * 1e3, "peak_gib": g1}
+    finally:
+        dist.destroy_process_group()
+
+
+# mesh_fake's families at full width (label, arch, impl, overrides), prompt
+# FAKE_N (paligemma: its 256 patches before it), and what one rank of the
+# (1, FAKE_WORLD) mesh holds.
+FAKE_N = 64
+FAKE_FAMILIES = (("mamba2-130m", "mamba2-130m", "softmax", {"n_layers": 2}),
+                 ("zamba2-7b", "zamba2-7b", "lln_diag", {"n_layers": 6}),
+                 ("mla lln_diag", "deepseek-v2-236b", "lln_diag",
+                  {"n_layers": 2}),
+                 ("mla softmax", "deepseek-v2-236b", "softmax",
+                  {"n_layers": 2}),
+                 ("seamless-m4t-medium", "seamless-m4t-medium", "lln_diag",
+                  {"n_layers": 2, "enc_layers": 2}),
+                 ("paligemma-3b", "paligemma-3b", "lln_diag",
+                  {"n_layers": 2}),
+                 ("yi-9b log_linear", "yi-9b", "log_linear",
+                  {"n_layers": 2}))
+
+
+def _fake_family_runs(mesh, shapes):
+    """The FAKE_FAMILIES cells on the fake mesh: a prefill and one decode
+    step each; returns {label: {cache leaf: local shape}} for the first
+    layer's cache leaves (and the shared block's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.tree import leaves_with_path, path_str
+    out = {}
+    for label, arch, impl, over in FAKE_FAMILIES:
+        cfg = get_config(arch, attn_impl=impl, param_dtype="bfloat16",
+                         use_kernel=True, **over)
+        batch, pos0 = _mf_batch(cfg, FAKE_N)
+        setup = make_serve_setup(cfg, ShapeSpec("chip", pos0 + 3, B,
+                                                "decode"), mesh=mesh)
+        params = setup.shard_params(setup.model.init(SEED))
+        shapes.clear()
+        _, caches = setup.prefill_fn(params, batch)
+        _, caches = setup.decode_fn(params, caches,
+                                    torch.zeros(B, dtype=torch.int64,
+                                                device="cuda"), pos0)
+        rules = setup.cache_shardings(caches)
+        local, wrong = {}, []
+        for kp, a in leaves_with_path(caches):
+            key = path_str(kp)
+            want = list(a.shape)
+            for i, pl in enumerate(rules[key].placements):
+                if pl.is_shard():
+                    want[pl.dim] //= mesh.size(i)
+            if list(a.to_local().shape) != want:
+                wrong.append((key, list(a.to_local().shape), want))
+            if key.split("/")[1] == "0":
+                local[key] = list(a.to_local().shape)
+        out[label] = {"local": local, "wrong": wrong,
+                      "kernels": {k: sorted(v) for k, v in shapes.items()}}
+        del setup, params, caches
+        torch.cuda.empty_cache()
+    return out
+
+
+# One dry-run cell per family (arch, shape, overrides), on both production
+# meshes.
+DRY_CELLS = (("yi-9b", "decode_32k", {"n_layers": 1}),
+             ("qwen3-moe-235b-a22b", "decode_32k", {"n_layers": 1}),
+             ("deepseek-v2-236b", "decode_32k", {"n_layers": 2}),
+             ("mamba2-130m", "decode_32k", {"n_layers": 1}),
+             ("zamba2-7b", "decode_32k", {"n_layers": 6}),
+             ("seamless-m4t-medium", "decode_32k",
+              {"n_layers": 1, "enc_layers": 1}),
+             ("paligemma-3b", "decode_32k", {"n_layers": 1}),
+             ("roberta-lln", "train_4k", {"n_layers": 1}))
+DRY_CHILD = """
+import json, sys
+import torch.distributed as dist
+from repro_torch.launch import dryrun
+cells, multi_pod = json.loads(sys.argv[1]), sys.argv[2] == "1"
+out = [dryrun.run_cell(a, s, multi_pod, "auto", o) for a, s, o in cells]
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def _dryrun_expected(arch, shape_name, over, multi_pod):
+    """A dry-run cell's per-rank argument bytes by the port's rules on a
+    duck mesh of the production shape: parameters (and AdamW moments) by
+    param_specs, caches by cache_shardings, the batch or token by the
+    rules' batch axes."""
+    from types import SimpleNamespace
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves_with_path, path_str
+    cfg, _, shape = dryrun.cell_config(arch, shape_name, overrides=over)
+    dims = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    duck = SimpleNamespace(axis_names=names,
+                           devices=SimpleNamespace(shape=dims))
+    sizes = dict(zip(names, dims))
+    rules = shd.make_rules(cfg, multi_pod=multi_pod,
+                           serve=shape.kind != "train")
+
+    def nbytes(shape_, dtype, spec):
+        n = 1
+        for dim, axes in zip(shape_, tuple(spec) + (None,) * len(shape_)):
+            axes = () if axes is None else (
+                axes if isinstance(axes, tuple) else (axes,))
+            n *= dim // math.prod(sizes[a] for a in axes)
+        return n * torch.empty((), dtype=dtype).element_size()
+
+    def tree_bytes(tree, specs):
+        return sum(nbytes(t.shape, t.dtype, specs[path_str(kp)])
+                   for kp, t in leaves_with_path(tree))
+
+    b, n = shape.global_batch, shape.seq_len
+    with FakeTensorMode():
+        model = build_model(cfg, "cpu")
+        params = model.init(None)
+        if shape.kind == "train":
+            state = {"params": params, "opt": adamw_init(params)}
+            total = tree_bytes(state, shd.param_specs(state, duck))
+            spec = shd.fit_spec(shd.P(rules["act_batch"], rules["act_seq"]),
+                                (b, n), duck)
+            return total + 2 * nbytes((b, n), torch.int64, spec) + nbytes(
+                (b, n), torch.float32, spec)
+        total = tree_bytes(params, shd.param_specs(params, duck))
+        caches = model.cache_init(None, b, n)
+        total += tree_bytes(caches, {
+            k: v.spec for k, v in steps.cache_shardings(
+                caches, cfg, duck, rules).items()})
+        spec = shd.fit_spec(shd.P(rules["act_batch"]), (b,), duck)
+        return total + nbytes((b,), torch.int64, spec)
+
+
+def phase_dryrun(results):
+    """launch/dryrun.py on the card's host: child processes (one for 16 x
+    16, two for 2 x 16 x 16; each starts its own fake group of 256 or 512
+    ranks and traces with fake cuda tensors, nothing launched) run the
+    DRY_CELLS; each cell is ok and its per-rank argument bytes are the
+    ones the port's rules give (_dryrun_expected)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    half = len(DRY_CELLS) // 2
+    jobs = [(False, DRY_CELLS), (True, DRY_CELLS[:half]),
+            (True, DRY_CELLS[half:])]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DRY_CHILD, json.dumps(cells),
+         "1" if mp else "0"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=str(ROOT)) for mp, cells in jobs]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun child failed:\n{err[-4000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    got = {False: outs[0], True: outs[1] + outs[2]}
+    for mp in (False, True):
+        for (arch, shape, over), cell in zip(DRY_CELLS, got[mp]):
+            want = _dryrun_expected(arch, shape, over, mp)
+            log(f"dryrun {arch} {shape} {cell['mesh']}: ok {cell['ok']}, "
+                f"trace {cell['lower_s']} s, args "
+                f"{cell['argument_size_in_bytes']} B (rules: {want}), outputs "
+                f"{cell['output_size_in_bytes']} B, temp "
+                f"{cell['temp_size_in_bytes']} B, flops {cell['flops']:.3e}, "
+                f"collectives {cell['collectives']}")
+            if not cell["ok"] or cell["argument_size_in_bytes"] != want:
+                raise AssertionError(f"dryrun {arch} {shape} {cell['mesh']}:"
+                                     f" {cell}, expected argument bytes "
+                                     f"{want}")
+            results[f"dryrun {arch} {shape} {cell['mesh']}"] = {
+                k: cell[k] for k in ("lower_s", "argument_size_in_bytes",
+                                     "output_size_in_bytes",
+                                     "temp_size_in_bytes", "flops",
+                                     "collectives")}
 
 
 _T0 = time.time()
@@ -5148,6 +5587,9 @@ def main(argv=None):
     mesh_times = {}
     _phase(phase_mesh, launches, mesh_times)
     _phase(phase_mesh_fake, launches)
+    _phase(phase_mesh_families, launches, mesh_times)
+    dry = {}
+    _phase(phase_dryrun, dry)
     rows, decode_times = _phase(phase_timings, errs, launches)
     train_rows, fused_zamba2 = _phase(phase_timings_train, errs, launches)
     rows += train_rows
@@ -5177,6 +5619,7 @@ def main(argv=None):
     log("speculative times: " + json.dumps(spec_times))
     log("checkpoint (roberta-lln train state): " + json.dumps(ckpt_times))
     log("mesh times: " + json.dumps(mesh_times))
+    log("dryrun cells: " + json.dumps(dry))
     print(smi)
     print(json.dumps({"kernels": rows}))
     _print_ok()
@@ -5211,7 +5654,9 @@ def _main_selected(smi, only):
              "train_families": lambda: phase_train_families(launches,
                                                             times),
              "mesh": lambda: phase_mesh(launches, times),
-             "mesh_fake": lambda: phase_mesh_fake(launches)}
+             "mesh_fake": lambda: phase_mesh_fake(launches),
+             "mesh_families": lambda: phase_mesh_families(launches, times),
+             "dryrun": lambda: phase_dryrun(results)}
     unknown = only - set(table)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}; known: "

@@ -156,7 +156,13 @@ def flash_softmax(q, k, v, *, causal: bool = True, chunk: int = 1024,
     visible to every query (a prefix-LM).  With grad enabled each key
     chunk runs under ``torch.utils.checkpoint``, as the reference wraps
     its step in ``jax.checkpoint``: the backward recomputes the chunk's
-    probabilities instead of keeping them."""
+    probabilities instead of keeping them.  On a mesh (DTensor q) it runs
+    per rank under ``local_map``."""
+    if is_dtensor(q):
+        from repro_torch.distributed import local_attention
+        return local_attention.flash_softmax(
+            q, k, v, causal=causal, chunk=chunk, mask=mask, scale=scale,
+            prefix_len=prefix_len, q_start=q_start)
     b, nq, h, d = q.shape
     nk, g = k.shape[1], k.shape[2]
     dv = v.shape[-1]

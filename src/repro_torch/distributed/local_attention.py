@@ -39,6 +39,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .sharding import is_dtensor
+
 
 class _SumOver(torch.autograd.Function):
     """All-reduce (sum) over process groups.  Its adjoint is the same
@@ -138,11 +140,12 @@ def _grad_placements(t, lay: Layout):
     return tuple(out)
 
 
-def _kv_range(lay: Layout, h_loc: int, h: int, g: int) -> tuple[int, int]:
+def _kv_range(lay: Layout, h_loc: int, h: int, g: int,
+              g_loc: int) -> tuple[int, int]:
     """The kv heads [g_lo, g_hi) this rank's query heads read, of k/v's
-    local heads."""
+    ``g_loc`` local heads (G in all)."""
     if lay.role != "heads" or lay.kv_split:
-        return 0, g
+        return 0, g_loc
     r = h // g
     h0 = lay.rank * h_loc
     g_lo, g_hi = h0 // r, (h0 + h_loc - 1) // r + 1
@@ -199,42 +202,145 @@ def _calibration(ql, kl, cfg, lay: Layout, h: int, g: int, g_lo: int,
     return alpha, beta
 
 
+def _row_offset(lay: Layout, b_loc: int) -> int:
+    """The first global batch row of this rank's rows (the batch split
+    over ``lay.batch``'s mesh dims, the outer first)."""
+    names = lay.mesh.mesh_dim_names
+    idx = 0
+    for name in lay.batch:
+        i = names.index(name)
+        idx = idx * lay.mesh.shape[i] + lay.mesh.get_local_rank(i)
+    return idx * b_loc
+
+
+def _given(t, lay: Layout, b_loc: int, lo: int, hi: int, heads: int):
+    """A given alpha or beta (a float, or a tensor whose last dim is its
+    heads, with a leading (B,) for per-row constants; whole on every rank)
+    cut to this rank's rows and to heads [lo, hi)."""
+    if t is None or not torch.is_tensor(t) or t.ndim == 0:
+        return t
+    if is_dtensor(t):
+        t = t.full_tensor()
+    if t.shape[-1] == heads:
+        t = t[..., lo:hi]
+    if t.ndim == 2:
+        r0 = _row_offset(lay, b_loc)
+        t = t[r0:r0 + b_loc]
+    return t
+
+
+def _local_constants(alpha, beta, lay: Layout, h: int, g: int, h_loc: int,
+                     b_loc: int, g_lo: int, g_hi: int):
+    """This rank's share of given (alpha, beta): alpha by its query heads,
+    beta by its kv heads (G of them; [g_lo, g_hi) of k's local heads) or
+    its query heads (a per-head beta, pooled to the groups by the
+    core)."""
+    q_lo = lay.rank * h_loc if lay.role == "heads" else 0
+    q_hi = q_lo + h_loc
+    if lay.kv_split:
+        g_lo, g_hi = lay.rank * g_hi, (lay.rank + 1) * g_hi
+    a = _given(alpha, lay, b_loc, q_lo, q_hi, h)
+    if torch.is_tensor(beta) and beta.ndim and beta.shape[-1] == h \
+            and h != g:
+        b = _given(beta, lay, b_loc, q_lo, q_hi, h)
+    else:
+        b = _given(beta, lay, b_loc, g_lo, g_hi, g)
+    return a, b
+
+
+def _key_mask(mask, k):
+    """A (B, N) key mask placed like k's rows (whole on its other mesh
+    dims), as a DTensor on k's mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = tuple(Shard(0) if p == Shard(0) else Replicate()
+               for p in k.placements)
+    if is_dtensor(mask):
+        return mask if tuple(mask.placements) == pl else mask.redistribute(
+            mask.device_mesh, pl)
+    mesh = k.device_mesh
+    whole = DTensor.from_local(mask, mesh, (Replicate(),) * mesh.ndim,
+                               run_check=False)
+    return whole.redistribute(mesh, pl)
+
+
 def multi_head_attention(q, k, v, cfg, *, mask=None, alpha=None, beta=None,
                          prefix_len: int = 0):
     """``core/attention.py:multi_head_attention`` on DTensor q/k/v, under
-    ``local_map``."""
+    ``local_map``.  ``mask`` (B, N) is split like k's rows;
+    ``prefix_len`` reaches the softmax only; a given ``alpha`` / ``beta``
+    is cut to the rank's heads (and rows, when per row)."""
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.core import attention as ca
-    if mask is not None or prefix_len or alpha is not None \
-            or beta is not None:
-        raise NotImplementedError(
-            "mask / prefix_len / given alpha-beta attention on a mesh is "
-            "ROADMAP.md item 12b")
     lay = layout_of(q, k)
     h, g = q.shape[2], k.shape[2]
+    given = alpha is not None and beta is not None
 
-    def local(ql, kl, vl):
-        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g)
+    def local(ql, kl, vl, ml):
+        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g, kl.shape[2])
         if lay.role == "seq":
             return ca.flash_softmax(
                 ql, kl, vl, causal=cfg.causal,
-                chunk=min(cfg.softmax_chunk, kl.shape[1]),
-                q_start=lay.rank * ql.shape[1])
+                chunk=min(cfg.softmax_chunk, kl.shape[1]), mask=ml,
+                prefix_len=prefix_len, q_start=lay.rank * ql.shape[1])
         a = b = None
         if cfg.impl != "softmax":
-            a, b = _calibration(ql, kl, cfg, lay, h, g, g_lo, g_hi,
-                                per_row=False)
+            if given:
+                a, b = _local_constants(alpha, beta, lay, h, g, ql.shape[2],
+                                        ql.shape[0], g_lo, g_hi)
+            else:
+                a, b = _calibration(ql, kl, cfg, lay, h, g, g_lo, g_hi,
+                                    per_row=False)
         return ca.multi_head_attention(ql, kl[:, :, g_lo:g_hi],
-                                       vl[:, :, g_lo:g_hi], cfg, alpha=a,
-                                       beta=b)
+                                       vl[:, :, g_lo:g_hi], cfg, mask=ml,
+                                       alpha=a, beta=b,
+                                       prefix_len=prefix_len)
 
+    m_pl = None
+    if mask is not None:
+        mask = _key_mask(mask, k)
+        m_pl = tuple(mask.placements)
     return local_map(
         local, out_placements=(tuple(q.placements),),
         in_placements=(tuple(q.placements), tuple(k.placements),
-                       tuple(v.placements)),
+                       tuple(v.placements), m_pl),
         in_grad_placements=(tuple(q.placements), _grad_placements(k, lay),
-                            _grad_placements(v, lay)),
-        device_mesh=lay.mesh)(q, k, v)
+                            _grad_placements(v, lay), m_pl),
+        device_mesh=lay.mesh)(q, k, v, mask)
+
+
+def flash_softmax(q, k, v, *, causal: bool = True, chunk: int = 1024,
+                  mask=None, scale=None, prefix_len: int = 0, q_start=None):
+    """``core/attention.py:flash_softmax`` on DTensor q/k/v under
+    ``local_map`` (cross-attention over an encoder's keys, a decoder's
+    memory): each rank its query heads, or its query rows with their
+    absolute positions."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.core import attention as ca
+    lay = layout_of(q, k)
+    h, g = q.shape[2], k.shape[2]
+    base = k.shape[1] - q.shape[1] if q_start is None else q_start
+
+    def local(ql, kl, vl, ml):
+        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g, kl.shape[2])
+        start = base
+        if lay.role == "seq":
+            start = base + lay.rank * ql.shape[1]
+        return ca.flash_softmax(ql, kl[:, :, g_lo:g_hi], vl[:, :, g_lo:g_hi],
+                                causal=causal, chunk=chunk, mask=ml,
+                                scale=scale, prefix_len=prefix_len,
+                                q_start=start)
+
+    m_pl = None
+    if mask is not None:
+        mask = _key_mask(mask, k)
+        m_pl = tuple(mask.placements)
+    return local_map(
+        local, out_placements=(tuple(q.placements),),
+        in_placements=(tuple(q.placements), tuple(k.placements),
+                       tuple(v.placements), m_pl),
+        in_grad_placements=(tuple(q.placements), _grad_placements(k, lay),
+                            _grad_placements(v, lay), m_pl),
+        device_mesh=lay.mesh)(q, k, v, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +350,7 @@ def multi_head_attention(q, k, v, cfg, *, mask=None, alpha=None, beta=None,
 # The state's fields per impl, and which dim of each holds the (query or
 # kv) heads.
 _HEAD_FIELDS = {"s": 1, "z": 1, "c_k": 2, "alpha": 1, "beta": 1,
-                "log_scale": 1}
+                "log_scale": 1, "sl": 2, "zl": 2, "cl": 2}
 _KV_FIELDS = {"tail_k": 2, "tail_v": 2, "k": 2, "v": 2}
 
 
@@ -254,8 +360,11 @@ def _state_fields(impl: str) -> tuple:
     if impl in ("lln", "lln_diag"):
         return ("s", "z", "c_k", "pos", "alpha", "beta", "log_scale",
                 "tail_k", "tail_v")
-    raise NotImplementedError(f"{impl} serving on a mesh is ROADMAP.md "
-                              "item 12b")
+    if impl == "log_linear":
+        # The Fenwick pyramid (B, L, H, ...) keeps its scale axis whole.
+        return ("s", "z", "c_k", "pos", "alpha", "beta", "log_scale",
+                "sl", "zl", "cl")
+    raise ValueError(f"unknown attention impl: {impl!r}")
 
 
 def state_placements(lay: Layout, name: str) -> tuple:
@@ -289,25 +398,26 @@ def prefill(engine, q, k, v, *, max_len: int = 0, prefix_len: int = 0,
             alpha=None, beta=None):
     """``AttentionEngine.prefill`` on DTensor q/k/v under ``local_map``;
     returns ``(out, AttentionState)`` with DTensor leaves at
-    :func:`state_placements`."""
+    :func:`state_placements`.  ``prefix_len`` reaches the softmax prefill
+    only (the LLN impls take the prefix causally, as without a mesh); a
+    given ``alpha`` / ``beta`` is cut to the rank's heads and rows."""
     from torch.distributed.tensor.experimental import local_map
     from repro_torch.core import attention as ca
     from repro_torch.core.engine import AttentionState, _tail_of
-    if prefix_len or alpha is not None or beta is not None:
-        raise NotImplementedError("a prefix-LM prefill, or given alpha / "
-                                  "beta, on a mesh is ROADMAP.md item 12b")
     spec = engine.spec
     fields = _state_fields(spec.impl)
     lay = layout_of(q, k)
     h, g = q.shape[2], k.shape[2]
     n = q.shape[1]
+    given = alpha is not None and beta is not None
 
     def local(ql, kl, vl):
-        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g)
+        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g, kl.shape[2])
         ks, vs = kl[:, :, g_lo:g_hi], vl[:, :, g_lo:g_hi]
         if lay.role == "seq":
             out = ca.flash_softmax(ql, kl, vl, causal=True,
                                    chunk=min(spec.softmax_chunk, n),
+                                   prefix_len=prefix_len,
                                    q_start=lay.rank * ql.shape[1])
             pad = (0, 0, 0, 0, 0, max(max_len, n) - n)
             return (out, F.pad(kl.to(engine.state_dtype), pad),
@@ -316,10 +426,15 @@ def prefill(engine, q, k, v, *, max_len: int = 0, prefix_len: int = 0,
                                device=kl.device))
         a = b = None
         if spec.impl != "softmax":
-            a, b = _calibration(ql, kl, spec, lay, h, g, g_lo, g_hi,
-                                per_row=spec.calibration == "per_row", n=n)
+            if given:
+                a, b = _local_constants(alpha, beta, lay, h, g, ql.shape[2],
+                                        ql.shape[0], g_lo, g_hi)
+            else:
+                a, b = _calibration(ql, kl, spec, lay, h, g, g_lo, g_hi,
+                                    per_row=spec.calibration == "per_row",
+                                    n=n)
         out, state = engine.prefill(ql, ks, vs, max_len=max_len, alpha=a,
-                                    beta=b)
+                                    beta=b, prefix_len=prefix_len)
         if (g_lo, g_hi) != (0, kl.shape[2]):
             # Every rank keeps every kv head's tail / cache.
             if spec.impl == "softmax":
@@ -327,7 +442,7 @@ def prefill(engine, q, k, v, *, max_len: int = 0, prefix_len: int = 0,
                 state = state.replace(
                     k=F.pad(kl.to(engine.state_dtype), pad),
                     v=F.pad(vl.to(engine.state_dtype), pad))
-            else:
+            elif spec.impl != "log_linear":
                 blk = spec.diag_block
                 state = state.replace(
                     tail_k=_tail_of(kl, n, blk).to(engine.state_dtype),
@@ -375,7 +490,7 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
 
     def local(ql, kl, vl, rm, cl, *leaves):
         st = AttentionState(**dict(zip(fields, leaves)))
-        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g)
+        g_lo, g_hi = _kv_range(lay, ql.shape[2], h, g, kl.shape[2])
         whole = (g_lo, g_hi) == (0, kl.shape[2])
         out, new = engine.decode(
             st if whole else _sliced(st, g_lo, g_hi), ql,
@@ -385,11 +500,14 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
             # The kv fields advance for every kv head on every rank.
             t = kl.shape[1]
             if spec.impl == "softmax":
+                if cl is None:
+                    cl = torch.full((kl.shape[0],), t, dtype=torch.int32,
+                                    device=kl.device)
                 kv = ca.commit_softmax(
                     ca.KVCache(k=st.k, v=st.v, length=st.len), kl, vl,
-                    commit_len=ca.commit_lengths(cl, rm, t))
+                    commit_len=cl, row_mask=rm)
                 new = new.replace(k=kv.k, v=kv.v)
-            else:
+            elif spec.impl != "log_linear":
                 rolled = ca._roll_tail(
                     ca.LLNDecodeState(lln=None, tail_k=st.tail_k,
                                       tail_v=st.tail_v, pos=st.pos),
@@ -417,3 +535,36 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
     adv = ca.commit_lengths(cl, rm, q.shape[1])
     new[counter] = (getattr(state, counter) + adv).to(torch.int32)
     return outs[0], AttentionState(**new)
+
+
+def mla_absorbed(fn, w_uk, w_uv, cfg, state, q_nope, q_rope, ckv_new,
+                 kr_new):
+    """MLA's absorbed softmax decode (``models/mla.py:_absorbed``, passed
+    as ``fn``) on DTensors under ``local_map``: each rank its query heads
+    (by the rules' ``heads``), the latent cache ``ckv`` gathered over its
+    split latent dim (``cache_shardings`` splits it over 'model') and
+    ``W_uk`` / ``W_uv`` whole, so the contraction over the latent dim is
+    local.  Returns (out, ckv, kr, len), the caches whole on 'model'."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from . import sharding as shd
+    q_pl = shd.spec_placements(q_nope.shape,
+                               ("act_batch", None, "heads", None))
+    mesh = q_nope.device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate() for p in q_pl)
+    rep = (Replicate(),) * mesh.ndim
+    names = mesh.mesh_dim_names
+    split = "model" in names and q_pl[names.index("model")] == Shard(2)
+    rank = mesh.get_local_rank(names.index("model")) if split else 0
+
+    def local(qn, qr, cn, kn, ckv, kr, length, wk, wv):
+        from repro_torch.core.engine import AttentionState
+        st = AttentionState(ckv=ckv, kr=kr, len=length)
+        return fn(wk, wv, cfg, st, qn, qr, cn, kn, h0=rank * qn.shape[2])
+
+    return local_map(
+        local, out_placements=(q_pl, rows, rows, rows),
+        in_placements=(q_pl, q_pl, rows, rows, rows, rows, rows, rep, rep),
+        device_mesh=mesh, redistribute_inputs=True)(
+        q_nope, q_rope, ckv_new, kr_new, state.ckv, state.kr, state.len,
+        shd.redistributed(w_uk, rep), shd.redistributed(w_uv, rep))

@@ -184,16 +184,65 @@ def matmul(x, w):
     On a mesh, DTensor refuses to flatten the leading dims of a product's
     input or gradient when an inner dim is split (the sequence under
     ``act_seq``): that dim of ``x`` is gathered first, as GSPMD does for a
-    sequence-parallel residual, and the product's gradient is placed as
-    the product before it reaches the product's backward."""
+    sequence-parallel residual, and the gradients of the product and of
+    its input are placed as they are before they reach the ops that made
+    them."""
     if not is_dtensor(x):
         return x @ w
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import Replicate
     pl = tuple(Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1
                else p for p in x.placements)
-    out = redistributed(x, pl) @ w
-    return DTensor.from_local(out.to_local(), out.device_mesh,
-                              out.placements, run_check=False)
+    x = redistributed(x, pl)
+    # x's gradient is placed as x before it reaches the ops that made x:
+    # the product's backward leaves it split on its last dim where the
+    # weight's input dim is split, which a view such as the heads' flatten
+    # cannot take back when the heads do not divide the mesh dim.
+    x = _relocal(x)
+    return _relocal(x @ w)
+
+
+def _relocal(t):
+    """``t`` as a new DTensor over its own local shard (the global shape
+    given: a shard may be uneven), whose gradient arrives placed as ``t``
+    is."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def split_heads(t, heads: int, head_dim: int):
+    """A projection's (..., heads * head_dim) output as (..., heads,
+    head_dim).  On a mesh a last dim split over a mesh dim that the heads
+    do not divide (yi-9b's 4 kv heads over 'model' = 16) is gathered
+    first, as GSPMD does: DTensor cannot split such a shard in two."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        mesh = t.device_mesh
+        last = t.ndim - 1
+        t = redistributed(t, tuple(
+            Replicate() if p.is_shard(last) and heads % mesh.shape[i]
+            else p for i, p in enumerate(t.placements)))
+    return t.reshape(t.shape[:-1] + (heads, head_dim))
+
+
+def pad_seq(t, total: int):
+    """``t`` (B, N, ...) zero-padded on dim 1 to ``total`` positions.  On a
+    mesh the pad runs on each rank's shard, dim 1 whole there (torch 2.11's
+    DTensor has no strategy for a pad on a 2-D mesh)."""
+    import torch.nn.functional as F
+    pad = (0, 0) * (t.ndim - 2) + (0, total - t.shape[1])
+    if not is_dtensor(t):
+        return F.pad(t, pad)
+    from torch.distributed.tensor import DTensor, Replicate
+    t = redistributed(t, tuple(Replicate() if p.is_shard(1) else p
+                               for p in t.placements))
+    out = F.pad(t.to_local(), pad)
+    shape = (t.shape[0], total) + tuple(t.shape[2:])
+    return DTensor.from_local(out, t.device_mesh, t.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def spec_placements(x_shape, logical_axes, mesh=None, rules=None) -> tuple:
@@ -311,15 +360,35 @@ def place_leaf(t: torch.Tensor, sharding: NamedSharding):
     mesh, or gathered whole and re-split onto another; a plain tensor,
     the whole array on every rank, keeps each rank's slice without
     communication."""
-    from torch.distributed.tensor import distribute_tensor
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor, distribute_tensor
     want = sharding.placements
     if is_dtensor(t):
         if t.device_mesh == sharding.mesh:
             return t if tuple(t.placements) == want else t.redistribute(
                 sharding.mesh, want)
         t = t.full_tensor()
+    if isinstance(t, FakeTensor):
+        # An abstract tensor (``launch/dryrun.py``): distribute_tensor's
+        # offset arithmetic reads tensor values, which a fake has none of.
+        return DTensor.from_local(
+            local_slice(t.detach(), sharding.mesh, want).contiguous(),
+            sharding.mesh, want, run_check=False)
     return distribute_tensor(t.detach(), sharding.mesh, want,
                              src_data_rank=None)
+
+
+def local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` under ``placements``
+    (``torch.chunk``'s split, mesh dims outer first), a view."""
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            size = t.shape[p.dim]
+            chunk = -(-size // mesh.shape[i])
+            start = min(coord[i] * chunk, size)
+            t = t.narrow(p.dim, start, min(chunk, size - start))
+    return t
 
 
 def set_parameter(module: torch.nn.Module, name: str, t: torch.Tensor):

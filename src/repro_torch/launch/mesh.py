@@ -90,11 +90,10 @@ def make_smoke_mesh(data: int = 1, model: int = 1, device=None):
 def mesh_from_flag(flag: str, cfg, device=None, *, continuous: bool = False,
                    speculative: bool = False):
     """The CLIs' ``--mesh d,m``: None for ``1,1`` (the meshless path), a
-    (data, model) mesh otherwise.  Item 12a runs the dense and MoE
-    decoders' static serving and training on a mesh; the other families,
-    MLA and the pool and speculative modes raise ``NotImplementedError``
-    naming item 12b, and a mesh whose size is not the world size raises
-    ``ValueError``."""
+    (data, model) mesh otherwise.  Every family serves (static mode) and
+    trains on a mesh; the pool and speculative modes raise
+    ``NotImplementedError`` naming item 12c, and a mesh whose size is not
+    the world size raises ``ValueError``."""
     data, model = (int(x) for x in flag.split(","))
     if (data, model) == (1, 1):
         return None
@@ -103,17 +102,19 @@ def mesh_from_flag(flag: str, cfg, device=None, *, continuous: bool = False,
                           (speculative, "--speculative")):
         if on:
             raise NotImplementedError(f"{flag_name} on a mesh is ROADMAP.md "
-                                      "item 12b")
+                                      "item 12c")
     return make_smoke_mesh(data, model, device)
 
 
+_MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm",
+                  "encoder")
+
+
 def check_mesh_family(cfg) -> None:
-    """Item 12a runs the dense and MoE decoders (not MLA) on a mesh."""
-    if cfg.family not in ("dense", "moe") or cfg.kv_lora > 0:
+    """Every family of the reference runs on a mesh (MLA included)."""
+    if cfg.family not in _MESH_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name} (family={cfg.family}, kv_lora={cfg.kv_lora}) on a "
-            "mesh is ROADMAP.md item 12b; item 12a runs the dense and MoE "
-            "decoders")
+            f"{cfg.name} (family={cfg.family}) has no mesh path")
 
 
 def is_main_rank() -> bool:

@@ -29,7 +29,7 @@ the pool's rows are speculative:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
       --attn-impl lln_diag --device cpu --speculative --spec-k 3 --gen 16
 
-``--mesh d,m`` serves the dense and MoE decoders (static mode) on a
+``--mesh d,m`` serves every family with a decode step (static mode) on a
 (data, model) DeviceMesh, one process per device under ``torchrun`` (NCCL
 on the card, gloo with ``--device cpu``); every rank samples the same
 tokens from the whole logits and rank 0 prints:
@@ -37,8 +37,8 @@ tokens from the whole logits and rank 0 prints:
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
       --arch yi-9b --smoke --attn-impl lln_diag --mesh 2,2 --device cpu
 
-Other families, MLA, ``--continuous`` and ``--speculative`` on a mesh
-raise ``NotImplementedError`` naming ROADMAP.md item 12b.
+``--continuous`` and ``--speculative`` on a mesh raise
+``NotImplementedError`` naming ROADMAP.md item 12c.
 """
 from __future__ import annotations
 

@@ -44,28 +44,40 @@ class LeafStruct:
     spec: shd.P
 
 
+def batch_axes(cfg: ArchConfig, rules) -> dict:
+    """The logical-to-mesh axes of each batch entry (the reference's
+    ``batch_struct`` specs before fitting): tokens, targets and the mask
+    by (batch, sequence), ``src`` frames by (batch, sequence, None), a
+    VLM's ``patches`` by the batch only."""
+    rows, seq = rules["act_batch"], rules["act_seq"]
+    out = {name: (rows, seq) for name in ("inputs", "targets", "mask")}
+    if cfg.family == "encdec":
+        out["src"] = (rows, seq, None)
+    if cfg.family == "vlm":
+        out["patches"] = (rows, None, None)
+    return out
+
+
 def batch_struct(cfg: ArchConfig, shape: ShapeSpec, mesh, rules) -> dict:
     """Training / prefill batch structs with their specs."""
     b, n = shape.global_batch, shape.seq_len
-    batch_axes = rules["act_batch"]
-    seq_axes = rules["act_seq"]
+    axes = batch_axes(cfg, rules)
 
-    def leaf(shape_, dtype, spec):
+    def leaf(name, shape_, dtype):
         return LeafStruct(tuple(shape_), dtype,
-                          shd.fit_spec(shd.P(*spec), shape_, mesh))
+                          shd.fit_spec(shd.P(*axes[name]), shape_, mesh))
 
     n_text = n
     if cfg.family == "vlm":
         n_text = max(n - cfg.num_prefix_tokens, 8)
-    out = {name: leaf((b, n_text), torch.int64, (batch_axes, seq_axes))
+    out = {name: leaf(name, (b, n_text), torch.int64)
            for name in ("inputs", "targets")}
-    out["mask"] = leaf((b, n_text), torch.float32, (batch_axes, seq_axes))
+    out["mask"] = leaf("mask", (b, n_text), torch.float32)
     if cfg.family == "encdec":
-        out["src"] = leaf((b, n, cfg.frontend_dim), torch.float32,
-                          (batch_axes, seq_axes, None))
+        out["src"] = leaf("src", (b, n, cfg.frontend_dim), torch.float32)
     if cfg.family == "vlm":
-        out["patches"] = leaf((b, cfg.num_prefix_tokens, cfg.frontend_dim),
-                              torch.float32, (batch_axes, None, None))
+        out["patches"] = leaf("patches", (b, cfg.num_prefix_tokens,
+                                          cfg.frontend_dim), torch.float32)
     return out
 
 
@@ -368,10 +380,11 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
             return shd.shard_tree(caches,
                                   cache_shardings(caches, cfg, mesh, rules))
 
+        axes = batch_axes(cfg, rules)
+
         @torch.inference_mode()
         def prefill(params, batch, n):
-            axes = (rules["act_batch"], rules["act_seq"])
-            batch = {k: place(v, axes) for k, v in batch.items()}
+            batch = {k: place(v, axes[k]) for k, v in batch.items()}
             with shd.logical_rules(mesh, rules):
                 logits, caches = model.prefill(params, batch, n)
                 return _full(logits), placed(caches)
@@ -380,10 +393,13 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
         def decode(params, caches, token, pos, row_mask=None,
                    commit_len=None):
             token = place(token, (rules["act_batch"],))
+            # The encoder-decoder and the VLM take no serving contract.
+            kw = {k: v for k, v in (("row_mask", row_mask),
+                                    ("commit_len", commit_len))
+                  if v is not None}
             with shd.logical_rules(mesh, rules):
                 logits, caches = model.decode(params, caches, token, pos,
-                                              row_mask=row_mask,
-                                              commit_len=commit_len)
+                                              **kw)
                 return _full(logits), placed(caches)
 
     def prefill_fn(params, batch):
@@ -500,7 +516,7 @@ def _verify_step(model, dmodel, params, dparams, tgt, dr, tok, pos, k: int,
 
 def _no_mesh(what: str, mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError(f"{what} on a mesh is ROADMAP.md item 12b")
+        raise NotImplementedError(f"{what} on a mesh is ROADMAP.md item 12c")
 
 
 def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
@@ -510,7 +526,7 @@ def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
     card unless the caller asks for another device).  ``shape.seq_len`` is
     the cache budget: the prompt, the generation budget and one verify
     chunk of overshoot (``prompt + steps + spec_k + 1``).  A ``mesh``
-    raises ``NotImplementedError`` (item 12b)."""
+    raises ``NotImplementedError`` (item 12c)."""
     _no_mesh("speculative decoding", mesh)
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
@@ -701,7 +717,7 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     tokens in its last iteration: the batcher caps the harvest at the
     budget and ``check_request`` reserves ``spec_k`` positions of slack.
     MLA, the encoder-decoder and the VLM are refused, as in the
-    reference.  A ``mesh`` raises ``NotImplementedError`` (item 12b)."""
+    reference.  A ``mesh`` raises ``NotImplementedError`` (item 12c)."""
     _no_mesh("the request pool", mesh)
     if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
             or cfg.kv_lora > 0:

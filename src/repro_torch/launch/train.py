@@ -23,8 +23,7 @@ saved under label ``step`` is the state after step ``step`` has run, and
 a resume from it starts at ``step`` (so step ``step`` runs twice; a quirk
 of the reference, kept).
 
-``--mesh d,m`` trains the dense and MoE decoders on a (data, model)
-DeviceMesh, one process per device under ``torchrun`` (NCCL on the card,
+``--mesh d,m`` trains every family on a (data, model) DeviceMesh, one process per device under ``torchrun`` (NCCL on the card,
 gloo with ``--device cpu``):
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -33,8 +32,7 @@ gloo with ``--device cpu``):
 Every rank draws the whole global batch (the meshless run's rows) and
 keeps its slice; the state is sharded by ``param_shardings`` and a
 ``--ckpt-dir`` restore places it with the mesh's shardings.  Rank 0
-prints and writes.  Other families and MLA on a mesh raise
-``NotImplementedError`` naming ROADMAP.md item 12b.
+prints and writes.
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ from repro_torch.core.attention import (AttnConfig, flash_softmax,
                                         multi_head_attention)
 from repro_torch.core.engine import AttentionEngine
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, split_heads
 from repro_torch.kernels.registry import deprecated_shim
 from .layers import _dense_param, dense, rms_head_norm, rope
 
@@ -65,9 +65,9 @@ def attn_engine(cfg, causal: bool = True) -> AttentionEngine:
 def _project_qkv(p: Attention, x, cfg, positions):
     b, n, _ = x.shape
     hd, h, g = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = dense(p.q_w, x, cfg.cdtype).reshape(b, n, h, hd)
-    k = dense(p.k_w, x, cfg.cdtype).reshape(b, n, g, hd)
-    v = dense(p.v_w, x, cfg.cdtype).reshape(b, n, g, hd)
+    q = split_heads(dense(p.q_w, x, cfg.cdtype), h, hd)
+    k = split_heads(dense(p.k_w, x, cfg.cdtype), g, hd)
+    v = split_heads(dense(p.v_w, x, cfg.cdtype), g, hd)
     if cfg.qk_norm:
         q = rms_head_norm(p.q_norm_scale, q)
         k = rms_head_norm(p.k_norm_scale, k)
@@ -94,9 +94,9 @@ def attn_apply(p: Attention, x, cfg, positions, *, causal: bool = True,
                                    mask=mask, prefix_len=prefix_len)
     else:
         m = kv.shape[1]
-        q = dense(p.q_w, x, cfg.cdtype).reshape(b, n, h, hd)
-        k = dense(p.k_w, kv, cfg.cdtype).reshape(b, m, g, hd)
-        v = dense(p.v_w, kv, cfg.cdtype).reshape(b, m, g, hd)
+        q = split_heads(dense(p.q_w, x, cfg.cdtype), h, hd)
+        k = split_heads(dense(p.k_w, kv, cfg.cdtype), g, hd)
+        v = split_heads(dense(p.v_w, kv, cfg.cdtype), g, hd)
         q = constrain(q, "act_batch", "attn_seq", "heads", None)
         k = constrain(k, "act_batch", None, "kv_heads", None)
         v = constrain(v, "act_batch", None, "kv_heads", None)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.attention import flash_softmax
+from repro_torch.distributed.sharding import constrain, split_heads
 from .attention_block import (Attention, attn_apply, serve_decode,
                               serve_prefill, serve_state_init)
 from .layers import (MLP, Norm, _dense_param, apply_mlp, apply_norm, dense,
@@ -79,12 +80,21 @@ class EncDec(nn.Module):
 def encdec_init(cfg, device, seed: int = 0) -> EncDec:
     """Random parameters with the reference's shapes and names, drawn from
     a ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None                 # seed None: an abstract init (FakeTensorMode)
+    if seed is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     return EncDec(cfg, device, gen)
 
 
+def _placed(x):
+    """The residual stream by (batch, sequence, embed) on a mesh, as the
+    transformer's blocks place it; ``x`` itself without a mesh."""
+    return constrain(x, "act_batch", "act_seq", "embed")
+
+
 def _enc_block(lp: EncBlock, x, cfg, positions):
+    x = _placed(x)
     h = apply_norm(lp.ln1, x)
     x = x + attn_apply(lp.attn, h, cfg, positions, causal=False).to(x.dtype)
     h = apply_norm(lp.ln2, x)
@@ -102,6 +112,7 @@ def encode(p: EncDec, src_embed, cfg):
 
 
 def _dec_block(lp: DecBlock, x, cfg, positions, enc_out):
+    x = _placed(x)
     h = apply_norm(lp.ln1, x)
     x = x + attn_apply(lp.attn, h, cfg, positions, causal=True).to(x.dtype)
     h = apply_norm(lp.ln_x, x)
@@ -151,7 +162,11 @@ def _cross(lp: DecBlock, h, ck, cv, cfg):
     """Softmax cross-attention of ``h`` (B, N, d) over the cached encoder
     keys and values."""
     b, n, _ = h.shape
-    q = dense(lp.cross.q_w, h, cfg.cdtype).reshape(b, n, cfg.n_heads, cfg.hd)
+    q = split_heads(dense(lp.cross.q_w, h, cfg.cdtype), cfg.n_heads,
+                    cfg.hd)
+    q = constrain(q, "act_batch", "attn_seq", "heads", None)
+    ck = constrain(ck, "act_batch", None, "kv_heads", None)
+    cv = constrain(cv, "act_batch", None, "kv_heads", None)
     xa = flash_softmax(q, ck, cv, causal=False,
                        chunk=min(cfg.softmax_chunk, ck.shape[1]))
     return dense(lp.cross.o_w, xa.reshape(b, n, -1), cfg.cdtype)
@@ -169,13 +184,14 @@ def encdec_prefill(p: EncDec, src_embed, tgt_tokens, cfg, max_len: int):
     positions = torch.arange(n, device=x.device)
     caches = []
     for lp in p.layers:
+        x = _placed(x)
         h = apply_norm(lp.ln1, x)
         a, self_cache = serve_prefill(lp.attn, h, cfg, positions,
                                       max_len=max_len)
         x = x + a.to(x.dtype)
         h = apply_norm(lp.ln_x, x)
-        ck = dense(lp.cross.k_w, enc_out, cfg.cdtype).reshape(b, m, g, hd)
-        cv = dense(lp.cross.v_w, enc_out, cfg.cdtype).reshape(b, m, g, hd)
+        ck = split_heads(dense(lp.cross.k_w, enc_out, cfg.cdtype), g, hd)
+        cv = split_heads(dense(lp.cross.v_w, enc_out, cfg.cdtype), g, hd)
         x = x + _cross(lp, h, ck, cv, cfg).to(x.dtype)
         h = apply_norm(lp.ln2, x)
         x = x + apply_mlp(lp.mlp, h, cfg.cdtype).to(x.dtype)
@@ -197,6 +213,7 @@ def encdec_decode(p: EncDec, caches, token, cfg, position):
                      cfg.embed_scale)
     new = []
     for lp, cache in zip(p.layers, caches["layers"]):
+        x = _placed(x)
         h = apply_norm(lp.ln1, x)
         a, self_cache = serve_decode(lp.attn, h, cache["self"], cfg,
                                      position)

@@ -32,6 +32,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import constrain
+
 from .attention_block import (Attention, attn_apply, serve_decode,
                               serve_prefill, serve_state_init)
 from .layers import (MLP, Norm, _dense_param, apply_mlp, apply_norm, dense,
@@ -98,8 +100,10 @@ class HybridLM(nn.Module):
 def hybrid_init(cfg, device, seed: int = 0) -> HybridLM:
     """Random parameters with the reference's shapes and names, drawn from
     a ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None                 # seed None: an abstract init (FakeTensorMode)
+    if seed is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     return HybridLM(cfg, device, gen)
 
 
@@ -111,12 +115,25 @@ def _split_layers(p: HybridLM, cfg):
             layers[g * per:])
 
 
+def _placed(x):
+    """The residual stream by (batch, sequence, embed) on a mesh, as the
+    transformer's blocks place it (its sums then meet their partial-sum
+    addends in one layout); ``x`` itself without a mesh."""
+    return constrain(x, "act_batch", "act_seq", "embed")
+
+
 def _mamba_block(lp: MambaLayer, x, cfg):
+    x = _placed(x)
     return x + ssm_apply(lp.ssm, apply_norm(lp.ln, x), cfg).to(x.dtype)
 
 
+def _in_proj(sp: SharedBlock, x, x0, cfg):
+    return _placed(dense(sp.in_proj, torch.cat([_placed(x), x0], -1),
+                         cfg.cdtype))
+
+
 def _shared_block(sp: SharedBlock, x, x0, cfg, positions):
-    h = dense(sp.in_proj, torch.cat([x, x0], -1), cfg.cdtype)
+    h = _in_proj(sp, x, x0, cfg)
     a = attn_apply(sp.attn, apply_norm(sp.ln1, h), cfg, positions,
                    causal=True)
     h = h + a.to(h.dtype)
@@ -127,7 +144,8 @@ def _shared_block(sp: SharedBlock, x, x0, cfg, positions):
 def hybrid_hidden(p: HybridLM, tokens, cfg):
     """Token ids (B, N) -> final hidden states (B, N, D) and a zero aux
     loss."""
-    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    x = _placed(embed_lookup(p.embed_table, tokens, cfg.cdtype,
+                             cfg.embed_scale))
     x0 = x
     positions = torch.arange(x.shape[1], device=x.device)
     groups, tail = _split_layers(p, cfg)
@@ -176,7 +194,7 @@ def hybrid_cache_init(p: HybridLM, cfg, batch: int, max_len: int,
 def _shared_serve(sp: SharedBlock, x, x0, cfg, attend):
     """The shared block around ``attend(attn params, normed input) ->
     (out, state)``; returns (x, state)."""
-    h = dense(sp.in_proj, torch.cat([x, x0], -1), cfg.cdtype)
+    h = _in_proj(sp, x, x0, cfg)
     a, state = attend(sp.attn, apply_norm(sp.ln1, h))
     h = h + a.to(h.dtype)
     m = apply_mlp(sp.mlp, apply_norm(sp.ln2, h), cfg.cdtype)
@@ -188,12 +206,14 @@ def hybrid_prefill(p: HybridLM, tokens, cfg, max_len: int):
     """Prompt forward over the layers in order.  Returns (last-position
     logits (B, 1, Vpad), caches); the shared block's softmax KV caches
     hold ``max(max_len, N)`` positions."""
-    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    x = _placed(embed_lookup(p.embed_table, tokens, cfg.cdtype,
+                             cfg.embed_scale))
     x0 = x
     positions = torch.arange(x.shape[1], device=x.device)
     groups, tail = _split_layers(p, cfg)
 
     def mamba(lp, x):
+        x = _placed(x)
         out, cache = ssm_apply(lp.ssm, apply_norm(lp.ln, x), cfg,
                                return_state=True)
         return x + out.to(x.dtype), cache
@@ -236,13 +256,15 @@ def hybrid_decode(p: HybridLM, caches, token, cfg, position, *,
     chunked = token.ndim == 2
     use_chunk = chunked or row_mask is not None or commit_len is not None
     tokens = token if chunked else token[:, None]
-    x = embed_lookup(p.embed_table, tokens, cfg.cdtype, cfg.embed_scale)
+    x = _placed(embed_lookup(p.embed_table, tokens, cfg.cdtype,
+                             cfg.embed_scale))
     x0 = x
     groups, tail = _split_layers(p, cfg)
     layer_caches = iter(caches["layers"])
     new_layers, new_shared = [], []
 
     def mamba(lp, x):
+        x = _placed(x)
         xn, cache = apply_norm(lp.ln, x), next(layer_caches)
         if use_chunk:
             out, cache = ssm_decode_chunk(lp.ssm, xn, cache, cfg,

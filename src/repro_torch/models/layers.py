@@ -12,6 +12,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.sharding import (constrain, is_dtensor,
@@ -20,8 +21,12 @@ from repro_torch.distributed.sharding import (constrain, is_dtensor,
 
 
 def trunc_normal(shape, std: float, dtype, device, generator) -> torch.Tensor:
-    """Normal(0, std) truncated to [-2 std, 2 std], drawn in fp32."""
+    """Normal(0, std) truncated to [-2 std, 2 std], drawn in fp32.  Under
+    ``FakeTensorMode`` (an abstract init: ``launch/dryrun.py``) nothing is
+    drawn."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if isinstance(t, FakeTensor):
+        return t.to(dtype)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(dtype)
 
@@ -242,8 +247,10 @@ def _xent_mesh(h, lm_head, labels, mask, *, vocab: int, chunk: int, dtype,
     labels = constrain(labels, "act_batch", None)
     mask = constrain(mask, "act_batch", None)
     batch = [n for n, p in zip(names, h.placements) if p == Shard(0)]
-    vocab_split = "model" in names and lm_head.shape[1] % mesh.shape[
-        names.index("model")] == 0
+    # The vocab splits over 'model' unless the rows already do (the
+    # ``replicate`` rules fold 'model' into the batch).
+    vocab_split = "model" in names and "model" not in batch and \
+        lm_head.shape[1] % mesh.shape[names.index("model")] == 0
     rank = mesh.get_local_rank(names.index("model")) if vocab_split else 0
     model_groups = [mesh.get_group("model")] if vocab_split else []
 

@@ -24,6 +24,8 @@ from torch import nn
 from repro_torch.core.attention import multi_head_attention
 from repro_torch.core.engine import AttentionEngine, AttentionState
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain, is_dtensor,
+                                              pad_seq, split_heads)
 from repro_torch.kernels.registry import deprecated_shim
 from .attention_block import attn_cfg_of
 from .layers import _dense_param, dense, rms_head_norm, rope
@@ -70,9 +72,9 @@ def _q_proj(p: MLA, x, cfg, positions):
     b, n, _ = x.shape
     if ql:
         cq = rms_head_norm(p.q_norm_scale, dense(p.w_dq, x, cfg.cdtype))
-        q = dense(p.w_uq, cq, cfg.cdtype).reshape(b, n, h, nd + rd)
+        q = split_heads(dense(p.w_uq, cq, cfg.cdtype), h, nd + rd)
     else:
-        q = dense(p.w_q, x, cfg.cdtype).reshape(b, n, h, nd + rd)
+        q = split_heads(dense(p.w_q, x, cfg.cdtype), h, nd + rd)
     return q[..., :nd], rope(q[..., nd:], positions, cfg.rope_theta)
 
 
@@ -85,8 +87,8 @@ def _kv_latent(p: MLA, x, cfg, positions):
 def _decompress(p: MLA, ckv, cfg):
     ql, kvl, nd, rd, vd, h = _dims(cfg)
     b, n, _ = ckv.shape
-    k_nope = dense(p.w_uk, ckv, cfg.cdtype).reshape(b, n, h, nd)
-    v = dense(p.w_uv, ckv, cfg.cdtype).reshape(b, n, h, vd)
+    k_nope = split_heads(dense(p.w_uk, ckv, cfg.cdtype), h, nd)
+    v = split_heads(dense(p.w_uv, ckv, cfg.cdtype), h, vd)
     return k_nope, v
 
 
@@ -97,6 +99,13 @@ def _assemble(q_nope, q_rope, k_nope, kr):
             torch.cat([k_nope, k_rope], -1))
 
 
+def _placed(q, k, v):
+    """q, k and v by (batch, attn_seq, heads), as the reference constrains
+    them (G = H: k and v split with the query heads)."""
+    return tuple(constrain(t, "act_batch", "attn_seq", "heads", None)
+                 for t in (q, k, v))
+
+
 def mla_apply(p: MLA, x, cfg, positions, *, causal: bool = True):
     """Full-sequence MLA (decompressed form), any attention impl."""
     b, n, _ = x.shape
@@ -104,6 +113,7 @@ def mla_apply(p: MLA, x, cfg, positions, *, causal: bool = True):
     ckv, kr = _kv_latent(p, x, cfg, positions)
     k_nope, v = _decompress(p, ckv, cfg)
     q, k = _assemble(q_nope, q_rope, k_nope, kr)
+    q, k, v = _placed(q, k, v)
     out = multi_head_attention(q, k, v, attn_cfg_of(cfg, causal))
     return dense(p.o_w, out.reshape(b, n, -1), cfg.cdtype)
 
@@ -139,12 +149,13 @@ def mla_prefill(p: MLA, x, cfg, positions, *, max_len: int = 0):
     ckv, kr = _kv_latent(p, x, cfg, positions)
     k_nope, v = _decompress(p, ckv, cfg)
     q, k = _assemble(q_nope, q_rope, k_nope, kr)
+    q, k, v = _placed(q, k, v)
     if cfg.attn_impl == "softmax":
         out = multi_head_attention(q, k, v, attn_cfg_of(cfg, True))
-        pad = (0, 0, 0, max(max_len, n) - n)
+        total = max(max_len, n)
         state = AttentionState(
-            ckv=torch.nn.functional.pad(ckv.to(cfg.cdtype), pad),
-            kr=torch.nn.functional.pad(kr[:, :, 0].to(cfg.cdtype), pad),
+            ckv=pad_seq(ckv.to(cfg.cdtype), total),
+            kr=pad_seq(kr[:, :, 0].to(cfg.cdtype), total),
             len=torch.full((b,), n, dtype=torch.int32, device=x.device))
     else:
         out, state = mla_engine(cfg).prefill(q, k, v, max_len=max(max_len, n))
@@ -164,17 +175,20 @@ def _write_rows(cache, new, start):
     return out
 
 
-def _mla_absorbed_decode(p: MLA, cfg, state, q_nope, q_rope, ckv_new,
-                         kr_new):
-    """Absorbed-form softmax decode over T >= 1 tokens: q is folded into
-    the latent space (``W_uk``), so the whole cache is scored without
-    decompressing it; query i sits at absolute position ``len + i`` and
-    sees keys up to it."""
+def _absorbed(w_uk, w_uv, cfg, state, q_nope, q_rope, ckv_new, kr_new,
+              h0: int = 0):
+    """Absorbed-form softmax decode over T >= 1 tokens for query heads
+    [h0, h0 + H'), H' = ``q_nope.shape[2]`` (all H without a mesh): q is
+    folded into the latent space (``W_uk``), so the whole cache is scored
+    without decompressing it; query i sits at absolute position
+    ``len + i`` and sees keys up to it.  ``w_uk`` / ``w_uv``: the whole
+    (kv_lora, H nope) and (kv_lora, H v_head_dim) weights.  Returns (out
+    (B, T, H', v_head_dim), the new ckv, kr and len)."""
     ql, kvl, nd, rd, vd, h = _dims(cfg)
-    t = q_nope.shape[1]
+    t, hl = q_nope.shape[1], q_nope.shape[2]
     ckv = _write_rows(state.ckv, ckv_new, state.len)
     krc = _write_rows(state.kr, kr_new[:, :, 0], state.len)
-    w_uk = p.w_uk.reshape(kvl, h, nd).float()
+    w_uk = w_uk.reshape(kvl, h, nd)[:, h0:h0 + hl].float()
     q_lat = torch.einsum("bqhn,khn->bqhk", q_nope.float(), w_uk)
     s = torch.einsum("bqhk,bsk->bhqs", q_lat, ckv.float())
     s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krc.float())
@@ -185,10 +199,25 @@ def _mla_absorbed_decode(p: MLA, cfg, state, q_nope, q_rope, ckv_new,
     s = torch.where(allowed, s, torch.tensor(-1e30, device=s.device))
     attn = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bhqs,bsk->bqhk", attn, ckv.float())
-    w_uv = p.w_uv.reshape(kvl, h, vd).float()
+    w_uv = w_uv.reshape(kvl, h, vd)[:, h0:h0 + hl].float()
     out = torch.einsum("bqhk,khv->bqhv", ctx, w_uv)
-    return out.to(cfg.cdtype), state.replace(ckv=ckv, kr=krc,
-                                             len=state.len + t)
+    return out.to(cfg.cdtype), ckv, krc, state.len + t
+
+
+def _mla_absorbed_decode(p: MLA, cfg, state, q_nope, q_rope, ckv_new,
+                         kr_new):
+    """:func:`_absorbed` over every head, or per rank on a mesh
+    (``distributed/local_attention.py:mla_absorbed``: the latent cache
+    gathered over its split latent dim before the contraction)."""
+    if is_dtensor(q_nope):
+        from repro_torch.distributed import local_attention
+        out, ckv, krc, length = local_attention.mla_absorbed(
+            _absorbed, p.w_uk, p.w_uv, cfg, state, q_nope, q_rope, ckv_new,
+            kr_new)
+    else:
+        out, ckv, krc, length = _absorbed(p.w_uk, p.w_uv, cfg, state,
+                                          q_nope, q_rope, ckv_new, kr_new)
+    return out, state.replace(ckv=ckv, kr=krc, len=length)
 
 
 def mla_decode(p: MLA, x, state, cfg, position):
@@ -211,7 +240,7 @@ def mla_decode(p: MLA, x, state, cfg, position):
     else:
         k_nope, v = _decompress(p, ckv_new, cfg)
         q, k = _assemble(q_nope, q_rope, k_nope, kr_new)
-        out, state = mla_engine(cfg).decode(state, q, k, v)
+        out, state = mla_engine(cfg).decode(state, *_placed(q, k, v))
     return dense(p.o_w, out.reshape(b, n, -1), cfg.cdtype), state
 
 

@@ -117,10 +117,13 @@ def _moe_local(x, p, cfg, e0: int, e_loc: int, dtype):
     slot = torch.where(keep, (flat_e - e0) * cap + pos,
                        torch.full_like(pos, dump))
     tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    # Kept slots are distinct; every dropped one writes the dump slot,
+    # which the experts never read (no mask indexing: its output shape
+    # would depend on the data).
     tok_of_slot = torch.zeros(dump + 1, dtype=torch.long, device=x.device)
-    tok_of_slot[slot[keep]] = tok[keep]
+    tok_of_slot[slot] = tok
     filled = torch.zeros(dump + 1, dtype=torch.bool, device=x.device)
-    filled[slot[keep]] = True
+    filled[slot] = keep
     xg = x[tok_of_slot] * filled[:, None].to(x.dtype)
     y = _expert_ffn(xg[:dump].reshape(e_loc, cap, d), p.exp_wi_gate,
                     p.exp_wi_up, p.exp_wo, cfg.act, dtype)

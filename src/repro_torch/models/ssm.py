@@ -36,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.lln import commit_lengths
 from repro_torch.core.numerics import einsum_f32
+from repro_torch.distributed.sharding import is_dtensor
 from .layers import Norm, _dense_param, apply_norm, dense, trunc_normal
 
 
@@ -157,31 +158,48 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def ssm_apply(p: SSMBlock, x, cfg, *, state0=None,
-              return_state: bool = False):
-    """Full-sequence Mamba2 block.  x: (B, L, D) -> (B, L, D); with
-    ``return_state`` also ``{"state": (B, H, S, P) fp32, "conv": the last
-    W - 1 conv inputs (B, W - 1, conv_dim)}``."""
-    di, h, p_dim, s, g = _dims(cfg)
-    bsz, l, _ = x.shape
-    dtype = cfg.cdtype
-    z = dense(p.w_z, x, dtype)
-    xs = dense(p.w_x, x, dtype)
-    b_proj = dense(p.w_B, x, dtype)
-    c_proj = dense(p.w_C, x, dtype)
-    dt = dense(p.w_dt, x, dtype).float()
+def _mixer_weights(p: SSMBlock) -> tuple:
+    """The weights of the sequence mixer, whole: (conv_w, conv_b, dt_bias,
+    a_log, d_skip)."""
+    return p.conv_w, p.conv_b, p.dt_bias, p.a_log, p.d_skip
 
-    # Depthwise conv per piece (x, B, C); channel-wise they are independent.
+
+def _head_weights(w, cfg, h0: int, h_loc: int) -> tuple:
+    """The mixer weights of heads [h0, h0 + h_loc): the conv's x columns
+    of those heads and its B / C columns, their conv biases, dt_bias,
+    a_log and d_skip."""
+    conv_w, conv_b, dt_bias, a_log, d_skip = w
+    di, _, p_dim, s, g = _dims(cfg)
+    x0, x1 = h0 * p_dim, (h0 + h_loc) * p_dim
     gs = g * s
-    xs_raw, b_raw, c_raw = xs, b_proj, c_proj
-    xs = _causal_conv(xs, p.conv_w[:, :di], p.conv_b[:di], dtype)
-    b_proj = _causal_conv(b_proj, p.conv_w[:, di:di + gs],
-                          p.conv_b[di:di + gs], dtype)
-    c_proj = _causal_conv(c_proj, p.conv_w[:, di + gs:], p.conv_b[di + gs:],
-                          dtype)
+    hs = slice(h0, h0 + h_loc)
+    return ((conv_w[:, x0:x1], conv_w[:, di:di + gs], conv_w[:, di + gs:]),
+            (conv_b[x0:x1], conv_b[di:di + gs], conv_b[di + gs:]),
+            dt_bias[hs], a_log[hs], d_skip[hs])
 
-    dt = _softplus(dt + p.dt_bias)
-    a = -torch.exp(p.a_log.float())                           # (H,) < 0
+
+def _mix(xs, b_proj, c_proj, dt, w, cfg, h0: int = 0, *, state0=None,
+         return_state: bool = False):
+    """The sequence mixer of :func:`ssm_apply` over heads [h0, h0 + H'),
+    H' = ``dt.shape[-1]`` (all of them without a mesh, a rank's share on
+    one): the causal conv of x, B and C piece by piece, the SSD scan (the
+    kernel under ``cfg.use_kernel``), the skip term.  xs: (B, L, H' P) x
+    projection, b_proj / c_proj: (B, L, G S), dt: (B, L, H') fp32 before
+    the softplus; ``w`` the whole weights of :func:`_mixer_weights`.
+    Returns (y (B, L, H' P) fp32, final state (B, H', S, P) or None)."""
+    _, _, p_dim, s, g = _dims(cfg)
+    bsz, l, _ = xs.shape
+    h = dt.shape[-1]
+    dtype = cfg.cdtype
+    (cw_x, cw_b, cw_c), (cb_x, cb_b, cb_c), dt_bias, a_log, d_skip = \
+        _head_weights(w, cfg, h0, h)
+    # Depthwise conv per piece (x, B, C); channel-wise they are independent.
+    xs = _causal_conv(xs, cw_x, cb_x, dtype)
+    b_proj = _causal_conv(b_proj, cw_b, cb_b, dtype)
+    c_proj = _causal_conv(c_proj, cw_c, cb_c, dtype)
+
+    dt = _softplus(dt + dt_bias)
+    a = -torch.exp(a_log.float())                             # (H,) < 0
     log_a = dt * a                                            # (B,L,H)
 
     xh = xs.reshape(bsz, l, h, p_dim)
@@ -201,13 +219,41 @@ def ssm_apply(p: SSMBlock, x, cfg, *, state0=None,
         c_in = torch.repeat_interleave(c_proj.reshape(bsz, l, g, s), rep, 2)
         y, state = ssd_chunked(xbar, b_in, c_in, log_a, chunk=cfg.ssm_chunk,
                                state0=state0)
-    y = y + xh.float() * p.d_skip.float()[:, None]
-    y = y.reshape(bsz, l, di).to(dtype)
+    y = y + xh.float() * d_skip.float()[:, None]
+    return y.reshape(bsz, l, h * p_dim), state
+
+
+def ssm_apply(p: SSMBlock, x, cfg, *, state0=None,
+              return_state: bool = False):
+    """Full-sequence Mamba2 block.  x: (B, L, D) -> (B, L, D); with
+    ``return_state`` also ``{"state": (B, H, S, P) fp32, "conv": the last
+    W - 1 conv inputs (B, W - 1, conv_dim)}``.  On a mesh (DTensor x) the
+    mixer runs per rank under ``local_map``
+    (``distributed/local_ssm.py``)."""
+    dtype = cfg.cdtype
+    z = dense(p.w_z, x, dtype)
+    xs = dense(p.w_x, x, dtype)
+    b_proj = dense(p.w_B, x, dtype)
+    c_proj = dense(p.w_C, x, dtype)
+    dt = dense(p.w_dt, x, dtype).float()
+    if is_dtensor(x):
+        from repro_torch.distributed import local_ssm
+        y, state = local_ssm.mix(xs, b_proj, c_proj, dt, _mixer_weights(p),
+                                 cfg, state0=state0,
+                                 return_state=return_state)
+    else:
+        y, state = _mix(xs, b_proj, c_proj, dt, _mixer_weights(p), cfg,
+                        state0=state0, return_state=return_state)
+    y = y.to(dtype)
     y = y * F.silu(z)
     y = apply_norm(p.norm, y)
     out = dense(p.out_w, y, dtype)
     if return_state:
-        tail = torch.cat([xs_raw, b_raw, c_raw], -1)[:, -(cfg.conv_width - 1):]
+        pieces = (xs, b_proj, c_proj)
+        if is_dtensor(x):
+            from repro_torch.distributed import local_ssm
+            pieces = local_ssm.whole_columns(pieces)
+        tail = torch.cat(pieces, -1)[:, -(cfg.conv_width - 1):]
         return out, {"state": state, "conv": tail.to(dtype)}
     return out
 
@@ -226,20 +272,99 @@ def ssm_cache_init(cfg, batch: int, device) -> dict:
 
 def _decode_proj(p: SSMBlock, x, cfg):
     """The input projections of a decode step: z, [x | B | C] (the conv's
-    input) in the compute dtype, and dt in fp32."""
+    input) in the compute dtype, and dt in fp32.  On a mesh the conv
+    input's columns are whole on every rank of 'model'."""
     dtype = cfg.cdtype
-    conv_in = torch.cat([dense(p.w_x, x, dtype), dense(p.w_B, x, dtype),
-                         dense(p.w_C, x, dtype)], -1)
-    return dense(p.w_z, x, dtype), conv_in, dense(p.w_dt, x, dtype).float()
+    pieces = (dense(p.w_x, x, dtype), dense(p.w_B, x, dtype),
+              dense(p.w_C, x, dtype))
+    if is_dtensor(x):
+        from repro_torch.distributed import local_ssm
+        pieces = local_ssm.whole_columns(pieces)
+    return (dense(p.w_z, x, dtype), torch.cat(pieces, -1),
+            dense(p.w_dt, x, dtype).float())
 
 
-def _decode_out(p: SSMBlock, y, xh, z, cfg):
-    """The skip term, the gate, the norm and the output projection."""
-    di = _dims(cfg)[0]
-    y = y + xh * p.d_skip.float()[:, None]
-    y = y.reshape(y.shape[0], -1, di).to(cfg.cdtype)
-    y = y * F.silu(z)
+def _decode_out(p: SSMBlock, y, z, cfg):
+    """The gate, the norm and the output projection of the mixer's y
+    (B, T, di) fp32 (the skip term in)."""
+    y = y.to(cfg.cdtype) * F.silu(z)
     return dense(p.out_w, apply_norm(p.norm, y), cfg.cdtype)
+
+
+def _window_columns(window, cfg, h0: int, h: int):
+    """The conv window's columns of heads [h0, h0 + h): their x columns
+    and all the B / C columns."""
+    di, _, p_dim, _, _ = _dims(cfg)
+    return torch.cat([window[..., h0 * p_dim:(h0 + h) * p_dim],
+                      window[..., di:]], -1)
+
+
+def _decode_chunk_mix(conv_in, dt, state0, conv0, w, cfg, h0: int = 0, *,
+                      row_mask=None, commit_len=None):
+    """The mixer of :func:`ssm_decode_chunk` over heads [h0, h0 + H'),
+    H' = ``dt.shape[-1]``: conv_in (B, T, conv_dim) and conv0 (B, W - 1,
+    conv_dim) whole, dt (B, T, H') fp32 before the softplus, state0
+    (B, H', S, P).  Returns (y (B, T, H' P) fp32 with the skip term, new
+    state, new conv window (whole columns))."""
+    _, _, p_dim, s, g = _dims(cfg)
+    bsz, t, _ = conv_in.shape
+    h = dt.shape[-1]
+    dtype = cfg.cdtype
+    wdt = cfg.conv_width
+    dev = conv_in.device
+    (cw_x, cw_b, cw_c), (cb_x, cb_b, cb_c), dt_bias, a_log, d_skip = \
+        _head_weights(w, cfg, h0, h)
+    cw = torch.cat([cw_x, cw_b, cw_c], -1)
+    cb = torch.cat([cb_x, cb_b, cb_c], -1)
+    # Causal conv over [cached window | chunk]: position t sees rows
+    # t .. t+W-1 of the concatenation, the window a one-token loop sees.
+    window = torch.cat([conv0.to(dtype), conv_in], 1)
+    mine = _window_columns(window, cfg, h0, h)
+    conv_out = torch.zeros(bsz, t, mine.shape[-1], dtype=dtype, device=dev)
+    for j in range(wdt):
+        conv_out = conv_out + mine[:, j:j + t] * cw[j].to(dtype)
+    conv_out = F.silu(conv_out + cb.to(dtype))
+    xs = conv_out[..., :h * p_dim]
+    b_proj = conv_out[..., h * p_dim:h * p_dim + g * s]
+    c_proj = conv_out[..., h * p_dim + g * s:]
+
+    dt = _softplus(dt + dt_bias)                              # (B,T,H)
+    log_a = dt * -torch.exp(a_log.float())
+    xh = xs.reshape(bsz, t, h, p_dim).float()
+    xbar = xh * dt[..., None]
+    rep = h // g
+    b_in = torch.repeat_interleave(b_proj.reshape(bsz, t, g, s), rep,
+                                   2).float()
+    c_in = torch.repeat_interleave(c_proj.reshape(bsz, t, g, s), rep,
+                                   2).float()
+
+    lcum = torch.cumsum(log_a, 1)                             # (B,T,H)
+    dot = einsum_f32("bihs,bjhs->bhij", c_in, b_in)
+    dec = _clip_exp(lcum[:, :, None] - lcum[:, None, :]).permute(0, 3, 1, 2)
+    tri = torch.tril(torch.ones(t, t, device=dev))
+    y = einsum_f32("bhij,bjhp->bihp", dot * dec * tri, xbar) \
+        + einsum_f32("bihs,bhsp->bihp", c_in, state0) \
+        * _clip_exp(lcum)[..., None]
+    # Only tokens j < commit_len[b] enter the recurrence.
+    cl = torch.as_tensor(commit_lengths(commit_len, row_mask, t),
+                         device=dev).long().expand(bsz)
+    lcum0 = torch.cat([torch.zeros(bsz, 1, h, device=dev), lcum], 1)
+    l_tot = torch.take_along_dim(lcum0, cl[:, None, None].expand(-1, 1, h),
+                                 dim=1)[:, 0]                 # (B,H)
+    take = torch.arange(t, device=dev)[None, :] < cl[:, None]
+    carry_dec = torch.where(take[..., None], _clip_exp(l_tot[:, None] - lcum),
+                            torch.zeros_like(lcum))
+    state = state0 * _clip_exp(l_tot)[:, :, None, None] \
+        + torch.einsum("bjhs,bjh,bjhp->bhsp", b_in, carry_dec, xbar)
+    # The conv window: rows cl .. cl+W-2 of [cache | chunk] are the last
+    # W - 1 inputs a sequential decode of the accepted prefix saw.
+    idx = cl[:, None] + torch.arange(wdt - 1, device=dev)[None, :]
+    conv = torch.take_along_dim(window, idx[:, :, None], dim=1)
+    if row_mask is not None:
+        state = torch.where(row_mask[:, None, None, None], state, state0)
+        conv = torch.where(row_mask[:, None, None], conv, conv0.to(dtype))
+    y = y + xh * d_skip.float()[:, None]
+    return y.reshape(bsz, t, h * p_dim), state, conv.to(dtype)
 
 
 def ssm_decode_chunk(p: SSMBlock, x, cache, cfg, *, row_mask=None,
@@ -254,88 +379,65 @@ def ssm_decode_chunk(p: SSMBlock, x, cache, cfg, *, row_mask=None,
     decode of that prefix saw; ``row_mask`` (B,) bool rows keep their cache
     bitwise (their outputs are to be discarded).  Returns (out (B, T, D),
     new cache); the cache passed in is not modified."""
-    di, h, p_dim, s, g = _dims(cfg)
-    bsz, t, _ = x.shape
-    dtype = cfg.cdtype
-    wdt = cfg.conv_width
     z, conv_in, dt = _decode_proj(p, x, cfg)
-    # Causal conv over [cached window | chunk]: position t sees rows
-    # t .. t+W-1 of the concatenation, the window a one-token loop sees.
-    window = torch.cat([cache["conv"].to(dtype), conv_in], 1)
-    conv_out = torch.zeros(bsz, t, window.shape[-1], dtype=dtype,
-                           device=x.device)
-    for j in range(wdt):
-        conv_out = conv_out + window[:, j:j + t] * p.conv_w[j].to(dtype)
-    conv_out = F.silu(conv_out + p.conv_b.to(dtype))
-    xs = conv_out[..., :di]
-    b_proj = conv_out[..., di:di + g * s]
-    c_proj = conv_out[..., di + g * s:]
-
-    dt = _softplus(dt + p.dt_bias)                            # (B,T,H)
-    log_a = dt * -torch.exp(p.a_log.float())
-    xh = xs.reshape(bsz, t, h, p_dim).float()
-    xbar = xh * dt[..., None]
-    rep = h // g
-    b_in = torch.repeat_interleave(b_proj.reshape(bsz, t, g, s), rep,
-                                   2).float()
-    c_in = torch.repeat_interleave(c_proj.reshape(bsz, t, g, s), rep,
-                                   2).float()
-
-    lcum = torch.cumsum(log_a, 1)                             # (B,T,H)
-    dot = einsum_f32("bihs,bjhs->bhij", c_in, b_in)
-    dec = _clip_exp(lcum[:, :, None] - lcum[:, None, :]).permute(0, 3, 1, 2)
-    tri = torch.tril(torch.ones(t, t, device=x.device))
-    y = einsum_f32("bhij,bjhp->bihp", dot * dec * tri, xbar) \
-        + einsum_f32("bihs,bhsp->bihp", c_in, cache["state"]) \
-        * _clip_exp(lcum)[..., None]
-    # Only tokens j < commit_len[b] enter the recurrence.
-    cl = torch.as_tensor(commit_lengths(commit_len, row_mask, t),
-                         device=x.device).long().expand(bsz)
-    lcum0 = torch.cat([torch.zeros(bsz, 1, h, device=x.device), lcum], 1)
-    l_tot = torch.take_along_dim(lcum0, cl[:, None, None].expand(-1, 1, h),
-                                 dim=1)[:, 0]                 # (B,H)
-    take = torch.arange(t, device=x.device)[None, :] < cl[:, None]
-    carry_dec = torch.where(take[..., None], _clip_exp(l_tot[:, None] - lcum),
-                            torch.zeros_like(lcum))
-    state = cache["state"] * _clip_exp(l_tot)[:, :, None, None] \
-        + torch.einsum("bjhs,bjh,bjhp->bhsp", b_in, carry_dec, xbar)
-    # The conv window: rows cl .. cl+W-2 of [cache | chunk] are the last
-    # W - 1 inputs a sequential decode of the accepted prefix saw.
-    idx = cl[:, None] + torch.arange(wdt - 1, device=x.device)[None, :]
-    conv = torch.take_along_dim(window, idx[:, :, None], dim=1)
-    if row_mask is not None:
-        state = torch.where(row_mask[:, None, None, None], state,
-                            cache["state"])
-        conv = torch.where(row_mask[:, None, None], conv,
-                           cache["conv"].to(dtype))
-    out = _decode_out(p, y, xh, z, cfg)
-    return out, {"state": state, "conv": conv.to(cfg.cdtype)}
+    if is_dtensor(x):
+        from repro_torch.distributed import local_ssm
+        y, state, conv = local_ssm.decode_mix(
+            _decode_chunk_mix, conv_in, dt, cache["state"], cache["conv"],
+            _mixer_weights(p), cfg, row_mask=row_mask,
+            commit_len=commit_len)
+    else:
+        y, state, conv = _decode_chunk_mix(
+            conv_in, dt, cache["state"], cache["conv"], _mixer_weights(p),
+            cfg, row_mask=row_mask, commit_len=commit_len)
+    return _decode_out(p, y, z, cfg), {"state": state, "conv": conv}
 
 
-def ssm_decode(p: SSMBlock, x, cache, cfg):
-    """One-token step.  x: (B, 1, D).  Returns (out (B, 1, D), new cache);
-    the cache passed in is not modified."""
-    di, h, p_dim, s, g = _dims(cfg)
-    bsz = x.shape[0]
+def _decode_step_mix(conv_in, dt, state0, conv0, w, cfg, h0: int = 0):
+    """The mixer of :func:`ssm_decode` over heads [h0, h0 + H') (the
+    arguments of :func:`_decode_chunk_mix`, T = 1)."""
+    _, _, p_dim, s, g = _dims(cfg)
+    bsz = conv_in.shape[0]
+    h = dt.shape[-1]
     dtype = cfg.cdtype
-    z, conv_in, dt = _decode_proj(p, x, cfg)
-    window = torch.cat([cache["conv"].to(dtype), conv_in], 1)  # (B,W,Cd)
-    conv_out = torch.einsum("bwc,wc->bc", window, p.conv_w.to(dtype)) \
-        + p.conv_b.to(dtype)
+    (cw_x, cw_b, cw_c), (cb_x, cb_b, cb_c), dt_bias, a_log, d_skip = \
+        _head_weights(w, cfg, h0, h)
+    cw = torch.cat([cw_x, cw_b, cw_c], -1)
+    cb = torch.cat([cb_x, cb_b, cb_c], -1)
+    window = torch.cat([conv0.to(dtype), conv_in], 1)         # (B,W,Cd)
+    mine = _window_columns(window, cfg, h0, h)
+    conv_out = torch.einsum("bwc,wc->bc", mine, cw.to(dtype)) + cb.to(dtype)
     conv_out = F.silu(conv_out)[:, None]
-    xs = conv_out[..., :di]
-    b_proj = conv_out[..., di:di + g * s]
-    c_proj = conv_out[..., di + g * s:]
+    xs = conv_out[..., :h * p_dim]
+    b_proj = conv_out[..., h * p_dim:h * p_dim + g * s]
+    c_proj = conv_out[..., h * p_dim + g * s:]
 
-    dt = _softplus(dt + p.dt_bias)[:, 0]                      # (B,H)
-    decay = torch.exp(dt * -torch.exp(p.a_log.float()))
+    dt = _softplus(dt + dt_bias)[:, 0]                        # (B,H)
+    decay = torch.exp(dt * -torch.exp(a_log.float()))
     xh = xs.reshape(bsz, h, p_dim).float()
     xbar = xh * dt[..., None]
     rep = h // g
     b_in = torch.repeat_interleave(b_proj.reshape(bsz, g, s), rep, 1).float()
     c_in = torch.repeat_interleave(c_proj.reshape(bsz, g, s), rep, 1).float()
-    state = cache["state"] * decay[..., None, None] \
+    state = state0 * decay[..., None, None] \
         + torch.einsum("bhs,bhp->bhsp", b_in, xbar)
     y = torch.einsum("bhs,bhsp->bhp", c_in, state)
-    out = _decode_out(p, y, xh, z, cfg)
-    return out, {"state": state, "conv": window[:, 1:].to(cfg.cdtype)}
+    y = y + xh * d_skip.float()[:, None]
+    return (y.reshape(bsz, 1, h * p_dim), state,
+            window[:, 1:].to(cfg.cdtype))
+
+
+def ssm_decode(p: SSMBlock, x, cache, cfg):
+    """One-token step.  x: (B, 1, D).  Returns (out (B, 1, D), new cache);
+    the cache passed in is not modified."""
+    z, conv_in, dt = _decode_proj(p, x, cfg)
+    if is_dtensor(x):
+        from repro_torch.distributed import local_ssm
+        y, state, conv = local_ssm.decode_mix(
+            _decode_step_mix, conv_in, dt, cache["state"], cache["conv"],
+            _mixer_weights(p), cfg)
+    else:
+        y, state, conv = _decode_step_mix(conv_in, dt, cache["state"],
+                                          cache["conv"], _mixer_weights(p),
+                                          cfg)
+    return _decode_out(p, y, z, cfg), {"state": state, "conv": conv}

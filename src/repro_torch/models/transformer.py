@@ -102,8 +102,10 @@ def lm_init(cfg, device, seed: int = 0) -> DenseLM:
     """Random parameters with the reference's shapes and names, drawn from
     a ``torch.Generator`` seeded with ``seed`` on ``device`` (the values
     differ from the reference's ``jax.random`` init)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None                 # seed None: an abstract init (FakeTensorMode)
+    if seed is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     return DenseLM(cfg, device, gen)
 
 

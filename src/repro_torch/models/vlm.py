@@ -32,8 +32,10 @@ class VLM(DenseLM):
 def vlm_init(cfg, device, seed: int = 0) -> VLM:
     """Random parameters with the reference's shapes and names, drawn from
     a ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None                 # seed None: an abstract init (FakeTensorMode)
+    if seed is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     return VLM(cfg, device, gen)
 
 

@@ -12,9 +12,10 @@ comes back (through ``torch.save``) as the list ``[rank 0, rank 1, ...]``.
 A rank that raises fails the call with its traceback.
 
 Run as a script (``PYTHONPATH=src python tests/_torch_dist.py``) it holds
-the same mesh (2, 2) runs to the port's own meshless runs, with weights
-from the port's seeded init instead of the reference's: a check of the
-mesh path on a machine without JAX (such as the card's host, on its CPU).
+the same mesh (2, 2) runs (item 12a's, and item 12b's family cases) to the
+port's own meshless runs, with weights from the port's seeded init
+instead of the reference's: a check of the mesh path on a machine without
+JAX (such as the card's host, on its CPU).
 """
 from __future__ import annotations
 
@@ -343,6 +344,296 @@ def elastic_restore(rank, world, arch, impl, max_len, batch, steps, pos0,
     return {"tokens": toks.numpy(), "mesh": tuple(mesh.mesh.shape)}
 
 
+# ---------------------------------------------------------------------------
+# Item 12b's family cases (tests/test_torch_mesh_families.py and main()).
+# ---------------------------------------------------------------------------
+
+PROMPT, STEPS, SRC, LR, TOTAL = 12, 5, 16, 1e-3, 3
+CF = {"capacity_factor": 4.0}          # deepseek-v2 SMOKE: E / k, no drop
+
+# (name, arch, impl, overrides): against the meshless port and the
+# reference, from the reference's weights.
+SERVE = (("mamba2-130m", "mamba2-130m", "softmax", {}),
+         ("zamba2-7b", "zamba2-7b", "lln_diag", {}),
+         ("deepseek-v2-236b", "deepseek-v2-236b", "softmax", CF),
+         ("seamless-m4t-medium", "seamless-m4t-medium", "lln_diag", {}),
+         ("paligemma-3b", "paligemma-3b", "softmax", {}),
+         ("paligemma-3b lln_diag", "paligemma-3b", "lln_diag", {}),
+         ("yi-9b log_linear", "yi-9b", "log_linear", {}))
+# Against the meshless port only, from the port's seeded weights (the
+# meshless port is held to the reference by the family files): the shared
+# block's softmax decode with its kv heads split.
+SERVE_PORT = (("zamba2-7b softmax", "zamba2-7b", "softmax", {}),)
+TRAIN = (("mamba2-130m", "mamba2-130m", "softmax", {}),
+         ("zamba2-7b", "zamba2-7b", "lln_diag", {}),
+         ("deepseek-v2-236b", "deepseek-v2-236b", "softmax",
+          {**CF, "router_aux_coef": 0.0}),
+         ("seamless-m4t-medium", "seamless-m4t-medium", "lln_diag", {}),
+         ("paligemma-3b", "paligemma-3b", "softmax", {}),
+         ("roberta-lln", "roberta-lln", "lln_diag", {}),
+         ("yi-9b log_linear", "yi-9b", "log_linear", {}))
+ATTN = ("roberta-lln mask", "yi-9b alpha-beta")
+
+
+def _serve_batch(cfg, rng) -> dict:
+    import numpy as np
+    b = {"inputs": rng.integers(0, cfg.vocab, (2, PROMPT)).astype(np.int32)}
+    if cfg.family == "encdec":
+        b["src"] = rng.normal(size=(2, SRC, cfg.frontend_dim)).astype(
+            np.float32)
+    if cfg.family == "vlm":
+        b["patches"] = rng.normal(size=(2, cfg.num_prefix_tokens,
+                                        cfg.frontend_dim)).astype(np.float32)
+    return b
+
+
+def _serve_inputs(arch, impl, over, seed, params=None):
+    """The weights (the reference's, or None: the port's seeded init), the
+    batch, ``max_len`` and the first decode position of a serving case."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, smoke=True, attn_impl=impl, **over)
+    pos0 = PROMPT + (cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    return {"params": params, "pos0": pos0, "max_len": pos0 + STEPS + 1,
+            "batch": _serve_batch(cfg, np.random.default_rng(seed))}
+
+
+def _port_serve(arch, impl, over, ref):
+    """The meshless port's greedy tokens of a serving case."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch.steps import make_serve_setup
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32", **over)
+    setup = make_serve_setup(
+        cfg, ShapeSpec("s", ref["max_len"], 2, "decode"), "cpu")
+    params = setup.model.init(0) if ref["params"] is None \
+        else params_from_numpy(ref["params"], cfg, "cpu")
+    logits, caches = setup.prefill_fn(params, _port_batch(ref["batch"]))
+    tok = torch.argmax(logits[:, -1], -1)
+    toks, _ = setup.make_generate(STEPS)(params, caches, tok, ref["pos0"])
+    return torch.cat([tok[:, None], toks], 1).numpy()
+
+
+def _train_over(over):
+    return {"use_kernel": False, "grad_accum": 1, **over}
+
+
+def family_train_batches(cfg, seed=0, steps=2) -> list:
+    """``steps`` numpy batches of 2 x 32 with the family's inputs (the VLM's
+    32 count its patches): tokens in the vocab, a loss mask with the last 5
+    targets of row 1 off, 48 source frames for the encoder-decoder, the
+    VLM's patches (``tests/_torch_families.py:train_batches``'s)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = 32 - (cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    out = []
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab, (2, n + 1)).astype(np.int32)
+        mask = np.ones((2, n), np.float32)
+        mask[1, -5:] = 0.0
+        b = {"inputs": toks[:, :-1], "targets": toks[:, 1:], "mask": mask}
+        if cfg.family == "encdec":
+            b["src"] = rng.normal(size=(2, 48, cfg.frontend_dim)).astype(
+                np.float32)
+        if cfg.family == "vlm":
+            b["patches"] = rng.normal(size=(
+                2, cfg.num_prefix_tokens, cfg.frontend_dim)).astype(
+                np.float32)
+        out.append(b)
+    return out[:steps]
+
+
+def _port_train(arch, impl, over, state0, batches):
+    """The meshless port's losses of a training case (``state0`` None: its
+    seeded init)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data import torch_placer
+    from repro_torch.launch.steps import make_train_setup
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32", **_train_over(over))
+    n = batches[0]["inputs"].shape[1] + (
+        cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    setup = make_train_setup(cfg, ShapeSpec("t", n, 2, "train"), "cpu",
+                             peak_lr=LR, total_steps=TOTAL)
+    state = setup.init_state(0) if state0 is None \
+        else train_state_from_numpy(state0, cfg, "cpu")
+    place = torch_placer("cpu")
+    out = []
+    for batch in batches:
+        state, m = setup.step_fn(state, place(batch))
+        out.append(float(m["loss"]))
+    return out
+
+
+def _attn_arrays(name):
+    """q, k, v of a SMOKE layer's geometry, with a key mask (bidirectional)
+    or given alpha / beta (causal)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    rng = np.random.default_rng(7)
+    arch = name.split()[0]
+    cfg = get_config(arch, smoke=True)
+    b, n = (4, 32) if arch == "roberta-lln" else (2, 32)
+    h, g, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def normal(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+    out = {"q": normal(b, n, h, d), "k": normal(b, n, g, d),
+           "v": normal(b, n, g, d)}
+    if name.endswith("mask"):
+        mask = np.ones((b, n), bool)
+        mask[1, -7:] = False
+        mask[3, :5] = False
+        out.update(mask=mask, causal=np.asarray(False))
+    else:
+        out.update(alpha=rng.uniform(0.5, 1.5, h).astype(np.float32),
+                   beta=rng.uniform(0.5, 1.5, g).astype(np.float32),
+                   causal=np.asarray(True))
+    return arch, out
+
+
+def _port_batch(batch_np) -> dict:
+    """A numpy batch as the port's tensors: int64 tokens, fp32 frames and
+    patches."""
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.asarray(v).astype(
+        np.int64 if np.asarray(v).dtype.kind in "iu" else np.float32))
+        for k, v in batch_np.items()}
+
+
+def _attn_inputs(arrays, cfg, mesh):
+    """q, k, v (and the key mask) of an attention case, placed by the
+    rules' constraints of ``attention_block._project_qkv``, whole on every
+    rank otherwise (``mesh`` None)."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    t = {k: torch.from_numpy(v) for k, v in arrays.items()
+         if k in ("q", "k", "v", "mask")}
+    if mesh is None:
+        return t
+    axes = {"q": ("act_batch", "attn_seq", "heads", None),
+            "k": ("act_batch", None, "kv_heads", None),
+            "v": ("act_batch", None, "kv_heads", None),
+            "mask": ("act_batch", None)}
+    return {k: shd.place_leaf(v, shd.NamedSharding(mesh, shd.fit_spec(
+        shd.P(*(shd._ACTIVE.get(a) if isinstance(a, str) else a
+                for a in axes[k])), v.shape, mesh)))
+        for k, v in t.items()}
+
+
+def _attention_case(mesh, arch, impl, arrays):
+    """One attention call of a family's layer geometry on ``mesh`` (None:
+    the meshless port): ``multi_head_attention`` with the case's key
+    ``mask`` (bidirectional) or given ``alpha`` / ``beta`` (then also the
+    engine's prefill with them).  Returns numpy outputs."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.attention import multi_head_attention
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.attention_block import attn_cfg_of, attn_engine
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    causal = bool(arrays["causal"])
+    rules = shd.make_rules(cfg, multi_pod=False, serve=True)
+    ctx = shd.logical_rules(mesh, rules) if mesh is not None \
+        else contextlib.nullcontext()
+    out = {}
+
+    def whole(t):
+        return (t.full_tensor() if shd.is_dtensor(t) else t).numpy()
+
+    with ctx, torch.no_grad():
+        t = _attn_inputs(arrays, cfg, mesh)
+        ab = {}
+        if "alpha" in arrays:
+            ab = {"alpha": torch.from_numpy(arrays["alpha"]),
+                  "beta": torch.from_numpy(arrays["beta"])}
+        out["out"] = whole(multi_head_attention(
+            t["q"], t["k"], t["v"], attn_cfg_of(cfg, causal),
+            mask=t.get("mask"), **ab))
+        if ab:
+            o, st = attn_engine(cfg, causal).prefill(
+                t["q"], t["k"], t["v"], max_len=arrays["q"].shape[1], **ab)
+            out["prefill"] = whole(o)
+            for f in ("s", "z", "alpha", "beta"):
+                out[f] = whole(getattr(st, f))
+    return out
+
+
+def families_on_mesh(rank, world, serve_cases, train_cases, attn_cases):
+    """Item 12b's families on mesh (2, 2).  ``serve_cases``: (name, arch,
+    impl, overrides, params numpy or None, batch numpy, max_len, steps,
+    pos0): prefill and greedy decode through ``make_serve_setup(mesh=)``,
+    the caches' local shapes checked after every step; ``train_cases``:
+    (name, arch, impl, overrides, state numpy or None, batches numpy, lr,
+    total steps): the losses of ``make_train_setup(mesh=)``;
+    ``attn_cases``: (name, arch, impl, arrays): :func:`_attention_case` on
+    the mesh and without it.  Returns ``{"serve": {name: {tokens,
+    split}}, "train": {name: {loss, split}}, "attn": {name: (mesh,
+    meshless)}}``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data import torch_placer
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import make_serve_setup, make_train_setup
+    mesh = _mesh(2, 2)
+    out = {"serve": {}, "train": {}, "attn": {}}
+    for name, arch, impl, over, params_np, batch_np, max_len, steps, pos0 \
+            in serve_cases:
+        cfg = get_config(arch, smoke=True, attn_impl=impl,
+                         compute_dtype="float32", **over)
+        bsz = batch_np["inputs"].shape[0]
+        setup = make_serve_setup(cfg, ShapeSpec("s", max_len, bsz, "decode"),
+                                 mesh=mesh)
+        params = setup.shard_params(_params(params_np, cfg))
+        logits, caches = setup.prefill_fn(params, _port_batch(batch_np))
+        split = _check_local_shapes(caches, setup.cache_shardings(caches))
+        tok = torch.argmax(logits[:, -1], -1)
+        toks = [tok]
+        for i in range(steps):
+            logits, caches = setup.decode_fn(params, caches, tok, pos0 + i)
+            _check_local_shapes(caches, setup.cache_shardings(caches))
+            tok = torch.argmax(logits, -1)
+            toks.append(tok)
+        out["serve"][name] = {"tokens": torch.stack(toks, 1).numpy(),
+                              "split": split}
+    for name, arch, impl, over, state_np, batches, lr, total in train_cases:
+        cfg = get_config(arch, smoke=True, attn_impl=impl,
+                         compute_dtype="float32", **over)
+        first = batches[0]
+        n = first["inputs"].shape[1]
+        if cfg.family == "vlm":
+            n += cfg.num_prefix_tokens
+        setup = make_train_setup(cfg, ShapeSpec("t", n, first[
+            "inputs"].shape[0], "train"), mesh=mesh, peak_lr=lr,
+            total_steps=total)
+        state = setup.init_state(0) if state_np is None \
+            else train_state_from_numpy(state_np, cfg, "cpu")
+        shardings = setup.state_shardings(state)
+        state = shd.shard_tree(state, shardings)
+        split = _check_local_shapes(state, shardings)
+        place = torch_placer("cpu")
+        losses = []
+        for batch in batches:
+            state, m = setup.step_fn(state, place(batch))
+            losses.append(float(m["loss"]))
+        _check_local_shapes(state, shardings)
+        out["train"][name] = {"loss": losses, "split": split}
+    for name, arch, impl, arrays in attn_cases:
+        out["attn"][name] = (_attention_case(mesh, arch, impl, arrays),
+                             _attention_case(None, arch, impl, arrays))
+    return out
+
+
 def _meshless_tokens(arch, impl, over, batch_np, max_len, steps, pos0):
     import numpy as np
     import torch
@@ -435,7 +726,47 @@ def main() -> int:
                                         for a, b in zip(g["loss"], w)),
                    f"{g['loss']} vs {w}")
         report("train CLI", len(cli) == 2, f"losses {cli}")
+        families_main(report, tmp)
     return 0 if ok else 1
+
+
+def families_main(report, tmp) -> None:
+    """Item 12b's family cases on (2, 2) from the port's seeded init,
+    against the port's meshless runs (tokens equal, losses and attention
+    outputs within 1e-5)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    serve_in = {name: _serve_inputs(arch, impl, over, i)
+                for i, (name, arch, impl, over)
+                in enumerate(SERVE + SERVE_PORT)}
+    batches = {name: family_train_batches(get_config(
+        arch, smoke=True, attn_impl=impl, **_train_over(over)))
+        for name, arch, impl, over in TRAIN}
+    attn = {name: _attn_arrays(name) for name in ATTN}
+    got = spawn("_torch_dist:families_on_mesh", 4, tmp,
+                [(name, arch, impl, over, None, serve_in[name]["batch"],
+                  serve_in[name]["max_len"], STEPS, serve_in[name]["pos0"])
+                 for name, arch, impl, over in SERVE + SERVE_PORT],
+                [(name, arch, impl, _train_over(over), None, batches[name],
+                  LR, TOTAL) for name, arch, impl, over in TRAIN],
+                [(name, arch, "lln_diag", arrays)
+                 for name, (arch, arrays) in attn.items()])[0]
+    for name, arch, impl, over in SERVE + SERVE_PORT:
+        want = _port_serve(arch, impl, over, serve_in[name])
+        res = got["serve"][name]
+        report(f"family serve {name}", np.array_equal(res["tokens"], want)
+               and res["split"], f"split cache leaves {res['split']}")
+    for name, arch, impl, over in TRAIN:
+        want = _port_train(arch, impl, over, None, batches[name])
+        res = got["train"][name]["loss"]
+        report(f"family train {name}", all(
+            abs(a - b) <= 1e-5 * abs(b) for a, b in zip(res, want)),
+            f"{res} vs {want}")
+    for name, (mesh_out, plain) in got["attn"].items():
+        err = max(float(np.abs(mesh_out[k] - plain[k]).max()) for k in plain)
+        scale = max(1.0, max(float(np.abs(v).max()) for v in plain.values()))
+        report(f"family attention {name}", err <= 1e-5 * scale,
+               f"max abs err {err:.3e}")
 
 
 if __name__ == "__main__":

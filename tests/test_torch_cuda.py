@@ -1558,7 +1558,10 @@ def _launch_counts():
     kernels = {"lln_causal": lln_causal, "block_diag": block_diag,
                "lln_decode": lln_decode, "lln_diag_fused": lln_diag_fused,
                "lln_causal_bwd": lln_causal_bwd,
-               "lln_diag_fused_bwd": lln_diag_fused_bwd}
+               "lln_diag_fused_bwd": lln_diag_fused_bwd,
+               "lln_bidir": lln_bidir, "lln_bidir_bwd": lln_bidir_bwd,
+               "block_diag_bwd": block_diag_bwd,
+               "loglin_causal": loglin_causal, "ssd": ssd}
     return {name: fn.launches for name, fn in kernels.items()}
 
 
@@ -1635,5 +1638,97 @@ def test_cuda_one_rank_mesh_trains_like_meshless(one_rank_mesh, impl):
         runs.append((losses, _diff(_launch_counts(), before)))
     (l0, c0), (l1, c1) = runs
     assert c0 == c1 and (c1["lln_causal"] or c1["lln_diag_fused"])
+    for a, b in zip(l1, l0):
+        assert abs(a - b) <= 1e-5 * abs(b), (l1, l0)
+
+
+# Item 12b's families: (arch, impl, the kernels their path must launch).
+MESH_FAMILY_SERVE = (("mamba2-130m", "softmax", ()),
+                     ("zamba2-7b", "lln_diag", ("lln_causal", "lln_decode")),
+                     ("deepseek-v2-236b", "lln_diag",
+                      ("lln_causal", "lln_decode")),
+                     ("deepseek-v2-236b", "softmax", ()),
+                     ("seamless-m4t-medium", "lln_diag",
+                      ("lln_bidir", "lln_causal", "lln_decode")),
+                     ("paligemma-3b", "softmax", ()),
+                     ("paligemma-3b", "lln_diag",
+                      ("lln_causal", "lln_decode")),
+                     ("yi-9b", "log_linear", ("loglin_causal",)))
+MESH_FAMILY_TRAIN = (("mamba2-130m", "softmax", ("ssd",)),
+                     ("zamba2-7b", "lln_diag", ("ssd", "lln_diag_fused")),
+                     ("deepseek-v2-236b", "lln_diag", ("lln_diag_fused",)),
+                     ("seamless-m4t-medium", "lln_diag",
+                      ("lln_bidir", "lln_diag_fused")),
+                     ("paligemma-3b", "lln_diag", ("lln_diag_fused",)),
+                     ("roberta-lln", "lln_diag", ("lln_bidir",)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl,want", MESH_FAMILY_SERVE)
+def test_cuda_one_rank_mesh_serves_families_like_meshless(one_rank_mesh,
+                                                          arch, impl, want):
+    """Item 12b: each family's SMOKE serving (fp32, use_kernel=True, 8
+    greedy steps) on the 1 x 1 mesh gives the meshless run's tokens from
+    the same weights and the same kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_serve_setup
+    from repro_torch.models import synthetic_batch
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32", use_kernel=True,
+                     capacity_factor=8.0)
+    pos0 = 24 + (cfg.num_prefix_tokens if cfg.family == "vlm" else 0)
+    shape = ShapeSpec("s", pos0 + 9, 2, "decode")
+    runs, params = [], None
+    for mesh in (None, one_rank_mesh):
+        setup = make_serve_setup(cfg, shape, "cuda", mesh=mesh)
+        params = setup.model.init(0) if params is None else params
+        params = setup.shard_params(params)
+        batch = synthetic_batch(cfg, 2, pos0 + 9, seed=1, text_seq=24,
+                                device="cuda")
+        batch = {k: v for k, v in batch.items()
+                 if k in ("inputs", "src", "patches")}
+        before = _launch_counts()
+        logits, caches = setup.prefill_fn(params, batch)
+        tok = torch.argmax(logits[:, -1], -1)
+        toks, caches = setup.make_generate(8)(params, caches, tok, pos0)
+        torch.cuda.synchronize()
+        runs.append((torch.cat([tok[:, None], toks], 1),
+                     _diff(_launch_counts(), before)))
+    (t0, c0), (t1, c1) = runs
+    assert torch.equal(t0, t1)
+    assert c0 == c1 and all(c1[k] for k in want), c1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl,want", MESH_FAMILY_TRAIN)
+def test_cuda_one_rank_mesh_trains_families_like_meshless(one_rank_mesh,
+                                                          arch, impl, want):
+    """Item 12b: each family's SMOKE training (fp32, use_kernel=True, one
+    microbatch, 2 steps of 2 x 32) on the 1 x 1 mesh: the meshless run's
+    losses within 1e-5 relative and the same kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import make_train_setup
+    from repro_torch.models import synthetic_batch
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32", use_kernel=True, grad_accum=1,
+                     capacity_factor=8.0)
+    shape = ShapeSpec("t", 32, 2, "train")
+    batches = [synthetic_batch(cfg, 2, 32, seed=s, device="cuda")
+               for s in range(2)]
+    runs = []
+    for mesh in (None, one_rank_mesh):
+        setup = make_train_setup(cfg, shape, "cuda", mesh=mesh,
+                                 peak_lr=1e-3, total_steps=10)
+        state = setup.init_state(0)
+        before = _launch_counts()
+        losses = []
+        for b in batches:
+            state, m = setup.step_fn(state, b)
+            losses.append(float(m["loss"]))
+        runs.append((losses, _diff(_launch_counts(), before)))
+    (l0, c0), (l1, c1) = runs
+    assert c0 == c1 and all(c1[k] for k in want), c1
     for a, b in zip(l1, l0):
         assert abs(a - b) <= 1e-5 * abs(b), (l1, l0)

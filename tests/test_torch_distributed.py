@@ -191,19 +191,25 @@ def test_cache_shardings_match_the_reference(prefills, mesh, monkeypatch):
 
 
 def test_mesh_flag_refusals():
-    """The CLIs' ``--mesh``: ``1,1`` is the meshless path; other families,
-    MLA and the pool and speculative modes name item 12b; a mesh larger
-    than the world raises ``ValueError`` before any group starts."""
-    from repro_torch.launch.mesh import compat_mesh, mesh_from_flag
+    """The CLIs' ``--mesh``: ``1,1`` is the meshless path; every family
+    (MLA included) passes the family check since item 12b and reaches the
+    mesh's own check; the pool and speculative modes name item 12c; a
+    mesh larger than the world raises ``ValueError`` before any group
+    starts."""
+    from repro_torch.configs.registry import list_archs
+    from repro_torch.launch.mesh import (check_mesh_family, compat_mesh,
+                                         mesh_from_flag)
     yi = get_config("yi-9b", smoke=True)
     assert mesh_from_flag("1,1", yi, "cpu") is None
-    for cfg, kw in ((get_config("mamba2-130m", smoke=True), {}),
-                    (get_config("deepseek-v2-236b", smoke=True), {}),
-                    (get_config("paligemma-3b", smoke=True), {}),
-                    (yi, {"continuous": True}),
-                    (yi, {"speculative": True})):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            mesh_from_flag("2,2", cfg, "cpu", **kw)
+    for arch in list_archs():
+        assert check_mesh_family(get_config(arch, smoke=True)) is None
+    for arch in ("mamba2-130m", "deepseek-v2-236b", "paligemma-3b",
+                 "seamless-m4t-medium", "roberta-lln"):
+        with pytest.raises(ValueError, match="4 devices needs 4 processes"):
+            mesh_from_flag("2,2", get_config(arch, smoke=True), "cpu")
+    for kw in ({"continuous": True}, {"speculative": True}):
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            mesh_from_flag("2,2", yi, "cpu", **kw)
     with pytest.raises(ValueError, match="4 devices needs 4 processes"):
         compat_mesh((2, 2), ("data", "model"), "cpu")
     assert not torch.distributed.is_initialized()
@@ -211,13 +217,8 @@ def test_mesh_flag_refusals():
                    (steps.make_spec_setup, {"shape": ShapeSpec(
                        "s", 8, 2, "decode"), "spec_k": 2,
                        "draft_layers": 1})):
-        with pytest.raises(NotImplementedError, match="item 12b"):
+        with pytest.raises(NotImplementedError, match="item 12c"):
             fn(yi, device="cpu", mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        steps.make_serve_setup(get_config("seamless-m4t-medium",
-                                          smoke=True),
-                               ShapeSpec("s", 8, 2, "decode"), "cpu",
-                               mesh=object())
 
 
 # ---------------------------------------------------------------------------

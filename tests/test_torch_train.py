@@ -177,16 +177,20 @@ def test_train_cli_on_cpu(impl, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2,1", "--arch", "mamba2-130m"], "mesh"),
+    (["--mesh", "2,1", "--arch", "mamba2-130m"],
+     "2 devices needs 2 processes"),
+    (["--mesh", "2,2"], "4 devices needs 4 processes"),
 ])
 def test_train_cli_refuses_unported_options(argv, match):
-    """A mesh trains the dense and MoE decoders (item 12a); the other
-    families on a mesh name item 12b (every ``--mesh`` raised before
-    meshes were ported)."""
+    """Every family trains on a mesh (items 12a and 12b; every ``--mesh``
+    raised before meshes were ported, the families other than the dense
+    and MoE decoders before item 12b): a mesh larger than the one-process
+    world is refused before any group starts."""
     base = ["--arch", "yi-9b", "--smoke", "--device", "cpu", "--steps", "1",
             "--attn-impl", "lln"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         train.main(base + argv)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("argv", [[], ["--attn-impl", "softmax"]],
