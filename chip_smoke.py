@@ -198,7 +198,8 @@ with the argument bytes the port's rules give).
 check phases (spec, spec_pool, small_pool, kernels_families,
 small_families, serve_families, kernels_families_train,
 small_families_train, train_families, mesh, mesh_fake, mesh_families,
-dryrun) after device and build, and prints no kernels line.
+mesh_pool, mesh_spec, dryrun) after device and build, and prints no
+kernels line.
 """
 from __future__ import annotations
 
@@ -5295,6 +5296,160 @@ def phase_mesh_families(launches, mesh_times):
         dist.destroy_process_group()
 
 
+# mesh_pool / mesh_spec (the pool and speculative decoding on a mesh):
+# yi-9b at full width cut to MP_LAYERS layers, its draft MP_DRAFT, and
+# mamba2-130m to MP_SSM_LAYERS (of 48 and 24: the script's time limit);
+# the pool's requests' budgets, prompt MP_N.
+MP_LAYERS, MP_DRAFT, MP_N = 4, 2, 128
+MP_SSM_LAYERS = 8
+MP_BUDGETS = (4, 4, 8, 16) * 2
+MS_STEPS = 8                   # mesh_spec: tokens per row
+MP_KEYS = {"lln_causal": "lln_causal (state)", "block_diag": "block_diag",
+           "lln_decode": "lln_decode", "ssd": "ssd"}
+
+
+def _mp_requests(vocab):
+    from repro_torch.launch.batcher import Request
+    rng = np.random.default_rng(SEED)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, MP_N).astype(
+        np.int32), gen_len=g) for i, g in enumerate(MP_BUDGETS)]
+
+
+def _mp_run(setup, params, reqs):
+    """One pool run (after a warm-up pass): (outputs, launches, wall ms per
+    segment, decode steps)."""
+    from repro_torch.launch.batcher import ContinuousBatcher
+    eng = ContinuousBatcher(setup, params)
+    eng.warmup([MP_N])
+    torch.cuda.synchronize()
+    _reset()
+    stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    got = _read()
+    bad = {r: s for r, s in stats.statuses.items() if s != "done"}
+    if bad:
+        raise AssertionError(f"pool statuses {bad}")
+    return ({r: np.asarray(t).tolist() for r, t in stats.outputs.items()},
+            got, stats.wall_s * 1e3 / max(stats.segments, 1),
+            stats.decode_steps)
+
+
+def phase_mesh_pool(launches, mesh_times):
+    """The pool on a one-rank NCCL group and a 1 x 1 DeviceMesh: the
+    request pool (launch/batcher.py over make_pool_setup(mesh=...)) against
+    the meshless pool from the same bf16 weights, B slots, the
+    MP_BUDGETS requests (prompt MP_N), segment 4: yi-9b at full width cut
+    to MP_LAYERS layers (lln_diag), plain and with speculative rows
+    (spec_k 2, an MP_DRAFT-layer draft), and mamba2-130m (24 layers,
+    use_kernel=True).  Each request's greedy tokens and every kernel's
+    launch count equal the meshless run's; every request ends done.  The
+    mesh runs' launches go into the kernels line; the ms per segment of
+    both go into the mesh times.  The group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_pool_setup
+    mesh = make_smoke_mesh(1, 1)
+    # (label, arch, overrides, spec_k, the kernels the run must launch:
+    # none for mamba2, whose serving prefill is the core SSD scan).
+    yi = {"attn_impl": "lln_diag", "n_layers": MP_LAYERS}
+    cells = (("yi-9b", "yi-9b", yi, 0, ("lln_causal", "block_diag",
+                                        "lln_decode")),
+             ("yi-9b spec", "yi-9b", yi, 2, ("lln_causal", "block_diag",
+                                             "lln_decode")),
+             ("mamba2-130m", "mamba2-130m", {"n_layers": MP_SSM_LAYERS}, 0,
+              ()))
+    try:
+        for label, arch, over, spec_k, used in cells:
+            cfg = get_config(arch, param_dtype="bfloat16", **over)
+            reqs = _mp_requests(cfg.vocab)
+            kw = dict(slots=B, max_len=MP_N + max(MP_BUDGETS) + spec_k + 1,
+                      segment=4, spec_k=spec_k,
+                      draft_layers=MP_DRAFT if spec_k else 0)
+            plain = make_pool_setup(cfg, **kw)
+            params = plain.model.init(SEED)
+            out0, c0, ms0, steps0 = _mp_run(plain, params, reqs)
+            setup = make_pool_setup(cfg, mesh=mesh, **kw)
+            params = setup.shard_params(params)
+            out1, c1, ms1, steps1 = _mp_run(setup, params, reqs)
+            log(f"mesh_pool {label}: launches {c1} (meshless {c0}); "
+                f"{ms1:.1f} ms per segment (meshless {ms0:.1f}); request 0 "
+                f"{out1[0]}")
+            if c1 != c0 or not all(c1[k] for k in used):
+                raise AssertionError(f"mesh_pool {label}: launches {c1} vs "
+                                     f"{c0}")
+            if out1 != out0:
+                raise AssertionError(f"mesh_pool {label}: tokens {out1} vs "
+                                     f"meshless {out0}")
+            for key, name in MP_KEYS.items():
+                launches[name] += c1[key]
+            mesh_times[f"pool {label}"] = {
+                "ms_per_segment": ms1, "meshless_ms_per_segment": ms0,
+                "decode_steps": steps1, "meshless_decode_steps": steps0}
+            del plain, setup, params
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_spec(launches, mesh_times):
+    """make_spec_setup on a one-rank NCCL group and a 1 x 1 DeviceMesh:
+    yi-9b at full width cut to MP_LAYERS layers (lln_diag, bf16 weights),
+    an MP_DRAFT-layer draft, k = 3, batch B at prompt N, MS_STEPS greedy
+    tokens per row, against the meshless loop from the same weights: the
+    tokens, n_emit and every kernel's launch count equal.  The group is
+    destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import make_spec_setup
+    from repro_torch.models import synthetic_batch
+    mesh = make_smoke_mesh(1, 1)
+    try:
+        cfg = get_config("yi-9b", attn_impl="lln_diag", n_layers=MP_LAYERS,
+                         param_dtype="bfloat16")
+        total = N + MS_STEPS + 4 + 1
+        shape = ShapeSpec("chip", total, B, "decode")
+        batch = synthetic_batch(cfg, B, total, seed=SEED, text_seq=N,
+                                device="cuda")
+        params, runs = None, {}
+        for label, mesh_ in (("meshless", None), ("mesh", mesh)):
+            sp = make_spec_setup(cfg, shape, spec_k=3, draft_layers=MP_DRAFT,
+                                 mesh=mesh_)
+            params = sp.shard_params(sp.model.init(SEED) if params is None
+                                     else params)
+            for counted in (False, True):
+                _reset()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                logits, tgt, dr = sp.prefill_fn(params, batch)
+                tok = torch.argmax(logits[:, -1], -1)
+                toks, n_emit, _, live, *_ = sp.make_generate(MS_STEPS)(
+                    params, tgt, dr, tok, N)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            iters = int(live.any(0).sum())
+            runs[label] = (toks.cpu(), n_emit.cpu(), _read(),
+                           wall * 1e3 / max(iters, 1), iters)
+        (t0_, e0, c0, ms0, i0), (t1, e1, c1, ms1, i1) = (runs["meshless"],
+                                                       runs["mesh"])
+        log(f"mesh_spec: launches {c1} (meshless {c0}); {i1} iterations, "
+            f"{ms1:.1f} ms each with the prefill (meshless {ms0:.1f})")
+        if c1 != c0 or not c1["lln_decode"]:
+            raise AssertionError(f"mesh_spec: launches {c1} vs {c0}")
+        if not (torch.equal(t0_, t1) and torch.equal(e0, e1)):
+            raise AssertionError("mesh_spec: tokens differ from the "
+                                 "meshless loop's")
+        for key, name in MP_KEYS.items():
+            launches[name] += c1[key]
+        mesh_times["spec"] = {"ms_per_iteration": ms1,
+                              "meshless_ms_per_iteration": ms0,
+                              "iterations": i1}
+    finally:
+        dist.destroy_process_group()
+
+
 # mesh_fake's families at full width (label, arch, impl, overrides), prompt
 # FAKE_N (paligemma: its 256 patches before it), and what one rank of the
 # (1, FAKE_WORLD) mesh holds.
@@ -5364,18 +5519,27 @@ DRY_CELLS = (("yi-9b", "decode_32k", {"n_layers": 1}),
               {"n_layers": 1, "enc_layers": 1}),
              ("paligemma-3b", "decode_32k", {"n_layers": 1}),
              ("roberta-lln", "train_4k", {"n_layers": 1}))
+# use_kernel=True cells on 16 x 16 (arch, shape, overrides, impl), each
+# beside its use_kernel=False twin: the hand kernels' custom ops traced on
+# fake cuda tensors (the train cells reach the backward ops' fakes).
+DRY_KERNEL_CELLS = (("yi-9b", "decode_32k", {"n_layers": 1}, "lln_diag"),
+                    ("yi-9b", "train_4k", {"n_layers": 1}, "lln_diag"),
+                    ("mamba2-130m", "train_4k", {"n_layers": 1}, "auto"))
 DRY_CHILD = """
 import json, sys
 import torch.distributed as dist
 from repro_torch.launch import dryrun
+from repro_torch.kernels import ops  # noqa: F401 (every wrapper imported)
 cells, multi_pod = json.loads(sys.argv[1]), sys.argv[2] == "1"
-out = [dryrun.run_cell(a, s, multi_pod, "auto", o) for a, s, o in cells]
+out = [dryrun.run_cell(a, s, multi_pod, (c[3] if len(c) > 3 else "auto"),
+                       o) for c in cells for a, s, o in [c[:3]]]
 dist.destroy_process_group()
-print(json.dumps(out))
+import chip_smoke
+print(json.dumps({"cells": out, "launches": chip_smoke._read()}))
 """
 
 
-def _dryrun_expected(arch, shape_name, over, multi_pod):
+def _dryrun_expected(arch, shape_name, over, multi_pod, impl="auto"):
     """A dry-run cell's per-rank argument bytes by the port's rules on a
     duck mesh of the production shape: parameters (and AdamW moments) by
     param_specs, caches by cache_shardings, the batch or token by the
@@ -5387,7 +5551,7 @@ def _dryrun_expected(arch, shape_name, over, multi_pod):
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.tree import leaves_with_path, path_str
-    cfg, _, shape = dryrun.cell_config(arch, shape_name, overrides=over)
+    cfg, _, shape = dryrun.cell_config(arch, shape_name, impl, over)
     dims = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
     duck = SimpleNamespace(axis_names=names,
@@ -5433,10 +5597,17 @@ def phase_dryrun(results):
     16, two for 2 x 16 x 16; each starts its own fake group of 256 or 512
     ranks and traces with fake cuda tensors, nothing launched) run the
     DRY_CELLS; each cell is ok and its per-rank argument bytes are the
-    ones the port's rules give (_dryrun_expected)."""
+    ones the port's rules give (_dryrun_expected).  The 16 x 16 child also
+    runs the DRY_KERNEL_CELLS with use_kernel=True and False: each ok, the
+    kernel cell's argument bytes equal its twin's, its trace dispatched
+    the kernels' custom ops (its twin's none), and no child launched or
+    counted a kernel."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     half = len(DRY_CELLS) // 2
-    jobs = [(False, DRY_CELLS), (True, DRY_CELLS[:half]),
+    kern = [c for arch, shape, over, impl in DRY_KERNEL_CELLS
+            for c in ((arch, shape, {**over, "use_kernel": True}, impl),
+                      (arch, shape, over, impl))]
+    jobs = [(False, list(DRY_CELLS) + kern), (True, DRY_CELLS[:half]),
             (True, DRY_CELLS[half:])]
     procs = [subprocess.Popen(
         [sys.executable, "-c", DRY_CHILD, json.dumps(cells),
@@ -5448,31 +5619,56 @@ def phase_dryrun(results):
             out, err = proc.communicate(timeout=600)
             if proc.returncode != 0:
                 raise AssertionError(f"dryrun child failed:\n{err[-4000:]}")
-            outs.append(json.loads(out.strip().splitlines()[-1]))
+            got = json.loads(out.strip().splitlines()[-1])
+            if any(got["launches"].values()):
+                raise AssertionError(f"dryrun launched {got['launches']}")
+            outs.append(got["cells"])
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    got = {False: outs[0], True: outs[1] + outs[2]}
+    got = {False: outs[0][:len(DRY_CELLS)], True: outs[1] + outs[2]}
     for mp in (False, True):
         for (arch, shape, over), cell in zip(DRY_CELLS, got[mp]):
             want = _dryrun_expected(arch, shape, over, mp)
-            log(f"dryrun {arch} {shape} {cell['mesh']}: ok {cell['ok']}, "
-                f"trace {cell['lower_s']} s, args "
-                f"{cell['argument_size_in_bytes']} B (rules: {want}), outputs "
-                f"{cell['output_size_in_bytes']} B, temp "
-                f"{cell['temp_size_in_bytes']} B, flops {cell['flops']:.3e}, "
-                f"collectives {cell['collectives']}")
-            if not cell["ok"] or cell["argument_size_in_bytes"] != want:
-                raise AssertionError(f"dryrun {arch} {shape} {cell['mesh']}:"
-                                     f" {cell}, expected argument bytes "
-                                     f"{want}")
-            results[f"dryrun {arch} {shape} {cell['mesh']}"] = {
-                k: cell[k] for k in ("lower_s", "argument_size_in_bytes",
-                                     "output_size_in_bytes",
-                                     "temp_size_in_bytes", "flops",
-                                     "collectives")}
+            _dry_log(results, arch, shape, cell, want)
+            if cell["kernel_ops"]:
+                raise AssertionError(f"dryrun {arch} {shape}: kernel ops "
+                                     f"{cell['kernel_ops']} on the core "
+                                     "path")
+    pairs = outs[0][len(DRY_CELLS):]
+    for i, (arch, shape, over, impl) in enumerate(DRY_KERNEL_CELLS):
+        cell, twin = pairs[2 * i], pairs[2 * i + 1]
+        want = _dryrun_expected(arch, shape, over, False, impl)
+        _dry_log(results, arch, f"{shape} use_kernel", cell, want)
+        _dry_log(results, arch, f"{shape} twin", twin, want)
+        log(f"  kernel ops per rank: {cell['kernel_ops']}")
+        if not cell["kernel_ops"] or twin["kernel_ops"]:
+            raise AssertionError(f"dryrun {arch} {shape}: kernel ops "
+                                 f"{cell['kernel_ops']} / twin "
+                                 f"{twin['kernel_ops']}")
+        if shape == "train_4k" and not any(
+                k.endswith("_bwd") for k in cell["kernel_ops"]) and \
+                arch != "mamba2-130m":
+            raise AssertionError(f"dryrun {arch} {shape}: no backward op")
+
+
+def _dry_log(results, arch, shape, cell, want):
+    """Log one dry-run cell and hold it ok with ``want`` argument bytes."""
+    log(f"dryrun {arch} {shape} {cell['mesh']}: ok {cell['ok']}, "
+        f"trace {cell.get('lower_s')} s, args "
+        f"{cell.get('argument_size_in_bytes')} B (rules: {want}), outputs "
+        f"{cell.get('output_size_in_bytes')} B, temp "
+        f"{cell.get('temp_size_in_bytes')} B, flops {cell.get('flops')}, "
+        f"collectives {cell.get('collectives')}")
+    if not cell["ok"] or cell["argument_size_in_bytes"] != want:
+        raise AssertionError(f"dryrun {arch} {shape} {cell['mesh']}: "
+                             f"{cell}, expected argument bytes {want}")
+    results[f"dryrun {arch} {shape} {cell['mesh']}"] = {
+        k: cell[k] for k in ("lower_s", "argument_size_in_bytes",
+                             "output_size_in_bytes", "temp_size_in_bytes",
+                             "flops", "collectives", "kernel_ops")}
 
 
 _T0 = time.time()
@@ -5588,6 +5784,8 @@ def main(argv=None):
     _phase(phase_mesh, launches, mesh_times)
     _phase(phase_mesh_fake, launches)
     _phase(phase_mesh_families, launches, mesh_times)
+    _phase(phase_mesh_pool, launches, mesh_times)
+    _phase(phase_mesh_spec, launches, mesh_times)
     dry = {}
     _phase(phase_dryrun, dry)
     rows, decode_times = _phase(phase_timings, errs, launches)
@@ -5656,6 +5854,8 @@ def _main_selected(smi, only):
              "mesh": lambda: phase_mesh(launches, times),
              "mesh_fake": lambda: phase_mesh_fake(launches),
              "mesh_families": lambda: phase_mesh_families(launches, times),
+             "mesh_pool": lambda: phase_mesh_pool(launches, times),
+             "mesh_spec": lambda: phase_mesh_spec(launches, times),
              "dryrun": lambda: phase_dryrun(results)}
     unknown = only - set(table)
     if unknown:

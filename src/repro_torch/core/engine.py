@@ -23,7 +23,7 @@ from repro_torch.kernels.registry import AttnSpec
 from repro_torch.tree import map_with_path
 from . import health as health_mod
 from . import moment_matching as mm
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import is_dtensor, map_rows
 from .attention import (AttnConfig, KVCache, LLNDecodeState,
                         batch_alpha_beta, commit_lln_chunk, commit_softmax,
                         decode_lln_chunk, decode_softmax,
@@ -347,8 +347,14 @@ class AttentionEngine:
         returned against this ``state``.  The same state, bit for bit, as
         :meth:`decode` with this ``commit_len`` on the same backend; the
         beta(n) gain is derived from ``state.pos`` as the score pass
-        derived it (``pos`` did not advance)."""
+        derived it (``pos`` did not advance).  A DTensor residual (the
+        score ran on a mesh) goes to ``local_attention.commit``."""
         k, v = residual["k"], residual["v"]
+        if is_dtensor(k):
+            from repro_torch.distributed import local_attention
+            return local_attention.commit(self, state, residual,
+                                          commit_len=commit_len,
+                                          row_mask=row_mask)
         spec = self.spec
         if spec.impl == "softmax":
             kv = commit_softmax(KVCache(k=state.k, v=state.v,
@@ -410,9 +416,14 @@ class AttentionEngine:
 def evict_rows(tree, rows):
     """:meth:`AttentionEngine.evict` over any decode-state tree whose
     leaves carry the rows on axis 0 (one state, or a model's per-layer
-    caches)."""
+    caches).  A DTensor leaf (a pool on a mesh) is cleared on each rank's
+    shard, at the rows it holds."""
     def clear(path, leaf):
         fill = 1 if path[-1] in ("alpha", "beta") else 0
+        if is_dtensor(leaf):
+            mask = rows_mask(rows, leaf.shape[0], leaf.device)
+            return map_rows(leaf, lambda loc, idx: loc.masked_fill(
+                mask[idx].reshape((-1,) + (1,) * (loc.ndim - 1)), fill))
         if torch.is_tensor(rows) and rows.dtype == torch.bool:
             return leaf.masked_fill(rows.to(leaf.device).reshape(
                 (-1,) + (1,) * (leaf.ndim - 1)), fill)
@@ -421,3 +432,12 @@ def evict_rows(tree, rows):
                             device=leaf.device)] = fill
         return out
     return map_with_path(clear, tree)
+
+
+def rows_mask(rows, n: int, device) -> torch.Tensor:
+    """(n,) bool: ``rows`` given as slot indices or as a bool mask."""
+    if torch.is_tensor(rows) and rows.dtype == torch.bool:
+        return rows.to(device)
+    mask = torch.zeros(n, dtype=torch.bool, device=device)
+    mask[torch.as_tensor(rows, dtype=torch.long, device=device)] = True
+    return mask

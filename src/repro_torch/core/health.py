@@ -24,6 +24,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import (any_over_mesh, is_dtensor,
+                                              local_rows)
 from repro_torch.tree import float_leaf, leaves_with_path
 
 _CALIB_NAMES = ("alpha", "beta")
@@ -59,8 +61,13 @@ def row_health(tree, *, config: HealthConfig = HealthConfig()) -> dict:
     or a model's cache tree of per-layer states), rows on axis 0.  Integer
     leaves and 0-d leaves are skipped.  Returns ``{"unhealthy",
     "nonfinite", "magnitude", "calib"}``, each a (B,) bool tensor
-    (``unhealthy`` the OR of the enabled checks)."""
+    (``unhealthy`` the OR of the enabled checks).
+
+    DTensor leaves (a pool on a mesh) are checked on each rank's shard:
+    its rows' flags land at their global rows and are OR-ed over the mesh,
+    so every rank gets the same vectors without gathering a state."""
     nonfinite = magnitude = calib = None
+    mesh = None
 
     def acc(cur, new):
         return new if cur is None else cur | new
@@ -68,17 +75,29 @@ def row_health(tree, *, config: HealthConfig = HealthConfig()) -> dict:
     for path, leaf in leaves_with_path(tree):
         if not float_leaf(leaf) or leaf.ndim == 0:
             continue
+        rows, n = None, leaf.shape[0]
+        if is_dtensor(leaf):
+            mesh, rows = leaf.device_mesh, local_rows(leaf)
+            leaf = leaf.to_local()
+
+        def lift(bad, rows=rows, n=n):
+            flags = _rows(bad)
+            if rows is None:
+                return flags
+            out = torch.zeros(n, dtype=torch.bool, device=flags.device)
+            out[rows] = flags
+            return out
         if path[-1] in _CALIB_NAMES:
             if config.check_calib:
                 bad = (~torch.isfinite(leaf) | (leaf <= 0.0)
                        | (leaf > config.max_calib))
-                calib = acc(calib, _rows(bad))
+                calib = acc(calib, lift(bad))
             continue
         if config.check_nonfinite:
-            nonfinite = acc(nonfinite, _rows(~torch.isfinite(leaf)))
+            nonfinite = acc(nonfinite, lift(~torch.isfinite(leaf)))
         if config.check_magnitude:
             magnitude = acc(magnitude,
-                            _rows(torch.abs(leaf) > config.max_abs))
+                            lift(torch.abs(leaf) > config.max_abs))
 
     if nonfinite is None and magnitude is None and calib is None:
         raise ValueError("state tree has no float leaves with a row axis")
@@ -87,6 +106,9 @@ def row_health(tree, *, config: HealthConfig = HealthConfig()) -> dict:
     flags = {"nonfinite": nonfinite if nonfinite is not None else zero,
              "magnitude": magnitude if magnitude is not None else zero,
              "calib": calib if calib is not None else zero}
+    if mesh is not None:
+        pooled = any_over_mesh(torch.stack(list(flags.values())), mesh)
+        flags = dict(zip(flags, pooled))
     flags["unhealthy"] = (flags["nonfinite"] | flags["magnitude"]
                           | flags["calib"])
     return flags

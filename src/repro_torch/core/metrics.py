@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from ..distributed.sharding import is_dtensor
 from ..tree import leaves_with_path
 from .moment_matching import DEFAULT_A, DEFAULT_B
 
@@ -168,14 +169,17 @@ def streaming_concentration_tree(tree) -> dict | None:
     walks those and averages the per-layer instruments (the same mean as
     the reference's over its stacked axis).  Every ``z`` / ``c_k`` /
     ``log_scale`` / ``pos`` leaf is collected by name, with the batch on
-    axis 0 as the port's caches keep it.  Returns None when the tree
-    carries no LLN state (softmax caches and the SSM layers have no
-    ``z``).
+    axis 0 as the port's caches keep it; DTensor leaves (a pool on a mesh)
+    are gathered whole first, so every rank gets the same instruments.
+    Returns None when the tree carries no LLN state (softmax caches and
+    the SSM layers have no ``z``).
     """
     found = {name: [] for name in _STATE_FIELDS}
     for path, leaf in leaves_with_path(tree):
         if path and path[-1] in found:
-            found[path[-1]].append(leaf)
+            # On a mesh these O(B H D) leaves come whole to every rank.
+            found[path[-1]].append(leaf.full_tensor() if is_dtensor(leaf)
+                                   else leaf)
     zs, cs, lss, poss = (found[n] for n in _STATE_FIELDS)
     if not zs:
         return None

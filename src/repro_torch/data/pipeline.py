@@ -4,9 +4,10 @@
 * per-host sharding: each process draws only its slice of the global batch
   (deterministic in (seed, step, host));
 * background prefetch so the input pipeline never stalls the step;
-* device placement: :func:`torch_placer` (one device) and
-  :func:`mesh_placer` (the reference's ``device_placer``: DTensors placed
-  by the batch specs on a mesh).
+* device placement: :func:`torch_placer` (one device), and
+  :func:`device_placer` (the reference's name: DTensors placed by the
+  batch specs on a mesh) over :func:`mesh_placer` (the same by DTensor
+  placements).
 """
 from __future__ import annotations
 
@@ -122,3 +123,13 @@ def mesh_placer(mesh, batch_placements: dict) -> Callable[[dict], dict]:
                                      src_data_rank=None)
                 for k, v in place_local(batch).items()}
     return place
+
+
+def device_placer(mesh, batch_specs: dict) -> Callable[[dict], dict]:
+    """The reference's name: a callable placing a host numpy batch on
+    ``mesh`` by ``batch_specs`` (key -> ``sharding.P``, as
+    ``launch/steps.py:batch_struct`` fits them); :func:`mesh_placer` with
+    the specs' placements."""
+    from repro_torch.distributed.sharding import to_placements
+    return mesh_placer(mesh, {k: to_placements(s, mesh)
+                              for k, s in batch_specs.items()})

@@ -101,12 +101,15 @@ class Layout:
 
 
 def layout_of(q, k) -> Layout:
+    return _layout(q.device_mesh, tuple(q.placements), tuple(k.placements))
+
+
+def _layout(mesh, q_pl: tuple, k_pl: tuple) -> Layout:
     from torch.distributed.tensor import Shard
-    mesh = q.device_mesh
     names = mesh.mesh_dim_names
     batch, role, kv_split = [], None, False
     for i, name in enumerate(names):
-        pq, pk = q.placements[i], k.placements[i]
+        pq, pk = q_pl[i], k_pl[i]
         if pq == Shard(0):
             batch.append(name)
         elif name == "model" and pq == Shard(2):
@@ -115,7 +118,7 @@ def layout_of(q, k) -> Layout:
             role = "seq"
         elif not pq.is_replicate():
             raise NotImplementedError(
-                f"attention with q placed {q.placements} on {names}")
+                f"attention with q placed {q_pl} on {names}")
         if name == "model" and pk == Shard(2):
             kv_split = True
     rank = mesh.get_local_rank(names.index("model")) \
@@ -470,9 +473,7 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
     ``local_map``.  ``row_mask`` / ``commit_len`` (B,) are placed with the
     rows.  The calibration passes through and the counters advance
     outside ``local_map`` (in the state's own placement: no gather)."""
-    from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import local_map
-    from repro_torch.core import attention as ca
     from repro_torch.core.engine import AttentionState
     spec = engine.spec
     fields = _state_fields(spec.impl)
@@ -480,13 +481,7 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
     lay = layout_of(q, k)
     h, g = q.shape[2], k.shape[2]
     rows = tuple(state_placements(lay, "pos"))
-    extras = []
-    for t in (row_mask, commit_len):
-        if t is not None and not isinstance(t, DTensor):
-            t = DTensor.from_local(t, lay.mesh,
-                                   (Replicate(),) * lay.mesh.ndim,
-                                   run_check=False)
-        extras.append(t)
+    extras = _row_vectors(lay, row_mask, commit_len)
 
     def local(ql, kl, vl, rm, cl, *leaves):
         st = AttentionState(**dict(zip(fields, leaves)))
@@ -497,23 +492,7 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
             kl[:, :, g_lo:g_hi], vl[:, :, g_lo:g_hi], row_mask=rm,
             commit_len=cl)
         if not whole:
-            # The kv fields advance for every kv head on every rank.
-            t = kl.shape[1]
-            if spec.impl == "softmax":
-                if cl is None:
-                    cl = torch.full((kl.shape[0],), t, dtype=torch.int32,
-                                    device=kl.device)
-                kv = ca.commit_softmax(
-                    ca.KVCache(k=st.k, v=st.v, length=st.len), kl, vl,
-                    commit_len=cl, row_mask=rm)
-                new = new.replace(k=kv.k, v=kv.v)
-            elif spec.impl != "log_linear":
-                rolled = ca._roll_tail(
-                    ca.LLNDecodeState(lln=None, tail_k=st.tail_k,
-                                      tail_v=st.tail_v, pos=st.pos),
-                    None, kl, vl, ca.commit_lengths(cl, rm, t))
-                new = new.replace(tail_k=rolled.tail_k,
-                                  tail_v=rolled.tail_v)
+            new = _every_kv_head(spec, st, new, kl, vl, rm, cl)
         return (out,) + tuple(getattr(new, f) for f in changed)
 
     leaves = [getattr(state, f) for f in fields]
@@ -527,14 +506,132 @@ def decode(engine, state, q, k, v, *, row_mask=None, commit_len=None):
             state_placements(lay, f) for f in changed),
         in_placements=in_pl, device_mesh=lay.mesh,
         redistribute_inputs=True)(q, k, v, *extras, *leaves)
+    return outs[0], _advanced(spec, state, outs[1:], changed, extras,
+                              q.shape[1])
+
+
+def _row_vectors(lay: Layout, *vectors) -> list:
+    """Per-row ``row_mask`` / ``commit_len`` (None, a DTensor, or a plain
+    tensor whole on every rank: taken as replicated) as DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    out = []
+    for t in vectors:
+        if t is not None and not isinstance(t, DTensor):
+            t = DTensor.from_local(t, lay.mesh,
+                                   (Replicate(),) * lay.mesh.ndim,
+                                   run_check=False)
+        out.append(t)
+    return out
+
+
+def _every_kv_head(spec, st, new, kl, vl, rm, cl):
+    """A rank's new local state with its kv fields advanced for every kv
+    head (the engine ran on the kv heads of its query heads only): every
+    rank keeps every kv head's tail / cache."""
+    from repro_torch.core import attention as ca
+    t = kl.shape[1]
+    if spec.impl == "softmax":
+        if cl is None:
+            cl = torch.full((kl.shape[0],), t, dtype=torch.int32,
+                            device=kl.device)
+        kv = ca.commit_softmax(ca.KVCache(k=st.k, v=st.v, length=st.len),
+                               kl, vl, commit_len=cl, row_mask=rm)
+        return new.replace(k=kv.k, v=kv.v)
+    if spec.impl == "log_linear":
+        return new
+    rolled = ca._roll_tail(
+        ca.LLNDecodeState(lln=None, tail_k=st.tail_k, tail_v=st.tail_v,
+                          pos=st.pos),
+        None, kl, vl, ca.commit_lengths(cl, rm, t))
+    return new.replace(tail_k=rolled.tail_k, tail_v=rolled.tail_v)
+
+
+def _advanced(spec, state, outs, changed, extras, t: int):
+    """The new state: the fields ``local_map`` returned, the calibration as
+    it was, and the counter advanced by the committed lengths outside
+    ``local_map`` (in the state's own placement: no gather)."""
+    from repro_torch.core import attention as ca
+    from repro_torch.core.engine import AttentionState
+    fields = _state_fields(spec.impl)
     new = {f: getattr(state, f) for f in fields}
-    new.update(zip(changed, outs[1:]))
+    new.update(zip(changed, outs))
     counter = "len" if spec.impl == "softmax" else "pos"
-    rm, cl = (None if t is None else t.redistribute(
-        t.device_mesh, getattr(state, counter).placements) for t in extras)
-    adv = ca.commit_lengths(cl, rm, q.shape[1])
+    rm, cl = (None if x is None else x.redistribute(
+        x.device_mesh, getattr(state, counter).placements) for x in extras)
+    adv = ca.commit_lengths(cl, rm, t)
     new[counter] = (getattr(state, counter) + adv).to(torch.int32)
-    return outs[0], AttentionState(**new)
+    return AttentionState(**new)
+
+
+def _commit_layout(engine, state, k) -> Layout:
+    """The layout of the score pass whose residual k is being committed:
+    its q placed as ``_project_qkv`` places it under the active rules (the
+    batch, and the heads over 'model' where they divide), read off a q of
+    the state's H heads; without rules (or for the softmax cache, whose
+    commit reads no query heads) the heads follow k's."""
+    from torch.distributed.tensor import Replicate, Shard
+    from . import sharding as shd
+    mesh = k.device_mesh
+    names = mesh.mesh_dim_names
+    kv_split = "model" in names and \
+        k.placements[names.index("model")] == Shard(2)
+    q_pl = tuple(Shard(0) if p == Shard(0) else
+                 (Shard(2) if kv_split and n == "model" else Replicate())
+                 for n, p in zip(names, k.placements))
+    if engine.spec.impl != "softmax" and shd._ACTIVE is not None:
+        b, t = k.shape[:2]
+        q_pl = shd.spec_placements(
+            (b, t, state.alpha.shape[-1], k.shape[-1]),
+            ("act_batch", "attn_seq", "heads", None), mesh)
+    return _layout(mesh, q_pl, tuple(k.placements))
+
+
+def commit(engine, state, residual: dict, *, commit_len=None,
+           row_mask=None):
+    """``AttentionEngine.commit`` on a DTensor residual ``{"k", "v"}`` (as
+    ``verify(return_residuals=True)`` returned it on the mesh) and state,
+    under ``local_map`` with :func:`decode`'s layout: each rank folds the
+    accepted prefix into its shard, its kv fields advanced for every kv
+    head, the counter outside ``local_map``.  The same state, bit for bit,
+    as :func:`decode` with this ``commit_len``."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.core.engine import AttentionState
+    spec = engine.spec
+    k, v = residual["k"], residual["v"]
+    fields = _state_fields(spec.impl)
+    changed = tuple(f for f in fields if f not in _KEPT + _COUNTERS)
+    lay = _commit_layout(engine, state, k)
+    h, g = (k.shape[2] if spec.impl == "softmax"
+            else state.alpha.shape[-1]), k.shape[2]
+    rows = tuple(state_placements(lay, "pos"))
+    extras = _row_vectors(lay, row_mask, commit_len)
+
+    def local(kl, vl, rm, cl, *leaves):
+        st = AttentionState(**dict(zip(fields, leaves)))
+        g_lo, g_hi = 0, kl.shape[2]
+        if spec.impl != "softmax":
+            g_lo, g_hi = _kv_range(lay, st.alpha.shape[-1], h, g,
+                                   kl.shape[2])
+        whole = (g_lo, g_hi) == (0, kl.shape[2])
+        new = engine.commit(
+            st if whole else _sliced(st, g_lo, g_hi),
+            {"k": kl[:, :, g_lo:g_hi], "v": vl[:, :, g_lo:g_hi]},
+            commit_len=cl, row_mask=rm)
+        if not whole:
+            new = _every_kv_head(spec, st, new, kl, vl, rm, cl)
+        return tuple(getattr(new, f) for f in changed)
+
+    leaves = [getattr(state, f) for f in fields]
+    in_pl = (tuple(k.placements), tuple(v.placements),
+             None if extras[0] is None else rows,
+             None if extras[1] is None else rows) + tuple(
+        state_placements(lay, f) for f in fields)
+    outs = local_map(
+        local, out_placements=tuple(state_placements(lay, f)
+                                    for f in changed),
+        in_placements=in_pl, device_mesh=lay.mesh,
+        redistribute_inputs=True)(k, v, *extras, *leaves)
+    return _advanced(spec, state, outs, changed, extras, k.shape[1])
 
 
 def mla_absorbed(fn, w_uk, w_uv, cfg, state, q_nope, q_rope, ckv_new,

@@ -391,6 +391,46 @@ def local_slice(t: torch.Tensor, mesh, placements) -> torch.Tensor:
     return t
 
 
+def local_rows(t) -> torch.Tensor:
+    """The global indices of the rows (dim 0) of DTensor ``t`` that this
+    rank holds (``torch.chunk``'s split, as :func:`local_slice`)."""
+    from torch.distributed.tensor import Replicate
+    rows = [p if p.is_shard(0) else Replicate() for p in t.placements]
+    return local_slice(torch.arange(t.shape[0], device=t.to_local().device),
+                       t.device_mesh, rows)
+
+
+def map_rows(t, fn):
+    """``fn(local tensor, global row indices) -> new local tensor`` on each
+    rank's shard of ``t`` (rows on dim 0), rebuilt in ``t``'s placements
+    with no communication; a plain tensor is ``fn(t, arange(B))``.  The
+    serving pool's row writes (admit, evict, a poisoned row) use it on
+    DTensor caches: each rank writes the rows it holds."""
+    if not is_dtensor(t):
+        return fn(t, torch.arange(t.shape[0], device=t.device))
+    from torch.distributed.tensor import DTensor
+    out = t.to_local()
+    if t.device_mesh.get_coordinate() is not None:
+        out = fn(out, local_rows(t))
+    return DTensor.from_local(out, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def any_over_mesh(flags: torch.Tensor, mesh) -> torch.Tensor:
+    """``flags`` (bool, whole on every rank, each rank's own findings) OR-ed
+    over every rank of ``mesh``: each rank ends with the same vector."""
+    import torch.distributed as dist
+    if mesh.get_coordinate() is None:
+        return flags
+    out = flags.to(torch.int32)
+    for i in range(mesh.ndim):
+        if mesh.shape[i] > 1:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(i))
+    return out.bool()
+
+
 def set_parameter(module: torch.nn.Module, name: str, t: torch.Tensor):
     """Replace parameter ``name`` of ``module`` by ``t``."""
     owner, _, attr = name.rpartition(".")

@@ -30,6 +30,12 @@ exponentiate, divide, then multiply by V), in 32-row tiles; the shared
 memory grows with D (at D = Dv = 256 and blk 256: 164 KB forward, with 32
 query rows and the whole block's scores; 197 KB and 206 KB in the
 backward's two kernels).
+
+Each wrapper runs its plain version for a CPU tensor; for a CUDA tensor
+it calls its custom op (``repro_torch::block_diag``,
+``repro_torch::block_diag_bwd``), which launches the kernel and counts it
+in ``<wrapper>.launches``; the ops' fake implementations give the
+outputs' shapes to ``FakeTensorMode`` and launch and count nothing.
 """
 from __future__ import annotations
 
@@ -102,6 +108,14 @@ def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
     if q.device.type == "cpu":
         return block_diag_plain(q, k, v, r=r, blk=blk, causal=causal)
     _check_qkv(q, k, v, r, blk)
+    return _block_diag_op(q, k, v, r, blk, causal)
+
+
+@torch.library.custom_op(
+    "repro_torch::block_diag", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, int r, int blk, bool causal) "
+           "-> Tensor")
+def _block_diag_op(q, k, v, r, blk, causal):
     bh, n, d = q.shape
     bg, dv = k.shape[0], v.shape[-1]
     out = torch.empty(bh, n, dv, dtype=v.dtype, device=q.device)
@@ -115,6 +129,12 @@ def block_diag(q, k, v, *, r: int = 1, blk: int = 256, causal: bool = False):
     block_diag.launches += 1
     block_diag.noncausal_launches += not causal
     return out
+
+
+@_block_diag_op.register_fake
+def _(q, k, v, r, blk, causal):
+    return torch.empty(q.shape[0], q.shape[1], v.shape[-1], dtype=v.dtype,
+                       device=q.device)
 
 
 block_diag.launches = 0
@@ -146,17 +166,32 @@ def block_diag_bwd(q, k, v, g, *, r: int = 1, blk: int = 256,
     if q.device.type == "cpu":
         return block_diag_bwd_plain(q, k, v, g, r=r, blk=blk, causal=causal)
     _check_qkv(q, k, v, r, blk)
-    bh, n, d = q.shape
-    bg, dv = k.shape[0], v.shape[-1]
+    bh, n, _ = q.shape
+    dv = v.shape[-1]
     if g.dtype != v.dtype or g.shape != (bh, n, dv) \
             or g.device != q.device or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous {v.dtype} {(bh, n, dv)} "
                          f"tensor on {q.device}")
+    return _block_diag_bwd_op(q, k, v, g, r, blk, causal)
+
+
+def _bwd_outputs(q, k, v):
+    bh, n, d = q.shape
+    bg, dv = k.shape[0], v.shape[-1]
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty(bh, n, d, **f32)
-    dk = torch.empty(bg, n, d, **f32)
-    dvo = torch.empty(bg, n, dv, **f32)
-    stats = torch.empty(3, bh, n, **f32)
+    return (torch.empty(bh, n, d, **f32), torch.empty(bg, n, d, **f32),
+            torch.empty(bg, n, dv, **f32))
+
+
+@torch.library.custom_op(
+    "repro_torch::block_diag_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor g, int r, int blk, "
+           "bool causal) -> (Tensor, Tensor, Tensor)")
+def _block_diag_bwd_op(q, k, v, g, r, blk, causal):
+    bh, n, d = q.shape
+    bg, dv = k.shape[0], v.shape[-1]
+    dq, dk, dvo = _bwd_outputs(q, k, v)
+    stats = torch.empty(3, bh, n, dtype=torch.float32, device=q.device)
     lib = build.library("block_diag_bwd")
     with torch.cuda.device(q.device):
         err = lib.block_diag_bwd_launch(
@@ -167,6 +202,11 @@ def block_diag_bwd(q, k, v, g, *, r: int = 1, blk: int = 256,
     build.check(err, "block_diag_bwd")
     block_diag_bwd.launches += 1
     return dq, dk, dvo
+
+
+@_block_diag_bwd_op.register_fake
+def _(q, k, v, g, r, blk, causal):
+    return _bwd_outputs(q, k, v)
 
 
 block_diag_bwd.launches = 0

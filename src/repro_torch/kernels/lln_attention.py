@@ -9,7 +9,11 @@ never materialized.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor; it counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. The CUDA branch is one ``torch.library`` custom op per
+wrapper (``repro_torch::<wrapper>``): the device guard, the stream, the
+scratch, the launch, its error check and the counter.  Its fake
+implementation gives the outputs' shapes and dtypes to ``FakeTensorMode``
+(``launch/dryrun.py``) and launches and counts nothing.
 
 ``lln_causal`` (``csrc/lln_causal.cu``) replaces
 ``src/repro/kernels/lln_attention.py:lln_causal_pallas``: the prefill with
@@ -157,6 +161,13 @@ def _check_lln_inputs(qs, ks, v, r):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _absent(like: torch.Tensor) -> torch.Tensor:
+    """The placeholder of an output a custom op was not asked for: an
+    empty fp32 tensor on ``like``'s device (a custom op returns a fixed
+    number of tensors)."""
+    return torch.empty(0, dtype=torch.float32, device=like.device)
+
+
 def _check_same(device, **tensors):
     """Raise unless every tensor is a contiguous tensor on ``device``."""
     for name, t in tensors.items():
@@ -251,16 +262,38 @@ def lln_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
         return lln_causal_plain(qs, ks, v, r=r, blk=blk, return_res=return_res,
                                 return_state=return_state)
     _check_lln_inputs(qs, ks, v, r)
+    out, den, s, z = _lln_causal_op(qs, ks, v, r, return_res, return_state)
+    return _lln_outputs(out, den, s, z, return_res, return_state)
+
+
+def _causal_outputs(qs, ks, v, return_res, return_state):
+    """``lln_causal``'s outputs, allocated (the absent ones empty)."""
     bh, n, d = qs.shape
-    bg, dv = ks.shape[0], v.shape[-1]
+    dv = v.shape[-1]
     f32 = dict(dtype=torch.float32, device=qs.device)
     out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
-    den = torch.empty(bh, n, **f32) if return_res else None
-    s = torch.empty(bh, d, dv, **f32) if return_state else None
-    z = torch.empty(bh, 1, d, **f32) if return_state else None
+    den = torch.empty(bh, n, **f32) if return_res else _absent(qs)
+    s = torch.empty(bh, d, dv, **f32) if return_state else _absent(qs)
+    z = torch.empty(bh, 1, d, **f32) if return_state else _absent(qs)
+    return out, den, s, z
+
+
+def _ptr(t):
+    """A tensor's device pointer, None (NULL) for an absent output."""
+    return t.data_ptr() if t.numel() else None
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_causal", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor v, int r, bool return_res, "
+           "bool return_state) -> (Tensor, Tensor, Tensor, Tensor)")
+def _lln_causal_op(qs, ks, v, r, return_res, return_state):
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    out, den, s, z = _causal_outputs(qs, ks, v, return_res, return_state)
     lib = build.library("lln_causal")
     ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() if t is not None else None for t in (den, s, z)))
+            *(_ptr(t) for t in (den, s, z)))
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         if _tc_path(v, d, dv):
@@ -275,7 +308,12 @@ def lln_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
                 stream)
     build.check(err, "lln_causal")
     lln_causal.launches += 1
-    return _lln_outputs(out, den, s, z, return_res, return_state)
+    return out, den, s, z
+
+
+@_lln_causal_op.register_fake
+def _(qs, ks, v, r, return_res, return_state):
+    return _causal_outputs(qs, ks, v, return_res, return_state)
 
 
 lln_causal.launches = 0
@@ -350,17 +388,32 @@ def lln_diag_fused(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
                                     scale=scale, return_res=return_res)
     _check_lln_inputs(qs, ks, v, r)
     _check_raw_qk(qs, ks, q, k, v)
-    bh, n, d = qs.shape
-    _check_blocks(n, blk)
-    bg, dv = ks.shape[0], v.shape[-1]
-    scale = d ** -0.5 if scale is None else scale
-    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
+    _check_blocks(qs.shape[1], blk)
+    scale = qs.shape[-1] ** -0.5 if scale is None else scale
+    out, den = _lln_diag_fused_op(qs, ks, q, k, v, r, blk, scale,
+                                  return_res)
+    return (out, den) if return_res else out
+
+
+def _fused_outputs(qs, v, return_res):
+    bh, n, _ = qs.shape
+    out = torch.empty(bh, n, v.shape[-1], dtype=v.dtype, device=qs.device)
     den = torch.empty(bh, n, dtype=torch.float32, device=qs.device) \
-        if return_res else None
+        if return_res else _absent(qs)
+    return out, den
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_diag_fused", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor q, Tensor k, Tensor v, int r, "
+           "int blk, float scale, bool return_res) -> (Tensor, Tensor)")
+def _lln_diag_fused_op(qs, ks, q, k, v, r, blk, scale, return_res):
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    out, den = _fused_outputs(qs, v, return_res)
     lib = build.library("lln_diag_fused")
     ptrs = (qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(),
-            den.data_ptr() if den is not None else None)
+            v.data_ptr(), out.data_ptr(), _ptr(den))
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         if _tc_path(v, d, dv):
@@ -374,7 +427,12 @@ def lln_diag_fused(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
                 stream)
     build.check(err, "lln_diag_fused")
     lln_diag_fused.launches += 1
-    return (out, den) if return_res else out
+    return out, den
+
+
+@_lln_diag_fused_op.register_fake
+def _(qs, ks, q, k, v, r, blk, scale, return_res):
+    return _fused_outputs(qs, v, return_res)
 
 
 lln_diag_fused.launches = 0
@@ -426,7 +484,7 @@ def lln_decode(qs, ks, v, s, z, *, r: int = 1, scale=None):
         return lln_decode_plain(qs, ks, v, s, z, r=r, scale=scale)
     _check_lln_inputs(qs, ks, v, r)
     bh, t, d = qs.shape
-    bg, dv = ks.shape[0], v.shape[-1]
+    dv = v.shape[-1]
     if t > MAX_DECODE_T:
         raise ValueError(f"lln_decode takes at most {MAX_DECODE_T} tokens "
                          f"per call, got {t}")
@@ -440,9 +498,23 @@ def lln_decode(qs, ks, v, s, z, *, r: int = 1, scale=None):
                 or st.device != qs.device or not st.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 {shape} "
                              f"tensor on {qs.device}")
-    out = torch.empty(bh, t, dv, dtype=v.dtype, device=qs.device)
-    s1 = torch.empty_like(s)
-    z1 = torch.empty_like(z)
+    return _lln_decode_op(qs, ks, v, s, z, scale, r)
+
+
+def _decode_outputs(qs, v, s, z):
+    bh, t, _ = qs.shape
+    return (torch.empty(bh, t, v.shape[-1], dtype=v.dtype, device=qs.device),
+            torch.empty_like(s), torch.empty_like(z))
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_decode", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor v, Tensor s, Tensor z, "
+           "Tensor? scale, int r) -> (Tensor, Tensor, Tensor)")
+def _lln_decode_op(qs, ks, v, s, z, scale, r):
+    bh, t, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    out, s1, z1 = _decode_outputs(qs, v, s, z)
     lib = build.library("lln_decode")
     with torch.cuda.device(qs.device):
         err = lib.lln_decode_launch(
@@ -454,6 +526,11 @@ def lln_decode(qs, ks, v, s, z, *, r: int = 1, scale=None):
     build.check(err, "lln_decode")
     lln_decode.launches += 1
     return out, s1, z1
+
+
+@_lln_decode_op.register_fake
+def _(qs, ks, v, s, z, scale, r):
+    return _decode_outputs(qs, v, s, z)
 
 
 lln_decode.launches = 0
@@ -488,17 +565,30 @@ def lln_bidir(qs, ks, v, *, r: int = 1, return_res: bool = False):
     if qs.device.type == "cpu":
         return lln_bidir_plain(qs, ks, v, r=r, return_res=return_res)
     _check_lln_inputs(qs, ks, v, r)
+    out, s, z, den = _lln_bidir_op(qs, ks, v, r, return_res)
+    return (out, s, z, den) if return_res else out
+
+
+def _bidir_outputs(qs, ks, v, return_res):
     bh, n, d = qs.shape
     bg, dv = ks.shape[0], v.shape[-1]
     f32 = dict(dtype=torch.float32, device=qs.device)
-    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
-    s = torch.empty(bg, d, dv, **f32)
-    z = torch.empty(bg, 1, d, **f32)
-    den = torch.empty(bh, n, **f32) if return_res else None
+    return (torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device),
+            torch.empty(bg, d, dv, **f32), torch.empty(bg, 1, d, **f32),
+            torch.empty(bh, n, **f32) if return_res else _absent(qs))
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_bidir", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor v, int r, bool return_res) -> "
+           "(Tensor, Tensor, Tensor, Tensor)")
+def _lln_bidir_op(qs, ks, v, r, return_res):
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    out, s, z, den = _bidir_outputs(qs, ks, v, return_res)
     lib = build.library("lln_bidir")
     ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
-            den.data_ptr() if den is not None else None, s.data_ptr(),
-            z.data_ptr())
+            _ptr(den), s.data_ptr(), z.data_ptr())
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
         if _tc_path(v, d, dv):
@@ -508,7 +598,12 @@ def lln_bidir(qs, ks, v, *, r: int = 1, return_res: bool = False):
                                        _VCODES[v.dtype], stream)
     build.check(err, "lln_bidir")
     lln_bidir.launches += 1
-    return (out, s, z, den) if return_res else out
+    return out, s, z, den
+
+
+@_lln_bidir_op.register_fake
+def _(qs, ks, v, r, return_res):
+    return _bidir_outputs(qs, ks, v, return_res)
 
 
 lln_bidir.launches = 0

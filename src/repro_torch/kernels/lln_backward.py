@@ -11,7 +11,11 @@ summed over the ``r`` query heads that share a kv head.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its CUDA kernels for a CUDA tensor; it counts its launches (one per call of
-its C entry, which runs several kernels) in ``<wrapper>.launches``.
+its C entry, which runs several kernels) in ``<wrapper>.launches``. The CUDA branch is one ``torch.library`` custom op per
+wrapper (``repro_torch::<wrapper>``): the device guard, the stream, the
+scratch, the launch, its error check and the counter.  Its fake
+implementation gives the outputs' shapes and dtypes to ``FakeTensorMode``
+(``launch/dryrun.py``) and launches and counts nothing.
 
 ``lln_causal_bwd`` (``csrc/lln_causal_bwd.cu``) replaces
 ``src/repro/kernels/lln_backward.py:lln_causal_bwd_pallas``.  Two paths,
@@ -96,9 +100,10 @@ from __future__ import annotations
 import torch
 
 from . import build, lln_attention
-from .lln_attention import (_VCODES, _check_blocks, _check_lln_inputs,
-                            _check_raw_qk, _check_same, _diag_probs, _tc_path,
-                            _tc_scratch)
+# NEG_INF: the reference module's public constant, the same value here.
+from .lln_attention import (NEG_INF, _VCODES, _check_blocks,  # noqa: F401
+                            _check_lln_inputs, _check_raw_qk, _check_same,
+                            _diag_probs, _tc_path, _tc_scratch)
 
 # D rows of a dq/dk CTA, Dv columns of a dv CTA.
 ROWS = 32
@@ -187,14 +192,33 @@ def lln_causal_bwd(qs, ks, v, g, o, den, *, r: int = 1, blk: int = 256):
     if qs.device.type == "cpu":
         return lln_causal_bwd_plain(qs, ks, v, g, o, den, r=r, blk=blk)
     _check_grad_inputs(qs, ks, v, g, o, den, r)
+    _check_blocks(qs.shape[1], blk)
+    return _lln_causal_bwd_op(qs, ks, v, g, o, den, r, blk)
+
+
+def _grads(qs, ks, v, raw: bool = False):
+    """fp32 (dqs (BH,N,D), dks (BG,N,D), dv (BG,N,Dv)); ``raw``: also the
+    diag part's dq and dk, as ``(dqs, dqd, dks, dkd, dv)``."""
     bh, n, d = qs.shape
-    _check_blocks(n, blk)
     bg, dv = ks.shape[0], v.shape[-1]
     f32 = dict(dtype=torch.float32, device=qs.device)
-    dqs = torch.empty(bh, n, d, **f32)
-    dks = torch.empty(bg, n, d, **f32)
-    dvo = torch.empty(bg, n, dv, **f32)
-    w = torch.empty(bh, n, **f32)
+    if raw:
+        return (torch.empty(bh, n, d, **f32), torch.empty(bh, n, d, **f32),
+                torch.empty(bg, n, d, **f32), torch.empty(bg, n, d, **f32),
+                torch.empty(bg, n, dv, **f32))
+    return (torch.empty(bh, n, d, **f32), torch.empty(bg, n, d, **f32),
+            torch.empty(bg, n, dv, **f32))
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_causal_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor v, Tensor g, Tensor o, "
+           "Tensor den, int r, int blk) -> (Tensor, Tensor, Tensor)")
+def _lln_causal_bwd_op(qs, ks, v, g, o, den, r, blk):
+    bh, n, d = qs.shape
+    bg, dv = ks.shape[0], v.shape[-1]
+    dqs, dks, dvo = _grads(qs, ks, v)
+    w = torch.empty(bh, n, dtype=torch.float32, device=qs.device)
     lib = build.library("lln_causal_bwd")
     ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
             o.data_ptr(), den.data_ptr(), dqs.data_ptr(), dks.data_ptr(),
@@ -217,6 +241,11 @@ def lln_causal_bwd(qs, ks, v, g, o, den, *, r: int = 1, blk: int = 256):
     build.check(err, "lln_causal_bwd")
     lln_causal_bwd.launches += 1
     return dqs, dks, dvo
+
+
+@_lln_causal_bwd_op.register_fake
+def _(qs, ks, v, g, o, den, r, blk):
+    return _grads(qs, ks, v)
 
 
 lln_causal_bwd.launches = 0
@@ -263,17 +292,21 @@ def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
                                         blk=blk, scale=scale)
     _check_grad_inputs(qs, ks, v, g, o, den, r)
     _check_raw_qk(qs, ks, q, k, v)
+    _check_blocks(qs.shape[1], blk)
+    scale = qs.shape[-1] ** -0.5 if scale is None else scale
+    return _lln_diag_fused_bwd_op(qs, ks, q, k, v, g, o, den, r, blk, scale)
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_diag_fused_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor q, Tensor k, Tensor v, Tensor g, "
+           "Tensor o, Tensor den, int r, int blk, float scale) -> "
+           "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _lln_diag_fused_bwd_op(qs, ks, q, k, v, g, o, den, r, blk, scale):
     bh, n, d = qs.shape
-    _check_blocks(n, blk)
     bg, dv = ks.shape[0], v.shape[-1]
-    scale = d ** -0.5 if scale is None else scale
-    f32 = dict(dtype=torch.float32, device=qs.device)
-    dqs = torch.empty(bh, n, d, **f32)
-    dqd = torch.empty(bh, n, d, **f32)
-    dks = torch.empty(bg, n, d, **f32)
-    dkd = torch.empty(bg, n, d, **f32)
-    dvo = torch.empty(bg, n, dv, **f32)
-    stats = torch.empty(4, bh, n, **f32)
+    dqs, dqd, dks, dkd, dvo = _grads(qs, ks, v, raw=True)
+    stats = torch.empty(4, bh, n, dtype=torch.float32, device=qs.device)
     lib = build.library("lln_diag_fused_bwd")
     ptrs = (qs.data_ptr(), ks.data_ptr(), q.data_ptr(), k.data_ptr(),
             v.data_ptr(), g.data_ptr(), o.data_ptr(), den.data_ptr(),
@@ -296,6 +329,11 @@ def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
     build.check(err, "lln_diag_fused_bwd")
     lln_diag_fused_bwd.launches += 1
     return dqs, dqd, dks, dkd, dvo
+
+
+@_lln_diag_fused_bwd_op.register_fake
+def _(qs, ks, q, k, v, g, o, den, r, blk, scale):
+    return _grads(qs, ks, v, raw=True)
 
 
 lln_diag_fused_bwd.launches = 0
@@ -352,13 +390,19 @@ def lln_bidir_bwd(qs, ks, v, g, o, den, s, z, *, r: int = 1):
     if qs.device.type == "cpu":
         return lln_bidir_bwd_plain(qs, ks, v, g, o, den, s, z, r=r)
     _check_grad_inputs(qs, ks, v, g, o, den, r)
+    _check_state(s, z, ks.shape[0], qs.shape[-1], v.shape[-1], qs.device)
+    return _lln_bidir_bwd_op(qs, ks, v, g, o, den, s, z, r)
+
+
+@torch.library.custom_op(
+    "repro_torch::lln_bidir_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor v, Tensor g, Tensor o, "
+           "Tensor den, Tensor s, Tensor z, int r) -> "
+           "(Tensor, Tensor, Tensor)")
+def _lln_bidir_bwd_op(qs, ks, v, g, o, den, s, z, r):
     bh, n, d = qs.shape
     bg, dv = ks.shape[0], v.shape[-1]
-    _check_state(s, z, bg, d, dv, qs.device)
-    f32 = dict(dtype=torch.float32, device=qs.device)
-    dqs = torch.empty(bh, n, d, **f32)
-    dks = torch.empty(bg, n, d, **f32)
-    dvo = torch.empty(bg, n, dv, **f32)
+    dqs, dks, dvo = _grads(qs, ks, v)
     scratch = _bidir_scratch(bh, bg, n, d, dv, qs.device)
     lib = build.library("lln_bidir_bwd")
     ptrs = (qs.data_ptr(), ks.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -375,6 +419,11 @@ def lln_bidir_bwd(qs, ks, v, g, o, den, s, z, *, r: int = 1):
     build.check(err, "lln_bidir_bwd")
     lln_bidir_bwd.launches += 1
     return dqs, dks, dvo
+
+
+@_lln_bidir_bwd_op.register_fake
+def _(qs, ks, v, g, o, den, s, z, r):
+    return _grads(qs, ks, v)
 
 
 lln_bidir_bwd.launches = 0

@@ -44,7 +44,9 @@ scale_decay**level(i, j)`` fixed by (i, j) alone.  Two paths
 
 The wrapper runs its plain version for a CPU tensor and launches its CUDA
 kernels for a CUDA tensor; ``loglin_causal.launches`` counts its launching
-calls (one call runs one path's kernels).
+calls (one call runs one path's kernels).  The CUDA branch is the custom
+op ``repro_torch::loglin_causal``, whose fake implementation gives the
+outputs' shapes to ``FakeTensorMode`` and launches and counts nothing.
 """
 from __future__ import annotations
 
@@ -146,16 +148,37 @@ def loglin_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
                                    return_state=return_state)
     _check_lln_inputs(qs, ks, v, r)
     _check_scales(blk, num_scales, scale_decay)
+    out, *state = _loglin_causal_op(qs, ks, v, r, blk, num_scales,
+                                    float(scale_decay), return_state)
+    return (out, *state) if return_state else out
+
+
+def _loglin_outputs(qs, v, num_scales, return_state):
+    """The output and, with ``return_state``, the pyramid and the open
+    bucket (empty otherwise)."""
+    bh, n, d = qs.shape
+    dv = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=qs.device)
+    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
+    if not return_state:
+        return (out,) + tuple(torch.empty(0, **f32) for _ in range(4))
+    return (out, torch.empty(bh, num_scales, d, dv, **f32),
+            torch.empty(bh, num_scales, 1, d, **f32),
+            torch.empty(bh, d, dv, **f32), torch.empty(bh, 1, d, **f32))
+
+
+@torch.library.custom_op(
+    "repro_torch::loglin_causal", mutates_args=(), device_types="cuda",
+    schema="(Tensor qs, Tensor ks, Tensor v, int r, int blk, "
+           "int num_scales, float scale_decay, bool return_state) -> "
+           "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _loglin_causal_op(qs, ks, v, r, blk, num_scales, scale_decay,
+                      return_state):
     bh, n, d = qs.shape
     bg, dv = ks.shape[0], v.shape[-1]
     ls = num_scales
-    f32 = dict(dtype=torch.float32, device=qs.device)
-    out = torch.empty(bh, n, dv, dtype=v.dtype, device=qs.device)
-    state = (torch.empty(bh, ls, d, dv, **f32),
-             torch.empty(bh, ls, 1, d, **f32),
-             torch.empty(bh, d, dv, **f32),
-             torch.empty(bh, 1, d, **f32)) if return_state else ()
-    ptrs = [t.data_ptr() for t in state] or [None] * 4
+    out, *state = _loglin_outputs(qs, v, ls, return_state)
+    ptrs = [t.data_ptr() if return_state else None for t in state]
     lib = build.library("loglin_causal")
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -164,15 +187,20 @@ def loglin_causal(qs, ks, v, *, r: int = 1, blk: int = 256,
             err = lib.loglin_causal_tc_launch(
                 qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *ptrs, *(t.data_ptr() for t in scratch), bh, bg, n, d, dv,
-                blk, ls, float(scale_decay), stream)
+                blk, ls, scale_decay, stream)
         else:
             err = lib.loglin_causal_launch(
                 qs.data_ptr(), ks.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *ptrs, bh, bg, n, d, dv, _VCODES[v.dtype], blk, ls,
-                PREFILL_TILE, COLS, float(scale_decay), stream)
+                PREFILL_TILE, COLS, scale_decay, stream)
     build.check(err, "loglin_causal")
     loglin_causal.launches += 1
-    return (out,) + state if return_state else out
+    return (out, *state)
+
+
+@_loglin_causal_op.register_fake
+def _(qs, ks, v, r, blk, num_scales, scale_decay, return_state):
+    return _loglin_outputs(qs, v, num_scales, return_state)
 
 
 loglin_causal.launches = 0

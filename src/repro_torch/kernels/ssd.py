@@ -40,7 +40,9 @@ in VMEM.  Here two paths (:func:`_tc_path`):
 
 ``ssd.launches`` counts the wrapper's launching calls (one call runs one
 path's kernels).  The wrapper runs the plain version for a CPU tensor and
-launches the kernels for a CUDA tensor.
+launches the kernels for a CUDA tensor, through the custom op
+``repro_torch::ssd``, whose fake implementation gives the output's shape
+to ``FakeTensorMode`` and launches and counts nothing.
 """
 from __future__ import annotations
 
@@ -140,11 +142,20 @@ def ssd(log_a, xbar, b_in, c_in, *, r: int = 1, blk: int = 256):
     if b_in.dtype not in _BCODES or c_in.dtype != b_in.dtype:
         raise TypeError(f"b_in/c_in must share float32 or bfloat16, got "
                         f"{b_in.dtype}/{c_in.dtype}")
-    bh, n, p = xbar.shape
-    bg, _, s = b_in.shape
+    s = b_in.shape[-1]
     if s > MAX_STATE:
         raise ValueError(f"the kernel takes a state of at most {MAX_STATE} "
                          f"rows, got {s}")
+    return _ssd_op(log_a, xbar, b_in, c_in, r, blk)
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd", mutates_args=(), device_types="cuda",
+    schema="(Tensor log_a, Tensor xbar, Tensor b_in, Tensor c_in, int r, "
+           "int blk) -> Tensor")
+def _ssd_op(log_a, xbar, b_in, c_in, r, blk):
+    bh, n, p = xbar.shape
+    bg, _, s = b_in.shape
     out = torch.empty_like(xbar)
     lib = build.library("ssd")
     ptrs = (log_a.data_ptr(), xbar.data_ptr(), b_in.data_ptr(),
@@ -161,6 +172,11 @@ def ssd(log_a, xbar, b_in, c_in, *, r: int = 1, blk: int = 256):
     build.check(err, "ssd")
     ssd.launches += 1
     return out
+
+
+@_ssd_op.register_fake
+def _(log_a, xbar, b_in, c_in, r, blk):
+    return torch.empty_like(xbar)
 
 
 ssd.launches = 0

@@ -53,6 +53,12 @@ Speculative pools (``PoolSetup.spec_k >= 1``) emit up to ``spec_k + 1``
 tokens per row and step: the harvest reads an (S, B, E) token panel with
 int counts (E = 1 for plain pools), caps each row at its budget, and the
 stats carry the acceptance counters, per run and per request.
+
+On a mesh (``PoolSetup.mesh``) every rank runs this engine on the same
+requests: the segment's outputs come whole to every rank (:func:`_host`),
+and a deadline counts as passed where any rank's clock says so
+(:meth:`ContinuousBatcher._agreed`), so every rank admits, evicts and
+quarantines the same rows and keeps the same queue.
 """
 from __future__ import annotations
 
@@ -66,10 +72,20 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import restore as _restore_tree
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.distributed.straggler import StepWatchdog
 from repro_torch.launch.faults import FaultPlan, SimulatedCrash, poison_rows
 from repro_torch.launch.steps import PoolSetup, make_pool_setup
 from repro_torch.tree import map_with_path
+
+
+def _host(t) -> np.ndarray:
+    """A segment output on the host, whole (a DTensor gathered)."""
+    return _whole(t).cpu().numpy()
+
+
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 class RequestError(ValueError):
@@ -366,7 +382,7 @@ class ContinuousBatcher:
         prompts = np.stack([t.req.prompt for t in group])
         logits, slot_caches = s.prefill_fn(self.params, self._tokens(prompts))
         last = logits[:, -1] if logits.ndim == 3 else logits
-        tok0 = torch.argmax(last, -1).cpu().numpy()
+        tok0 = _host(torch.argmax(last, -1))
         live, live_slots, live_rem = [], [], []
         for j, tr in enumerate(group):
             rid = tr.req.rid
@@ -386,7 +402,8 @@ class ContinuousBatcher:
             return
         if len(live) != len(group):          # drop prefill-only rows
             sel = torch.as_tensor(live, device=self.device)
-            slot_caches = map_with_path(lambda _, a: a[sel], slot_caches)
+            slot_caches = map_with_path(lambda _, a: _whole(a)[sel],
+                                        slot_caches)
         slots = torch.as_tensor(live_slots, device=self.device)
         st.caches = s.admit_fn(st.caches, slot_caches, slots)
         st.tok[slots] = torch.as_tensor(tok0[live], dtype=st.tok.dtype,
@@ -412,7 +429,8 @@ class ContinuousBatcher:
         _, slot_caches = s.prefill_fn(self.params, self._tokens(tr.group))
         if tr.group.shape[0] > 1:
             sel = torch.as_tensor([tr.row], device=self.device)
-            slot_caches = map_with_path(lambda _, a: a[sel], slot_caches)
+            slot_caches = map_with_path(lambda _, a: _whole(a)[sel],
+                                        slot_caches)
         st.caches = s.admit_fn(st.caches, slot_caches, [slot])
         committed = [t for inputs, c in tr.steps for t in inputs[:c]]
         if committed != list(emitted[:-1]):
@@ -513,26 +531,40 @@ class ContinuousBatcher:
                 freed.append(idx)
         self._free_rows(st, freed)
 
+    def _agreed(self, flags: list) -> list:
+        """``flags`` (one bool per slot or queued request, the same order on
+        every rank) OR-ed over the mesh's ranks; as they are without a
+        mesh."""
+        mesh = self.setup.mesh
+        if mesh is None or not flags:
+            return flags
+        from repro_torch.distributed.sharding import any_over_mesh
+        return any_over_mesh(torch.as_tensor(flags, device=self.device),
+                             mesh).tolist()
+
     def _sweep_deadlines(self, st: _RunState) -> None:
         now = time.monotonic()
+
+        def passed(tr) -> bool:
+            return tr.deadline_at is not None and now >= tr.deadline_at
+        held = [int(r) for r in st.slot_rid]
+        slot_late = self._agreed([r >= 0 and passed(st.tracked[r])
+                                  for r in held])
+        queue = list(st.queue)
+        queue_late = self._agreed([passed(tr) for tr in queue])
         expired_rows = []
-        for idx in range(self.setup.slots):
-            rid = int(st.slot_rid[idx])
-            if rid < 0:
-                continue
-            tr = st.tracked[rid]
-            if tr.deadline_at is not None and now >= tr.deadline_at:
+        for idx, (rid, late) in enumerate(zip(held, slot_late)):
+            if late:
                 st.statuses[rid] = "timeout"   # partial output kept
                 st.slot_rid[idx] = -1
                 del st.tracked[rid]
                 expired_rows.append(idx)
         self._free_rows(st, expired_rows)
-        for tr in [t for t in st.queue
-                   if t.deadline_at is not None
-                   and now >= t.deadline_at]:
-            st.queue.remove(tr)
-            st.statuses[tr.req.rid] = "timeout"
-            del st.tracked[tr.req.rid]
+        for tr, late in zip(queue, queue_late):
+            if late:
+                st.queue.remove(tr)
+                st.statuses[tr.req.rid] = "timeout"
+                del st.tracked[tr.req.rid]
 
     def _drop(self, st: _RunState, rid: int) -> None:
         """A client cancel (``drop`` fault): end ``rid`` wherever it is,
@@ -780,13 +812,13 @@ class ContinuousBatcher:
             # sees the segment's wall clock, not the enqueue.  One panel
             # for both pools: a plain pool's (S, B) tokens and bool mask
             # become (S, B, 1) and {0, 1} counts.
-            toks_h = toks.cpu().numpy()
+            toks_h = _host(toks)
             if toks_h.ndim == 2:
                 toks_h = toks_h[..., None]
-            emitted_h = emitted.cpu().numpy().astype(np.int64)
-            inputs_h = inputs.cpu().numpy()
-            active_h = st.active.cpu().numpy()
-            unhealthy_h = unhealthy.cpu().numpy()
+            emitted_h = _host(emitted).astype(np.int64)
+            inputs_h = _host(inputs)
+            active_h = _host(st.active)
+            unhealthy_h = _host(unhealthy)
             wd.stop(st.segments)
             st.segments += 1
             st.decode_steps += s.segment
@@ -795,7 +827,7 @@ class ContinuousBatcher:
                 self._count_acceptance(st, emitted_h)
             live = emitted_h.any(axis=0)          # rows that decoded here
             if metrics is not None and live.any():
-                m = {k: v.cpu().numpy() for k, v in metrics.items()}
+                m = {k: _host(v) for k, v in metrics.items()}
                 st.telemetry = {
                     "conc_drift_max": float(
                         np.max(np.abs(m["conc_drift"][live]))),

@@ -15,11 +15,20 @@ autograd refuses a cuda tensor.  Like the reference, a cell must run in a
 process of its own (the group binds at start); ``--all`` spawns one
 subprocess per cell.
 
-The traced path is the core path, as the reference's (``use_kernel``
-defaults to False there): serving takes the plain PyTorch versions of the
-kernels (``attn_backend="plain"``).  The hand kernels are bound functions
-with no fake implementation, so ``--override use_kernel=True`` raises
-``NotImplementedError`` (ROADMAP.md item 12c).
+The traced path is the core path by default, as the reference's
+(``use_kernel`` defaults to False there): serving takes the plain PyTorch
+versions of the kernels (``attn_backend="plain"``).  ``--override
+use_kernel=True`` traces the hand kernels instead: each kernel's CUDA
+branch is a ``torch.library`` custom op (``repro_torch::<wrapper>``) whose
+fake implementation gives its outputs' shapes, so such a cell runs on fake
+``cuda`` tensors (the wrappers take their CUDA branch) and launches
+nothing.  That needs a torch built with CUDA: on a CPU-only build the
+Python bindings of ``Tensor.__getitem__``, ``Tensor.contiguous`` and
+``Tensor.copy_``, and the fake of DTensor's ``_dtensor::shard_dim_alltoall``,
+open a CUDA device guard that the build has not, so there the cell is
+refused before any group starts.  As in the reference, whose Pallas calls
+pass no ``cost_estimate``, ``flops`` leaves out the kernels' products: only
+``torch``'s own products are counted.
 
 Output keys, as the reference's where they mean something here: ``arch``,
 ``shape``, ``mesh``, ``kind``, ``attn_impl``, ``overrides``, ``devices``,
@@ -32,7 +41,8 @@ parameters, the batch or the caches and the token; a decode position is a
 Python int); ``temp_size_in_bytes`` the peak of the bytes the step
 allocates on one rank above its arguments (outputs included);
 ``collectives`` ``{op: {count, bytes}}`` under the reference's names, the
-bytes each rank's outputs.  ``compile_s``, ``bytes_accessed``,
+bytes each rank's outputs; ``kernel_ops`` ``{op: calls}`` of one rank's
+hand-kernel custom ops (empty on the core path).  ``compile_s``, ``bytes_accessed``,
 ``generated_code_size_in_bytes`` and ``alias_size_in_bytes`` have no
 meaning without a compiler and are left out.
 
@@ -104,10 +114,28 @@ def local_bytes(tree) -> int:
     return total
 
 
+def _in_sharding_propagation(depth: int = 16) -> bool:
+    """Whether the op being dispatched is DTensor's sharding propagation
+    running it on global-shape fake tensors to learn its output's metadata
+    (``ShardingPropagator._propagate_tensor_meta_non_cached``), which no
+    rank computes."""
+    frame = sys._getframe(2)
+    for _ in range(depth):
+        if frame is None:
+            return False
+        if frame.f_code.co_name == "_propagate_tensor_meta_non_cached":
+            return True
+        frame = frame.f_back
+    return False
+
+
 class StepTrace(torch.utils._python_dispatch.TorchDispatchMode):
-    """One rank's view of a traced step: the local ops' matrix-product
-    flops, the collectives (count and output bytes) and the peak of the
-    bytes allocated while it is on.  A DTensor op is handed on to
+    """One rank's view of a traced step (DTensor's sharding propagation,
+    which runs ops on global shapes to learn their metadata, left out: its
+    cache makes it a cost of the first trace only): the local ops'
+    matrix-product flops, the collectives (count and output bytes), the hand kernels'
+    custom ops (calls per op) and the peak of the bytes allocated while it
+    is on.  A DTensor op is handed on to
     DTensor's own dispatch (``NotImplemented``), so the local ops it
     issues are the ones counted."""
 
@@ -115,6 +143,7 @@ class StepTrace(torch.utils._python_dispatch.TorchDispatchMode):
         super().__init__()
         self.flops = 0
         self.collectives: dict = {}
+        self.kernel_ops: dict = {}
         self.live = self.peak = 0
         self._seen: set = set()
 
@@ -145,6 +174,8 @@ class StepTrace(torch.utils._python_dispatch.TorchDispatchMode):
         if any(isinstance(a, DTensor) for a in flat):
             return NotImplemented      # DTensor's dispatch: its local ops
                                        # come back here
+        if _in_sharding_propagation():
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         name = func._overloadpacket.__name__
         if name in _COLLECTIVES:
@@ -155,6 +186,8 @@ class StepTrace(torch.utils._python_dispatch.TorchDispatchMode):
                                               {"count": 0, "bytes": 0})
             rec["count"] += 1
             rec["bytes"] += sum(t.numel() * t.element_size() for t in res)
+        elif func.namespace == "repro_torch":
+            self.kernel_ops[name] = self.kernel_ops.get(name, 0) + 1
         elif name in _PRODUCTS and func._overloadpacket in flop_registry:
             self.flops += flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out)
@@ -185,8 +218,9 @@ def cell_config(arch: str, shape_name: str, attn_impl: str = "auto",
                 overrides: dict | None = None):
     """(config, impl, shape) of one cell: the reference's ``auto`` impl
     rule (``long_500k`` needs sub-quadratic attention: the attention archs
-    run it in ``lln_diag``, the SSM archs natively), the overrides, and the
-    core path (the kernels' plain versions when serving)."""
+    run it in ``lln_diag``, the SSM archs natively) and the overrides.
+    Serving takes the kernels' plain versions, or, under ``use_kernel``
+    (or ``attn_backend=kernel``), the kernels' custom ops."""
     from repro_torch.configs import SHAPES_BY_NAME, get_config
     shape = SHAPES_BY_NAME[shape_name]
     cfg = get_config(arch)
@@ -197,11 +231,28 @@ def cell_config(arch: str, shape_name: str, attn_impl: str = "auto",
         else:
             impl = cfg.attn_impl
     cfg = cfg.replace(attn_impl=impl, **(overrides or {}))
-    if cfg.use_kernel or cfg.attn_backend == "kernel":
-        raise NotImplementedError(
-            "the dry run traces the core path: the hand kernels have no "
-            "fake implementation (use_kernel=True is ROADMAP.md item 12c)")
+    if uses_kernels(cfg):
+        return cfg.replace(use_kernel=True, attn_backend="kernel"), impl, \
+            shape
     return cfg.replace(attn_backend="plain"), impl, shape
+
+
+def uses_kernels(cfg) -> bool:
+    """Whether a cell traces the hand kernels (on fake ``cuda``)."""
+    return bool(cfg.use_kernel) or cfg.attn_backend == "kernel"
+
+
+def check_kernel_trace() -> None:
+    """Refuse a kernel cell on a torch built without CUDA (see the module
+    docstring): the ops named there cannot run on its fake ``cuda``
+    tensors."""
+    if not torch.backends.cuda.is_built():
+        raise RuntimeError(
+            "use_kernel=True traces on fake cuda tensors, which this "
+            "CPU-only torch build cannot: Tensor.__getitem__, "
+            "Tensor.contiguous, Tensor.copy_ and the fake of "
+            "_dtensor::shard_dim_alltoall open a CUDA device guard; run the "
+            "cell where torch is built with CUDA")
 
 
 def _whole_batch(cfg, shape, device) -> dict:
@@ -227,9 +278,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_production_mesh
     cfg, impl, shape = cell_config(arch, shape_name, attn_impl, overrides)
+    kernels = uses_kernels(cfg)
+    if kernels:
+        check_kernel_trace()
     world = 512 if multi_pod else 256
     start_fake_group(world)
-    device = fake_device()
+    device = "cuda" if kernels else fake_device()
     mesh = make_production_mesh(multi_pod=multi_pod, device=device)
     result = {"arch": arch, "shape": shape_name,
               "mesh": "2x16x16" if multi_pod else "16x16",
@@ -280,6 +334,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     result["output_size_in_bytes"] = local_bytes(out)
     result["temp_size_in_bytes"] = int(trace.peak)
     result["collectives"] = trace.collectives
+    result["kernel_ops"] = trace.kernel_ops
     result["ok"] = True
     return result
 

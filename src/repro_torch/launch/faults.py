@@ -35,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.engine import rows_mask
+from repro_torch.distributed.sharding import is_dtensor, map_rows
 from repro_torch.tree import map_with_path
 
 FAULT_KINDS = ("nan", "drop", "delay", "kill")
@@ -127,6 +129,11 @@ def poison_rows(caches, rows):
     def leaf(_, a):
         if not a.is_floating_point() or a.ndim < 1:
             return a
+        if is_dtensor(a):      # a pool on a mesh: each rank its own rows
+            mask = rows_mask(idx, a.shape[0], a.device)
+            return map_rows(a, lambda loc, r: loc.masked_fill(
+                mask[r].reshape((-1,) + (1,) * (loc.ndim - 1)),
+                float("nan")))
         out = a.clone()
         out[torch.as_tensor(idx, dtype=torch.long, device=a.device)] = \
             float("nan")

@@ -90,19 +90,16 @@ def make_smoke_mesh(data: int = 1, model: int = 1, device=None):
 def mesh_from_flag(flag: str, cfg, device=None, *, continuous: bool = False,
                    speculative: bool = False):
     """The CLIs' ``--mesh d,m``: None for ``1,1`` (the meshless path), a
-    (data, model) mesh otherwise.  Every family serves (static mode) and
-    trains on a mesh; the pool and speculative modes raise
-    ``NotImplementedError`` naming item 12c, and a mesh whose size is not
-    the world size raises ``ValueError``."""
+    (data, model) mesh otherwise.  Every family serves and trains on a
+    mesh, in every serving mode (``continuous``, the request pool, and
+    ``speculative`` are accepted as the CLIs pass them: neither changes the
+    mesh); a mesh whose size is not the world size raises
+    ``ValueError``."""
+    del continuous, speculative
     data, model = (int(x) for x in flag.split(","))
     if (data, model) == (1, 1):
         return None
     check_mesh_family(cfg)
-    for on, flag_name in ((continuous, "--continuous"),
-                          (speculative, "--speculative")):
-        if on:
-            raise NotImplementedError(f"{flag_name} on a mesh is ROADMAP.md "
-                                      "item 12c")
     return make_smoke_mesh(data, model, device)
 
 

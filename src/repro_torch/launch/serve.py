@@ -29,16 +29,16 @@ the pool's rows are speculative:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
       --attn-impl lln_diag --device cpu --speculative --spec-k 3 --gen 16
 
-``--mesh d,m`` serves every family with a decode step (static mode) on a
-(data, model) DeviceMesh, one process per device under ``torchrun`` (NCCL
-on the card, gloo with ``--device cpu``); every rank samples the same
-tokens from the whole logits and rank 0 prints:
+``--mesh d,m`` serves every family with a decode step on a (data, model)
+DeviceMesh, one process per device under ``torchrun`` (NCCL on the card,
+gloo with ``--device cpu``), in every mode: static, ``--continuous`` (the
+dense, MoE, ssm and hybrid pools) and ``--speculative`` (alone or in the
+pool); every rank samples the same tokens from the whole logits, makes
+the same pool decisions, and rank 0 prints:
 
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
-      --arch yi-9b --smoke --attn-impl lln_diag --mesh 2,2 --device cpu
-
-``--continuous`` and ``--speculative`` on a mesh raise
-``NotImplementedError`` naming ROADMAP.md item 12c.
+      --arch yi-9b --smoke --attn-impl lln_diag --mesh 2,2 --device cpu \
+      --continuous --requests 8 --gen-lens 4,12
 """
 from __future__ import annotations
 
@@ -132,9 +132,9 @@ def main(argv=None):
                           continuous=args.continuous,
                           speculative=args.speculative)
     if args.continuous:
-        return _run_continuous(cfg, args)
+        return _run_continuous(cfg, args, mesh)
     if args.speculative:
-        return _run_speculative(cfg, args)
+        return _run_speculative(cfg, args, mesh)
 
     max_len = args.prompt_len + args.gen + cfg.num_prefix_tokens
     setup = make_serve_setup(cfg, ShapeSpec("cli", max_len, args.batch,
@@ -193,7 +193,7 @@ def main(argv=None):
     return toks
 
 
-def _run_speculative(cfg, args):
+def _run_speculative(cfg, args, mesh=None):
     """Draft-then-verify decoding: the tied first-k-layers draft and one
     target verify per iteration with per-row partial commits."""
     draft_layers = args.draft_layers or max(cfg.n_layers // 2, 1)
@@ -201,9 +201,10 @@ def _run_speculative(cfg, args):
     max_len = args.prompt_len + args.gen + args.spec_k + 2
     setup = make_spec_setup(cfg, ShapeSpec("spec", max_len, args.batch,
                                            "decode"), device=args.device,
-                            spec_k=args.spec_k, draft_layers=draft_layers)
+                            spec_k=args.spec_k, draft_layers=draft_layers,
+                            mesh=mesh)
     dev = setup.device
-    params = setup.model.init(args.seed)
+    params = setup.shard_params(setup.model.init(args.seed))
     batch = synthetic_batch(cfg, args.batch, max_len,
                             text_seq=args.prompt_len, device=dev)
     gen = torch.Generator(device=dev)
@@ -232,6 +233,8 @@ def _run_speculative(cfg, args):
     tps = float(np.mean([steps / i for i in iters_used]))
     flat = flatten_spec_tokens(toks, n_emit, steps)
     tok_s = steps * args.batch / max(t_gen, 1e-9)
+    if not is_main_rank():
+        return flat
     print(f"prefill: {args.batch}x{args.prompt_len} (target + "
           f"{draft_layers}-layer draft) in {t_prefill:.3f}s")
     print(f"speculative: k={args.spec_k}, draft_layers={draft_layers}; "
@@ -242,7 +245,7 @@ def _run_speculative(cfg, args):
     return flat
 
 
-def _run_continuous(cfg, args):
+def _run_continuous(cfg, args, mesh=None):
     """The continuous-batching pool over mixed-length synthetic traffic."""
     gen_lens = ([int(x) for x in args.gen_lens.split(",")]
                 if args.gen_lens else [args.gen // 4 or 1] * 3 + [args.gen])
@@ -261,8 +264,9 @@ def _run_continuous(cfg, args):
         cfg, args.device, slots=args.batch, max_len=max_len,
         segment=args.segment, temperature=args.temperature,
         health=(HealthConfig(check_drift=args.drift) if args.health
-                else None), spec_k=spec_k, draft_layers=draft_layers)
-    params = setup.model.init(args.seed)
+                else None), spec_k=spec_k, draft_layers=draft_layers,
+        mesh=mesh)
+    params = setup.shard_params(setup.model.init(args.seed))
     eng = ContinuousBatcher(setup, params, queue_cap=args.queue_cap,
                             snapshot_mgr=mgr,
                             snapshot_every=args.snapshot_every if mgr else 0)
@@ -280,10 +284,14 @@ def _run_continuous(cfg, args):
         stats = eng.run(reqs, generator=gen, fault_plan=plan,
                         resume=args.restore)
     except SimulatedCrash as e:
+        if not is_main_rank():
+            return None
         print(f"simulated crash at segment boundary {e.segment}; "
               f"resume with --restore --snapshot-dir {args.snapshot_dir}")
         return None
 
+    if not is_main_rank():
+        return stats
     # Useful tokens over dispatched row-steps (+1 prefill-emitted token per
     # request), as the reference's report.
     util = stats.completed_tokens / max(

@@ -157,6 +157,92 @@ def _full(t):
     return t.full_tensor() if shd.is_dtensor(t) else t
 
 
+class OnMesh:
+    """A ``Model``'s serving calls on ``mesh`` under the serve ``rules``:
+    each runs inside ``logical_rules``; a batch is placed by
+    :func:`batch_axes` (plain tensors, the whole batch on every rank),
+    tokens and verify chunks by the rows; per-row positions, ``row_mask``
+    and ``commit_len`` come whole on every rank, as the host keeps them,
+    and the attention and SSM layers place them with the rows.  Logits come
+    back whole on every rank, so every rank samples the same tokens and
+    makes the same decisions; caches come back placed by
+    :func:`cache_shardings`.  ``score``'s residuals stay as the layers
+    placed them, which is what ``commit`` takes."""
+
+    def __init__(self, model: Model, mesh, rules: dict):
+        self.model, self.mesh, self.rules = model, mesh, rules
+        self.cfg, self.device = model.cfg, model.device
+        self.axes = batch_axes(model.cfg, rules)
+
+    def _place(self, t, spec):
+        return shd.place_leaf(t, shd.NamedSharding(
+            self.mesh, shd.fit_spec(shd.P(*spec), t.shape, self.mesh)))
+
+    def _rows(self, token):
+        return self._place(token, (self.rules["act_batch"],)
+                           + (None,) * (token.ndim - 1))
+
+    def placed(self, caches):
+        return shd.shard_tree(caches, cache_shardings(
+            caches, self.cfg, self.mesh, self.rules))
+
+    @torch.inference_mode()
+    def cache_init(self, params, batch: int, max_len: int, per_row=False):
+        return self.placed(self.model.cache_init(params, batch, max_len,
+                                                 per_row=per_row))
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, max_len: int):
+        batch = {k: self._place(v, self.axes[k]) for k, v in batch.items()}
+        with shd.logical_rules(self.mesh, self.rules):
+            logits, caches = self.model.prefill(params, batch, max_len)
+            return _full(logits), self.placed(caches)
+
+    @torch.inference_mode()
+    def decode(self, params, caches, token, pos, row_mask=None,
+               commit_len=None):
+        # The encoder-decoder and the VLM take no serving contract.
+        kw = {k: v for k, v in (("row_mask", row_mask),
+                                ("commit_len", commit_len))
+              if v is not None}
+        with shd.logical_rules(self.mesh, self.rules):
+            logits, caches = self.model.decode(params, caches,
+                                               self._rows(token), pos, **kw)
+            return _full(logits), self.placed(caches)
+
+    @torch.inference_mode()
+    def score(self, params, caches, token, pos, row_mask=None):
+        with shd.logical_rules(self.mesh, self.rules):
+            logits, resid = self.model.score(params, caches,
+                                             self._rows(token), pos,
+                                             row_mask=row_mask)
+            return _full(logits), resid
+
+    @torch.inference_mode()
+    def commit(self, caches, resid, commit_len, row_mask=None):
+        with shd.logical_rules(self.mesh, self.rules):
+            return self.placed(self.model.commit(caches, resid, commit_len,
+                                                 row_mask=row_mask))
+
+
+def _serving(model: Model, mesh, rules=None):
+    """``(calls, rules)``: ``model`` itself and None without a mesh; on one
+    its :class:`OnMesh` calls under ``rules`` (by default the serve rules
+    of its config)."""
+    if mesh is None:
+        return model, None
+    if rules is None:
+        rules = shd.make_rules(model.cfg, multi_pod=_multi_pod(mesh),
+                               serve=True)
+    return OnMesh(model, mesh, rules), rules
+
+
+def _shard_params(params, mesh):
+    """``params`` (the whole tree on every rank) placed by
+    ``param_shardings`` on ``mesh``; as they are without one."""
+    if mesh is None:
+        return params
+    return shd.shard_tree(params, shd.param_shardings(params, mesh))
 
 
 @dataclasses.dataclass
@@ -340,9 +426,7 @@ class ServeSetup:
         """``params`` (the whole tree on every rank: the same seed or the
         same restored file) placed by ``param_shardings`` on the mesh; as
         they are without one."""
-        if self.mesh is None:
-            return params
-        return shd.shard_tree(params, shd.param_shardings(params, self.mesh))
+        return _shard_params(params, self.mesh)
 
     def cache_shardings(self, caches) -> dict:
         return cache_shardings(caches, self.model.cfg, self.mesh, self.rules)
@@ -367,40 +451,8 @@ def make_serve_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
         device = mesh.device_type
     model = build_model(cfg, device)
     max_len = shape.seq_len
-    prefill, decode = model.prefill, model.decode
-    rules = None
-    if mesh is not None:
-        rules = shd.make_rules(cfg, multi_pod=_multi_pod(mesh), serve=True)
-
-        def place(t, spec):
-            return shd.place_leaf(t, shd.NamedSharding(
-                mesh, shd.fit_spec(shd.P(*spec), t.shape, mesh)))
-
-        def placed(caches):
-            return shd.shard_tree(caches,
-                                  cache_shardings(caches, cfg, mesh, rules))
-
-        axes = batch_axes(cfg, rules)
-
-        @torch.inference_mode()
-        def prefill(params, batch, n):
-            batch = {k: place(v, axes[k]) for k, v in batch.items()}
-            with shd.logical_rules(mesh, rules):
-                logits, caches = model.prefill(params, batch, n)
-                return _full(logits), placed(caches)
-
-        @torch.inference_mode()
-        def decode(params, caches, token, pos, row_mask=None,
-                   commit_len=None):
-            token = place(token, (rules["act_batch"],))
-            # The encoder-decoder and the VLM take no serving contract.
-            kw = {k: v for k, v in (("row_mask", row_mask),
-                                    ("commit_len", commit_len))
-                  if v is not None}
-            with shd.logical_rules(mesh, rules):
-                logits, caches = model.decode(params, caches, token, pos,
-                                              **kw)
-                return _full(logits), placed(caches)
+    calls, rules = _serving(model, mesh)
+    prefill, decode = calls.prefill, calls.decode
 
     def prefill_fn(params, batch):
         return prefill(params, batch, max_len)
@@ -466,10 +518,17 @@ class SpecSetup:
     max_len: int
     prefill_fn: Any
     make_generate: Any = None
+    mesh: Any = None
+    rules: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    def shard_params(self, params):
+        """The target's parameters placed on the mesh (the draft shares
+        them); as they are without one."""
+        return _shard_params(params, self.mesh)
 
 
 def _draft_chunk(dmodel, dparams, dr_caches, tok, pos, k: int,
@@ -514,25 +573,29 @@ def _verify_step(model, dmodel, params, dparams, tgt, dr, tok, pos, k: int,
             nxt, commit, chunk)
 
 
-def _no_mesh(what: str, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{what} on a mesh is ROADMAP.md item 12c")
-
-
 def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
                     spec_k: int, draft_layers: int,
                     mesh=None) -> SpecSetup:
     """The speculative loop for a dense or MoE decoder on ``device`` (the CUDA
     card unless the caller asks for another device).  ``shape.seq_len`` is
     the cache budget: the prompt, the generation budget and one verify
-    chunk of overshoot (``prompt + steps + spec_k + 1``).  A ``mesh``
-    raises ``NotImplementedError`` (item 12c)."""
-    _no_mesh("speculative decoding", mesh)
+    chunk of overshoot (``prompt + steps + spec_k + 1``).
+
+    ``mesh``: a DeviceMesh.  The target and the draft serve through
+    :class:`OnMesh` under one set of serve rules: parameters placed by
+    :meth:`SpecSetup.shard_params` (the draft's are the same shards), both
+    caches by :func:`cache_shardings`, the logits whole on every rank, so
+    the acceptance rule, the tokens and the per-row commit lengths are the
+    same on every rank."""
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     dcfg = draft_config(cfg, draft_layers)   # validates k and the family
-    model = build_model(cfg, device)
-    dmodel = build_model(dcfg, device)
+    if mesh is not None:
+        check_mesh_family(cfg)
+        device = mesh.device_type
+    tmodel, dbuilt = build_model(cfg, device), build_model(dcfg, device)
+    model, rules = _serving(tmodel, mesh)
+    dmodel, _ = _serving(dbuilt, mesh, rules)
     draft_layers = draft_layers or cfg.draft_layers
     max_len = shape.seq_len
     k = spec_k
@@ -581,10 +644,11 @@ def make_spec_setup(cfg: ArchConfig, shape: ShapeSpec, device=None, *,
 
         return gen
 
-    return SpecSetup(cfg=cfg, draft_cfg=dcfg, model=model,
-                     draft_model=dmodel, spec_k=spec_k,
-                     draft_layers=draft_layers, max_len=max_len,
-                     prefill_fn=prefill_fn, make_generate=make_generate)
+    return SpecSetup(cfg=cfg, draft_cfg=dcfg, model=tmodel,
+                     draft_model=dbuilt, spec_k=spec_k,
+                     draft_layers=draft_layers,
+                     max_len=max_len, prefill_fn=prefill_fn,
+                     make_generate=make_generate, mesh=mesh, rules=rules)
 
 
 def flatten_spec_tokens(toks, n_emit, steps: int) -> np.ndarray:
@@ -684,13 +748,41 @@ class PoolSetup:
     spec_k: int = 0
     draft_layers: int = 0
     draft_model: Optional[Model] = None
+    mesh: Any = None
+    rules: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
+    def shard_params(self, params):
+        """The parameters placed on the mesh; as they are without one."""
+        return _shard_params(params, self.mesh)
+
 
 _HEALTH_DEFAULT = HealthConfig()
+
+
+def _admit_rows(pooled, slot, idx):
+    """``pooled`` with rows ``idx`` ((k,) long) set to the k rows of
+    ``slot``, out of place.  On a mesh the slot's rows come whole to every
+    rank and each rank writes the ones it holds into its shard (the other
+    dims cut to its shard as well): no DTensor op, no communication."""
+    slot = _full(slot).to(pooled.dtype)
+    if not shd.is_dtensor(pooled):
+        return pooled.index_copy(0, idx, slot)
+    from torch.distributed.tensor import Replicate
+    part = shd.local_slice(slot, pooled.device_mesh, [
+        Replicate() if p.is_shard(0) else p for p in pooled.placements])
+
+    def write(loc, rows):
+        where = torch.full((pooled.shape[0],), -1, dtype=torch.long,
+                           device=loc.device)
+        where[rows] = torch.arange(rows.numel(), device=loc.device)
+        at = where[idx]
+        held = at >= 0
+        return loc.index_copy(0, at[held], part[held])
+    return shd.map_rows(pooled, write)
 
 
 def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
@@ -717,8 +809,16 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     tokens in its last iteration: the batcher caps the harvest at the
     budget and ``check_request`` reserves ``spec_k`` positions of slack.
     MLA, the encoder-decoder and the VLM are refused, as in the
-    reference.  A ``mesh`` raises ``NotImplementedError`` (item 12c)."""
-    _no_mesh("the request pool", mesh)
+    reference.
+
+    ``mesh``: a DeviceMesh.  The pool serves through :class:`OnMesh` under
+    the serve rules: the parameters placed by :meth:`PoolSetup.shard_params`,
+    the pool's and a prefill's caches by :func:`cache_shardings`; the
+    per-row carry (token, position, budget, active) stays whole on every
+    rank, as the logits come back; admit and evict write each rank's own
+    rows of its shards; the sentinel's reductions give every rank the
+    same per-row vectors (``core/health.py``, ``core/metrics.py``), so
+    every rank's batcher makes the same decisions."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
             or cfg.kv_lora > 0:
         raise NotImplementedError(
@@ -731,12 +831,17 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
         raise NotImplementedError(
             "speculative pools need a first-k-layers draft "
             f"(family={cfg.family})")
+    if mesh is not None:
+        check_mesh_family(cfg)
+        device = mesh.device_type
     cfg = cfg.replace(lln_per_row_calib=True)
-    model = build_model(cfg, device)
+    pmodel = build_model(cfg, device)
+    model, rules = _serving(pmodel, mesh)
     spec = spec_k >= 1
-    dmodel = None
+    dmodel = dbuilt = None
     if spec:
-        dmodel = build_model(draft_config(cfg, draft_layers), device)
+        dbuilt = build_model(draft_config(cfg, draft_layers), device)
+        dmodel, _ = _serving(dbuilt, mesh, rules)
         draft_layers = draft_layers or cfg.draft_layers
     k = spec_k
 
@@ -760,9 +865,8 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
     def admit_fn(pooled, slot_caches, slot_idx):
         idx = torch.as_tensor(slot_idx, dtype=torch.long,
                               device=model.device)
-        return tree_map(
-            lambda pl, sl: pl.index_copy(0, idx, sl.to(pl.dtype)),
-            pooled, slot_caches)
+        return tree_map(lambda pl, sl: _admit_rows(pl, sl, idx), pooled,
+                        slot_caches)
 
     @torch.inference_mode()
     def evict_fn(pooled, row_mask):
@@ -855,11 +959,11 @@ def make_pool_setup(cfg: ArchConfig, device=None, *, slots: int,
                               commit_len=commit)
         return {"target": tgt, "draft": dr}
 
-    return PoolSetup(cfg=cfg, model=model, slots=slots, max_len=max_len,
+    return PoolSetup(cfg=cfg, model=pmodel, slots=slots, max_len=max_len,
                      segment=segment, temperature=temperature,
                      cache_init=cache_init, prefill_fn=prefill_fn,
                      admit_fn=admit_fn,
                      segment_fn=segment_spec_fn if spec else segment_fn,
                      evict_fn=evict_fn, replay_fn=replay_fn, health=health,
                      spec_k=spec_k, draft_layers=draft_layers,
-                     draft_model=dmodel)
+                     draft_model=dbuilt, mesh=mesh, rules=rules)

@@ -43,13 +43,13 @@ import time
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
-from repro_torch.data import (HostShardedSource, Prefetcher, mesh_placer,
+from repro_torch.data import (HostShardedSource, Prefetcher, device_placer,
                               torch_placer)
 from repro_torch.data.synthetic import lm_batches, mlm_batches
 from repro_torch.models import synthetic_batch
 from repro_torch.distributed.straggler import StepWatchdog
 from repro_torch.launch.mesh import is_main_rank, mesh_from_flag
-from repro_torch.launch.steps import make_train_setup
+from repro_torch.launch.steps import batch_struct, make_train_setup
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -114,9 +114,13 @@ def main(argv=None):
     source = HostShardedSource(
         lambda b, s: batches(cfg.vocab, b, args.seq, seed=s), args.batch,
         start_step=start_step, **one)
-    pipe = Prefetcher(source, place=torch_placer(setup.device)
-                      if mesh is None
-                      else mesh_placer(mesh, setup.batch_placements))
+    if mesh is None:
+        place = torch_placer(setup.device)
+    else:
+        specs = {k: v.spec for k, v in batch_struct(
+            cfg, shape, mesh, setup.rules).items()}
+        place = device_placer(mesh, specs)
+    pipe = Prefetcher(source, place=place)
     watchdog = StepWatchdog(
         on_anomaly=lambda r: print(f"[straggler] step {r.step} took "
                                    f"{r.duration:.2f}s ({r.ratio:.1f}x)"))

@@ -27,7 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, replicated_like
 
 from . import mla as mla_mod
 from .attention_block import (Attention, attn_apply, serve_commit,
@@ -253,7 +253,9 @@ def block_score(p: Block, x, cache, cfg, position, *, row_mask=None):
         raise NotImplementedError(
             "single-pass speculative verify is not wired for MLA")
     h = apply_norm(p.ln1, x)
-    zeros = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    # On a mesh a replicated DTensor, placed with the rows by the decode.
+    zeros = replicated_like(x, torch.zeros(x.shape[0], dtype=torch.int32,
+                                           device=x.device))
     attn_out, _, resid = serve_decode(p.attn, h, cache, cfg, position,
                                       row_mask=row_mask, commit_len=zeros,
                                       return_residuals=True)

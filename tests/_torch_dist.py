@@ -167,18 +167,20 @@ def train_on_mesh(rank, world, cases, ckpt_dir):
     return out, [h["loss"] for h in hist]
 
 
-def serve_on_mesh(rank, world, cases, capacity_factor, ckpt_dir):
+def serve_on_mesh(rank, world, cases, capacity_factor, ckpt_dir,
+                  pool_cases=(), spec_case=None):
     """For each (arch, impl, overrides, params numpy, batch numpy,
     max_len, steps, pos0): ``make_serve_setup(mesh=(2, 2))``, prefill and
     greedy decode; the caches' local shapes checked after every step.
     Returns ``{"serve": [tokens (prefill's first) and the split cache
     leaves per case], "moe": moe_on_mesh's, "elastic": elastic_save's
-    for the first case}``."""
+    for the first case, "placer": placer_on_mesh's, "items": pool_on_mesh's
+    and "batcher": batcher_on_mesh's}`` (the last two with ``spec_case``)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed.elastic import make_degraded_mesh
     from repro_torch.launch.steps import make_serve_setup
     mesh = _mesh(2, 2)
     out = []
@@ -202,9 +204,65 @@ def serve_on_mesh(rank, world, cases, capacity_factor, ckpt_dir):
             toks.append(tok)
         out.append({"tokens": torch.stack(toks, 1).numpy(), "split": split})
     arch, impl, over, params_np, batch_np, max_len, steps, pos0 = cases[0]
-    return {"serve": out, "moe": moe_on_mesh(mesh, capacity_factor),
-            "elastic": elastic_save(mesh, arch, impl, params_np, batch_np,
-                                    max_len, steps, pos0, ckpt_dir)}
+    degraded = make_degraded_mesh([0, 1, 2], prefer_model=16, device="cpu")
+    res = {"serve": out, "moe": moe_on_mesh(mesh, capacity_factor),
+           "elastic": elastic_save(mesh, degraded, arch, impl, params_np,
+                                   batch_np, max_len, steps, pos0,
+                                   ckpt_dir),
+           "placer": placer_on_mesh(mesh)}
+    if spec_case is not None:
+        res["items"] = pool_on_mesh(mesh, degraded, pool_cases, spec_case)
+        res["batcher"] = batcher_on_mesh(pool_cases[0]["params"])
+    return res
+
+
+def placer_on_mesh(mesh):
+    """``data/pipeline.py:device_placer`` against ``mesh_placer`` on a
+    numpy batch: each entry's placements and local shard."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import device_placer, mesh_placer
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    cfg = get_config("yi-9b", smoke=True)
+    shape = ShapeSpec("t", 16, 4, "train")
+    struct = steps.batch_struct(cfg, shape, mesh, shd.make_rules(
+        cfg, multi_pod=False))
+    batch = {"inputs": np.arange(64).reshape(4, 16),
+             "mask": np.ones((4, 16), np.float32)}
+    got = device_placer(mesh, {k: v.spec for k, v in struct.items()})(batch)
+    want = mesh_placer(mesh, steps.batch_placements(struct, mesh))(batch)
+    return {k: (tuple(got[k].placements) == tuple(want[k].placements)
+                and torch.equal(got[k].to_local(), want[k].to_local())
+                and got[k].to_local().shape[0] == 2)
+            for k in batch}
+
+
+def batcher_on_mesh(params_np):
+    """The request pool's engine (``launch/batcher.py``) with speculative
+    rows on the mesh the CLIs' flag gives (``mesh_from_flag("2,2",
+    continuous=True, speculative=True)``) and without one: each request's
+    tokens and status (every rank's batcher must decide the same)."""
+    import numpy as np
+    from repro_torch.launch.batcher import ContinuousBatcher, Request
+    from repro_torch.launch.mesh import mesh_from_flag
+    case = {"arch": "elastic", "params": params_np, "spec_k": 2,
+            "draft_layers": 1}
+    mesh = mesh_from_flag("2,2", _pool_cfg(case), "cpu", continuous=True,
+                          speculative=True)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, 128, 8).astype(np.int32),
+                    gen_len=g) for i, g in enumerate((3, 6, 2, 5))]
+    out = {}
+    for tag, m in (("mesh", mesh), ("meshless", None)):
+        setup, params, _ = pool_case(case, m)
+        stats = ContinuousBatcher(setup, params).run(reqs)
+        out[tag] = {"outputs": {k: [int(t) for t in v]
+                                for k, v in stats.outputs.items()},
+                    "statuses": dict(stats.statuses)}
+    return out
 
 
 def moe_on_mesh(mesh, capacity_factor):
@@ -272,18 +330,17 @@ def moe_on_mesh(mesh, capacity_factor):
     return out
 
 
-def elastic_save(mesh, arch, impl, params_np, batch_np, max_len, steps,
-                 pos0, ckpt_dir):
+def elastic_save(mesh, degraded, arch, impl, params_np, batch_np, max_len,
+                 steps, pos0, ckpt_dir):
     """World 4, mesh (2, 2): prefill, save ``{"params", "caches"}`` (each
     leaf gathered, rank 0 writes), then ``steps`` greedy decode steps.
-    Returns the tokens and the degraded mesh over 3 surviving ranks."""
+    Returns the tokens and ``degraded``, the mesh over 3 surviving
+    ranks."""
     import numpy as np
     import torch
     from repro_torch.checkpoint import checkpointer as ck
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.convert import params_from_numpy
-    from repro_torch.distributed.elastic import make_degraded_mesh
     from repro_torch.launch.steps import make_serve_setup
     cfg = get_config(arch, smoke=True, attn_impl=impl,
                      compute_dtype="float32")
@@ -298,7 +355,6 @@ def elastic_save(mesh, arch, impl, params_np, batch_np, max_len, steps,
     ck.save(ckpt_dir, 1, {"params": params, "caches": caches,
                           "tok": tok})
     toks, caches = setup.make_generate(steps)(params, caches, tok, pos0)
-    degraded = make_degraded_mesh([0, 1, 2], prefer_model=16, device="cpu")
     return {"tokens": toks.numpy(),
             "degraded": (tuple(degraded.mesh.shape),
                          degraded.get_coordinate() is not None)}
@@ -342,6 +398,134 @@ def elastic_restore(rank, world, arch, impl, max_len, batch, steps, pos0,
     toks, _ = setup.make_generate(steps)(
         got["params"], got["caches"], got["tok"].full_tensor(), pos0)
     return {"tokens": toks.numpy(), "mesh": tuple(mesh.mesh.shape)}
+
+
+# ---------------------------------------------------------------------------
+# Item 12c: the request pool and speculative decoding on a mesh.
+# ---------------------------------------------------------------------------
+
+# The reference's elastic pool test's config (tests/test_distributed.py).
+ELASTIC = dict(name="elastic-pool", family="dense", n_layers=2, d_model=64,
+               n_heads=4, n_kv_heads=2, d_ff=128, vocab=128, head_dim=16,
+               attn_impl="lln_diag", diag_block=8, lln_chunk=8,
+               softmax_chunk=16, lln_fixed_ab=2.1, compute_dtype="float32",
+               param_dtype="float32", remat="none", tie_embeddings=True)
+POOL = {"slots": 2, "max_len": 32, "segment": 4}
+
+
+def pool_schedule(vocab: int, seed: int = 1) -> dict:
+    """Two 8-token prompts admitted as one group into slots 0 and 1, with
+    their next tokens, positions and budgets (the reference test's token 7
+    in slot 0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {"prompts": rng.integers(0, vocab, (2, 8)).astype(np.int32),
+            "tok": [7, 11], "pos": [8, 8], "remaining": [4, 2]}
+
+
+def _pool_caches(setup, params, sched):
+    import torch
+    _, slot = setup.prefill_fn(params, torch.from_numpy(
+        sched["prompts"].astype("int64")))
+    return setup.admit_fn(setup.cache_init(), slot, [0, 1])
+
+
+def _carry(sched):
+    import torch
+    return (torch.tensor(sched["tok"]), torch.tensor(sched["pos"],
+                                                     dtype=torch.int32),
+            torch.tensor(sched["remaining"], dtype=torch.int32),
+            torch.tensor([True, True]))
+
+
+def _segment(setup, params, caches, sched) -> dict:
+    """One segment from the schedule's carry: the (S, B[, k+1]) tokens,
+    the emitted counts and the sentinel's flags, as numpy."""
+    out = setup.segment_fn(params, caches, *_carry(sched))
+    return {"tokens": out[5].numpy(), "emitted": out[6].numpy(),
+            "unhealthy": out[7].numpy()}
+
+
+def _pool_cfg(case):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ArchConfig
+    if case["arch"] == "elastic":
+        return ArchConfig(**ELASTIC)
+    return get_config(case["arch"], smoke=True, compute_dtype="float32")
+
+
+def pool_case(case, mesh):
+    """One pool case (``case``: arch "elastic" or a SMOKE arch, its
+    weights as numpy or None, ``spec_k``, ``draft_layers``) on ``mesh`` or
+    without one (None): one segment after admitting the schedule."""
+    from repro_torch.launch.steps import make_pool_setup
+    cfg = _pool_cfg(case)
+    setup = make_pool_setup(cfg, "cpu", **POOL, spec_k=case["spec_k"],
+                            draft_layers=case["draft_layers"], mesh=mesh)
+    params = setup.shard_params(_params(case["params"], cfg))
+    sched = pool_schedule(cfg.vocab)
+    return setup, params, sched
+
+
+def pool_on_mesh(mesh, degraded, cases, spec_case):
+    """Item 12c on (2, 2): each pool case's segment on the mesh and
+    without it; for the first case, the pool caches and the parameters
+    resharded onto ``degraded`` (``reshard_state``: the (1, 2) sub-mesh of
+    ranks 0 and 1, the others idle) and the same segment there; then
+    ``make_spec_setup`` greedy tokens on the mesh and without it
+    (``spec_case``: a serve case's weights, batch, steps and position)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.elastic import reshard_state
+    from repro_torch.launch.steps import flatten_spec_tokens, make_spec_setup
+    out = {"pool": {}}
+    for case in cases:
+        runs = {}
+        for tag, m in (("mesh", mesh), ("meshless", None)):
+            setup, params, sched = pool_case(case, m)
+            caches = _pool_caches(setup, params, sched)
+            runs[tag] = _segment(setup, params, caches, sched)
+            if tag == "mesh" and case.get("degrade"):
+                caches = _pool_caches(setup, params, sched)
+                params2 = reshard_state(params, degraded)
+                caches2 = reshard_state(caches, degraded)
+                if degraded.get_coordinate() is not None:
+                    setup2, _, _ = pool_case(case, degraded)
+                    runs["degraded"] = _segment(setup2, params2, caches2,
+                                                sched)
+        out["pool"][case["name"]] = runs
+    arch, impl, params_np, batch_np, max_len, steps, pos0 = spec_case
+    cfg = get_config(arch, smoke=True, attn_impl=impl,
+                     compute_dtype="float32")
+    out["spec"] = {}
+    for tag, m in (("mesh", mesh), ("meshless", None)):
+        setup = make_spec_setup(cfg, ShapeSpec("s", max_len + 4, 2,
+                                               "decode"), "cpu", spec_k=3,
+                                draft_layers=1, mesh=m)
+        params = setup.shard_params(_params(params_np, cfg))
+        logits, tgt, dr = setup.prefill_fn(params, {"inputs": torch.from_numpy(
+            np.asarray(batch_np["inputs"]).astype(np.int64))})
+        tok = torch.argmax(logits[:, -1], -1)
+        toks, n_emit, *_ = setup.make_generate(steps)(params, tgt, dr, tok,
+                                                      pos0)
+        out["spec"][tag] = np.concatenate(
+            [tok[:, None].numpy(), flatten_spec_tokens(toks, n_emit, steps)],
+            1)
+    return out
+
+
+def flat_pool_tokens(run: dict) -> list:
+    """Each row's emitted tokens of one segment, in order (a plain pool's
+    (S, B) tokens and bool mask, or a speculative pool's (S, B, k+1)
+    tokens and counts)."""
+    toks, emitted = run["tokens"], run["emitted"]
+    if toks.ndim == 2:
+        toks, emitted = toks[..., None], emitted.astype(int)
+    return [[int(t) for s in range(toks.shape[0])
+             for t in toks[s, r, :int(emitted[s, r])]]
+            for r in range(toks.shape[1])]
 
 
 # ---------------------------------------------------------------------------
@@ -681,9 +865,32 @@ def main() -> int:
                              ("yi-9b", "lln_diag", {"n_kv_heads": 1}),
                              ("qwen3-moe-235b-a22b", "lln",
                               {"capacity_factor": 4.0}))]
+    pools = [{"name": "elastic", "arch": "elastic", "params": None,
+              "spec_k": 0, "draft_layers": 0, "degrade": True},
+             {"name": "elastic spec", "arch": "elastic", "params": None,
+              "spec_k": 2, "draft_layers": 1},
+             {"name": "mamba2", "arch": "mamba2-130m", "params": None,
+              "spec_k": 0, "draft_layers": 0}]
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn("_torch_dist:serve_on_mesh", 4, tmp, cases,
-                      4.0, f"{tmp}/elastic")
+                      4.0, f"{tmp}/elastic", pools,
+                      ("yi-9b", "lln_diag", None, batch_np, max_len, 5,
+                       prompt))
+        items = ranks[0]["items"]
+        for name, runs in items["pool"].items():
+            base = flat_pool_tokens(runs["meshless"])
+            report(f"pool {name}", all(
+                flat_pool_tokens(r) == base and not r["unhealthy"].any()
+                for tag, r in runs.items() if tag != "meshless"),
+                f"runs {sorted(runs)}")
+        report("speculative", np.array_equal(items["spec"]["mesh"],
+                                             items["spec"]["meshless"]))
+        bat = ranks[0]["batcher"]
+        report("batcher", all(r["batcher"] == bat for r in ranks)
+               and bat["mesh"] == bat["meshless"]
+               and set(bat["mesh"]["statuses"].values()) == {"done"})
+        report("device_placer", all(all(r["placer"].values())
+                                    for r in ranks))
         for case, got in zip(cases, ranks[0]["serve"]):
             want = _meshless_tokens(*case[:3], batch_np, max_len, steps,
                                     prompt)

@@ -82,7 +82,9 @@ greedy loop's and the solo runs' tokens.  On a one-rank NCCL group and a
 1 x 1 DeviceMesh (the one mesh with real collectives a single card runs),
 SMOKE serving (yi-9b ``lln_diag`` and ``softmax``, qwen3-moe through the
 expert-parallel path) and training give the meshless run's tokens and
-losses (1e-5) with the same kernel launches.
+losses (1e-5) with the same kernel launches.  Every kernel's custom op
+(``repro_torch::<wrapper>``) passes ``torch.library.opcheck`` at one small
+shape (its schema, fake and AOT dispatch).
 """
 import importlib
 
@@ -1732,3 +1734,55 @@ def test_cuda_one_rank_mesh_trains_families_like_meshless(one_rank_mesh,
     assert c0 == c1 and all(c1[k] for k in want), c1
     for a, b in zip(l1, l0):
         assert abs(a - b) <= 1e-5 * abs(b), (l1, l0)
+
+
+def _op_args(name, dev):
+    """One small set of arguments of each kernel's custom op (the
+    ``repro_torch::<wrapper>`` schema), on the card, in bf16 v (the
+    tensor-core paths)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def t(*shape, dtype=torch.float32, neg=True):
+        x = torch.rand(shape, generator=g) * (-1.0 if neg else 1.0)
+        return x.to(device=dev, dtype=dtype)
+    bf = torch.bfloat16
+    bh, bg, n, d, dv = 4, 2, 64, 64, 64
+    lln = (t(bh, n, d), t(bg, n, d), t(bg, n, dv, dtype=bf, neg=False))
+    raw = (t(bh, n, d, dtype=bf, neg=False), t(bg, n, d, dtype=bf, neg=False))
+    res = (t(bh, n, dv, dtype=bf, neg=False), t(bh, n, dv, dtype=bf,
+                                                neg=False),
+           t(bh, n, neg=False) + 1.0)
+    qs, ks, v = lln
+    return {
+        "lln_causal": (*lln, 2, True, True),
+        "lln_diag_fused": (qs, ks, *raw, v, 2, 16, 0.125, True),
+        "lln_decode": (qs[:, :4].contiguous(), ks[:, :4].contiguous(),
+                       v[:, :4].contiguous(), t(bh, d, dv, neg=False),
+                       t(bh, 1, d, neg=False), t(bh, neg=False), 2),
+        "lln_bidir": (*lln, 2, True),
+        "block_diag": (*raw, v, 2, 16, True),
+        "block_diag_bwd": (*raw, v, res[0], 2, 16, True),
+        "lln_causal_bwd": (*lln, *res, 2, 16),
+        "lln_diag_fused_bwd": (qs, ks, *raw, v, *res, 2, 16, 0.125),
+        "lln_bidir_bwd": (*lln, *res, t(bg, d, dv, neg=False),
+                          t(bg, 1, d, neg=False), 2),
+        "loglin_causal": (*lln, 2, 16, 3, 0.5, True),
+        "ssd": (t(bh, n), t(bh, n, dv, neg=False), t(bg, n, 16, dtype=bf,
+                                                     neg=False),
+                t(bg, n, 16, dtype=bf, neg=False), 2, 16),
+    }[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "lln_causal", "lln_diag_fused", "lln_decode", "lln_bidir", "block_diag",
+    "block_diag_bwd", "lln_causal_bwd", "lln_diag_fused_bwd",
+    "lln_bidir_bwd", "loglin_causal", "ssd"])
+def test_cuda_custom_op_passes_opcheck(cuda, name):
+    """``torch.library.opcheck`` of each kernel's custom op at one small
+    shape: its schema, its autograd registration (none: the autograd
+    Functions call the ops), its fake implementation against the real op,
+    and AOT dispatch."""
+    importlib.import_module("repro_torch.kernels.lln_attention")
+    torch.library.opcheck(getattr(torch.ops.repro_torch, name).default,
+                          _op_args(name, cuda))

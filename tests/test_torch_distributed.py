@@ -25,6 +25,15 @@ DTensor mesh.
   cache local shapes as ``cache_shardings`` says.  qwen3-moe through the
   expert-parallel path.  Elastic: a world-4 save restored onto a world-2
   (2, 1) mesh decodes the same tokens.
+* Item 12c, cases of the same world-4 spawn: the request pool on (2, 2)
+  (the reference's elastic-pool config from its converted weights) equals
+  the meshless port's and the reference's ``make_pool_setup`` segment,
+  and again after ``make_degraded_mesh`` + ``reshard_state`` of the
+  parameters and the pool caches onto the (1, 2) mesh; speculative pool
+  rows, a mamba2 SMOKE pool, ``make_spec_setup`` against the reference's
+  greedy tokens, the pool's engine with speculative rows on the mesh of
+  ``mesh_from_flag(continuous=True, speculative=True)`` (every rank's
+  batcher decides the same) and ``data.device_placer``.
 """
 from __future__ import annotations
 
@@ -193,9 +202,11 @@ def test_cache_shardings_match_the_reference(prefills, mesh, monkeypatch):
 def test_mesh_flag_refusals():
     """The CLIs' ``--mesh``: ``1,1`` is the meshless path; every family
     (MLA included) passes the family check since item 12b and reaches the
-    mesh's own check; the pool and speculative modes name item 12c; a
-    mesh larger than the world raises ``ValueError`` before any group
-    starts."""
+    mesh's own check, in every serving mode (the pool and speculative ones
+    too, since item 12c); a mesh larger than the world raises
+    ``ValueError`` before any group starts.  The pool's and the
+    speculative loop's family refusals (MLA; a first-k-layers draft of an
+    SSM) come before the mesh is read."""
     from repro_torch.configs.registry import list_archs
     from repro_torch.launch.mesh import (check_mesh_family, compat_mesh,
                                          mesh_from_flag)
@@ -207,18 +218,22 @@ def test_mesh_flag_refusals():
                  "seamless-m4t-medium", "roberta-lln"):
         with pytest.raises(ValueError, match="4 devices needs 4 processes"):
             mesh_from_flag("2,2", get_config(arch, smoke=True), "cpu")
-    for kw in ({"continuous": True}, {"speculative": True}):
-        with pytest.raises(NotImplementedError, match="item 12c"):
+    for kw in ({"continuous": True}, {"speculative": True},
+               {"continuous": True, "speculative": True}):
+        with pytest.raises(ValueError, match="4 devices needs 4 processes"):
             mesh_from_flag("2,2", yi, "cpu", **kw)
     with pytest.raises(ValueError, match="4 devices needs 4 processes"):
         compat_mesh((2, 2), ("data", "model"), "cpu")
     assert not torch.distributed.is_initialized()
-    for fn, kw in ((steps.make_pool_setup, {"slots": 2, "max_len": 8}),
-                   (steps.make_spec_setup, {"shape": ShapeSpec(
-                       "s", 8, 2, "decode"), "spec_k": 2,
-                       "draft_layers": 1})):
-        with pytest.raises(NotImplementedError, match="item 12c"):
-            fn(yi, device="cpu", mesh=object(), **kw)
+    for fn, arch, kw, msg in (
+            (steps.make_pool_setup, "deepseek-v2-236b",
+             {"slots": 2, "max_len": 8}, "continuous batching supports"),
+            (steps.make_spec_setup, "mamba2-130m",
+             {"shape": ShapeSpec("s", 8, 2, "decode"), "spec_k": 2,
+              "draft_layers": 1}, "first-k-layers draft")):
+        with pytest.raises(NotImplementedError, match=msg):
+            fn(get_config(arch, smoke=True), device="cpu", mesh=object(),
+               **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -352,9 +367,9 @@ SERVE_CASES = (("yi-9b", "yi-9b", "lln_diag", {}),
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
     """The reference's SMOKE serving runs (prompt 20, 8 greedy steps), the
-    meshless port's tokens from the converted weights, and one world-4
-    spawn on (2, 2): the three serve cases, the MoE checks and the
-    elastic save."""
+    meshless port's tokens from the converted weights, the reference's
+    elastic pool, and one world-4 spawn on (2, 2): the three serve cases,
+    the MoE checks, the elastic save and item 12c's cases."""
     tmp = tmp_path_factory.mktemp("served")
     out = {}
     for name, arch, impl, over in SERVE_CASES:
@@ -375,9 +390,59 @@ def served(tmp_path_factory):
              for arch, impl, over, ref, _ in out.values()]
     moe_cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
     ckpt = str(tmp / "elastic")
+    pool_ref = _reference_pool()
+    arch, impl, _, ref, _ = out["yi-9b"]
     ranks = spawn("_torch_dist:serve_on_mesh", 4, tmp, cases,
-                  moe_cfg.n_experts / moe_cfg.top_k, ckpt)
+                  moe_cfg.n_experts / moe_cfg.top_k, ckpt,
+                  pool_cases(pool_ref["params"]),
+                  (arch, impl, ref["params"], ref["batch"], ref["max_len"],
+                   SPEC_STEPS, ref["pos0"]))
+    out["pool reference"] = pool_ref
     return out, ranks, ckpt, tmp
+
+
+SPEC_STEPS = 4
+
+
+def pool_cases(elastic_params) -> list:
+    """Item 12c's pool cases: the reference's elastic-pool config from its
+    converted weights, plain (then degraded) and with speculative rows
+    (k = 2, a 1-layer draft); mamba2-130m SMOKE from the port's seeded
+    weights."""
+    return [{"name": "elastic", "arch": "elastic", "params": elastic_params,
+             "spec_k": 0, "draft_layers": 0, "degrade": True},
+            {"name": "elastic spec", "arch": "elastic",
+             "params": elastic_params, "spec_k": 2, "draft_layers": 1},
+            {"name": "mamba2", "arch": "mamba2-130m", "params": None,
+             "spec_k": 0, "draft_layers": 0}]
+
+
+def _reference_pool() -> dict:
+    """The reference's ``make_pool_setup`` on its elastic-pool config (a
+    (1, 1) mesh): the schedule of ``_torch_dist.pool_schedule`` admitted
+    as one group, one segment.  Returns its weights (numpy) and each
+    row's emitted tokens."""
+    from _torch_dist import ELASTIC, POOL, flat_pool_tokens, pool_schedule
+    from repro.configs.base import ArchConfig as JArchConfig
+    from repro.launch.steps import make_pool_setup as j_make_pool_setup
+    cfg = JArchConfig(**ELASTIC)
+    params = j_build_model(cfg).init(jax.random.PRNGKey(0))
+    sched = pool_schedule(cfg.vocab)
+    mesh = compat_mesh((1, 1), ("data", "model"))
+    with mesh:
+        setup = j_make_pool_setup(cfg, mesh, **POOL)
+        _, slot = setup.prefill_fn(8, 2)(params,
+                                         jnp.asarray(sched["prompts"]))
+        caches = setup.admit_fn(setup.cache_init(), slot,
+                                jnp.asarray([0, 1], jnp.int32))
+        out = setup.segment_fn(
+            params, caches, jnp.asarray(sched["tok"], jnp.int32),
+            jnp.asarray(sched["pos"], jnp.int32),
+            jnp.asarray(sched["remaining"], jnp.int32),
+            jnp.asarray([True, True]), jax.random.PRNGKey(2))
+    return {"params": jax.tree_util.tree_map(np.asarray, params),
+            "tokens": flat_pool_tokens({"tokens": np.asarray(out[5]),
+                                        "emitted": np.asarray(out[6])})}
 
 
 def test_serves_on_a_2x2_mesh(served):
@@ -428,3 +493,63 @@ def test_elastic_restart_on_fewer_ranks(served):
     assert after[0]["mesh"] == (2, 1)
     for r in after:
         np.testing.assert_array_equal(r["tokens"], before["tokens"])
+
+
+def test_pools_on_a_2x2_mesh(served):
+    """Item 12c: one segment of the request pool on (2, 2), two requests
+    admitted as one group (caches placed by ``cache_shardings``, admit
+    writing each rank's own rows), equals the meshless port's and the
+    reference's ``make_pool_setup`` tokens at the reference's elastic
+    config; the same pool, its parameters and caches resharded onto the
+    (1, 2) mesh of ranks 0 and 1 (``make_degraded_mesh`` over 3 of 4
+    ranks, then ``reshard_state``), gives the same segment; speculative
+    rows (k = 2) emit the plain rows' tokens; a mamba2 SMOKE pool equals
+    the meshless one.  The sentinel's flags agree on every rank."""
+    from _torch_dist import flat_pool_tokens
+    out, ranks, _, _ = served
+    want = out["pool reference"]["tokens"]
+    pools = ranks[0]["items"]["pool"]
+    for name, runs in pools.items():
+        base = flat_pool_tokens(runs["meshless"])
+        for tag, run in runs.items():
+            assert flat_pool_tokens(run) == base, (name, tag)
+            assert not run["unhealthy"].any(), (name, tag)
+    assert flat_pool_tokens(pools["elastic"]["meshless"]) == want
+    assert "degraded" in pools["elastic"]
+    spec = flat_pool_tokens(pools["elastic spec"]["mesh"])
+    for row, toks in zip(want, spec):
+        assert toks[:len(row)] == row
+    for r in ranks[1:]:
+        got = r["items"]["pool"]
+        for name, runs in pools.items():
+            np.testing.assert_array_equal(got[name]["mesh"]["tokens"],
+                                          runs["mesh"]["tokens"])
+        assert ("degraded" in got["elastic"]) == (r is ranks[1])
+
+
+def test_speculative_decoding_on_a_2x2_mesh(served):
+    """``make_spec_setup`` on (2, 2) (yi-9b SMOKE ``lln_diag`` from the
+    reference's weights, k = 3, a 1-layer draft): the greedy tokens of the
+    meshless port and of the reference's plain greedy loop.  The pool's
+    engine with speculative rows, on the mesh ``mesh_from_flag`` gives
+    for ``--continuous --speculative``, finishes every request with the
+    meshless engine's tokens, the same on every rank."""
+    out, ranks, _, _ = served
+    ref = out["yi-9b"][3]
+    spec = ranks[0]["items"]["spec"]
+    np.testing.assert_array_equal(spec["mesh"], spec["meshless"])
+    np.testing.assert_array_equal(spec["mesh"],
+                                  ref["tokens"][:, :SPEC_STEPS + 1])
+    bat = [r["batcher"] for r in ranks]
+    assert all(b == bat[0] for b in bat[1:])
+    assert bat[0]["mesh"] == bat[0]["meshless"]
+    assert set(bat[0]["mesh"]["statuses"].values()) == {"done"}
+
+
+def test_device_placer_places_like_mesh_placer(served):
+    """``data.device_placer`` (the reference's name, by specs) places a
+    numpy batch as ``mesh_placer`` does by placements, each rank its
+    rows."""
+    _, ranks, _, _ = served
+    for r in ranks:
+        assert all(r["placer"].values()), r["placer"]

@@ -12,11 +12,15 @@ launched.
   ``batch_struct``'s specs) give the port's leaves on a duck mesh of that
   shape: the port's sharding at 256 and 512 ranks held to the reference's
   rules.
-* ``use_kernel=True`` raises naming item 12c, before any group starts;
-  the CLI writes the reference's file name with ``ok: false``.
+* ``use_kernel=True`` traces the kernels' custom ops on fake ``cuda``
+  tensors: the meshless yi-9b SMOKE kernel route here, and the production
+  cell where torch is built with CUDA (a CPU-only build refuses it before
+  any group starts, and the CLI writes the reference's file name with
+  ``ok: false``).
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -83,16 +87,132 @@ def test_parse_overrides_matches_the_reference():
         assert dryrun.parse_overrides(s) == j_dryrun.parse_overrides(s), s
 
 
-def test_use_kernel_raises_naming_item_12c(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        dryrun.run_cell("yi-9b", "train_4k", False,
-                        overrides={"use_kernel": True})
+def _getitem(x, idx):
+    """``x[idx]`` by aten ops (basic indexing and tensor indices)."""
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    real = sum(i is not None and i is not Ellipsis for i in idx)
+    dim, tensors = 0, {}
+    for i in idx:
+        if i is Ellipsis:
+            dim += x.ndim - real
+        elif i is None:
+            x = torch.ops.aten.unsqueeze.default(x, dim)
+            dim += 1
+        elif isinstance(i, int):
+            x = torch.ops.aten.select.int(x, dim, i)
+        elif isinstance(i, slice):
+            if i != slice(None):
+                x = torch.ops.aten.slice.Tensor(x, dim, i.start, i.stop,
+                                                i.step or 1)
+            dim += 1
+        else:
+            tensors[dim] = i
+            dim += 1
+    if tensors:
+        x = torch.ops.aten.index.Tensor(
+            x, [tensors.get(d) for d in range(max(tensors) + 1)])
+    return x
+
+
+class _GuardFree(torch.overrides.TorchFunctionMode):
+    """The three Tensor methods whose Python bindings open a device guard,
+    run by their aten ops: a CPU-only build has no CUDA guard for a fake
+    ``cuda`` tensor."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is torch.Tensor.contiguous:
+            fmt = kwargs.get("memory_format", torch.contiguous_format)
+            if args[0].is_contiguous(memory_format=fmt):
+                return args[0]
+            return torch.ops.aten.clone.default(args[0], memory_format=fmt)
+        if func is torch.Tensor.copy_:
+            return torch.ops.aten.copy_.default(*args, **kwargs)
+        if func is torch.Tensor.__getitem__:
+            return _getitem(*args)
+        return func(*args, **kwargs)
+
+
+class _KernelOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ``repro_torch::`` ops dispatched."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._overloadpacket._qualified_op_name
+        if name.startswith("repro_torch::"):
+            self.seen[name] = self.seen.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+KERNEL_CELL = """
+import json, sys
+import torch.distributed as dist
+from repro_torch.launch import dryrun
+out = [dryrun.run_cell("yi-9b", "decode_32k", False, "auto",
+                       {"n_layers": 1, "use_kernel": k}) for k in (True, False)]
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def test_use_kernel_cell_traces_the_kernel_ops(tmp_path):
+    """``use_kernel=True`` traces the hand kernels' custom ops on fake
+    ``cuda`` tensors, launching and counting nothing.  The meshless yi-9b
+    SMOKE ``lln_diag`` forward, prefill and decode (kernel backend) reach
+    the forward and decode ops' fakes.  Where torch is built with CUDA, the
+    yi-9b ``decode_32k`` cell on 16 x 16 is ``ok`` with the argument bytes
+    of the ``use_kernel=False`` cell; on a CPU-only build the cell is
+    refused before any group starts, naming the ops that need a CUDA
+    guard (``launch/dryrun.py``), and the CLI writes ``ok: false``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    la = importlib.import_module("repro_torch.kernels.lln_attention")
+    from repro_torch.kernels import block_diag as bd
+    cfg = get_config("yi-9b", smoke=True, attn_impl="lln_diag",
+                     use_kernel=True, attn_backend="kernel")
+    counters = (la.lln_causal, la.lln_decode, la.lln_diag_fused,
+                bd.block_diag)
+    before = [f.launches for f in counters]
+    ops = _KernelOps()
+    with FakeTensorMode(), _GuardFree(), torch.no_grad(), ops:
+        model = build_model(cfg, "cuda")
+        params = model.init(None)
+        toks = torch.zeros(2, 32, dtype=torch.int64, device="cuda")
+        h, _ = model.hidden(params, {"inputs": toks})
+        assert tuple(h.shape) == (2, 32, cfg.d_model)
+        with torch.inference_mode():
+            _, caches = model.prefill(params, {"inputs": toks}, 40)
+            logits, _ = model.decode(params, caches, toks[:, 0], 32)
+        assert logits.device.type == "cuda"
+    assert {"repro_torch::lln_diag_fused", "repro_torch::lln_causal",
+            "repro_torch::block_diag", "repro_torch::lln_decode"} \
+        <= set(ops.seen), ops.seen
+    assert [f.launches for f in counters] == before
+    if torch.backends.cuda.is_built():
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run([sys.executable, "-c", KERNEL_CELL],
+                              capture_output=True, text=True, env=env,
+                              timeout=600, cwd=ROOT)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        kern, core = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert kern["ok"] and core["ok"]
+        assert kern["argument_size_in_bytes"] == \
+            core["argument_size_in_bytes"]
+        return
+    with pytest.raises(RuntimeError, match="shard_dim_alltoall"):
+        dryrun.run_cell("yi-9b", "decode_32k", False,
+                        overrides={"use_kernel": True, "n_layers": 1})
     assert not torch.distributed.is_initialized()
-    rc = dryrun.main(["--arch", "yi-9b", "--shape", "train_4k", "--override",
-                      "use_kernel=True", "--out", str(tmp_path)])
+    rc = dryrun.main(["--arch", "yi-9b", "--shape", "decode_32k",
+                      "--override", "use_kernel=True,n_layers=1", "--out",
+                      str(tmp_path)])
     assert rc == 1 and not torch.distributed.is_initialized()
-    got = json.loads((tmp_path / "yi-9b__train_4k__16x16.json").read_text())
-    assert not got["ok"] and "item 12c" in got["error"]
+    got = json.loads((tmp_path / "yi-9b__decode_32k__16x16.json")
+                     .read_text())
+    assert not got["ok"] and "CPU-only" in got["error"]
 
 
 def _duck(shape, names):

@@ -18,6 +18,14 @@ bf16 steps, so the prefill logits are held to 0.1 of the largest one (as
 ``chip_smoke.py`` holds a full model against its plain backend) and the
 share of equal tokens is printed; with ``--fp32`` (weights and compute)
 the tokens must all be equal.
+
+``--continuous`` serves through the request pool instead
+(``launch/batcher.py`` over ``make_pool_setup(mesh=...)``): ``--batch``
+slots, twice as many requests of ``--prompt`` tokens with budgets of a
+quarter, a half and all of ``--gen``, segment 4; ``--speculative`` decodes
+with ``make_spec_setup`` (k = 3, a draft of half the layers), or, with
+``--continuous``, gives the pool speculative rows.  These compare each
+row's or request's tokens only.
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ def main() -> int:
                     help="fp32 weights and compute: the mesh then gives "
                          "the meshless tokens (sums in another order "
                          "only), which the check requires")
+    ap.add_argument("--continuous", action="store_true")
+    ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--out", required=True)
     ap.add_argument("--against", default=None)
     args = ap.parse_args()
@@ -57,7 +67,10 @@ def main() -> int:
     dtype = "float32" if args.fp32 else "bfloat16"
     cfg = get_config("yi-9b", attn_impl=args.impl, n_layers=args.layers,
                      param_dtype=dtype, compute_dtype=dtype)
-    mesh = mesh_from_flag(args.mesh, cfg)
+    mesh = mesh_from_flag(args.mesh, cfg, continuous=args.continuous,
+                          speculative=args.speculative)
+    if args.continuous or args.speculative:
+        return _other_mode(args, cfg, mesh)
     total = args.prompt + args.gen + 1
     setup = make_serve_setup(cfg, ShapeSpec("check", total, args.batch,
                                             "decode"), mesh=mesh)
@@ -102,6 +115,77 @@ def main() -> int:
             ok = err <= tol and (not args.fp32 or float(same) == 1.0)
             line.update(prefill_logit_err=err, tol=tol,
                         token_agreement=float(same))
+        print(json.dumps(line), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def _other_mode(args, cfg, mesh) -> int:
+    """``--continuous`` / ``--speculative``: the tokens (one list per
+    request or row) and the wall time, one untimed warm-up run first;
+    rank 0 writes them and compares with ``--against``."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.batcher import ContinuousBatcher, Request
+    from repro_torch.launch.mesh import is_main_rank
+    from repro_torch.launch.steps import (flatten_spec_tokens,
+                                          make_pool_setup, make_spec_setup)
+    from repro_torch.models import synthetic_batch
+    k = 3 if args.speculative else 0
+    draft = max(args.layers // 2, 1)
+    if args.continuous:
+        setup = make_pool_setup(
+            cfg, slots=args.batch, max_len=args.prompt + args.gen + k + 1,
+            segment=4, spec_k=k, draft_layers=draft if k else 0, mesh=mesh)
+        rng = np.random.default_rng(0)
+        budgets = [max(args.gen // 4, 1), max(args.gen // 2, 1), args.gen]
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, args.prompt)
+                        .astype(np.int32), gen_len=budgets[i % 3])
+                for i in range(2 * args.batch)]
+    else:
+        setup = make_spec_setup(
+            cfg, ShapeSpec("check", args.prompt + args.gen + k + 2,
+                           args.batch, "decode"), spec_k=k,
+            draft_layers=draft, mesh=mesh)
+        batch = synthetic_batch(cfg, args.batch, args.prompt + args.gen,
+                                seed=0, text_seq=args.prompt, device="cuda")
+    params = setup.shard_params(setup.model.init(0))
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if args.continuous:
+            stats = ContinuousBatcher(setup, params).run(reqs)
+            toks = [np.asarray(stats.outputs[r.rid]).tolist() for r in reqs]
+        else:
+            logits, tgt, dr = setup.prefill_fn(params, batch)
+            tok = torch.argmax(logits[:, -1], -1)
+            out, n_emit, *_ = setup.make_generate(args.gen)(
+                params, tgt, dr, tok, args.prompt)
+            toks = np.concatenate([tok[:, None].cpu().numpy(),
+                                   flatten_spec_tokens(out, n_emit,
+                                                       args.gen)], 1).tolist()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ok = True
+    if is_main_rank():
+        mode = "+".join(m for m in ("continuous", "speculative")
+                        if getattr(args, m))
+        got = {"mesh": args.mesh, "mode": mode, "world":
+               dist.get_world_size() if dist.is_initialized() else 1,
+               "device": torch.cuda.get_device_name(0), "tokens": toks,
+               "wall_ms": wall * 1e3}
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(got))
+        line = {k_: got[k_] for k_ in ("mesh", "mode", "world", "wall_ms")}
+        if args.against:
+            want = json.loads(Path(args.against).read_text())["tokens"]
+            pairs = [(a, b) for ra, rb in zip(toks, want)
+                     for a, b in zip(ra, rb)]
+            same = sum(a == b for a, b in pairs) / max(len(pairs), 1)
+            ok = not args.fp32 or toks == want
+            line.update(token_agreement=same)
         print(json.dumps(line), flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
