@@ -141,7 +141,8 @@ deepseek-v2-236b's MLA (H = G = 128, D = 192, Dv = 128), paligemma-3b (H
 = 8, G = 1, D = 256) and the seamless-m4t-medium decoder (H = G = 16, D =
 64, N = 64), decode at T = 1 and 4; row 5 and the non-causal row 2 at
 the seamless encoder's shape (B = 4, H = G = 16, N = 2048, D = 64); two
-runs bitwise equal; D above 128 takes the CUDA-core kernels),
+runs bitwise equal; D above 128 takes the CUDA-core kernels for rows 1
+and 3, row 2 its tensor cores),
 small_families (each family's SMOKE config in fp32 on the kernels against
 the core reference, greedy tokens equal; a qwen3-moe pool and speculative
 run equal to solo runs and the plain loop) and serve_families (full
@@ -199,7 +200,9 @@ check phases (spec, spec_pool, small_pool, kernels_families,
 small_families, serve_families, kernels_families_train,
 small_families_train, train_families, mesh, mesh_fake, mesh_families,
 mesh_pool, mesh_spec, dryrun) after device and build, and prints no
-kernels line.
+kernels line; timings_families and timings_families_train log their
+kernel rows (after kernels_families and kernels_families_train in the
+same call, whose errors they read).
 """
 from __future__ import annotations
 
@@ -2139,7 +2142,8 @@ def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,),
     """The three serving kernels at one model's serving shape (``b`` rows,
     ``h`` query and ``g`` kv heads, N = ``n``, D = ``d``, Dv = ``dv`` (by
     default d), blk BLK, bf16 q/k/v with the port's calibration; D or Dv
-    above 128 takes the CUDA-core kernels) against their plain versions:
+    above 128 takes the CUDA-core kernels of lln_causal and lln_decode,
+    block_diag's tensor cores up to 256) against their plain versions:
     lln_causal with the final state, causal block_diag and lln_decode at
     each T of ``decode_ts`` from that state with a rescale.  Out within one
     bf16 step, s, z, s1 and z1 within 1e-5 of the largest plain entry, two
@@ -2477,9 +2481,11 @@ def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
     library yardstick), lln_decode with the rescale (fp32 work and the
     state's bytes) at each T of ``decode_ts``, the first in the row and
     the others logged.  Rows 1 and 2 are bounded by the tensor-core count
-    at every width, also where the kernel itself takes its CUDA cores (D
-    or Dv above 128): the function needs no more work for that.  The
-    CUDA-core count (every product as fp32 work) is logged beside.  ``row_names`` names the three rows; the errors are
+    at every width, also where the kernel itself takes its CUDA cores (row
+    1 above D or Dv = 128): the function needs no more work for that.  The
+    CUDA-core count (every product as fp32 work) is logged beside, and
+    block_diag's tensor-core kernel's registers, spills and CTAs per SM
+    (:func:`_log_attrs`).  ``row_names`` names the three rows; the errors are
     read under "lln_causal (state, <tag>)", "block_diag (<tag>)" and
     "lln_decode (<tag>)" (the keys of :func:`_check_serve_kernels`), the
     launches under the same keys or ``launch_keys``."""
@@ -2575,7 +2581,19 @@ def _serve_kernel_rows(errs, launches, tag, b, h, g, d, seed, row_names,
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){extra}, library "
             f"{row['library_ms']}, launches {row['launches']}")
+    _log_attrs("block_diag", d, dv)
     return rows
+
+
+def _log_attrs(name, d, dv):
+    """Log the registers and local (spill) bytes a thread, CTAs per SM and
+    shared bytes of the tensor-core kernels library ``name`` runs for bf16
+    at (d, dv) (``build.tc_attrs``, from the CUDA runtime)."""
+    from repro_torch.kernels import build
+    for a in build.tc_attrs(name, d, dv):
+        log(f"  {a['kernel']} (D={d} Dv={dv}): {a['registers']} registers, "
+            f"{a['local_bytes']} local bytes a thread, {a['ctas_per_sm']} "
+            f"CTAs per SM, {a['smem_bytes']} shared bytes")
 
 
 def phase_timings_hybrid_serve(errs, launches):
@@ -3966,8 +3984,8 @@ def phase_spec_pool(launches, pool_times):
 
 # Their attention at the serving batch B (tag, arch, H, G, D, Dv, N): rows
 # 1-3 at each.  D or Dv above 128 (MLA's assembled q/k, paligemma's heads)
-# take the CUDA-core kernels.  The seamless decoder serves a 64-token
-# target prompt.
+# take the CUDA-core kernels of rows 1 and 3 and the tensor cores of row 2
+# (up to 256).  The seamless decoder serves a 64-token target prompt.
 FAMILIES = (("qwen3-moe r=16", "qwen3-moe-235b-a22b", 64, 4, 128, 128, N),
             ("mla D=192 Dv=128", "deepseek-v2-236b", 128, 128, 192, 128, N),
             ("paligemma D=256 r=8", "paligemma-3b", 8, 1, 256, 256, N),
@@ -4274,7 +4292,8 @@ def phase_timings_families(errs, launches):
 
 # Their self-attention in the train cells (tag, arch, B, H, G, D, Dv, N):
 # rows 4 and 9 at each, blk BLK (the configs' diag_block).  D or Dv above
-# 128 take the CUDA-core kernels.
+# 128 take the CUDA-core kernels of row 4 and the tensor cores of row 9 (up
+# to 256).
 FAMILIES_TRAIN = (
     ("qwen3-moe r=16", "qwen3-moe-235b-a22b", 2, 64, 4, 128, 128, 512),
     ("mla D=192 Dv=128", "deepseek-v2-236b", 4, 128, 128, 192, 128, 512),
@@ -4311,7 +4330,9 @@ def phase_kernels_families_train(results):
     and 9 at :data:`FAMILIES_TRAIN`; rows 1 (``return_res``) and 6 at the
     wide heads (MLA, paligemma); rows 5, 7, the non-causal 2 and 8 at the
     seamless encoder's (:data:`SEAMLESS_TRAIN`); row 8 in bf16 above D =
-    128 (:data:`WIDE_BDB`), causal and not, N 512 and a ragged 300."""
+    128 (:data:`WIDE_BDB`), causal and not, N 512 and a ragged 300.  Row 9
+    takes its tensor cores at every train cell's shape (bf16, D and Dv up
+    to 256; rows 4, 1 and 6 their CUDA cores above 128)."""
     from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
                                                 block_diag_bwd_plain,
                                                 block_diag_plain)
@@ -4321,7 +4342,8 @@ def phase_kernels_families_train(results):
                                                    lln_causal_plain,
                                                    lln_diag_fused,
                                                    lln_diag_fused_plain)
-    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
+    from repro_torch.kernels.lln_backward import (_fused_bwd_tc_path,
+                                                  lln_bidir_bwd,
                                                   lln_bidir_bwd_plain,
                                                   lln_causal_bwd,
                                                   lln_causal_bwd_plain,
@@ -4342,7 +4364,8 @@ def phase_kernels_families_train(results):
         _hold(results, f"lln_diag_fused (train, {tag})", runs, want,
               ("out", "den"), bf16_first=True)
         o, den = want
-        log(f"lln_diag_fused_bwd (train, {tag}):")
+        log(f"lln_diag_fused_bwd (train, {tag}) (tensor-core path: "
+            f"{_fused_bwd_tc_path(vk, d, dv)}):")
         runs = [lln_diag_fused_bwd(qs, ks, qk, kk, vk, cot, o, den, r=r,
                                    blk=BLK) for _ in range(2)]
         want = lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, cot, o, den,
@@ -4475,15 +4498,16 @@ def phase_train_families(launches, train_times):
     - train_mla: deepseek-v2-236b cut to its dense first layer (its first
       MoE layer would add 3.77 B expert weights, about 60 GB at 16 B per
       param), batch 4 x 512: the fused pair at H = G = 128, D = 192, Dv =
-      128 on the CUDA cores, then with lln the causal pair (lln_causal
-      with den and lln_causal_bwd) there;
+      128 (the forward on the CUDA cores, the backward on the tensor
+      cores), then with lln the causal pair (lln_causal with den and
+      lln_causal_bwd, CUDA cores) there;
     - train_encdec: seamless-m4t-medium at full depth (12 + 12 layers),
       batch 4 x 1024 with 1024 stub source frames: lln_bidir and the
       non-causal block_diag with their backwards in the encoder, the fused
       pair in the decoder;
     - train_vlm: paligemma-3b at full depth (18 layers), batch 2 x 512
-      (256 patches + 256 text tokens): the fused pair at r = 8, D = 256 on
-      the CUDA cores, then with lln the causal pair there.
+      (256 patches + 256 text tokens): the fused pair at r = 8, D = 256 as
+      at MLA, then with lln the causal pair there.
     The MoE configs accumulate 8 microbatches, which a batch of 2 or 4
     does not split into: both cells take grad_accum = 1.  The first step
     of train_mla and train_vlm is held in fp32 (_train_cell's
@@ -4519,9 +4543,11 @@ def phase_train_families(launches, train_times):
                 out["lln_bidir_bwd"] = out["block_diag_bwd"] = enc * steps
                 return out
 
-            # The wide heads (MLA, paligemma) run the CUDA-core kernels,
-            # which take fp32 as they take bf16: their first step is held
-            # in fp32.
+            # The wide heads (MLA, paligemma) hold their first step in fp32,
+            # which runs the CUDA-core kernels (in bf16 two correct routes
+            # already differ by about 1e-4, tools/first_step_gaps.py); the
+            # bf16 tensor-core backward is held by kernels_families_train at
+            # these shapes.
             train_times[f"{label} {impl}"], counted = _train_cell(
                 cfg, b, n, _synthetic_batches(cfg), want, label,
                 probe=probe, first_fp32=_is_wide(d, dv))
@@ -4580,8 +4606,10 @@ def phase_timings_families_train(errs, launches):
     encoder's, and row 8 in bf16 above D = 128 (N 512, non-causal, the
     case a wide lln_diag encoder layer would run).  Every row is bounded
     by the tensor-core count, also where the kernel takes its CUDA cores
-    (D or Dv above 128): the function needs no more work for that; the
-    CUDA-core count is logged beside.  Rows 2 and 8 take SDPA on the
+    (rows 1, 4, 6 and 8 above D or Dv = 128): the function needs no more
+    work for that; the CUDA-core count is logged beside, and row 9's
+    tensor-core kernels' registers, spills and CTAs per SM
+    (:func:`_log_attrs`).  Rows 2 and 8 take SDPA on the
     blocks (forward, or autograd's backward) as the library yardstick."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -4645,6 +4673,11 @@ def phase_timings_families_train(errs, launches):
                                              r=r, blk=BLK),
             fused["lln_diag_fused_bwd"],
             fused["lln_diag_fused_bwd (CUDA cores)"], shape=shape)
+        _log_attrs("lln_diag_fused_bwd", d, dv)
+        dev_ms, kernels = device_profile(lambda: lln_diag_fused_bwd(
+            qs, ks, qk, kk, vk, cot, o, den, r=r, blk=BLK))
+        log(f"  one call's device time {dev_ms:.4f} ms: " + ", ".join(
+            f"{_kernel_name(k)} {ms:.4f}" for k, ms, _ in kernels))
         if _is_wide(d, dv):
             lo, lden = lln_causal_plain(qs, ks, vk, r=r, blk=BLK,
                                         return_res=True, return_state=False)
@@ -5851,6 +5884,10 @@ def _main_selected(smi, only):
              "small_families_train": phase_small_families_train,
              "train_families": lambda: phase_train_families(launches,
                                                             times),
+             "timings_families": lambda: log("kernels: " + json.dumps(
+                 phase_timings_families(results, launches))),
+             "timings_families_train": lambda: log("kernels: " + json.dumps(
+                 phase_timings_families_train(results, launches))),
              "mesh": lambda: phase_mesh(launches, times),
              "mesh_fake": lambda: phase_mesh_fake(launches),
              "mesh_families": lambda: phase_mesh_families(launches, times),

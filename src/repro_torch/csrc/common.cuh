@@ -50,4 +50,25 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
+// Registers and local (spill) bytes a thread, CTAs per SM at `threads`
+// threads, and `bytes` of dynamic shared memory, of one kernel, into
+// out[0..3] (the last is `bytes`).
+template <typename Kernel>
+inline cudaError_t kernel_attrs(Kernel kernel, int threads, size_t bytes,
+                                int* out) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        threads, bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = ctas;
+  out[3] = static_cast<int>(bytes);
+  return cudaSuccess;
+}
+
 }  // namespace lln

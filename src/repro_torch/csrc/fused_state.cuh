@@ -358,8 +358,8 @@ __device__ __forceinline__ void stage_state(__nv_bfloat16* stg,
 
 // acc (16 x 8 NO) += a S^T over kvs 16-column steps for the 32 rows of the
 // state S staged at stg: output tiles 4 CH .. 4 CH + 3 (rows below w).
-template <int DP, int NP, int CH>
-__device__ __forceinline__ void mma_state_t(float (&acc)[DP / 8][4],
+template <int DP, int NP, int CH, int NO>
+__device__ __forceinline__ void mma_state_t(float (&acc)[NO][4],
                                             const __nv_bfloat16* a,
                                             const __nv_bfloat16* stg, int kvs,
                                             int w, int lane) {
@@ -385,22 +385,25 @@ __device__ __forceinline__ void mma_state_t(float (&acc)[DP / 8][4],
   }
 }
 
-// acc += a S^T for the whole state (D rows at sp, NP bf16 planes scount
-// apart, or fp32 split as it is staged), 32 rows at a time through stg:
-// the product u S^T (with a = g) or V dS^T (a = V).
-template <int DP, int NP, int CH = 0, typename ST>
-__device__ __forceinline__ void state_t_all(float (&acc)[DP / 8][4],
+// acc += a S^T for the state rows [r0, r0 + 8 NO) (D rows at sp, NP bf16
+// planes scount apart, or fp32 split as it is staged), 32 rows at a time
+// through stg: the product u S^T (with a = g) or V dS^T (a = V), output
+// column c of acc being row r0 + c of S.  With NO = DP / 8 and r0 = 0,
+// every row.
+template <int DP, int NP, int CH = 0, int NO, typename ST>
+__device__ __forceinline__ void state_t_all(float (&acc)[NO][4],
                                             const __nv_bfloat16* a,
                                             __nv_bfloat16* stg, const ST* sp,
                                             size_t scount, int d, int dv,
-                                            int kvs, bool vz, int lane) {
-  if constexpr (CH * 32 < DP) {
-    if (CH * 32 < d) {
+                                            int kvs, bool vz, int lane,
+                                            int r0 = 0) {
+  if constexpr (CH * 32 < NO * 8) {
+    if (r0 + CH * 32 < d) {
       __syncthreads();
-      stage_state<DP, NP>(stg, sp, scount, CH * 32, d, dv, vz);
-      mma_state_t<DP, NP, CH>(acc, a, stg, kvs, d, lane);
+      stage_state<DP, NP>(stg, sp, scount, r0 + CH * 32, d, dv, vz);
+      mma_state_t<DP, NP, CH>(acc, a, stg, kvs, d - r0, lane);
       state_t_all<DP, NP, CH + 1>(acc, a, stg, sp, scount, d, dv, kvs, vz,
-                                  lane);
+                                  lane, r0);
     }
   }
 }

@@ -20,7 +20,7 @@
 // Two paths, chosen by the caller (kernels/lln_backward.py) by type and
 // width, each with its own entry point:
 //
-// bf16 with D, Dv <= 128 (every model path on the card):
+// bf16 with D, Dv <= 256 (every model path on the card):
 // lln_diag_fused_bwd_tc_launch, on the tensor cores, chunk-parallel over
 // the blk blocks.  Six launches:
 //   1. phi_split (csrc/fused_state.cuh), twice: Phi(q), Phi(k) as three
@@ -59,8 +59,21 @@
 //   times for fp32 x fp32), with the softmax steps and the exps as fp32
 //   work (chip_smoke.py:_fused_counts); at the training shape the bytes
 //   bound it.
+//   Widths: the kernels are templated on the padded width DP of D and Dv
+//   (64, 128, 192, 256) and on OC, the output columns of one CTA: DP up to
+//   128, or 128 above, so that no CTA holds more than 64 fp32 accumulators
+//   a thread per output (MLA's D = 192 with Dv = 128, paligemma's D = Dv =
+//   256).  Above 128 the dq CTAs split dqs and dqd into 128-column chunks
+//   and the three dk/dv roles split their outputs the same way; each
+//   chunk recomputes its tile's scores, whose contractions run over all of
+//   D or Dv from shared memory in 16-deep steps.  The dq stage keeps the
+//   Phi(k) planes at the chunk's columns only.  The state kernels tile
+//   (S_c, z_c) and (dS_c, dz_c) in 32 x 64 pieces at any width.  Shared
+//   memory at DP = 256: dq 125 KB, dk/dv 215 KB (the dv role's three
+//   Phi(k) planes of the 64-key tile at all of D), one CTA per SM; at DP
+//   = 192: 101 KB (two per SM) and 163 KB.
 //
-// fp32, or a width above 128: lln_diag_fused_bwd_launch, the CUDA-core
+// fp32, or a width above 256: lln_diag_fused_bwd_launch, the CUDA-core
 // kernels below, IEEE fp32.  As csrc/lln_causal_bwd.cu (dq CTAs over rows
 // of D with the forward state; dk CTAs over rows and dv CTAs over columns
 // of the reverse state summed over the r heads; heads in a fixed order, no
@@ -542,9 +555,12 @@ constexpr int NP = 3;
 template <int DP>
 __host__ __device__ constexpr int step_rows() { return DP > 64 ? 16 : 32; }
 
-template <int DP>
+// The dq kernel's stage: k and v at DP columns, the Phi(k) planes at the
+// CTA's OC output columns.
+template <int DP, int OC>
 constexpr size_t dq_smem_bytes() {
-  return (2 * TC_ROWS + 2 * (2 + NP) * step_rows<DP>()) * (DP + 8) *
+  return (2 * TC_ROWS * (DP + 8) +
+          2 * step_rows<DP>() * (2 * (DP + 8) + NP * (OC + 8))) *
              sizeof(__nv_bfloat16) +
          TC_ROWS * sizeof(float);
 }
@@ -557,8 +573,10 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // phk (NP,BG,N,D): Phi(k) planes kcount apart; sst (NP,BG,nb,D,Dv) and zst
-// (BG,nb,D): the forward's exclusive block states.
-template <int DP>
+// (BG,nb,D): the forward's exclusive block states.  DP: the padded width
+// of D and Dv; OC: the columns of dqs and dqd one CTA writes (all of D
+// when D <= OC, else chunks of OC, blockIdx.z = tile * chunks + chunk).
+template <int DP, int OC>
 __global__ void __launch_bounds__(128, 2)
 dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
@@ -574,12 +592,14 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
              float scale, int vec) {
   extern __shared__ float smem[];
   constexpr int LD = DP + 8;
+  constexpr int LF = OC + 8;           // the Phi(k) planes' row
   constexpr int KT = step_rows<DP>();
   constexpr int NS = KT / 8;
-  constexpr int NO = DP / 8;
+  constexpr int NO = OC / 8;
   constexpr int TS = TC_ROWS * LD;
   constexpr int KS = KT * LD;
-  constexpr int SS = (2 + NP) * KS;    // one stage: k, v, Phi(k) planes
+  constexpr int KF = KT * LF;
+  constexpr int SS = 2 * KS + NP * KF;  // one stage: k, v, Phi(k) planes
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sg = sq + TS;
   __nv_bfloat16* stg = sg + TS;        // 2 stages
@@ -591,7 +611,13 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
   const int nb = gridDim.y;
   const int b0 = c * blk;
   const int bend = b0 + blk;
-  const int r0 = b0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int nch = (d + OC - 1) / OC;   // column chunks of dqs and dqd
+  const int ch = static_cast<int>(blockIdx.z) % nch;
+  const int c0 = ch * OC;
+  const int cw = min(OC, d - c0);
+  const int nt = static_cast<int>(gridDim.z) / nch;
+  const int r0 =
+      b0 + (nt - 1 - static_cast<int>(blockIdx.z) / nch) * TC_ROWS;
   if (r0 >= bend) return;
   const int rows = min(TC_ROWS, bend - r0);
   const int nk = r0 + rows - b0;
@@ -600,7 +626,7 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t4 = lane & 3;
   const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
-  const int nod = min(NO, ks * 2);
+  const int nod = min(NO, ((cw + 15) / 16) * 2);
   const bool vz = vec != 0;
   const size_t hq = static_cast<size_t>(h) * n;
   const size_t bhn = static_cast<size_t>(gridDim.x) * n;
@@ -621,8 +647,8 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
     if (st >= ntiles) {
 #pragma unroll
       for (int p = 0; p < NP; ++p)
-        stage_tile<DP>(s + (2 + p) * KS, LD, fkh + p * kcount + off, d, kr,
-                       KT, vz);
+        stage_rows<OC>(s + 2 * KS + p * KF, LF, fkh + p * kcount + off + c0,
+                       d, cw, kr, KT, vz);
     }
   };
   stage_tile<DP>(sq, LD, q + (hq + r0) * d, d, rows, TC_ROWS, vz);
@@ -725,7 +751,7 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
           dl[hh] /= l[hh];
           const int a = warp * 16 + gq + hh * 8;
           w[hh] = (sgo[a] - dl[hh]) * (2.f * hd[hh]);
-          if (a < rows && t4 == 0) {
+          if (ch == 0 && a < rows && t4 == 0) {
             const size_t at = hq + r0 + a;
             stats[at] = m[hh];
             stats[bhn + at] = l[hh];
@@ -747,8 +773,9 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
           dp[j][e] = masked ? 0.f : x * (2.f * hd[hh]) - w[hh];   // gmat
         }
       }
-      mma_pb_p<NO, NS / 2, NP, 1>(aq, s, s_k, 0, LD, nod, lane);  // dsm k
-      mma_pb_p<NO, NS / 2, NP, NP>(as, dp, s_k + 2 * KS, KS, LD, nod,
+      mma_pb_p<NO, NS / 2, NP, 1>(aq, s, s_k + c0, 0, LD, nod,
+                                  lane);                   // dsm k
+      mma_pb_p<NO, NS / 2, NP, NP>(as, dp, s_k + 2 * KS, KF, LF, nod,
                                    lane);                  // gmat Phi(k)
     }
     __syncthreads();                 // this stage is free for the prefetch
@@ -756,7 +783,8 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
 
   // u S_c^T = (g S_c^T) / (2 den): the accumulator is scaled by 2 den, g
-  // S_c^T added 32 rows of S at a time, and scaled back.
+  // S_c^T added 32 rows of S (this CTA's columns of dqs) at a time, and
+  // scaled back.
   const float* zc = zst + (static_cast<size_t>(kvh) * nb + c) * d;
   if (c > 0) {
 #pragma unroll
@@ -766,8 +794,8 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
         if (hd[e >> 1] > 0.f) as[j][e] /= hd[e >> 1];
     }
     state_t_all<DP, NP>(as, wg, stg,
-                    sst + (static_cast<size_t>(kvh) * nb + c) * d * dv,
-                    scount, d, dv, kvs, vz, lane);
+                        sst + (static_cast<size_t>(kvh) * nb + c) * d * dv,
+                        scount, d, dv, kvs, vz, lane, c0);
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
 #pragma unroll
@@ -782,7 +810,7 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
     const size_t at = (hq + r0 + a) * d;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
-      const int cc = j * 8 + 2 * t4;
+      const int cc = c0 + j * 8 + 2 * t4;
       if (cc >= d) break;
       const float q0 = aq[j][2 * hh] * scale, q1 = aq[j][2 * hh + 1] * scale;
       float s0 = as[j][2 * hh], s1 = as[j][2 * hh + 1];
@@ -807,14 +835,16 @@ dq_tc_kernel(const float* __restrict__ qs, const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Three CTAs per key tile z / 3, by z % 3: the dkd role (dsm^T q), the dks
-// role (gmat^T Phi(q), V dS^T, dz) and the dv role (p^T gh + scores^T u,
-// Phi(k) dS).  Each query tile's products go into a fresh accumulator that
-// is then added to the total in fp32: the tensor cores' own accumulation
-// does not round to nearest, and its error would grow with the r x blk
-// query rows summed.  phq (NP,BH,N,D), phk (NP,BG,N,D); dsst
+// Three CTAs per key tile and output chunk z / 3, by z % 3: the dkd role
+// (dsm^T q), the dks role (gmat^T Phi(q), V dS^T, dz) and the dv role (p^T
+// gh + scores^T u, Phi(k) dS).  Each writes OC columns of its output (all
+// of them when its width is at most OC; z / 3 = tile * chunks + chunk).
+// Each query tile's products go into a fresh accumulator that is then
+// added to the total in fp32: the tensor cores' own accumulation does not
+// round to nearest, and its error would grow with the r x blk query rows
+// summed.  phq (NP,BH,N,D), phk (NP,BG,N,D); dsst
 // (NP,BG,nb,D,Dv) and dzst (BG,nb,D): the reverse exclusive block states.
-template <int DP>
+template <int DP, int OC>
 __global__ void __launch_bounds__(128, 2)
 dkv_tc_kernel(const float* __restrict__ ks_in,
               const __nv_bfloat16* __restrict__ q,
@@ -834,7 +864,7 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   constexpr int LD = DP + 8;
   constexpr int QT = step_rows<DP>();
   constexpr int NQ = QT / 8;           // score tiles of 8 queries per warp
-  constexpr int NO = DP / 8;
+  constexpr int NO = OC / 8;
   constexpr int TS = TC_ROWS * LD;
   constexpr int QS = QT * LD;
   constexpr int SS = (2 + NP) * QS;    // one stage: q, Phi(q) planes, g
@@ -847,16 +877,20 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   const int c = blockIdx.y;
   const int nb = gridDim.y;
   const int role = blockIdx.z % 3;     // 0 dkd, 1 dks, 2 dv
+  const int nch = ((d > dv ? d : dv) + OC - 1) / OC;
+  const int zc = static_cast<int>(blockIdx.z) / 3;
+  const int c0 = zc % nch * OC;        // this CTA's first output column
+  const int w = role == 2 ? dv : d;    // its output's width
   const int b0 = c * blk;
   const int bend = b0 + blk;
-  const int kb0 = b0 + static_cast<int>(blockIdx.z / 3) * TC_ROWS;
-  if (kb0 >= bend) return;
+  const int kb0 = b0 + zc / nch * TC_ROWS;
+  if (kb0 >= bend || c0 >= w) return;
   const int kr = min(TC_ROWS, bend - kb0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t4 = lane & 3;
   const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
-  const int nout = role == 2 ? min(NO, kvs * 2) : min(NO, ks * 2);
+  const int nout = min(NO, ((min(OC, w - c0) + 15) / 16) * 2);
   const bool vz = vec != 0;
   const size_t hk = static_cast<size_t>(kv) * n;
   const size_t bhn = static_cast<size_t>(gridDim.x) * r * n;
@@ -953,11 +987,14 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
     }
     zero_acc(part);
     if (role == 0)
-      mma_pb_p<NO, NQ / 2, NP, 1>(part, pt, tq, 0, LD, nout, lane);   // q
+      mma_pb_p<NO, NQ / 2, NP, 1>(part, pt, tq + c0, 0, LD, nout,
+                                  lane);                              // q
     else if (role == 1)
-      mma_pb_p<NO, NQ / 2, NP, NP>(part, pt, tf, QS, LD, nout, lane); // Phi(q)
+      mma_pb_p<NO, NQ / 2, NP, NP>(part, pt, tf + c0, QS, LD, nout,
+                                   lane);                        // Phi(q)
     else
-      mma_pb_p<NO, NQ / 2, NP, 1>(part, pt, tg, 0, LD, nout, lane);   // g
+      mma_pb_p<NO, NQ / 2, NP, 1>(part, pt, tg + c0, 0, LD, nout,
+                                  lane);                              // g
 #pragma unroll
     for (int j = 0; j < NO; ++j)
 #pragma unroll
@@ -972,14 +1009,14 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
         dsst + (static_cast<size_t>(kv) * nb + c) * d * dv;
     zero_acc(part);
     if (role == 1) {
-      state_t_all<DP, NP>(part, wx, stg, sp, scount, d, dv, kvs, vz,
-                          lane);
+      state_t_all<DP, NP>(part, wx, stg, sp, scount, d, dv, kvs, vz, lane,
+                          c0);
     } else {
       for (int d0 = 0; d0 < d; d0 += 32) {
         __syncthreads();
         stage_state<DP, NP>(stg, sp, scount, d0, d, dv, vz);
-        mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg, 32 * LD, LD,
-                                (min(32, d - d0) + 15) / 16, nout, lane);
+        mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg + c0, 32 * LD,
+                                LD, (min(32, d - d0) + 15) / 16, nout, lane);
       }
     }
 #pragma unroll
@@ -989,7 +1026,6 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   }
 
   const float* dzc = dzst + (static_cast<size_t>(kv) * nb + c) * d;
-  const int w = role == 2 ? dv : d;
   float* out = role == 0 ? dkd : role == 1 ? dks : dvo;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -998,7 +1034,7 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
     const size_t row = hk + kb0 + j0;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
-      const int cc = j * 8 + 2 * t4;
+      const int cc = c0 + j * 8 + 2 * t4;
       if (cc >= w) break;
       float x0 = acc[j][2 * hh], x1 = acc[j][2 * hh + 1];
       if (role == 0) {
@@ -1022,7 +1058,7 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   }
 }
 
-template <int DP>
+template <int DP, int OC>
 int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
               const void* v, const void* g, const void* o, const float* den,
               float* dqs, float* dqd, float* dks, float* dkd, float* dv_,
@@ -1057,14 +1093,17 @@ int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
                                   nullptr, nullptr, 0, bg, n, d, dv, 1, blk,
                                   stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t dq_bytes = dq_smem_bytes<DP>();
+  const size_t dq_bytes = dq_smem_bytes<DP, OC>();
   const size_t dkv_bytes = dkv_smem_bytes<DP>();
-  err = lln::allow_smem(dq_tc_kernel<DP>, dq_bytes);
+  err = lln::allow_smem(dq_tc_kernel<DP, OC>, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = lln::allow_smem(dkv_tc_kernel<DP>, dkv_bytes);
+  err = lln::allow_smem(dkv_tc_kernel<DP, OC>, dkv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nt = (blk + TC_ROWS - 1) / TC_ROWS;
-  dq_tc_kernel<DP><<<dim3(bh, nb, nt), 128, dq_bytes, stream>>>(
+  const int dq_chunks = (d + OC - 1) / OC;
+  const int dkv_chunks = ((d > dv ? d : dv) + OC - 1) / OC;
+  dq_tc_kernel<DP, OC><<<dim3(bh, nb, nt * dq_chunks), 128, dq_bytes,
+                         stream>>>(
       qs, qp, kp, vp, gp, static_cast<const bf*>(o), den, fk, sp, zst, dqs,
       dqd, stats, n, d, dv, r, blk, kcount, scount, scale, vec);
   err = cudaGetLastError();
@@ -1073,10 +1112,21 @@ int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
                                  dzst, nullptr, nullptr, 0, bg, n, d, dv, r,
                                  blk, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_tc_kernel<DP><<<dim3(bg, nb, 3 * nt), 128, dkv_bytes, stream>>>(
+  dkv_tc_kernel<DP, OC><<<dim3(bg, nb, 3 * nt * dkv_chunks), 128, dkv_bytes,
+                          stream>>>(
       ks, qp, kp, vp, gp, den, stats, fq, fk, dsp, dzst, dks, dkd, dv_, n, d,
       dv, r, blk, qcount, kcount, scount, scale, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, int OC>
+int tc_attrs(int* out) {
+  cudaError_t err =
+      kernel_attrs(dq_tc_kernel<DP, OC>, 128, dq_smem_bytes<DP, OC>(), out);
+  if (err == cudaSuccess)
+    err = kernel_attrs(dkv_tc_kernel<DP, OC>, 128, dkv_smem_bytes<DP>(),
+                       out + 4);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1106,7 +1156,7 @@ extern "C" int lln_diag_fused_bwd_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 tensor-core path (q, k, v, g, o bf16; D, Dv <= 128).  phq
+// The bf16 tensor-core path (q, k, v, g, o bf16; D, Dv <= 256).  phq
 // (3,BH,N,D), phk (3,BG,N,D), sst and dsst (3,BG,N/blk,D,Dv) are bf16
 // scratch (three planes each); zst and dzst (BG,N/blk,D) and stats
 // (4,BH,N) fp32 scratch.  Returns cudaGetLastError()
@@ -1124,14 +1174,27 @@ extern "C" int lln_diag_fused_bwd_tc_launch(
   auto dnp = static_cast<const float*>(den);
   if (blk < 1 || n % blk != 0 || bh % bg != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d <= 64 && dvd <= 64)
-    return launch_tc<64>(qsp, ksp, q, k, v, g, o, dnp, f(dqs), f(dqd), f(dks),
-                         f(dkd), f(dv), f(stats), phq, phk, sst, f(zst), dsst,
-                         f(dzst), bh, bg, n, d, dvd, blk, scale, st);
-  if (d <= 128 && dvd <= 128)
-    return launch_tc<128>(qsp, ksp, q, k, v, g, o, dnp, f(dqs), f(dqd),
-                          f(dks), f(dkd), f(dv), f(stats), phq, phk, sst,
-                          f(zst), dsst, f(dzst), bh, bg, n, d, dvd, blk,
-                          scale, st);
+#define LLN_FUSED_BWD_TC(DP, OC)                                              \
+  return launch_tc<DP, OC>(qsp, ksp, q, k, v, g, o, dnp, f(dqs), f(dqd),      \
+                           f(dks), f(dkd), f(dv), f(stats), phq, phk, sst,    \
+                           f(zst), dsst, f(dzst), bh, bg, n, d, dvd, blk,     \
+                           scale, st)
+  if (d <= 64 && dvd <= 64) LLN_FUSED_BWD_TC(64, 64);
+  if (d <= 128 && dvd <= 128) LLN_FUSED_BWD_TC(128, 128);
+  if (d <= 192 && dvd <= 192) LLN_FUSED_BWD_TC(192, 128);
+  if (d <= 256 && dvd <= 256) LLN_FUSED_BWD_TC(256, 128);
+#undef LLN_FUSED_BWD_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The instantiation bf16 (d, dv) takes: out[0..3] for dq_tc_kernel and
+// out[4..7] for dkv_tc_kernel, each registers a thread, local (spill)
+// bytes a thread, CTAs per SM and dynamic shared bytes (lln::kernel_attrs).
+extern "C" int lln_diag_fused_bwd_tc_attrs(int d, int dv, void* out) {
+  int* o = static_cast<int*>(out);
+  if (d <= 64 && dv <= 64) return tc_attrs<64, 64>(o);
+  if (d <= 128 && dv <= 128) return tc_attrs<128, 128>(o);
+  if (d <= 192 && dv <= 192) return tc_attrs<192, 128>(o);
+  if (d <= 256 && dv <= 256) return tc_attrs<256, 128>(o);
   return static_cast<int>(cudaErrorInvalidValue);
 }

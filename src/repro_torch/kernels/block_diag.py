@@ -14,8 +14,11 @@ two runs are bitwise equal.  The causal form serves the decoder, the
 non-causal one the encoder.
 
 The input type picks the kernel.  bf16, which every model path on the card
-runs (D, Dv <= 128): the tensor cores (``mma.sync`` on bf16 fragments from
-``ldmatrix``, tiles staged by ``cp.async``; helpers in ``csrc/mma.cuh``).
+runs: the tensor cores (``mma.sync`` on bf16 fragments from ``ldmatrix``,
+tiles staged by ``cp.async``; helpers in ``csrc/mma.cuh``), the forward at
+D, Dv <= 256 (above 128, MLA's D = 192 and paligemma's 256, a CTA per
+128-column chunk of the output, each recomputing its tile's scores), the
+backward at D, Dv <= 128.
 q k^T and g v^T take the raw bf16 operands; the fp32 p and dsm enter their
 products as hi + lo bf16, about 2^-17 relative, so the results keep the
 fp32 softmax of the reference.  The forward gives each CTA a 64-row query
@@ -24,7 +27,7 @@ backward's dq kernel (per 64-row query tile: max, sum and delta in one
 pass, then dsm k) saves each row's (m, l, delta) for the dk/dv kernel (per 64-key
 tile, over the r heads and the query tiles in a fixed order).  Bound on
 the H100: bytes (the products at the tensor cores' rate take less).
-fp32, and bf16 above D or Dv = 128 (MLA's 192, paligemma's 256): IEEE
+fp32, and bf16 above those widths (the backward above D or Dv = 128): IEEE
 fp32 on the CUDA cores, the reference's exact softmax form (max,
 exponentiate, divide, then multiply by V), in 32-row tiles; the shared
 memory grows with D (at D = Dv = 256 and blk 256: 164 KB forward, with 32

@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SIGNATURES = {
     "lln_causal": {"lln_causal_launch": "ppppppp" + "iiiiiiii" + "p",
                    "lln_causal_tc_launch": "p" * 10 + "i" * 6 + "p"},
-    "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p"},
+    "block_diag": {"block_diag_launch": "pppp" + "iiiiiiiii" + "f" + "p",
+                   "block_diag_tc_attrs": "iip"},
     "lln_decode": {"lln_decode_launch": "p" * 9 + "i" * 7 + "p"},
     "lln_diag_fused": {"lln_diag_fused_launch":
                        "ppppppp" + "iiiiiiii" + "f" + "p",
@@ -44,7 +45,8 @@ SIGNATURES = {
     "lln_diag_fused_bwd": {"lln_diag_fused_bwd_launch":
                            "p" * 14 + "i" * 9 + "f" + "p",
                            "lln_diag_fused_bwd_tc_launch":
-                           "p" * 20 + "i" * 6 + "f" + "p"},
+                           "p" * 20 + "i" * 6 + "f" + "p",
+                           "lln_diag_fused_bwd_tc_attrs": "iip"},
     "lln_bidir": {"lln_bidir_launch": "ppppppp" + "iiiiii" + "p",
                   "lln_bidir_tc_launch": "p" * 7 + "i" * 5 + "p"},
     "lln_bidir_bwd": {"lln_bidir_bwd_launch": "p" * 14 + "i" * 6 + "p",
@@ -154,6 +156,23 @@ _CUDA_ERRORS = {
     209: "cudaErrorNoKernelImageForDevice",
     700: "cudaErrorIllegalAddress",
 }
+
+
+def tc_attrs(name: str, d: int, dv: int) -> list[dict]:
+    """The tensor-core kernels library ``name`` launches for bf16 inputs at
+    head widths ``(d, dv)`` (``block_diag``: one; ``lln_diag_fused_bwd``:
+    its dq and dk/dv kernels), each as registers and local (spill) bytes a
+    thread, CTAs per SM and dynamic shared bytes, from the CUDA runtime
+    (``cudaFuncGetAttributes`` and the occupancy calculator)."""
+    kernels = {"block_diag": ("block_diag_tc_kernel",),
+               "lln_diag_fused_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}[name]
+    out = (ctypes.c_int * (4 * len(kernels)))()
+    check(getattr(library(name), f"{name}_tc_attrs")(d, dv,
+                                                     ctypes.addressof(out)),
+          f"{name}_tc_attrs")
+    keys = ("registers", "local_bytes", "ctas_per_sm", "smem_bytes")
+    return [dict(kernel=k, **dict(zip(keys, out[4 * i:4 * i + 4])))
+            for i, k in enumerate(kernels)]
 
 
 def check(err: int, what: str) -> None:

@@ -51,9 +51,10 @@ chosen as the forward's (``lln_attention._tc_path``):
 gradient on ``g / 2`` with the LLN output rebuilt from the saved ``o`` as
 ``2 o - diag``, plus the block softmax gradient, recomputed in the kernels
 (the dq kernel saves each row's softmax max, sum and delta, and ``w``,
-for the dk/dv kernel instead of the probabilities).  Two paths, chosen as
-the forward's (``lln_attention._tc_path``: bf16 with D, Dv <= 128 on the
-tensor cores, else the CUDA-core kernels).  The tensor-core path
+for the dk/dv kernel instead of the probabilities).  Two paths, chosen by
+:func:`_fused_bwd_tc_path` (bf16 with D, Dv <= :data:`FUSED_TC_MAX_WIDTH`
+= 256 on the tensor cores, else the CUDA-core kernels; wider than the
+forward's 128).  The tensor-core path
 is chunk-parallel over the ``blk`` blocks: the forward's block states
 recomputed once per kv group, a dq kernel per (query head, block, 64-row
 tile) with one online softmax pass and one gradient pass, the reverse
@@ -63,7 +64,10 @@ each for dkd, dks and dv, that walk the r heads and the block's query
 tiles in a fixed order: no atomics, two runs equal bit for bit.
 Every fp32 operand goes in as three bf16 planes (2^-24 relative; two
 planes left dks and dqs outside the 1e-5 tolerance), and each query
-tile's products are added to the dk/dv totals in fp32.  The scratch is
+tile's products are added to the dk/dv totals in fp32.  Above D or Dv =
+128 (MLA's D = 192, paligemma's D = Dv = 256) each CTA writes 128 columns
+of its output, so dq and every dk/dv role gain a CTA per 128-column
+chunk, each recomputing its tile's scores.  The scratch is
 :func:`lln_attention._tc_scratch` with three planes, twice the states.
 Bound (``chip_smoke.py:_fused_counts``): the products at the bf16
 tensor-core rate, an fp32 operand once per MMA the two-plane split takes;
@@ -108,6 +112,8 @@ from .lln_attention import (NEG_INF, _VCODES, _check_blocks,  # noqa: F401
 # D rows of a dq/dk CTA, Dv columns of a dv CTA.
 ROWS = 32
 COLS = 32
+# The widest head (D and Dv) lln_diag_fused_bwd's tensor-core path takes.
+FUSED_TC_MAX_WIDTH = 256
 
 
 def _check_grad_inputs(qs, ks, v, g, o, den, r):
@@ -283,6 +289,13 @@ def lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, *, r: int = 1,
     return dqs, dqd, dks, dkd, dv_lln + dv_diag
 
 
+def _fused_bwd_tc_path(v, d: int, dv: int) -> bool:
+    """Whether ``lln_diag_fused_bwd`` runs its tensor-core path: bf16
+    inputs and D, Dv <= :data:`FUSED_TC_MAX_WIDTH`; otherwise its CUDA-core
+    kernels."""
+    return v.dtype == torch.bfloat16 and max(d, dv) <= FUSED_TC_MAX_WIDTH
+
+
 def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
                        blk: int = 256, scale: float | None = None):
     """Backward of the fused hybrid; see the module docstring.  q/k/v/g/o
@@ -314,7 +327,7 @@ def _lln_diag_fused_bwd_op(qs, ks, q, k, v, g, o, den, r, blk, scale):
             dvo.data_ptr(), stats.data_ptr())
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tc_path(v, d, dv):
+        if _fused_bwd_tc_path(v, d, dv):
             phq, phk, sst, zst = _tc_scratch(bh, bg, n, d, dv, blk,
                                              qs.device, planes=3)
             dsst, dzst = torch.empty_like(sst), torch.empty_like(zst)

@@ -18,12 +18,16 @@ as three bf16 planes in its dk/dv kernel; fp32 on the CUDA cores) are held
 at blk 16, 64 and 256, N 64, 300 and 512, D = Dv = 64 and 128 and one
 D != Dv, r in {1, 4, 5, 8, 16}, causal and not, their backward's two runs
 bitwise equal.  The serving kernels (``lln_causal`` with the state,
-causal ``block_diag``, ``lln_decode``) are also held, bf16 on their
-CUDA-core paths, at the model families' wide heads: D = 192 with Dv = 128
-(MLA, r = 1) and D = Dv = 256 with r = 8 (paligemma), and so are the
-training kernels there: ``block_diag_bwd`` in bf16 (causal and not, N 512
-and 300), the fused pair and the causal pair with ``den`` and their
+causal ``block_diag``, ``lln_decode``) are also held, bf16, at the model
+families' wide heads: D = 192 with Dv = 128 (MLA, r = 1), D = Dv = 256
+with r = 8 (paligemma) and D = 160 with Dv = 96 (r = 2, no multiple of the
+64-column tiles), N 512 and 300, blk 256 and 64, and so are the training
+kernels there: ``block_diag_bwd`` in bf16 (causal and not, N 512 and
+300), the fused pair and the causal pair with ``den`` and their
 backwards, each within the tolerances above and two runs bitwise equal;
+at those widths bf16 ``block_diag`` and ``lln_diag_fused_bwd`` run their
+tensor-core kernels and fp32 their CUDA-core ones (by the profiler's
+kernel names);
 the fused pair also at r = 16 on the tensor cores (qwen3-moe).  A 2-slot continuous-batching pool of yi-9b SMOKE on the
 serving kernels equals solo runs token for token.  The
 encoder's kernels (``lln_bidir``, ``lln_bidir_bwd``, ``block_diag_bwd``)
@@ -320,34 +324,52 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         (before[0] + 2, before[1] + 1)
 
 
-# The serving kernels at the model families' wide heads, on their CUDA-core
-# paths (D above TC_MAX_WIDTH = 128): MLA's assembled q/k (deepseek-v2: H = G,
-# D = nope + rope = 192, Dv = 128) and paligemma's MQA (r = 8, D = Dv = 256).
+# The kernels at the model families' wide heads (D or Dv above 128): MLA's
+# assembled q/k (deepseek-v2: H = G, D = nope + rope = 192, Dv = 128),
+# paligemma's MQA (r = 8, D = Dv = 256), and widths that are no multiple of
+# the tensor-core routes' 64-column tiles (D = 160, Dv = 96), which those
+# routes pad with zeros.  block_diag (forward) and lln_diag_fused_bwd take
+# their tensor cores there in bf16; the others their CUDA cores.
 WIDE_HEADS = [pytest.param(1, 192, 128, id="mla-r1-d192-dv128"),
-              pytest.param(8, 256, 256, id="paligemma-r8-d256")]
+              pytest.param(8, 256, 256, id="paligemma-r8-d256"),
+              pytest.param(2, 160, 96, id="r2-d160-dv96")]
+
+
+def _kernel_names(fn):
+    """The names of the CUDA kernels ``fn()`` launches, from
+    ``torch.profiler``'s device trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
 @pytest.mark.parametrize("n", [512, 300])
-def test_cuda_serve_kernels_at_wide_heads(cuda, r, d, dv, n):
-    """bf16 v: lln_causal with the final state, causal block_diag (blk 256)
-    and lln_decode at T = 1 and 4 from that state with a rescale, each
-    within one bf16 step of its plain version (s, z, s1, z1 within 1e-5 of
-    the largest plain entry), two runs of each bitwise equal."""
+@pytest.mark.parametrize("blk", [256, 64])
+def test_cuda_serve_kernels_at_wide_heads(cuda, r, d, dv, n, blk):
+    """bf16 v: lln_causal with the final state, causal block_diag (on its
+    tensor cores) and lln_decode at T = 1 and 4 from that state with a
+    rescale, each within one bf16 step of its plain version (s, z, s1, z1
+    within 1e-5 of the largest plain entry), two runs of each bitwise
+    equal."""
     qs, ks, v = _kernel_inputs(d + n + r, 2 * r, 2, n, d, dv)
     qs, ks = _on(cuda, qs, ks)
     (v,) = _on(cuda, v, dtype=torch.bfloat16)
-    runs = [lln_causal(qs, ks, v, r=r, blk=256) for _ in range(2)]
-    want = lln_causal_plain(qs, ks, v, r=r, blk=256)
+    runs = [lln_causal(qs, ks, v, r=r, blk=blk) for _ in range(2)]
+    want = lln_causal_plain(qs, ks, v, r=r, blk=blk)
     torch.cuda.synchronize()
     _close(runs[0][0], want[0], BF16)
     _close(runs[0][1], want[1], TRAIN)
     _close(runs[0][2], want[2], TRAIN)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     q, k = qs.bfloat16(), ks.bfloat16()
-    runs = [block_diag(q, k, v, r=r, blk=256, causal=True) for _ in range(2)]
-    bd = block_diag_plain(q, k, v, r=r, blk=256, causal=True)
+    runs = [block_diag(q, k, v, r=r, blk=blk, causal=True) for _ in range(2)]
+    bd = block_diag_plain(q, k, v, r=r, blk=blk, causal=True)
     torch.cuda.synchronize()
     _close(runs[0], bd, BF16)
     assert torch.equal(runs[0], runs[1])
@@ -391,13 +413,13 @@ def test_cuda_block_diag_bwd_bf16_at_wide_heads(cuda, r, d, dv, n, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
-@pytest.mark.parametrize("n,blk", [(512, 256), (300, 60)])
+@pytest.mark.parametrize("n,blk", [(512, 256), (512, 64), (300, 60)])
 def test_cuda_training_kernels_at_wide_heads(cuda, r, d, dv, n, blk):
-    """The training pairs on bf16 v at the families' wide heads (the
-    CUDA-core kernels): lln_diag_fused and lln_diag_fused_bwd (rows 4 and
-    9), lln_causal with den and lln_causal_bwd (rows 1 and 6).  out within
-    one bf16 step; den and every fp32 gradient within 1e-5 of the largest
-    plain entry; two runs of each bitwise equal."""
+    """The training pairs on bf16 v at the families' wide heads:
+    lln_diag_fused and lln_diag_fused_bwd (rows 4 and 9; row 9 on its
+    tensor cores), lln_causal with den and lln_causal_bwd (rows 1 and 6).
+    out within one bf16 step; den and every fp32 gradient within 1e-5 of
+    the largest plain entry; two runs of each bitwise equal."""
     rng = np.random.default_rng(1000 * r + n + d + dv)
     f = lambda *s: torch.from_numpy(  # noqa: E731
         rng.normal(size=s).astype(np.float32)).to(cuda)
@@ -432,6 +454,46 @@ def test_cuda_training_kernels_at_wide_heads(cuda, r, d, dv, n, blk):
         for gt, wt, ag in zip(runs[0], grads, runs[1]):
             _close(gt, wt, TRAIN)
             assert torch.equal(gt, ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
+def test_cuda_wide_heads_take_the_tensor_cores_in_bf16(cuda, r, d, dv):
+    """At the wide heads, bf16 block_diag runs block_diag_tc_kernel and
+    bf16 lln_diag_fused_bwd its dq_tc_kernel and dkv_tc_kernel, by the
+    profiler's kernel names; fp32 inputs run their CUDA-core kernels
+    (block_diag_kernel<float>, dq_kernel<float>, dkv_kernel<float>) and no
+    tensor-core one.  The CUDA runtime reports each tensor-core kernel's
+    registers, CTAs per SM and shared memory (build.tc_attrs) for the
+    widths."""
+    from repro_torch.kernels import build
+    n, blk = 128, 64
+    rng = np.random.default_rng(d + dv + r)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    qs, ks = f(2 * r, n, d) - 0.5, f(2, n, d) - 0.5
+    q, k, v, g = f(2 * r, n, d), f(2, n, d), f(2, n, dv), f(2 * r, n, dv)
+    for dt in (torch.bfloat16, torch.float32):
+        qd, kd, vd, gd = (t.to(dt) for t in (q, k, v, g))
+        o, den = lln_diag_fused_plain(qs, ks, qd, kd, vd, r=r, blk=blk,
+                                      return_res=True)
+        names = _kernel_names(lambda: block_diag(qd, kd, vd, r=r, blk=blk,
+                                                 causal=True))
+        bwd = _kernel_names(lambda: lln_diag_fused_bwd(
+            qs, ks, qd, kd, vd, gd, o, den, r=r, blk=blk))
+        tc = dt == torch.bfloat16
+        assert any("block_diag_tc_kernel" in nm for nm in names) is tc
+        assert any("block_diag_kernel<float>" in nm for nm in names) is not tc
+        for kern in ("dq_tc_kernel", "dkv_tc_kernel"):
+            assert any(kern in nm for nm in bwd) is tc
+        for kern in ("dq_kernel<float>", "dkv_kernel<float>"):
+            assert any(kern in nm for nm in bwd) is not tc
+    for name, want in (("block_diag", 1), ("lln_diag_fused_bwd", 2)):
+        attrs = build.tc_attrs(name, d, dv)
+        assert len(attrs) == want
+        for a in attrs:
+            assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1
+            assert a["smem_bytes"] <= 232448
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from repro_torch.kernels.block_diag import block_diag
 from repro_torch.kernels.lln_attention import (TC_BLOCK, _tc_path,
                                                _tc_scratch, lln_causal,
                                                lln_causal_plain, lln_decode)
+from repro_torch.kernels.lln_backward import _fused_bwd_tc_path
 
 ATOL = 2e-4
 
@@ -127,6 +128,26 @@ def test_lln_causal_tensor_core_route(dtype, d, dv, want):
     """bf16 v with D, Dv <= 128 takes lln_causal's (and lln_causal_bwd's)
     tensor-core kernels; fp32 v or a wider head the CUDA-core ones."""
     assert _tc_path(torch.zeros(1, 1, dv, dtype=dtype), d, dv) is want
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 128, 128, True),
+    (torch.bfloat16, 192, 128, True),
+    (torch.bfloat16, 256, 256, True),
+    (torch.bfloat16, 160, 96, True),
+    (torch.float32, 192, 128, False),
+    (torch.bfloat16, 320, 128, False),
+    (torch.bfloat16, 128, 288, False)],
+    ids=["yi-9b", "mla", "paligemma", "untiled", "fp32-v", "wide-d",
+         "wide-dv"])
+def test_lln_diag_fused_bwd_tensor_core_route(dtype, d, dv, want):
+    """lln_diag_fused_bwd takes its tensor-core kernels for bf16 with D,
+    Dv <= 256 (MLA's D = 192 / Dv = 128 and paligemma's D = Dv = 256
+    included, where the forward and the other LLN kernels take their CUDA
+    cores); fp32 or a wider head its CUDA-core ones."""
+    v = torch.zeros(1, 1, dv, dtype=dtype)
+    assert _fused_bwd_tc_path(v, d, dv) is want
+    assert _tc_path(v, d, dv) is (want and max(d, dv) <= 128)
 
 
 @pytest.mark.parametrize("n,blk,blocks", [(1024, 64, 16), (300, 64, 5),

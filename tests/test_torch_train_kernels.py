@@ -21,6 +21,8 @@ from repro.kernels.lln_attention import (lln_causal_pallas,
                                          lln_diag_fused_pallas)
 from repro.kernels.lln_backward import (lln_causal_bwd_pallas,
                                         lln_diag_fused_bwd_pallas)
+from repro.kernels.ref import block_diag_ref, lln_diag_fused_bwd_ref
+from repro_torch.kernels.block_diag import block_diag_plain
 from repro_torch.kernels.lln_attention import (lln_causal, lln_causal_plain,
                                                lln_diag_fused,
                                                lln_diag_fused_plain)
@@ -167,3 +169,35 @@ def test_wrappers_run_plain_on_cpu_and_check_blocks():
     with pytest.raises(ValueError, match="multiple of blk"):
         lln_diag_fused_bwd_plain(tt["qs"], tt["ks"], tt["q"], tt["k"],
                                  tt["v"], tt["g"], out, den, r=2, blk=12)
+
+
+@pytest.mark.parametrize("r,d,dv", [(1, 192, 128), (8, 256, 256)],
+                         ids=["mla-d192-dv128", "paligemma-r8-d256"])
+def test_wide_head_plain_versions_match_the_reference(r, d, dv):
+    """At the families' wide heads, whose bf16 kernels on the card are the
+    tensor-core routes held to these plain versions: causal
+    ``block_diag_plain`` against ``block_diag_ref`` and
+    ``lln_diag_fused_bwd_plain`` against ``lln_diag_fused_bwd_ref`` (the
+    reference's quadratic oracles), fp32, N 64, blk 32, within 1e-5 of the
+    largest reference entry."""
+    n, blk, bg = 64, 32, 2
+    bh = bg * r
+    rng = np.random.default_rng(32 * r + d)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    a = {"qs": f(bh, n, d) - 0.5, "ks": f(bg, n, d) - 0.5, "q": f(bh, n, d),
+         "k": f(bg, n, d), "v": f(bg, n, dv), "g": f(bh, n, dv)}
+    tt = {k: torch.from_numpy(v) for k, v in a.items()}
+    got = block_diag_plain(tt["q"], tt["k"], tt["v"], r=r, blk=blk,
+                           causal=True)
+    want = block_diag_ref(jnp.asarray(a["q"]), jnp.asarray(a["k"]),
+                          jnp.asarray(a["v"]), block=blk, causal=True, r=r)
+    _close(got, want, FP32)
+    o, den = lln_diag_fused_plain(tt["qs"], tt["ks"], tt["q"], tt["k"],
+                                  tt["v"], r=r, blk=blk, return_res=True)
+    got = lln_diag_fused_bwd_plain(tt["qs"], tt["ks"], tt["q"], tt["k"],
+                                   tt["v"], tt["g"], o, den, r=r, blk=blk)
+    want = lln_diag_fused_bwd_ref(
+        *(jnp.asarray(a[k]) for k in ("qs", "ks", "q", "k", "v", "g")),
+        jnp.asarray(o.numpy()), jnp.asarray(den.numpy()), block=blk, r=r)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, FP32)
