@@ -2164,7 +2164,8 @@ def _check_serve_kernels(results, tag, b, h, g, d, seed, decode_ts=(1,),
     qs, ks, _ = ops._scaled_stabilized(q, k, alpha, beta)
     qk, kk, vk = ops._to_kernel(q), ops._to_kernel(k), ops._to_kernel(v)
     name = f"lln_causal (state, {tag})"
-    log(f"{name} {shape} (tensor-core path: {_tc_path(vk, d, dv)}):")
+    log(f"{name} {shape} (tensor-core path: "
+        f"{_tc_path(vk, d, dv, 'lln_causal')}):")
     runs = [lln_causal(qs, ks, vk, r=r, blk=BLK) for _ in range(2)]
     want = lln_causal_plain(qs, ks, vk, r=r, blk=BLK)
     torch.cuda.synchronize()
@@ -2594,6 +2595,15 @@ def _log_attrs(name, d, dv):
         log(f"  {a['kernel']} (D={d} Dv={dv}): {a['registers']} registers, "
             f"{a['local_bytes']} local bytes a thread, {a['ctas_per_sm']} "
             f"CTAs per SM, {a['smem_bytes']} shared bytes")
+
+
+def _log_split(name, d, dv, call):
+    """:func:`_log_attrs` of library ``name``, then the device time of one
+    ``call`` by kernel (:func:`device_profile`)."""
+    _log_attrs(name, d, dv)
+    dev_ms, kernels = device_profile(call)
+    log(f"  one {name} call's device time {dev_ms:.4f} ms: " + ", ".join(
+        f"{_kernel_name(k)} {ms:.4f}" for k, ms, _ in kernels))
 
 
 def phase_timings_hybrid_serve(errs, launches):
@@ -4292,8 +4302,8 @@ def phase_timings_families(errs, launches):
 
 # Their self-attention in the train cells (tag, arch, B, H, G, D, Dv, N):
 # rows 4 and 9 at each, blk BLK (the configs' diag_block).  D or Dv above
-# 128 take the CUDA-core kernels of row 4 and the tensor cores of row 9 (up
-# to 256).
+# 128 take the tensor cores of rows 4, 6 and 9 (up to 256) and the CUDA
+# cores of row 1.
 FAMILIES_TRAIN = (
     ("qwen3-moe r=16", "qwen3-moe-235b-a22b", 2, 64, 4, 128, 128, 512),
     ("mla D=192 Dv=128", "deepseek-v2-236b", 4, 128, 128, 192, 128, 512),
@@ -4330,9 +4340,9 @@ def phase_kernels_families_train(results):
     and 9 at :data:`FAMILIES_TRAIN`; rows 1 (``return_res``) and 6 at the
     wide heads (MLA, paligemma); rows 5, 7, the non-causal 2 and 8 at the
     seamless encoder's (:data:`SEAMLESS_TRAIN`); row 8 in bf16 above D =
-    128 (:data:`WIDE_BDB`), causal and not, N 512 and a ragged 300.  Row 9
-    takes its tensor cores at every train cell's shape (bf16, D and Dv up
-    to 256; rows 4, 1 and 6 their CUDA cores above 128)."""
+    128 (:data:`WIDE_BDB`), causal and not, N 512 and a ragged 300.  Rows
+    4, 6 and 9 take their tensor cores at every train cell's shape (bf16,
+    D and Dv up to 256; row 1 its CUDA cores above 128)."""
     from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
                                                 block_diag_bwd_plain,
                                                 block_diag_plain)
@@ -4342,8 +4352,7 @@ def phase_kernels_families_train(results):
                                                    lln_causal_plain,
                                                    lln_diag_fused,
                                                    lln_diag_fused_plain)
-    from repro_torch.kernels.lln_backward import (_fused_bwd_tc_path,
-                                                  lln_bidir_bwd,
+    from repro_torch.kernels.lln_backward import (lln_bidir_bwd,
                                                   lln_bidir_bwd_plain,
                                                   lln_causal_bwd,
                                                   lln_causal_bwd_plain,
@@ -4355,7 +4364,8 @@ def phase_kernels_families_train(results):
         r = h // g
         qs, ks, qk, kk, vk, cot = _train_inputs(n, gen, b, h, g, d, dv)
         log(f"lln_diag_fused (train, {tag}) B={b} H={h} G={g} N={n} D={d} "
-            f"Dv={dv} blk={BLK} (tensor-core path: {_tc_path(vk, d, dv)}):")
+            f"Dv={dv} blk={BLK} (tensor-core path: "
+            f"{_tc_path(vk, d, dv, 'lln_diag_fused')}):")
         runs = [lln_diag_fused(qs, ks, qk, kk, vk, r=r, blk=BLK,
                                return_res=True) for _ in range(2)]
         want = lln_diag_fused_plain(qs, ks, qk, kk, vk, r=r, blk=BLK,
@@ -4365,7 +4375,7 @@ def phase_kernels_families_train(results):
               ("out", "den"), bf16_first=True)
         o, den = want
         log(f"lln_diag_fused_bwd (train, {tag}) (tensor-core path: "
-            f"{_fused_bwd_tc_path(vk, d, dv)}):")
+            f"{_tc_path(vk, d, dv, 'lln_diag_fused_bwd')}):")
         runs = [lln_diag_fused_bwd(qs, ks, qk, kk, vk, cot, o, den, r=r,
                                    blk=BLK) for _ in range(2)]
         want = lln_diag_fused_bwd_plain(qs, ks, qk, kk, vk, cot, o, den,
@@ -4375,7 +4385,7 @@ def phase_kernels_families_train(results):
               ("dqs", "dqd", "dks", "dkd", "dv"))
         if _is_wide(d, dv):
             log(f"lln_causal (res, {tag}) (tensor-core path: "
-                f"{_tc_path(vk, d, dv)}):")
+                f"{_tc_path(vk, d, dv, 'lln_causal')}):")
             runs = [lln_causal(qs, ks, vk, r=r, blk=BLK, return_res=True,
                                return_state=False) for _ in range(2)]
             want = lln_causal_plain(qs, ks, vk, r=r, blk=BLK,
@@ -4384,7 +4394,8 @@ def phase_kernels_families_train(results):
             _hold(results, f"lln_causal (res, {tag})", runs, want,
                   ("out", "den"), bf16_first=True)
             o, den = want
-            log(f"lln_causal_bwd ({tag}):")
+            log(f"lln_causal_bwd ({tag}) (tensor-core path: "
+                f"{_tc_path(vk, d, dv, 'lln_causal_bwd')}):")
             runs = [lln_causal_bwd(qs, ks, vk, cot, o, den, r=r, blk=BLK)
                     for _ in range(2)]
             want = lln_causal_bwd_plain(qs, ks, vk, cot, o, den, r=r,
@@ -4498,9 +4509,9 @@ def phase_train_families(launches, train_times):
     - train_mla: deepseek-v2-236b cut to its dense first layer (its first
       MoE layer would add 3.77 B expert weights, about 60 GB at 16 B per
       param), batch 4 x 512: the fused pair at H = G = 128, D = 192, Dv =
-      128 (the forward on the CUDA cores, the backward on the tensor
-      cores), then with lln the causal pair (lln_causal with den and
-      lln_causal_bwd, CUDA cores) there;
+      128 (both on the tensor cores), then with lln the causal pair
+      (lln_causal with den on the CUDA cores, lln_causal_bwd on the
+      tensor cores) there;
     - train_encdec: seamless-m4t-medium at full depth (12 + 12 layers),
       batch 4 x 1024 with 1024 stub source frames: lln_bidir and the
       non-causal block_diag with their backwards in the encoder, the fused
@@ -4606,11 +4617,12 @@ def phase_timings_families_train(errs, launches):
     encoder's, and row 8 in bf16 above D = 128 (N 512, non-causal, the
     case a wide lln_diag encoder layer would run).  Every row is bounded
     by the tensor-core count, also where the kernel takes its CUDA cores
-    (rows 1, 4, 6 and 8 above D or Dv = 128): the function needs no more
-    work for that; the CUDA-core count is logged beside, and row 9's
-    tensor-core kernels' registers, spills and CTAs per SM
-    (:func:`_log_attrs`).  Rows 2 and 8 take SDPA on the
-    blocks (forward, or autograd's backward) as the library yardstick."""
+    (rows 1 and 8 above D or Dv = 128): the function needs no more work
+    for that; the CUDA-core count is logged beside.  Rows 4, 6 and 9 log
+    their tensor-core kernels' registers, spills and CTAs per SM
+    (:func:`_log_attrs`) and one call's device time by kernel
+    (:func:`device_profile`).  Rows 2 and 8 take SDPA on the blocks
+    (forward, or autograd's backward) as the library yardstick."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_diag import (block_diag, block_diag_bwd,
@@ -4664,6 +4676,8 @@ def phase_timings_families_train(errs, launches):
                                          return_res=True),
             fused["lln_diag_fused"], fused["lln_diag_fused (CUDA cores)"],
             shape=shape)
+        _log_split("lln_diag_fused", d, dv, lambda: lln_diag_fused(
+            qs, ks, qk, kk, vk, r=r, blk=BLK, return_res=True))
         key = f"lln_diag_fused_bwd (train, {tag})"
         row(f"lln_diag_fused_bwd (train, {arch} {tag})",
             "lln_diag_fused_bwd.cu", "lln_backward.py:441", key,
@@ -4673,11 +4687,8 @@ def phase_timings_families_train(errs, launches):
                                              r=r, blk=BLK),
             fused["lln_diag_fused_bwd"],
             fused["lln_diag_fused_bwd (CUDA cores)"], shape=shape)
-        _log_attrs("lln_diag_fused_bwd", d, dv)
-        dev_ms, kernels = device_profile(lambda: lln_diag_fused_bwd(
+        _log_split("lln_diag_fused_bwd", d, dv, lambda: lln_diag_fused_bwd(
             qs, ks, qk, kk, vk, cot, o, den, r=r, blk=BLK))
-        log(f"  one call's device time {dev_ms:.4f} ms: " + ", ".join(
-            f"{_kernel_name(k)} {ms:.4f}" for k, ms, _ in kernels))
         if _is_wide(d, dv):
             lo, lden = lln_causal_plain(qs, ks, vk, r=r, blk=BLK,
                                         return_res=True, return_state=False)
@@ -4699,6 +4710,8 @@ def phase_timings_families_train(errs, launches):
                                              blk=BLK),
                 lc["lln_causal_bwd"], lc["lln_causal_bwd (CUDA cores)"],
                 shape=shape)
+            _log_split("lln_causal_bwd", d, dv, lambda: lln_causal_bwd(
+                qs, ks, vk, cot, lo, lden, r=r, blk=BLK))
             del lo, lden
         del qs, ks, qk, kk, vk, cot, o, den
 

@@ -20,7 +20,7 @@
 // Two paths, chosen by the caller (kernels/lln_backward.py, by
 // lln_attention._tc_path) by type and width, each with its own entry point:
 //
-// bf16 with D, Dv <= 128 (every model path on the card):
+// bf16 with D, Dv <= 256 (every model path on the card):
 // lln_causal_bwd_tc_launch, on the tensor cores, chunk-parallel over blocks
 // of blk rows (lln_attention.TC_BLOCK = 64, the kernels' own choice; any
 // N, a short last block masked).  lln_diag_fused_bwd.cu's design without
@@ -51,8 +51,18 @@
 //   count.  What holds it back: the reverse state walk (128 CTAs, r x N
 //   rows each, in order) and the fragment reloads of the dq and dk/dv
 //   kernels.
+//   Widths: dq_tc_kernel<DP, OC> and dkv_tc_kernel<DP, OC> take the padded
+//   width DP of D and Dv (64, 128, 192, 256) and OC, the output columns of
+//   one CTA (DP up to 128, else 128), as lln_diag_fused_bwd.cu's pair does:
+//   above 128 a dq CTA writes a 128-column chunk of dqs and each dk/dv
+//   role a chunk of its output, each recomputing its tile's scores (g v^T,
+//   Phi(k) Phi(q)^T over all of Dv or D in 16-deep steps); the dq stage
+//   keeps the Phi(k) planes at the chunk's columns only.  Shared memory at
+//   DP = 256: dq 84 KB, dk/dv 169 KB (one CTA per SM); at 192: 65 KB and
+//   128 KB.  At paligemma (B 2, G 1, N 512, r 8) the dk/dv grid is 2 x 8
+//   blocks x 2 roles x 2 chunks = 64 CTAs, each walking the r heads.
 //
-// fp32, or a width above 128: lln_causal_bwd_launch, the CUDA-core kernels
+// fp32, or a width above 256: lln_causal_bwd_launch, the CUDA-core kernels
 // below, IEEE fp32.  dq: the products u S^T and (u.v - w) contract over
 // Dv, so a column split of S (as in lln_causal.cu) would not serve; one
 // CTA per (query head, ROWS rows of D) keeps those rows of S and z and
@@ -359,9 +369,16 @@ constexpr int NP = 3;
 template <int DP>
 __host__ __device__ constexpr int step_rows() { return DP > 64 ? 16 : 32; }
 
-template <int DP>
+// The dq kernel: the g tile, then two stages of v (at DP) and the Phi(k)
+// planes (at the CTA's OC output columns), which also take the NP x 32 rows
+// of S_c that state_t_all stages.
+template <int DP, int OC>
 constexpr size_t dq_smem_bytes() {
-  return (TC_ROWS + 2 * (1 + NP) * step_rows<DP>()) * (DP + 8) *
+  constexpr size_t keys =
+      2 * step_rows<DP>() * ((DP + 8) + NP * static_cast<size_t>(OC + 8));
+  constexpr size_t state = NP * 32 * static_cast<size_t>(DP + 8);
+  return (TC_ROWS * static_cast<size_t>(DP + 8) +
+          (keys > state ? keys : state)) *
          sizeof(__nv_bfloat16);
 }
 
@@ -378,8 +395,11 @@ constexpr size_t dkv_smem_bytes() {
 // planes (cp.async, double-buffered), dqs += gmat Phi(k); then u S_c^T,
 // - w z_c, and dqs = Phi(q) (...) with the exact Phi(q) = exp(qs).  phk
 // (NP,BG,N,D): Phi(k) planes kcount apart; sst (NP,BG,nb,D,Dv) and zst
-// (BG,nb,D): the forward's exclusive block states.
-template <int DP>
+// (BG,nb,D): the forward's exclusive block states.  DP: the padded width
+// of D and Dv; OC: the columns of dqs one CTA writes (all of D when D <=
+// OC, else chunks of OC, blockIdx.z = tile * chunks + chunk; chunk 0
+// writes w).
+template <int DP, int OC>
 __global__ void __launch_bounds__(128, 2)
 dq_tc_kernel(const float* __restrict__ qs,
              const __nv_bfloat16* __restrict__ v,
@@ -393,11 +413,13 @@ dq_tc_kernel(const float* __restrict__ qs,
              size_t kcount, size_t scount, int vec) {
   extern __shared__ float smem[];
   constexpr int LD = DP + 8;
+  constexpr int LF = OC + 8;           // the Phi(k) planes' row
   constexpr int KT = step_rows<DP>();
   constexpr int NS = KT / 8;
-  constexpr int NO = DP / 8;
+  constexpr int NO = OC / 8;
   constexpr int KS = KT * LD;
-  constexpr int SS = (1 + NP) * KS;    // one stage: v, Phi(k) planes
+  constexpr int KF = KT * LF;
+  constexpr int SS = KS + NP * KF;     // one stage: v, Phi(k) planes
   __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* stg = sg + TC_ROWS * LD;   // 2 stages
 
@@ -407,7 +429,13 @@ dq_tc_kernel(const float* __restrict__ qs,
   const int nb = gridDim.y;
   const int b0 = c * blk;
   const int bend = min(b0 + blk, n);
-  const int r0 = b0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int nch = (d + OC - 1) / OC;   // column chunks of dqs
+  const int ch = static_cast<int>(blockIdx.z) % nch;
+  const int c0 = ch * OC;
+  const int cw = min(OC, d - c0);
+  const int nt = static_cast<int>(gridDim.z) / nch;
+  const int r0 =
+      b0 + (nt - 1 - static_cast<int>(blockIdx.z) / nch) * TC_ROWS;
   if (r0 >= bend) return;
   const int rows = min(TC_ROWS, bend - r0);
   const int nk = r0 + rows - b0;
@@ -415,8 +443,8 @@ dq_tc_kernel(const float* __restrict__ qs,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t4 = lane & 3;
-  const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
-  const int nod = min(NO, ks * 2);
+  const int kvs = (dv + 15) / 16;
+  const int nod = min(NO, ((cw + 15) / 16) * 2);
   const bool vz = vec != 0;
   const size_t hq = static_cast<size_t>(h) * n;
   const size_t hk = static_cast<size_t>(kvh) * n + b0;
@@ -430,8 +458,8 @@ dq_tc_kernel(const float* __restrict__ qs,
     stage_tile<DP>(s, LD, vh + static_cast<size_t>(k0) * dv, dv, kr, KT, vz);
 #pragma unroll
     for (int p = 0; p < NP; ++p)
-      stage_tile<DP>(s + (1 + p) * KS, LD, fkh + p * kcount + off, d, kr, KT,
-                     vz);
+      stage_rows<OC>(s + KS + p * KF, LF, fkh + p * kcount + off + c0, d, cw,
+                     kr, KT, vz);
   };
   stage_tile<DP>(sg, LD, g + (hq + r0) * dv, dv, rows, TC_ROWS, vz);
   stage_keys(0, 0);
@@ -460,7 +488,7 @@ dq_tc_kernel(const float* __restrict__ qs,
     const float dn = a < rows ? den_in[hq + r0 + a] : 1.f;
     hd[hh] = a < rows ? 1.f / dn : 0.f;
     w[hh] = a < rows ? go[hh] / dn : 0.f;
-    if (a < rows && t4 == 0) w_out[hq + r0 + a] = w[hh];
+    if (ch == 0 && a < rows && t4 == 0) w_out[hq + r0 + a] = w[hh];
   }
 
   float as[NO][4];                   // gmat Phi(k), then + u S_c^T
@@ -494,14 +522,15 @@ dq_tc_kernel(const float* __restrict__ qs,
                                                 : dp[j][e] * hd[hh] - w[hh];
       }
     }
-    mma_pb_p<NO, NS / 2, NP, NP>(as, dp, s_v + KS, KS, LD, nod,
+    mma_pb_p<NO, NS / 2, NP, NP>(as, dp, s_v + KS, KF, LF, nod,
                                  lane);                    // gmat Phi(k)
     __syncthreads();                 // this stage is free for the prefetch
   }
   cp_async_wait<0>();
 
   // u S_c^T = (g S_c^T) / den: the accumulator is scaled by den, g S_c^T
-  // added 32 rows of S at a time, and scaled back.
+  // added 32 rows of S (this CTA's columns of dqs) at a time, and scaled
+  // back.
   const float* zc = zst + (static_cast<size_t>(kvh) * nb + c) * d;
   if (c > 0) {
 #pragma unroll
@@ -512,7 +541,7 @@ dq_tc_kernel(const float* __restrict__ qs,
     }
     state_t_all<DP, NP>(as, wg, stg,
                         sst + (static_cast<size_t>(kvh) * nb + c) * d * dv,
-                        scount, d, dv, kvs, vz, lane);
+                        scount, d, dv, kvs, vz, lane, c0);
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
 #pragma unroll
@@ -527,7 +556,7 @@ dq_tc_kernel(const float* __restrict__ qs,
     const size_t at = (hq + r0 + a) * d;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
-      const int cc = j * 8 + 2 * t4;
+      const int cc = c0 + j * 8 + 2 * t4;
       if (cc >= d) break;
       float s0 = as[j][2 * hh], s1 = as[j][2 * hh + 1];
       if (c > 0) {
@@ -554,8 +583,10 @@ dq_tc_kernel(const float* __restrict__ qs,
 // accumulator that is then added to the total in fp32 (the tensor cores'
 // own accumulation does not round to nearest).  phq (NP,BH,N,D), phk
 // (NP,BG,N,D); w (BH,N) from dq_tc_kernel; dsst (NP,BG,nb,D,Dv) and dzst
-// (BG,nb,D): the reverse exclusive block states.
-template <int DP>
+// (BG,nb,D): the reverse exclusive block states.  Each CTA writes OC
+// columns of its output (all of them when its width is at most OC; z / 2
+// = tile * chunks + chunk), and recomputes its query tiles' scores.
+template <int DP, int OC>
 __global__ void __launch_bounds__(128, 2)
 dkv_tc_kernel(const float* __restrict__ ks_in,
               const __nv_bfloat16* __restrict__ v,
@@ -572,7 +603,7 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   constexpr int LD = DP + 8;
   constexpr int QT = step_rows<DP>();
   constexpr int NQ = QT / 8;           // score tiles of 8 queries per warp
-  constexpr int NO = DP / 8;
+  constexpr int NO = OC / 8;
   constexpr int TS = TC_ROWS * LD;
   constexpr int QS = QT * LD;
   constexpr int SS = (1 + NP) * QS;    // one stage: Phi(q) planes, g
@@ -584,16 +615,20 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   const int c = blockIdx.y;
   const int nb = gridDim.y;
   const int role = blockIdx.z & 1;     // 0 dks, 1 dv
+  const int nch = ((d > dv ? d : dv) + OC - 1) / OC;
+  const int zc = static_cast<int>(blockIdx.z >> 1);
+  const int c0 = zc % nch * OC;        // this CTA's first output column
+  const int w = role == 1 ? dv : d;    // its output's width
   const int b0 = c * blk;
   const int bend = min(b0 + blk, n);
-  const int kb0 = b0 + static_cast<int>(blockIdx.z >> 1) * TC_ROWS;
-  if (kb0 >= bend) return;
+  const int kb0 = b0 + zc / nch * TC_ROWS;
+  if (kb0 >= bend || c0 >= w) return;
   const int kr = min(TC_ROWS, bend - kb0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t4 = lane & 3;
   const int ks = (d + 15) / 16, kvs = (dv + 15) / 16;
-  const int nout = role == 1 ? min(NO, kvs * 2) : min(NO, ks * 2);
+  const int nout = min(NO, ((min(OC, w - c0) + 15) / 16) * 2);
   const bool vz = vec != 0;
   const size_t hk = static_cast<size_t>(kv) * n;
   const int nqt = (bend - kb0 + QT - 1) / QT;
@@ -670,9 +705,11 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
     }
     zero_acc(part);
     if (role == 0)
-      mma_pb_p<NO, NQ / 2, NP, NP>(part, xt, tf, QS, LD, nout, lane); // Phi(q)
+      mma_pb_p<NO, NQ / 2, NP, NP>(part, xt, tf + c0, QS, LD, nout,
+                                   lane);                        // Phi(q)
     else
-      mma_pb_p<NO, NQ / 2, NP, 1>(part, xt, tg, 0, LD, nout, lane);   // g
+      mma_pb_p<NO, NQ / 2, NP, 1>(part, xt, tg + c0, 0, LD, nout,
+                                  lane);                              // g
 #pragma unroll
     for (int j = 0; j < NO; ++j)
 #pragma unroll
@@ -687,13 +724,14 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
         dsst + (static_cast<size_t>(kv) * nb + c) * d * dv;
     zero_acc(part);
     if (role == 0) {
-      state_t_all<DP, NP>(part, wx, stg, sp, scount, d, dv, kvs, vz, lane);
+      state_t_all<DP, NP>(part, wx, stg, sp, scount, d, dv, kvs, vz, lane,
+                          c0);
     } else {
       for (int d0 = 0; d0 < d; d0 += 32) {
         __syncthreads();
         stage_state<DP, NP>(stg, sp, scount, d0, d, dv, vz);
-        mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg, 32 * LD, LD,
-                                (min(32, d - d0) + 15) / 16, nout, lane);
+        mma_ab_p<NO, 2, NP, NP>(part, wx + d0, TS, LD, stg + c0, 32 * LD,
+                                LD, (min(32, d - d0) + 15) / 16, nout, lane);
       }
     }
 #pragma unroll
@@ -703,7 +741,6 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   }
 
   const float* dzc = dzst + (static_cast<size_t>(kv) * nb + c) * d;
-  const int w = role == 1 ? dv : d;
   float* out = role == 0 ? dks : dvo;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -712,7 +749,7 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
     const size_t row = hk + kb0 + j0;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
-      const int cc = j * 8 + 2 * t4;
+      const int cc = c0 + j * 8 + 2 * t4;
       if (cc >= w) break;
       float x0 = acc[j][2 * hh], x1 = acc[j][2 * hh + 1];
       if (role == 0) {           // dks = Phi(k) (... - dz_c)
@@ -733,7 +770,7 @@ dkv_tc_kernel(const float* __restrict__ ks_in,
   }
 }
 
-template <int DP>
+template <int DP, int OC>
 int launch_tc(const float* qs, const float* ks, const void* v, const void* g,
               const void* o, const float* den, float* dqs, float* dks,
               float* dv_, float* w, void* phq, void* phk, void* sst,
@@ -764,14 +801,17 @@ int launch_tc(const float* qs, const float* ks, const void* v, const void* g,
                                   nullptr, nullptr, 0, bg, n, d, dv, 1, blk,
                                   stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t dq_bytes = dq_smem_bytes<DP>();
+  const size_t dq_bytes = dq_smem_bytes<DP, OC>();
   const size_t dkv_bytes = dkv_smem_bytes<DP>();
-  err = lln::allow_smem(dq_tc_kernel<DP>, dq_bytes);
+  err = lln::allow_smem(dq_tc_kernel<DP, OC>, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = lln::allow_smem(dkv_tc_kernel<DP>, dkv_bytes);
+  err = lln::allow_smem(dkv_tc_kernel<DP, OC>, dkv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nt = (blk + TC_ROWS - 1) / TC_ROWS;
-  dq_tc_kernel<DP><<<dim3(bh, nb, nt), 128, dq_bytes, stream>>>(
+  const int dq_chunks = (d + OC - 1) / OC;
+  const int dkv_chunks = ((d > dv ? d : dv) + OC - 1) / OC;
+  dq_tc_kernel<DP, OC><<<dim3(bh, nb, nt * dq_chunks), 128, dq_bytes,
+                         stream>>>(
       qs, vp, gp, static_cast<const bf*>(o), den, fk, sp, zst, dqs, w, n, d,
       dv, r, blk, kcount, scount, vec);
   err = cudaGetLastError();
@@ -779,10 +819,21 @@ int launch_tc(const float* qs, const float* ks, const void* v, const void* g,
     err = block_states<true, NP>(qs, gp, den, w, 1.f, dsp, dzst, nullptr,
                                  nullptr, 0, bg, n, d, dv, r, blk, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_tc_kernel<DP><<<dim3(bg, nb, 2 * nt), 128, dkv_bytes, stream>>>(
+  dkv_tc_kernel<DP, OC><<<dim3(bg, nb, 2 * nt * dkv_chunks), 128, dkv_bytes,
+                          stream>>>(
       ks, vp, gp, den, w, fq, fk, dsp, dzst, dks, dv_, n, d, dv, r, blk,
       qcount, kcount, scount, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP, int OC>
+int tc_attrs(int* out) {
+  cudaError_t err =
+      kernel_attrs(dq_tc_kernel<DP, OC>, 128, dq_smem_bytes<DP, OC>(), out);
+  if (err == cudaSuccess)
+    err = kernel_attrs(dkv_tc_kernel<DP, OC>, 128, dkv_smem_bytes<DP>(),
+                       out + 4);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -813,7 +864,7 @@ extern "C" int lln_causal_bwd_launch(const void* qs, const void* ks,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 tensor-core path (v, g, o bf16; D, Dv <= 128), blocks of blk
+// The bf16 tensor-core path (v, g, o bf16; D, Dv <= 256), blocks of blk
 // rows (any N).  phq (3,BH,N,D), phk (3,BG,N,D), sst and dsst
 // (3,BG,nb,D,Dv) are bf16 scratch (three planes each), zst and dzst
 // (BG,nb,D) and w (BH,N) fp32 scratch, nb = ceil(N / blk).  Returns
@@ -830,13 +881,26 @@ extern "C" int lln_causal_bwd_tc_launch(
   auto qsp = static_cast<const float*>(qs);
   auto ksp = static_cast<const float*>(ks);
   auto dnp = static_cast<const float*>(den);
-  if (d <= 64 && dvd <= 64)
-    return launch_tc<64>(qsp, ksp, v, g, o, dnp, f(dqs), f(dks), f(dv), f(w),
-                         phq, phk, sst, f(zst), dsst, f(dzst), bh, bg, n, d,
-                         dvd, blk, st);
-  if (d <= 128 && dvd <= 128)
-    return launch_tc<128>(qsp, ksp, v, g, o, dnp, f(dqs), f(dks), f(dv),
-                          f(w), phq, phk, sst, f(zst), dsst, f(dzst), bh, bg,
-                          n, d, dvd, blk, st);
+#define LLN_CAUSAL_BWD_TC(DP, OC)                                             \
+  return launch_tc<DP, OC>(qsp, ksp, v, g, o, dnp, f(dqs), f(dks), f(dv),     \
+                           f(w), phq, phk, sst, f(zst), dsst, f(dzst), bh,    \
+                           bg, n, d, dvd, blk, st)
+  if (d <= 64 && dvd <= 64) LLN_CAUSAL_BWD_TC(64, 64);
+  if (d <= 128 && dvd <= 128) LLN_CAUSAL_BWD_TC(128, 128);
+  if (d <= 192 && dvd <= 192) LLN_CAUSAL_BWD_TC(192, 128);
+  if (d <= 256 && dvd <= 256) LLN_CAUSAL_BWD_TC(256, 128);
+#undef LLN_CAUSAL_BWD_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The instantiation bf16 (d, dv) takes: out[0..3] for dq_tc_kernel and
+// out[4..7] for dkv_tc_kernel, each registers a thread, local (spill)
+// bytes a thread, CTAs per SM and dynamic shared bytes (lln::kernel_attrs).
+extern "C" int lln_causal_bwd_tc_attrs(int d, int dv, void* out) {
+  int* o = static_cast<int*>(out);
+  if (d <= 64 && dv <= 64) return tc_attrs<64, 64>(o);
+  if (d <= 128 && dv <= 128) return tc_attrs<128, 128>(o);
+  if (d <= 192 && dv <= 192) return tc_attrs<192, 128>(o);
+  if (d <= 256 && dv <= 256) return tc_attrs<256, 128>(o);
   return static_cast<int>(cudaErrorInvalidValue);
 }

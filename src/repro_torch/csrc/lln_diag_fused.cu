@@ -11,7 +11,7 @@
 // Two paths, chosen by the caller (kernels/lln_attention.py) by type and
 // width, each with its own entry point:
 //
-// bf16 with D, Dv <= 128 (every model path on the card):
+// bf16 with D, Dv <= 256 (every model path on the card):
 // lln_diag_fused_tc_launch, on the tensor cores, chunk-parallel over the
 // blk blocks, as the reference's s_acc / z_acc chunks.  Four launches:
 //   1. phi_split (csrc/fused_state.cuh), twice: Phi(q) and Phi(k) as two
@@ -34,8 +34,17 @@
 //   operand counted once per MMA it takes, with the softmax steps and the
 //   exps as fp32 work (chip_smoke.py:_fused_counts); at the training shape
 //   the operations and the bytes are about equal.
+//   Widths: fused_tc_kernel<DK, DV> takes the padded q/k width DK (64,
+//   128, 192, 256) apart from DV, the value columns of one CTA (DK up to
+//   128, else 128), so that the od / ol accumulators stay at 2 x DV / 8
+//   tiles a warp.  q k^T and Phi(q) Phi(k)^T run over all of D in 16-deep
+//   steps; above Dv = 128 (paligemma's D = Dv = 256) a CTA per 128-column
+//   chunk of Dv recomputes its tile's scores and reads its columns of v
+//   and S_c, and chunk 0 writes den.  MLA (D = 192, Dv = 128) takes one
+//   chunk.  Shared memory 87 KB at DK = 128 (two CTAs per SM), 124 KB at
+//   192 and 161 KB at 256 (one).
 //
-// fp32, or a width above 128: lln_diag_fused_launch, the CUDA-core kernel
+// fp32, or a width above 256: lln_diag_fused_launch, the CUDA-core kernel
 // below, IEEE fp32.  One CTA per (query head, COLS value columns) walks the
 // sequence in TILE-row tiles (TILE divides blk, so a tile never straddles
 // a diag block; at most 64 rows, fewer where the shared memory would pass
@@ -239,21 +248,35 @@ using namespace lln;
 
 constexpr int TC_ROWS = 64;   // query rows per CTA (4 warps x 16)
 
-// Key rows per staged tile: 16 at DP = 128 leaves room for two CTAs per SM.
-template <int DP>
-__host__ __device__ constexpr int key_tile() { return DP > 64 ? 16 : 32; }
+// Key rows per staged tile: 16 at DK = 128 leaves room for two CTAs per SM.
+template <int DK>
+__host__ __device__ constexpr int key_tile() { return DK > 64 ? 16 : 32; }
 
-template <int DP>
+// The stages: two of k and the Phi(k) planes (at DK) and v (at DV), which
+// also take the 2 x 64 rows of S_c (hi, lo; at DV) for Phi(q) S_c.
+template <int DK, int DV>
+__host__ __device__ constexpr size_t stage_elems() {
+  constexpr size_t keys =
+      2 * key_tile<DK>() * (3 * (DK + 8) + static_cast<size_t>(DV + 8));
+  constexpr size_t state = 2 * 64 * static_cast<size_t>(DV + 8);
+  return keys > state ? keys : state;
+}
+
+// q and the Phi(q) planes (64 rows at DK), the stages, Phi(q) . z_c.
+template <int DK, int DV>
 constexpr size_t tc_smem_bytes() {
-  return (3 * TC_ROWS + 8 * key_tile<DP>()) * (DP + 8) *
+  return (3 * TC_ROWS * static_cast<size_t>(DK + 8) + stage_elems<DK, DV>()) *
              sizeof(__nv_bfloat16) +
          TC_ROWS * sizeof(float);
 }
 
 // phq (2,BH,N,D) and phk (2,BG,N,D): Phi(q) and Phi(k) hi, then lo at
 // + qcount / + kcount; sst (2,BG,nb,D,Dv) and zst (BG,nb,D): the
-// exclusive block states, lo at + scount.
-template <int DP>
+// exclusive block states, lo at + scount.  DK: the padded q/k width, a
+// multiple of 16 >= d; DV: the value columns of one CTA (all of dv when dv
+// <= DV, else chunks of DV, blockIdx.z = tile * chunks + chunk; each
+// chunk recomputes the tile's scores, and chunk 0 writes den).
+template <int DK, int DV>
 __global__ void __launch_bounds__(128, 2)
 fused_tc_kernel(const float* __restrict__ qs,
                 const __nv_bfloat16* __restrict__ q,
@@ -267,17 +290,19 @@ fused_tc_kernel(const float* __restrict__ qs,
                 int blk, size_t qcount, size_t kcount, size_t scount,
                 float scale, int vec) {
   extern __shared__ float smem[];
-  constexpr int LD = DP + 8;
-  constexpr int KT = key_tile<DP>();
+  constexpr int LD = DK + 8;
+  constexpr int LV = DV + 8;
+  constexpr int KT = key_tile<DK>();
   constexpr int NS = KT / 8;           // score tiles of 8 keys per warp
-  constexpr int NO = DP / 8;           // output tiles of 8 columns per warp
+  constexpr int NO = DV / 8;           // output tiles of 8 columns per warp
   constexpr int TS = TC_ROWS * LD;
   constexpr int KS = KT * LD;
+  constexpr int SS = 3 * KS + KT * LV;   // one stage: k, Phi(k) hi, lo, v
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sfh = sq + TS;        // Phi(q) hi
   __nv_bfloat16* sfl = sfh + TS;       // Phi(q) lo (planes TS apart)
-  __nv_bfloat16* stg = sfl + TS;       // 2 stages of k, v, Phi(k) hi, lo
-  float* pz = reinterpret_cast<float*>(stg + 8 * KS);   // Phi(q) . z_c
+  __nv_bfloat16* stg = sfl + TS;       // 2 stages, then S_c
+  float* pz = reinterpret_cast<float*>(stg + stage_elems<DK, DV>());
 
   const int h = blockIdx.x;
   const int kvh = h / r;
@@ -285,7 +310,10 @@ fused_tc_kernel(const float* __restrict__ qs,
   const int nb = gridDim.y;
   const int b0 = c * blk;
   const int bend = b0 + blk;
-  const int r0 = b0 + (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int nch = (dv + DV - 1) / DV;  // value chunks
+  const int c0 = static_cast<int>(blockIdx.z) % nch * DV;
+  const int nt = static_cast<int>(gridDim.z) / nch;
+  const int r0 = b0 + (nt - 1 - static_cast<int>(blockIdx.z) / nch) * TC_ROWS;
   if (r0 >= bend) return;              // blk < 64: no rows here
   const int rows = min(TC_ROWS, bend - r0);
   const int nk = r0 + rows - b0;       // the block's keys up to the last row
@@ -294,27 +322,28 @@ fused_tc_kernel(const float* __restrict__ qs,
   const int warp = threadIdx.x >> 5;
   const int gq = lane >> 2, t4 = lane & 3;
   const int ks = (d + 15) / 16;
-  const int no = min(NO, ((dv + 15) / 16) * 2);
+  const int vw = min(DV, dv - c0);     // this chunk's columns
+  const int no = min(NO, ((vw + 15) / 16) * 2);
   const bool vz = vec != 0;
   const size_t hq = static_cast<size_t>(h) * n;
   const size_t hk = static_cast<size_t>(kvh) * n + b0;
   const __nv_bfloat16* kh = k + hk * d;
-  const __nv_bfloat16* vh = v + hk * dv;
+  const __nv_bfloat16* vh = v + hk * dv + c0;
   const __nv_bfloat16* fkh = phk + hk * d;
 
   const auto stage_keys = [&](int t, int sb) {
     const int k0 = t * KT, kr = min(KT, nk - k0);
-    __nv_bfloat16* s = stg + sb * 4 * KS;
+    __nv_bfloat16* s = stg + sb * SS;
     const size_t o = static_cast<size_t>(k0) * d;
-    stage_tile<DP>(s, LD, kh + o, d, kr, KT, vz);
-    stage_tile<DP>(s + KS, LD, vh + static_cast<size_t>(k0) * dv, dv, kr, KT,
-                   vz);
-    stage_tile<DP>(s + 2 * KS, LD, fkh + o, d, kr, KT, vz);
-    stage_tile<DP>(s + 3 * KS, LD, fkh + kcount + o, d, kr, KT, vz);
+    stage_tile<DK>(s, LD, kh + o, d, kr, KT, vz);
+    stage_tile<DK>(s + KS, LD, fkh + o, d, kr, KT, vz);
+    stage_tile<DK>(s + 2 * KS, LD, fkh + kcount + o, d, kr, KT, vz);
+    stage_rows<DV>(s + 3 * KS, LV, vh + static_cast<size_t>(k0) * dv, dv,
+                   vw, kr, KT, vz);
   };
-  stage_tile<DP>(sq, LD, q + (hq + r0) * d, d, rows, TC_ROWS, vz);
-  stage_tile<DP>(sfh, LD, phq + (hq + r0) * d, d, rows, TC_ROWS, vz);
-  stage_tile<DP>(sfl, LD, phq + qcount + (hq + r0) * d, d, rows, TC_ROWS, vz);
+  stage_tile<DK>(sq, LD, q + (hq + r0) * d, d, rows, TC_ROWS, vz);
+  stage_tile<DK>(sfh, LD, phq + (hq + r0) * d, d, rows, TC_ROWS, vz);
+  stage_tile<DK>(sfl, LD, phq + qcount + (hq + r0) * d, d, rows, TC_ROWS, vz);
   stage_keys(0, 0);
   cp_async_commit();
 
@@ -350,14 +379,14 @@ fused_tc_kernel(const float* __restrict__ qs,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const __nv_bfloat16* s_k = stg + sb * 4 * KS;
-    const __nv_bfloat16* s_v = s_k + KS;
+    const __nv_bfloat16* s_k = stg + sb * SS;
+    const __nv_bfloat16* s_v = s_k + 3 * KS;
 
     float s[NS][4], a[NS][4];
     zero_acc(s);
     zero_acc(a);
-    mma_abt_p<NS, DP / 16, 1, 1>(s, aq, 0, LD, s_k, 0, LD, ks, lane);
-    mma_abt_p<NS, DP / 16, 2, 2>(a, afh, TS, LD, s_k + 2 * KS, KS, LD, ks,
+    mma_abt_p<NS, DK / 16, 1, 1>(s, aq, 0, LD, s_k, 0, LD, ks, lane);
+    mma_abt_p<NS, DK / 16, 2, 2>(a, afh, TS, LD, s_k + KS, KS, LD, ks,
                                  lane);
     // Mask above the diagonal (only tiles reaching past the warp's first
     // query need it; keys past the last row lie above every row's).
@@ -404,28 +433,29 @@ fused_tc_kernel(const float* __restrict__ qs,
         l[e >> 1] += p;
       }
     }
-    mma_pb_p<NO, NS / 2, 2, 1>(od, s, s_v, 0, LD, no, lane);
-    mma_pb_p<NO, NS / 2, 2, 1>(ol, a, s_v, 0, LD, no, lane);
+    mma_pb_p<NO, NS / 2, 2, 1>(od, s, s_v, 0, LV, no, lane);
+    mma_pb_p<NO, NS / 2, 2, 1>(ol, a, s_v, 0, LV, no, lane);
     __syncthreads();                 // this stage is free for the prefetch
   }
   cp_async_wait<0>();
 
-  // Phi(q) S_c, 64 rows of S (hi, then lo) at a time through the stages.
+  // Phi(q) S_c, 64 rows of S (hi, then lo; this chunk's columns) at a time
+  // through the stages.
   if (c > 0) {
     const __nv_bfloat16* sh =
-        sst + (static_cast<size_t>(kvh) * nb + c) * d * dv;
+        sst + (static_cast<size_t>(kvh) * nb + c) * d * dv + c0;
     for (int d0 = 0; d0 < d; d0 += 64) {
       const int dr = min(64, d - d0);
       __syncthreads();
-      stage_tile<DP>(stg, LD, sh + static_cast<size_t>(d0) * dv, dv, dr, 64,
-                     vz);
-      stage_tile<DP>(stg + 64 * LD, LD,
-                     sh + scount + static_cast<size_t>(d0) * dv, dv, dr, 64,
-                     vz);
+      stage_rows<DV>(stg, LV, sh + static_cast<size_t>(d0) * dv, dv, vw, dr,
+                     64, vz);
+      stage_rows<DV>(stg + 64 * LV, LV,
+                     sh + scount + static_cast<size_t>(d0) * dv, dv, vw, dr,
+                     64, vz);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      mma_ab_p<NO, 4, 2, 2>(ol, afh + d0, TS, LD, stg, 64 * LD, LD,
+      mma_ab_p<NO, 4, 2, 2>(ol, afh + d0, TS, LD, stg, 64 * LV, LV,
                             (dr + 15) / 16, no, lane);
     }
   }
@@ -443,9 +473,9 @@ fused_tc_kernel(const float* __restrict__ qs,
     const int a = warp * 16 + gq + hh * 8;
     if (a >= rows) continue;
     const float dn = rs[hh] + pz[a] + kEps;
-    if (den_out != nullptr && t4 == 0) den_out[hq + r0 + a] = dn;
+    if (den_out != nullptr && c0 == 0 && t4 == 0) den_out[hq + r0 + a] = dn;
     const float il = 1.f / l[hh];
-    __nv_bfloat16* orow = out + (hq + r0 + a) * dv;
+    __nv_bfloat16* orow = out + (hq + r0 + a) * dv + c0;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int cc = j * 8 + 2 * t4;
@@ -453,17 +483,17 @@ fused_tc_kernel(const float* __restrict__ qs,
       const float x1 =
           0.5f * (ol[j][2 * hh + 1] / dn + od[j][2 * hh + 1] * il);
       const uint32_t x = pack_bf16(x0, x1);
-      if (vz && cc + 1 < dv) {
+      if (vz && cc + 1 < vw) {
         *reinterpret_cast<uint32_t*>(orow + cc) = x;
       } else {
-        if (cc < dv) orow[cc] = __ushort_as_bfloat16(x & 0xffffu);
-        if (cc + 1 < dv) orow[cc + 1] = __ushort_as_bfloat16(x >> 16);
+        if (cc < vw) orow[cc] = __ushort_as_bfloat16(x & 0xffffu);
+        if (cc + 1 < vw) orow[cc + 1] = __ushort_as_bfloat16(x >> 16);
       }
     }
   }
 }
 
-template <int DP>
+template <int DK, int DV>
 int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
               const void* v, void* out, float* den, void* phq, void* phk,
               void* sst, float* zst, int bh, int bg, int n, int d, int dv,
@@ -483,20 +513,27 @@ int launch_tc(const float* qs, const float* ks, const void* q, const void* k,
                                  nullptr, 1.f, sp, zst, nullptr, nullptr, 0,
                                  bg, n, d, dv, 1, blk, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = tc_smem_bytes<DP>();
-  err = lln::allow_smem(fused_tc_kernel<DP>, bytes);
+  const size_t bytes = tc_smem_bytes<DK, DV>();
+  err = lln::allow_smem(fused_tc_kernel<DK, DV>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto al = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
   const int vec = d % 8 == 0 && dv % 8 == 0 && al(q) && al(k) && al(v) &&
                   al(out) && al(phq) && al(phk) && al(sst);
-  const dim3 grid(bh, nb, (blk + TC_ROWS - 1) / TC_ROWS);
-  fused_tc_kernel<DP><<<grid, 128, bytes, stream>>>(
+  const int nch = (dv + DV - 1) / DV;
+  const dim3 grid(bh, nb, (blk + TC_ROWS - 1) / TC_ROWS * nch);
+  fused_tc_kernel<DK, DV><<<grid, 128, bytes, stream>>>(
       qs, static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), fq, fk, sp, zst, static_cast<bf*>(out), den,
       n, d, dv, bh / bg, blk, qcount, kcount, scount, scale, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DK, int DV>
+int tc_attrs(int* out) {
+  return static_cast<int>(kernel_attrs(fused_tc_kernel<DK, DV>, 128,
+                                       tc_smem_bytes<DK, DV>(), out));
 }
 
 }  // namespace
@@ -522,7 +559,7 @@ extern "C" int lln_diag_fused_launch(const void* qs, const void* ks,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 tensor-core path (q, k, v, out bf16; D, Dv <= 128).  phq
+// The bf16 tensor-core path (q, k, v, out bf16; D, Dv <= 256).  phq
 // (2,BH,N,D), phk (2,BG,N,D) and sst (2,BG,N/blk,D,Dv) are bf16 scratch,
 // zst (BG,N/blk,D) fp32 scratch; den may be null.  Returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
@@ -538,11 +575,25 @@ extern "C" int lln_diag_fused_tc_launch(
   auto zp = static_cast<float*>(zst);
   if (blk < 1 || n % blk != 0 || bh % bg != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d <= 64 && dv <= 64)
-    return launch_tc<64>(qsp, ksp, q, k, v, out, dp, phq, phk, sst, zp, bh,
-                         bg, n, d, dv, blk, scale, st);
-  if (d <= 128 && dv <= 128)
-    return launch_tc<128>(qsp, ksp, q, k, v, out, dp, phq, phk, sst, zp, bh,
-                          bg, n, d, dv, blk, scale, st);
+#define LLN_FUSED_TC(DK, DV)                                                  \
+  return launch_tc<DK, DV>(qsp, ksp, q, k, v, out, dp, phq, phk, sst, zp, bh, \
+                           bg, n, d, dv, blk, scale, st)
+  if (d <= 64 && dv <= 64) LLN_FUSED_TC(64, 64);
+  if (d <= 128 && dv <= 128) LLN_FUSED_TC(128, 128);
+  if (d <= 192 && dv <= 256) LLN_FUSED_TC(192, 128);
+  if (d <= 256 && dv <= 256) LLN_FUSED_TC(256, 128);
+#undef LLN_FUSED_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core kernel bf16 (d, dv) takes: out[0..3] = registers a
+// thread, local (spill) bytes a thread, CTAs per SM, dynamic shared bytes
+// (lln::kernel_attrs).
+extern "C" int lln_diag_fused_tc_attrs(int d, int dv, void* out) {
+  int* o = static_cast<int*>(out);
+  if (d <= 64 && dv <= 64) return tc_attrs<64, 64>(o);
+  if (d <= 128 && dv <= 128) return tc_attrs<128, 128>(o);
+  if (d <= 192 && dv <= 256) return tc_attrs<192, 128>(o);
+  if (d <= 256 && dv <= 256) return tc_attrs<256, 128>(o);
   return static_cast<int>(cudaErrorInvalidValue);
 }

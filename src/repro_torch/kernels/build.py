@@ -39,9 +39,11 @@ SIGNATURES = {
     "lln_diag_fused": {"lln_diag_fused_launch":
                        "ppppppp" + "iiiiiiii" + "f" + "p",
                        "lln_diag_fused_tc_launch":
-                       "p" * 11 + "i" * 6 + "f" + "p"},
+                       "p" * 11 + "i" * 6 + "f" + "p",
+                       "lln_diag_fused_tc_attrs": "iip"},
     "lln_causal_bwd": {"lln_causal_bwd_launch": "p" * 10 + "i" * 9 + "p",
-                       "lln_causal_bwd_tc_launch": "p" * 16 + "i" * 6 + "p"},
+                       "lln_causal_bwd_tc_launch": "p" * 16 + "i" * 6 + "p",
+                       "lln_causal_bwd_tc_attrs": "iip"},
     "lln_diag_fused_bwd": {"lln_diag_fused_bwd_launch":
                            "p" * 14 + "i" * 9 + "f" + "p",
                            "lln_diag_fused_bwd_tc_launch":
@@ -160,11 +162,14 @@ _CUDA_ERRORS = {
 
 def tc_attrs(name: str, d: int, dv: int) -> list[dict]:
     """The tensor-core kernels library ``name`` launches for bf16 inputs at
-    head widths ``(d, dv)`` (``block_diag``: one; ``lln_diag_fused_bwd``:
-    its dq and dk/dv kernels), each as registers and local (spill) bytes a
-    thread, CTAs per SM and dynamic shared bytes, from the CUDA runtime
+    head widths ``(d, dv)`` (``block_diag`` and ``lln_diag_fused``: one;
+    ``lln_causal_bwd`` and ``lln_diag_fused_bwd``: their dq and dk/dv
+    kernels), each as registers and local (spill) bytes a thread, CTAs per
+    SM and dynamic shared bytes, from the CUDA runtime
     (``cudaFuncGetAttributes`` and the occupancy calculator)."""
     kernels = {"block_diag": ("block_diag_tc_kernel",),
+               "lln_diag_fused": ("fused_tc_kernel",),
+               "lln_causal_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
                "lln_diag_fused_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}[name]
     out = (ctypes.c_int * (4 * len(kernels)))()
     check(getattr(library(name), f"{name}_tc_attrs")(d, dv,

@@ -52,7 +52,7 @@ in order and kept ``(S, z)`` in VMEM.  Two paths (:func:`_tc_path`):
 ``blk`` both the LLN chunk of the reference and the diag block, N % blk ==
 0.  Two paths, chosen here by type and width (:func:`_tc_path`):
 
-- bf16 with D and Dv at most 128 (every model path on the card): the
+- bf16 with D and Dv at most 256 (every model path on the card): the
   tensor-core path, chunk-parallel over the ``blk`` blocks.  Phi(q) and
   Phi(k) are split into bf16 hi + lo, a state kernel writes each kv
   group's exclusive block states ``(S_c, z_c)`` once per group in a fixed
@@ -64,10 +64,13 @@ in order and kept ``(S, z)`` in VMEM.  Two paths (:func:`_tc_path`):
   lo), two MMAs against bf16, three against another fp32 operand.  The
   wrapper allocates the scratch (:func:`_tc_scratch`): Phi(q), Phi(k)
   and the states, about the bytes of qs, ks and one fp32 state per block
-  and kv group.
-- fp32, or a wider head: the CUDA-core kernel, one CTA per (query head,
-  32 value columns) walking the sequence in 64-row tiles with the LLN
-  state in shared memory, IEEE fp32 throughout.
+  and kv group.  Above D or Dv = 128 (MLA's D = 192, paligemma's D = Dv
+  = 256) the q/k products run over all of D and each CTA writes 128
+  value columns, so a wider Dv gains a CTA per 128-column chunk, each
+  recomputing its tile's scores.
+- fp32, or a head wider than 256: the CUDA-core kernel, one CTA per
+  (query head, 32 value columns) walking the sequence in 64-row tiles
+  with the LLN state in shared memory, IEEE fp32 throughout.
 
 Bound on the H100 (``chip_smoke.py:_fused_counts``): the products at the
 bf16 tensor-core rate, an fp32 operand counted once per MMA it takes (2 D
@@ -132,8 +135,12 @@ PREFILL_TILE = 64
 COLS = 32
 MAX_DECODE_T = 64
 _VCODES = {torch.float32: 0, torch.bfloat16: 1}
-# The widest head the tensor-core paths take (D and Dv).
-TC_MAX_WIDTH = 128
+# The widest head (D and Dv) each wrapper's tensor-core path takes, in
+# bf16; fp32 inputs and wider heads take its CUDA-core kernels.  The
+# kernels pick their instantiation for the width in C.
+TC_WIDTH = {"lln_causal": 128, "lln_diag_fused": 256, "lln_bidir": 128,
+            "lln_causal_bwd": 256, "lln_diag_fused_bwd": 256,
+            "lln_bidir_bwd": 128, "loglin_causal": 128}
 # Rows per block of lln_causal's and lln_causal_bwd's tensor-core paths:
 # the kernels' own chunk, whatever the caller's ``blk`` (chip_smoke.py
 # times 128 and 256 beside it).
@@ -296,7 +303,7 @@ def _lln_causal_op(qs, ks, v, r, return_res, return_state):
             *(_ptr(t) for t in (den, s, z)))
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tc_path(v, d, dv):
+        if _tc_path(v, d, dv, "lln_causal"):
             _, *scratch = _tc_scratch(bh, bg, n, d, dv, TC_BLOCK, qs.device,
                                       phi_q=False)
             err = lib.lln_causal_tc_launch(
@@ -358,11 +365,10 @@ def lln_diag_fused_plain(qs, ks, q, k, v, *, r: int = 1, blk: int = 256,
     return (out, den) if return_res else out
 
 
-def _tc_path(v, d: int, dv: int) -> bool:
-    """Whether ``lln_causal``, the fused pair, ``lln_bidir`` and their
-    backwards run their tensor-core paths: bf16 inputs and D, Dv <=
-    :data:`TC_MAX_WIDTH`; otherwise their CUDA-core kernels."""
-    return v.dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_WIDTH
+def _tc_path(v, d: int, dv: int, kernel: str) -> bool:
+    """Whether wrapper ``kernel`` runs its tensor-core path: bf16 inputs
+    and D, Dv <= its :data:`TC_WIDTH`; otherwise its CUDA-core kernels."""
+    return v.dtype == torch.bfloat16 and max(d, dv) <= TC_WIDTH[kernel]
 
 
 def _tc_scratch(bh, bg, n, d, dv, blk, device, planes: int = 2,
@@ -416,7 +422,7 @@ def _lln_diag_fused_op(qs, ks, q, k, v, r, blk, scale, return_res):
             v.data_ptr(), out.data_ptr(), _ptr(den))
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tc_path(v, d, dv):
+        if _tc_path(v, d, dv, "lln_diag_fused"):
             scratch = _tc_scratch(bh, bg, n, d, dv, blk, qs.device)
             err = lib.lln_diag_fused_tc_launch(
                 *ptrs, *(t.data_ptr() for t in scratch), bh, bg, n, d, dv,
@@ -591,7 +597,7 @@ def _lln_bidir_op(qs, ks, v, r, return_res):
             _ptr(den), s.data_ptr(), z.data_ptr())
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tc_path(v, d, dv):
+        if _tc_path(v, d, dv, "lln_bidir"):
             err = lib.lln_bidir_tc_launch(*ptrs, bh, bg, n, d, dv, stream)
         else:
             err = lib.lln_bidir_launch(*ptrs, bh, bg, n, d, dv,

@@ -19,9 +19,10 @@ implementation gives the outputs' shapes and dtypes to ``FakeTensorMode``
 
 ``lln_causal_bwd`` (``csrc/lln_causal_bwd.cu``) replaces
 ``src/repro/kernels/lln_backward.py:lln_causal_bwd_pallas``.  Two paths,
-chosen as the forward's (``lln_attention._tc_path``):
+chosen by ``lln_attention._tc_path`` (its width 256, wider than the
+forward's 128):
 
-- bf16 with D, Dv <= 128 (every model path on the card): the tensor-core
+- bf16 with D, Dv <= 256 (every model path on the card): the tensor-core
   path, ``lln_diag_fused_bwd``'s without the softmax, chunk-parallel over
   blocks of ``lln_attention.TC_BLOCK`` rows (the kernels' own block; any
   N).  The forward's block states recomputed once per kv group; a dq
@@ -34,12 +35,15 @@ chosen as the forward's (``lln_attention._tc_path``):
   bit for bit.  Every fp32 operand as three bf16 planes (the gradients are
   held to 1e-5), each query tile's products added to the totals in fp32.
   Scratch: :func:`lln_attention._tc_scratch` with three planes, twice the
-  states.  Bound (``chip_smoke.py:_lln_counts``): the bytes, a little
-  above the products at the bf16 rate with the three-plane count, at the
-  training shapes (B=4, H=32, G=4, N=1024, D=Dv=128).
-- fp32, or a wider head: the CUDA-core kernels.  A dq kernel rebuilds
-  ``(S, z)`` in forward order with one CTA per (query head, 32 rows of D)
-  -- its products contract over Dv, so the forward's column split does
+  states.  Above D or Dv = 128 (MLA's D = 192, paligemma's D = Dv = 256)
+  each CTA writes 128 columns of its output, so dq and both dk/dv roles
+  gain a CTA per 128-column chunk, each recomputing its tile's scores.
+  Bound (``chip_smoke.py:_lln_counts``): the bytes, a little above the
+  products at the bf16 rate with the three-plane count, at the training
+  shapes (B=4, H=32, G=4, N=1024, D=Dv=128).
+- fp32, or a head wider than 256: the CUDA-core kernels.  A dq kernel
+  rebuilds ``(S, z)`` in forward order with one CTA per (query head, 32 rows
+  of D) -- its products contract over Dv, so the forward's column split does
   not serve -- and a dk/dv kernel runs the reverse scan with dk CTAs over
   rows and dv CTAs over columns of ``dS``, each keeping the sum of ``(dS,
   dz)`` over the r heads and looping over the heads in order for the
@@ -52,9 +56,8 @@ gradient on ``g / 2`` with the LLN output rebuilt from the saved ``o`` as
 ``2 o - diag``, plus the block softmax gradient, recomputed in the kernels
 (the dq kernel saves each row's softmax max, sum and delta, and ``w``,
 for the dk/dv kernel instead of the probabilities).  Two paths, chosen by
-:func:`_fused_bwd_tc_path` (bf16 with D, Dv <= :data:`FUSED_TC_MAX_WIDTH`
-= 256 on the tensor cores, else the CUDA-core kernels; wider than the
-forward's 128).  The tensor-core path
+``lln_attention._tc_path`` (bf16 with D, Dv <= 256 on the tensor cores,
+else the CUDA-core kernels).  The tensor-core path
 is chunk-parallel over the ``blk`` blocks: the forward's block states
 recomputed once per kv group, a dq kernel per (query head, block, 64-row
 tile) with one online softmax pass and one gradient pass, the reverse
@@ -112,8 +115,6 @@ from .lln_attention import (NEG_INF, _VCODES, _check_blocks,  # noqa: F401
 # D rows of a dq/dk CTA, Dv columns of a dv CTA.
 ROWS = 32
 COLS = 32
-# The widest head (D and Dv) lln_diag_fused_bwd's tensor-core path takes.
-FUSED_TC_MAX_WIDTH = 256
 
 
 def _check_grad_inputs(qs, ks, v, g, o, den, r):
@@ -231,7 +232,7 @@ def _lln_causal_bwd_op(qs, ks, v, g, o, den, r, blk):
             dvo.data_ptr(), w.data_ptr())
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tc_path(v, d, dv):
+        if _tc_path(v, d, dv, "lln_causal_bwd"):
             tc_blk = lln_attention.TC_BLOCK
             phq, phk, sst, zst = _tc_scratch(bh, bg, n, d, dv, tc_blk,
                                              qs.device, planes=3)
@@ -289,13 +290,6 @@ def lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, o, den, *, r: int = 1,
     return dqs, dqd, dks, dkd, dv_lln + dv_diag
 
 
-def _fused_bwd_tc_path(v, d: int, dv: int) -> bool:
-    """Whether ``lln_diag_fused_bwd`` runs its tensor-core path: bf16
-    inputs and D, Dv <= :data:`FUSED_TC_MAX_WIDTH`; otherwise its CUDA-core
-    kernels."""
-    return v.dtype == torch.bfloat16 and max(d, dv) <= FUSED_TC_MAX_WIDTH
-
-
 def lln_diag_fused_bwd(qs, ks, q, k, v, g, o, den, *, r: int = 1,
                        blk: int = 256, scale: float | None = None):
     """Backward of the fused hybrid; see the module docstring.  q/k/v/g/o
@@ -327,7 +321,7 @@ def _lln_diag_fused_bwd_op(qs, ks, q, k, v, g, o, den, r, blk, scale):
             dvo.data_ptr(), stats.data_ptr())
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _fused_bwd_tc_path(v, d, dv):
+        if _tc_path(v, d, dv, "lln_diag_fused_bwd"):
             phq, phk, sst, zst = _tc_scratch(bh, bg, n, d, dv, blk,
                                              qs.device, planes=3)
             dsst, dzst = torch.empty_like(sst), torch.empty_like(zst)
@@ -424,7 +418,7 @@ def _lln_bidir_bwd_op(qs, ks, v, g, o, den, s, z, r):
             *(t.data_ptr() for t in scratch))
     with torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tc_path(v, d, dv):
+        if _tc_path(v, d, dv, "lln_bidir_bwd"):
             err = lib.lln_bidir_bwd_tc_launch(*ptrs, bh, bg, n, d, dv, stream)
         else:
             err = lib.lln_bidir_bwd_launch(*ptrs, bh, bg, n, d, dv,

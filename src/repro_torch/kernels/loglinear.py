@@ -54,8 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.loglinear import _cascade_same_ref
-from . import build
-from .lln_attention import (_VCODES, COLS, EPS, PREFILL_TILE, TC_MAX_WIDTH,
+from . import build, lln_attention
+from .lln_attention import (_VCODES, COLS, EPS, PREFILL_TILE,
                             _check_lln_inputs)
 
 # The deepest pyramid the tensor-core path takes (csrc kMaxLevels).
@@ -70,9 +70,9 @@ def _check_scales(blk: int, num_scales: int, scale_decay: float):
 
 def _tc_path(v, d: int, dv: int, num_scales: int) -> bool:
     """Whether ``loglin_causal`` runs its tensor-core path: bf16 ``v``, D
-    and Dv <= :data:`TC_MAX_WIDTH`, at most :data:`TC_MAX_LEVELS` levels;
-    otherwise its CUDA-core kernel."""
-    return (v.dtype == torch.bfloat16 and max(d, dv) <= TC_MAX_WIDTH
+    and Dv within its ``lln_attention.TC_WIDTH``, at most
+    :data:`TC_MAX_LEVELS` levels; otherwise its CUDA-core kernel."""
+    return (lln_attention._tc_path(v, d, dv, "loglin_causal")
             and num_scales <= TC_MAX_LEVELS)
 
 

@@ -328,8 +328,9 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_inputs(cuda):
 # assembled q/k (deepseek-v2: H = G, D = nope + rope = 192, Dv = 128),
 # paligemma's MQA (r = 8, D = Dv = 256), and widths that are no multiple of
 # the tensor-core routes' 64-column tiles (D = 160, Dv = 96), which those
-# routes pad with zeros.  block_diag (forward) and lln_diag_fused_bwd take
-# their tensor cores there in bf16; the others their CUDA cores.
+# routes pad with zeros.  block_diag (forward), lln_diag_fused,
+# lln_causal_bwd and lln_diag_fused_bwd take their tensor cores there in
+# bf16; lln_causal, lln_decode and block_diag_bwd their CUDA cores.
 WIDE_HEADS = [pytest.param(1, 192, 128, id="mla-r1-d192-dv128"),
               pytest.param(8, 256, 256, id="paligemma-r8-d256"),
               pytest.param(2, 160, 96, id="r2-d160-dv96")]
@@ -416,8 +417,9 @@ def test_cuda_block_diag_bwd_bf16_at_wide_heads(cuda, r, d, dv, n, causal):
 @pytest.mark.parametrize("n,blk", [(512, 256), (512, 64), (300, 60)])
 def test_cuda_training_kernels_at_wide_heads(cuda, r, d, dv, n, blk):
     """The training pairs on bf16 v at the families' wide heads:
-    lln_diag_fused and lln_diag_fused_bwd (rows 4 and 9; row 9 on its
-    tensor cores), lln_causal with den and lln_causal_bwd (rows 1 and 6).
+    lln_diag_fused and lln_diag_fused_bwd (rows 4 and 9, on their tensor
+    cores), lln_causal with den and lln_causal_bwd (rows 1 and 6; row 6 on
+    its tensor cores).
     out within one bf16 step; den and every fp32 gradient within 1e-5 of
     the largest plain entry; two runs of each bitwise equal."""
     rng = np.random.default_rng(1000 * r + n + d + dv)
@@ -456,44 +458,115 @@ def test_cuda_training_kernels_at_wide_heads(cuda, r, d, dv, n, blk):
             assert torch.equal(gt, ag)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
-def test_cuda_wide_heads_take_the_tensor_cores_in_bf16(cuda, r, d, dv):
-    """At the wide heads, bf16 block_diag runs block_diag_tc_kernel and
-    bf16 lln_diag_fused_bwd its dq_tc_kernel and dkv_tc_kernel, by the
-    profiler's kernel names; fp32 inputs run their CUDA-core kernels
-    (block_diag_kernel<float>, dq_kernel<float>, dkv_kernel<float>) and no
-    tensor-core one.  The CUDA runtime reports each tensor-core kernel's
-    registers, CTAs per SM and shared memory (build.tc_attrs) for the
-    widths."""
-    from repro_torch.kernels import build
-    n, blk = 128, 64
-    rng = np.random.default_rng(d + dv + r)
+def _wide_calls(cuda, r, d, dv, n, blk, dt, seed):
+    """{wrapper: call} for block_diag (causal), lln_diag_fused (with den),
+    lln_causal_bwd and lln_diag_fused_bwd on seeded inputs in ``dt``, the
+    backwards from their plain forwards' outputs."""
+    rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(  # noqa: E731
         rng.normal(size=s).astype(np.float32)).to(cuda)
     qs, ks = f(2 * r, n, d) - 0.5, f(2, n, d) - 0.5
-    q, k, v, g = f(2 * r, n, d), f(2, n, d), f(2, n, dv), f(2 * r, n, dv)
+    q, k, v, g = (t.to(dt) for t in (f(2 * r, n, d), f(2, n, d),
+                                     f(2, n, dv), f(2 * r, n, dv)))
+    o, den = lln_diag_fused_plain(qs, ks, q, k, v, r=r, blk=blk,
+                                  return_res=True)
+    lo, lden = lln_causal_plain(qs, ks, v, r=r, blk=blk, return_res=True,
+                                return_state=False)
+    return {
+        "block_diag": lambda: block_diag(q, k, v, r=r, blk=blk, causal=True),
+        "lln_diag_fused": lambda: lln_diag_fused(qs, ks, q, k, v, r=r,
+                                                 blk=blk, return_res=True),
+        "lln_causal_bwd": lambda: lln_causal_bwd(qs, ks, v, g, lo, lden,
+                                                 r=r, blk=blk),
+        "lln_diag_fused_bwd": lambda: lln_diag_fused_bwd(
+            qs, ks, q, k, v, g, o, den, r=r, blk=blk)}
+
+
+# Each wrapper's tensor-core kernels and its CUDA-core kernels (fp32), by
+# the profiler's names.  lln_causal_bwd and lln_diag_fused_bwd name theirs
+# alike, so each call is profiled on its own.
+WIDE_KERNELS = {
+    "block_diag": (("block_diag_tc_kernel",), ("block_diag_kernel<float>",)),
+    "lln_diag_fused": (("fused_tc_kernel",),
+                       ("lln_diag_fused_kernel<float>",)),
+    "lln_causal_bwd": (("dq_tc_kernel", "dkv_tc_kernel"),
+                       ("dq_kernel<float>", "dkv_kernel<float>")),
+    "lln_diag_fused_bwd": (("dq_tc_kernel", "dkv_tc_kernel"),
+                           ("dq_kernel<float>", "dkv_kernel<float>"))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,d,dv", WIDE_HEADS)
+def test_cuda_wide_heads_take_the_tensor_cores_in_bf16(cuda, r, d, dv):
+    """At the wide heads, bf16 block_diag runs block_diag_tc_kernel, bf16
+    lln_diag_fused its fused_tc_kernel, and bf16 lln_causal_bwd and
+    lln_diag_fused_bwd their dq_tc_kernel and dkv_tc_kernel, by the
+    profiler's kernel names (each call profiled on its own); fp32 inputs
+    run the CUDA-core kernels (block_diag_kernel<float>,
+    lln_diag_fused_kernel<float>, dq_kernel<float>, dkv_kernel<float>) and
+    no tensor-core one.  The CUDA runtime reports each tensor-core
+    kernel's registers (at most 255), spills (none), CTAs per SM (at least
+    one) and shared memory (within the block's 232,448 bytes) for the
+    widths (build.tc_attrs)."""
+    from repro_torch.kernels import build
     for dt in (torch.bfloat16, torch.float32):
-        qd, kd, vd, gd = (t.to(dt) for t in (q, k, v, g))
-        o, den = lln_diag_fused_plain(qs, ks, qd, kd, vd, r=r, blk=blk,
-                                      return_res=True)
-        names = _kernel_names(lambda: block_diag(qd, kd, vd, r=r, blk=blk,
-                                                 causal=True))
-        bwd = _kernel_names(lambda: lln_diag_fused_bwd(
-            qs, ks, qd, kd, vd, gd, o, den, r=r, blk=blk))
         tc = dt == torch.bfloat16
-        assert any("block_diag_tc_kernel" in nm for nm in names) is tc
-        assert any("block_diag_kernel<float>" in nm for nm in names) is not tc
-        for kern in ("dq_tc_kernel", "dkv_tc_kernel"):
-            assert any(kern in nm for nm in bwd) is tc
-        for kern in ("dq_kernel<float>", "dkv_kernel<float>"):
-            assert any(kern in nm for nm in bwd) is not tc
-    for name, want in (("block_diag", 1), ("lln_diag_fused_bwd", 2)):
+        calls = _wide_calls(cuda, r, d, dv, 128, 64, dt, d + dv + r)
+        for name, fn in calls.items():
+            names = _kernel_names(fn)
+            tc_names, core_names = WIDE_KERNELS[name]
+            for kern in tc_names:
+                assert any(kern in nm for nm in names) is tc, (name, kern)
+            for kern in core_names:
+                assert any(kern in nm for nm in names) is not tc, (name, kern)
+    for name, want in (("block_diag", 1), ("lln_diag_fused", 1),
+                       ("lln_causal_bwd", 2), ("lln_diag_fused_bwd", 2)):
         attrs = build.tc_attrs(name, d, dv)
         assert len(attrs) == want
         for a in attrs:
-            assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1
-            assert a["smem_bytes"] <= 232448
+            assert 0 < a["registers"] <= 255 and a["ctas_per_sm"] >= 1, a
+            assert a["local_bytes"] == 0 and a["smem_bytes"] <= 232448, a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(320, 96), (96, 288)],
+                         ids=["d320-dv96", "d96-dv288"])
+def test_cuda_heads_past_256_take_the_cuda_cores(cuda, d, dv):
+    """bf16 with D or Dv above 256: lln_diag_fused, lln_causal_bwd and
+    lln_diag_fused_bwd run their CUDA-core kernels and no tensor-core one
+    (by the profiler's names), within one bf16 step (out) and 1e-5 of the
+    largest plain entry (den, gradients) of their plain versions."""
+    r, n, blk = 2, 128, 32
+    calls = _wide_calls(cuda, r, d, dv, n, blk, torch.bfloat16, d + dv)
+    for name in ("lln_diag_fused", "lln_causal_bwd", "lln_diag_fused_bwd"):
+        names = _kernel_names(calls[name])
+        _, core_names = WIDE_KERNELS[name]
+        assert not any("tc_kernel" in nm for nm in names), (name, names)
+        for kern in core_names:
+            stem = kern.split("<")[0] + "<"
+            assert any(stem in nm for nm in names), (name, kern)
+    rng = np.random.default_rng(d + dv)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(cuda)
+    qs, ks = f(2 * r, n, d) - 0.5, f(2, n, d) - 0.5
+    q, k, v, g = (t.bfloat16() for t in (f(2 * r, n, d), f(2, n, d),
+                                         f(2, n, dv), f(2 * r, n, dv)))
+    got = lln_diag_fused(qs, ks, q, k, v, r=r, blk=blk, return_res=True)
+    want = lln_diag_fused_plain(qs, ks, q, k, v, r=r, blk=blk,
+                                return_res=True)
+    _close(got[0], want[0], BF16)
+    _close(got[1], want[1], TRAIN)
+    lo, lden = lln_causal_plain(qs, ks, v, r=r, blk=blk, return_res=True,
+                                return_state=False)
+    pairs = ((lln_causal_bwd(qs, ks, v, g, lo, lden, r=r, blk=blk),
+              lln_causal_bwd_plain(qs, ks, v, g, lo, lden, r=r, blk=blk)),
+             (lln_diag_fused_bwd(qs, ks, q, k, v, g, *want, r=r, blk=blk),
+              lln_diag_fused_bwd_plain(qs, ks, q, k, v, g, *want, r=r,
+                                       blk=blk)))
+    torch.cuda.synchronize()
+    for grads, plain in pairs:
+        for gt, wt in zip(grads, plain):
+            _close(gt, wt, TRAIN)
 
 
 @pytest.mark.cuda

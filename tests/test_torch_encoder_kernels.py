@@ -192,7 +192,9 @@ def test_wrappers_run_plain_on_cpu():
 def test_bidir_tensor_core_route(dtype, d, dv, want):
     """bf16 v with D, Dv <= 128 takes lln_bidir's and lln_bidir_bwd's
     tensor-core kernels; fp32 v or a wider head the CUDA-core ones."""
-    assert _tc_path(torch.zeros(1, 1, dv, dtype=dtype), d, dv) is want
+    v = torch.zeros(1, 1, dv, dtype=dtype)
+    for kernel in ("lln_bidir", "lln_bidir_bwd"):
+        assert _tc_path(v, d, dv, kernel) is want
 
 
 @pytest.mark.parametrize("bh,bg,n,d,dv", [(384, 384, 512, 64, 64),

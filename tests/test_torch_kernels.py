@@ -31,7 +31,6 @@ from repro_torch.kernels.block_diag import block_diag
 from repro_torch.kernels.lln_attention import (TC_BLOCK, _tc_path,
                                                _tc_scratch, lln_causal,
                                                lln_causal_plain, lln_decode)
-from repro_torch.kernels.lln_backward import _fused_bwd_tc_path
 
 ATOL = 2e-4
 
@@ -125,12 +124,14 @@ def test_lln_causal_plain_is_independent_of_its_chunk(r, n):
     (torch.bfloat16, 128, 256, False)],
     ids=["serve", "narrow", "fp32-v", "wide-d", "wide-dv"])
 def test_lln_causal_tensor_core_route(dtype, d, dv, want):
-    """bf16 v with D, Dv <= 128 takes lln_causal's (and lln_causal_bwd's)
-    tensor-core kernels; fp32 v or a wider head the CUDA-core ones."""
-    assert _tc_path(torch.zeros(1, 1, dv, dtype=dtype), d, dv) is want
+    """bf16 v with D, Dv <= 128 takes lln_causal's tensor-core kernels;
+    fp32 v or a wider head the CUDA-core ones (the backward's route is
+    wider: test_wide_tensor_core_routes)."""
+    v = torch.zeros(1, 1, dv, dtype=dtype)
+    assert _tc_path(v, d, dv, "lln_causal") is want
 
 
-@pytest.mark.parametrize("dtype,d,dv,want", [
+WIDE_ROUTES = pytest.mark.parametrize("dtype,d,dv,want", [
     (torch.bfloat16, 128, 128, True),
     (torch.bfloat16, 192, 128, True),
     (torch.bfloat16, 256, 256, True),
@@ -140,14 +141,31 @@ def test_lln_causal_tensor_core_route(dtype, d, dv, want):
     (torch.bfloat16, 128, 288, False)],
     ids=["yi-9b", "mla", "paligemma", "untiled", "fp32-v", "wide-d",
          "wide-dv"])
+
+
+@WIDE_ROUTES
 def test_lln_diag_fused_bwd_tensor_core_route(dtype, d, dv, want):
     """lln_diag_fused_bwd takes its tensor-core kernels for bf16 with D,
     Dv <= 256 (MLA's D = 192 / Dv = 128 and paligemma's D = Dv = 256
-    included, where the forward and the other LLN kernels take their CUDA
-    cores); fp32 or a wider head its CUDA-core ones."""
+    included); fp32 or a wider head its CUDA-core ones.  lln_causal,
+    lln_bidir, their backward lln_bidir_bwd and loglin_causal stay at
+    128."""
     v = torch.zeros(1, 1, dv, dtype=dtype)
-    assert _fused_bwd_tc_path(v, d, dv) is want
-    assert _tc_path(v, d, dv) is (want and max(d, dv) <= 128)
+    assert _tc_path(v, d, dv, "lln_diag_fused_bwd") is want
+    for kernel in ("lln_causal", "lln_bidir", "lln_bidir_bwd",
+                   "loglin_causal"):
+        assert _tc_path(v, d, dv, kernel) is (want and max(d, dv) <= 128)
+
+
+@WIDE_ROUTES
+@pytest.mark.parametrize("kernel", ["lln_diag_fused", "lln_causal_bwd"])
+def test_wide_tensor_core_routes(kernel, dtype, d, dv, want):
+    """lln_diag_fused (row 4) and lln_causal_bwd (row 6) take their
+    tensor-core kernels for bf16 with D, Dv <= 256, as row 9 does: MLA's D
+    = 192 / Dv = 128, paligemma's D = Dv = 256 and the untiled D = 160 /
+    Dv = 96; fp32, or D or Dv above 256, their CUDA-core ones."""
+    v = torch.zeros(1, 1, dv, dtype=dtype)
+    assert _tc_path(v, d, dv, kernel) is want
 
 
 @pytest.mark.parametrize("n,blk,blocks", [(1024, 64, 16), (300, 64, 5),

@@ -21,7 +21,8 @@ from repro.kernels.lln_attention import (lln_causal_pallas,
                                          lln_diag_fused_pallas)
 from repro.kernels.lln_backward import (lln_causal_bwd_pallas,
                                         lln_diag_fused_bwd_pallas)
-from repro.kernels.ref import block_diag_ref, lln_diag_fused_bwd_ref
+from repro.kernels.ref import (block_diag_ref, lln_bwd_ref,
+                               lln_diag_fused_bwd_ref, lln_diag_fused_ref)
 from repro_torch.kernels.block_diag import block_diag_plain
 from repro_torch.kernels.lln_attention import (lln_causal, lln_causal_plain,
                                                lln_diag_fused,
@@ -176,10 +177,12 @@ def test_wrappers_run_plain_on_cpu_and_check_blocks():
 def test_wide_head_plain_versions_match_the_reference(r, d, dv):
     """At the families' wide heads, whose bf16 kernels on the card are the
     tensor-core routes held to these plain versions: causal
-    ``block_diag_plain`` against ``block_diag_ref`` and
-    ``lln_diag_fused_bwd_plain`` against ``lln_diag_fused_bwd_ref`` (the
-    reference's quadratic oracles), fp32, N 64, blk 32, within 1e-5 of the
-    largest reference entry."""
+    ``block_diag_plain`` against ``block_diag_ref``,
+    ``lln_diag_fused_plain`` against ``lln_diag_fused_ref``,
+    ``lln_diag_fused_bwd_plain`` against ``lln_diag_fused_bwd_ref`` and
+    ``lln_causal_bwd_plain`` against ``lln_bwd_ref`` (the reference's
+    quadratic oracles), fp32, N 64, blk 32, within 1e-5 of the largest
+    reference entry."""
     n, blk, bg = 64, 32, 2
     bh = bg * r
     rng = np.random.default_rng(32 * r + d)
@@ -194,10 +197,23 @@ def test_wide_head_plain_versions_match_the_reference(r, d, dv):
     _close(got, want, FP32)
     o, den = lln_diag_fused_plain(tt["qs"], tt["ks"], tt["q"], tt["k"],
                                   tt["v"], r=r, blk=blk, return_res=True)
+    want = lln_diag_fused_ref(
+        *(jnp.asarray(a[k]) for k in ("qs", "ks", "q", "k", "v")),
+        block=blk, causal=True, r=r)
+    _close(o, want, FP32)
     got = lln_diag_fused_bwd_plain(tt["qs"], tt["ks"], tt["q"], tt["k"],
                                    tt["v"], tt["g"], o, den, r=r, blk=blk)
     want = lln_diag_fused_bwd_ref(
         *(jnp.asarray(a[k]) for k in ("qs", "ks", "q", "k", "v", "g")),
         jnp.asarray(o.numpy()), jnp.asarray(den.numpy()), block=blk, r=r)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, FP32)
+    lo, lden = lln_causal_plain(tt["qs"], tt["ks"], tt["v"], r=r, blk=blk,
+                                return_res=True, return_state=False)
+    got = lln_causal_bwd_plain(tt["qs"], tt["ks"], tt["v"], tt["g"], lo,
+                               lden, r=r, blk=blk)
+    want = lln_bwd_ref(
+        *(jnp.asarray(a[k]) for k in ("qs", "ks", "v", "g")),
+        jnp.asarray(lo.numpy()), jnp.asarray(lden.numpy()), causal=True, r=r)
     for gt, wt in zip(got, want):
         _close(gt, wt, FP32)
